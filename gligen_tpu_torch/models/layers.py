@@ -1,0 +1,228 @@
+"""Transformer blocks with the GLIGEN gated self-attention fuser
+(counterpart of ``gligen_tpu/models/layers.py``, its module path).
+
+Layout: token rows are (B, N, C) and images NHWC, as in the JAX package.
+Submodule and parameter names mirror the JAX parameter tree (``to_q``,
+``net_0``, ``transformer_blocks_0``...), so ``convert/from_jax.py`` is a
+mechanical key map.  Convolutions take NHWC and hand cuDNN a
+``channels_last`` NCHW view of it (a permute, no copy).
+
+Every module has a compute ``dtype``: fp32 parameters are cast to it at
+each call (the JAX modules' ``dtype`` semantics).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gligen_tpu_torch.ops.attention import multi_head_attention
+from gligen_tpu_torch.ops.basic import group_norm, layer_norm
+
+
+class Dense(nn.Linear):
+    """nn.Linear computing in ``dtype`` over fp32 parameters."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+        self.zero_init = zero_init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """SAME-padded conv over an NHWC tensor, computing in ``dtype``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
+        super().__init__(in_channels, out_channels, kernel, stride=stride, padding=kernel // 2)
+        self.compute_dtype = dtype
+        self.zero_init = zero_init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        w = self.weight.to(dt, memory_format=torch.channels_last)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, self.bias.to(dt), self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class Normalize(nn.Module):
+    """GroupNorm(32) over the channel axis, fp32 statistics; eps 1e-6 is
+    the attention/VAE ``Normalize``, ``act='silu'`` folds the SiLU."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, act: Optional[str] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps = eps
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, num_groups=32, eps=self.eps, act=self.act)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm (eps 1e-5, fp32 statistics, affine); returns x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, eps=self.eps)
+
+
+class SelfAttention(nn.Module):
+    """Queries from ``x``; keys and values from ``kv`` (default ``x``)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int, dtype=torch.float32):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.to_q = Dense(query_dim, inner, bias=False, dtype=dtype)
+        self.to_k = Dense(query_dim, inner, bias=False, dtype=dtype)
+        self.to_v = Dense(query_dim, inner, bias=False, dtype=dtype)
+        self.to_out = Dense(inner, query_dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        kv = x if kv is None else kv
+        out = multi_head_attention(self.to_q(x), self.to_k(kv), self.to_v(kv), self.heads)
+        return self.to_out(out)
+
+
+class CrossAttention(nn.Module):
+    """Queries from ``x``; keys and values from the text context."""
+
+    def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int,
+                 dtype=torch.float32):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.to_q = Dense(query_dim, inner, bias=False, dtype=dtype)
+        self.to_k = Dense(context_dim, inner, bias=False, dtype=dtype)
+        self.to_v = Dense(context_dim, inner, bias=False, dtype=dtype)
+        self.to_out = Dense(inner, query_dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        out = multi_head_attention(self.to_q(x), self.to_k(context), self.to_v(context), self.heads)
+        return self.to_out(out)
+
+
+class GEGLU(nn.Module):
+    """h * gelu(gate) with the exact (erf) GELU."""
+
+    def __init__(self, dim_in: int, dim_out: int, dtype=torch.float32):
+        super().__init__()
+        self.proj = Dense(dim_in, dim_out * 2, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward (the only variant GLIGEN uses)."""
+
+    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
+        super().__init__()
+        self.net_0 = GEGLU(dim, dim * mult, dtype=dtype)
+        self.net_2 = Dense(dim * mult, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net_2(self.net_0(x))
+
+
+class GatedSelfAttentionDense(nn.Module):
+    """The GLIGEN fuser: x += gate*tanh(alpha_attn) * SelfAttn over
+    [x, W objs] for the visual rows, then the gated GEGLU feed-forward.
+    Queries are computed for the visual rows only (the same result as
+    attending all N+30 rows and slicing, with less work)."""
+
+    def __init__(self, query_dim: int, objs_dim: int, heads: int, dim_head: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.alpha_attn = nn.Parameter(torch.zeros(()))
+        self.alpha_dense = nn.Parameter(torch.zeros(()))
+        self.linear = Dense(objs_dim, query_dim, dtype=dtype)
+        self.norm1 = LayerNorm(query_dim)
+        self.attn = SelfAttention(query_dim, heads, dim_head, dtype=dtype)
+        self.norm2 = LayerNorm(query_dim)
+        self.ff = FeedForward(query_dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, objs: torch.Tensor, gate_scale: float = 1.0) -> torch.Tensor:
+        n_visual = x.shape[1]
+        normed = self.norm1(torch.cat([x, self.linear(objs)], dim=1))
+        attn_out = self.attn(normed[:, :n_visual], kv=normed)
+        x = x + (gate_scale * torch.tanh(self.alpha_attn)).to(x.dtype) * attn_out
+        g2 = (gate_scale * torch.tanh(self.alpha_dense)).to(x.dtype)
+        return x + g2 * self.ff(self.norm2(x))
+
+
+class BasicTransformerBlock(nn.Module):
+    """self-attention -> gated fuser -> cross-attention -> feed-forward.
+
+    ``skip_fuser`` omits the fuser; that is exact when the sampler's
+    alpha gate is 0 for the step, since both fuser terms are then
+    multiplied by zero."""
+
+    def __init__(self, dim: int, context_dim: int, objs_dim: int, heads: int, dim_head: int,
+                 fuser_type: str = "gatedSA", dtype=torch.float32):
+        super().__init__()
+        if fuser_type != "gatedSA":
+            raise ValueError(f"fuser {fuser_type!r} is not ported; have 'gatedSA'")
+        self.fuser_type = fuser_type
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = SelfAttention(dim, heads, dim_head, dtype=dtype)
+        self.fuser = GatedSelfAttentionDense(dim, objs_dim, heads, dim_head, dtype=dtype)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = CrossAttention(dim, context_dim, heads, dim_head, dtype=dtype)
+        self.norm3 = LayerNorm(dim)
+        self.ff = FeedForward(dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor, objs: Optional[torch.Tensor],
+                gate_scale: float = 1.0, skip_fuser: bool = False) -> torch.Tensor:
+        x = self.attn1(self.norm1(x)) + x
+        # the alpha schedule reaches gatedSA/gatedCA only; gatedSA2 keeps gate 1
+        fuser_gate = 1.0 if self.fuser_type == "gatedSA2" else gate_scale
+        if not skip_fuser:
+            x = self.fuser(x, objs, fuser_gate)
+        x = self.attn2(self.norm2(x), context) + x
+        return self.ff(self.norm3(x)) + x
+
+
+class SpatialTransformer(nn.Module):
+    """GroupNorm -> proj_in -> transformer blocks -> proj_out, + input (NHWC)."""
+
+    def __init__(self, channels: int, context_dim: int, objs_dim: int, heads: int,
+                 dim_head: int, depth: int = 1, fuser_type: str = "gatedSA",
+                 dtype=torch.float32):
+        super().__init__()
+        inner = heads * dim_head
+        self.depth = depth
+        self.norm = Normalize(channels)
+        self.proj_in = Dense(channels, inner, dtype=dtype)
+        for d in range(depth):
+            self.add_module(
+                f"transformer_blocks_{d}",
+                BasicTransformerBlock(inner, context_dim, objs_dim, heads, dim_head,
+                                      fuser_type, dtype=dtype),
+            )
+        self.proj_out = Dense(inner, channels, dtype=dtype, zero_init=True)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor, objs: Optional[torch.Tensor],
+                gate_scale: float = 1.0, skip_fuser: bool = False) -> torch.Tensor:
+        b, h, w, _ = x.shape
+        y = self.proj_in(self.norm(x)).reshape(b, h * w, -1)
+        for d in range(self.depth):
+            y = getattr(self, f"transformer_blocks_{d}")(y, context, objs, gate_scale, skip_fuser)
+        return self.proj_out(y.reshape(b, h, w, -1)) + x
