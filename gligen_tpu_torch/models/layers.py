@@ -1,5 +1,16 @@
 """Transformer blocks with the GLIGEN gated self-attention fuser
-(counterpart of ``gligen_tpu/models/layers.py``, its module path).
+(counterpart of ``gligen_tpu/models/layers.py``).
+
+Two paths compute the same blocks, picked as in the JAX package by
+``GLIGEN_TPU_FUSED_PROJ`` (default ``"1"``, read at call time):
+
+  * the fused path (``_fused_proj_ok``): every LayerNorm -> projection,
+    projection -> gated residual and LayerNorm -> GEGLU chain is one
+    kernel of ``ops/fused_proj.py``;
+  * the module path (``GLIGEN_TPU_FUSED_PROJ=0``, or fewer tokens than
+    the floor): LayerNorm and Dense modules, one op at a time.
+
+Both read the same parameters, so the state dict does not depend on it.
 
 Layout: token rows are (B, N, C) and images NHWC, as in the JAX package.
 Submodule and parameter names mirror the JAX parameter tree (``to_q``,
@@ -13,6 +24,7 @@ each call (the JAX modules' ``dtype`` semantics).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -21,6 +33,7 @@ from torch import nn
 
 from gligen_tpu_torch.ops.attention import multi_head_attention
 from gligen_tpu_torch.ops.basic import group_norm, layer_norm
+from gligen_tpu_torch.ops.fused_proj import ln_geglu, ln_matmuls, matmul_residual
 
 
 class Dense(nn.Linear):
@@ -142,6 +155,44 @@ class FeedForward(nn.Module):
         return self.net_2(self.net_0(x))
 
 
+def _fused_proj_ok(n: int) -> bool:
+    """The fused projection kernels run for blocks of at least 64 tokens,
+    unless ``GLIGEN_TPU_FUSED_PROJ`` is not "1" (gligen_tpu layers.py:180,
+    at inference).  On the CPU the kernels' plain versions run."""
+    return os.environ.get("GLIGEN_TPU_FUSED_PROJ", "1") == "1" and n >= 64
+
+
+def _fused_self_attn(x, kv, norm: LayerNorm, attn: SelfAttention, gate=None):
+    """x + gate * to_out(attention(LN -> q/k/v)) through the fused kernels;
+    keys and values over ``kv`` (the fuser's [x, grounding] rows) or over x
+    when it is None.  Every row is normalised on its own, so the visual
+    rows of LN(kv) are LN(x): q needs LN(x) alone."""
+    s, b = norm.weight, norm.bias
+    if kv is None:
+        q, k, v = ln_matmuls(x, s, b, (attn.to_q.weight, attn.to_k.weight, attn.to_v.weight))
+    else:
+        (q,) = ln_matmuls(x, s, b, (attn.to_q.weight,))
+        # the N+30 rows as they are: the flash kernel masks a ragged key tile
+        k, v = ln_matmuls(kv, s, b, (attn.to_k.weight, attn.to_v.weight))
+    out = multi_head_attention(q, k, v, attn.heads)
+    return matmul_residual(out, attn.to_out.weight, attn.to_out.bias, x, gate=gate)
+
+
+def _fused_cross_attn(x, context, norm: LayerNorm, attn: CrossAttention):
+    """x + to_out(attention(LN(x) q, context k/v)).  The 77-token k/v
+    products stay plain matmuls, as the JAX package leaves them to XLA."""
+    (q,) = ln_matmuls(x, norm.weight, norm.bias, (attn.to_q.weight,))
+    out = multi_head_attention(q, attn.to_k(context), attn.to_v(context), attn.heads)
+    return matmul_residual(out, attn.to_out.weight, attn.to_out.bias, x)
+
+
+def _fused_ff(x, norm: LayerNorm, ff: FeedForward, gate=None):
+    """x + gate * net_2(GEGLU(LN(x)))."""
+    proj = ff.net_0.proj
+    h = ln_geglu(x, norm.weight, norm.bias, proj.weight, proj.bias)
+    return matmul_residual(h, ff.net_2.weight, ff.net_2.bias, x, gate=gate)
+
+
 class GatedSelfAttentionDense(nn.Module):
     """The GLIGEN fuser: x += gate*tanh(alpha_attn) * SelfAttn over
     [x, W objs] for the visual rows, then the gated GEGLU feed-forward.
@@ -160,6 +211,12 @@ class GatedSelfAttentionDense(nn.Module):
         self.ff = FeedForward(query_dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, objs: torch.Tensor, gate_scale: float = 1.0) -> torch.Tensor:
+        if _fused_proj_ok(x.shape[1]):
+            # fp32 device gates, read by the kernel: no host synchronisation
+            cat = torch.cat([x, self.linear(objs)], dim=1)
+            x = _fused_self_attn(x, cat, self.norm1, self.attn,
+                                 gate=gate_scale * torch.tanh(self.alpha_attn))
+            return _fused_ff(x, self.norm2, self.ff, gate=gate_scale * torch.tanh(self.alpha_dense))
         n_visual = x.shape[1]
         normed = self.norm1(torch.cat([x, self.linear(objs)], dim=1))
         attn_out = self.attn(normed[:, :n_visual], kv=normed)
@@ -191,11 +248,18 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, objs: Optional[torch.Tensor],
                 gate_scale: float = 1.0, skip_fuser: bool = False) -> torch.Tensor:
-        x = self.attn1(self.norm1(x)) + x
+        fused = _fused_proj_ok(x.shape[1])
+        if fused:
+            x = _fused_self_attn(x, None, self.norm1, self.attn1)
+        else:
+            x = self.attn1(self.norm1(x)) + x
         # the alpha schedule reaches gatedSA/gatedCA only; gatedSA2 keeps gate 1
         fuser_gate = 1.0 if self.fuser_type == "gatedSA2" else gate_scale
         if not skip_fuser:
             x = self.fuser(x, objs, fuser_gate)
+        if fused:
+            x = _fused_cross_attn(x, context, self.norm2, self.attn2)
+            return _fused_ff(x, self.norm3, self.ff)
         x = self.attn2(self.norm2(x), context) + x
         return self.ff(self.norm3(x)) + x
 

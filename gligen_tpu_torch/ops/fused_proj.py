@@ -1,0 +1,248 @@
+"""Fused projection kernels: the CUDA kernels' wrappers and their plain versions.
+
+Counterpart of ``gligen_tpu/ops/pallas_matmul.py``.  Three kernels of
+``csrc/fused_proj.cu`` wrap every projection of a transformer block:
+
+  * ``ln_matmuls``:      y_i = LN(x) @ W_i        (to_q/to_k/to_v, one LN)
+  * ``matmul_residual``: y = x + g * (h @ W + b)  (to_out, FF net_2)
+  * ``ln_geglu``:        y = a * gelu(g), [a | g] = LN(x) @ W + b  (FF net_0)
+
+Numerics are the TPU kernels': fp32 LayerNorm statistics, the normalised
+rows cast to the compute dtype before the product, the product in fp32
+from the rounded operands, bias and gate in fp32, one final cast.
+
+Weights are ``nn.Linear``'s (F, K), not JAX's (K, F).  Each wrapper casts
+them to x's dtype at every call (the JAX modules' ``dtype`` semantics).
+It runs the plain version for a CPU tensor and the kernel for a CUDA
+tensor; it never falls back from one to the other.  Forward only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from gligen_tpu_torch.ops.basic import layer_norm
+
+MAX_WEIGHTS = 3
+Gate = Union[None, float, torch.Tensor]
+
+
+def _product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T in real fp32 from operands rounded to a's dtype (no bf16
+    cuBLAS reductions): the plain versions' reference product."""
+    return a.float() @ w.to(a.dtype).float().T
+
+
+def ln_matmuls_plain(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    ws: Sequence[torch.Tensor],
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, ...]:
+    """x: (..., C); scale/bias: (C,); ws: (F_i, C) each.  Returns a tuple
+    of (..., F_i) in x's dtype (pallas_matmul.py:_ln_matmuls_ref)."""
+    ln = layer_norm(x, scale, bias, eps=eps)
+    return tuple(_product(ln, w).to(x.dtype) for w in ws)
+
+
+def _gate_value(gate: Gate):
+    if gate is None:
+        return 1.0
+    return gate.float() if isinstance(gate, torch.Tensor) else float(gate)
+
+
+def matmul_residual_plain(
+    h: torch.Tensor,
+    w: torch.Tensor,
+    bias: torch.Tensor,
+    x: torch.Tensor,
+    gate: Gate = None,
+) -> torch.Tensor:
+    """h: (..., K); w: (C, K); bias: (C,); x: (..., C); gate: a scalar
+    (a 1-element tensor or a number; 1 when absent).  Returns x + gate *
+    (h @ w.T + bias) in x's dtype (pallas_matmul.py:_matmul_residual_ref)."""
+    y = (_product(h.to(x.dtype), w) + bias.float()) * _gate_value(gate)
+    return (x.float() + y).to(x.dtype)
+
+
+def ln_geglu_plain(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    w: torch.Tensor,
+    w_bias: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """x: (..., C); w: (2F, C); w_bias: (2F,).  Returns a * gelu(g) with
+    [a | g] = LN(x) @ w.T + w_bias and the exact (erf) GELU, (..., F) in
+    x's dtype (pallas_matmul.py:_ln_geglu_ref)."""
+    hg = _product(layer_norm(x, scale, bias, eps=eps), w) + w_bias.float()
+    a, g = hg.chunk(2, dim=-1)
+    return (a * F.gelu(g)).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The built kernels' C entry points, with their ctypes signatures."""
+    from gligen_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library("fused_proj")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        # x, scale, bias, n_w, w0..w2, y0..y2, m, k, f, eps, stream
+        "ln_matmuls_bf16": [ptr] * 3 + [i32] + [ptr] * 6 + [i32] * 3 + [f32, ptr],
+        # h, w, bias, x, gate, gate_value, y, m, k, f, stream
+        "matmul_residual_bf16": [ptr] * 5 + [f32, ptr] + [i32] * 3 + [ptr],
+        # x, scale, bias, w, w_bias, y, m, k, f, eps, stream
+        "ln_geglu_bf16": [ptr] * 6 + [i32] * 3 + [f32, ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return lib
+
+
+def _on_cuda(x: torch.Tensor, op: str) -> bool:
+    """False for a CPU tensor (plain version), True for a CUDA one (kernel)."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{op} runs on CPU or CUDA tensors, got {x.device}")
+    return True
+
+
+def _check(op: str, device: torch.device, **operands: Tuple[torch.Tensor, torch.dtype]) -> None:
+    """What the kernel does not take raises before any launch: every
+    operand on x's device, of its dtype, contiguous and 16-byte aligned."""
+    for name, (t, dtype) in operands.items():
+        if t.device != device:
+            raise ValueError(f"{op}: {name} is on {t.device}, x on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} must be contiguous and 16-byte aligned")
+
+
+def _check_widths(op: str, **widths: int) -> None:
+    """16-byte row loads need every width to be a multiple of 8 elements."""
+    for name, n in widths.items():
+        if n < 8 or n % 8:
+            raise ValueError(f"{op}: {name} = {n} must be a positive multiple of 8")
+
+
+class _Kernel:
+    """One entry point of ``csrc/fused_proj.cu``.  ``launches`` counts
+    kernel launches (never plain-version calls), so a run can show that
+    its projections went through the kernel."""
+
+    entry = ""
+
+    def __init__(self):
+        self.launches = 0
+
+    def _launch(self, device: torch.device, *args) -> None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_library(), self.entry)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.entry} launch failed: cudaError {err}")
+        self.launches += 1
+
+
+class LnMatmuls(_Kernel):
+    entry = "ln_matmuls_bf16"
+
+    def __call__(self, x, scale, bias, ws, eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+        """Same contract as ``ln_matmuls_plain``; 1 to 3 weights of one shape."""
+        ws = tuple(w.to(x.dtype) for w in ws)
+        scale, bias = scale.float(), bias.float()
+        if not _on_cuda(x, "ln_matmuls"):
+            return ln_matmuls_plain(x, scale, bias, ws, eps)
+        if not 1 <= len(ws) <= MAX_WEIGHTS:
+            raise ValueError(f"ln_matmuls takes 1 to {MAX_WEIGHTS} weights, got {len(ws)}")
+        c = x.shape[-1]
+        f = ws[0].shape[0]
+        if any(w.shape != (f, c) for w in ws) or scale.shape != (c,) or bias.shape != (c,):
+            raise ValueError(f"ln_matmuls: x (..., {c}) needs (F, {c}) weights of one shape "
+                             f"and ({c},) norm parameters")
+        _check_widths("ln_matmuls", C=c, F=f)
+        _check("ln_matmuls", x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
+               bias=(bias, torch.float32), **{f"w{i}": (w, torch.bfloat16) for i, w in enumerate(ws)})
+        outs = tuple(torch.empty((*x.shape[:-1], f), dtype=x.dtype, device=x.device) for _ in ws)
+        pad = (None,) * (MAX_WEIGHTS - len(ws))
+        self._launch(
+            x.device, x.data_ptr(), scale.data_ptr(), bias.data_ptr(), len(ws),
+            *(w.data_ptr() for w in ws), *pad, *(o.data_ptr() for o in outs), *pad,
+            x.numel() // c, c, f, eps,
+        )
+        return outs
+
+
+class MatmulResidual(_Kernel):
+    entry = "matmul_residual_bf16"
+
+    def __call__(self, h, w, bias, x, gate: Gate = None) -> torch.Tensor:
+        """Same contract as ``matmul_residual_plain``.  A tensor gate is
+        read by the kernel on the device (no host synchronisation)."""
+        w, bias = w.to(x.dtype), bias.float()
+        if not _on_cuda(x, "matmul_residual"):
+            return matmul_residual_plain(h, w, bias, x, gate)
+        c, k = w.shape
+        if h.shape[:-1] != x.shape[:-1] or h.shape[-1] != k or x.shape[-1] != c or bias.shape != (c,):
+            raise ValueError(f"matmul_residual: h {tuple(h.shape)}, w {tuple(w.shape)}, "
+                             f"bias {tuple(bias.shape)} and x {tuple(x.shape)} do not fit")
+        _check_widths("matmul_residual", K=k, C=c)
+        _check("matmul_residual", x.device, h=(h, torch.bfloat16), w=(w, torch.bfloat16),
+               bias=(bias, torch.float32), x=(x, torch.bfloat16))
+        gate_ptr, gate_value = None, 1.0
+        if isinstance(gate, torch.Tensor):
+            if gate.numel() != 1:
+                raise ValueError(f"matmul_residual: gate must hold one value, has {gate.numel()}")
+            _check("matmul_residual", x.device, gate=(gate, torch.float32))
+            gate_ptr = gate.data_ptr()
+        elif gate is not None:
+            gate_value = float(gate)
+        out = torch.empty_like(x)
+        self._launch(
+            x.device, h.data_ptr(), w.data_ptr(), bias.data_ptr(), x.data_ptr(), gate_ptr,
+            gate_value, out.data_ptr(), x.numel() // c, k, c,
+        )
+        return out
+
+
+class LnGeglu(_Kernel):
+    entry = "ln_geglu_bf16"
+
+    def __call__(self, x, scale, bias, w, w_bias, eps: float = 1e-5) -> torch.Tensor:
+        """Same contract as ``ln_geglu_plain``."""
+        w, scale, bias, w_bias = w.to(x.dtype), scale.float(), bias.float(), w_bias.float()
+        if not _on_cuda(x, "ln_geglu"):
+            return ln_geglu_plain(x, scale, bias, w, w_bias, eps)
+        c = x.shape[-1]
+        f2 = w.shape[0]
+        if (w.shape != (f2, c) or f2 % 2 or w_bias.shape != (f2,) or scale.shape != (c,)
+                or bias.shape != (c,)):
+            raise ValueError(f"ln_geglu: x (..., {c}) needs a (2F, {c}) weight, a (2F,) bias "
+                             f"and ({c},) norm parameters; w is {tuple(w.shape)}")
+        f = f2 // 2
+        _check_widths("ln_geglu", C=c, F=f)
+        _check("ln_geglu", x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
+               bias=(bias, torch.float32), w=(w, torch.bfloat16), w_bias=(w_bias, torch.float32))
+        out = torch.empty((*x.shape[:-1], f), dtype=x.dtype, device=x.device)
+        self._launch(
+            x.device, x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
+            w_bias.data_ptr(), out.data_ptr(), x.numel() // c, c, f, eps,
+        )
+        return out
+
+
+ln_matmuls = LnMatmuls()
+matmul_residual = MatmulResidual()
+ln_geglu = LnGeglu()
+KERNELS = {"ln_matmuls": ln_matmuls, "matmul_residual": matmul_residual, "ln_geglu": ln_geglu}
