@@ -6,28 +6,33 @@
 Phases, each of which fails the run with a non-zero exit:
 
   1. card: require CUDA; print the card's name and power limit.
-  2. build: compile csrc/flash_fwd.cu and csrc/fused_proj.cu with nvcc, in
-     parallel, into build/kernels/; print ptxas's registers and spills.
+  2. build: compile csrc/flash_fwd.cu, fused_proj.cu, fused_norm.cu and
+     fused_conv.cu with nvcc, in parallel, into build/kernels/; print
+     ptxas's registers and spills.
   3. kernel: compare each kernel with its plain PyTorch version on bf16
-     inputs at every shape the 512^2 path launches, with the times of both:
+     inputs at every shape the 512^2 path launches, with the times of both
+     and, where one PyTorch call computes the same function, that call's:
      flash attention (UNet attn1, the gated fuser's N+30 keys,
      cross-attention over 77 text tokens, at ds1/ds2/ds4 and the 64-token
      middle block; the VAE's single 512-wide head over 4096 tokens; and
-     attn1 at ds1 of a 1024^2 image, checked on its first 512 query rows),
-     and per level the fused projections: ln_matmuls for q/k/v, for q
-     alone and for the fuser's k/v over N+30 rows, matmul_residual for
-     to_out (device gate) and net_2 (K = 4C), and ln_geglu (C -> 8C -> 4C).
-     Times are device times per call (see ``timed``).
+     attn1 at ds1 of a 1024^2 image, checked on its first 512 query rows);
+     per level the fused projections (ln_matmuls for q/k/v, for q alone
+     and for the fuser's k/v over N+30 rows, matmul_residual for to_out
+     and net_2, ln_geglu); GroupNorm +- SiLU at every UNet and VAE map,
+     gn_affine, LayerNorm at every (rows, C) of the module path, and the
+     fused GN -> SiLU -> conv3x3 at every ResBlock conv shape.  Times are
+     device times per call (see ``timed``); each kernel's bound is the
+     larger of its bytes over the card's memory rate and its operations
+     over the peak rate for their type.
   4. generate: GenerationPipeline.generate at full SD-1.4 GLIGEN width,
      512^2, random de-zeroed weights, two requests of batch 2 (4 UNet rows
-     with CFG), PLMS with alpha stages [0.3, 0, 0.7], in the default
-     configuration (fused projections), then two more requests with
-     GLIGEN_TPU_FUSED_PROJ=0 (plain projections); the images must be
-     finite, in [0, 1] and not constant, and each kernel's launch count
-     must equal what the sampler tables predict for its configuration.
+     with CFG), PLMS with alpha stages [0.3, 0, 0.7], in each of the
+     configurations of ``CONFIGS``; the images must be finite, in [0, 1]
+     and not constant, and each kernel's launch count must equal what the
+     module structure and the sampler tables predict for the configuration.
   5. reference: the same pipeline at a small width on the card (bf16,
      kernels) against its fp32 CPU run (plain versions), same weights and
-     noise, in both configurations.
+     noise, in each configuration.
 
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
@@ -46,20 +51,53 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+SOURCES = ("flash_fwd", "fused_proj", "fused_norm", "fused_conv")
 
 # kernel vs plain, bf16 output: one bf16 ulp is 2^-7 relative, outputs are
 # O(1), and the kernel rounds P to bf16 before the PV product
 OUT_TOL = 2e-2
 # log-sum-exp, fp32 sums in another order (log2 units)
 LSE_TOL = 1e-3
-# fused projections vs plain, bf16 output: the same bf16 operands summed in
-# fp32 in another order, and a normalised row that may round to the
-# neighbouring bf16 value: about one bf16 ulp (2^-7 relative), for outputs
-# up to ~5 in magnitude (the residual adds x ~ N(0, 1))
+# fused projections, norms and the fused conv vs plain, bf16 output: the
+# same bf16 operands with fp32 sums in another order, and a normalised or
+# activated value that may round to the neighbouring bf16 value: about one
+# bf16 ulp (2^-7 relative), for outputs up to ~5 in magnitude (a residual
+# adds x ~ N(0, 1))
 PROJ_ATOL, PROJ_RTOL = 2e-2, 1e-2
+# gn_affine's fp32 (a, v) vs plain: fp32 sums of the same values in another
+# order, a few fp32 ulps
+AFFINE_TOL = 1e-5
 # small-width pipeline, bf16 on the card vs fp32 on the CPU: mean absolute
 # pixel difference (images in [0, 1])
 REF_MEAN_TOL = 2e-2
+
+# One NVIDIA H100 SXM (the data sheet's dense rates, 700 W): the least time
+# of a kernel is the larger of its bytes over the memory rate and its
+# operations over the peak rate for their type.
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
+
+# The switches of each configuration that phase 4 drives.  (a) is the JAX
+# package's default serving configuration; (b) the module path with both
+# norm kernels; (c) the fused conv on every ResBlock.
+CONFIGS = {
+    "a": {"GLIGEN_TPU_FUSED_PROJ": "1", "GLIGEN_TPU_FUSED_NORM": "gn", "GLIGEN_TPU_FUSED_CONV": "0"},
+    "b": {"GLIGEN_TPU_FUSED_PROJ": "0", "GLIGEN_TPU_FUSED_NORM": "both",
+          "GLIGEN_TPU_FUSED_CONV": "0"},
+    "c": {"GLIGEN_TPU_FUSED_PROJ": "1", "GLIGEN_TPU_FUSED_NORM": "gn", "GLIGEN_TPU_FUSED_CONV": "1"},
+}
+
+# The small-width model of phase 5 (and of the CPU test of the launch
+# counts): two UNet levels, a two-level VAE, a 2-layer text encoder.
+SMALL = dict(
+    unet_config=dict(model_channels=64, num_res_blocks=1, attention_resolutions=(2, 1),
+                     channel_mult=(1, 2), num_heads=2, context_dim=64,
+                     grounding_tokenizer={"target": "text",
+                                          "params": {"in_dim": 64, "out_dim": 64}}),
+    vae_config=dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, resolution=64),
+    text_config=dict(vocab_size=1000, hidden_size=64, layers=2, heads=4),
+)
 
 
 def card_line() -> str:
@@ -68,6 +106,21 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def set_config(name: str) -> None:
+    os.environ.update(CONFIGS[name])
+
+
+def config_desc(name: str) -> str:
+    return f"({name}) " + " ".join(f"{k[len('GLIGEN_TPU_'):]}={v}" for k, v in CONFIGS[name].items())
+
+
+def bound(nbytes: float, ops: float, rate: float = BF16_TENSOR_FLOP_PER_S):
+    """(least ms, "bytes" or "operations") for moving ``nbytes`` (each input
+    read once, each output written once) and doing ``ops`` at ``rate``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 SLEEP_CYCLES = 50_000_000  # ~25 ms of one spinning block at the H100's clock
@@ -142,6 +195,15 @@ def kernel_cases(batch: int):
     return cases
 
 
+def sdpa(torch, q, k, v, h, bias):
+    """The library's attention on the packed (B, L, H*C) layout."""
+    import torch.nn.functional as F
+
+    split = lambda t: t.unflatten(-1, (h, -1)).transpose(1, 2)
+    mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+    return F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=mask)
+
+
 def check_kernel(torch, cases, device):
     from gligen_tpu_torch.ops.flash_attention import NEG_INF, flash_attention_plain, flash_fwd
 
@@ -164,12 +226,18 @@ def check_kernel(torch, cases, device):
         finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
         ms = time_ms(lambda: flash_fwd(q, k, v, h, bias=bias))
         plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, h, bias=bias))
+        library_ms = time_ms(lambda: sdpa(torch, q, k, v, h, bias))
+        nbytes = 2 * (2 * b * n * h * d + 2 * b * m * h * d) + 4 * b * h * n
+        nbytes += 0 if bias is None else 4 * b * m
+        bound_ms, bound_by = bound(nbytes, 4 * b * h * n * m * d)
         ok = finite and err <= OUT_TOL and lse_err <= LSE_TOL
         print(f"kernel {name:18s} q ({b},{n},{h}x{d}) kv {m}: max_abs_err {err:.3e} "
               f"(tol {OUT_TOL}) lse_err {lse_err:.3e} (tol {LSE_TOL}) "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms {'ok' if ok else 'FAIL'}",
-              flush=True)
-        results.append(dict(name=name, err=err, lse_err=lse_err, ms=ms, plain_ms=plain_ms, ok=ok))
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms "
+              f"bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+        results.append(dict(name=name, kind="flash_fwd", err=err, lse_err=lse_err, ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, ok=ok))
         del q, k, v, out, lse, want, want_lse
     torch.cuda.empty_cache()
     return results
@@ -194,15 +262,19 @@ def check_kernel_1024(torch, device, rows=512):
     finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
     ms = time_ms(lambda: flash_fwd(q, k, v, h), iters=3)
     plain_ms = time_ms(lambda: flash_attention_plain(q[:, :rows], k, v, h), iters=3)
+    library_ms = time_ms(lambda: sdpa(torch, q, k, v, h, None), iters=3)
+    bound_ms, bound_by = bound(2 * 4 * b * n * h * d + 4 * b * h * n, 4 * b * h * n * n * d)
     ok = finite and err <= OUT_TOL and lse_err <= LSE_TOL
     name = "attn1_ds1_1024px"
     print(f"kernel {name:18s} q ({b},{n},{h}x{d}) kv {n}: max_abs_err {err:.3e} on the first "
           f"{rows} query rows (tol {OUT_TOL}) lse_err {lse_err:.3e} (tol {LSE_TOL}) "
-          f"kernel {ms:.4f} ms (all rows) plain {plain_ms:.4f} ms ({rows} rows) "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"kernel {ms:.4f} ms (all rows) plain {plain_ms:.4f} ms ({rows} rows) sdpa "
+          f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}",
+          flush=True)
     del q, k, v, out, lse, want, want_lse
     torch.cuda.empty_cache()
-    return dict(name=name, err=err, lse_err=lse_err, ms=ms, plain_ms=plain_ms, ok=ok)
+    return dict(name=name, kind="flash_fwd", err=err, lse_err=lse_err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
 
 
 # (tokens, channels) of the transformer blocks at 512^2 (latent 64), SD-1.4
@@ -226,6 +298,31 @@ def proj_cases(batch: int):
     return cases
 
 
+def compare(torch, got, want, atol=PROJ_ATOL, rtol=PROJ_RTOL):
+    """(max abs error, ok) of a kernel output against its plain version:
+    |got - want| <= atol + rtol * |want| everywhere."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    ok = all(bool(torch.isfinite(g).all()) and g.shape == w.shape
+             and torch.allclose(g.float(), w.float(), atol=atol, rtol=rtol)
+             for g, w in zip(got, want))
+    return err, ok
+
+
+def grouped_input(randn, shape):
+    """A bf16 (B, ..., C) GroupNorm input whose every (sample, channel)
+    has a mean and a spread of its own: N(mu[b, c], sigma[b, c]^2), with mu
+    a per-sample N(0, 1) offset plus a per-channel N(0, 1) and sigma from
+    0.37 to 2.7.  So every (sample, group) has statistics of its own, and a
+    kernel that reads another group's or sample's fails the comparison."""
+    import torch
+
+    b, c = shape[0], shape[-1]
+    view = (b,) + (1,) * (len(shape) - 2) + (c,)
+    mu, sigma = randn(b, 1) + randn(b, c), (0.5 * randn(b, c)).exp()
+    return (randn(*shape) * sigma.view(view) + mu.view(view)).to(torch.bfloat16)
+
+
 def check_proj(torch, cases, device):
     """Each fused-projection kernel against its plain version on the same
     card tensors (bf16 activations and weights, fp32 norm parameters,
@@ -242,51 +339,244 @@ def check_proj(torch, cases, device):
     for name, kind, b, n, c, k in cases:
         x = randn(b, n, c, dtype=bf16)
         s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+        m = b * n
         if kind == "ln_matmuls":
             ws = [randn(c, c, scale=c**-0.5, dtype=bf16) for _ in range(k)]
             args = (x, s, sb, ws)
             desc = f"x ({b},{n},{c}) -> {k} x {c}"
+            nbytes, flops = 2 * m * c * (1 + k) + 8 * c + 2 * k * c * c, 2 * m * c * c * k
         elif kind == "matmul_residual":
             h = randn(b, n, k, dtype=bf16)
             # the fuser's device gate on to_out; net_2 of the block has none
             gate = torch.tensor(0.37, device=device) if k == c else None
             args = (h, randn(c, k, scale=k**-0.5, dtype=bf16), randn(c, scale=0.1), x, gate)
             desc = f"h ({b},{n},{k}) -> {c}{' gated' if gate is not None else ''}"
+            nbytes, flops = 2 * m * (k + 2 * c) + 2 * c * k + 4 * c + 4, 2 * m * k * c
         else:
             args = (x, s, sb, randn(8 * c, c, scale=c**-0.5, dtype=bf16), randn(8 * c, scale=0.1))
             desc = f"x ({b},{n},{c}) -> {8 * c} -> {4 * c}"
+            nbytes, flops = 2 * m * 5 * c + 8 * c + 16 * c * c + 32 * c, 16 * m * c * c
         kernel, plain = fp.KERNELS[kind], getattr(fp, f"{kind}_plain")
         got = kernel(*args)
         torch.cuda.synchronize()
-        want = plain(*args)
-        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-        ok = all(bool(torch.isfinite(g).all()) and g.shape == w.shape
-                 and torch.allclose(g.float(), w.float(), atol=PROJ_ATOL, rtol=PROJ_RTOL)
-                 for g, w in zip(got, want))
+        err, ok = compare(torch, got, plain(*args))
         ms = time_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args))
+        bound_ms, bound_by = bound(nbytes, flops)
         print(f"kernel {kind:15s} {name:12s} {desc:28s}: max_abs_err {err:.3e} "
               f"(tol {PROJ_ATOL} + {PROJ_RTOL} rel) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms, ok=ok))
-        del x, args, got, want
+              f"bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+        results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+        del x, args, got
     torch.cuda.empty_cache()
     return results
 
 
-def expected_launches(comps, steps, alpha_stages):
-    """Launches of each kernel in one generate call, from the sampler
-    tables, for the fused configuration.  Per transformer block, a gated
-    UNet call runs attn1, the fuser and attn2 (3 flash launches), the fused
-    path's ln_matmuls for q/k/v, the fuser's q, the fuser's k/v and attn2's
-    q (4), matmul_residual for the three to_out and the two net_2 (5) and
-    ln_geglu for the two feed-forwards (2); a fuser-free call runs 2, 2, 3
-    and 1.  The VAE decoder adds its AttnBlocks' flash launches."""
+def unet_maps(unet, latent: int):
+    """Walk one UNet call at ``latent`` through the UNet's blocks in order:
+    ([(H, C_in, C_out) of every ResBlock], [(H, C, depth) of every
+    SpatialTransformer])."""
+    from gligen_tpu_torch.models.layers import SpatialTransformer
+    from gligen_tpu_torch.models.unet import Downsample, ResBlock, Upsample
+
+    res, sts, size = [], [], latent
+    for names in [*unet.input_blocks, unet.middle_block, *unet.output_blocks]:
+        for name in names:
+            m = getattr(unet, name)
+            if isinstance(m, ResBlock):
+                res.append((size, m.in_layers_0.weight.numel(), m.out_channels))
+            elif isinstance(m, SpatialTransformer):
+                sts.append((size, m.norm.weight.numel(), m.depth))
+            elif isinstance(m, Downsample):
+                size = (size + 1) // 2
+            elif isinstance(m, Upsample):
+                size *= 2
+    return res, sts
+
+
+def vae_norms(vae, latent: int):
+    """(H, C, SiLU) of every GroupNorm of one VAE decode of a ``latent``
+    map, walking the decoder's blocks in order."""
+    from gligen_tpu_torch.models.unet import Upsample
+    from gligen_tpu_torch.models.vae import AttnBlock, ResnetBlock
+
+    dec, out, size = vae.decoder, [], latent
+    for name in ["mid_block_1", "mid_attn_1", "mid_block_2", *dec.up_names]:
+        m = getattr(dec, name)
+        if isinstance(m, ResnetBlock):
+            out += [(size, m.norm1.weight.numel(), True), (size, m.norm2.weight.numel(), True)]
+        elif isinstance(m, AttnBlock):
+            out.append((size, m.norm.weight.numel(), False))
+        elif isinstance(m, Upsample):
+            size *= 2
+    return out + [(size, dec.norm_out.weight.numel(), True)]
+
+
+def norm_cases(unet, vae, batch: int, latent: int = 64):
+    """(name, shape, SiLU, eps) of every distinct GroupNorm input at 512^2:
+    the ResBlocks' two norms (eps 1e-5, SiLU) and out_0, the
+    SpatialTransformers' (B, N, C) norms (eps 1e-6), on 2*batch UNet rows;
+    the VAE decoder's (eps 1e-6) on batch rows."""
+    res, sts = unet_maps(unet, latent)
+    rows, cases = 2 * batch, {}
+    for h, cin, cout in res + [(latent, unet.out_0.weight.numel(), 0)]:
+        for c in (cin, cout) if cout else (cin,):
+            cases[f"res_{h}x{c}"] = ((rows, h, h, c), True, 1e-5)
+    for h, c, _ in sts:
+        cases[f"st_{h}x{c}"] = ((rows, h * h, c), False, 1e-6)
+    for h, c, silu in vae_norms(vae, latent):
+        cases[f"vae_{h}x{c}{'' if silu else '_attn'}"] = ((batch, h, h, c), silu, 1e-6)
+    return [(name, *case) for name, case in cases.items()]
+
+
+def ln_cases(batch: int):
+    """(name, rows, C) of the module path's LayerNorms at 512^2: every
+    block's N rows, and the fuser's N+30."""
+    cases = []
+    for level, (n, c) in LEVELS.items():
+        cases += [(f"ln_{level}", 2 * batch * n, c), (f"ln_fuser_{level}", 2 * batch * (n + 30), c)]
+    return cases
+
+
+def conv_cases(unet, batch: int, latent: int = 64):
+    """(name, B, H, C_in, C_out, residual) of every distinct ResBlock conv
+    at 512^2: in_layers (C_in -> C_out) and out_layers (C_out -> C_out, +
+    the residual)."""
+    res, _ = unet_maps(unet, latent)
+    cases = {}
+    for h, cin, cout in res:
+        cases[f"in_{h}_{cin}_{cout}"] = (2 * batch, h, cin, cout, False)
+        cases[f"out_{h}_{cout}"] = (2 * batch, h, cout, cout, True)
+    return [(name, *case) for name, case in cases.items()]
+
+
+def check_norms(torch, gn, ln, device):
+    """The GroupNorm kernel (+- SiLU) and gn_affine at every GroupNorm map,
+    and the LayerNorm kernel at every LayerNorm shape, against their plain
+    versions on the same card tensors, with the library's F.group_norm /
+    F.layer_norm where it computes the same function (no SiLU).  The
+    GroupNorm inputs come from ``grouped_input``; gn_affine's fp32 (a, v)
+    is held to AFFINE_TOL."""
+    import torch.nn.functional as F
+    from gligen_tpu_torch.ops import fused_norm as fn
+
+    gen = torch.Generator(device=device).manual_seed(4)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    results = []
+
+    def record(kind, name, desc, got, want, kernel, plain, library, nbytes, ops,
+               tol=(PROJ_ATOL, PROJ_RTOL)):
+        err, ok = compare(torch, got, want, *tol)
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        library_ms = None if library is None else time_ms(library)
+        bound_ms, bound_by = bound(nbytes, ops, FP32_FLOP_PER_S)
+        lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
+        print(f"kernel {kind:11s} {name:22s} {desc:34s}: max_abs_err {err:.3e} "
+              f"(tol {tol[0]} + {tol[1]} rel) kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+              f"{lib} bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+        results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+
+    for name, shape, silu, eps in gn:
+        c = shape[-1]
+        numel = 1
+        for d in shape:
+            numel *= d
+        x = grouped_input(randn, shape)
+        s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+        args = (x, s, sb, 32, eps)
+        library = None
+        if not silu:  # the library's GroupNorm on the (B, C, N) view of the same tensor
+            xc, sc, bc = x.reshape(shape[0], -1, c).transpose(1, 2), s.to(x.dtype), sb.to(x.dtype)
+            library = lambda: F.group_norm(xc, 32, sc, bc, eps)
+        record("group_norm", name, f"x {shape} {'+ SiLU ' if silu else ''}eps {eps:g}",
+               fn.group_norm_fused(*args, silu=silu), fn.group_norm_plain(*args, silu=silu),
+               lambda: fn.group_norm_fused(*args, silu=silu),
+               lambda: fn.group_norm_plain(*args, silu=silu), library,
+               4 * numel + 8 * c, (9 if silu else 5) * numel)
+        if name.startswith("res_"):  # the fused conv's inputs take gn_affine
+            record("gn_affine", name, f"x {shape} -> a, v ({shape[0]}, {c})",
+                   fn.gn_affine(*args), fn.gn_affine_plain(*args),
+                   lambda: fn.gn_affine(*args), lambda: fn.gn_affine_plain(*args), None,
+                   2 * numel + 8 * c + 8 * shape[0] * c, 3 * numel, (AFFINE_TOL, AFFINE_TOL))
+        del x, args, library
+    for name, rows, c in ln:
+        x = randn(rows, c, scale=2.0, dtype=torch.bfloat16) + 0.3
+        s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+        sc, bc = s.to(x.dtype), sb.to(x.dtype)
+        record("layer_norm", name, f"x ({rows}, {c})", fn.layer_norm_fused(x, s, sb),
+               fn.layer_norm_plain(x, s, sb), lambda: fn.layer_norm_fused(x, s, sb),
+               lambda: fn.layer_norm_plain(x, s, sb), lambda: F.layer_norm(x, (c,), sc, bc),
+               4 * rows * c + 8 * c, 7 * rows * c)
+        del x
+    torch.cuda.empty_cache()
+    return results
+
+
+def check_convs(torch, cases, device):
+    """The fused GN -> SiLU -> conv3x3 (gn_affine's kernel and the conv
+    kernel) against its plain version on the same card tensors: bf16
+    activations with statistics of their own per (sample, channel)
+    (``grouped_input``) and a bf16 residual, the model's fp32 parameters
+    (cast at each call), weights of std (9 C)^-1/2 so that outputs stay
+    O(1)."""
+    from gligen_tpu_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    results = []
+    for name, b, h, cin, cout, residual in cases:
+        x = grouped_input(randn, (b, h, h, cin))
+        s, sb = 1.0 + randn(cin, scale=0.1), randn(cin, scale=0.1)
+        w, wb = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5), randn(cout, scale=0.1)
+        res = randn(b, h, h, cout, dtype=torch.bfloat16) if residual else None
+        args = (x, s, sb, w, wb, res)
+        got = fc.gn_silu_conv3x3(*args)
+        torch.cuda.synchronize()
+        err, ok = compare(torch, got, fc.gn_silu_conv3x3_plain(*args))
+        ms = time_ms(lambda: fc.gn_silu_conv3x3(*args))
+        plain_ms = time_ms(lambda: fc.gn_silu_conv3x3_plain(*args))
+        m = b * h * h
+        nbytes = 2 * m * cin + 4 * 9 * cin * cout + 4 * cout + 8 * cin + 2 * m * cout * (1 + residual)
+        flops = 2 * m * cout * 9 * cin
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"kernel gn_silu_conv3x3 {name:16s} ({b},{h},{h},{cin}) -> {cout}"
+              f"{' + residual' if residual else ''}: max_abs_err {err:.3e} (tol {PROJ_ATOL} + "
+              f"{PROJ_RTOL} rel) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} "
+              f"ms ({bound_by}, {flops / ms / 1e9:.1f} TFLOP/s) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        results.append(dict(name=name, kind="gn_silu_conv3x3", err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+        del x, w, res, args, got
+    torch.cuda.empty_cache()
+    return results
+
+
+def expected_launches(comps, steps, alpha_stages, latent, config):
+    """Launches of each kernel in one generate call of ``config``, from the
+    module structure and the sampler tables.  Per transformer block of N
+    tokens, a gated UNet call runs attn1, the fuser and attn2 (3 flash
+    launches); on the fused path (FUSED_PROJ=1, N >= 64) ln_matmuls for
+    q/k/v, the fuser's q, the fuser's k/v and attn2's q (4),
+    matmul_residual for the three to_out and the two net_2 (5) and ln_geglu
+    for the two feed-forwards (2); on the module path 5 LayerNorms.  A
+    fuser-free call runs 2 / 2, 3, 1 / 3.  Every GroupNorm (FUSED_NORM gn
+    or both) is one launch, but those of a ResBlock that takes the fused
+    conv, which runs gn_affine and the conv twice instead.  The VAE decoder
+    adds its AttnBlocks' flash launches and its GroupNorms."""
     from gligen_tpu_torch.diffusion.samplers import SamplerTables, _gate_zero_from
-    from gligen_tpu_torch.models.layers import BasicTransformerBlock
+    from gligen_tpu_torch.models.layers import Normalize
+    from gligen_tpu_torch.models.unet import fuses_conv
     from gligen_tpu_torch.models.vae import AttnBlock
 
+    env = CONFIGS[config]
     tables = SamplerTables.create(comps.schedule, steps, alpha_stages=alpha_stages)
     n = len(tables.ts)
     k0 = _gate_zero_from(tables)
@@ -294,13 +584,29 @@ def expected_launches(comps, steps, alpha_stages):
     heun = 2  # the peeled step 0 calls the model twice
     gated = (heun if k0 > 0 else 0) + (split - 1)
     free = (heun if k0 == 0 else 0) + (n - split)
-    blocks = sum(isinstance(m, BasicTransformerBlock) for m in comps.unet.modules())
-    vae_attn = sum(isinstance(m, AttnBlock) for m in comps.vae.modules())
-    per_block = {"flash_fwd": (3, 2), "ln_matmuls": (4, 2), "matmul_residual": (5, 3),
-                 "ln_geglu": (2, 1)}
-    counts = {name: blocks * (g * gated + f * free) for name, (g, f) in per_block.items()}
-    counts["flash_fwd"] += vae_attn
-    return counts, gated, free, blocks
+    norm = {"1": "both"}.get(env["GLIGEN_TPU_FUSED_NORM"], env["GLIGEN_TPU_FUSED_NORM"])
+    gn_on, ln_on = norm in ("gn", "both"), norm in ("ln", "both")
+    res, sts = unet_maps(comps.unet, latent)
+    counts = dict.fromkeys(["flash_fwd", "ln_matmuls", "matmul_residual", "ln_geglu",
+                            "group_norm", "gn_affine", "layer_norm", "gn_silu_conv3x3"], 0)
+    for h, _, depth in sts:
+        fused = env["GLIGEN_TPU_FUSED_PROJ"] == "1" and h * h >= 64
+        counts["flash_fwd"] += depth * (3 * gated + 2 * free)
+        if fused:
+            for name, (g, f) in {"ln_matmuls": (4, 2), "matmul_residual": (5, 3),
+                                 "ln_geglu": (2, 1)}.items():
+                counts[name] += depth * (g * gated + f * free)
+        elif ln_on:
+            counts["layer_norm"] += depth * (5 * gated + 3 * free)
+    calls = gated + free
+    fused_res = sum(fuses_conv(env["GLIGEN_TPU_FUSED_CONV"], h, h, cout) for h, _, cout in res)
+    counts["gn_silu_conv3x3"] = counts["gn_affine"] = 2 * fused_res * calls
+    if gn_on:
+        unet_norms = sum(isinstance(m, Normalize) for m in comps.unet.modules())
+        vae_norms_ = sum(isinstance(m, Normalize) for m in comps.vae.modules())
+        counts["group_norm"] = (unet_norms - 2 * fused_res) * calls + vae_norms_
+    counts["flash_fwd"] += sum(isinstance(m, AttnBlock) for m in comps.vae.modules())
+    return counts, gated, free
 
 
 def make_request(rng, batch, vocab, ctx_dim):
@@ -326,31 +632,47 @@ def check_image(torch, img, batch, size):
     return ok, f"shape {tuple(img.shape)} finite {finite} min {lo:.4f} max {hi:.4f} std {std:.4f}"
 
 
+# name: (source, the TPU kernel it replaces, the shape its times come from,
+# the configuration whose generate run gives its launches)
 KERNEL_META = {
     "flash_fwd": ("gligen_tpu_torch/csrc/flash_fwd.cu",
                   "gligen_tpu/ops/pallas_attention.py:836 (_packed_fwd_impl single-KV) "
-                  "and gligen_tpu/ops/pallas_attention.py:466 (_fwd_impl streamed)", "attn1_ds1"),
+                  "and gligen_tpu/ops/pallas_attention.py:466 (_fwd_impl streamed)", "attn1_ds1",
+                  "a"),
     "ln_matmuls": ("gligen_tpu_torch/csrc/fused_proj.cu",
-                   "gligen_tpu/ops/pallas_matmul.py:132 (_ln_matmuls)", "qkv_ds1"),
+                   "gligen_tpu/ops/pallas_matmul.py:132 (_ln_matmuls)", "qkv_ds1", "a"),
     "matmul_residual": ("gligen_tpu_torch/csrc/fused_proj.cu",
-                        "gligen_tpu/ops/pallas_matmul.py:212 (_matmul_residual)", "to_out_ds1"),
+                        "gligen_tpu/ops/pallas_matmul.py:212 (_matmul_residual)", "to_out_ds1",
+                        "a"),
     "ln_geglu": ("gligen_tpu_torch/csrc/fused_proj.cu",
-                 "gligen_tpu/ops/pallas_matmul.py:297 (_ln_geglu)", "geglu_ds1"),
+                 "gligen_tpu/ops/pallas_matmul.py:297 (_ln_geglu)", "geglu_ds1", "a"),
+    "group_norm": ("gligen_tpu_torch/csrc/fused_norm.cu",
+                   "gligen_tpu/ops/pallas_norm.py:107 (_group_norm_pallas_flat)", "st_64x320",
+                   "a"),
+    "gn_affine": ("gligen_tpu_torch/csrc/fused_norm.cu",
+                  "gligen_tpu/ops/pallas_norm.py:107 (_group_norm_pallas_flat, the statistics of "
+                  "_gn_kernel :62, as gligen_tpu/ops/pallas_conv.py:47 gn_affine folds them)",
+                  "res_64x320", "c"),
+    "layer_norm": ("gligen_tpu_torch/csrc/fused_norm.cu",
+                   "gligen_tpu/ops/pallas_norm.py:169 (_layer_norm_pallas_flat)", "ln_ds1", "b"),
+    "gn_silu_conv3x3": ("gligen_tpu_torch/csrc/fused_conv.cu",
+                        "gligen_tpu/ops/pallas_conv.py:141 (_fused)", "out_64_320", "c"),
 }
 
 
 def kernel_wrappers():
+    from gligen_tpu_torch.ops import fused_conv, fused_norm, fused_proj
     from gligen_tpu_torch.ops.flash_attention import flash_fwd
-    from gligen_tpu_torch.ops.fused_proj import KERNELS
 
-    return {"flash_fwd": flash_fwd, **KERNELS}
+    return {"flash_fwd": flash_fwd, **fused_proj.KERNELS, **fused_norm.KERNELS,
+            **fused_conv.KERNELS}
 
 
-def run_requests(torch, pipe, requests, fused, gen, **kw):
-    """Generate every request in one configuration (GLIGEN_TPU_FUSED_PROJ
-    = ``fused``), with every launch count set to 0 just before and read
-    just after.  Returns (seconds per request, images, launch counts)."""
-    os.environ["GLIGEN_TPU_FUSED_PROJ"] = fused
+def run_requests(torch, pipe, requests, config, gen, **kw):
+    """Generate every request in one configuration, with every launch
+    count set to 0 just before and read just after.  Returns (seconds per
+    request, images, launch counts)."""
+    set_config(config)
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
@@ -364,24 +686,16 @@ def run_requests(torch, pipe, requests, fused, gen, **kw):
     return times, images, {name: w.launches for name, w in wrappers.items()}
 
 
-def small_reference(torch, np, seed, device, alpha, fused):
+def small_reference(torch, np, seed, device, alpha, config):
     """The pipeline at a small width: card (bf16, kernels) against CPU
     (fp32, plain versions), same weights and noise, in one configuration.
     Returns (ok, line)."""
     from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
 
-    os.environ["GLIGEN_TPU_FUSED_PROJ"] = fused
-    small = dict(
-        unet_config=dict(model_channels=64, num_res_blocks=1, attention_resolutions=(2, 1),
-                         channel_mult=(1, 2), num_heads=2, context_dim=64,
-                         grounding_tokenizer={"target": "text",
-                                              "params": {"in_dim": 64, "out_dim": 64}}),
-        vae_config=dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, resolution=64),
-        text_config=dict(vocab_size=1000, hidden_size=64, layers=2, heads=4),
-    )
-    cpu = GligenComponents.create(dtype=torch.float32, seed=seed, **small)
+    set_config(config)
+    cpu = GligenComponents.create(dtype=torch.float32, seed=seed, device="cpu", **SMALL)
     dezero_(cpu.unet, torch.Generator().manual_seed(seed + 2))
-    gpu = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device, **small)
+    gpu = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device, **SMALL)
     for a, b in ((cpu.unet, gpu.unet), (cpu.vae, gpu.vae), (cpu.text_encoder, gpu.text_encoder)):
         b.load_state_dict(a.state_dict())
     ids, uc, grounding = make_request(np.random.default_rng(seed + 3), 2, 1000, 64)
@@ -394,8 +708,8 @@ def small_reference(torch, np, seed, device, alpha, fused):
     diff = (got - ref).abs()
     ok, desc = check_image(torch, got, 2, 32)
     ok = ok and diff.mean().item() <= REF_MEAN_TOL
-    return ok, (f"reference: GLIGEN_TPU_FUSED_PROJ={fused}: small pipeline card bf16 vs CPU "
-                f"fp32: {desc}; mean abs diff {diff.mean().item():.4e} (tol {REF_MEAN_TOL}), "
+    return ok, (f"reference: {config_desc(config)}: small pipeline card bf16 vs CPU fp32: {desc}; "
+                f"mean abs diff {diff.mean().item():.4e} (tol {REF_MEAN_TOL}), "
                 f"max {diff.max().item():.4e} {'ok' if ok else 'FAIL'}")
 
 
@@ -412,8 +726,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    sources = ("flash_fwd", "fused_proj")
-    if not all((REPO / "gligen_tpu_torch" / "csrc" / f"{s}.cu").is_file() for s in sources):
+    if not all((REPO / "gligen_tpu_torch" / "csrc" / f"{s}.cu").is_file() for s in SOURCES):
         print(f"chip_smoke: {REPO} is not a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
@@ -431,25 +744,27 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per source, all started together ----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(load_library, sources))
-    print(f"build: {', '.join(s + '.cu' for s in sources)} in {time.perf_counter() - t0:.1f} s "
-          f"-> {library_path(sources[0]).parent.parent.relative_to(REPO)}", flush=True)
-    for src in sources:
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(load_library, SOURCES))
+    print(f"build: {', '.join(s + '.cu' for s in SOURCES)} in {time.perf_counter() - t0:.1f} s "
+          f"-> {library_path(SOURCES[0]).parent.parent.relative_to(REPO)}", flush=True)
+    for src in SOURCES:
         for line in (library_path(src).parent / "ptxas.txt").read_text().splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"build: {src}: {line.strip()}")
 
     # ---- 3. kernels vs plain ----
     batch = 2
+    comps = GligenComponents.create(dtype=torch.bfloat16, seed=args.seed, device=device)
     results = check_kernel(torch, kernel_cases(batch), device)
     results.append(check_kernel_1024(torch, device))
-    proj = check_proj(torch, proj_cases(batch), device)
-    failures += [f"kernel {r['name']}" for r in results + proj if not r["ok"]]
+    results += check_proj(torch, proj_cases(batch), device)
+    results += check_norms(torch, norm_cases(comps.unet, comps.vae, batch), ln_cases(batch), device)
+    results += check_convs(torch, conv_cases(comps.unet, batch), device)
+    failures += [f"kernel {r['kind']} {r['name']}" for r in results if not r["ok"]]
 
-    # ---- 4. the main path at full width, fused (default) then plain projections ----
+    # ---- 4. the main path at full width, in each configuration ----
     t0 = time.perf_counter()
-    comps = GligenComponents.create(dtype=torch.bfloat16, seed=args.seed, device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     dezero_(comps.unet, gen)
     torch.cuda.synchronize()
@@ -457,53 +772,51 @@ def main() -> int:
           f"({sum(p.numel() for p in comps.unet.parameters()) / 1e6:.1f} M UNet parameters)",
           flush=True)
     pipe = GenerationPipeline(comps)
-    alpha = [0.3, 0.0, 0.7]
-    expected, gated, free, blocks = expected_launches(comps, args.steps, alpha)
-    print(f"generate: per request {gated} gated UNet calls and {free} fuser-free calls over "
-          f"{blocks} transformer blocks: expected launches (fused) {expected}", flush=True)
+    alpha, latent = [0.3, 0.0, 0.7], 64
     rng = np.random.default_rng(args.seed)
-    kw = dict(steps=args.steps, guidance_scale=7.5, alpha_stages=alpha, latent_size=64)
-    s_per_img, launches = {}, None
-    for fused in ("1", "0"):
+    kw = dict(steps=args.steps, guidance_scale=7.5, alpha_stages=alpha, latent_size=latent)
+    s_per_img, launches = {}, {}
+    for config in CONFIGS:
+        expected, gated, free = expected_launches(comps, args.steps, alpha, latent, config)
         requests = [make_request(rng, batch, 49408, 768) for _ in range(2)]
-        times, images, counts = run_requests(torch, pipe, requests, fused, gen, **kw)
+        times, images, counts = run_requests(torch, pipe, requests, config, gen, **kw)
         for i, (img, t) in enumerate(zip(images, times)):
             ok, desc = check_image(torch, img, batch, 512)
-            print(f"generate: GLIGEN_TPU_FUSED_PROJ={fused} request {i}: {desc} in {t:.3f} s "
+            print(f"generate: {config_desc(config)} request {i}: {desc} in {t:.3f} s "
                   f"= {t / batch:.3f} s/img {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                failures.append(f"image {fused}/{i}")
-        want = {name: len(requests) * (n if fused == "1" or name == "flash_fwd" else 0)
-                for name, n in expected.items()}
-        print(f"generate: GLIGEN_TPU_FUSED_PROJ={fused} launches {counts}, expected {want} "
-              f"({len(requests)} requests)", flush=True)
+                failures.append(f"image ({config}) {i}")
+        want = {name: len(requests) * expected[name] for name in counts}
+        print(f"generate: ({config}) per request {gated} gated and {free} fuser-free UNet calls; "
+              f"launches {counts}, expected {want} ({len(requests)} requests)", flush=True)
         if counts != want:
-            failures.append(f"launch count GLIGEN_TPU_FUSED_PROJ={fused}")
-        s_per_img[fused] = times[1] / batch
-        if fused == "1":
-            launches = counts
+            failures.append(f"launch count ({config})")
+        s_per_img[config] = times[1] / batch
+        launches[config] = counts
         del images
     del comps, pipe
     torch.cuda.empty_cache()
 
     # ---- 5. small-width reference: card (bf16, kernels) vs CPU (fp32, plain) ----
-    for fused in ("1", "0"):
-        ok, line = small_reference(torch, np, args.seed, device, alpha, fused)
+    for config in CONFIGS:
+        ok, line = small_reference(torch, np, args.seed, device, alpha, config)
         print(line, flush=True)
         if not ok:
-            failures.append(f"reference GLIGEN_TPU_FUSED_PROJ={fused}")
+            failures.append(f"reference ({config})")
 
-    print(f"summary: s/img fused {s_per_img['1']:.3f}, plain projections {s_per_img['0']:.3f} "
-          f"(request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")
-    by_name = {r["name"]: r for r in results + proj}
+    print("summary: s/img " + ", ".join(f"({c}) {s:.3f}" for c, s in s_per_img.items())
+          + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")
+    by_name = {(r["kind"], r["name"]): r for r in results}
     kernels = []
-    for name, (source, replaces, timed_at) in KERNEL_META.items():
-        own = results if name == "flash_fwd" else [r for r in proj if r["kind"] == name]
+    for name, (source, replaces, timed_at, config) in KERNEL_META.items():
+        own = [r for r in results if r["kind"] == name]
+        at = by_name[(name, timed_at)]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=max(r["err"] for r in own),
-            ms=by_name[timed_at]["ms"], plain_ms=by_name[timed_at]["plain_ms"],
-            timed_at=timed_at,
+            launches=launches[config][name], max_abs_err=max(r["err"] for r in own),
+            ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+            bound_by=at["bound_by"], library_ms=at["library_ms"], timed_at=timed_at,
+            launches_config=config,
         ))
     print(json.dumps({"kernels": kernels}))
     if failures:

@@ -19,11 +19,12 @@
 // the column-major B operand of the product: no transpose copy.  K and F are
 // multiples of 8, so every row moves in 16-byte vectors.
 //
-// Design.  One GEMM core serves the three kernels: a block owns BM rows x 64
-// output columns (BM = 128 with 8 warps, or 64 with 4 warps when 128-row
-// blocks would not give two blocks per SM), walks K in steps of 32 through
-// shared memory, and each warp multiplies its 32 x 32 part with WMMA bf16
-// 16x16x16 (mma.sync) into fp32 fragments.  Each kernel adds its own parts:
+// Design.  One GEMM core (gemm_core.cuh, shared with fused_conv.cu) serves
+// the three kernels: a block owns BM rows x 64 output columns (BM = 128
+// with 8 warps, or 64 with 4 warps when 128-row blocks would not give two
+// blocks per SM), walks K in steps of 32 through shared memory, and each
+// warp multiplies its 32 x 32 part with WMMA bf16 16x16x16 (mma.sync) into
+// fp32 fragments.  Each kernel adds its own A loader and epilogue:
 //   * LN prologue: the block first computes its rows' fp32 mean and rstd over
 //     the whole K (one warp per row, from L2), then normalises each A tile as
 //     it loads it and rounds it to bf16 in shared memory.  The statistics are
@@ -35,8 +36,9 @@
 //     scalar (the sampler's gate * tanh(alpha), never synchronised to the
 //     host), or a constant when there is none.
 //   * GEGLU epilogue: the block accumulates the a columns j and the gate
-//     columns F + j side by side from one A tile, adds the fp32 bias and
-//     stores a * 0.5 g (1 + erf(g / sqrt 2)) for F columns.
+//     columns F + j side by side from one A tile (two weight slabs of the
+//     core), adds the fp32 bias and stores a * 0.5 g (1 + erf(g / sqrt 2))
+//     for F columns.
 //   * ln_matmuls with k weights is one launch whose column blocks span all k
 //     outputs, so one x row block feeds q, k and v from L2.
 // The TPU kernel keeps the whole weight resident in VMEM with row blocks of
@@ -55,22 +57,13 @@
 // loop, wgmma on TMA-fed tiles and persistent blocks are the levers for a
 // perf_opt change; PERF.md has the measured times beside the plain version's.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "gemm_core.cuh"
 
-using namespace nvcuda;
+using namespace gligen;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kBN = 64;         // output columns per block
-constexpr int kBK = 32;         // K step
-constexpr int kLdt = kBK + 8;   // shared tile row, bf16 elements (80 bytes)
 constexpr int kMaxWeights = 3;
-constexpr int kSMs = 132;
 
 enum Mode { kLnMatmuls = 0, kResidual = 1, kGeglu = 2 };
 
@@ -88,69 +81,29 @@ struct Params {
   int m, k, f, n_w, col_blocks;
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
-
-__device__ __forceinline__ void load8f(const float* p, float* f) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  f[0] = lo.x, f[1] = lo.y, f[2] = lo.z, f[3] = lo.w;
-  f[4] = hi.x, f[5] = hi.y, f[6] = hi.z, f[7] = hi.w;
-}
-
-// Shared-memory carve-up: the A and W tiles during the K loop, then the fp32
-// output staging in the same bytes; the LN statistics after both.
+// Shared memory: the GEMM core's tiles and staging, then the LN statistics.
 template <int MODE, int BM>
 struct Smem {
-  static constexpr int kNB = MODE == kGeglu ? 2 : 1;  // W tiles per block
-  static constexpr int kLdc = kNB * kBN + 4;           // staging row, floats
-  static constexpr size_t kTiles = (size_t)(BM + kNB * kBN) * kLdt * sizeof(bf16);
-  static constexpr size_t kStage = (size_t)BM * kLdc * sizeof(float);
-  static constexpr size_t kStats = ((kTiles > kStage ? kTiles : kStage) + 127) / 128 * 128;
+  typedef GemmTile<BM, MODE == kGeglu ? 2 : 1> Tile;  // GEGLU: the a and gate slabs
+  static constexpr size_t kStats = (Tile::kBytes + 127) / 128 * 128;
   static constexpr size_t kTotal = kStats + 2 * BM * sizeof(float);
 };
 
 template <int MODE, int BM>
 __global__ void __launch_bounds__(BM * 2) fused_proj_kernel(const Params p) {
-  constexpr int kThreads = BM * 2;
-  constexpr int kWarps = kThreads / 32;
   typedef Smem<MODE, BM> L;
-  constexpr int kNB = L::kNB;
-  constexpr int kLdc = L::kLdc;
+  typedef typename L::Tile T;
+  constexpr int kWarps = T::kThreads / 32;
   constexpr bool kLn = MODE != kResidual;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sW = sA + BM * kLdt;
-  float* sC = reinterpret_cast<float*>(smem);
   float* sMean = reinterpret_cast<float*>(smem + L::kStats);
   float* sRstd = sMean + BM;
 
   const int wsel = blockIdx.x / p.col_blocks;
-  const int n0 = (blockIdx.x % p.col_blocks) * kBN;
+  const int n0 = (blockIdx.x % p.col_blocks) * T::kBN;
   const int m0 = blockIdx.y * BM;
   const int m_valid = min(BM, p.m - m0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp / 2, wc = warp % 2;  // the warp's 32 x 32 part of the block tile
   const bf16* a = p.a + (long long)m0 * p.k;
   // selects, not an indexed read, keep the pointer arrays out of local memory
   const bf16* w = wsel == 0 ? p.w[0] : wsel == 1 ? p.w[1] : p.w[2];
@@ -182,19 +135,11 @@ __global__ void __launch_bounds__(BM * 2) fused_proj_kernel(const Params p) {
     }
   }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kNB][2][2];
-#pragma unroll
-  for (int t = 0; t < kNB; ++t)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[t][i][j], 0.0f);
-
-  constexpr int kChunks = kBK / 8;  // 16-byte chunks per tile row
-  for (int k0 = 0; k0 < p.k; k0 += kBK) {
-    __syncthreads();  // the previous step's products are done with sA/sW (and sMean is set)
-    for (int i = threadIdx.x; i < BM * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8, kc = k0 + c;
+  // The A tile: rows of h, or of x normalised with the row's statistics
+  // (set before the core's first barrier) and rounded to bf16.
+  T::product(smem, w, p.f, p.k, n0, [&](int k0, bf16* sA) {
+    for (int i = threadIdx.x; i < BM * T::kChunks; i += T::kThreads) {
+      const int r = i / T::kChunks, c = (i % T::kChunks) * 8, kc = k0 + c;
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
       if (r < m_valid && kc < p.k) {
         u = *reinterpret_cast<const uint4*>(a + (long long)r * p.k + kc);
@@ -209,55 +154,13 @@ __global__ void __launch_bounds__(BM * 2) fused_proj_kernel(const Params p) {
           u = pack8(v);
         }
       }
-      *reinterpret_cast<uint4*>(sA + r * kLdt + c) = u;
+      *reinterpret_cast<uint4*>(sA + r * T::kLdt + c) = u;
     }
-    for (int i = threadIdx.x; i < kNB * kBN * kChunks; i += kThreads) {
-      const int t = i / (kBN * kChunks), rem = i % (kBN * kChunks);
-      const int r = rem / kChunks, c = (rem % kChunks) * 8, kc = k0 + c;
-      const int n = n0 + r;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (n < p.f && kc < p.k)
-        u = *reinterpret_cast<const uint4*>(w + ((long long)t * p.f + n) * p.k + kc);
-      *reinterpret_cast<uint4*>(sW + (t * kBN + r) * kLdt + c) = u;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], sA + (wr * 32 + i * 16) * kLdt + kk, kLdt);
-#pragma unroll
-      for (int t = 0; t < kNB; ++t)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          // W's (F, K) rows are B = W^T in column-major order
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, sW + (t * kBN + wc * 32 + j * 16) * kLdt + kk, kLdt);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[t][i][j], fa[i], fb, acc[t][i][j]);
-        }
-    }
-  }
-  __syncthreads();  // every warp is done with the tiles: the staging reuses their bytes
-
-#pragma unroll
-  for (int t = 0; t < kNB; ++t)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(sC + (wr * 32 + i * 16) * kLdc + t * kBN + wc * 32 + j * 16,
-                                acc[t][i][j], kLdc, wmma::mem_row_major);
-  __syncthreads();
+  });
 
   const float g = MODE == kResidual ? (p.gate ? *p.gate : p.gate_value) : 1.0f;
   bf16* out = wsel == 0 ? p.out[0] : wsel == 1 ? p.out[1] : p.out[2];
-  for (int i = threadIdx.x; i < BM * (kBN / 8); i += kThreads) {
-    const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8, n = n0 + c;
-    if (r >= m_valid || n >= p.f) continue;
-    const float* row = sC + r * kLdc + c;
+  T::epilogue(smem, m_valid, n0, p.f, [&](int r, int n, const float* row) {
     const long long off = (long long)(m0 + r) * p.f + n;
     float y[8];
     if constexpr (MODE == kLnMatmuls) {
@@ -276,23 +179,19 @@ __global__ void __launch_bounds__(BM * 2) fused_proj_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float av = row[j] + ba[j];
-        const float gv = row[kBN + j] + bg[j];
+        const float gv = row[T::kBN + j] + bg[j];
         y[j] = av * (0.5f * gv * (1.0f + erff(gv * 0.7071067811865476f)));
       }
     }
     *reinterpret_cast<uint4*>(out + off) = pack8(y);
-  }
+  });
 }
 
 template <int MODE, int BM>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = Smem<MODE, BM>::kTotal;
-  cudaError_t err = cudaFuncSetAttribute(fused_proj_kernel<MODE, BM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(p.n_w * p.col_blocks, (p.m + BM - 1) / BM);
-  fused_proj_kernel<MODE, BM><<<grid, BM * 2, smem, stream>>>(p);
-  return cudaGetLastError();
+  return launch_with_smem(fused_proj_kernel<MODE, BM>, grid, BM * 2, Smem<MODE, BM>::kTotal,
+                          stream, p);
 }
 
 // 128-row blocks where they give at least two blocks per SM, else 64-row ones
@@ -302,10 +201,10 @@ int dispatch(Params& p, void* stream) {
   if (p.m < 1 || p.k < 8 || p.f < 8 || p.k % 8 || p.f % 8 || p.n_w < 1 || p.n_w > kMaxWeights ||
       (p.m + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
-  p.col_blocks = (p.f + kBN - 1) / kBN;
-  const long long blocks128 = (long long)((p.m + 127) / 128) * p.n_w * p.col_blocks;
+  p.col_blocks = (p.f + kGemmBN - 1) / kGemmBN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(blocks128 >= 2 * kSMs ? launch<MODE, 128>(p, s) : launch<MODE, 64>(p, s));
+  return (int)(wide_rows(p.m, (long long)p.n_w * p.col_blocks) ? launch<MODE, 128>(p, s)
+                                                                 : launch<MODE, 64>(p, s));
 }
 
 Params empty_params() {

@@ -64,14 +64,19 @@ class GligenComponents:
         unet_config: Optional[Dict[str, Any]] = None,
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
-        device: Any = "cpu",
+        device: Any = "cuda",
         vae_config: Optional[Dict[str, Any]] = None,
         text_config: Optional[Dict[str, Any]] = None,
     ) -> "GligenComponents":
         """Components with the SD-1.4 GLIGEN architecture by default
-        (configs/flickr_text.yaml), fp32 parameters on ``device``, drawn
-        from a generator seeded with ``seed``; real weights come through
-        ``convert/from_jax.py``."""
+        (configs/flickr_text.yaml), fp32 parameters on ``device`` (the card
+        unless the caller asks for the CPU), drawn from a generator seeded
+        with ``seed``; real weights come through ``convert/from_jax.py``."""
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "GligenComponents.create: no CUDA device for device="
+                f"{device!r}; pass device='cpu' to build on the CPU"
+            )
         unet_config = dict(unet_config or {})
         unet_config.setdefault("grounding_tokenizer", {"target": "text", "params": {}})
         with torch.device(device):

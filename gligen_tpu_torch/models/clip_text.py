@@ -11,7 +11,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gligen_tpu_torch.models.layers import Dense, LayerNorm
+from gligen_tpu_torch.models.layers import Dense, LayerNorm as _LayerNorm
+from gligen_tpu_torch.ops.basic import layer_norm_xla
+
+
+class LayerNorm(_LayerNorm):
+    """CLIP's LayerNorm stays plain whatever GLIGEN_TPU_FUSED_NORM says:
+    the JAX CLIP uses flax's nn.LayerNorm (clip_text.py:53), not the
+    dispatching one."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_xla(x, self.weight, self.bias, eps=self.eps)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,9 @@ Two paths compute the same blocks, picked as in the JAX package by
     the floor): LayerNorm and Dense modules, one op at a time.
 
 Both read the same parameters, so the state dict does not depend on it.
+``Normalize`` and ``LayerNorm`` go through ``ops/basic.py``'s dispatchers:
+under ``GLIGEN_TPU_FUSED_NORM`` ('gn' by default) a CUDA tensor takes the
+GroupNorm or LayerNorm kernel of ``ops/fused_norm.py``.
 
 Layout: token rows are (B, N, C) and images NHWC, as in the JAX package.
 Submodule and parameter names mirror the JAX parameter tree (``to_q``,
@@ -69,7 +72,9 @@ class Conv2d(nn.Conv2d):
 
 class Normalize(nn.Module):
     """GroupNorm(32) over the channel axis, fp32 statistics; eps 1e-6 is
-    the attention/VAE ``Normalize``, ``act='silu'`` folds the SiLU."""
+    the attention/VAE ``Normalize``, ``act='silu'`` folds the SiLU.  The
+    GroupNorm kernel under GLIGEN_TPU_FUSED_NORM 'gn' (the default) or
+    'both'."""
 
     def __init__(self, channels: int, eps: float = 1e-6, act: Optional[str] = None):
         super().__init__()
@@ -83,7 +88,8 @@ class Normalize(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm (eps 1e-5, fp32 statistics, affine); returns x's dtype."""
+    """LayerNorm (eps 1e-5, fp32 statistics, affine); returns x's dtype.
+    The LayerNorm kernel under GLIGEN_TPU_FUSED_NORM 'ln' or 'both'."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()

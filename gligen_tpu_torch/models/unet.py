@@ -9,6 +9,7 @@ host-side select: ``use_sd_conv`` picks the original SD 4-channel conv
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -18,6 +19,29 @@ from torch import nn
 from gligen_tpu_torch.models.grounding.text import TextPositionNet
 from gligen_tpu_torch.models.layers import Conv2d, Dense, Normalize, SpatialTransformer
 from gligen_tpu_torch.ops.basic import nearest_upsample_2x, timestep_embedding
+from gligen_tpu_torch.ops.fused_conv import gn_silu_conv3x3
+
+# The JAX package's routing table for GLIGEN_TPU_FUSED_CONV=auto, carried as
+# it is (gligen_tpu/models/unet.py:81): the (H, out_channels) of the
+# ResBlocks that take the fused conv.  It is not an H100 measurement.
+_FUSED_CONV_WINS = {(32, 640)}
+
+
+def _fused_conv_mode() -> str:
+    """GLIGEN_TPU_FUSED_CONV, read at call time (unet.py:84-99): '0' (the
+    default) runs every ResBlock as GroupNorm and Conv2d modules, '1' sends
+    each ResBlock whose W is a multiple of 8 through the fused GN -> SiLU
+    -> conv3x3 kernel (ops/fused_conv.py), 'auto' only those in
+    ``_FUSED_CONV_WINS``.  On the CPU the kernel's plain version runs."""
+    mode = os.environ.get("GLIGEN_TPU_FUSED_CONV", "0")
+    return mode if mode in ("1", "auto") else "0"
+
+
+def fuses_conv(mode: str, h: int, w: int, out_channels: int) -> bool:
+    """Whether a ResBlock on an (H, W) map takes the fused kernel (unet.py:
+    145-149): W % 8 is the TPU kernel's sublane rule, kept so that both
+    packages route the same blocks."""
+    return mode != "0" and w % 8 == 0 and (mode == "1" or (h, out_channels) in _FUSED_CONV_WINS)
 
 
 class GroupNorm32(Normalize):
@@ -29,10 +53,12 @@ class GroupNorm32(Normalize):
 
 class ResBlock(nn.Module):
     """GN -> SiLU -> conv3x3, + time embedding, GN -> SiLU -> conv3x3
-    (zero-init), + (1x1-projected) input."""
+    (zero-init), + (1x1-projected) input.  Both paths read the same
+    parameters, so the state dict does not depend on the route."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_dim: int, dtype=torch.float32):
         super().__init__()
+        self.out_channels = out_channels
         self.in_layers_0 = GroupNorm32(in_channels, act="silu")
         self.in_layers_2 = Conv2d(in_channels, out_channels, 3, dtype=dtype)
         self.emb_layers_1 = Dense(emb_dim, out_channels, dtype=dtype)
@@ -44,12 +70,25 @@ class ResBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        if fuses_conv(_fused_conv_mode(), x.shape[1], x.shape[2], self.out_channels):
+            return self._fused(x, emb)
         h = self.in_layers_2(self.in_layers_0(x))
         h = h + self.emb_layers_1(F.silu(emb))[:, None, None, :].to(h.dtype)
         h = self.out_layers_3(self.out_layers_0(h))
         if self.skip_connection is not None:
             x = self.skip_connection(x)
         return x + h
+
+    def _fused(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        """Both GN -> SiLU -> conv3x3 chains as fused kernels (unet.py:
+        165-187); the residual rides the second one's epilogue.  conv2's
+        statistics are those of its own input, h + emb."""
+        n1, c1, n2, c2 = self.in_layers_0, self.in_layers_2, self.out_layers_0, self.out_layers_3
+        h = gn_silu_conv3x3(x, n1.weight, n1.bias, c1.weight, c1.bias, eps=n1.eps)
+        h = h + self.emb_layers_1(F.silu(emb))[:, None, None, :].to(h.dtype)
+        if self.skip_connection is not None:
+            x = self.skip_connection(x)
+        return gn_silu_conv3x3(h, n2.weight, n2.bias, c2.weight, c2.bias, residual=x, eps=n2.eps)
 
 
 class Downsample(nn.Module):

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` (route: a plain C entry
 point, bound with ``ctypes``) into
 ``build/kernels/<name>-<hash>/lib<name>.so`` at the repository root, where
-``<hash>`` covers the source bytes and the compiler flags.  A library that
+``<hash>`` covers the source, the ``csrc/*.cuh`` headers it includes and
+the compiler flags.  A library that
 exists is reused.  Nothing is built when a module is imported, so the
 package imports on a machine with no ``nvcc``; only a kernel launch needs
 one.
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -40,10 +42,29 @@ def find_nvcc() -> str:
     )
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and every header it includes with quotes,
+    transitively, in the order first reached."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}" / f"lib{name}.so"
+    """The library's path, keyed by the bytes of the source, of the headers
+    it includes and of the compiler flags: a changed header rebuilds it."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 @functools.lru_cache(maxsize=None)

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from gligen_tpu_torch.ops.launch import on_cuda
+
 NEG_INF = -1e30  # additive bias of a masked key (pallas_attention.py's NEG_INF)
 LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 512
@@ -116,10 +118,8 @@ class FlashForward:
         bias: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Same contract as ``flash_attention_plain``."""
-        if q.device.type == "cpu":
+        if not on_cuda(q, "flash_fwd"):
             return flash_attention_plain(q, k, v, heads, bias=bias)
-        if q.device.type != "cuda":
-            raise ValueError(f"flash_fwd runs on CPU or CUDA tensors, got {q.device}")
         _check_inputs(q, k, v, heads, bias)
         b, n, hc = q.shape
         m = k.shape[1]

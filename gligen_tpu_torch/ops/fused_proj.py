@@ -9,7 +9,9 @@ Counterpart of ``gligen_tpu/ops/pallas_matmul.py``.  Three kernels of
 
 Numerics are the TPU kernels': fp32 LayerNorm statistics, the normalised
 rows cast to the compute dtype before the product, the product in fp32
-from the rounded operands, bias and gate in fp32, one final cast.
+from the rounded operands, bias and gate in fp32, one final cast.  The
+plain versions call the plain LayerNorm (``layer_norm_xla``), never the
+dispatching one, so on card tensors they launch no kernel.
 
 Weights are ``nn.Linear``'s (F, K), not JAX's (K, F).  Each wrapper casts
 them to x's dtype at every call (the JAX modules' ``dtype`` semantics).
@@ -19,14 +21,13 @@ tensor; it never falls back from one to the other.  Forward only.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from gligen_tpu_torch.ops.basic import layer_norm
+from gligen_tpu_torch.ops.basic import layer_norm_xla
+from gligen_tpu_torch.ops.launch import F32, I32, PTR, Kernel, check, check_widths, on_cuda
 
 MAX_WEIGHTS = 3
 Gate = Union[None, float, torch.Tensor]
@@ -47,7 +48,7 @@ def ln_matmuls_plain(
 ) -> Tuple[torch.Tensor, ...]:
     """x: (..., C); scale/bias: (C,); ws: (F_i, C) each.  Returns a tuple
     of (..., F_i) in x's dtype (pallas_matmul.py:_ln_matmuls_ref)."""
-    ln = layer_norm(x, scale, bias, eps=eps)
+    ln = layer_norm_xla(x, scale, bias, eps=eps)
     return tuple(_product(ln, w).to(x.dtype) for w in ws)
 
 
@@ -82,87 +83,21 @@ def ln_geglu_plain(
     """x: (..., C); w: (2F, C); w_bias: (2F,).  Returns a * gelu(g) with
     [a | g] = LN(x) @ w.T + w_bias and the exact (erf) GELU, (..., F) in
     x's dtype (pallas_matmul.py:_ln_geglu_ref)."""
-    hg = _product(layer_norm(x, scale, bias, eps=eps), w) + w_bias.float()
+    hg = _product(layer_norm_xla(x, scale, bias, eps=eps), w) + w_bias.float()
     a, g = hg.chunk(2, dim=-1)
     return (a * F.gelu(g)).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The built kernels' C entry points, with their ctypes signatures."""
-    from gligen_tpu_torch.ops.cuda_build import load_library
-
-    lib = load_library("fused_proj")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    signatures = {
-        # x, scale, bias, n_w, w0..w2, y0..y2, m, k, f, eps, stream
-        "ln_matmuls_bf16": [ptr] * 3 + [i32] + [ptr] * 6 + [i32] * 3 + [f32, ptr],
-        # h, w, bias, x, gate, gate_value, y, m, k, f, stream
-        "matmul_residual_bf16": [ptr] * 5 + [f32, ptr] + [i32] * 3 + [ptr],
-        # x, scale, bias, w, w_bias, y, m, k, f, eps, stream
-        "ln_geglu_bf16": [ptr] * 6 + [i32] * 3 + [f32, ptr],
-    }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return lib
-
-
-def _on_cuda(x: torch.Tensor, op: str) -> bool:
-    """False for a CPU tensor (plain version), True for a CUDA one (kernel)."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{op} runs on CPU or CUDA tensors, got {x.device}")
-    return True
-
-
-def _check(op: str, device: torch.device, **operands: Tuple[torch.Tensor, torch.dtype]) -> None:
-    """What the kernel does not take raises before any launch: every
-    operand on x's device, of its dtype, contiguous and 16-byte aligned."""
-    for name, (t, dtype) in operands.items():
-        if t.device != device:
-            raise ValueError(f"{op}: {name} is on {t.device}, x on {device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{op}: {name} must be contiguous and 16-byte aligned")
-
-
-def _check_widths(op: str, **widths: int) -> None:
-    """16-byte row loads need every width to be a multiple of 8 elements."""
-    for name, n in widths.items():
-        if n < 8 or n % 8:
-            raise ValueError(f"{op}: {name} = {n} must be a positive multiple of 8")
-
-
-class _Kernel:
-    """One entry point of ``csrc/fused_proj.cu``.  ``launches`` counts
-    kernel launches (never plain-version calls), so a run can show that
-    its projections went through the kernel."""
-
-    entry = ""
-
-    def __init__(self):
-        self.launches = 0
-
-    def _launch(self, device: torch.device, *args) -> None:
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_library(), self.entry)(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.entry} launch failed: cudaError {err}")
-        self.launches += 1
-
-
-class LnMatmuls(_Kernel):
-    entry = "ln_matmuls_bf16"
+class LnMatmuls(Kernel):
+    library, entry = "fused_proj", "ln_matmuls_bf16"
+    # x, scale, bias, n_w, w0..w2, y0..y2, m, k, f, eps
+    argtypes = (PTR,) * 3 + (I32,) + (PTR,) * 6 + (I32,) * 3 + (F32,)
 
     def __call__(self, x, scale, bias, ws, eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
         """Same contract as ``ln_matmuls_plain``; 1 to 3 weights of one shape."""
         ws = tuple(w.to(x.dtype) for w in ws)
         scale, bias = scale.float(), bias.float()
-        if not _on_cuda(x, "ln_matmuls"):
+        if not on_cuda(x, "ln_matmuls"):
             return ln_matmuls_plain(x, scale, bias, ws, eps)
         if not 1 <= len(ws) <= MAX_WEIGHTS:
             raise ValueError(f"ln_matmuls takes 1 to {MAX_WEIGHTS} weights, got {len(ws)}")
@@ -171,8 +106,8 @@ class LnMatmuls(_Kernel):
         if any(w.shape != (f, c) for w in ws) or scale.shape != (c,) or bias.shape != (c,):
             raise ValueError(f"ln_matmuls: x (..., {c}) needs (F, {c}) weights of one shape "
                              f"and ({c},) norm parameters")
-        _check_widths("ln_matmuls", C=c, F=f)
-        _check("ln_matmuls", x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
+        check_widths("ln_matmuls", C=c, F=f)
+        check("ln_matmuls", x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
                bias=(bias, torch.float32), **{f"w{i}": (w, torch.bfloat16) for i, w in enumerate(ws)})
         outs = tuple(torch.empty((*x.shape[:-1], f), dtype=x.dtype, device=x.device) for _ in ws)
         pad = (None,) * (MAX_WEIGHTS - len(ws))
@@ -184,27 +119,29 @@ class LnMatmuls(_Kernel):
         return outs
 
 
-class MatmulResidual(_Kernel):
-    entry = "matmul_residual_bf16"
+class MatmulResidual(Kernel):
+    library, entry = "fused_proj", "matmul_residual_bf16"
+    # h, w, bias, x, gate, gate_value, y, m, k, f
+    argtypes = (PTR,) * 5 + (F32, PTR) + (I32,) * 3
 
     def __call__(self, h, w, bias, x, gate: Gate = None) -> torch.Tensor:
         """Same contract as ``matmul_residual_plain``.  A tensor gate is
         read by the kernel on the device (no host synchronisation)."""
         w, bias = w.to(x.dtype), bias.float()
-        if not _on_cuda(x, "matmul_residual"):
+        if not on_cuda(x, "matmul_residual"):
             return matmul_residual_plain(h, w, bias, x, gate)
         c, k = w.shape
         if h.shape[:-1] != x.shape[:-1] or h.shape[-1] != k or x.shape[-1] != c or bias.shape != (c,):
             raise ValueError(f"matmul_residual: h {tuple(h.shape)}, w {tuple(w.shape)}, "
                              f"bias {tuple(bias.shape)} and x {tuple(x.shape)} do not fit")
-        _check_widths("matmul_residual", K=k, C=c)
-        _check("matmul_residual", x.device, h=(h, torch.bfloat16), w=(w, torch.bfloat16),
+        check_widths("matmul_residual", K=k, C=c)
+        check("matmul_residual", x.device, h=(h, torch.bfloat16), w=(w, torch.bfloat16),
                bias=(bias, torch.float32), x=(x, torch.bfloat16))
         gate_ptr, gate_value = None, 1.0
         if isinstance(gate, torch.Tensor):
             if gate.numel() != 1:
                 raise ValueError(f"matmul_residual: gate must hold one value, has {gate.numel()}")
-            _check("matmul_residual", x.device, gate=(gate, torch.float32))
+            check("matmul_residual", x.device, gate=(gate, torch.float32))
             gate_ptr = gate.data_ptr()
         elif gate is not None:
             gate_value = float(gate)
@@ -216,13 +153,15 @@ class MatmulResidual(_Kernel):
         return out
 
 
-class LnGeglu(_Kernel):
-    entry = "ln_geglu_bf16"
+class LnGeglu(Kernel):
+    library, entry = "fused_proj", "ln_geglu_bf16"
+    # x, scale, bias, w, w_bias, y, m, k, f, eps
+    argtypes = (PTR,) * 6 + (I32,) * 3 + (F32,)
 
     def __call__(self, x, scale, bias, w, w_bias, eps: float = 1e-5) -> torch.Tensor:
         """Same contract as ``ln_geglu_plain``."""
         w, scale, bias, w_bias = w.to(x.dtype), scale.float(), bias.float(), w_bias.float()
-        if not _on_cuda(x, "ln_geglu"):
+        if not on_cuda(x, "ln_geglu"):
             return ln_geglu_plain(x, scale, bias, w, w_bias, eps)
         c = x.shape[-1]
         f2 = w.shape[0]
@@ -231,8 +170,8 @@ class LnGeglu(_Kernel):
             raise ValueError(f"ln_geglu: x (..., {c}) needs a (2F, {c}) weight, a (2F,) bias "
                              f"and ({c},) norm parameters; w is {tuple(w.shape)}")
         f = f2 // 2
-        _check_widths("ln_geglu", C=c, F=f)
-        _check("ln_geglu", x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
+        check_widths("ln_geglu", C=c, F=f)
+        check("ln_geglu", x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
                bias=(bias, torch.float32), w=(w, torch.bfloat16), w_bias=(w_bias, torch.float32))
         out = torch.empty((*x.shape[:-1], f), dtype=x.dtype, device=x.device)
         self._launch(

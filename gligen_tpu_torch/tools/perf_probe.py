@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of a 512^2 request goes on one NVIDIA GPU, and what each
-fused projection kernel costs against the module path's chain.
+fused kernel costs against the module path's chain.
 
     python3 gligen_tpu_torch/tools/perf_probe.py request [--root DIR] [--fused 1|0]
+        [--norm gn|0|ln|both] [--conv 0|1|auto]
     python3 gligen_tpu_torch/tools/perf_probe.py chains
+    python3 gligen_tpu_torch/tools/perf_probe.py norms
+    python3 gligen_tpu_torch/tools/perf_probe.py convs
 
 request: builds SD-1.4 GLIGEN at full width with ``chip_smoke.py``'s
 seeded, de-zeroed random weights and generates one warm-up request
@@ -15,7 +18,9 @@ and the device's idle share of the wall (1 - busy/wall, busy being the
 union of kernel and copy intervals), against the profiled wall and
 against the mean unprofiled one; then one more unprofiled request, which
 shows whether the profiler left a cost behind.  ``GLIGEN_TPU_FUSED_PROJ``
-is set to ``--fused``.  ``--root`` imports ``gligen_tpu_torch`` from
+is set to ``--fused``, ``GLIGEN_TPU_FUSED_NORM`` to ``--norm`` and
+``GLIGEN_TPU_FUSED_CONV`` to ``--conv``.  ``--root`` imports
+``gligen_tpu_torch`` from
 another checkout (e.g. an older commit unpacked with ``git archive``), so
 two trees compare on one card, each run in its own process.
 
@@ -25,6 +30,16 @@ kernel's wrapper against the module path's chain for the same function
 both given the fp32 parameters they get in the model (so both cast the
 weights to bf16 at each call): device ms and host ms per call, timed by
 ``chip_smoke.timed``.
+
+norms: at every GroupNorm and LayerNorm shape of ``chip_smoke.norm_cases``
+and ``ln_cases``, the kernel's wrapper against the module path's chain
+(``GLIGEN_TPU_FUSED_NORM=0``: the fp32 ``*_xla`` form, then the SiLU) and,
+without the SiLU, against the library's F.group_norm / F.layer_norm.
+
+convs: at every ResBlock conv of ``chip_smoke.conv_cases``, the fused
+GN -> SiLU -> conv3x3 against the ``GLIGEN_TPU_FUSED_CONV=0`` chain of
+modules (the GroupNorm kernel with its SiLU, cuDNN's bf16 conv, the
+residual add) and against cuDNN's bf16 conv alone.
 
 Every line names the card and its power limit.  JAX is not imported.
 """
@@ -64,6 +79,14 @@ def _setup(root: Path):
 def category(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "flash_fwd"
+    if "gn_partial_kernel" in name or "gn_combine_kernel" in name:
+        return "group_norm stats (K5)"
+    if "gn_normalize_kernel" in name:
+        return "group_norm normalise (K5)"
+    if "layer_norm_kernel" in name:
+        return "layer_norm (K5)"
+    if "conv3x3_kernel" in name:
+        return "gn_silu_conv3x3 (K6)"
     if "fused_proj_kernel" in name:
         mode = name.split("fused_proj_kernel<", 1)[1][0]
         return {"0": "ln_matmuls", "1": "matmul_residual", "2": "ln_geglu"}[mode]
@@ -108,7 +131,8 @@ def request(args) -> None:
 
     from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
 
-    os.environ["GLIGEN_TPU_FUSED_PROJ"] = args.fused
+    os.environ.update(GLIGEN_TPU_FUSED_PROJ=args.fused, GLIGEN_TPU_FUSED_NORM=args.norm,
+                      GLIGEN_TPU_FUSED_CONV=args.conv)
     device = torch.device("cuda", 0)
     comps = GligenComponents.create(dtype=torch.bfloat16, seed=0, device=device)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -126,7 +150,7 @@ def request(args) -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    tag = f"root {root.name} GLIGEN_TPU_FUSED_PROJ={args.fused}"
+    tag = f"root {root.name} PROJ={args.fused} NORM={args.norm} CONV={args.conv}"
     first = run()
     walls = [run() for _ in range(3)]
     mean = sum(walls) / len(walls)
@@ -198,15 +222,98 @@ def chains(args) -> None:
                   f"{md:.4f} ({mh:.4f}) ms  kernel/module device {kd / md:.2f}", flush=True)
 
 
+def _compare(cs, label, kernel, others) -> None:
+    """One line: the kernel's and each other call's device (host) ms."""
+    kd, kh = cs.timed(kernel)
+    cells = [f"kernel {kd:.4f} ({kh:.4f})"]
+    for name, fn in others.items():
+        d, h = cs.timed(fn)
+        cells.append(f"{name} {d:.4f} ({h:.4f}) kernel/{name} {kd / d:.2f}")
+    print(f"{label}: " + "  ".join(cells), flush=True)
+
+
+def _meta_models(torch):
+    """The SD-1.4 GLIGEN UNet and VAE with no storage: their shapes only."""
+    from gligen_tpu_torch.models.unet import UNetModel
+    from gligen_tpu_torch.models.vae import AutoencoderKL
+
+    with torch.device("meta"):
+        return UNetModel(), AutoencoderKL()
+
+
+def norms(args) -> None:
+    torch, cs, card = _setup(REPO)
+    import torch.nn.functional as F
+
+    from gligen_tpu_torch.ops import basic
+    from gligen_tpu_torch.ops import fused_norm as fn
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(4)
+    unet, vae = _meta_models(torch)
+    os.environ["GLIGEN_TPU_FUSED_NORM"] = "0"  # the dispatchers' plain forms: the module path
+    print(f"norms: device ms (host ms) per call on {card}", flush=True)
+    with torch.no_grad():
+        for name, shape, silu, eps in cs.norm_cases(unet, vae, 2):
+            c = shape[-1]
+            x = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+            s, b = torch.ones(c, device=device), torch.zeros(c, device=device)
+            act = "silu" if silu else None
+            others = {"module": lambda: basic.group_norm(x, s, b, 32, eps, act)}
+            if not silu:
+                xc, sc, bc = x.reshape(shape[0], -1, c).transpose(1, 2), s.bfloat16(), b.bfloat16()
+                others["F.group_norm"] = lambda: F.group_norm(xc, 32, sc, bc, eps)
+            _compare(cs, f"norms: group_norm {name:16s} {str(shape):22s}",
+                     lambda: fn.group_norm_fused(x, s, b, 32, eps, silu), others)
+        for name, rows, c in cs.ln_cases(2):
+            x = torch.randn((rows, c), generator=gen, device=device).to(torch.bfloat16)
+            s, b = torch.ones(c, device=device), torch.zeros(c, device=device)
+            sc, bc = s.bfloat16(), b.bfloat16()
+            _compare(cs, f"norms: layer_norm {name:14s} ({rows}, {c})",
+                     lambda: fn.layer_norm_fused(x, s, b),
+                     {"module": lambda: basic.layer_norm(x, s, b),
+                      "F.layer_norm": lambda: F.layer_norm(x, (c,), sc, bc)})
+
+
+def convs(args) -> None:
+    torch, cs, card = _setup(REPO)
+    from gligen_tpu_torch.models.layers import Conv2d
+    from gligen_tpu_torch.models.unet import GroupNorm32
+    from gligen_tpu_torch.ops import fused_conv as fc
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(5)
+    unet, _ = _meta_models(torch)
+    os.environ["GLIGEN_TPU_FUSED_NORM"] = "gn"  # the module chain of the default configuration
+    print(f"convs: device ms (host ms) per call on {card}", flush=True)
+    with torch.no_grad():
+        for name, b, h, cin, cout, residual in cs.conv_cases(unet, 2):
+            norm = GroupNorm32(cin, act="silu").to(device)
+            conv = Conv2d(cin, cout, 3, dtype=torch.bfloat16).to(device)
+            conv.weight.normal_(0.0, (9 * cin) ** -0.5, generator=gen)
+            x = torch.randn((b, h, h, cin), generator=gen, device=device).to(torch.bfloat16)
+            res = (torch.randn((b, h, h, cout), generator=gen, device=device).to(torch.bfloat16)
+                   if residual else None)
+            xn = norm(x)
+            _compare(cs, f"convs: {name:16s} ({b},{h},{h},{cin}) -> {cout}",
+                     lambda: fc.gn_silu_conv3x3(x, norm.weight, norm.bias, conv.weight,
+                                                conv.bias, residual=res),
+                     {"module": lambda: conv(norm(x)) if res is None else conv(norm(x)) + res,
+                      "cudnn conv": lambda: conv(xn)})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="mode", required=True)
     req = sub.add_parser("request")
     req.add_argument("--root", default=str(REPO))
     req.add_argument("--fused", choices=("0", "1"), default="1")
-    sub.add_parser("chains")
+    req.add_argument("--norm", choices=("gn", "0", "ln", "both"), default="gn")
+    req.add_argument("--conv", choices=("0", "1", "auto"), default="0")
+    for mode in ("chains", "norms", "convs"):
+        sub.add_parser(mode)
     args = ap.parse_args()
-    request(args) if args.mode == "request" else chains(args)
+    {"request": request, "chains": chains, "norms": norms, "convs": convs}[args.mode](args)
 
 
 if __name__ == "__main__":

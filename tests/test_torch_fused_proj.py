@@ -28,6 +28,7 @@ from gligen_tpu.ops import pallas_matmul as pm
 from gligen_tpu_torch.models import layers as tl
 from gligen_tpu_torch.models import unet as tu
 from gligen_tpu_torch.ops import fused_proj as fp
+from gligen_tpu_torch.ops import launch
 
 from test_torch_modules import (
     LATENT, UNET, close, grounding_inputs, jax_apply, jax_unet, port, rand, random_params, t,
@@ -149,8 +150,8 @@ def test_kernel_input_checks(change, error):
     if change.get("transposed"):
         x = torch.zeros((c, 8), dtype=torch.bfloat16).T
     with pytest.raises(error):
-        fp._check_widths("op", C=c)
-        fp._check("op", x.device, x=(x, torch.bfloat16))
+        launch.check_widths("op", C=c)
+        launch.check("op", x.device, x=(x, torch.bfloat16))
 
 
 # ------------------------------------------------------------ block parity

@@ -61,7 +61,7 @@ def test_generate_matches_jax_pipeline(guidance, steps, alpha):
     want = np.asarray(JaxPipeline(jax_comps).generate(ids, uc_ids, grounding, **kwargs))
 
     comps = GligenComponents.create(unet_config=UNET, dtype=torch.float32, vae_config=VAE,
-                                    text_config=CLIP)
+                                    text_config=CLIP, device="cpu")
     load_jax_params(comps, params)
     got = GenerationPipeline(comps).generate(ids, uc_ids, grounding, **kwargs)
 

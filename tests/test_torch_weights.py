@@ -39,7 +39,7 @@ def trees():
 @pytest.fixture(scope="module")
 def comps():
     return GligenComponents.create(unet_config=UNET, dtype=torch.float32, vae_config=VAE,
-                                   text_config=CLIP)
+                                   text_config=CLIP, device="cpu")
 
 
 def _modules(c):
