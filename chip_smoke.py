@@ -6,9 +6,9 @@
 Phases, each of which fails the run with a non-zero exit:
 
   1. card: require CUDA; print the card's name and power limit.
-  2. build: compile csrc/flash_fwd.cu, fused_proj.cu, fused_norm.cu and
-     fused_conv.cu with nvcc, in parallel, into build/kernels/; print
-     ptxas's registers and spills.
+  2. build: compile csrc/flash_fwd.cu, flash_bwd.cu, fused_proj.cu,
+     fused_norm.cu and fused_conv.cu with nvcc, in parallel, into
+     build/kernels/; print ptxas's registers and spills.
   3. kernel: compare each kernel with its plain PyTorch version on bf16
      inputs at every shape the 512^2 path launches, with the times of both
      and, where one PyTorch call computes the same function, that call's:
@@ -33,6 +33,26 @@ Phases, each of which fails the run with a non-zero exit:
   5. reference: the same pipeline at a small width on the card (bf16,
      kernels) against its fp32 CPU run (plain versions), same weights and
      noise, in each configuration.
+  6. backward kernels: the flash backward's dq and dk/dv kernels against
+     their plain version at every backward shape of the training step
+     (attn1, the fuser's N+30 keys and the cross-attention's dq at
+     ds1/ds2/ds4/mid, batch 4; dbias on one masked case), with device
+     times, the plain version's and F.scaled_dot_product_attention's
+     backward at the same shape.
+  7. train: the training step at full SD-1.4 GLIGEN width (512^2, batch
+     4, live VAE encode, per-block remat 'full', the default switches,
+     AdamW with a one-step warmup): a warm-up step and 3 timed ones.  The
+     loss is finite at every step; after the first backward every
+     trainable tensor has a finite, nonzero gradient and the first step
+     (learning rate 0) changed nothing; the second changes every trainable
+     tensor; the frozen parameters stay bit-identical with no gradient;
+     each kernel's launches per step equal the walk of
+     ``expected_train_launches``.
+  8. train reference: the loss and the trainable gradients of one step at
+     a small width on the card (bf16, kernels) against the CPU (fp32,
+     plain versions), same weights, batch and draws, with and without
+     remat; each fuser gate's gradient on its own, beside two witnesses
+     held to nothing (the card's module path in bf16, the CPU in bf16).
 
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
@@ -51,7 +71,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SOURCES = ("flash_fwd", "fused_proj", "fused_norm", "fused_conv")
+SOURCES = ("flash_fwd", "flash_bwd", "fused_proj", "fused_norm", "fused_conv")
 
 # kernel vs plain, bf16 output: one bf16 ulp is 2^-7 relative, outputs are
 # O(1), and the kernel rounds P to bf16 before the PV product
@@ -70,6 +90,30 @@ AFFINE_TOL = 1e-5
 # small-width pipeline, bf16 on the card vs fp32 on the CPU: mean absolute
 # pixel difference (images in [0, 1])
 REF_MEAN_TOL = 2e-2
+# flash backward kernels vs plain (fp32 from the same bf16 inputs, LSE and
+# delta): the kernels round P and dS to bf16 as product operands and write
+# bf16 gradients, a few bf16 ulps (2^-8 relative) of the largest entries
+# summed over up to 4126 keys: max abs error <= 2e-2 * max |plain|, per
+# tensor (dbias, fp32, the same)
+BWD_REL_TOL = 2e-2
+# small-width train step, bf16 on the card vs fp32 on the CPU, same draws:
+# the loss to 2% (bf16 activations through ~20 norm/projection/attention
+# stages, each ~2^-9 relative); each trainable gradient to 10% relative L2
+# (a backward doubles the chain).  Each fuser gate's scalar gradient is a
+# sum over a whole block output whose terms cancel, so a small one carries
+# the rounding of the large terms: bf16 misses every gate by about the same
+# absolute amount, whatever its size.  On an H100 every run of phase 8
+# (kernels, the module path and the CPU in bf16) missed each gate by at
+# most 0.8% of the largest gate gradient.  So each gate is held on its own
+# to 10% of itself plus 1% of the largest, and each limit must stay below
+# the gate's own size, so that a zero or sign-flipped gradient fails.
+TRAIN_LOSS_RTOL = 2e-2
+TRAIN_GRAD_RTOL = 1e-1
+GATE_RTOL, GATE_ATOL = 1e-1, 1e-2
+
+# The witness of phase 8: the module path in bf16, no K2/K5/K6 kernel.
+PLAIN_SWITCHES = {"GLIGEN_TPU_FUSED_PROJ": "0", "GLIGEN_TPU_FUSED_NORM": "0",
+                  "GLIGEN_TPU_FUSED_CONV": "0"}
 
 # One NVIDIA H100 SXM (the data sheet's dense rates, 700 W): the least time
 # of a kernel is the larger of its bytes over the memory rate and its
@@ -559,6 +603,97 @@ def check_convs(torch, cases, device):
     return results
 
 
+def bwd_cases(batch: int):
+    """(name, B, N, M, heads, head dim, dk/dv needed, key mask) of every
+    flash backward shape of the 512^2 training step (latent 64, SD-1.4
+    widths, no CFG pair): attn1 and the fuser need dq and dk/dv, the
+    cross-attention dq only (its k/v come from the frozen text encoder);
+    plus one masked case for dbias."""
+    cases = []
+    for level, (n, d) in {"ds1": (4096, 40), "ds2": (1024, 80), "ds4": (256, 160),
+                          "mid": (64, 160)}.items():
+        cases += [
+            (f"attn1_{level}", batch, n, n, 8, d, True, False),
+            (f"fuser_{level}", batch, n, n + 30, 8, d, True, False),
+            (f"cross_{level}", batch, n, 77, 8, d, False, False),
+        ]
+    cases.append(("fuser_ds2_mask", batch, 1024, 1054, 8, 80, True, True))
+    return cases
+
+
+def sdpa_bwd(torch, q, k, v, h, do, need_kv):
+    """A function that runs F.scaled_dot_product_attention's backward
+    (dq, or dq/dk/dv) at this shape: the library's yardstick, never used by
+    the port."""
+    leaves = [t.detach().requires_grad_(i == 0 or need_kv) for i, t in enumerate((q, k, v))]
+    out = sdpa(torch, *leaves, h, None).transpose(1, 2).flatten(2)
+    wrt = leaves if need_kv else leaves[:1]
+    return lambda: torch.autograd.grad(out, wrt, do, retain_graph=True)
+
+
+def check_bwd(torch, cases, device):
+    """The dq and dk/dv kernels against ``flash_attention_bwd_plain`` on
+    the same card tensors (bf16 q/k/v and a nonzero random dO; the LSE and
+    delta from the forward kernel), with device times of each kernel, of
+    the plain version (all gradients at once) and of SDPA's backward."""
+    from gligen_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    results = []
+    for name, b, n, m, h, d, need_kv, masked in cases:
+        q, k, v = (torch.randn((b, L, h * d), generator=gen, device=device).to(torch.bfloat16)
+                   for L in (n, m, m))
+        do = torch.randn((b, n, h * d), generator=gen, device=device).to(torch.bfloat16)
+        bias = None
+        if masked:
+            bias = torch.randn((b, m), generator=gen, device=device) * 0.5
+            bias[:, n:] = fa.NEG_INF  # the grounding rows masked
+        out, lse = fa.flash_fwd(q, k, v, h, bias=bias)
+        delta = fa.attention_delta(out, do, h)
+        args = (q, k, v, h, do, lse, delta, bias)
+        got = {"dq": fa.flash_bwd_dq(*args)}
+        if need_kv:
+            got["dk"], got["dv"], db = fa.flash_bwd_dkv(*args, dbias=masked)
+            if masked:
+                got["dbias"] = db
+        torch.cuda.synchronize()
+        dq, dk, dv, dbias = fa.flash_attention_bwd_plain(*args)
+        want = dict(dq=dq, dk=dk, dv=dv, dbias=dbias)
+        errs = {}
+        for key, g in got.items():
+            scale = want[key].float().abs().max().item()
+            errs[key] = ((g.float() - want[key].float()).abs().max().item(), scale)
+        ok = all(bool(torch.isfinite(g).all()) and g.shape == want[key].shape
+                 and errs[key][0] <= BWD_REL_TOL * errs[key][1] for key, g in got.items())
+        plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(*args), iters=3)
+        library_ms = time_ms(sdpa_bwd(torch, q, k, v, h, do, need_kv))
+        flops = 2 * b * h * n * m * d
+        extra = (0 if bias is None else 4 * b * m) + 8 * b * h * n  # bias; lse and delta
+        timings = {"flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args),
+                                    2 * (3 * b * n + 2 * b * m) * h * d + extra, 3 * flops)}
+        if need_kv:
+            timings["flash_bwd_dkv"] = (
+                lambda: fa.flash_bwd_dkv(*args, dbias=masked),
+                2 * (2 * b * n + 4 * b * m) * h * d + extra + (4 * b * m if masked else 0),
+                4 * flops)
+        desc = " ".join(f"{key} {e:.3e}/{sc:.3e}" for key, (e, sc) in errs.items())
+        for kind, (fn, nbytes, ops) in timings.items():
+            ms = time_ms(fn)
+            bound_ms, bound_by = bound(nbytes, ops)
+            print(f"kernel {kind:13s} {name:14s} q ({b},{n},{h}x{d}) kv {m}: max_abs_err/max|plain| "
+                  f"{desc} (tol {BWD_REL_TOL} rel) kernel {ms:.4f} ms plain (all grads) "
+                  f"{plain_ms:.4f} ms sdpa bwd {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+                  f"({bound_by}, {ops / ms / 1e9:.1f} TFLOP/s) {'ok' if ok else 'FAIL'}", flush=True)
+            err = max(e for key, (e, _) in errs.items()
+                      if (key == "dq") == (kind == "flash_bwd_dq"))
+            results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
+                                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                ok=ok))
+        del q, k, v, do, out, lse, delta, args, got, want, dq, dk, dv
+    torch.cuda.empty_cache()
+    return results
+
+
 def expected_launches(comps, steps, alpha_stages, latent, config):
     """Launches of each kernel in one generate call of ``config``, from the
     module structure and the sampler tables.  Per transformer block of N
@@ -570,7 +705,8 @@ def expected_launches(comps, steps, alpha_stages, latent, config):
     fuser-free call runs 2 / 2, 3, 1 / 3.  Every GroupNorm (FUSED_NORM gn
     or both) is one launch, but those of a ResBlock that takes the fused
     conv, which runs gn_affine and the conv twice instead.  The VAE decoder
-    adds its AttnBlocks' flash launches and its GroupNorms."""
+    (not the encoder, which generation does not run) adds its AttnBlocks'
+    flash launches and its GroupNorms."""
     from gligen_tpu_torch.diffusion.samplers import SamplerTables, _gate_zero_from
     from gligen_tpu_torch.models.layers import Normalize
     from gligen_tpu_torch.models.unet import fuses_conv
@@ -587,8 +723,9 @@ def expected_launches(comps, steps, alpha_stages, latent, config):
     norm = {"1": "both"}.get(env["GLIGEN_TPU_FUSED_NORM"], env["GLIGEN_TPU_FUSED_NORM"])
     gn_on, ln_on = norm in ("gn", "both"), norm in ("ln", "both")
     res, sts = unet_maps(comps.unet, latent)
-    counts = dict.fromkeys(["flash_fwd", "ln_matmuls", "matmul_residual", "ln_geglu",
-                            "group_norm", "gn_affine", "layer_norm", "gn_silu_conv3x3"], 0)
+    counts = dict.fromkeys(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_matmuls",
+                            "matmul_residual", "ln_geglu", "group_norm", "gn_affine",
+                            "layer_norm", "gn_silu_conv3x3"], 0)
     for h, _, depth in sts:
         fused = env["GLIGEN_TPU_FUSED_PROJ"] == "1" and h * h >= 64
         counts["flash_fwd"] += depth * (3 * gated + 2 * free)
@@ -603,10 +740,239 @@ def expected_launches(comps, steps, alpha_stages, latent, config):
     counts["gn_silu_conv3x3"] = counts["gn_affine"] = 2 * fused_res * calls
     if gn_on:
         unet_norms = sum(isinstance(m, Normalize) for m in comps.unet.modules())
-        vae_norms_ = sum(isinstance(m, Normalize) for m in comps.vae.modules())
+        vae_norms_ = sum(isinstance(m, Normalize) for m in comps.vae.decoder.modules())
         counts["group_norm"] = (unet_norms - 2 * fused_res) * calls + vae_norms_
-    counts["flash_fwd"] += sum(isinstance(m, AttnBlock) for m in comps.vae.modules())
+    counts["flash_fwd"] += sum(isinstance(m, AttnBlock) for m in comps.vae.decoder.modules())
     return counts, gated, free
+
+
+def expected_train_launches(comps, image_size, config, use_checkpoint):
+    """Launches of each kernel in one train step of ``config`` (live VAE
+    encode of ``image_size``^2 images), walked from the module structure.
+    Per transformer block: 3 flash forwards (attn1, the fuser, attn2), and
+    the fused projections (4 ln_matmuls, 5 matmul_residual, 2 ln_geglu) or,
+    on the module path, 5 LayerNorms; a block takes the fused path under
+    FUSED_PROJ=1 from 64 tokens, or from 1024 under ``use_checkpoint``, which
+    also recomputes each block in the backward (every block launch twice,
+    remat 'full').  The backward launches dq for attn1, the fuser and attn2
+    (whose q derive from the trainable fusers), and dk/dv for attn1 and the
+    fuser, but neither for the first block's attn1, whose input derives
+    from frozen layers alone.  GroupNorms run once each (none is inside a
+    block), as in ``expected_launches``, plus the VAE encoder's; its
+    AttnBlocks add flash forwards.  The norm and projection backwards are
+    plain PyTorch and launch no kernel."""
+    from gligen_tpu_torch.models.layers import Normalize
+    from gligen_tpu_torch.models.unet import fuses_conv
+    from gligen_tpu_torch.models.vae import AttnBlock
+
+    env = CONFIGS[config]
+    norm = {"1": "both"}.get(env["GLIGEN_TPU_FUSED_NORM"], env["GLIGEN_TPU_FUSED_NORM"])
+    gn_on, ln_on = norm in ("gn", "both"), norm in ("ln", "both")
+    res, sts = unet_maps(comps.unet, image_size // comps.vae.downsample_factor)
+    runs = 2 if use_checkpoint else 1
+    floor = 1024 if use_checkpoint else 64
+    counts = dict.fromkeys(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_matmuls",
+                            "matmul_residual", "ln_geglu", "group_norm", "gn_affine",
+                            "layer_norm", "gn_silu_conv3x3"], 0)
+    first = 1
+    for h, _, depth in sts:
+        fused = env["GLIGEN_TPU_FUSED_PROJ"] == "1" and h * h >= floor
+        for _ in range(depth):
+            counts["flash_fwd"] += 3 * runs
+            counts["flash_bwd_dq"] += 3 - first
+            counts["flash_bwd_dkv"] += 2 - first
+            first = 0
+            if fused:
+                for name, n in {"ln_matmuls": 4, "matmul_residual": 5, "ln_geglu": 2}.items():
+                    counts[name] += n * runs
+            elif ln_on:
+                counts["layer_norm"] += 5 * runs
+    fused_res = sum(fuses_conv(env["GLIGEN_TPU_FUSED_CONV"], h, h, cout) for h, _, cout in res)
+    counts["gn_silu_conv3x3"] = counts["gn_affine"] = 2 * fused_res
+    encoder = comps.vae.encoder
+    if gn_on:
+        unet_norms = sum(isinstance(m, Normalize) for m in comps.unet.modules())
+        counts["group_norm"] = unet_norms - 2 * fused_res + sum(
+            isinstance(m, Normalize) for m in encoder.modules())
+    counts["flash_fwd"] += sum(isinstance(m, AttnBlock) for m in encoder.modules())
+    return counts
+
+
+def train_batch(torch, np, rng, batch, size, vocab, ctx_dim, device):
+    """A training batch on ``device``: images in [-1, 1], token ids and
+    box grounding with 1 to 7 live boxes of 30 (``make_request``)."""
+    ids, _, grounding = make_request(rng, batch, vocab, ctx_dim)
+    image = rng.uniform(-1.0, 1.0, (batch, size, size, 3)).astype(np.float32)
+    return {"image": torch.from_numpy(image).to(device),
+            "input_ids": torch.from_numpy(ids).to(device),
+            "grounding": {k: torch.from_numpy(v).to(device) for k, v in grounding.items()}}
+
+
+def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3):
+    """The train step at full SD-1.4 GLIGEN width in configuration (a)
+    with remat 'full'.  Returns (failures, per-step launch counts, line)."""
+    from gligen_tpu_torch.inference.pipeline import GligenComponents
+    from gligen_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    set_config("a")
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
+    failures = []
+    comps = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device,
+                                    unet_config={"use_checkpoint": True})
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    dezero_(comps.unet, gen)
+    state = create_train_state(comps.unet, base_lr=1e-4, warmup_steps=1)
+    step = make_train_step(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
+    n_train = sum(p.numel() for p in state.params.values())
+    frozen = {f"{tag}.{n}": p.detach().clone()
+              for tag, module in (("unet", comps.unet), ("vae", comps.vae),
+                                  ("text", comps.text_encoder))
+              for n, p in module.named_parameters() if tag != "unet" or n not in state.params}
+    print(f"train: SD-1.4 GLIGEN, {n_train / 1e6:.1f} M trainable of "
+          f"{sum(p.numel() for p in comps.unet.parameters()) / 1e6:.1f} M UNet parameters, "
+          f"{len(state.params)} tensors; {config_desc('a')} remat full; batch {batch} at "
+          f"{size}^2, live VAE encode", flush=True)
+    expected = expected_train_launches(comps, size, "a", use_checkpoint=True)
+    wrappers = kernel_wrappers()
+    data = train_batch(torch, np, np.random.default_rng(seed + 6), batch, size, 49408, 768, device)
+    losses, counts, times = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    for i in range(1 + timed_steps):
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, data, generator=gen)["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append({name: w.launches for name, w in wrappers.items()})
+        if i == 0:  # the gradients of the first backward; lr 0 at step 0
+            grads_ok = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                           and bool(p.grad.abs().max() > 0) for p in state.params.values())
+            unchanged = all(torch.equal(p, before[n]) for n, p in state.params.items())
+            print(f"train: after step 0: every trainable gradient finite and nonzero {grads_ok}; "
+                  f"no parameter changed (lr 0) {unchanged}", flush=True)
+            if not (grads_ok and unchanged):
+                failures.append("train gradients after step 0")
+            alphas = [p.grad.abs().item() for n, p in state.params.items() if "alpha" in n]
+            print(f"train: |d loss / d alpha| over the {len(alphas)} fuser gates: min "
+                  f"{min(alphas):.3e} max {max(alphas):.3e}", flush=True)
+        if i == 1:
+            changed = all(not torch.equal(p, before[n]) for n, p in state.params.items())
+            print(f"train: after step 1: every trainable tensor changed {changed}", flush=True)
+            if not changed:
+                failures.append("train update at step 1")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [x.item() for x in losses]
+    if not all(np.isfinite(losses)):
+        failures.append("train loss not finite")
+    frozen_ok = all(torch.equal(p, frozen[f"{tag}.{n}"])
+                    and p.grad is None
+                    for tag, module in (("unet", comps.unet), ("vae", comps.vae),
+                                        ("text", comps.text_encoder))
+                    for n, p in module.named_parameters() if f"{tag}.{n}" in frozen)
+    print(f"train: losses {', '.join(f'{x:.5f}' for x in losses)}; frozen parameters "
+          f"bit-identical with no gradient {frozen_ok}", flush=True)
+    if not frozen_ok:
+        failures.append("train frozen parameters")
+    for i, c in enumerate(counts):
+        got = {name: c[name] for name in expected}
+        if got != expected:
+            failures.append(f"train launch count step {i}")
+            print(f"train: step {i} launches {got}, expected {expected} FAIL", flush=True)
+    print(f"train: launches per step {counts[-1]}, expected {expected}", flush=True)
+    s_step = sum(times[1:]) / timed_steps
+    line = (f"train: {s_step:.4f} s/step = {batch / s_step:.3f} img/s (mean of {timed_steps} "
+            f"warm steps: {', '.join(f'{t:.4f}' for t in times[1:])}; warm-up {times[0]:.3f} s), "
+            f"batch {batch} at {size}^2, peak memory {peak:.2f} GiB")
+    print(line, flush=True)
+    del comps, state, step, frozen, before, data
+    torch.cuda.empty_cache()
+    return failures, counts[-1], line
+
+
+def train_grads(torch, comps, device, data, draws):
+    """One train step's loss and its trainable gradients (fp32, on the CPU)."""
+    from gligen_tpu_torch.training.train_step import create_train_state, make_loss_fn
+
+    state = create_train_state(comps.unet)
+    loss_fn = make_loss_fn(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
+    batch = {k: (v.to(device) if k != "grounding" else {g: t.to(device) for g, t in v.items()})
+             for k, v in data.items()}
+    loss = loss_fn(batch, draws=draws)
+    loss.backward()
+    grads = {n: p.grad.float().cpu() for n, p in state.params.items()}
+    for p in state.params.values():
+        p.grad = None
+    return loss.item(), grads
+
+
+def train_reference(torch, np, seed, device, use_checkpoint, size=64, batch=2):
+    """One train step's loss and trainable gradients at ``SMALL`` width:
+    the card (bf16, kernels) against the CPU (fp32, plain versions), same
+    weights, batch and draws, in configuration (a).  64^2 images give a
+    32^2 latent, so the ds1 blocks (1024 tokens) take the fused kernels
+    under remat too.  Each fuser gate is held on its own; two witnesses,
+    held to nothing, show what bf16 alone does to the gates: the card on
+    the module path (``PLAIN_SWITCHES``) and the CPU in bf16.  Returns
+    (ok, lines)."""
+    from gligen_tpu_torch.inference.pipeline import GligenComponents
+
+    set_config("a")
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
+    config = dict(SMALL, unet_config=dict(SMALL["unet_config"], use_checkpoint=use_checkpoint))
+    cpu = GligenComponents.create(dtype=torch.float32, seed=seed, device="cpu", **config)
+    dezero_(cpu.unet, torch.Generator().manual_seed(seed + 2))
+    gpu = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device, **config)
+    cpu16 = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device="cpu", **config)
+    for other in (gpu, cpu16):
+        for a, b in ((cpu.unet, other.unet), (cpu.vae, other.vae),
+                     (cpu.text_encoder, other.text_encoder)):
+            b.load_state_dict(a.state_dict())
+    rng = np.random.default_rng(seed + 7)
+    data = train_batch(torch, np, rng, batch, size, 1000, 64, "cpu")
+    f = cpu.vae.downsample_factor
+    draws = {"posterior": rng.standard_normal((batch, size // f, size // f, 4)),
+             "u_t": rng.random(batch), "noise": rng.standard_normal((batch, size // f, size // f, 4)),
+             "u_drop": 0.5}
+    torch.set_num_threads(4)
+    loss_c, grads_c = train_grads(torch, cpu, "cpu", data, draws)
+    runs = {"card": train_grads(torch, gpu, device, data, draws)}
+    os.environ.update(PLAIN_SWITCHES)
+    runs["card module path"] = train_grads(torch, gpu, device, data, draws)
+    set_config("a")
+    runs["CPU bf16"] = train_grads(torch, cpu16, "cpu", data, draws)
+
+    gates = sorted(n for n in grads_c if "alpha" in n)
+    g_max = max(grads_c[n].abs().item() for n in gates)
+    limit = {n: GATE_RTOL * grads_c[n].abs().item() + GATE_ATOL * g_max for n in gates}
+    err = {run: {n: (g[n] - grads_c[n]).abs().item() for n in gates}
+           for run, (_, g) in runs.items()}
+    rel = {n: ((runs["card"][1][n] - g).norm() / g.norm()).item()
+           for n, g in grads_c.items() if n not in gates}
+    worst = max(rel, key=rel.get)
+    loss_err = abs(runs["card"][0] - loss_c) / abs(loss_c)
+    gates_ok = all(err["card"][n] <= limit[n] for n in gates)
+    # a limit at or above its gate's size would let a zero gradient pass
+    tight = all(limit[n] < grads_c[n].abs().item() for n in gates)
+    ok = (loss_err <= TRAIN_LOSS_RTOL and rel[worst] <= TRAIN_GRAD_RTOL and gates_ok
+          and tight)
+    head = f"train reference: use_checkpoint={use_checkpoint}:"
+    lines = [f"{head} loss card {runs['card'][0]:.6f} CPU {loss_c:.6f} (rel err {loss_err:.2e}, "
+             f"tol {TRAIN_LOSS_RTOL}); gradient rel L2 over {len(rel)} tensors: max "
+             f"{rel[worst]:.3e} ({worst}, tol {TRAIN_GRAD_RTOL}); each of the {len(gates)} "
+             f"fuser gates within {GATE_RTOL} of itself + {GATE_ATOL} x {g_max:.4e} "
+             f"{gates_ok}, every limit below its gate's size {tight}; worst error / limit: "
+             + ", ".join(f"{run} {max(e[n] / limit[n] for n in gates):.3f}"
+                         for run, e in err.items())
+             + f" {'ok' if ok else 'FAIL'}"]
+    for n in gates:
+        lines.append(f"{head} gate {n.replace('.transformer_blocks_0.fuser.', ' ')}: CPU fp32 "
+                     f"{grads_c[n].item():+.4e}; abs err "
+                     + ", ".join(f"{run} {e[n]:.3e}" for run, e in err.items())
+                     + f" (limit {limit[n]:.3e})")
+    return ok, lines
 
 
 def make_request(rng, batch, vocab, ctx_dim):
@@ -657,14 +1023,21 @@ KERNEL_META = {
                    "gligen_tpu/ops/pallas_norm.py:169 (_layer_norm_pallas_flat)", "ln_ds1", "b"),
     "gn_silu_conv3x3": ("gligen_tpu_torch/csrc/fused_conv.cu",
                         "gligen_tpu/ops/pallas_conv.py:141 (_fused)", "out_64_320", "c"),
+    "flash_bwd_dq": ("gligen_tpu_torch/csrc/flash_bwd.cu",
+                     "gligen_tpu/ops/pallas_attention.py:627 (_flash_bwd dq) and "
+                     "gligen_tpu/ops/pallas_attention.py:1004 (_flash_packed_bwd dq)",
+                     "attn1_ds1", "train"),
+    "flash_bwd_dkv": ("gligen_tpu_torch/csrc/flash_bwd.cu",
+                      "gligen_tpu/ops/pallas_attention.py:684 (_flash_bwd dk/dv/dbias) and "
+                      "gligen_tpu/ops/pallas_attention.py:1063 (_flash_packed_bwd dk/dv/dbias)",
+                      "attn1_ds1", "train"),
 }
 
 
 def kernel_wrappers():
-    from gligen_tpu_torch.ops import fused_conv, fused_norm, fused_proj
-    from gligen_tpu_torch.ops.flash_attention import flash_fwd
+    from gligen_tpu_torch.ops import flash_attention, fused_conv, fused_norm, fused_proj
 
-    return {"flash_fwd": flash_fwd, **fused_proj.KERNELS, **fused_norm.KERNELS,
+    return {**flash_attention.KERNELS, **fused_proj.KERNELS, **fused_norm.KERNELS,
             **fused_conv.KERNELS}
 
 
@@ -804,8 +1177,25 @@ def main() -> int:
         if not ok:
             failures.append(f"reference ({config})")
 
+    # ---- 6. the flash backward kernels vs plain ----
+    results += check_bwd(torch, bwd_cases(4), device)
+    failures += [f"kernel {r['kind']} {r['name']}" for r in results
+                 if r["kind"].startswith("flash_bwd") and not r["ok"]]
+
+    # ---- 7. the train step at full width ----
+    train_failures, launches["train"], train_line = run_train(torch, np, args.seed, device)
+    failures += train_failures
+
+    # ---- 8. small-width train step: card (bf16, kernels) vs CPU (fp32, plain) ----
+    for use_checkpoint in (True, False):
+        ok, lines = train_reference(torch, np, args.seed, device, use_checkpoint)
+        print("\n".join(lines), flush=True)
+        if not ok:
+            failures.append(f"train reference (use_checkpoint={use_checkpoint})")
+
     print("summary: s/img " + ", ".join(f"({c}) {s:.3f}" for c, s in s_per_img.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")
+    print(f"summary: {train_line[len('train: '):]} on {card}")
     by_name = {(r["kind"], r["name"]): r for r in results}
     kernels = []
     for name, (source, replaces, timed_at, config) in KERNEL_META.items():

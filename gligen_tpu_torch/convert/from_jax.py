@@ -26,7 +26,7 @@ from torch import nn
 # top-level JAX subtrees with no counterpart in the port, per component
 SKIPPED: Dict[str, Tuple[str, ...]] = {
     "model": (),
-    "autoencoder": ("encoder", "quant_conv"),  # the decode path only
+    "autoencoder": (),
     "text_encoder": (),
 }
 

@@ -10,6 +10,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int) -> np.ndarray:
@@ -49,6 +50,8 @@ class DiffusionSchedule:
 
     betas: np.ndarray
     alphas_cumprod: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
 
     @property
     def num_timesteps(self) -> int:
@@ -61,4 +64,15 @@ class DiffusionSchedule:
         """The linear beta schedule (in sqrt space), which every config uses."""
         betas = np.linspace(linear_start**0.5, linear_end**0.5, timesteps, dtype=np.float64) ** 2
         acp = np.cumprod(1.0 - betas, axis=0)
-        return cls(betas=betas.astype(np.float32), alphas_cumprod=acp.astype(np.float32))
+        f32 = lambda a: a.astype(np.float32)
+        return cls(betas=f32(betas), alphas_cumprod=f32(acp), sqrt_alphas_cumprod=f32(np.sqrt(acp)),
+                   sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - acp)))
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Forward noising q(x_t | x_0) in fp32 (schedule.py:164-169).
+        t: (B,) integer timesteps on x_start's device.  The two 4 KB tables
+        go to the device without a host synchronisation."""
+        shape = (-1,) + (1,) * (x_start.dim() - 1)
+        a, b = (torch.from_numpy(table).to(x_start.device, non_blocking=True)[t].reshape(shape)
+                for table in (self.sqrt_alphas_cumprod, self.sqrt_one_minus_alphas_cumprod))
+        return a * x_start.float() + b * noise.float()

@@ -11,6 +11,10 @@ Two paths compute the same blocks, picked as in the JAX package by
     the floor): LayerNorm and Dense modules, one op at a time.
 
 Both read the same parameters, so the state dict does not depend on it.
+Every kernel output is differentiable, so both paths train.  Under
+``use_checkpoint`` (training) a ``SpatialTransformer`` recomputes each
+block in the backward (``GLIGEN_TPU_REMAT_POLICY``) and its blocks take
+the fused path only from 1024 tokens (``small_n=False``).
 ``Normalize`` and ``LayerNorm`` go through ``ops/basic.py``'s dispatchers:
 under ``GLIGEN_TPU_FUSED_NORM`` ('gn' by default) a CUDA tensor takes the
 GroupNorm or LayerNorm kernel of ``ops/fused_norm.py``.
@@ -32,6 +36,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from gligen_tpu_torch.ops.attention import multi_head_attention
@@ -161,11 +166,15 @@ class FeedForward(nn.Module):
         return self.net_2(self.net_0(x))
 
 
-def _fused_proj_ok(n: int) -> bool:
-    """The fused projection kernels run for blocks of at least 64 tokens,
-    unless ``GLIGEN_TPU_FUSED_PROJ`` is not "1" (gligen_tpu layers.py:180,
-    at inference).  On the CPU the kernels' plain versions run."""
-    return os.environ.get("GLIGEN_TPU_FUSED_PROJ", "1") == "1" and n >= 64
+def _fused_proj_ok(n: int, small_n: bool = True) -> bool:
+    """Whether a block of ``n`` tokens takes the fused projection kernels
+    (gligen_tpu layers.py:180-191): never unless ``GLIGEN_TPU_FUSED_PROJ``
+    is "1"; from 64 tokens when ``small_n`` (inference), else from 1024
+    (training, where the JAX package measured the small towers' fused
+    backward slower).  On the CPU the kernels' plain versions run."""
+    if os.environ.get("GLIGEN_TPU_FUSED_PROJ", "1") != "1":
+        return False
+    return n >= (64 if small_n else 1024)
 
 
 def _fused_self_attn(x, kv, norm: LayerNorm, attn: SelfAttention, gate=None):
@@ -203,11 +212,13 @@ class GatedSelfAttentionDense(nn.Module):
     """The GLIGEN fuser: x += gate*tanh(alpha_attn) * SelfAttn over
     [x, W objs] for the visual rows, then the gated GEGLU feed-forward.
     Queries are computed for the visual rows only (the same result as
-    attending all N+30 rows and slicing, with less work)."""
+    attending all N+30 rows and slicing, with less work).  ``small_fused``
+    is ``_fused_proj_ok``'s ``small_n``."""
 
     def __init__(self, query_dim: int, objs_dim: int, heads: int, dim_head: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, small_fused: bool = True):
         super().__init__()
+        self.small_fused = small_fused
         self.alpha_attn = nn.Parameter(torch.zeros(()))
         self.alpha_dense = nn.Parameter(torch.zeros(()))
         self.linear = Dense(objs_dim, query_dim, dtype=dtype)
@@ -217,7 +228,7 @@ class GatedSelfAttentionDense(nn.Module):
         self.ff = FeedForward(query_dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, objs: torch.Tensor, gate_scale: float = 1.0) -> torch.Tensor:
-        if _fused_proj_ok(x.shape[1]):
+        if _fused_proj_ok(x.shape[1], self.small_fused):
             # fp32 device gates, read by the kernel: no host synchronisation
             cat = torch.cat([x, self.linear(objs)], dim=1)
             x = _fused_self_attn(x, cat, self.norm1, self.attn,
@@ -236,17 +247,20 @@ class BasicTransformerBlock(nn.Module):
 
     ``skip_fuser`` omits the fuser; that is exact when the sampler's
     alpha gate is 0 for the step, since both fuser terms are then
-    multiplied by zero."""
+    multiplied by zero.  ``small_fused`` is ``_fused_proj_ok``'s
+    ``small_n``."""
 
     def __init__(self, dim: int, context_dim: int, objs_dim: int, heads: int, dim_head: int,
-                 fuser_type: str = "gatedSA", dtype=torch.float32):
+                 fuser_type: str = "gatedSA", dtype=torch.float32, small_fused: bool = True):
         super().__init__()
         if fuser_type != "gatedSA":
             raise ValueError(f"fuser {fuser_type!r} is not ported; have 'gatedSA'")
         self.fuser_type = fuser_type
+        self.small_fused = small_fused
         self.norm1 = LayerNorm(dim)
         self.attn1 = SelfAttention(dim, heads, dim_head, dtype=dtype)
-        self.fuser = GatedSelfAttentionDense(dim, objs_dim, heads, dim_head, dtype=dtype)
+        self.fuser = GatedSelfAttentionDense(dim, objs_dim, heads, dim_head, dtype=dtype,
+                                             small_fused=small_fused)
         self.norm2 = LayerNorm(dim)
         self.attn2 = CrossAttention(dim, context_dim, heads, dim_head, dtype=dtype)
         self.norm3 = LayerNorm(dim)
@@ -254,7 +268,7 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, objs: Optional[torch.Tensor],
                 gate_scale: float = 1.0, skip_fuser: bool = False) -> torch.Tensor:
-        fused = _fused_proj_ok(x.shape[1])
+        fused = _fused_proj_ok(x.shape[1], self.small_fused)
         if fused:
             x = _fused_self_attn(x, None, self.norm1, self.attn1)
         else:
@@ -270,22 +284,41 @@ class BasicTransformerBlock(nn.Module):
         return self.ff(self.norm3(x)) + x
 
 
+def _remat_policy() -> str:
+    """GLIGEN_TPU_REMAT_POLICY, read at call time (gligen_tpu layers.py:
+    669-684): 'none' stores every activation of a block, 'dots' is not
+    ported, anything else ('full', the default) recomputes the block in
+    the backward."""
+    policy = os.environ.get("GLIGEN_TPU_REMAT_POLICY", "full")
+    if policy == "dots":
+        raise NotImplementedError(
+            "GLIGEN_TPU_REMAT_POLICY=dots is not ported (ROADMAP M11c): torch's selective "
+            "checkpointing cannot see the ctypes kernels until they are registered as custom ops")
+    return "none" if policy == "none" else "full"
+
+
 class SpatialTransformer(nn.Module):
-    """GroupNorm -> proj_in -> transformer blocks -> proj_out, + input (NHWC)."""
+    """GroupNorm -> proj_in -> transformer blocks -> proj_out, + input (NHWC).
+
+    ``use_checkpoint`` (training): each block is recomputed in the
+    backward under the 'full' remat policy (``torch.utils.checkpoint``,
+    non-reentrant), and its projections take the fused kernels only from
+    1024 tokens."""
 
     def __init__(self, channels: int, context_dim: int, objs_dim: int, heads: int,
                  dim_head: int, depth: int = 1, fuser_type: str = "gatedSA",
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_checkpoint: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.depth = depth
+        self.use_checkpoint = use_checkpoint
         self.norm = Normalize(channels)
         self.proj_in = Dense(channels, inner, dtype=dtype)
         for d in range(depth):
             self.add_module(
                 f"transformer_blocks_{d}",
                 BasicTransformerBlock(inner, context_dim, objs_dim, heads, dim_head,
-                                      fuser_type, dtype=dtype),
+                                      fuser_type, dtype=dtype, small_fused=not use_checkpoint),
             )
         self.proj_out = Dense(inner, channels, dtype=dtype, zero_init=True)
 
@@ -293,6 +326,13 @@ class SpatialTransformer(nn.Module):
                 gate_scale: float = 1.0, skip_fuser: bool = False) -> torch.Tensor:
         b, h, w, _ = x.shape
         y = self.proj_in(self.norm(x)).reshape(b, h * w, -1)
+        remat = self.use_checkpoint and _remat_policy() == "full"
         for d in range(self.depth):
-            y = getattr(self, f"transformer_blocks_{d}")(y, context, objs, gate_scale, skip_fuser)
+            block = getattr(self, f"transformer_blocks_{d}")
+            if remat:
+                y = torch.utils.checkpoint.checkpoint(
+                    block, y, context, objs, gate_scale, skip_fuser,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                y = block(y, context, objs, gate_scale, skip_fuser)
         return self.proj_out(y.reshape(b, h, w, -1)) + x

@@ -126,6 +126,10 @@ class UNetModel(nn.Module):
       objs: precomputed ``grounding_tokens(grounding)``, so the position
         net runs once per request, not once per step
       skip_fusers: run no fuser (exact where the gate is 0)
+
+    ``use_checkpoint`` (training, gligen_tpu unet.py:251) recomputes each
+    transformer block in the backward; it is off by default here, where
+    generation is the first use, and the trainer turns it on.
     """
 
     def __init__(
@@ -141,6 +145,7 @@ class UNetModel(nn.Module):
         context_dim: int = 768,
         fuser_type: str = "gatedSA",
         grounding_tokenizer: Optional[Dict[str, Any]] = None,
+        use_checkpoint: bool = False,
         dtype=torch.float32,
     ):
         super().__init__()
@@ -165,6 +170,7 @@ class UNetModel(nn.Module):
             self.add_module(name, SpatialTransformer(
                 ch, context_dim, objs_dim, num_heads, ch // num_heads,
                 depth=transformer_depth, fuser_type=fuser_type, dtype=dtype,
+                use_checkpoint=use_checkpoint,
             ))
             return name
 

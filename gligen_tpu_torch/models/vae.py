@@ -1,15 +1,19 @@
-"""AutoencoderKL decode path (counterpart of ``gligen_tpu/models/vae.py``).
+"""AutoencoderKL, the frozen SD first stage (counterpart of
+``gligen_tpu/models/vae.py``), NHWC.
 
-The frozen SD first stage's Decoder (ResnetBlock, single-head AttnBlock,
-Upsample), ``post_quant_conv`` and ``decode`` with ``scale_factor``, NHWC.
-The encoder comes with inpainting.
+The Encoder and Decoder (ResnetBlock, single-head AttnBlock, the
+encoder's asymmetric-pad Downsample, Upsample), ``quant_conv`` /
+``post_quant_conv``, the diagonal-Gaussian posterior (``encode_moments``
+with the logvar clamp, ``encode`` with the posterior noise passed in,
+``encode_mode``) and ``decode``, with ``scale_factor``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gligen_tpu_torch.models.layers import Conv2d, Dense, Normalize
@@ -57,6 +61,72 @@ class AttnBlock(nn.Module):
         return x + self.proj_out(out.to(x.dtype)).reshape(b, h, w, c)
 
 
+class Downsample(nn.Module):
+    """The encoder's stride-2 3x3 conv after an asymmetric (0, 1) pad of H
+    and W (vae.py:86-99).  Not the UNet's Downsample, which pads 1 on both
+    sides: that one gives the same shape and other values."""
+
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, stride=2, dtype=dtype)
+        self.conv.padding = (0, 0)  # the input is padded here instead
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+
+
+class Encoder(nn.Module):
+    """Image (B, H, W, 3) -> (B, H/f, W/f, 2 z_channels) posterior moments
+    before quant_conv, f = 2^(len(ch_mult) - 1) (vae.py:116-147)."""
+
+    def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
+                 resolution: int = 256, z_channels: int = 4, in_channels: int = 3,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv_in = Conv2d(in_channels, ch, 3, dtype=dtype)
+        self.down_names = []  # module names in forward order
+        block_in, curr_res = ch, resolution
+        for i_level, mult in enumerate(ch_mult):
+            for i_block in range(num_res_blocks):
+                name = f"down_{i_level}_block_{i_block}"
+                self.add_module(name, ResnetBlock(block_in, ch * mult, dtype=dtype))
+                self.down_names.append(name)
+                block_in = ch * mult
+                if curr_res in attn_resolutions:
+                    name = f"down_{i_level}_attn_{i_block}"
+                    self.add_module(name, AttnBlock(block_in, dtype=dtype))
+                    self.down_names.append(name)
+            if i_level != len(ch_mult) - 1:
+                name = f"down_{i_level}_downsample"
+                self.add_module(name, Downsample(block_in, dtype=dtype))
+                self.down_names.append(name)
+                curr_res //= 2
+        self.mid_block_1 = ResnetBlock(block_in, block_in, dtype=dtype)
+        self.mid_attn_1 = AttnBlock(block_in, dtype=dtype)
+        self.mid_block_2 = ResnetBlock(block_in, block_in, dtype=dtype)
+        self.norm_out = Normalize(block_in, act="silu")
+        self.conv_out = Conv2d(block_in, 2 * z_channels, 3, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x.to(self.dtype))
+        for name in self.down_names:
+            h = getattr(self, name)(h)
+        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
+        return self.conv_out(self.norm_out(h))
+
+
+def sample_posterior(mean: torch.Tensor, logvar: torch.Tensor, noise: torch.Tensor,
+                     scale_factor: float) -> torch.Tensor:
+    """(mean + exp(logvar / 2) * noise) * scale_factor in mean's dtype, the
+    logvar clamped to [-30, 20] (distributions.py:24-33): the body of
+    ``encode``, shared with the trainer's cached-moments branch so that both
+    give the same latent for the same draws."""
+    logvar = logvar.to(mean.dtype).clamp(-30.0, 20.0)
+    return (mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)) * scale_factor
+
+
 class Decoder(nn.Module):
     def __init__(self, ch: int = 128, out_ch: int = 3, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
@@ -97,18 +167,42 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decode side of the SD AutoencoderKL; ``scale_factor`` 0.18215."""
+    """The SD AutoencoderKL (autoencoder.py:17-44); ``scale_factor`` 0.18215."""
 
     def __init__(self, embed_dim: int = 4, scale_factor: float = 0.18215, ch: int = 128,
                  ch_mult: Sequence[int] = (1, 2, 4, 4), num_res_blocks: int = 2,
                  attn_resolutions: Sequence[int] = (), resolution: int = 256,
                  z_channels: int = 4, out_ch: int = 3, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.scale_factor = scale_factor
-        self.decoder = Decoder(ch=ch, out_ch=out_ch, ch_mult=ch_mult,
-                               num_res_blocks=num_res_blocks, attn_resolutions=attn_resolutions,
-                               resolution=resolution, z_channels=z_channels, dtype=dtype)
+        self.embed_dim = embed_dim
+        self.downsample_factor = 2 ** (len(ch_mult) - 1)
+        common = dict(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                      attn_resolutions=attn_resolutions, resolution=resolution,
+                      z_channels=z_channels, dtype=dtype)
+        self.encoder = Encoder(**common)
+        self.decoder = Decoder(out_ch=out_ch, **common)
+        self.quant_conv = Conv2d(2 * z_channels, 2 * embed_dim, 1, dtype=dtype)
         self.post_quant_conv = Conv2d(embed_dim, z_channels, 1, dtype=dtype)
+
+    def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, logvar) of the posterior, each (B, H/f, W/f, embed_dim) in
+        the compute dtype, logvar clamped to [-30, 20].  x: (B, H, W, 3) in
+        [-1, 1]."""
+        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """A posterior sample * scale_factor (autoencoder.py:34-38).  The
+        standard-normal ``noise`` (the latent's shape) is passed in, so a
+        caller (or a test) chooses the draw."""
+        mean, logvar = self.encode_moments(x)
+        return sample_posterior(mean, logvar, noise, self.scale_factor)
+
+    def encode_mode(self, x: torch.Tensor) -> torch.Tensor:
+        """The posterior mode * scale_factor (deterministic)."""
+        return self.encode_moments(x)[0] * self.scale_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, h, w, embed_dim) latent -> (B, 8h, 8w, out_ch) image in the

@@ -1,18 +1,25 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions and
+the autograd Function that joins them.
 
-Counterpart of ``gligen_tpu/ops/pallas_attention.py``.  One kernel,
-``csrc/flash_fwd.cu``, replaces both TPU forwards on the 512^2 path: the
-single-KV packed forward behind ``flash_attention_packed`` (UNet attn1 and
-the gated self-attention fuser) and the streamed forward behind
-``flash_attention`` (the VAE's single-head mid-attention).  Forward only:
-inference needs no gradient; the backward kernels come with training.
+Counterpart of ``gligen_tpu/ops/pallas_attention.py``.  The forward kernel,
+``csrc/flash_fwd.cu``, replaces both TPU forwards: the single-KV packed
+forward behind ``flash_attention_packed`` (UNet attn1, the gated
+self-attention fuser, cross-attention) and the streamed forward behind
+``flash_attention`` (the VAE's single-head mid-attention).  The backward
+kernels, ``csrc/flash_bwd.cu``, replace ``_flash_bwd`` and
+``_flash_packed_bwd``: one computes dq, the other dk and dv (and the bias
+gradient).
 
-Both versions compute, per (batch, head), ``softmax(scale * q k^T + bias) v``
+The forward computes, per (batch, head), ``softmax(scale * q k^T + bias) v``
 with fp32 scores and softmax, and the per-row log-sum-exp in LOG2 units
-(as the TPU kernel stores it).
+(as the TPU kernel stores it); the backward recomputes the probabilities
+from that LSE.  ``FlashAttention`` is the ``torch.autograd.Function``
+(the JAX package's ``custom_vjp``): its forward saves q, k, v, bias, out
+and the LSE, its backward launches the dq kernel when q needs a gradient
+and the dk/dv kernel when k, v or the bias does.
 
-``FlashForward.__call__`` runs the plain version for a CPU tensor and the
-kernel for a CUDA tensor; it never falls back from one to the other.
+Each wrapper runs the plain version for a CPU tensor and the kernel for a
+CUDA tensor; it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -23,11 +30,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from gligen_tpu_torch.ops.launch import on_cuda
+from gligen_tpu_torch.ops.launch import F32, I32, PTR, Kernel, on_cuda
 
 NEG_INF = -1e30  # additive bias of a masked key (pallas_attention.py's NEG_INF)
 LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 512
+MAX_BWD_HEAD_DIM = 160  # the backward kernels' shared-memory tiles (csrc/flash_bwd.cu)
+STRIDES = ctypes.POINTER(ctypes.c_longlong)
 
 
 def flash_attention_plain(
@@ -153,6 +162,166 @@ class FlashForward:
 flash_fwd = FlashForward()
 
 
+def attention_delta(out: torch.Tensor, do: torch.Tensor, heads: int) -> torch.Tensor:
+    """delta = rowsum(dO * O) per (batch, head, query row): (B, H, N) fp32,
+    computed outside the kernels as pallas_attention.py:969-973 does."""
+    b, n, hc = out.shape
+    prod = do.float() * out.float()
+    return prod.reshape(b, n, heads, hc // heads).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of the backward kernels, in fp32 from the
+    saved LSE (log2 units, (B, H, N)) and ``attention_delta``.
+
+    Returns (dq, dk, dv) in q's dtype and, when a bias is given, dbias
+    (B, M) fp32: the sum over heads and query rows of dS."""
+    b, n, hc = q.shape
+    m = k.shape[1]
+    c = hc // heads
+    scale = c**-0.5
+    qh, kh, vh, doh = (t.reshape(b, -1, heads, c).float() for t in (q, k, v, do))
+    s = torch.einsum("bnhc,bmhc->bhnm", qh, kh) * scale
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    p = torch.exp2(s * LOG2E - lse[..., None])
+    dp = torch.einsum("bnhc,bmhc->bhnm", doh, vh)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhnm,bmhc->bnhc", ds, kh) * scale
+    dk = torch.einsum("bhnm,bnhc->bmhc", ds, qh) * scale
+    dv = torch.einsum("bhnm,bnhc->bmhc", p, doh)
+    grads = tuple(g.reshape(b, -1, hc).to(q.dtype) for g in (dq, dk, dv))
+    return (*grads, None if bias is None else ds.sum(dim=(1, 2)))
+
+
+def _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias):
+    _check_inputs(q, k, v, heads, bias)
+    b, n, hc = q.shape
+    if not hc // heads <= MAX_BWD_HEAD_DIM:
+        raise ValueError(f"flash backward: head dim {hc // heads} above {MAX_BWD_HEAD_DIM}")
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or not do.is_contiguous():
+        raise ValueError(f"dO must be a contiguous {q.dtype} tensor of q's shape {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, heads, n) or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous float32 (B, H, N) = {(b, heads, n)}")
+
+
+def _bwd_launch_args(q, k, v, heads, do, lse, delta, bias, grads):
+    """The pointers, sizes and stride table both backward entry points
+    take.  ``grads`` names the bf16 outputs (dq, or dk and dv), each
+    (B, L, H*C) and contiguous."""
+    b, n, hc = q.shape
+    c = hc // heads
+    named = dict(q=q, k=k, v=v, do=do, **grads)
+    strides = []
+    for name in ("q", "k", "v", "do", "dq", "dk", "dv"):
+        t = named.get(name)
+        strides += [t.stride(0), c, t.stride(1)] if t is not None else [0, 0, 0]
+    strides.append(bias.stride(0) if bias is not None else 0)
+    tensors = (q, k, v, do)
+    # 16-byte vector loads need every row start 16-byte aligned
+    vec = int(
+        c % 8 == 0
+        and all(t.data_ptr() % 16 == 0 for t in tensors)
+        and all(s % 8 == 0 for t in tensors for s in t.stride()[:2])
+    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr())
+    return ptrs, (b, heads, n, k.shape[1], c), (ctypes.c_longlong * len(strides))(*strides), \
+        c**-0.5, vec
+
+
+class FlashBackwardDq(Kernel):
+    """dq kernel of ``csrc/flash_bwd.cu``."""
+
+    library, entry = "flash_bwd", "flash_bwd_dq_bf16"
+    # q, k, v, do, bias, lse, delta, dq, batch, heads, n, m, d, strides, scale, vec
+    argtypes = (PTR,) * 8 + (I32,) * 5 + (STRIDES, F32, I32)
+
+    def __call__(self, q, k, v, heads, do, lse, delta, bias=None) -> torch.Tensor:
+        """dq of ``flash_attention_bwd_plain``, in q's dtype."""
+        if not on_cuda(q, "flash_bwd_dq"):
+            return flash_attention_bwd_plain(q, k, v, heads, do, lse, delta, bias)[0]
+        _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias)
+        dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+        ptrs, dims, strides, scale, vec = _bwd_launch_args(q, k, v, heads, do, lse, delta, bias,
+                                                           dict(dq=dq))
+        self._launch(q.device, *ptrs, dq.data_ptr(), *dims, strides, scale, vec)
+        return dq
+
+
+class FlashBackwardDkv(Kernel):
+    """dk/dv (and dbias) kernel of ``csrc/flash_bwd.cu``."""
+
+    library, entry = "flash_bwd", "flash_bwd_dkv_bf16"
+    # q, k, v, do, bias, lse, delta, dk, dv, dbias, batch, heads, n, m, d, strides, scale, vec
+    argtypes = (PTR,) * 10 + (I32,) * 5 + (STRIDES, F32, I32)
+
+    def __call__(self, q, k, v, heads, do, lse, delta, bias=None, dbias: bool = False):
+        """(dk, dv, dbias) of ``flash_attention_bwd_plain``; dbias (B, M)
+        fp32 only when ``dbias`` is asked for (it needs a bias), else None."""
+        if dbias and bias is None:
+            raise ValueError("flash_bwd_dkv: dbias needs a bias")
+        if not on_cuda(q, "flash_bwd_dkv"):
+            _, dk, dv, db = flash_attention_bwd_plain(q, k, v, heads, do, lse, delta, bias)
+            return dk, dv, db if dbias else None
+        _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias)
+        b, m = k.shape[:2]
+        dk = torch.empty((b, m, q.shape[2]), dtype=k.dtype, device=k.device)
+        dv = torch.empty_like(dk)
+        db = torch.empty((b, heads, m), dtype=torch.float32, device=k.device) if dbias else None
+        ptrs, dims, strides, scale, vec = _bwd_launch_args(q, k, v, heads, do, lse, delta, bias,
+                                                           dict(dk=dk, dv=dv))
+        self._launch(q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
+                     db.data_ptr() if dbias else None, *dims, strides, scale, vec)
+        # the heads share the bias: sum their partial sums (pallas_attention.py:1078)
+        return dk, dv, db.sum(dim=1) if dbias else None
+
+
+flash_bwd_dq = FlashBackwardDq()
+flash_bwd_dkv = FlashBackwardDkv()
+KERNELS = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash forward kernel, differentiated by the backward kernels
+    (pallas_attention.py's ``_flash_packed`` custom VJP).  The forward
+    saves q, k, v, bias, out and the LSE; the backward runs the dq kernel
+    only when q needs a gradient (the 77-token cross-attention's k/v come
+    from the frozen text encoder) and the dk/dv kernel only when k, v or
+    the bias does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, heads):
+        out, lse = flash_fwd(q, k, v, heads, bias=bias)
+        ctx.heads = heads
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        need_q, need_k, need_v, need_bias, _ = ctx.needs_input_grad
+        do = do.contiguous()  # autograd may hand over a strided cotangent
+        delta = attention_delta(out, do, ctx.heads)
+        dq = flash_bwd_dq(q, k, v, ctx.heads, do, lse, delta, bias) if need_q else None
+        dk = dv = dbias = None
+        if need_k or need_v or need_bias:
+            dk, dv, dbias = flash_bwd_dkv(q, k, v, ctx.heads, do, lse, delta, bias,
+                                          dbias=need_bias)
+        return dq, dk if need_k else None, dv if need_v else None, dbias, None
+
+
 def key_mask_bias(key_mask: torch.Tensor) -> torch.Tensor:
     """(B, M) bool (True = attend) -> fp32 additive bias, NEG_INF on masked keys."""
     return torch.zeros(key_mask.shape, dtype=torch.float32, device=key_mask.device).masked_fill(
@@ -171,10 +340,10 @@ def flash_attention_packed(
 
     q: (B, N, H*C), k/v: (B, M, H*C), key_mask: optional (B, M) bool
     (True = attend).  Returns (B, N, H*C) in q's dtype.  Any M works as it
-    is: the kernel masks the ragged key tile itself, so no padding is
-    needed."""
+    is: the kernels mask the ragged key tile themselves, so no padding is
+    needed.  Differentiable through ``FlashAttention``."""
     bias = None if key_mask is None else key_mask_bias(key_mask)
-    return flash_fwd(q, k, v, heads, bias=bias)[0]
+    return FlashAttention.apply(q, k, v, bias, heads)
 
 
 def flash_attention(
@@ -184,7 +353,8 @@ def flash_attention(
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(BH, N, D) layout (pallas_attention.py:719): one head per row of the
-    leading axis; bias optional (BH, 1, M) additive.  Returns (BH, N, D)."""
+    leading axis; bias optional (BH, 1, M) additive, which gets its
+    gradient (dbias) when it needs one.  Returns (BH, N, D)."""
     if bias is not None:
         bias = bias.reshape(bias.shape[0], bias.shape[-1]).float()
-    return flash_fwd(q, k, v, 1, bias=bias)[0]
+    return FlashAttention.apply(q, k, v, bias, 1)

@@ -13,11 +13,15 @@ it in its own.  Layout: x NHWC (B, H, W, C); the conv weight is the port's
 Conv2d OIHW (F, C, 3, 3), which the wrapper casts to x's dtype and permutes
 to (F, 3, 3, C) at each call (K-contiguous per output channel).
 
-The wrapper runs the plain version for a CPU tensor and the kernels for a
+The wrapper runs the plain versions for a CPU tensor and the kernels for a
 CUDA tensor; it never falls back from one to the other, and raises on what
 the kernel does not take (a dtype other than bf16, C or F not multiples of
 8).  W need not be a multiple of 8: that is the TPU's sublane rule, which
-stays in the routing (models/unet.py).  Forward only.
+stays in the routing (models/unet.py).
+
+Gradients, as in pallas_conv.py:121-171: the statistics (``gn_affine``)
+are differentiable on their own, and the conv's backward differentiates
+``_ref_chain`` in (x, a, v, w, wb, residual).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from gligen_tpu_torch.ops.fused_norm import gn_affine, gn_affine_plain
-from gligen_tpu_torch.ops.launch import I32, PTR, Kernel, check, check_widths, on_cuda
+from gligen_tpu_torch.ops.launch import I32, PTR, Kernel, check, check_widths, differentiable, on_cuda
 
 
 def _ref_chain(x, a, v, w, wb, residual=None) -> torch.Tensor:
@@ -59,9 +63,14 @@ class GnSiluConv3x3(Kernel):
     def __call__(self, x, scale, bias, w, wb, residual=None, num_groups: int = 32,
                  eps: float = 1e-5) -> torch.Tensor:
         """Same contract as ``gn_silu_conv3x3_plain``: ``gn_affine``'s
-        kernel for the statistics, then the conv kernel."""
-        if not on_cuda(x, "gn_silu_conv3x3"):
-            return gn_silu_conv3x3_plain(x, scale, bias, w, wb, residual, num_groups, eps)
+        kernel for the statistics, then the conv kernel.  Differentiable."""
+        if x.is_cuda:  # what the conv kernel refuses raises before the statistics launch
+            self._check(x, w, wb, residual)
+        a, v = gn_affine(x, scale, bias, num_groups, eps)
+        return differentiable(self._forward, _ref_chain, x, a, v, w, wb, residual)
+
+    @staticmethod
+    def _check(x, w, wb, residual):
         if x.dim() != 4:
             raise ValueError(f"gn_silu_conv3x3: x must be (B, H, W, C), got {tuple(x.shape)}")
         b, h, wd, c = x.shape
@@ -73,12 +82,18 @@ class GnSiluConv3x3(Kernel):
             raise ValueError(f"gn_silu_conv3x3: residual {tuple(residual.shape)} is not "
                              f"{(b, h, wd, f)}")
         check_widths("gn_silu_conv3x3", C=c, F=f)
+        check("gn_silu_conv3x3", x.device, x=(x, torch.bfloat16),
+              **({} if residual is None else {"residual": (residual, torch.bfloat16)}))
+
+    def _forward(self, x, a, v, w, wb, residual):
+        if not on_cuda(x, "gn_silu_conv3x3"):
+            return _ref_chain(x, a, v, w, wb, residual)
+        b, h, wd, c = x.shape
+        f = w.shape[0]
         wt = w.to(x.dtype).permute(0, 2, 3, 1).contiguous()
         wb = wb.float()
-        check("gn_silu_conv3x3", x.device, x=(x, torch.bfloat16), w=(wt, torch.bfloat16),
-              wb=(wb, torch.float32),
-              **({} if residual is None else {"residual": (residual, torch.bfloat16)}))
-        a, v = gn_affine(x, scale, bias, num_groups, eps)
+        check("gn_silu_conv3x3", x.device, w=(wt, torch.bfloat16), wb=(wb, torch.float32),
+              a=(a, torch.float32), v=(v, torch.float32))
         out = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
         self._launch(
             x.device, x.data_ptr(), a.data_ptr(), v.data_ptr(), wt.data_ptr(), wb.data_ptr(),

@@ -20,17 +20,23 @@ another order (gligen_tpu/ops/basic.py:116).
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other, and raises on what
 the kernel does not take (a dtype other than bf16, widths that are not
-multiples of 8, more than 4096 channels).  Forward only.
+multiples of 8, more than 4096 channels).  Each output is differentiable
+(``launch.differentiable``): the backward differentiates the plain version,
+fp32 statistics included, as pallas_norm.py:231-270 differentiates its
+reference.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from gligen_tpu_torch.ops.basic import gn_affine_rowsum, group_norm_rowsum, layer_norm_xla
-from gligen_tpu_torch.ops.launch import F32, I32, PTR, Kernel, check, check_widths, on_cuda
+from gligen_tpu_torch.ops.launch import (
+    F32, I32, PTR, Kernel, check, check_widths, differentiable, on_cuda,
+)
 
 MAX_CHANNELS = 4096  # the partial-sum block's (rows, 2, C) fp32 stays in 48 KB of shared memory
 CHUNK_BLOCKS = 4 * 132  # partial-sum blocks to aim for over all samples: 4 per SM of an H100
@@ -81,8 +87,13 @@ class GnAffine(_GroupStats):
     argtypes = (PTR,) * 6 + (I32,) * 5 + (F32,)
 
     def __call__(self, x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
-        """Same contract as ``gn_affine_plain``."""
-        scale, bias = scale.float(), bias.float()
+        """Same contract as ``gn_affine_plain``.  Differentiable."""
+        kw = dict(num_groups=num_groups, eps=eps)
+        return differentiable(functools.partial(self._forward, **kw),
+                              functools.partial(gn_affine_plain, **kw),
+                              x, scale.float(), bias.float())
+
+    def _forward(self, x, scale, bias, num_groups, eps):
         if not on_cuda(x, "gn_affine"):
             return gn_affine_plain(x, scale, bias, num_groups, eps)
         ptrs, dims, a, v = self._prepare("gn_affine", x, scale, bias, num_groups)
@@ -97,8 +108,13 @@ class GroupNorm(_GroupStats):
 
     def __call__(self, x, scale, bias, num_groups: int = 32, eps: float = 1e-5,
                  silu: bool = False) -> torch.Tensor:
-        """Same contract as ``group_norm_plain``."""
-        scale, bias = scale.float(), bias.float()
+        """Same contract as ``group_norm_plain``.  Differentiable."""
+        kw = dict(num_groups=num_groups, eps=eps, silu=silu)
+        return differentiable(functools.partial(self._forward, **kw),
+                              functools.partial(group_norm_plain, **kw),
+                              x, scale.float(), bias.float())
+
+    def _forward(self, x, scale, bias, num_groups, eps, silu):
         if not on_cuda(x, "group_norm"):
             return group_norm_plain(x, scale, bias, num_groups, eps, silu)
         ptrs, dims, _, _ = self._prepare("group_norm", x, scale, bias, num_groups)
@@ -113,8 +129,13 @@ class LayerNorm(Kernel):
     argtypes = (PTR,) * 4 + (I32, I32, F32)
 
     def __call__(self, x, scale, bias, eps: float = 1e-5) -> torch.Tensor:
-        """Same contract as ``layer_norm_plain``; any number of rows."""
-        scale, bias = scale.float(), bias.float()
+        """Same contract as ``layer_norm_plain``; any number of rows.
+        Differentiable."""
+        return differentiable(functools.partial(self._forward, eps=eps),
+                              functools.partial(layer_norm_plain, eps=eps),
+                              x, scale.float(), bias.float())
+
+    def _forward(self, x, scale, bias, eps):
         if not on_cuda(x, "layer_norm"):
             return layer_norm_plain(x, scale, bias, eps=eps)
         c = x.shape[-1]

@@ -14,20 +14,34 @@ plain versions call the plain LayerNorm (``layer_norm_xla``), never the
 dispatching one, so on card tensors they launch no kernel.
 
 Weights are ``nn.Linear``'s (F, K), not JAX's (K, F).  Each wrapper casts
-them to x's dtype at every call (the JAX modules' ``dtype`` semantics).
-It runs the plain version for a CPU tensor and the kernel for a CUDA
-tensor; it never falls back from one to the other.  Forward only.
+them to x's dtype at every call (the JAX modules' ``dtype`` semantics),
+outside the autograd Function, so the gradient reaches the fp32
+parameter through the cast.  It runs the plain version for a CPU tensor
+and the kernel for a CUDA tensor; it never falls back from one to the
+other.
+
+Gradients: each wrapper's output is differentiable (``launch.
+differentiable``).  The backward differentiates the reference chain, as
+the JAX custom VJPs do (pallas_matmul.py:109-113, :157-163, :234-238,
+:319-326): LayerNorm with fp32 statistics, products in the compute dtype
+(``F.linear``, which the JAX package also leaves to plain matmuls), bias
+and gate in fp32.  A tensor gate gets its gradient, sum(dout * (h @ W^T +
+b)): the only path by which the fusers' ``alpha_attn``/``alpha_dense``
+train.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import functools
+from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from gligen_tpu_torch.ops.basic import layer_norm_xla
-from gligen_tpu_torch.ops.launch import F32, I32, PTR, Kernel, check, check_widths, on_cuda
+from gligen_tpu_torch.ops.launch import (
+    F32, I32, PTR, Kernel, check, check_widths, differentiable, on_cuda,
+)
 
 MAX_WEIGHTS = 3
 Gate = Union[None, float, torch.Tensor]
@@ -88,15 +102,36 @@ def ln_geglu_plain(
     return (a * F.gelu(g)).to(x.dtype)
 
 
+def _ln_matmuls_chain(x, scale, bias, *ws, eps):
+    ln = layer_norm_xla(x, scale, bias, eps=eps)
+    return tuple(F.linear(ln, w) for w in ws)
+
+
+def _matmul_residual_chain(h, w, bias, x, gate, gate_value):
+    y = (F.linear(h, w).float() + bias) * (gate_value if gate is None else gate)
+    return (x.float() + y).to(x.dtype)
+
+
+def _ln_geglu_chain(x, scale, bias, w, w_bias, eps):
+    hg = F.linear(layer_norm_xla(x, scale, bias, eps=eps), w).float() + w_bias
+    a, g = hg.chunk(2, dim=-1)
+    return (a * F.gelu(g)).to(x.dtype)
+
+
 class LnMatmuls(Kernel):
     library, entry = "fused_proj", "ln_matmuls_bf16"
     # x, scale, bias, n_w, w0..w2, y0..y2, m, k, f, eps
     argtypes = (PTR,) * 3 + (I32,) + (PTR,) * 6 + (I32,) * 3 + (F32,)
 
     def __call__(self, x, scale, bias, ws, eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
-        """Same contract as ``ln_matmuls_plain``; 1 to 3 weights of one shape."""
+        """Same contract as ``ln_matmuls_plain``; 1 to 3 weights of one
+        shape.  Differentiable."""
         ws = tuple(w.to(x.dtype) for w in ws)
-        scale, bias = scale.float(), bias.float()
+        return differentiable(functools.partial(self._forward, eps=eps),
+                              functools.partial(_ln_matmuls_chain, eps=eps),
+                              x, scale.float(), bias.float(), *ws)
+
+    def _forward(self, x, scale, bias, *ws, eps):
         if not on_cuda(x, "ln_matmuls"):
             return ln_matmuls_plain(x, scale, bias, ws, eps)
         if not 1 <= len(ws) <= MAX_WEIGHTS:
@@ -126,10 +161,17 @@ class MatmulResidual(Kernel):
 
     def __call__(self, h, w, bias, x, gate: Gate = None) -> torch.Tensor:
         """Same contract as ``matmul_residual_plain``.  A tensor gate is
-        read by the kernel on the device (no host synchronisation)."""
-        w, bias = w.to(x.dtype), bias.float()
+        read by the kernel on the device (no host synchronisation).
+        Differentiable, in the gate too."""
+        tensor_gate = gate if isinstance(gate, torch.Tensor) else None
+        gate_value = 1.0 if gate is None or tensor_gate is not None else float(gate)
+        return differentiable(functools.partial(self._forward, gate_value=gate_value),
+                              functools.partial(_matmul_residual_chain, gate_value=gate_value),
+                              h, w.to(x.dtype), bias.float(), x, tensor_gate)
+
+    def _forward(self, h, w, bias, x, gate, gate_value):
         if not on_cuda(x, "matmul_residual"):
-            return matmul_residual_plain(h, w, bias, x, gate)
+            return matmul_residual_plain(h, w, bias, x, gate_value if gate is None else gate)
         c, k = w.shape
         if h.shape[:-1] != x.shape[:-1] or h.shape[-1] != k or x.shape[-1] != c or bias.shape != (c,):
             raise ValueError(f"matmul_residual: h {tuple(h.shape)}, w {tuple(w.shape)}, "
@@ -137,14 +179,12 @@ class MatmulResidual(Kernel):
         check_widths("matmul_residual", K=k, C=c)
         check("matmul_residual", x.device, h=(h, torch.bfloat16), w=(w, torch.bfloat16),
                bias=(bias, torch.float32), x=(x, torch.bfloat16))
-        gate_ptr, gate_value = None, 1.0
-        if isinstance(gate, torch.Tensor):
+        gate_ptr = None
+        if gate is not None:
             if gate.numel() != 1:
                 raise ValueError(f"matmul_residual: gate must hold one value, has {gate.numel()}")
             check("matmul_residual", x.device, gate=(gate, torch.float32))
             gate_ptr = gate.data_ptr()
-        elif gate is not None:
-            gate_value = float(gate)
         out = torch.empty_like(x)
         self._launch(
             x.device, h.data_ptr(), w.data_ptr(), bias.data_ptr(), x.data_ptr(), gate_ptr,
@@ -159,8 +199,12 @@ class LnGeglu(Kernel):
     argtypes = (PTR,) * 6 + (I32,) * 3 + (F32,)
 
     def __call__(self, x, scale, bias, w, w_bias, eps: float = 1e-5) -> torch.Tensor:
-        """Same contract as ``ln_geglu_plain``."""
-        w, scale, bias, w_bias = w.to(x.dtype), scale.float(), bias.float(), w_bias.float()
+        """Same contract as ``ln_geglu_plain``.  Differentiable."""
+        return differentiable(functools.partial(self._forward, eps=eps),
+                              functools.partial(_ln_geglu_chain, eps=eps),
+                              x, scale.float(), bias.float(), w.to(x.dtype), w_bias.float())
+
+    def _forward(self, x, scale, bias, w, w_bias, eps):
         if not on_cuda(x, "ln_geglu"):
             return ln_geglu_plain(x, scale, bias, w, w_bias, eps)
         c = x.shape[-1]

@@ -5,14 +5,16 @@ for a CUDA tensor (``on_cuda``); it never falls back from one to the other.
 Before a launch it checks what the kernel takes (``check``,
 ``check_widths``) and raises on anything else.  ``Kernel`` binds one C
 entry point of ``csrc/<library>.cu`` through ctypes and counts its
-launches.
+launches.  ``differentiable`` makes a kernel's output carry gradients: a
+kernel writes a fresh tensor through a raw pointer, which autograd cannot
+see into.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -78,3 +80,37 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.entry} launch failed: cudaError {err}")
         self.launches += 1
+
+
+class _ChainVJP(torch.autograd.Function):
+    """Forward: ``run`` (the kernel, or its plain version on the CPU).
+    Backward: the vector-Jacobian product of ``chain``, a reference form
+    of the same function in plain PyTorch ops, recomputed from the saved
+    inputs (the JAX package's ``custom_vjp`` pattern, e.g.
+    pallas_matmul.py:157-163)."""
+
+    @staticmethod
+    def forward(ctx, run, chain, *inputs):
+        out = run(*inputs)
+        ctx.chain = chain
+        ctx.save_for_backward(*inputs)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [None if x is None else x.detach().requires_grad_(need)
+                      for x, need in zip(ctx.saved_tensors, needs)]
+            outs = ctx.chain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        got = iter(torch.autograd.grad(outs, [x for x, need in zip(leaves, needs) if need],
+                                       grads, allow_unused=True))
+        return (None, None, *(next(got) if need else None for need in needs))
+
+
+def differentiable(run: Callable, chain: Callable, *inputs):
+    """``run(*inputs)`` whose gradient is that of ``chain(*inputs)``.
+    ``inputs`` are tensors or None; every other argument is bound into
+    ``run`` and ``chain``."""
+    return _ChainVJP.apply(run, chain, *inputs)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of a 512^2 request goes on one NVIDIA GPU, and what each
-fused kernel costs against the module path's chain.
+"""Where the time of a 512^2 request or train step goes on one NVIDIA GPU,
+and what each fused kernel costs against the module path's chain.
 
     python3 gligen_tpu_torch/tools/perf_probe.py request [--root DIR] [--fused 1|0]
         [--norm gn|0|ln|both] [--conv 0|1|auto]
+    python3 gligen_tpu_torch/tools/perf_probe.py train [--root DIR] [--fused 1|0]
+        [--norm gn|0|ln|both] [--conv 0|1|auto] [--remat full|none] [--batch 4] [--steps 5]
     python3 gligen_tpu_torch/tools/perf_probe.py chains
     python3 gligen_tpu_torch/tools/perf_probe.py norms
     python3 gligen_tpu_torch/tools/perf_probe.py convs
@@ -23,6 +25,17 @@ is set to ``--fused``, ``GLIGEN_TPU_FUSED_NORM`` to ``--norm`` and
 ``gligen_tpu_torch`` from
 another checkout (e.g. an older commit unpacked with ``git archive``), so
 two trees compare on one card, each run in its own process.
+
+train: the train step (``training/train_step.py``) at full SD-1.4 GLIGEN
+width with ``chip_smoke.py``'s seeded, de-zeroed random weights: 512^2
+images, live VAE encode, per-block remat (``--remat``), AdamW with a
+one-step warmup.  One warm-up step, ``--steps`` timed ones (wall, s/step,
+img/s, peak memory), then one traced under ``torch.profiler`` (CPU and
+CUDA activity, so the step's "train_step.loss" range reaches the device
+timeline): device time by kernel category and by phase -- loss, backward,
+optimizer (``train_phases``); the backward's flash forwards are the remat
+recompute -- and the device's idle share of the wall; then one more
+unprofiled step.
 
 chains: at every fused-projection shape of ``chip_smoke.proj_cases``, the
 kernel's wrapper against the module path's chain for the same function
@@ -79,6 +92,10 @@ def _setup(root: Path):
 def category(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "flash_fwd"
+    if "flash_bwd_dq_kernel" in name:
+        return "flash_bwd dq (K4)"
+    if "flash_bwd_dkv_kernel" in name:
+        return "flash_bwd dk/dv (K4)"
     if "gn_partial_kernel" in name or "gn_combine_kernel" in name:
         return "group_norm stats (K5)"
     if "gn_normalize_kernel" in name:
@@ -91,7 +108,11 @@ def category(name: str) -> str:
         mode = name.split("fused_proj_kernel<", 1)[1][0]
         return {"0": "ln_matmuls", "1": "matmul_residual", "2": "ln_geglu"}[mode]
     low = name.lower()
+    if "multi_tensor_apply" in low:
+        return "optimizer (foreach)"
     # cuDNN's convolutions are implicit GEMMs: named before cuBLAS's
+    if "dgrad" in low or "wgrad" in low:
+        return "conv backward (cuDNN)"
     if any(s in low for s in ("conv", "cudnn", "fprop", "implicit")):
         return "conv (cuDNN)"
     if "nvjet" in low or "gemm" in low or "cutlass" in low:
@@ -103,10 +124,12 @@ def category(name: str) -> str:
     return "elementwise/other"
 
 
-def device_breakdown(trace: dict):
+def device_breakdown(trace: dict, phase_of=None):
     """Per-category device ms and launches, the busy ms (union of the
-    kernel and copy intervals) and the kernel count of a chrome trace."""
-    spans, by_cat = [], {}
+    kernel and copy intervals) and the kernel count of a chrome trace; and
+    per (category, phase) device ms, ``phase_of(start, category)`` naming a
+    device event's phase."""
+    spans, by_cat, by_phase = [], {}, {}
     for ev in trace.get("traceEvents", []):
         if ev.get("ph") != "X" or ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
@@ -115,12 +138,15 @@ def device_breakdown(trace: dict):
         cat = category(ev.get("name", "")) if ev["cat"] == "kernel" else "copy/cast/cat"
         ms, n = by_cat.get(cat, (0.0, 0))
         by_cat[cat] = (ms + dur / 1e3, n + 1)
+        if phase_of is not None:
+            key = (cat, phase_of(start, cat))
+            by_phase[key] = by_phase.get(key, 0.0) + dur / 1e3
     busy, end = 0.0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
-    return by_cat, busy / 1e3, len(spans)
+    return by_cat, busy / 1e3, len(spans), by_phase
 
 
 def request(args) -> None:
@@ -162,7 +188,7 @@ def request(args) -> None:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            by_cat, busy, n = device_breakdown(json.load(f))
+            by_cat, busy, n, _ = device_breakdown(json.load(f))
     total = sum(ms for ms, _ in by_cat.values())
     after = run()
     print(f"profile: {tag}: profiled wall {wall:.1f} ms, device busy {busy:.1f} ms, "
@@ -171,6 +197,96 @@ def request(args) -> None:
           f"unprofiled request after the trace {after:.1f} ms", flush=True)
     for cat, (ms, k) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
         print(f"profile:   {cat:26s} {ms:9.2f} ms {ms / total:6.1%} {k:7d} launches")
+
+
+TRAIN_PHASES = ("loss", "backward", "optimizer")
+
+
+def train_phases(trace: dict):
+    """``phase_of`` for one train step on one stream, whose phases run in
+    order: the loss (the device span of its "train_step.loss" range), the
+    backward (the autograd engine's own thread launches it, so no range of
+    the step's thread reaches it on the device: everything after the loss
+    and before the optimizer), the optimizer (from its first foreach
+    kernel on)."""
+    events = [ev for ev in trace.get("traceEvents", []) if ev.get("ph") == "X"]
+    loss = [(float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0.0))) for ev in events
+            if ev.get("cat") == "gpu_user_annotation" and ev.get("name") == "train_step.loss"]
+    if len(loss) != 1:
+        raise RuntimeError(f"expected one device span of train_step.loss, found {len(loss)}")
+    (lo, hi), = loss
+    opt = min(float(ev["ts"]) for ev in events if ev.get("cat") == "kernel"
+              and category(ev.get("name", "")) == "optimizer (foreach)")
+
+    def phase_of(start, _cat):
+        if lo <= start < hi:
+            return "loss"
+        return "optimizer" if start >= opt else ("backward" if start >= hi else "other")
+
+    return phase_of
+
+
+def train(args) -> None:
+    root = Path(args.root).resolve()
+    torch, cs, card = _setup(root)
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from gligen_tpu_torch.inference.pipeline import GligenComponents
+    from gligen_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    os.environ.update(GLIGEN_TPU_FUSED_PROJ=args.fused, GLIGEN_TPU_FUSED_NORM=args.norm,
+                      GLIGEN_TPU_FUSED_CONV=args.conv, GLIGEN_TPU_REMAT_POLICY=args.remat)
+    device = torch.device("cuda", 0)
+    comps = GligenComponents.create(dtype=torch.bfloat16, seed=0, device=device,
+                                    unet_config={"use_checkpoint": True})
+    gen = torch.Generator(device=device).manual_seed(1)
+    cs.dezero_(comps.unet, gen)
+    state = create_train_state(comps.unet, base_lr=1e-4, warmup_steps=1)
+    step = make_train_step(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
+    data = cs.train_batch(torch, np, np.random.default_rng(0), args.batch, 512, 49408, 768,
+                          device)
+
+    def run() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, data, generator=gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    tag = (f"root {root.name} PROJ={args.fused} NORM={args.norm} CONV={args.conv} "
+           f"remat {args.remat} batch {args.batch}")
+    first = run()
+    torch.cuda.reset_peak_memory_stats()
+    walls = [run() for _ in range(args.steps)]
+    mean = sum(walls) / len(walls)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train: {tag}: first {first:.1f} ms, warm {', '.join(f'{w:.1f}' for w in walls)} ms "
+          f"(mean {mean:.1f} ms = {mean / 1e3:.4f} s/step = {args.batch * 1e3 / mean:.3f} img/s), "
+          f"peak memory {peak:.2f} GiB on {card}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    by_cat, busy, n, by_phase = device_breakdown(trace, train_phases(trace))
+    total = sum(ms for ms, _ in by_cat.values())
+    after = run()
+    print(f"profile: {tag}: profiled wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+          f"device time {total:.1f} ms over {n} kernels and copies; idle {1 - busy / wall:.1%} "
+          f"of the profiled wall, {1 - busy / mean:.1%} of the mean unprofiled wall; "
+          f"unprofiled step after the trace {after:.1f} ms", flush=True)
+    phases = (*TRAIN_PHASES, "other")
+    print(f"profile:   {'category':26s} {'ms':>9s} {'share':>6s} {'launches':>8s}  "
+          + " ".join(f"{p:>9s}" for p in phases))
+    for cat, (ms, k) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
+        cells = " ".join(f"{by_phase.get((cat, p), 0.0):9.2f}" for p in phases)
+        print(f"profile:   {cat:26s} {ms:9.2f} {ms / total:6.1%} {k:8d}  {cells}")
+    phase_ms = {p: sum(v for (c, q), v in by_phase.items() if q == p) for p in phases}
+    print("profile:   by phase: " + ", ".join(f"{p} {ms:.1f} ms" for p, ms in phase_ms.items()),
+          flush=True)
 
 
 def module_chain(torch, kind, c, k, device):
@@ -305,15 +421,21 @@ def convs(args) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="mode", required=True)
-    req = sub.add_parser("request")
-    req.add_argument("--root", default=str(REPO))
-    req.add_argument("--fused", choices=("0", "1"), default="1")
-    req.add_argument("--norm", choices=("gn", "0", "ln", "both"), default="gn")
-    req.add_argument("--conv", choices=("0", "1", "auto"), default="0")
+    for mode in ("request", "train"):
+        req = sub.add_parser(mode)
+        req.add_argument("--root", default=str(REPO))
+        req.add_argument("--fused", choices=("0", "1"), default="1")
+        req.add_argument("--norm", choices=("gn", "0", "ln", "both"), default="gn")
+        req.add_argument("--conv", choices=("0", "1", "auto"), default="0")
+    train_args = sub.choices["train"]
+    train_args.add_argument("--remat", choices=("full", "none"), default="full")
+    train_args.add_argument("--batch", type=int, default=4)
+    train_args.add_argument("--steps", type=int, default=5)
     for mode in ("chains", "norms", "convs"):
         sub.add_parser(mode)
     args = ap.parse_args()
-    {"request": request, "chains": chains, "norms": norms, "convs": convs}[args.mode](args)
+    {"request": request, "train": train, "chains": chains, "norms": norms,
+     "convs": convs}[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -154,7 +154,8 @@ def test_kernel_input_checks(change, error):
 
 
 def test_port_imports_without_jax_or_nvcc():
-    """Every module of the port imports, and a CPU call runs, in a Python
+    """Every module of the port (the training package included) imports,
+    and a CPU call, its backward and an optimizer step run, in a Python
     where jax, flax and gligen_tpu cannot be imported and no nvcc is on
     the PATH; only a kernel build asks for nvcc."""
     code = """
@@ -164,10 +165,17 @@ for name in ("jax", "flax", "gligen_tpu"):
 import gligen_tpu_torch, torch
 for mod in pkgutil.walk_packages(gligen_tpu_torch.__path__, "gligen_tpu_torch."):
     importlib.import_module(mod.name)
+assert "gligen_tpu_torch.training.train_step" in sys.modules
 from gligen_tpu_torch.ops import cuda_build
 from gligen_tpu_torch.ops.attention import multi_head_attention
-x = torch.randn(1, 4, 16)
-assert multi_head_attention(x, x, x, 2).shape == (1, 4, 16)
+from gligen_tpu_torch.training.train_step import lr_multiplier, make_optimizer
+x = torch.randn(1, 4, 16, requires_grad=True)
+out = multi_head_attention(x, x, x, 2)
+assert out.shape == (1, 4, 16)
+out.sum().backward()  # the flash Function's plain backward on the CPU
+opt, sched = make_optimizer([x], warmup_steps=2)
+opt.step()
+assert lr_multiplier(2, 10)(1) == 0.5
 cuda_build.NVCC_CANDIDATES = ()
 try:
     cuda_build.find_nvcc()

@@ -219,7 +219,8 @@ def test_vae_decode():
     rng = np.random.default_rng(6)
     jm = JaxVAE(**VAE)
     z = rand(rng, 2, LATENT, LATENT, 4)
-    params = random_params(jm, jnp.asarray(z), method=jm.decode)
+    # the whole VAE's tree (encoder too), which the port's strict load needs
+    params = random_params(jm, jnp.zeros((1, 2 * LATENT, 2 * LATENT, 3)), jax.random.PRNGKey(1))
     want = jax_apply(jm, params, jnp.asarray(z), method=jm.decode)
     with torch.no_grad():
         got = port(AutoencoderKL(**VAE), params).decode(t(z))

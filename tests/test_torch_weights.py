@@ -1,7 +1,7 @@
 """The weight bridge (gligen_tpu_torch/convert/from_jax.py): every leaf of
 each gligen_tpu parameter tree lands in the port's state dict, in the
-torch layout, under a strict load; the subtrees the port does not have
-are skipped by name, never silently."""
+torch layout, under a strict load; a subtree the port does not have would
+be skipped by name, never silently, and none is now."""
 
 import numpy as np
 import pytest
@@ -57,9 +57,10 @@ def test_bridge_covers_every_leaf(trees, comps, component):
     module.load_state_dict(sd, strict=True)
     if component == "model":
         assert "first_conv_sd.weight" in sd
-    if component == "autoencoder":  # the skip list is used, and only for the encoder side
-        assert len(kept) < len(flat)
-        assert {k.split(".")[0] for k in flat if k not in kept} == {"encoder", "quant_conv"}
+    if component == "autoencoder":  # the encoder side is carried too: nothing is skipped
+        assert kept == list(flat)
+        assert {k.split(".")[0] for k in flat} == {"encoder", "quant_conv", "decoder",
+                                                   "post_quant_conv"}
 
 
 def test_bridge_layouts(trees):
@@ -79,8 +80,10 @@ def test_bridge_layouts(trees):
 
 
 def test_strict_load_refuses_unmapped_or_missing_leaves(trees, comps):
+    sd = state_dict_from_jax(trees["autoencoder"])
+    sd["encoder.unmapped.weight"] = torch.zeros(1)
     with pytest.raises(RuntimeError, match="Unexpected key"):
-        comps.vae.load_state_dict(state_dict_from_jax(trees["autoencoder"]), strict=True)
+        comps.vae.load_state_dict(sd, strict=True)
     sd = state_dict_from_jax(trees["model"])
     del sd["first_conv_sd.weight"]
     with pytest.raises(RuntimeError, match="Missing key"):
