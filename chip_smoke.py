@@ -18,12 +18,15 @@ Phases, each of which fails the run with a non-zero exit:
      attn1 at ds1 of a 1024^2 image, checked on its first 512 query rows);
      per level the fused projections (ln_matmuls for q/k/v, for q alone
      and for the fuser's k/v over N+30 rows, matmul_residual for to_out
-     and net_2, ln_geglu); GroupNorm +- SiLU at every UNet and VAE map,
-     gn_affine, LayerNorm at every (rows, C) of the module path, and the
-     fused GN -> SiLU -> conv3x3 at every ResBlock conv shape.  Times are
-     device times per call (see ``timed``); each kernel's bound is the
-     larger of its bytes over the card's memory rate and its operations
-     over the peak rate for their type.
+     and net_2, ln_geglu) and the matmul-only mode of the same kernel
+     (mm_only, K7) at the products and rows (16 x 4096) that phase 9's
+     projection budget gives it, over the fuser's 16 x 4126 rows and at
+     one shape ragged in M, K and F; GroupNorm +- SiLU at every UNet and
+     VAE map, gn_affine, LayerNorm at every (rows, C) of the module path,
+     and the fused GN -> SiLU -> conv3x3 at every ResBlock conv shape.
+     Times are device times per call (see ``timing.timed``); each
+     kernel's bound is the larger of its bytes over the card's memory
+     rate and its operations over the peak rate for their type.
   4. generate: GenerationPipeline.generate at full SD-1.4 GLIGEN width,
      512^2, random de-zeroed weights, two requests of batch 2 (4 UNet rows
      with CFG), PLMS with alpha stages [0.3, 0, 0.7], in each of the
@@ -53,6 +56,14 @@ Phases, each of which fails the run with a non-zero exit:
      plain versions), same weights, batch and draws, with and without
      remat; each fuser gate's gradient on its own, beside two witnesses
      held to nothing (the card's module path in bf16, the CPU in bf16).
+  9. tools: the port's measurement tools in this process at full ds1
+     width, in configuration (a): the projection budget
+     (``tools/bench_proj.py``: every K7 row launched K7 and no K2 kernel,
+     every K2 row no K7, and K7's outputs on the tool's own inputs agree
+     with mm_only_plain's; its K7 launches are mm_only's in the JSON line),
+     one transformer block (``bench_block.py``) and one ResBlock
+     (``bench_resblock.py``), each with one profiled forward whose trace
+     shows its kernels.
 
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
@@ -64,11 +75,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+# the card's name, the bound, the timer and the de-zeroing, shared with the
+# package's tools
+from gligen_tpu_torch.tools.timing import (FP32_FLOP_PER_S, bound, card_line, dezero_,
+                                           time_ms)
 
 REPO = Path(__file__).resolve().parent
 SOURCES = ("flash_fwd", "flash_bwd", "fused_proj", "fused_norm", "fused_conv")
@@ -115,13 +130,6 @@ GATE_RTOL, GATE_ATOL = 1e-1, 1e-2
 PLAIN_SWITCHES = {"GLIGEN_TPU_FUSED_PROJ": "0", "GLIGEN_TPU_FUSED_NORM": "0",
                   "GLIGEN_TPU_FUSED_CONV": "0"}
 
-# One NVIDIA H100 SXM (the data sheet's dense rates, 700 W): the least time
-# of a kernel is the larger of its bytes over the memory rate and its
-# operations over the peak rate for their type.
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOP_PER_S = 989e12
-FP32_FLOP_PER_S = 67e12
-
 # The switches of each configuration that phase 4 drives.  (a) is the JAX
 # package's default serving configuration; (b) the module path with both
 # norm kernels; (c) the fused conv on every ResBlock.
@@ -144,80 +152,12 @@ SMALL = dict(
 )
 
 
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return res.stdout.strip().splitlines()[0]
-
-
 def set_config(name: str) -> None:
     os.environ.update(CONFIGS[name])
 
 
 def config_desc(name: str) -> str:
     return f"({name}) " + " ".join(f"{k[len('GLIGEN_TPU_'):]}={v}" for k, v in CONFIGS[name].items())
-
-
-def bound(nbytes: float, ops: float, rate: float = BF16_TENSOR_FLOP_PER_S):
-    """(least ms, "bytes" or "operations") for moving ``nbytes`` (each input
-    read once, each output written once) and doing ``ops`` at ``rate``."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-SLEEP_CYCLES = 50_000_000  # ~25 ms of one spinning block at the H100's clock
-
-
-def timed(fn, iters: int = 10):
-    """(device ms, host ms) per call of ``fn``, the mean of ``iters`` calls
-    after one warm-up.  The calls are queued behind a spinning kernel and
-    timed by CUDA events once the host has queued them all, so the device
-    runs them back to back: the device time leaves out the host's time to
-    queue each call (the wrapper's checks, allocation and launch), which is
-    the host time.  The spin is lengthened until the host gets ahead."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    for cycles in (SLEEP_CYCLES * 4**i for i in range(4)):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 1e3 / iters
-        end.record()
-        queued_ahead = not start.query()  # the device is still spinning
-        torch.cuda.synchronize()
-        if queued_ahead:
-            return start.elapsed_time(end) / iters, host_ms
-    raise RuntimeError(f"the host took {host_ms:.3f} ms per call: too slow to queue "
-                       f"{iters} calls ahead of the device")
-
-
-def time_ms(fn, iters: int = 10) -> float:
-    return timed(fn, iters)[0]
-
-
-def dezero_(module, generator) -> None:
-    """Random values for the zero-initialised weights (UNet out_2,
-    out_layers_3, proj_out) and 0.5 for the fuser gates, so the output
-    depends on every layer: a fresh model otherwise predicts eps = 0."""
-    import torch
-    from gligen_tpu_torch.models.layers import Conv2d, Dense, GatedSelfAttentionDense
-
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, (Dense, Conv2d)) and m.zero_init:
-                std = m.weight[0].numel() ** -0.5
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator,
-                                           device=m.weight.device) * std)
-            elif isinstance(m, GatedSelfAttentionDense):
-                m.alpha_attn.fill_(0.5)
-                m.alpha_dense.fill_(0.5)
 
 
 def kernel_cases(batch: int):
@@ -342,6 +282,27 @@ def proj_cases(batch: int):
     return cases
 
 
+# The batch of phase 9's tools: the JAX tools' CFG batch, and K7's only
+# path (bench_proj.py) runs at it, so phase 3 holds K7 at its rows.
+TOOLS_BATCH = 16
+
+
+def mm_cases(rows: int = TOOLS_BATCH):
+    """(name, "mm_only", rows, N, F, K) of K7 at the products that
+    bench_proj.py gives it at ``rows`` x 4096 tokens (q/k/v and to_out,
+    GEGLU, net_2), at 320 -> 320 over the fuser's N+30 rows (a ragged last
+    row block), and at one shape whose M, K and F are multiples of no row
+    block, of no 64-column slab and of no 32-wide K step."""
+    n, c = LEVELS["ds1"]
+    return [
+        ("mm_320_320_ds1", "mm_only", rows, n, c, c),
+        ("mm_320_2560_ds1", "mm_only", rows, n, 8 * c, c),
+        ("mm_1280_320_ds1", "mm_only", rows, n, c, 4 * c),
+        ("mm_320_320_fuser_ds1", "mm_only", rows, n + 30, c, c),
+        ("mm_ragged", "mm_only", 3, 333, 104, 200),
+    ]
+
+
 def compare(torch, got, want, atol=PROJ_ATOL, rtol=PROJ_RTOL):
     """(max abs error, ok) of a kernel output against its plain version:
     |got - want| <= atol + rtol * |want| everywhere."""
@@ -370,7 +331,8 @@ def grouped_input(randn, shape):
 def check_proj(torch, cases, device):
     """Each fused-projection kernel against its plain version on the same
     card tensors (bf16 activations and weights, fp32 norm parameters,
-    biases and gate), with the times of both."""
+    biases and gate), with the times of both, and for K7 (mm_only) that of
+    torch.matmul on the same product."""
     from gligen_tpu_torch.ops import fused_proj as fp
 
     gen = torch.Generator(device=device).manual_seed(2)
@@ -381,9 +343,10 @@ def check_proj(torch, cases, device):
     bf16 = torch.bfloat16
     results = []
     for name, kind, b, n, c, k in cases:
-        x = randn(b, n, c, dtype=bf16)
+        x = randn(b, n, k if kind == "mm_only" else c, dtype=bf16)
         s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
         m = b * n
+        library = None
         if kind == "ln_matmuls":
             ws = [randn(c, c, scale=c**-0.5, dtype=bf16) for _ in range(k)]
             args = (x, s, sb, ws)
@@ -396,6 +359,12 @@ def check_proj(torch, cases, device):
             args = (h, randn(c, k, scale=k**-0.5, dtype=bf16), randn(c, scale=0.1), x, gate)
             desc = f"h ({b},{n},{k}) -> {c}{' gated' if gate is not None else ''}"
             nbytes, flops = 2 * m * (k + 2 * c) + 2 * c * k + 4 * c + 4, 2 * m * k * c
+        elif kind == "mm_only":
+            w = randn(c, k, scale=k**-0.5, dtype=bf16)
+            args = (x, w)
+            library = lambda: torch.matmul(x, w.T)
+            desc = f"x ({b},{n},{k}) -> {c}"
+            nbytes, flops = 2 * (m * k + c * k + m * c), 2 * m * k * c
         else:
             args = (x, s, sb, randn(8 * c, c, scale=c**-0.5, dtype=bf16), randn(8 * c, scale=0.1))
             desc = f"x ({b},{n},{c}) -> {8 * c} -> {4 * c}"
@@ -406,13 +375,15 @@ def check_proj(torch, cases, device):
         err, ok = compare(torch, got, plain(*args))
         ms = time_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args))
+        library_ms = None if library is None else time_ms(library)
         bound_ms, bound_by = bound(nbytes, flops)
+        lib = "" if library_ms is None else f" torch.matmul {library_ms:.4f} ms"
         print(f"kernel {kind:15s} {name:12s} {desc:28s}: max_abs_err {err:.3e} "
-              f"(tol {PROJ_ATOL} + {PROJ_RTOL} rel) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"(tol {PROJ_ATOL} + {PROJ_RTOL} rel) kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+              f"{lib} bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
         results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
-        del x, args, got
+                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+        del x, args, got, library
     torch.cuda.empty_cache()
     return results
 
@@ -723,9 +694,7 @@ def expected_launches(comps, steps, alpha_stages, latent, config):
     norm = {"1": "both"}.get(env["GLIGEN_TPU_FUSED_NORM"], env["GLIGEN_TPU_FUSED_NORM"])
     gn_on, ln_on = norm in ("gn", "both"), norm in ("ln", "both")
     res, sts = unet_maps(comps.unet, latent)
-    counts = dict.fromkeys(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_matmuls",
-                            "matmul_residual", "ln_geglu", "group_norm", "gn_affine",
-                            "layer_norm", "gn_silu_conv3x3"], 0)
+    counts = dict.fromkeys(kernel_wrappers(), 0)
     for h, _, depth in sts:
         fused = env["GLIGEN_TPU_FUSED_PROJ"] == "1" and h * h >= 64
         counts["flash_fwd"] += depth * (3 * gated + 2 * free)
@@ -771,9 +740,7 @@ def expected_train_launches(comps, image_size, config, use_checkpoint):
     res, sts = unet_maps(comps.unet, image_size // comps.vae.downsample_factor)
     runs = 2 if use_checkpoint else 1
     floor = 1024 if use_checkpoint else 64
-    counts = dict.fromkeys(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_matmuls",
-                            "matmul_residual", "ln_geglu", "group_norm", "gn_affine",
-                            "layer_norm", "gn_silu_conv3x3"], 0)
+    counts = dict.fromkeys(kernel_wrappers(), 0)
     first = 1
     for h, _, depth in sts:
         fused = env["GLIGEN_TPU_FUSED_PROJ"] == "1" and h * h >= floor
@@ -975,6 +942,55 @@ def train_reference(torch, np, seed, device, use_checkpoint, size=64, batch=2):
     return ok, lines
 
 
+def run_tools(torch, device):
+    """Phase 9: the port's tools in process at full ds1 width, few calls
+    each, in configuration (a).  Returns (failures, the launches of every
+    wrapper during the bench_proj run but for its comparisons with the
+    plain version, K7's comparisons as results, lines)."""
+    from gligen_tpu_torch.tools import bench_block, bench_proj, bench_resblock
+
+    set_config("a")
+    failures, wrappers = [], kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    assert (bench_proj.ATOL, bench_proj.RTOL) == (PROJ_ATOL, PROJ_RTOL)  # K7's rows' "ok"
+    rows = bench_proj.run(batch=TOOLS_BATCH, n=LEVELS["ds1"][0], iters=3, device=device)
+    counts = {name: w.launches for name, w in wrappers.items()}
+    counts["mm_only"] -= sum(r["check_launches"] for r in rows if r["kernel"] == "mm_only")
+    lines = [f"tools: bench_proj: {line}" for line in bench_proj.lines(rows)]
+    checks = []
+    for r in rows:
+        k7, k2 = r["launches"]["mm_only"], r["launches"]["K2"]
+        if r["kernel"] == "mm_only":
+            kind_ok = k7 > 0 and k2 == 0 and r["ok"]
+            checks.append(dict(name=f"bench_proj {r['site']}", kind="mm_only",
+                               err=r["max_abs_err"], ok=r["ok"]))
+        else:
+            kind_ok = k7 == 0 and k2 > 0
+        if not (kind_ok and r["ms"] > 0):
+            failures.append(f"tools bench_proj {r['site']} {r['kernel']}")
+    lines.append(f"tools: bench_proj: launches over the run {counts} (K7's comparisons with "
+                 f"mm_only_plain left out); every K7 row launched K7 alone and agreed with "
+                 f"mm_only_plain (tol {PROJ_ATOL} + {PROJ_RTOL} rel), every K2 row launched no "
+                 f"K7: {not failures}")
+    # each sandbox's profiled forward must show the kernels of its configuration
+    for tool, needs in (
+        (bench_block, ("flash_fwd", "ln_matmuls", "matmul_residual", "ln_geglu",
+                       "group_norm normalise (K5)")),
+        (bench_resblock, ("group_norm stats (K5)", "group_norm normalise (K5)")),
+    ):
+        name = tool.__name__.rsplit(".", 1)[1]
+        result = tool.run(iters=3, device=device, profile=True)
+        missing = [cat for cat in needs if cat not in result["breakdown"]]
+        ok = result["out_finite"] and result["ms"] > 0 and not missing
+        lines += [f"tools: {name}: {line}" for line in tool.lines(result)]
+        lines.append(f"tools: {name}: output finite {result['out_finite']}, kernels missing from "
+                     f"the trace {missing} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"tools {name}")
+    return failures, counts, checks, lines
+
+
 def make_request(rng, batch, vocab, ctx_dim):
     import numpy as np
 
@@ -999,7 +1015,8 @@ def check_image(torch, img, batch, size):
 
 
 # name: (source, the TPU kernel it replaces, the shape its times come from,
-# the configuration whose generate run gives its launches)
+# the run that gives its launches: a generate configuration, the train
+# step, or phase 9's bench_proj)
 KERNEL_META = {
     "flash_fwd": ("gligen_tpu_torch/csrc/flash_fwd.cu",
                   "gligen_tpu/ops/pallas_attention.py:836 (_packed_fwd_impl single-KV) "
@@ -1031,6 +1048,8 @@ KERNEL_META = {
                       "gligen_tpu/ops/pallas_attention.py:684 (_flash_bwd dk/dv/dbias) and "
                       "gligen_tpu/ops/pallas_attention.py:1063 (_flash_packed_bwd dk/dv/dbias)",
                       "attn1_ds1", "train"),
+    "mm_only": ("gligen_tpu_torch/csrc/fused_proj.cu", "tools/bench_proj.py:90 (mm_only)",
+                "mm_320_320_ds1", "bench_proj"),
 }
 
 
@@ -1131,7 +1150,7 @@ def main() -> int:
     comps = GligenComponents.create(dtype=torch.bfloat16, seed=args.seed, device=device)
     results = check_kernel(torch, kernel_cases(batch), device)
     results.append(check_kernel_1024(torch, device))
-    results += check_proj(torch, proj_cases(batch), device)
+    results += check_proj(torch, proj_cases(batch) + mm_cases(), device)
     results += check_norms(torch, norm_cases(comps.unet, comps.vae, batch), ln_cases(batch), device)
     results += check_convs(torch, conv_cases(comps.unet, batch), device)
     failures += [f"kernel {r['kind']} {r['name']}" for r in results if not r["ok"]]
@@ -1192,6 +1211,12 @@ def main() -> int:
         print("\n".join(lines), flush=True)
         if not ok:
             failures.append(f"train reference (use_checkpoint={use_checkpoint})")
+
+    # ---- 9. the tools at full ds1 width ----
+    tool_failures, launches["bench_proj"], tool_checks, tool_report = run_tools(torch, device)
+    results += tool_checks
+    print("\n".join(tool_report), flush=True)
+    failures += tool_failures
 
     print("summary: s/img " + ", ".join(f"({c}) {s:.3f}" for c, s in s_per_img.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")

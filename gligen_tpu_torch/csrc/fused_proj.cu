@@ -6,7 +6,14 @@
 //   * _matmul_residual (:212, body _matmul_residual_kernel :191):
 //     y = x + g * (h @ W + b) (to_out and FF net_2 with their gated residual);
 //   * _ln_geglu (:297, body _ln_geglu_kernel :270, _erf :259):
-//     y = a * gelu(g) with [a | g] = LN(x) @ W + b (FF net_0).
+//     y = a * gelu(g) with [a | g] = LN(x) @ W + b (FF net_0);
+// and tools/bench_proj.py's mm_only (pallas_call at :90, body _mm_kernel
+// :81, "K7"): y = x @ W alone, the yardstick of the projection budget tool
+// (gligen_tpu_torch/tools/bench_proj.py).  It is a fourth mode of the same
+// kernel, with no LayerNorm statistics, the A tile copied as it is and the
+// product stored: the same grid, row-block rule and GEMM core as the three
+// above, so K2 - K7 is the cost of their prologues and epilogues and K7 -
+// cuBLAS that of the core.  It must stay on K2's core to measure that.
 // Numerics are the TPU kernels': per-row fp32 LayerNorm statistics in one pass
 // (mean and mean of squares), the normalised row rounded to bf16 before the
 // product, fp32 products, fp32 bias and gate, one rounding of the output.  The
@@ -65,10 +72,10 @@ namespace {
 
 constexpr int kMaxWeights = 3;
 
-enum Mode { kLnMatmuls = 0, kResidual = 1, kGeglu = 2 };
+enum Mode { kLnMatmuls = 0, kResidual = 1, kGeglu = 2, kMatmul = 3 };
 
 struct Params {
-  const bf16* a;                 // (M, K): x (LN modes) or h (residual)
+  const bf16* a;                 // (M, K): x (LN modes) or h (residual, matmul)
   const float* ln_s;             // (K,) LayerNorm scale (LN modes)
   const float* ln_b;             // (K,) LayerNorm shift (LN modes)
   const bf16* w[kMaxWeights];    // (F, K) rows; GEGLU: one (2F, K)
@@ -94,7 +101,7 @@ __global__ void __launch_bounds__(BM * 2) fused_proj_kernel(const Params p) {
   typedef Smem<MODE, BM> L;
   typedef typename L::Tile T;
   constexpr int kWarps = T::kThreads / 32;
-  constexpr bool kLn = MODE != kResidual;
+  constexpr bool kLn = MODE == kLnMatmuls || MODE == kGeglu;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sMean = reinterpret_cast<float*>(smem + L::kStats);
   float* sRstd = sMean + BM;
@@ -135,7 +142,7 @@ __global__ void __launch_bounds__(BM * 2) fused_proj_kernel(const Params p) {
     }
   }
 
-  // The A tile: rows of h, or of x normalised with the row's statistics
+  // The A tile: rows of h (or x), or of x normalised with the row's statistics
   // (set before the core's first barrier) and rounded to bf16.
   T::product(smem, w, p.f, p.k, n0, [&](int k0, bf16* sA) {
     for (int i = threadIdx.x; i < BM * T::kChunks; i += T::kThreads) {
@@ -163,7 +170,7 @@ __global__ void __launch_bounds__(BM * 2) fused_proj_kernel(const Params p) {
   T::epilogue(smem, m_valid, n0, p.f, [&](int r, int n, const float* row) {
     const long long off = (long long)(m0 + r) * p.f + n;
     float y[8];
-    if constexpr (MODE == kLnMatmuls) {
+    if constexpr (MODE == kLnMatmuls || MODE == kMatmul) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) y[j] = row[j];
     } else if constexpr (MODE == kResidual) {
@@ -274,4 +281,16 @@ extern "C" int ln_geglu_bf16(const void* x, const float* ln_s, const float* ln_b
   p.m = m, p.k = k, p.f = f;
   p.eps = eps;
   return dispatch<kGeglu>(p, stream);
+}
+
+// y = a @ w^T; a (m, k), w (f, k), y (m, f): the matmul-only mode (K7).
+extern "C" int matmul_bf16(const void* a, const void* w, void* y, int m, int k, int f,
+                           void* stream) {
+  Params p = empty_params();
+  p.a = static_cast<const bf16*>(a);
+  p.w[0] = static_cast<const bf16*>(w);
+  p.out[0] = static_cast<bf16*>(y);
+  p.n_w = 1;
+  p.m = m, p.k = k, p.f = f;
+  return dispatch<kMatmul>(p, stream);
 }

@@ -7,20 +7,26 @@ Counterpart of ``gligen_tpu/ops/pallas_matmul.py``.  Three kernels of
   * ``matmul_residual``: y = x + g * (h @ W + b)  (to_out, FF net_2)
   * ``ln_geglu``:        y = a * gelu(g), [a | g] = LN(x) @ W + b  (FF net_0)
 
+and a fourth mode of the same kernel, ``mm_only`` (K7): y = x @ W alone,
+the counterpart of ``tools/bench_proj.py``'s matmul-only Pallas kernel,
+which only the projection budget tool (``tools/bench_proj.py`` of this
+package) runs.  Forward only, as in the JAX tool, which gives it no
+``custom_vjp``.
+
 Numerics are the TPU kernels': fp32 LayerNorm statistics, the normalised
 rows cast to the compute dtype before the product, the product in fp32
 from the rounded operands, bias and gate in fp32, one final cast.  The
 plain versions call the plain LayerNorm (``layer_norm_xla``), never the
 dispatching one, so on card tensors they launch no kernel.
 
-Weights are ``nn.Linear``'s (F, K), not JAX's (K, F).  Each wrapper casts
-them to x's dtype at every call (the JAX modules' ``dtype`` semantics),
+Weights are ``nn.Linear``'s (F, K), not JAX's (K, F).  Each K2 wrapper
+casts them to x's dtype at every call (the JAX modules' ``dtype`` semantics),
 outside the autograd Function, so the gradient reaches the fp32
 parameter through the cast.  It runs the plain version for a CPU tensor
 and the kernel for a CUDA tensor; it never falls back from one to the
 other.
 
-Gradients: each wrapper's output is differentiable (``launch.
+Gradients: each K2 wrapper's output is differentiable (``launch.
 differentiable``).  The backward differentiates the reference chain, as
 the JAX custom VJPs do (pallas_matmul.py:109-113, :157-163, :234-238,
 :319-326): LayerNorm with fp32 statistics, products in the compute dtype
@@ -100,6 +106,14 @@ def ln_geglu_plain(
     hg = _product(layer_norm_xla(x, scale, bias, eps=eps), w) + w_bias.float()
     a, g = hg.chunk(2, dim=-1)
     return (a * F.gelu(g)).to(x.dtype)
+
+
+def mm_only_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (..., K); w: (F, K).  Returns x @ w.T, (..., F) in x's dtype: fp32
+    products of operands rounded to x's dtype, one final cast
+    (tools/bench_proj.py:_mm_kernel, ``dot_general(...,
+    preferred_element_type=float32).astype(o_ref.dtype)``)."""
+    return _product(x, w).to(x.dtype)
 
 
 def _ln_matmuls_chain(x, scale, bias, *ws, eps):
@@ -225,7 +239,33 @@ class LnGeglu(Kernel):
         return out
 
 
+class MmOnly(Kernel):
+    library, entry = "fused_proj", "matmul_bf16"
+    # a, w, y, m, k, f
+    argtypes = (PTR,) * 3 + (I32,) * 3
+
+    def __call__(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Same contract as ``mm_only_plain``; bf16 x and w on the card.
+        Forward only: with gradients enabled, an input that requires one
+        raises, since the kernel's output could not carry it."""
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            raise RuntimeError("mm_only is forward only (the JAX tool's kernel has no "
+                               "custom_vjp): call it under torch.no_grad()")
+        if not on_cuda(x, "mm_only"):
+            return mm_only_plain(x, w)
+        f, k = w.shape
+        if x.shape[-1] != k:
+            raise ValueError(f"mm_only: x {tuple(x.shape)} and w {tuple(w.shape)} do not fit")
+        check_widths("mm_only", K=k, F=f)
+        check("mm_only", x.device, x=(x, torch.bfloat16), w=(w, torch.bfloat16))
+        out = torch.empty((*x.shape[:-1], f), dtype=x.dtype, device=x.device)
+        self._launch(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), x.numel() // k, k, f)
+        return out
+
+
 ln_matmuls = LnMatmuls()
 matmul_residual = MatmulResidual()
 ln_geglu = LnGeglu()
-KERNELS = {"ln_matmuls": ln_matmuls, "matmul_residual": matmul_residual, "ln_geglu": ln_geglu}
+mm_only = MmOnly()
+KERNELS = {"ln_matmuls": ln_matmuls, "matmul_residual": matmul_residual, "ln_geglu": ln_geglu,
+           "mm_only": mm_only}

@@ -23,8 +23,9 @@ shows whether the profiler left a cost behind.  ``GLIGEN_TPU_FUSED_PROJ``
 is set to ``--fused``, ``GLIGEN_TPU_FUSED_NORM`` to ``--norm`` and
 ``GLIGEN_TPU_FUSED_CONV`` to ``--conv``.  ``--root`` imports
 ``gligen_tpu_torch`` from
-another checkout (e.g. an older commit unpacked with ``git archive``), so
-two trees compare on one card, each run in its own process.
+another checkout (e.g. an older commit unpacked with ``git archive``, one
+that has ``gligen_tpu_torch/tools/timing.py``), so two trees compare on
+one card, each run in its own process.
 
 train: the train step (``training/train_step.py``) at full SD-1.4 GLIGEN
 width with ``chip_smoke.py``'s seeded, de-zeroed random weights: 512^2
@@ -42,7 +43,7 @@ kernel's wrapper against the module path's chain for the same function
 (LayerNorm and Dense modules, the elementwise gate, residual and GELU),
 both given the fp32 parameters they get in the model (so both cast the
 weights to bf16 at each call): device ms and host ms per call, timed by
-``chip_smoke.timed``.
+``timing.timed``.
 
 norms: at every GroupNorm and LayerNorm shape of ``chip_smoke.norm_cases``
 and ``ln_cases``, the kernel's wrapper against the module path's chain
@@ -72,21 +73,29 @@ REPO = Path(__file__).resolve().parents[2]
 
 def _setup(root: Path):
     """Put ``root``'s package first on the path and this checkout's
-    ``chip_smoke.py`` after it; return (torch, chip_smoke, card line)."""
+    ``chip_smoke.py`` (its cases and requests) after it; return (torch,
+    chip_smoke, card line).  ``root`` needs ``gligen_tpu_torch/tools/
+    timing.py``, which chip_smoke.py imports."""
     import importlib.util
 
     sys.path.insert(0, str(root))
     import torch
 
+    from gligen_tpu_torch.tools.timing import card_setup
+
+    card = card_setup("perf_probe")
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
+    return torch, chip_smoke, card
 
-    if not torch.cuda.is_available():
-        raise SystemExit("perf_probe: no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch, chip_smoke, chip_smoke.card_line()
+
+def fused_proj_template(name: str):
+    """(MODE, BM) of a ``fused_proj_kernel<MODE, BM>`` kernel name: the
+    kernel's mode (0 ln_matmuls, 1 matmul_residual, 2 ln_geglu, 3 mm_only)
+    and the row block ``wide_rows`` chose for the launch."""
+    mode, bm = name.split("fused_proj_kernel<", 1)[1].split(">", 1)[0].split(",")
+    return int(mode), int(bm)
 
 
 def category(name: str) -> str:
@@ -105,8 +114,8 @@ def category(name: str) -> str:
     if "conv3x3_kernel" in name:
         return "gn_silu_conv3x3 (K6)"
     if "fused_proj_kernel" in name:
-        mode = name.split("fused_proj_kernel<", 1)[1][0]
-        return {"0": "ln_matmuls", "1": "matmul_residual", "2": "ln_geglu"}[mode]
+        return ("ln_matmuls", "matmul_residual", "ln_geglu",
+                "mm_only (K7)")[fused_proj_template(name)[0]]
     low = name.lower()
     if "multi_tensor_apply" in low:
         return "optimizer (foreach)"
@@ -149,20 +158,44 @@ def device_breakdown(trace: dict, phase_of=None):
     return by_cat, busy / 1e3, len(spans), by_phase
 
 
+def traced(fn, cpu: bool = False):
+    """(``fn()``, the chrome trace of that call under ``torch.profiler``):
+    CUDA activity only, to keep the profiler's host cost low, or CPU too
+    where a host range must reach the device timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        out = fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return out, json.load(f)
+
+
+def breakdown_lines(by_cat) -> list:
+    """One line per category of ``device_breakdown``, largest first:
+    device ms, share and launches."""
+    total = sum(ms for ms, _ in by_cat.values())
+    return [f"{cat:26s} {ms:9.2f} ms {ms / total:6.1%} {k:7d} launches"
+            for cat, (ms, k) in sorted(by_cat.items(), key=lambda kv: -kv[1][0])]
+
+
 def request(args) -> None:
     root = Path(args.root).resolve()
     torch, cs, card = _setup(root)
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
+    from gligen_tpu_torch.tools.timing import dezero_
 
     os.environ.update(GLIGEN_TPU_FUSED_PROJ=args.fused, GLIGEN_TPU_FUSED_NORM=args.norm,
                       GLIGEN_TPU_FUSED_CONV=args.conv)
     device = torch.device("cuda", 0)
     comps = GligenComponents.create(dtype=torch.bfloat16, seed=0, device=device)
     gen = torch.Generator(device=device).manual_seed(1)
-    cs.dezero_(comps.unet, gen)
+    dezero_(comps.unet, gen)
     pipe = GenerationPipeline(comps)
     rng = np.random.default_rng(0)
     kw = dict(steps=10, guidance_scale=7.5, alpha_stages=[0.3, 0.0, 0.7],
@@ -182,21 +215,16 @@ def request(args) -> None:
     mean = sum(walls) / len(walls)
     print(f"request: {tag}: first {first:.1f} ms, warm {', '.join(f'{w:.1f}' for w in walls)} ms "
           f"(mean {mean:.1f} ms = {mean / 2e3:.4f} s/img) on {card}", flush=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = run()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            by_cat, busy, n, _ = device_breakdown(json.load(f))
+    wall, trace = traced(run)
+    by_cat, busy, n, _ = device_breakdown(trace)
     total = sum(ms for ms, _ in by_cat.values())
     after = run()
     print(f"profile: {tag}: profiled wall {wall:.1f} ms, device busy {busy:.1f} ms, "
           f"device time {total:.1f} ms over {n} kernels and copies; idle {1 - busy / wall:.1%} "
           f"of the profiled wall, {1 - busy / mean:.1%} of the mean unprofiled wall; "
           f"unprofiled request after the trace {after:.1f} ms", flush=True)
-    for cat, (ms, k) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
-        print(f"profile:   {cat:26s} {ms:9.2f} ms {ms / total:6.1%} {k:7d} launches")
+    for line in breakdown_lines(by_cat):
+        print(f"profile:   {line}")
 
 
 TRAIN_PHASES = ("loss", "backward", "optimizer")
@@ -230,9 +258,9 @@ def train(args) -> None:
     root = Path(args.root).resolve()
     torch, cs, card = _setup(root)
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from gligen_tpu_torch.inference.pipeline import GligenComponents
+    from gligen_tpu_torch.tools.timing import dezero_
     from gligen_tpu_torch.training.train_step import create_train_state, make_train_step
 
     os.environ.update(GLIGEN_TPU_FUSED_PROJ=args.fused, GLIGEN_TPU_FUSED_NORM=args.norm,
@@ -241,7 +269,7 @@ def train(args) -> None:
     comps = GligenComponents.create(dtype=torch.bfloat16, seed=0, device=device,
                                     unet_config={"use_checkpoint": True})
     gen = torch.Generator(device=device).manual_seed(1)
-    cs.dezero_(comps.unet, gen)
+    dezero_(comps.unet, gen)
     state = create_train_state(comps.unet, base_lr=1e-4, warmup_steps=1)
     step = make_train_step(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
     data = cs.train_batch(torch, np, np.random.default_rng(0), args.batch, 512, 49408, 768,
@@ -264,13 +292,7 @@ def train(args) -> None:
     print(f"train: {tag}: first {first:.1f} ms, warm {', '.join(f'{w:.1f}' for w in walls)} ms "
           f"(mean {mean:.1f} ms = {mean / 1e3:.4f} s/step = {args.batch * 1e3 / mean:.3f} img/s), "
           f"peak memory {peak:.2f} GiB on {card}", flush=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = run()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
+    wall, trace = traced(run, cpu=True)
     by_cat, busy, n, by_phase = device_breakdown(trace, train_phases(trace))
     total = sum(ms for ms, _ in by_cat.values())
     after = run()
@@ -322,6 +344,8 @@ def module_chain(torch, kind, c, k, device):
 
 def chains(args) -> None:
     torch, cs, card = _setup(REPO)
+    from gligen_tpu_torch.tools.timing import timed
+
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(2)
     print(f"chains: device ms (host ms) per call on {card}", flush=True)
@@ -332,18 +356,20 @@ def chains(args) -> None:
             inputs = (x,)
             if kind == "matmul_residual":
                 inputs = (torch.randn((b, n, k), generator=gen, device=device).to(torch.bfloat16), x)
-            kd, kh = cs.timed(lambda: kernel(*inputs))
-            md, mh = cs.timed(lambda: module(*inputs))
+            kd, kh = timed(lambda: kernel(*inputs))
+            md, mh = timed(lambda: module(*inputs))
             print(f"chains: {kind:15s} {name:12s} kernel {kd:.4f} ({kh:.4f}) ms  module path "
                   f"{md:.4f} ({mh:.4f}) ms  kernel/module device {kd / md:.2f}", flush=True)
 
 
-def _compare(cs, label, kernel, others) -> None:
+def _compare(label, kernel, others) -> None:
     """One line: the kernel's and each other call's device (host) ms."""
-    kd, kh = cs.timed(kernel)
+    from gligen_tpu_torch.tools.timing import timed
+
+    kd, kh = timed(kernel)
     cells = [f"kernel {kd:.4f} ({kh:.4f})"]
     for name, fn in others.items():
-        d, h = cs.timed(fn)
+        d, h = timed(fn)
         cells.append(f"{name} {d:.4f} ({h:.4f}) kernel/{name} {kd / d:.2f}")
     print(f"{label}: " + "  ".join(cells), flush=True)
 
@@ -379,13 +405,13 @@ def norms(args) -> None:
             if not silu:
                 xc, sc, bc = x.reshape(shape[0], -1, c).transpose(1, 2), s.bfloat16(), b.bfloat16()
                 others["F.group_norm"] = lambda: F.group_norm(xc, 32, sc, bc, eps)
-            _compare(cs, f"norms: group_norm {name:16s} {str(shape):22s}",
+            _compare(f"norms: group_norm {name:16s} {str(shape):22s}",
                      lambda: fn.group_norm_fused(x, s, b, 32, eps, silu), others)
         for name, rows, c in cs.ln_cases(2):
             x = torch.randn((rows, c), generator=gen, device=device).to(torch.bfloat16)
             s, b = torch.ones(c, device=device), torch.zeros(c, device=device)
             sc, bc = s.bfloat16(), b.bfloat16()
-            _compare(cs, f"norms: layer_norm {name:14s} ({rows}, {c})",
+            _compare(f"norms: layer_norm {name:14s} ({rows}, {c})",
                      lambda: fn.layer_norm_fused(x, s, b),
                      {"module": lambda: basic.layer_norm(x, s, b),
                       "F.layer_norm": lambda: F.layer_norm(x, (c,), sc, bc)})
@@ -411,7 +437,7 @@ def convs(args) -> None:
             res = (torch.randn((b, h, h, cout), generator=gen, device=device).to(torch.bfloat16)
                    if residual else None)
             xn = norm(x)
-            _compare(cs, f"convs: {name:16s} ({b},{h},{h},{cin}) -> {cout}",
+            _compare(f"convs: {name:16s} ({b},{h},{h},{cin}) -> {cout}",
                      lambda: fc.gn_silu_conv3x3(x, norm.weight, norm.bias, conv.weight,
                                                 conv.bias, residual=res),
                      {"module": lambda: conv(norm(x)) if res is None else conv(norm(x)) + res,

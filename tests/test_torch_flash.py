@@ -154,10 +154,11 @@ def test_kernel_input_checks(change, error):
 
 
 def test_port_imports_without_jax_or_nvcc():
-    """Every module of the port (the training package included) imports,
-    and a CPU call, its backward and an optimizer step run, in a Python
-    where jax, flax and gligen_tpu cannot be imported and no nvcc is on
-    the PATH; only a kernel build asks for nvcc."""
+    """Every module of the port (the training package and the tools
+    included) imports, and a CPU call, its backward, an optimizer step and
+    the projection budget tool run, in a Python where jax, flax and
+    gligen_tpu cannot be imported and no nvcc is on the PATH; only a kernel
+    build asks for nvcc."""
     code = """
 import importlib, pkgutil, sys
 for name in ("jax", "flax", "gligen_tpu"):
@@ -166,6 +167,10 @@ import gligen_tpu_torch, torch
 for mod in pkgutil.walk_packages(gligen_tpu_torch.__path__, "gligen_tpu_torch."):
     importlib.import_module(mod.name)
 assert "gligen_tpu_torch.training.train_step" in sys.modules
+for tool in ("timing", "perf_probe", "bench_proj", "bench_block", "bench_resblock"):
+    assert f"gligen_tpu_torch.tools.{tool}" in sys.modules, tool
+from gligen_tpu_torch.tools import bench_proj
+assert len(bench_proj.run(batch=1, n=8, iters=1, device="cpu", channels=16)) == 8
 from gligen_tpu_torch.ops import cuda_build
 from gligen_tpu_torch.ops.attention import multi_head_attention
 from gligen_tpu_torch.training.train_step import lr_multiplier, make_optimizer
