@@ -6,16 +6,20 @@
 Phases, each of which fails the run with a non-zero exit:
 
   1. card: require CUDA; print the card's name and power limit.
-  2. build: compile csrc/flash_fwd.cu, flash_bwd.cu, fused_proj.cu,
-     fused_norm.cu and fused_conv.cu with nvcc, in parallel, into
-     build/kernels/; print ptxas's registers and spills.
+  2. build: compile csrc/flash_fwd.cu, flash_fwd_sweep.cu (the same
+     kernel at the tile sweep's configurations), flash_bwd.cu,
+     fused_proj.cu, fused_norm.cu and fused_conv.cu with nvcc, in parallel,
+     into build/kernels/; print the seconds it took and ptxas's registers,
+     spills and wgmma notes.
   3. kernel: compare each kernel with its plain PyTorch version on bf16
      inputs at every shape the 512^2 path launches, with the times of both
      and, where one PyTorch call computes the same function, that call's:
      flash attention (UNet attn1, the gated fuser's N+30 keys,
      cross-attention over 77 text tokens, at ds1/ds2/ds4 and the 64-token
      middle block; the VAE's single 512-wide head over 4096 tokens; and
-     attn1 at ds1 of a 1024^2 image, checked on its first 512 query rows);
+     attn1 at ds1 of a 1024^2 image, checked 512 query rows at a time;
+     each row with its route, TF/s and share of the bound, and every one
+     must take the TMA route);
      per level the fused projections (ln_matmuls for q/k/v, for q alone
      and for the fuser's k/v over N+30 rows, matmul_residual for to_out
      and net_2, ln_geglu) and the matmul-only mode of the same kernel
@@ -32,7 +36,8 @@ Phases, each of which fails the run with a non-zero exit:
      with CFG), PLMS with alpha stages [0.3, 0, 0.7], in each of the
      configurations of ``CONFIGS``; the images must be finite, in [0, 1]
      and not constant, and each kernel's launch count must equal what the
-     module structure and the sampler tables predict for the configuration.
+     module structure and the sampler tables predict for the configuration;
+     every flash forward launch must take the TMA route.
   5. reference: the same pipeline at a small width on the card (bf16,
      kernels) against its fp32 CPU run (plain versions), same weights and
      noise, in each configuration.
@@ -63,7 +68,10 @@ Phases, each of which fails the run with a non-zero exit:
      with mm_only_plain's; its K7 launches are mm_only's in the JSON line),
      one transformer block (``bench_block.py``) and one ResBlock
      (``bench_resblock.py``), each with one profiled forward whose trace
-     shows its kernels.
+     shows its kernels; and the flash forward's tile sweep
+     (``bench_sweep_attn.py``) at ``SWEEP_CONFIGS`` beside the fixed table,
+     every configuration's output held against the plain version on
+     every query row.
 
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
@@ -86,11 +94,16 @@ from gligen_tpu_torch.tools.timing import (FP32_FLOP_PER_S, bound, card_line, de
                                            time_ms)
 
 REPO = Path(__file__).resolve().parent
-SOURCES = ("flash_fwd", "flash_bwd", "fused_proj", "fused_norm", "fused_conv")
+SOURCES = ("flash_fwd", "flash_fwd_sweep", "flash_bwd", "fused_proj", "fused_norm", "fused_conv")
 
-# kernel vs plain, bf16 output: one bf16 ulp is 2^-7 relative, outputs are
-# O(1), and the kernel rounds P to bf16 before the PV product
+# flash forward vs plain, bf16 output: the kernel rounds P to bf16 before
+# the PV product and O to bf16, a few bf16 ulps (2^-8 relative) of the
+# largest outputs.  On unit-scale inputs the softmax spreads over ~M/e
+# keys, so an output is ~sqrt(e/M) (0.026 at M = 4096), far below OUT_TOL:
+# each case is also held to OUT_REL_TOL of the plain output's largest
+# magnitude, which a P.V fault (a wrong V tile, a bad rescale) exceeds
 OUT_TOL = 2e-2
+OUT_REL_TOL = 2e-2
 # log-sum-exp, fp32 sums in another order (log2 units)
 LSE_TOL = 1e-3
 # fused projections, norms and the fused conv vs plain, bf16 output: the
@@ -188,6 +201,23 @@ def sdpa(torch, q, k, v, h, bias):
     return F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=mask)
 
 
+def routed(fwd, call):
+    """(the route the flash forward took, the call's result) of one call
+    that launches the forward kernel once."""
+    before = dict(fwd.routes)
+    result = call()
+    took = [r for r, n in fwd.routes.items() if n != before[r]]
+    if len(took) != 1 or fwd.routes[took[0]] != before[took[0]] + 1:
+        raise RuntimeError(f"expected one flash_fwd launch: routes {before} -> {fwd.routes}")
+    return took[0], result
+
+
+def out_limit(want) -> float:
+    """The flash forward's output limit for a case whose plain output is
+    ``want``: OUT_TOL, or OUT_REL_TOL of its largest magnitude if less."""
+    return min(OUT_TOL, OUT_REL_TOL * want.float().abs().max().item())
+
+
 def check_kernel(torch, cases, device):
     from gligen_tpu_torch.ops.flash_attention import NEG_INF, flash_attention_plain, flash_fwd
 
@@ -200,7 +230,7 @@ def check_kernel(torch, cases, device):
         if padbias:
             bias = torch.zeros((b, m), device=device)
             bias[:, n + 30:] = NEG_INF
-        out, lse = flash_fwd(q, k, v, h, bias=bias)
+        route, (out, lse) = routed(flash_fwd, lambda: flash_fwd(q, k, v, h, bias=bias))
         torch.cuda.synchronize()
         # the plain version on the same (card) tensors: the wrapper takes it
         # only for CPU tensors, so it is called directly here
@@ -213,15 +243,18 @@ def check_kernel(torch, cases, device):
         library_ms = time_ms(lambda: sdpa(torch, q, k, v, h, bias))
         nbytes = 2 * (2 * b * n * h * d + 2 * b * m * h * d) + 4 * b * h * n
         nbytes += 0 if bias is None else 4 * b * m
-        bound_ms, bound_by = bound(nbytes, 4 * b * h * n * m * d)
-        ok = finite and err <= OUT_TOL and lse_err <= LSE_TOL
+        flops = 4 * b * h * n * m * d
+        bound_ms, bound_by = bound(nbytes, flops)
+        limit = out_limit(want)
+        ok = finite and err <= limit and lse_err <= LSE_TOL and route == "tma"
         print(f"kernel {name:18s} q ({b},{n},{h}x{d}) kv {m}: max_abs_err {err:.3e} "
-              f"(tol {OUT_TOL}) lse_err {lse_err:.3e} (tol {LSE_TOL}) "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms "
+              f"(tol {limit:.3e}) lse_err {lse_err:.3e} (tol {LSE_TOL}) route {route} "
+              f"kernel {ms:.4f} ms {flops / ms / 1e9:.1f} TF/s {100 * bound_ms / ms:.1f}% of bound; "
+              f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms "
               f"bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
         results.append(dict(name=name, kind="flash_fwd", err=err, lse_err=lse_err, ms=ms,
                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, ok=ok))
+                            bound_by=bound_by, route=route, ok=ok))
         del q, k, v, out, lse, want, want_lse
     torch.cuda.empty_cache()
     return results
@@ -230,35 +263,38 @@ def check_kernel(torch, cases, device):
 def check_kernel_1024(torch, device, rows=512):
     """attn1 at ds1 of a 1024^2 image: (4, 16384, 8x40) against 16384 keys.
     The plain version's whole score matrix would take ~34 GB in fp32, so it
-    runs on the first ``rows`` query rows; rows are independent, so the
-    comparison is exact for them.  plain_ms is the time of those rows."""
+    runs ``rows`` query rows at a time (rows are independent) over every
+    row; plain_ms is the time of one such call."""
     from gligen_tpu_torch.ops.flash_attention import flash_attention_plain, flash_fwd
+    from gligen_tpu_torch.tools.bench_sweep_attn import plain_by_rows
 
     b, n, h, d = 4, 16384, 8, 40
     gen = torch.Generator(device=device).manual_seed(3)
     q, k, v = (torch.randn((b, n, h * d), generator=gen, device=device).to(torch.bfloat16)
                for _ in range(3))
-    out, lse = flash_fwd(q, k, v, h)
+    route, (out, lse) = routed(flash_fwd, lambda: flash_fwd(q, k, v, h))
     torch.cuda.synchronize()
-    want, want_lse = flash_attention_plain(q[:, :rows], k, v, h)
-    err = (out[:, :rows].float() - want.float()).abs().max().item()
-    lse_err = (lse[:, :, :rows] - want_lse).abs().max().item()
+    want, want_lse = plain_by_rows(q, k, v, h, rows=rows)
+    err = (out.float() - want.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
     finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
     ms = time_ms(lambda: flash_fwd(q, k, v, h), iters=3)
     plain_ms = time_ms(lambda: flash_attention_plain(q[:, :rows], k, v, h), iters=3)
     library_ms = time_ms(lambda: sdpa(torch, q, k, v, h, None), iters=3)
-    bound_ms, bound_by = bound(2 * 4 * b * n * h * d + 4 * b * h * n, 4 * b * h * n * n * d)
-    ok = finite and err <= OUT_TOL and lse_err <= LSE_TOL
+    flops = 4 * b * h * n * n * d
+    bound_ms, bound_by = bound(2 * 4 * b * n * h * d + 4 * b * h * n, flops)
+    limit = out_limit(want)
+    ok = finite and err <= limit and lse_err <= LSE_TOL and route == "tma"
     name = "attn1_ds1_1024px"
-    print(f"kernel {name:18s} q ({b},{n},{h}x{d}) kv {n}: max_abs_err {err:.3e} on the first "
-          f"{rows} query rows (tol {OUT_TOL}) lse_err {lse_err:.3e} (tol {LSE_TOL}) "
-          f"kernel {ms:.4f} ms (all rows) plain {plain_ms:.4f} ms ({rows} rows) sdpa "
-          f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}",
-          flush=True)
+    print(f"kernel {name:18s} q ({b},{n},{h}x{d}) kv {n}: max_abs_err {err:.3e} over every "
+          f"query row (tol {limit:.3e}) lse_err {lse_err:.3e} (tol {LSE_TOL}) route {route} "
+          f"kernel {ms:.4f} ms (all rows) {flops / ms / 1e9:.1f} TF/s {100 * bound_ms / ms:.1f}% "
+          f"of bound; plain {plain_ms:.4f} ms ({rows} rows) sdpa {library_ms:.4f} ms "
+          f"bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
     del q, k, v, out, lse, want, want_lse
     torch.cuda.empty_cache()
     return dict(name=name, kind="flash_fwd", err=err, lse_err=lse_err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, route=route, ok=ok)
 
 
 # (tokens, channels) of the transformer blocks at 512^2 (latent 64), SD-1.4
@@ -285,6 +321,10 @@ def proj_cases(batch: int):
 # The batch of phase 9's tools: the JAX tools' CFG batch, and K7's only
 # path (bench_proj.py) runs at it, so phase 3 holds K7 at its rows.
 TOOLS_BATCH = 16
+
+
+# phase 9's flash tile sweep: (BQ, BK, stages) beside the fixed table's
+SWEEP_CONFIGS = ((64, 128, 2), (128, 64, 3), (128, 128, 2))
 
 
 def mm_cases(rows: int = TOOLS_BATCH):
@@ -947,7 +987,7 @@ def run_tools(torch, device):
     each, in configuration (a).  Returns (failures, the launches of every
     wrapper during the bench_proj run but for its comparisons with the
     plain version, K7's comparisons as results, lines)."""
-    from gligen_tpu_torch.tools import bench_block, bench_proj, bench_resblock
+    from gligen_tpu_torch.tools import bench_block, bench_proj, bench_resblock, bench_sweep_attn
 
     set_config("a")
     failures, wrappers = [], kernel_wrappers()
@@ -988,6 +1028,17 @@ def run_tools(torch, device):
                      f"the trace {missing} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"tools {name}")
+    # the flash forward's tile sweep at the ds1 shapes, a few configurations
+    assert (bench_sweep_attn.OUT_TOL, bench_sweep_attn.OUT_REL_TOL, bench_sweep_attn.LSE_TOL) \
+        == (OUT_TOL, OUT_REL_TOL, LSE_TOL)  # its rows' "ok"
+    rows = bench_sweep_attn.run(batch=TOOLS_BATCH, n=LEVELS["ds1"][0], configs=SWEEP_CONFIGS,
+                                iters=3, device=device)
+    lines += [f"tools: bench_sweep_attn: {line}" for line in bench_sweep_attn.lines(rows)]
+    ok = all(r["ok"] for r in rows)
+    lines.append(f"tools: bench_sweep_attn: every configuration agreed with "
+                 f"flash_attention_plain: {ok}")
+    if not ok:
+        failures.append("tools bench_sweep_attn")
     return failures, counts, checks, lines
 
 
@@ -1131,6 +1182,7 @@ def main() -> int:
 
     from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
     from gligen_tpu_torch.ops.cuda_build import library_path, load_library
+    from gligen_tpu_torch.ops.flash_attention import flash_fwd
 
     failures = []
 
@@ -1142,7 +1194,7 @@ def main() -> int:
           f"-> {library_path(SOURCES[0]).parent.parent.relative_to(REPO)}", flush=True)
     for src in SOURCES:
         for line in (library_path(src).parent / "ptxas.txt").read_text().splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "wgmma")):
                 print(f"build: {src}: {line.strip()}")
 
     # ---- 3. kernels vs plain ----
@@ -1171,7 +1223,9 @@ def main() -> int:
     for config in CONFIGS:
         expected, gated, free = expected_launches(comps, args.steps, alpha, latent, config)
         requests = [make_request(rng, batch, 49408, 768) for _ in range(2)]
+        routes = dict(flash_fwd.routes)
         times, images, counts = run_requests(torch, pipe, requests, config, gen, **kw)
+        routes = {r: n - routes[r] for r, n in flash_fwd.routes.items()}
         for i, (img, t) in enumerate(zip(images, times)):
             ok, desc = check_image(torch, img, batch, 512)
             print(f"generate: {config_desc(config)} request {i}: {desc} in {t:.3f} s "
@@ -1183,6 +1237,10 @@ def main() -> int:
               f"launches {counts}, expected {want} ({len(requests)} requests)", flush=True)
         if counts != want:
             failures.append(f"launch count ({config})")
+        print(f"generate: ({config}) flash_fwd launches by route {routes} (every one must be "
+              f"tma) {'ok' if routes['copy'] == 0 else 'FAIL'}", flush=True)
+        if routes["copy"]:
+            failures.append(f"flash_fwd copy route ({config})")
         s_per_img[config] = times[1] / batch
         launches[config] = counts
         del images

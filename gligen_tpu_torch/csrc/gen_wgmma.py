@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Write ``wgmma.cuh``: the inline-PTX wrappers of Hopper's warpgroup
+matrix multiply that ``flash_fwd.cu`` issues.
+
+    python3 gligen_tpu_torch/csrc/gen_wgmma.py
+
+A ``wgmma.mma_async`` instruction names every accumulator register, N/2 of
+them for an m64nNk16 fp32 product, so each width is one wrapper written
+out in full.  Two forms, bf16 operands and fp32 accumulators:
+
+  * ``wgmma_ss<N>``: A and B from shared memory, by descriptor (S = Q K^T);
+  * ``wgmma_rs<N>``: A from registers (four bf16x2 per thread, the layout
+    of the accumulator it was computed in), B from shared memory (O += P V).
+
+``TRANS_B`` is the instruction's imm-trans-b: 0 for a K-major B, 1 for an
+MN-major one.  ``tests/test_torch_flash.py`` checks that the committed
+header is what this script writes.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+HEADER = Path(__file__).resolve().parent / "wgmma.cuh"
+SS_WIDTHS = (32, 64, 128)
+RS_WIDTHS = (40, 80, 160, 256)
+
+
+def _regs(n: int) -> str:
+    return ", ".join(f"%{i}" for i in range(n // 2))
+
+
+def _outs(n: int) -> str:
+    lines, per = [], 8
+    for i in range(0, n // 2, per):
+        lines.append("        " + ", ".join(f'"+f"(d[{j}])' for j in range(i, min(i + per, n // 2))))
+    return ",\n".join(lines)
+
+
+def _ss(n: int) -> str:
+    r = n // 2
+    return f"""template <>
+struct Wgmma<{n}> {{
+  template <int TRANS_B>
+  static __device__ __forceinline__ void ss(float (&d)[{r}], uint64_t a, uint64_t b, int acc) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+        "{{{_regs(n)}}}, %{r}, %{r + 1}, p, 1, 1, 0, %{r + 3};\\n}}\\n"
+        :
+{_outs(n)}
+        : "l"(a), "l"(b), "r"(acc), "n"(TRANS_B));
+  }}
+}};
+"""
+
+
+def _rs(n: int) -> str:
+    r = n // 2
+    return f"""template <>
+struct WgmmaRs<{n}> {{
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[{r}], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+        "{{{_regs(n)}}}, {{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, %{r + 4}, p, 1, 1, %{r + 6};\\n}}\\n"
+        :
+{_outs(n)}
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TRANS_B));
+  }}
+}};
+"""
+
+
+def render() -> str:
+    parts = [
+        "// Generated by gen_wgmma.py: do not edit.  Warpgroup MMA wrappers, m64nNk16,\n"
+        "// bf16 x bf16 -> fp32.  Wgmma<N>::ss: A and B by shared-memory descriptor;\n"
+        "// WgmmaRs<N>::rs: A from registers.  acc = 0 overwrites d, 1 accumulates.\n",
+        "#pragma once\n\n#include <stdint.h>\n\n",
+        "template <int N>\nstruct Wgmma;\n\ntemplate <int N>\nstruct WgmmaRs;\n\n",
+    ]
+    parts += [_ss(n) + "\n" for n in SS_WIDTHS]
+    parts += [_rs(n) + "\n" for n in RS_WIDTHS]
+    return "".join(parts).rstrip("\n") + "\n"
+
+
+if __name__ == "__main__":
+    HEADER.write_text(render())
+    print(f"wrote {HEADER}")

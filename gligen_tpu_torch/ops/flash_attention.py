@@ -19,7 +19,10 @@ and the LSE, its backward launches the dq kernel when q needs a gradient
 and the dk/dv kernel when k, v or the bias does.
 
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor; it never falls back from one to the other.
+CUDA tensor; it never falls back from one to the other.  The forward
+kernel loads its operands by TMA where TMA can read them (``tma_ok``) and
+by plain copies otherwise: a choice made from the layout, before the
+launch, and counted per route.
 """
 
 from __future__ import annotations
@@ -67,20 +70,82 @@ def flash_attention_plain(
     return out.reshape(b, n, hc).to(q.dtype), lse
 
 
+# The forward kernel's tile table, by head-dim class: (largest head dim, BQ
+# query rows, BK keys, ring stages).  The wrapper passes the chosen tiles to
+# the C entry; the serving library (csrc/flash_fwd.cu:dispatch) is built
+# with exactly these configurations and refuses any other.
+FWD_TILES = ((40, 128, 128, 3), (80, 128, 128, 2), (160, 128, 64, 2), (512, 64, 32, 2))
+
+
+def fwd_tiles(d: int) -> Tuple[int, int, int]:
+    """(BQ, BK, stages) of the forward kernel for head dim ``d``."""
+    for top, bq, bk, stages in FWD_TILES:
+        if d <= top:
+            return bq, bk, stages
+    raise ValueError(f"head dim {d} above {MAX_HEAD_DIM}")
+
+
+def tma_ok(d: int, layouts) -> bool:
+    """Whether TMA can read every operand (csrc/flash_fwd.cu:tma_ok): d a
+    multiple of 8 elements (16 bytes), and each operand's base address
+    16-byte aligned with positive batch and row strides that are multiples
+    of 8 elements.  ``layouts``: (data_ptr, batch stride, row stride) of q,
+    k and v.  Anything else takes the copy route."""
+    return d % 8 == 0 and all(
+        ptr % 16 == 0 and sb > 0 and sn > 0 and sb % 8 == 0 and sn % 8 == 0
+        for ptr, sb, sn in layouts
+    )
+
+
+def fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> str:
+    """"tma" or "copy": how the forward kernel loads these operands."""
+    layouts = [(t.data_ptr(), t.stride(0), t.stride(1)) for t in (q, k, v)]
+    return "tma" if tma_ok(q.shape[2] // heads, layouts) else "copy"
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The built kernel's C entry point, with its ctypes signature."""
+def _kernel(library: str):
+    """A forward library's C entry point, with its ctypes signature."""
     from gligen_tpu_torch.ops.cuda_build import load_library
 
-    fn = load_library("flash_fwd").flash_fwd_bf16
+    fn = load_library(library).flash_fwd_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p] * 6            # q, k, v, bias, o, lse
         + [ctypes.c_int] * 5             # batch, heads, n, m, d
         + [ctypes.c_longlong] * 13       # q/k/v/o (batch, head, row) strides, bias row stride
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, vec, stream
+        + [ctypes.c_float] + [ctypes.c_int] * 4  # scale, tma, BQ, BK, stages
+        + [ctypes.c_void_p]              # stream
     )
     return fn
+
+
+def launch_fwd(library, q, k, v, heads, bias, tiles):
+    """One launch of ``library``'s forward entry at ``tiles`` (BQ, BK,
+    stages) on checked CUDA inputs; returns (out, lse, route).  Raises if
+    the library does not hold that configuration for this head dim."""
+    b, n, hc = q.shape
+    m = k.shape[1]
+    c = hc // heads
+    out = torch.empty((b, n, hc), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
+    route = fwd_route(q, k, v, heads)
+    strides = []
+    for t in (q, k, v, out):
+        strides += [t.stride(0), c, t.stride(1)]
+    err = _kernel(library)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr() if bias is not None else None,
+        out.data_ptr(), lse.data_ptr(),
+        b, heads, n, m, c,
+        *strides, bias.stride(0) if bias is not None else 0,
+        c**-0.5, int(route == "tma"), *tiles,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{library} launch failed (d {c}, {route} route, tiles {tiles}): "
+                           f"cudaError {err}")
+    return out, lse, route
 
 
 def _check_inputs(q, k, v, heads, bias):
@@ -113,10 +178,12 @@ class FlashForward:
     """Wrapper of ``csrc/flash_fwd.cu``.
 
     ``launches`` counts kernel launches (never plain-version calls), so a
-    run can show that its attention went through the kernel."""
+    run can show that its attention went through the kernel; ``routes``
+    counts them by route ("tma" or "copy", ``fwd_route``)."""
 
     def __init__(self):
         self.launches = 0
+        self.routes = {"tma": 0, "copy": 0}
 
     def __call__(
         self,
@@ -130,34 +197,11 @@ class FlashForward:
         if not on_cuda(q, "flash_fwd"):
             return flash_attention_plain(q, k, v, heads, bias=bias)
         _check_inputs(q, k, v, heads, bias)
-        b, n, hc = q.shape
-        m = k.shape[1]
-        c = hc // heads
-        out = torch.empty((b, n, hc), dtype=q.dtype, device=q.device)
-        lse = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
-        tensors = (q, k, v, out)
-        # 16-byte vector loads need every row start 16-byte aligned
-        vec = int(
-            c % 8 == 0
-            and all(t.data_ptr() % 16 == 0 for t in tensors)
-            and all(s % 8 == 0 for t in tensors for s in t.stride()[:2])
-        )
-        strides = []
-        for t in tensors:
-            strides += [t.stride(0), c, t.stride(1)]
-        err = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr() if bias is not None else None,
-            out.data_ptr(), lse.data_ptr(),
-            b, heads, n, m, c,
-            *strides, bias.stride(0) if bias is not None else 0,
-            c**-0.5, vec, torch.cuda.current_stream(q.device).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"flash_fwd_bf16 launch failed: cudaError {err}")
+        tiles = fwd_tiles(q.shape[2] // heads)
+        out, lse, route = launch_fwd("flash_fwd", q, k, v, heads, bias, tiles)
         self.launches += 1
+        self.routes[route] += 1
         return out, lse
-
 
 flash_fwd = FlashForward()
 

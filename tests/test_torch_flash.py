@@ -31,8 +31,12 @@ from gligen_tpu_torch.ops.flash_attention import (
     _check_inputs,
     flash_attention,
     flash_attention_packed,
+    FWD_TILES,
     flash_attention_plain,
     flash_fwd,
+    fwd_route,
+    fwd_tiles,
+    tma_ok,
 )
 
 torch.set_num_threads(1)
@@ -167,7 +171,8 @@ import gligen_tpu_torch, torch
 for mod in pkgutil.walk_packages(gligen_tpu_torch.__path__, "gligen_tpu_torch."):
     importlib.import_module(mod.name)
 assert "gligen_tpu_torch.training.train_step" in sys.modules
-for tool in ("timing", "perf_probe", "bench_proj", "bench_block", "bench_resblock"):
+for tool in ("timing", "perf_probe", "bench_proj", "bench_block", "bench_resblock",
+             "bench_sweep_attn"):
     assert f"gligen_tpu_torch.tools.{tool}" in sys.modules, tool
 from gligen_tpu_torch.tools import bench_proj
 assert len(bench_proj.run(batch=1, n=8, iters=1, device="cpu", channels=16)) == 8
@@ -195,3 +200,133 @@ print("ok")
                          env=env, cwd=REPO, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize(
+    "d,want",
+    [(1, (128, 128, 3)), (20, (128, 128, 3)), (40, (128, 128, 3)), (41, (128, 128, 2)),
+     (80, (128, 128, 2)), (81, (128, 64, 2)), (160, (128, 64, 2)), (161, (64, 32, 2)),
+     (512, (64, 32, 2))],
+)
+def test_forward_tile_table(d, want):
+    """(BQ, BK, stages) by head-dim class, as csrc/flash_fwd.cu:fwd_tiles
+    has them (chip_smoke.py holds the built table to this one): 128 query
+    rows (two consumer warpgroups) up to d = 160, 64 rows and 32-key
+    stages at the VAE's 512."""
+    assert fwd_tiles(d) == want
+    assert [top for top, *_ in FWD_TILES] == [40, 80, 160, 512]
+
+
+def test_forward_tile_table_stops_at_512():
+    with pytest.raises(ValueError):
+        fwd_tiles(513)
+
+
+ALIGNED = (4096, 8 * 320, 320)  # (data_ptr, batch stride, row stride) of a packed tensor
+
+
+@pytest.mark.parametrize(
+    "d,layouts,want",
+    [
+        (40, [ALIGNED] * 3, True),                      # every UNet and VAE site
+        (512, [(0, 4096 * 512, 512)] * 3, True),        # the VAE head, one head
+        (20, [ALIGNED] * 3, False),                     # d not a multiple of 8
+        (40, [(4098, 2560, 320)] + [ALIGNED] * 2, False),  # q 2 bytes off 16
+        (40, [ALIGNED, (4096, 2560, 326), ALIGNED], False),  # k row stride 326
+        (40, [ALIGNED, ALIGNED, (4096, 2564, 320)], False),  # v batch stride
+        (40, [ALIGNED, (4096, 0, 320), ALIGNED], False),  # an expanded batch
+        (40, [ALIGNED, (4096 + 640, 2 * 2560, 640), (4096 + 1280, 2 * 2560, 640)], True),
+    ],
+)
+def test_tma_route_rule(d, layouts, want):
+    """(d, alignment) -> route: TMA needs d and every batch and row stride
+    a multiple of 8 elements and 16-byte aligned bases
+    (csrc/flash_fwd.cu:tma_ok); the last case is k and v as column slices
+    of one fused projection output."""
+    assert tma_ok(d, layouts) is want
+
+
+def test_route_of_real_layouts():
+    """The layouts the port's callers give the kernel: packed q/k/v, k and
+    v sliced from one (B, M, 2*H*C) projection, and the VAE's (B*H, N, D)."""
+    def t(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+
+    q, kv = t(2, 64, 320), t(2, 94, 640)
+    assert fwd_route(q, kv[..., :320], kv[..., 320:], 8) == "tma"
+    assert fwd_route(t(2, 64, 512), t(2, 64, 512), t(2, 64, 512), 1) == "tma"
+    assert fwd_route(t(2, 64, 60), t(2, 70, 60), t(2, 70, 60), 3) == "copy"  # d = 20
+    assert fwd_route(q[:, 1:], q[:, 1:], q[:, 1:], 8) == "tma"  # row offsets keep alignment
+    odd = t(2, 64, 330)[..., 3:323]
+    assert fwd_route(odd, odd, odd, 8) == "copy"
+
+
+def test_wgmma_header_is_generated():
+    """csrc/wgmma.cuh is exactly what csrc/gen_wgmma.py writes."""
+    sys.path.insert(0, os.path.join(REPO, "gligen_tpu_torch", "csrc"))
+    try:
+        import gen_wgmma
+    finally:
+        sys.path.pop(0)
+    with open(gen_wgmma.HEADER) as f:
+        assert f.read() == gen_wgmma.render()
+
+
+def test_bench_sweep_attn_on_the_cpu():
+    """The sweep tool at a tiny size: per key count, the table's row then
+    one per configuration, each held against flash_attention_plain on every
+    query row, 8 rows at a time (on the CPU every row is the plain version
+    itself, so exactly); the products' FLOPs and the bound from the
+    shapes."""
+    from gligen_tpu_torch.tools import bench_sweep_attn, timing
+
+    configs = ((64, 64, 2), (128, 128, 3))
+    b, n, h, d = 1, 24, 2, 8
+    rows = bench_sweep_attn.run(batch=b, n=n, ms_keys=(24, 31), configs=configs, iters=1,
+                                device="cpu", heads=h, dim=d, check_rows=8)
+    assert [(r["m"], r["tiles"]) for r in rows] == [
+        (m, c) for m in (24, 31) for c in (None, *configs)]
+    for r in rows:
+        flops = 4 * b * h * n * r["m"] * d
+        nbytes = 2 * (2 * b * n + 2 * b * r["m"]) * h * d + 4 * b * h * n
+        assert (r["bound_ms"], r["bound_by"]) == timing.bound(nbytes, flops)
+        assert r["tflops"] == pytest.approx(flops / r["ms"] / 1e9)
+        assert r["ok"] and r["max_abs_err"] == 0.0 and r["lse_err"] == 0.0
+        assert r["bound_share"] is None and r["sdpa_ms"] > 0
+        assert r["table"] == (fwd_tiles(d) if r["tiles"] is None else None)
+    out = bench_sweep_attn.lines(rows)
+    assert len(out) == 1 + len(rows) and out[1].split()[2] == "table"
+    assert bench_sweep_attn.parse_configs("128x64x3,64x64x2") == ((128, 64, 3), (64, 64, 2))
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 24, 100])
+def test_plain_by_rows_covers_every_row(chunk):
+    """The sweep tool's (and chip_smoke.py's) reference at large N: the
+    plain version over query-row chunks is the plain version, on every
+    row, with a bias row."""
+    from gligen_tpu_torch.tools.bench_sweep_attn import plain_by_rows
+
+    rng = np.random.default_rng(chunk)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, L, 16), dtype=np.float32))
+               for L in (24, 19, 19))
+    bias = torch.from_numpy(rng.standard_normal((2, 19), dtype=np.float32))
+    out, lse = plain_by_rows(q, k, v, 2, bias=bias, rows=chunk)
+    want, want_lse = flash_attention_plain(q, k, v, 2, bias=bias)
+    torch.testing.assert_close(out, want, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lse, want_lse, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "want_max,err,ok",
+    [(0.2, 3.9e-3, True), (0.2, 4.1e-3, False), (5.0, 1.9e-2, True), (5.0, 2.1e-2, False)],
+)
+def test_sweep_output_limit_is_relative(want_max, err, ok):
+    """A row's output passes within 2e-2 of the plain output's largest
+    magnitude, and never beyond 2e-2 absolute: an all-zero output fails
+    where the outputs are small."""
+    from gligen_tpu_torch.tools.bench_sweep_attn import out_ok
+
+    want = torch.full((1, 4, 8), want_max)
+    lse = torch.zeros((1, 1, 4))
+    assert out_ok(want - err, lse, want, lse)[2] is ok
+    assert out_ok(torch.zeros_like(want), lse, want, lse)[2] is False
