@@ -8,7 +8,8 @@ Phases, each of which fails the run with a non-zero exit:
   1. card: require CUDA; print the card's name and power limit.
   2. build: compile csrc/flash_fwd.cu, flash_fwd_sweep.cu (the same
      kernel at the tile sweep's configurations), flash_bwd.cu,
-     fused_proj.cu, fused_norm.cu and fused_conv.cu with nvcc, in parallel,
+     flash_bwd_sweep.cu (likewise), fused_proj.cu, fused_norm.cu and
+     fused_conv.cu with nvcc, in parallel,
      into build/kernels/; print the seconds it took and ptxas's registers,
      spills and wgmma notes.
   3. kernel: compare each kernel with its plain PyTorch version on bf16
@@ -44,9 +45,11 @@ Phases, each of which fails the run with a non-zero exit:
   6. backward kernels: the flash backward's dq and dk/dv kernels against
      their plain version at every backward shape of the training step
      (attn1, the fuser's N+30 keys and the cross-attention's dq at
-     ds1/ds2/ds4/mid, batch 4; dbias on one masked case), with device
-     times, the plain version's and F.scaled_dot_product_attention's
-     backward at the same shape.
+     ds1/ds2/ds4/mid, batch 4; dbias on one masked case), each gradient
+     within BWD_REL_TOL of its plain version's largest magnitude, with its
+     route (every launch must take the TMA route), device time, TF/s and
+     share of the bound, the plain version's and
+     F.scaled_dot_product_attention's backward at the same shape.
   7. train: the training step at full SD-1.4 GLIGEN width (512^2, batch
      4, live VAE encode, per-block remat 'full', the default switches,
      AdamW with a one-step warmup): a warm-up step and 3 timed ones.  The
@@ -55,7 +58,8 @@ Phases, each of which fails the run with a non-zero exit:
      (learning rate 0) changed nothing; the second changes every trainable
      tensor; the frozen parameters stay bit-identical with no gradient;
      each kernel's launches per step equal the walk of
-     ``expected_train_launches``.
+     ``expected_train_launches``; every flash backward launch takes the
+     TMA route.
   8. train reference: the loss and the trainable gradients of one step at
      a small width on the card (bf16, kernels) against the CPU (fp32,
      plain versions), same weights, batch and draws, with and without
@@ -71,7 +75,10 @@ Phases, each of which fails the run with a non-zero exit:
      shows its kernels; and the flash forward's tile sweep
      (``bench_sweep_attn.py``) at ``SWEEP_CONFIGS`` beside the fixed table,
      every configuration's output held against the plain version on
-     every query row.
+     every query row; and the flash backward's tile sweep
+     (``bench_sweep_attn.py --bwd``) at the ds1 training shapes, B = 4,
+     every configuration of ``BWD_CONFIGS`` beside the fixed table, each
+     gradient held to BWD_REL_TOL against the plain backward.
 
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
@@ -94,7 +101,8 @@ from gligen_tpu_torch.tools.timing import (FP32_FLOP_PER_S, bound, card_line, de
                                            time_ms)
 
 REPO = Path(__file__).resolve().parent
-SOURCES = ("flash_fwd", "flash_fwd_sweep", "flash_bwd", "fused_proj", "fused_norm", "fused_conv")
+SOURCES = ("flash_fwd", "flash_fwd_sweep", "flash_bwd", "flash_bwd_sweep", "fused_proj",
+           "fused_norm", "fused_conv")
 
 # flash forward vs plain, bf16 output: the kernel rounds P to bf16 before
 # the PV product and O to bf16, a few bf16 ulps (2^-8 relative) of the
@@ -201,14 +209,14 @@ def sdpa(torch, q, k, v, h, bias):
     return F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=mask)
 
 
-def routed(fwd, call):
-    """(the route the flash forward took, the call's result) of one call
-    that launches the forward kernel once."""
-    before = dict(fwd.routes)
+def routed(wrapper, call):
+    """(the route a flash wrapper's kernel took, the call's result) of one
+    call that launches that kernel once."""
+    before = dict(wrapper.routes)
     result = call()
-    took = [r for r, n in fwd.routes.items() if n != before[r]]
-    if len(took) != 1 or fwd.routes[took[0]] != before[took[0]] + 1:
-        raise RuntimeError(f"expected one flash_fwd launch: routes {before} -> {fwd.routes}")
+    took = [r for r, n in wrapper.routes.items() if n != before[r]]
+    if len(took) != 1 or wrapper.routes[took[0]] != before[took[0]] + 1:
+        raise RuntimeError(f"expected one launch: routes {before} -> {wrapper.routes}")
     return took[0], result
 
 
@@ -646,7 +654,8 @@ def check_bwd(torch, cases, device):
     """The dq and dk/dv kernels against ``flash_attention_bwd_plain`` on
     the same card tensors (bf16 q/k/v and a nonzero random dO; the LSE and
     delta from the forward kernel), with device times of each kernel, of
-    the plain version (all gradients at once) and of SDPA's backward."""
+    the plain version (all gradients at once) and of SDPA's backward; each
+    launch must take the TMA route."""
     from gligen_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(6)
@@ -662,9 +671,12 @@ def check_bwd(torch, cases, device):
         out, lse = fa.flash_fwd(q, k, v, h, bias=bias)
         delta = fa.attention_delta(out, do, h)
         args = (q, k, v, h, do, lse, delta, bias)
-        got = {"dq": fa.flash_bwd_dq(*args)}
+        routes = {}
+        routes["flash_bwd_dq"], got = routed(fa.flash_bwd_dq,
+                                             lambda: {"dq": fa.flash_bwd_dq(*args)})
         if need_kv:
-            got["dk"], got["dv"], db = fa.flash_bwd_dkv(*args, dbias=masked)
+            routes["flash_bwd_dkv"], (got["dk"], got["dv"], db) = routed(
+                fa.flash_bwd_dkv, lambda: fa.flash_bwd_dkv(*args, dbias=masked))
             if masked:
                 got["dbias"] = db
         torch.cuda.synchronize()
@@ -676,6 +688,7 @@ def check_bwd(torch, cases, device):
             errs[key] = ((g.float() - want[key].float()).abs().max().item(), scale)
         ok = all(bool(torch.isfinite(g).all()) and g.shape == want[key].shape
                  and errs[key][0] <= BWD_REL_TOL * errs[key][1] for key, g in got.items())
+        ok = ok and all(r == "tma" for r in routes.values())
         plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(*args), iters=3)
         library_ms = time_ms(sdpa_bwd(torch, q, k, v, h, do, need_kv))
         flops = 2 * b * h * n * m * d
@@ -692,14 +705,15 @@ def check_bwd(torch, cases, device):
             ms = time_ms(fn)
             bound_ms, bound_by = bound(nbytes, ops)
             print(f"kernel {kind:13s} {name:14s} q ({b},{n},{h}x{d}) kv {m}: max_abs_err/max|plain| "
-                  f"{desc} (tol {BWD_REL_TOL} rel) kernel {ms:.4f} ms plain (all grads) "
+                  f"{desc} (tol {BWD_REL_TOL} rel) route {routes[kind]} kernel {ms:.4f} ms "
+                  f"{ops / ms / 1e9:.1f} TF/s {100 * bound_ms / ms:.1f}% of bound; plain (all grads) "
                   f"{plain_ms:.4f} ms sdpa bwd {library_ms:.4f} ms bound {bound_ms:.4f} ms "
-                  f"({bound_by}, {ops / ms / 1e9:.1f} TFLOP/s) {'ok' if ok else 'FAIL'}", flush=True)
+                  f"({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
             err = max(e for key, (e, _) in errs.items()
                       if (key == "dq") == (kind == "flash_bwd_dq"))
             results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
                                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                ok=ok))
+                                route=routes[kind], ok=ok))
         del q, k, v, do, out, lse, delta, args, got, want, dq, dk, dv
     torch.cuda.empty_cache()
     return results
@@ -843,6 +857,8 @@ def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3):
     wrappers = kernel_wrappers()
     data = train_batch(torch, np, np.random.default_rng(seed + 6), batch, size, 49408, 768, device)
     losses, counts, times = [], [], []
+    bwd = {name: wrappers[name] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    routes = {name: dict(w.routes) for name, w in bwd.items()}
     torch.cuda.reset_peak_memory_stats()
     before = {n: p.detach().clone() for n, p in state.params.items()}
     for i in range(1 + timed_steps):
@@ -871,6 +887,13 @@ def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3):
             if not changed:
                 failures.append("train update at step 1")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    routes = {name: {r: n - routes[name][r] for r, n in w.routes.items()}
+              for name, w in bwd.items()}
+    copy = sum(r["copy"] for r in routes.values())
+    print(f"train: flash backward launches by route over the {1 + timed_steps} steps {routes} "
+          f"(every one must be tma) {'ok' if copy == 0 else 'FAIL'}", flush=True)
+    if copy:
+        failures.append("flash backward copy route (train)")
     losses = [x.item() for x in losses]
     if not all(np.isfinite(losses)):
         failures.append("train loss not finite")
@@ -1039,6 +1062,15 @@ def run_tools(torch, device):
                  f"flash_attention_plain: {ok}")
     if not ok:
         failures.append("tools bench_sweep_attn")
+    # the flash backward's tile sweep at the ds1 training shapes (B = 4)
+    assert bench_sweep_attn.BWD_REL_TOL == BWD_REL_TOL  # its rows' "ok"
+    rows = bench_sweep_attn.run_bwd(batch=4, level="ds1", iters=3, device=device)
+    lines += [f"tools: bench_sweep_attn --bwd: {line}" for line in bench_sweep_attn.bwd_lines(rows)]
+    ok = all(r["ok"] for r in rows)
+    lines.append(f"tools: bench_sweep_attn --bwd: every configuration agreed with "
+                 f"flash_attention_bwd_plain: {ok}")
+    if not ok:
+        failures.append("tools bench_sweep_attn --bwd")
     return failures, counts, checks, lines
 
 

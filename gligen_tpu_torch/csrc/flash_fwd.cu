@@ -75,17 +75,15 @@
 
 #include <cmath>
 
+#include "hopper.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxD = 512;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kMaxThreads = 384;
-
-typedef __nv_bfloat16 bf16;
 
 struct Params {
   CUtensorMap tq, tk, tv;  // TMA route: (d, head, row, batch) maps, 64-column swizzled boxes
@@ -125,110 +123,6 @@ struct Cfg {
   static_assert(kThreads <= kMaxThreads, "threads");
   static_assert(kSmem <= 232448, "shared memory");
 };
-
-// ---------------------------------------------------------------- PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spin until the barrier's phase of this parity completes.  A wait that
-// outlasts ~2^28 polls (seconds) is a protocol fault: trap, so the launch
-// fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 28)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accesses of wgmma's registers across the
-// fence, commit and wait above.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands
-// (Q, K): LBO unused (1), SBO = 1024 B between 8-row groups.  MN-major (V):
-// LBO = bytes between 64-column atoms, SBO = 1024 B between 8-key groups.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit, one instruction (2^-inf = 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Copy route: rows x (ATOMS*64) of a row-strided matrix into the swizzled
-// stage layout TMA would write; rows >= valid and columns >= d become 0.
-template <int ATOMS>
-__device__ __forceinline__ void copy_tile(uint8_t* dst, int rows, const bf16* src, long long sn,
-                                          int valid, int d, int tid) {
-  const bf16 zero = __float2bfloat16(0.0f);
-  for (int i = tid; i < rows * ATOMS * 64; i += 128) {
-    const int r = i / (ATOMS * 64), c = i % (ATOMS * 64), cc = c & 63;
-    const int off = (c >> 6) * rows * 128 + r * 128 + (((cc >> 3) ^ (r & 7)) << 4) + (cc & 7) * 2;
-    *reinterpret_cast<bf16*>(dst + off) = (r < valid && c < d) ? src[r * sn + c] : zero;
-  }
-}
 
 // ------------------------------------------------------------ the softmax
 
@@ -348,7 +242,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) flash_fwd_kernel(const __grid_
     } else {
       copy_tile<C::ATOMS>(sQ, C::BQ, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_sn, p.q_sn,
                           min(C::BQ, p.n - q0), p.d, tid);
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       asm volatile("bar.sync 1, 128;\n" ::: "memory");
       if (tid == 0) mbar_arrive(q_full);
       const bf16* kb = p.k + b * p.k_sb + h * p.k_sh;
@@ -358,7 +252,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) flash_fwd_kernel(const __grid_
         mbar_wait(empty(s), ((it / C::STAGES) & 1) ^ 1);
         copy_tile<C::ATOMS>(sK + s * C::kKvBytes, C::BK, kb + k0 * p.k_sn, p.k_sn, valid, p.d, tid);
         copy_tile<C::ATOMS>(sV + s * C::kKvBytes, C::BK, vb + k0 * p.v_sn, p.v_sn, valid, p.d, tid);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fence_proxy_async();
         asm volatile("bar.sync 1, 128;\n" ::: "memory");
         if (tid == 0) mbar_arrive(full(s));
       }
@@ -472,52 +366,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) flash_fwd_kernel(const __grid_
 
 // ------------------------------------------------------------ host side
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A (d, head, row, batch) map of a bf16 tensor with a unit stride along d;
-// boxes of 64 columns x `rows` rows of one (head, batch), 128-byte swizzled.
-// Columns >= d and rows >= `len` read as zeros.
-bool make_map(CUtensorMap* map, const void* base, int d, int heads, int len, int batch,
-              long long sh, long long sn, long long sb, int rows) {
-  EncodeTiled enc = encode_tiled();
-  if (!enc) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)len, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// What TMA takes: 16-byte aligned bases, d and every stride a multiple of 8
-// elements (16 bytes).  ops/flash_attention.py:tma_ok is the same rule.
+// What TMA takes: every operand as hopper.cuh:tma_operand_ok has it.
 bool tma_ok(const Params& p) {
-  auto aligned = [](const void* ptr, long long sb, long long sn) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 8 == 0 && sn % 8 == 0 && sb > 0 &&
-           sn > 0;
-  };
-  return p.d % 8 == 0 && p.q_sh == p.d && p.k_sh == p.d && p.v_sh == p.d &&
-         aligned(p.q, p.q_sb, p.q_sn) && aligned(p.k, p.k_sb, p.k_sn) &&
-         aligned(p.v, p.v_sb, p.v_sn);
+  return tma_operand_ok(p.q, p.d, p.q_sh, p.q_sb, p.q_sn) &&
+         tma_operand_ok(p.k, p.d, p.k_sh, p.k_sb, p.k_sn) &&
+         tma_operand_ok(p.v, p.d, p.v_sh, p.v_sb, p.v_sn);
 }
 
 template <class C>

@@ -19,26 +19,26 @@ and the LSE, its backward launches the dq kernel when q needs a gradient
 and the dk/dv kernel when k, v or the bias does.
 
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor; it never falls back from one to the other.  The forward
-kernel loads its operands by TMA where TMA can read them (``tma_ok``) and
-by plain copies otherwise: a choice made from the layout, before the
-launch, and counted per route.
+CUDA tensor; it never falls back from one to the other.  Every kernel
+loads its bf16 operands by TMA where TMA can read them (``tma_ok``) and by
+plain copies otherwise: a choice made from the layout, before the launch,
+and counted per route.  Each kernel's tiles come from a fixed table by
+head dim (``FWD_TILES``, ``BWD_TILES``) that its library is built at.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
-from gligen_tpu_torch.ops.launch import F32, I32, PTR, Kernel, on_cuda
+from gligen_tpu_torch.ops.launch import F32, I32, PTR, c_entry, on_cuda
 
 NEG_INF = -1e30  # additive bias of a masked key (pallas_attention.py's NEG_INF)
 LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 512
-MAX_BWD_HEAD_DIM = 160  # the backward kernels' shared-memory tiles (csrc/flash_bwd.cu)
+MAX_BWD_HEAD_DIM = 160  # the backward kernels' largest class (BWD_TILES)
 STRIDES = ctypes.POINTER(ctypes.c_longlong)
 
 
@@ -86,11 +86,12 @@ def fwd_tiles(d: int) -> Tuple[int, int, int]:
 
 
 def tma_ok(d: int, layouts) -> bool:
-    """Whether TMA can read every operand (csrc/flash_fwd.cu:tma_ok): d a
-    multiple of 8 elements (16 bytes), and each operand's base address
+    """Whether TMA can read every operand (csrc/hopper.cuh:tma_operand_ok):
+    d a multiple of 8 elements (16 bytes), and each operand's base address
     16-byte aligned with positive batch and row strides that are multiples
-    of 8 elements.  ``layouts``: (data_ptr, batch stride, row stride) of q,
-    k and v.  Anything else takes the copy route."""
+    of 8 elements.  ``layouts``: (data_ptr, batch stride, row stride) of
+    each operand (q, k, v; the backward adds dO).  Anything else takes the
+    copy route."""
     return d % 8 == 0 and all(
         ptr % 16 == 0 and sb > 0 and sn > 0 and sb % 8 == 0 and sn % 8 == 0
         for ptr, sb, sn in layouts
@@ -103,21 +104,13 @@ def fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> 
     return "tma" if tma_ok(q.shape[2] // heads, layouts) else "copy"
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel(library: str):
-    """A forward library's C entry point, with its ctypes signature."""
-    from gligen_tpu_torch.ops.cuda_build import load_library
-
-    fn = load_library(library).flash_fwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 6            # q, k, v, bias, o, lse
-        + [ctypes.c_int] * 5             # batch, heads, n, m, d
-        + [ctypes.c_longlong] * 13       # q/k/v/o (batch, head, row) strides, bias row stride
-        + [ctypes.c_float] + [ctypes.c_int] * 4  # scale, tma, BQ, BK, stages
-        + [ctypes.c_void_p]              # stream
-    )
-    return fn
+# the forward entry's ctypes arguments before the stream
+_FWD_ARGTYPES = (
+    (PTR,) * 6                 # q, k, v, bias, o, lse
+    + (I32,) * 5               # batch, heads, n, m, d
+    + (ctypes.c_longlong,) * 13  # q/k/v/o (batch, head, row) strides, bias row stride
+    + (F32,) + (I32,) * 4      # scale, tma, BQ, BK, stages
+)
 
 
 def launch_fwd(library, q, k, v, heads, bias, tiles):
@@ -133,7 +126,7 @@ def launch_fwd(library, q, k, v, heads, bias, tiles):
     strides = []
     for t in (q, k, v, out):
         strides += [t.stride(0), c, t.stride(1)]
-    err = _kernel(library)(
+    err = c_entry(library, "flash_fwd_bf16", _FWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         out.data_ptr(), lse.data_ptr(),
@@ -174,16 +167,23 @@ def _check_inputs(q, k, v, heads, bias):
             raise ValueError(f"bias must be (B, M) = {(b, k.shape[1])} with a unit last stride")
 
 
-class FlashForward:
-    """Wrapper of ``csrc/flash_fwd.cu``.
-
-    ``launches`` counts kernel launches (never plain-version calls), so a
-    run can show that its attention went through the kernel; ``routes``
-    counts them by route ("tma" or "copy", ``fwd_route``)."""
+class Counted:
+    """A flash kernel's wrapper: ``launches`` counts kernel launches (never
+    plain-version calls), so a run can show that its attention went
+    through the kernel; ``routes`` counts them by route ("tma" or
+    "copy")."""
 
     def __init__(self):
         self.launches = 0
         self.routes = {"tma": 0, "copy": 0}
+
+    def _count(self, route: str) -> None:
+        self.launches += 1
+        self.routes[route] += 1
+
+
+class FlashForward(Counted):
+    """Wrapper of ``csrc/flash_fwd.cu`` (routes by ``fwd_route``)."""
 
     def __call__(
         self,
@@ -199,8 +199,7 @@ class FlashForward:
         _check_inputs(q, k, v, heads, bias)
         tiles = fwd_tiles(q.shape[2] // heads)
         out, lse, route = launch_fwd("flash_fwd", q, k, v, heads, bias, tiles)
-        self.launches += 1
-        self.routes[route] += 1
+        self._count(route)
         return out, lse
 
 flash_fwd = FlashForward()
@@ -250,8 +249,7 @@ def flash_attention_bwd_plain(
 def _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias):
     _check_inputs(q, k, v, heads, bias)
     b, n, hc = q.shape
-    if not hc // heads <= MAX_BWD_HEAD_DIM:
-        raise ValueError(f"flash backward: head dim {hc // heads} above {MAX_BWD_HEAD_DIM}")
+    bwd_tiles(hc // heads)  # raises above MAX_BWD_HEAD_DIM
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or not do.is_contiguous():
         raise ValueError(f"dO must be a contiguous {q.dtype} tensor of q's shape {tuple(q.shape)}")
     for name, t in (("lse", lse), ("delta", delta)):
@@ -260,56 +258,100 @@ def _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias):
             raise ValueError(f"{name} must be a contiguous float32 (B, H, N) = {(b, heads, n)}")
 
 
-def _bwd_launch_args(q, k, v, heads, do, lse, delta, bias, grads):
-    """The pointers, sizes and stride table both backward entry points
-    take.  ``grads`` names the bf16 outputs (dq, or dk and dv), each
-    (B, L, H*C) and contiguous."""
+# The backward kernels' tile table, by head-dim class: (largest head dim,
+# dq's (BQ query rows, BK keys, ring stages), dk/dv's (BK keys, BQ query
+# rows, ring stages)).  The wrappers pass the chosen tiles to the C entries;
+# the serving library (csrc/flash_bwd.cu:dispatch) is built with exactly
+# these configurations and refuses any other.
+BWD_TILES = (
+    (40, (128, 64, 3), (128, 64, 3)),
+    (80, (128, 64, 2), (64, 64, 2)),
+    (160, (64, 64, 2), (64, 32, 3)),
+)
+
+
+def bwd_tiles(d: int) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
+    """(dq tiles, dk/dv tiles) of the backward kernels for head dim ``d``."""
+    for top, dq, dkv in BWD_TILES:
+        if d <= top:
+            return dq, dkv
+    raise ValueError(f"flash backward: head dim {d} above {MAX_BWD_HEAD_DIM}")
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+              heads: int) -> str:
+    """"tma" or "copy": how the backward kernels load these operands
+    (``tma_ok`` over q, k, v and dO)."""
+    layouts = [(t.data_ptr(), t.stride(0), t.stride(1)) for t in (q, k, v, do)]
+    return "tma" if tma_ok(q.shape[2] // heads, layouts) else "copy"
+
+
+# (entry, ctypes arguments before the stream) of each backward kernel
+_BWD_ENTRIES = {
+    # q, k, v, do, bias, lse, delta, dq, batch, heads, n, m, d, strides, scale,
+    # tma, BQ, BK, stages
+    "dq": ("flash_bwd_dq_bf16", (PTR,) * 8 + (I32,) * 5 + (STRIDES, F32) + (I32,) * 4),
+    # q, k, v, do, bias, lse, delta, dk, dv, dbias, batch, heads, n, m, d,
+    # strides, scale, tma, BK, BQ, stages
+    "dkv": ("flash_bwd_dkv_bf16", (PTR,) * 10 + (I32,) * 5 + (STRIDES, F32) + (I32,) * 4),
+}
+
+
+def launch_bwd(library, kind, q, k, v, heads, do, lse, delta, bias, tiles, dbias=False):
+    """One launch of ``library``'s backward entry ``kind`` ("dq" or "dkv")
+    at ``tiles`` on checked CUDA inputs.  Returns (dq, route) or ((dk, dv,
+    per-head dbias (B, H, M) or None), route).  Raises if the library does
+    not hold that configuration for this head dim."""
     b, n, hc = q.shape
+    m = k.shape[1]
     c = hc // heads
+    if kind == "dq":
+        grads = dict(dq=torch.empty_like(q, memory_format=torch.contiguous_format))
+        outs = [grads["dq"].data_ptr()]
+    else:
+        grads = dict(dk=torch.empty((b, m, hc), dtype=k.dtype, device=k.device))
+        grads["dv"] = torch.empty_like(grads["dk"])
+        db = torch.empty((b, heads, m), dtype=torch.float32, device=k.device) if dbias else None
+        outs = [grads["dk"].data_ptr(), grads["dv"].data_ptr(), db.data_ptr() if dbias else None]
     named = dict(q=q, k=k, v=v, do=do, **grads)
     strides = []
     for name in ("q", "k", "v", "do", "dq", "dk", "dv"):
         t = named.get(name)
         strides += [t.stride(0), c, t.stride(1)] if t is not None else [0, 0, 0]
     strides.append(bias.stride(0) if bias is not None else 0)
-    tensors = (q, k, v, do)
-    # 16-byte vector loads need every row start 16-byte aligned
-    vec = int(
-        c % 8 == 0
-        and all(t.data_ptr() % 16 == 0 for t in tensors)
-        and all(s % 8 == 0 for t in tensors for s in t.stride()[:2])
+    route = bwd_route(q, k, v, do, heads)
+    entry, argtypes = _BWD_ENTRIES[kind]
+    err = c_entry(library, entry, argtypes)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr(),
+        *outs, b, heads, n, m, c, (ctypes.c_longlong * len(strides))(*strides), c**-0.5,
+        int(route == "tma"), *tiles, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr())
-    return ptrs, (b, heads, n, k.shape[1], c), (ctypes.c_longlong * len(strides))(*strides), \
-        c**-0.5, vec
+    if err != 0:
+        raise RuntimeError(f"{library} {entry} launch failed (d {c}, {route} route, tiles "
+                           f"{tiles}): cudaError {err}")
+    if kind == "dq":
+        return grads["dq"], route
+    return (grads["dk"], grads["dv"], db), route
 
 
-class FlashBackwardDq(Kernel):
-    """dq kernel of ``csrc/flash_bwd.cu``."""
-
-    library, entry = "flash_bwd", "flash_bwd_dq_bf16"
-    # q, k, v, do, bias, lse, delta, dq, batch, heads, n, m, d, strides, scale, vec
-    argtypes = (PTR,) * 8 + (I32,) * 5 + (STRIDES, F32, I32)
+class FlashBackwardDq(Counted):
+    """dq kernel of ``csrc/flash_bwd.cu`` (routes by ``bwd_route``)."""
 
     def __call__(self, q, k, v, heads, do, lse, delta, bias=None) -> torch.Tensor:
         """dq of ``flash_attention_bwd_plain``, in q's dtype."""
         if not on_cuda(q, "flash_bwd_dq"):
             return flash_attention_bwd_plain(q, k, v, heads, do, lse, delta, bias)[0]
         _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias)
-        dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-        ptrs, dims, strides, scale, vec = _bwd_launch_args(q, k, v, heads, do, lse, delta, bias,
-                                                           dict(dq=dq))
-        self._launch(q.device, *ptrs, dq.data_ptr(), *dims, strides, scale, vec)
+        tiles = bwd_tiles(q.shape[2] // heads)[0]
+        dq, route = launch_bwd("flash_bwd", "dq", q, k, v, heads, do, lse, delta, bias, tiles)
+        self._count(route)
         return dq
 
 
-class FlashBackwardDkv(Kernel):
-    """dk/dv (and dbias) kernel of ``csrc/flash_bwd.cu``."""
-
-    library, entry = "flash_bwd", "flash_bwd_dkv_bf16"
-    # q, k, v, do, bias, lse, delta, dk, dv, dbias, batch, heads, n, m, d, strides, scale, vec
-    argtypes = (PTR,) * 10 + (I32,) * 5 + (STRIDES, F32, I32)
+class FlashBackwardDkv(Counted):
+    """dk/dv (and dbias) kernel of ``csrc/flash_bwd.cu`` (routes by
+    ``bwd_route``)."""
 
     def __call__(self, q, k, v, heads, do, lse, delta, bias=None, dbias: bool = False):
         """(dk, dv, dbias) of ``flash_attention_bwd_plain``; dbias (B, M)
@@ -320,14 +362,10 @@ class FlashBackwardDkv(Kernel):
             _, dk, dv, db = flash_attention_bwd_plain(q, k, v, heads, do, lse, delta, bias)
             return dk, dv, db if dbias else None
         _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias)
-        b, m = k.shape[:2]
-        dk = torch.empty((b, m, q.shape[2]), dtype=k.dtype, device=k.device)
-        dv = torch.empty_like(dk)
-        db = torch.empty((b, heads, m), dtype=torch.float32, device=k.device) if dbias else None
-        ptrs, dims, strides, scale, vec = _bwd_launch_args(q, k, v, heads, do, lse, delta, bias,
-                                                           dict(dk=dk, dv=dv))
-        self._launch(q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
-                     db.data_ptr() if dbias else None, *dims, strides, scale, vec)
+        tiles = bwd_tiles(q.shape[2] // heads)[1]
+        (dk, dv, db), route = launch_bwd("flash_bwd", "dkv", q, k, v, heads, do, lse, delta,
+                                         bias, tiles, dbias=dbias)
+        self._count(route)
         # the heads share the bias: sum their partial sums (pallas_attention.py:1078)
         return dk, dv, db.sum(dim=1) if dbias else None
 

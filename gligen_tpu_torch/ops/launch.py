@@ -50,7 +50,7 @@ def check_widths(op: str, **widths: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(library: str, entry: str, argtypes: tuple):
+def c_entry(library: str, entry: str, argtypes: tuple):
     """The built library's C function, with its ctypes signature (the
     stream comes last)."""
     from gligen_tpu_torch.ops.cuda_build import load_library
@@ -75,7 +75,7 @@ class Kernel:
         self.launches = 0
 
     def _launch(self, device: torch.device, *args) -> None:
-        fn = _entry(self.library, self.entry, self.argtypes)
+        fn = c_entry(self.library, self.entry, self.argtypes)
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self.entry} launch failed: cudaError {err}")

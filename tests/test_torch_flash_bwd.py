@@ -14,6 +14,9 @@ taken in another order and from an LSE rounded once more (the Pallas
 kernel's online softmax): they agree to a few fp32 ulps, atol 2e-5.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -138,3 +141,94 @@ def test_plain_backward_matches_autograd_of_the_plain_forward():
     got = fa.flash_attention_bwd_plain(q, k, v, h, do, lse.detach(), delta, bias)
     for gp, gw in zip(got, want):
         torch.testing.assert_close(gp, gw, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "d,want",
+    [(1, ((128, 64, 3), (128, 64, 3))), (40, ((128, 64, 3), (128, 64, 3))),
+     (41, ((128, 64, 2), (64, 64, 2))), (80, ((128, 64, 2), (64, 64, 2))),
+     (81, ((64, 64, 2), (64, 32, 3))), (160, ((64, 64, 2), (64, 32, 3)))],
+)
+def test_backward_tile_table(d, want):
+    """(dq tiles, dk/dv tiles) by head-dim class, from the backward sweep
+    (tools/bench_sweep_attn.py --bwd): dq's (BQ, BK, stages), dk/dv's (BK
+    keys, BQ, stages); at d = 160 dk/dv's 64 keys are split over two
+    warpgroups (dK and dV)."""
+    assert fa.bwd_tiles(d) == want
+    assert [top for top, *_ in fa.BWD_TILES] == [40, 80, 160]
+
+
+@pytest.mark.parametrize("d", [161, 512])
+def test_backward_tile_table_stops_at_160(d):
+    with pytest.raises(ValueError, match=f"head dim {d} above 160"):
+        fa.bwd_tiles(d)
+
+
+def _c_dispatch(sweep: bool) -> dict:
+    """The (rows, tile, stages) lists of csrc/flash_bwd.cu's dispatch, by
+    (head-dim class, kernel), with FLASH_BWD_SWEEP defined or not."""
+    src = (Path(fa.__file__).parent.parent / "csrc" / "flash_bwd.cu").read_text()
+    block = src[src.index("#ifndef FLASH_BWD_SWEEP"):]
+    block = block[:block.index("#endif")].split("#else")[int(sweep)]
+    held = {}
+    for kind, top, lists in re.findall(r"#define (DQ|DKV)(\d+)\(X\) (.*)", block):
+        held[(int(top), kind)] = [tuple(map(int, t)) for t in
+                                  re.findall(r"X\((\d+), (\d+), (\d+)\)", lists)]
+    return held
+
+
+def test_c_dispatch_holds_the_python_tables():
+    """The serving library holds exactly BWD_TILES and the sweep library
+    exactly bench_sweep_attn.BWD_CONFIGS, per class and kernel."""
+    from gligen_tpu_torch.tools.bench_sweep_attn import BWD_CONFIGS
+
+    assert _c_dispatch(sweep=False) == {
+        (top, kind): [tiles] for top, dq, dkv in fa.BWD_TILES
+        for kind, tiles in (("DQ", dq), ("DKV", dkv))}
+    assert _c_dispatch(sweep=True) == {
+        (top, kind): list(configs[i]) for top, configs in BWD_CONFIGS.items()
+        for i, kind in enumerate(("DQ", "DKV"))}
+
+
+def test_backward_route():
+    """The backward kernels' route (``bwd_route``, through the forward's
+    ``tma_ok``): TMA for contiguous packed inputs and for k/v sliced from
+    one fused projection, copies for a strided unaligned view or a head dim
+    that is not a multiple of 8."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+
+    q, kv, do = z(2, 64, 320), z(2, 94, 640), z(2, 64, 320)
+    assert fa.bwd_route(q, kv[..., :320], kv[..., 320:], do, 8) == "tma"
+    assert fa.bwd_route(z(2, 64, 320), z(2, 77, 320), z(2, 77, 320), z(2, 64, 320), 8) == "tma"
+    qs = z(2, 64 * 320 + 1)[:, 1:].reshape(2, 64, 320)  # 2 bytes off 16
+    assert fa.bwd_route(qs, kv[..., :320], kv[..., 320:], do, 8) == "copy"
+    odd = z(2, 2 * 94, 323)[:, 0::2, :320]  # an odd row stride
+    assert fa.bwd_route(q, odd, odd, do, 8) == "copy"
+    assert fa.bwd_route(z(1, 100, 72), z(1, 90, 72), z(1, 90, 72), z(1, 100, 72), 2) == "copy"
+
+
+def test_bench_sweep_attn_bwd_on_the_cpu():
+    """The backward sweep at a tiny size: per key count, dq's table row and
+    configurations, then dk/dv's, each held against the plain backward (on
+    the CPU every row is the plain version itself, so exactly); FLOPs and
+    the bound from the shapes."""
+    from gligen_tpu_torch.tools import bench_sweep_attn, timing
+
+    b, n, h, d = 1, 24, 2, 8
+    rows = bench_sweep_attn.run_bwd(batch=b, n=n, dim=d, heads=h, ms_keys=(24, 31), iters=1,
+                                    device="cpu")
+    dq_cfg, dkv_cfg = bench_sweep_attn.bwd_configs(d)
+    assert [(r["m"], r["kind"], r["tiles"]) for r in rows] == [
+        (m, kind, c) for m in (24, 31)
+        for kind, cfg in (("dq", dq_cfg), ("dkv", dkv_cfg)) for c in (None, *cfg)]
+    for r in rows:
+        m, n_products = r["m"], 3 if r["kind"] == "dq" else 4
+        flops = n_products * 2 * b * h * n * m * d
+        rows_read = 3 * b * n + 2 * b * m if r["kind"] == "dq" else 2 * b * n + 4 * b * m
+        assert (r["bound_ms"], r["bound_by"]) == timing.bound(2 * rows_read * h * d + 8 * b * h * n,
+                                                              flops)
+        assert r["ok"] and r["rel_err"] == 0.0 and r["bound_share"] is None and r["sdpa_ms"] > 0
+        assert r["table"] == (fa.bwd_tiles(d)[r["kind"] == "dkv"] if r["tiles"] is None else None)
+    out = bench_sweep_attn.bwd_lines(rows)
+    assert len(out) == 1 + len(rows) and out[1].split()[3] == "table"
