@@ -8,10 +8,11 @@ Phases, each of which fails the run with a non-zero exit:
   1. card: require CUDA; print the card's name and power limit.
   2. build: compile csrc/flash_fwd.cu, flash_fwd_sweep.cu (the same
      kernel at the tile sweep's configurations), flash_bwd.cu,
-     flash_bwd_sweep.cu (likewise), fused_proj.cu, fused_norm.cu and
-     fused_conv.cu with nvcc, in parallel,
+     flash_bwd_sweep.cu (likewise), fused_proj.cu, fused_proj_sweep.cu
+     (likewise), fused_norm.cu and fused_conv.cu with nvcc, in parallel,
      into build/kernels/; print the seconds it took and ptxas's registers,
-     spills and wgmma notes.
+     spills and wgmma notes (for fused_proj, one line per tile
+     configuration).
   3. kernel: compare each kernel with its plain PyTorch version on bf16
      inputs at every shape the 512^2 path launches, with the times of both
      and, where one PyTorch call computes the same function, that call's:
@@ -26,7 +27,9 @@ Phases, each of which fails the run with a non-zero exit:
      and net_2, ln_geglu) and the matmul-only mode of the same kernel
      (mm_only, K7) at the products and rows (16 x 4096) that phase 9's
      projection budget gives it, over the fuser's 16 x 4126 rows and at
-     one shape ragged in M, K and F; GroupNorm +- SiLU at every UNet and
+     one shape ragged in M, K and F (each projection row with its tile
+     configuration, TF/s and share of the bound, and for K2 the time of
+     torch.matmul on its products alone); GroupNorm +- SiLU at every UNet and
      VAE map, gn_affine, LayerNorm at every (rows, C) of the module path,
      and the fused GN -> SiLU -> conv3x3 at every ResBlock conv shape.
      Times are device times per call (see ``timing.timed``); each
@@ -70,7 +73,9 @@ Phases, each of which fails the run with a non-zero exit:
      (``tools/bench_proj.py``: every K7 row launched K7 and no K2 kernel,
      every K2 row no K7, and K7's outputs on the tool's own inputs agree
      with mm_only_plain's; its K7 launches are mm_only's in the JSON line),
-     one transformer block (``bench_block.py``) and one ResBlock
+     the projections' tile sweep (``bench_proj.py --sweep``: every mode at
+     the table's tiles and the sweep library's, each output held against
+     the plain version), one transformer block (``bench_block.py``) and one ResBlock
      (``bench_resblock.py``), each with one profiled forward whose trace
      shows its kernels; and the flash forward's tile sweep
      (``bench_sweep_attn.py``) at ``SWEEP_CONFIGS`` beside the fixed table,
@@ -102,7 +107,7 @@ from gligen_tpu_torch.tools.timing import (FP32_FLOP_PER_S, bound, card_line, de
 
 REPO = Path(__file__).resolve().parent
 SOURCES = ("flash_fwd", "flash_fwd_sweep", "flash_bwd", "flash_bwd_sweep", "fused_proj",
-           "fused_norm", "fused_conv")
+           "fused_proj_sweep", "fused_norm", "fused_conv")
 
 # flash forward vs plain, bf16 output: the kernel rounds P to bf16 before
 # the PV product and O to bf16, a few bf16 ulps (2^-8 relative) of the
@@ -171,6 +176,28 @@ SMALL = dict(
     vae_config=dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, resolution=64),
     text_config=dict(vocab_size=1000, hidden_size=64, layers=2, heads=4),
 )
+
+
+def ptxas_configs(report: str) -> list:
+    """(kernel, registers, spill stores, spill loads) of every
+    ``fused_proj_kernel<MODE, BM, BN, STAGES>`` in a ``-Xptxas -v`` report,
+    its name read back from the mangled one."""
+    import re
+
+    out, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            tpl = re.search(r"fused_proj_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", entry.group(1))
+            name = f"fused_proj_kernel<{', '.join(tpl.groups())}>" if tpl else None
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            spills = tuple(int(x) for x in spill.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            out.append((name, int(used.group(1)), *spills))
+            name = None
+    return out
 
 
 def set_config(name: str) -> None:
@@ -379,8 +406,11 @@ def grouped_input(randn, shape):
 def check_proj(torch, cases, device):
     """Each fused-projection kernel against its plain version on the same
     card tensors (bf16 activations and weights, fp32 norm parameters,
-    biases and gate), with the times of both, and for K7 (mm_only) that of
-    torch.matmul on the same product."""
+    biases and gate), with the times of both, the tile configuration the
+    table gave the shape, TF/s and the share of the bound; for K7 (mm_only)
+    the time of torch.matmul on the same product (the library call for its
+    function), for K2 the time of torch.matmul on its products alone (no
+    single library call computes a K2 function)."""
     from gligen_tpu_torch.ops import fused_proj as fp
 
     gen = torch.Generator(device=device).manual_seed(2)
@@ -394,44 +424,49 @@ def check_proj(torch, cases, device):
         x = randn(b, n, k if kind == "mm_only" else c, dtype=bf16)
         s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
         m = b * n
-        library = None
         if kind == "ln_matmuls":
             ws = [randn(c, c, scale=c**-0.5, dtype=bf16) for _ in range(k)]
-            args = (x, s, sb, ws)
+            args, products, shape = (x, s, sb, ws), [(x, w) for w in ws], (m, c, c)
             desc = f"x ({b},{n},{c}) -> {k} x {c}"
             nbytes, flops = 2 * m * c * (1 + k) + 8 * c + 2 * k * c * c, 2 * m * c * c * k
         elif kind == "matmul_residual":
             h = randn(b, n, k, dtype=bf16)
             # the fuser's device gate on to_out; net_2 of the block has none
             gate = torch.tensor(0.37, device=device) if k == c else None
-            args = (h, randn(c, k, scale=k**-0.5, dtype=bf16), randn(c, scale=0.1), x, gate)
+            w = randn(c, k, scale=k**-0.5, dtype=bf16)
+            args, products, shape = (h, w, randn(c, scale=0.1), x, gate), [(h, w)], (m, k, c)
             desc = f"h ({b},{n},{k}) -> {c}{' gated' if gate is not None else ''}"
             nbytes, flops = 2 * m * (k + 2 * c) + 2 * c * k + 4 * c + 4, 2 * m * k * c
         elif kind == "mm_only":
             w = randn(c, k, scale=k**-0.5, dtype=bf16)
-            args = (x, w)
-            library = lambda: torch.matmul(x, w.T)
+            args, products, shape = (x, w), [(x, w)], (m, k, c)
             desc = f"x ({b},{n},{k}) -> {c}"
             nbytes, flops = 2 * (m * k + c * k + m * c), 2 * m * k * c
         else:
-            args = (x, s, sb, randn(8 * c, c, scale=c**-0.5, dtype=bf16), randn(8 * c, scale=0.1))
+            w = randn(8 * c, c, scale=c**-0.5, dtype=bf16)
+            args, products, shape = (x, s, sb, w, randn(8 * c, scale=0.1)), [(x, w)], (m, c, 4 * c)
             desc = f"x ({b},{n},{c}) -> {8 * c} -> {4 * c}"
             nbytes, flops = 2 * m * 5 * c + 8 * c + 16 * c * c + 32 * c, 16 * m * c * c
         kernel, plain = fp.KERNELS[kind], getattr(fp, f"{kind}_plain")
+        tiles = fp.proj_tiles(kind, *shape)
         got = kernel(*args)
         torch.cuda.synchronize()
         err, ok = compare(torch, got, plain(*args))
         ms = time_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args))
-        library_ms = None if library is None else time_ms(library)
+        products_ms = time_ms(lambda: [torch.matmul(a, w.T) for a, w in products])
+        library_ms = products_ms if kind == "mm_only" else None
         bound_ms, bound_by = bound(nbytes, flops)
-        lib = "" if library_ms is None else f" torch.matmul {library_ms:.4f} ms"
+        lib = (f" torch.matmul {library_ms:.4f} ms" if kind == "mm_only" else
+               f" its products alone (torch.matmul) {products_ms:.4f} ms")
         print(f"kernel {kind:15s} {name:12s} {desc:28s}: max_abs_err {err:.3e} "
-              f"(tol {PROJ_ATOL} + {PROJ_RTOL} rel) kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
-              f"{lib} bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"(tol {PROJ_ATOL} + {PROJ_RTOL} rel) tile {'x'.join(map(str, tiles))} "
+              f"kernel {ms:.4f} ms {flops / ms / 1e9:.1f} TF/s {100 * bound_ms / ms:.1f}% of bound; "
+              f"plain {plain_ms:.4f} ms{lib} bound {bound_ms:.4f} ms ({bound_by}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
-        del x, args, got, library
+        del x, args, got, products
     torch.cuda.empty_cache()
     return results
 
@@ -1036,6 +1071,16 @@ def run_tools(torch, device):
                  f"mm_only_plain left out); every K7 row launched K7 alone and agreed with "
                  f"mm_only_plain (tol {PROJ_ATOL} + {PROJ_RTOL} rel), every K2 row launched no "
                  f"K7: {not failures}")
+    # the projection tile sweep: every mode at the table's tiles and the
+    # sweep library's, each output held against the plain version
+    assert (bench_proj.ATOL, bench_proj.RTOL) == (PROJ_ATOL, PROJ_RTOL)  # its rows' "ok"
+    rows = bench_proj.run_sweep(batch=TOOLS_BATCH, n=LEVELS["ds1"][0], iters=3, device=device)
+    lines += [f"tools: bench_proj --sweep: {line}" for line in bench_proj.sweep_lines(rows)]
+    ok = all(r["ok"] for r in rows)
+    lines.append(f"tools: bench_proj --sweep: every configuration agreed with its plain "
+                 f"version (tol {PROJ_ATOL} + {PROJ_RTOL} rel): {ok}")
+    if not ok:
+        failures.append("tools bench_proj --sweep")
     # each sandbox's profiled forward must show the kernels of its configuration
     for tool, needs in (
         (bench_block, ("flash_fwd", "ln_matmuls", "matmul_residual", "ln_geglu",
@@ -1225,7 +1270,13 @@ def main() -> int:
     print(f"build: {', '.join(s + '.cu' for s in SOURCES)} in {time.perf_counter() - t0:.1f} s "
           f"-> {library_path(SOURCES[0]).parent.parent.relative_to(REPO)}", flush=True)
     for src in SOURCES:
-        for line in (library_path(src).parent / "ptxas.txt").read_text().splitlines():
+        report = (library_path(src).parent / "ptxas.txt").read_text()
+        if src.startswith("fused_proj"):  # one line per tile configuration
+            for name, regs, stores, loads in ptxas_configs(report):
+                print(f"build: {src}: {name}: {regs} registers, {stores} bytes spill stores, "
+                      f"{loads} bytes spill loads")
+            report = "\n".join(l for l in report.splitlines() if "wgmma" in l)
+        for line in report.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "wgmma")):
                 print(f"build: {src}: {line.strip()}")
 

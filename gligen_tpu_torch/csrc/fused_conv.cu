@@ -13,7 +13,7 @@
 // Design.  The TPU kernel keeps one whole image in VMEM and runs nine shifted
 // (H*W, C) @ (C, F) matmuls.  Here the conv is an implicit GEMM: M = B*H*W
 // output pixels, N = F output channels, K = 9*C with k = (dy, dx, c), on
-// the GEMM core fused_proj.cu uses (gemm_core.cuh): a block owns BM rows x 64
+// the WMMA GEMM core of gemm_core.cuh: a block owns BM rows x 64
 // columns (BM = 128 with 8 warps, or 64 with 4 warps when 128-row blocks
 // would not give two blocks per SM), walks K in steps of 32 through shared
 // memory, and each warp multiplies its 32 x 32 part with WMMA bf16 16x16x16

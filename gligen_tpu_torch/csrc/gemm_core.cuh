@@ -1,12 +1,13 @@
-// The WMMA GEMM core that fused_proj.cu and fused_conv.cu share: one block
-// computes a BM x (NB * 64) tile of A @ W^T, bf16 operands, fp32 accumulate.
+// The WMMA GEMM core of fused_conv.cu (K6), its only user since the fused
+// projections moved to the Hopper core of gemm_sm90.cuh: one block computes
+// a BM x (NB * 64) tile of A @ W^T, bf16 operands, fp32 accumulate.
 //
 // A block of BM * 2 threads (BM = 128: 8 warps, or 64: 4 warps) walks K in
 // steps of 32 through shared memory, and each warp multiplies its 32 x 32
 // part of each of the NB 64-column slabs with WMMA bf16 16x16x16 (mma.sync)
 // into fp32 fragments.  Per K step the caller's A loader fills the BM x 32 A
-// tile, so a prologue (fused_proj's LayerNorm, fused_conv's shifted GroupNorm
-// affine and SiLU) runs as the tile is loaded; the core loads the weight
+// tile, so a prologue (fused_conv's shifted GroupNorm affine and SiLU) runs
+// as the tile is loaded; the core loads the weight
 // tiles, rows n0 .. n0 + 63 of each slab of the (NB * f, k) row-major weight,
 // which is the column-major B operand: no transpose copy.  After the loop the
 // fp32 product is staged in the same shared bytes for the caller's epilogue.

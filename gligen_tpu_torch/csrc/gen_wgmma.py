@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Write ``wgmma.cuh``: the inline-PTX wrappers of Hopper's warpgroup
-matrix multiply that ``flash_fwd.cu`` issues.
+matrix multiply that ``flash_fwd.cu``, ``flash_bwd.cu`` and the projection
+GEMM core (``gemm_sm90.cuh``) issue.
 
     python3 gligen_tpu_torch/csrc/gen_wgmma.py
 
@@ -8,7 +9,8 @@ A ``wgmma.mma_async`` instruction names every accumulator register, N/2 of
 them for an m64nNk16 fp32 product, so each width is one wrapper written
 out in full.  Two forms, bf16 operands and fp32 accumulators:
 
-  * ``wgmma_ss<N>``: A and B from shared memory, by descriptor (S = Q K^T);
+  * ``wgmma_ss<N>``: A and B from shared memory, by descriptor (S = Q K^T,
+    and the projections' tiles at every width of their tile table);
   * ``wgmma_rs<N>``: A from registers (four bf16x2 per thread, the layout
     of the accumulator it was computed in), B from shared memory (O += P V).
 
@@ -22,7 +24,7 @@ from __future__ import annotations
 from pathlib import Path
 
 HEADER = Path(__file__).resolve().parent / "wgmma.cuh"
-SS_WIDTHS = (32, 64, 128)
+SS_WIDTHS = (32, 64, 96, 128, 160, 192, 256)
 RS_WIDTHS = (40, 80, 160, 256)
 
 

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, 4-D TMA loads, the wgmma
-// fence/commit/wait and shared-memory descriptors, the fp32 helpers of a
-// register-resident softmax, the copy route's plain loads into TMA's
-// swizzled layout, and on the host the tensor maps and the rule for which
-// operands TMA can read.
+// (flash_fwd.cu, flash_bwd.cu) and the projection GEMM core (gemm_sm90.cuh):
+// mbarriers, 2-D and 4-D TMA loads, 2-D TMA stores, the wgmma fence/commit/wait and
+// shared-memory descriptors, the fp32 helpers of a register-resident
+// softmax, the copy route's plain loads into TMA's swizzled layout, and on
+// the host the tensor maps and the rule for which operands TMA can read.
 //
 // Tiles are stored as TMA writes them with a 128-byte swizzle: 64-column
 // (128-byte) atoms, each `rows` rows of 128 bytes, atoms one after another.
@@ -65,6 +65,32 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// A 2-D store of a shared-memory box to global memory (rows and columns
+// past the map's extent are not written), its bulk group, and the wait
+// until at most N groups are still reading shared memory.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(src)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // Order this thread's plain shared-memory stores before the tensor cores'
 // (async proxy) reads of the same bytes.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -77,6 +103,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keep the compiler from moving accesses of wgmma's registers across the
@@ -166,6 +197,25 @@ bool make_map(CUtensorMap* map, const void* base, int d, int heads, int len, int
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (rows, cols) row-major bf16 matrix: boxes of `box_cols` (64 or 32)
+// columns x `box_rows` rows, swizzled by the box row's bytes (128 or 64);
+// columns >= cols and rows >= rows read as zeros and are not written.  The
+// row stride is cols elements, so cols must be a multiple of 8 (16 bytes)
+// and the base 16-byte aligned.
+bool make_map_2d(CUtensorMap* map, const void* base, int cols, int rows, int box_rows,
+                 int box_cols = 64) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc || cols % 8 || reinterpret_cast<uintptr_t>(base) % 16) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -91,11 +91,12 @@ def _setup(root: Path):
 
 
 def fused_proj_template(name: str):
-    """(MODE, BM) of a ``fused_proj_kernel<MODE, BM>`` kernel name: the
-    kernel's mode (0 ln_matmuls, 1 matmul_residual, 2 ln_geglu, 3 mm_only)
-    and the row block ``wide_rows`` chose for the launch."""
-    mode, bm = name.split("fused_proj_kernel<", 1)[1].split(">", 1)[0].split(",")
-    return int(mode), int(bm)
+    """(MODE, BM, BN, STAGES) of a ``fused_proj_kernel<MODE, BM, BN,
+    STAGES>`` kernel name: the kernel's mode (0 ln_matmuls, 1
+    matmul_residual, 2 ln_geglu, 3 mm_only) and the tile configuration the
+    table (``ops/fused_proj.py:proj_tiles``) gave the launch."""
+    mode, bm, bn, stages = name.split("fused_proj_kernel<", 1)[1].split(">", 1)[0].split(",")
+    return int(mode), int(bm), int(bn), int(stages)
 
 
 def category(name: str) -> str:

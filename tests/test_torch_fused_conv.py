@@ -104,24 +104,29 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         fc.gn_silu_conv3x3(x.to("meta"), s, sb, w, wb)
 
 
-@pytest.mark.parametrize("source", ["fused_conv", "fused_proj"])
-def test_library_hash_covers_the_shared_headers(monkeypatch, tmp_path, source):
-    """Both GEMM kernels include gemm_core.cuh, which includes common.cuh:
-    a change to either header gives the source another library path, so a
-    stale library is never reused."""
+@pytest.mark.parametrize("source,headers", [
+    ("fused_conv", ["gemm_core.cuh", "common.cuh"]),
+    ("fused_proj", ["common.cuh", "gemm_sm90.cuh", "hopper.cuh", "wgmma.cuh"]),
+])
+def test_library_hash_covers_the_shared_headers(monkeypatch, tmp_path, source, headers):
+    """The conv includes the WMMA core gemm_core.cuh, which includes
+    common.cuh; the projections include common.cuh and the Hopper core
+    gemm_sm90.cuh, which includes hopper.cuh and wgmma.cuh: a change to any
+    of them gives the source another library path, so a stale library is
+    never reused."""
     from gligen_tpu_torch.ops import cuda_build
 
     files = cuda_build.source_files(source)
-    assert [f.name for f in files] == [f"{source}.cu", "gemm_core.cuh", "common.cuh"]
+    assert [f.name for f in files] == [f"{source}.cu", *headers]
     for f in files:
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
     paths = {cuda_build.library_path(source)}
-    for header in ("gemm_core.cuh", "common.cuh"):
+    for header in headers:
         with open(tmp_path / header, "a") as fh:
             fh.write("\n// changed\n")
         paths.add(cuda_build.library_path(source))
-    assert len(paths) == 3
+    assert len(paths) == 1 + len(headers)
 
 
 # --------------------------------------------------------------- routing

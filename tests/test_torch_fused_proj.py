@@ -16,6 +16,11 @@ Pallas flash kernel's online softmax differs from the port's in order:
 atol 1e-4, as in tests/test_torch_modules.py.
 """
 
+import importlib.util
+import re
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -152,6 +157,144 @@ def test_kernel_input_checks(change, error):
     with pytest.raises(error):
         launch.check_widths("op", C=c)
         launch.check("op", x.device, x=(x, torch.bfloat16))
+
+
+# ------------------------------------------------------------ the tile table
+
+REPO = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+
+def table_triples(mode):
+    """The distinct (BM, BN, stages) of ``mode``'s rules, in rule order."""
+    out = []
+    for rule_mode, *_, tiles in fp.PROJ_TILES:
+        if rule_mode == mode and tiles not in out:
+            out.append(tiles)
+    return out
+
+
+def smoke_shapes():
+    """(mode, M, K, F) of every projection launch of chip_smoke.py's phase 3
+    (the 512^2 request's and train step's shapes, K7's tool shapes) and of
+    bench_proj.py's K2 sites at its 16 x 4096 rows."""
+    shapes = []
+    for _, kind, b, n, c, k in chip_smoke.proj_cases(2) + chip_smoke.mm_cases():
+        m = b * n
+        shapes.append({"ln_matmuls": (kind, m, c, c), "matmul_residual": (kind, m, k, c),
+                       "ln_geglu": (kind, m, c, 4 * c), "mm_only": (kind, m, k, c)}[kind])
+    m, c = 16 * 4096, 320
+    shapes += [("ln_matmuls", m, c, c), ("matmul_residual", m, c, c),
+               ("ln_geglu", m, c, 4 * c), ("matmul_residual", m, 4 * c, c)]
+    return shapes
+
+
+def test_every_smoke_shape_has_a_tabled_triple():
+    """Every shape phase 3 and the tools launch falls in a class, whose
+    triple the serving library holds; the LN modes' K stays within their
+    panel's reach."""
+    shapes = smoke_shapes()
+    assert len(shapes) == 4 * 6 + 5 + 4
+    for mode, m, k, f in shapes:
+        assert fp.proj_tiles(mode, m, k, f) in table_triples(mode), (mode, m, k, f)
+    # the ds1 rows take 128-row blocks, the middle block's 64-row ones
+    assert fp.proj_tiles("ln_matmuls", 4 * 4096, 320, 320)[0] == 128
+    assert fp.proj_tiles("matmul_residual", 4 * 64, 5120, 1280)[0] == 64
+
+
+def test_card_tests_cover_every_tile_class():
+    """The card tests' shapes (test_torch_fused_proj_cuda.TABLE_SHAPES and
+    test_torch_mm_only_cuda's) fall in every rule of the table."""
+    from test_torch_fused_proj_cuda import TABLE_SHAPES
+    from test_torch_mm_only_cuda import MM_SHAPES
+
+    def rule_of(mode, m, k, f):
+        return next(i for i, (rm, top, fm, ff, _) in enumerate(fp.PROJ_TILES)
+                    if rm == mode and (top is None or k <= top) and m >= fm and f >= ff)
+
+    hit = {rule_of(*shape) for shape in TABLE_SHAPES}
+    hit |= {rule_of("mm_only", rows, k, f) for rows, k, f, _ in MM_SHAPES}
+    assert hit == set(range(len(fp.PROJ_TILES)))
+
+
+@pytest.mark.parametrize("rule", fp.PROJ_TILES, ids=lambda r: f"{r[0]}-{r[4]}")
+def test_table_entries_fit_shared_memory_and_wgmma(rule):
+    """Each entry, at its largest K (the streamed modes' smem does not grow
+    with K), fits a block's 227 KB: panel plus ring plus staging; BN is a
+    width gen_wgmma.py writes, a multiple of 8 up to 256, whose output
+    columns fill whole staging atoms."""
+    sys.path.insert(0, str(REPO / "gligen_tpu_torch" / "csrc"))
+    try:
+        import gen_wgmma
+    finally:
+        sys.path.pop(0)
+    mode, top, _, _, (bm, bn, stages) = rule
+    assert fp.proj_smem(mode, (bm, bn, stages), top or 5120) <= fp.MAX_BLOCK_SMEM
+    assert bm in (64, 128) and stages >= 2
+    assert bn % 8 == 0 and bn <= 256 and bn in gen_wgmma.SS_WIDTHS
+    # the staging tile is whole 32-column atoms of the TMA store's boxes
+    assert (bn // 2 if mode == "ln_geglu" else bn) % 32 == 0
+
+
+def test_proj_smem_follows_the_c_layout():
+    """Sm90Tile's layout by hand: ring, a 64-row bf16 staging tile per
+    consumer warpgroup, 8 bytes a barrier (two per stage, the panel's two,
+    one per consumer warpgroup) rounded up to 1 KB, panel, 1 KB of
+    alignment slack."""
+    # ln_matmuls 128x160x4, K 320: 4 W tiles of 160 x 128 B; 2 x 64 rows x 320 B
+    ring, staging = 4 * 160 * 128, 2 * 64 * 320
+    panel_at = -(-(ring + staging + 8 * (10 + 2)) // 1024) * 1024
+    assert fp.proj_smem("ln_matmuls", (128, 160, 4), 320) == panel_at + 128 * 5 * 128 + 1024
+    # mm_only 64x160x3: the A tile streamed (64 x 128 B a stage), no panel
+    ring, staging = 3 * (64 + 160) * 128, 64 * 320
+    assert fp.proj_smem("mm_only", (64, 160, 3), 1280) == \
+        -(-(ring + staging + 8 * (8 + 1)) // 1024) * 1024 + 1024
+    # ln_geglu's staging holds BN / 2 output columns: 128 -> 256 bytes a row
+    assert fp.proj_smem("ln_geglu", (128, 256, 3), 320) == \
+        -(-(3 * 256 * 128 + 2 * 64 * 256 + 8 * 10) // 1024) * 1024 + 128 * 5 * 128 + 1024
+
+
+def _c_lists(sweep: bool) -> dict:
+    """The (BM, BN, stages) lists of csrc/fused_proj.cu's dispatch, by mode,
+    with FUSED_PROJ_SWEEP defined or not."""
+    src = (REPO / "gligen_tpu_torch" / "csrc" / "fused_proj.cu").read_text()
+    block = src[src.index("#ifndef FUSED_PROJ_SWEEP"):]
+    block = block[:block.index("#endif")].split("#else")[int(sweep)]
+    names = {"LN_MATMULS": "ln_matmuls", "RESIDUAL": "matmul_residual", "GEGLU": "ln_geglu",
+             "MATMUL": "mm_only"}
+    return {names[macro]: [tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", body)]
+            for macro, body in re.findall(r"#define (\w+)\(X\) (.*)", block)}
+
+
+def test_c_dispatch_holds_the_python_tables():
+    """The serving library holds exactly PROJ_TILES' triples and the sweep
+    library exactly bench_proj.SWEEP_TILES, per mode: dispatch refuses any
+    other triple (cudaErrorInvalidValue)."""
+    from gligen_tpu_torch.tools.bench_proj import SWEEP_TILES
+
+    assert _c_lists(sweep=False) == {mode: table_triples(mode) for mode in fp.KERNELS}
+    assert _c_lists(sweep=True) == {mode: list(t) for mode, t in SWEEP_TILES.items()}
+
+
+@pytest.mark.parametrize("mode,m,k,f", [("ln_matmuls", 256, 2560, 320),
+                                        ("ln_geglu", 4096, 1288, 640)])
+def test_shapes_without_a_class_are_refused(mode, m, k, f):
+    """The LN modes keep BM x K resident, so no class takes K > 1280."""
+    with pytest.raises(ValueError, match="no tile class"):
+        fp.proj_tiles(mode, m, k, f)
+
+
+def test_ln_modes_refuse_wide_k_before_a_launch(monkeypatch):
+    """A CUDA-bound call of an LN mode at K 1288 raises after the input
+    checks and before any launch."""
+    monkeypatch.setattr(fp, "on_cuda", lambda x, op: True)
+    monkeypatch.setattr(fp.LnMatmuls, "_launch", lambda self, *a: pytest.fail("launched"))
+    x = torch.zeros((4, 1288), dtype=torch.bfloat16)
+    s = torch.ones(1288)
+    with pytest.raises(ValueError, match="no tile class"):
+        fp.ln_matmuls._forward(x, s, s, torch.zeros((8, 1288), dtype=torch.bfloat16), eps=1e-5)
 
 
 # ------------------------------------------------------------ block parity

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from gligen_tpu_torch.ops import fused_proj as fp
+from gligen_tpu_torch.tools.bench_proj import row_blocks
 
 ATOL, RTOL = 2e-2, 1e-2
 BF16 = torch.bfloat16
@@ -117,3 +118,89 @@ def test_refused_width_raises(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         fp.ln_geglu(x, s, s, w, torch.zeros(40, device=cuda))
     assert {name: k.launches for name, k in fp.KERNELS.items()} == before
+
+
+def k2_inputs(cuda, kind, rows, k, f, seed, n_w=1):
+    """Seeded card inputs of a K2 mode, in the wrapper's argument order."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = randn(gen, rows, k, scale=2.0, dtype=BF16) + 0.5
+    s, b = 1.0 + randn(gen, k, scale=0.1), randn(gen, k, scale=0.1)
+    if kind == "ln_matmuls":
+        return (x, s, b, [randn(gen, f, k, scale=k**-0.5, dtype=BF16) for _ in range(n_w)])
+    if kind == "matmul_residual":
+        return (x, randn(gen, f, k, scale=k**-0.5, dtype=BF16), randn(gen, f, scale=0.1),
+                randn(gen, rows, f, dtype=BF16), torch.tensor(-0.61, device=cuda))
+    return (x, s, b, randn(gen, 2 * f, k, scale=k**-0.5, dtype=BF16), randn(gen, 2 * f, scale=0.1))
+
+
+def call(kind, args):
+    return fp.KERNELS[kind](*args)
+
+
+# One shape per K2 rule of the tile table (tests/test_torch_fused_proj.py
+# checks that every rule is hit), ragged in M against BM, in K against the
+# 64-column atom and in F against the tile's output columns: (mode, rows,
+# K, F).  ln_geglu's F is no multiple of BN / 2, so a tensor map of extent
+# 2F over W would read gate rows into the a-half's last box.
+TABLE_SHAPES = [
+    ("ln_matmuls", 12288 + 37, 200, 104),
+    ("ln_matmuls", 999, 520, 168),
+    ("ln_matmuls", 333, 1096, 200),
+    ("matmul_residual", 12288 + 37, 200, 104),
+    ("matmul_residual", 999, 1096, 168),
+    ("ln_geglu", 999, 200, 104),
+    ("ln_geglu", 999, 520, 200),
+    ("ln_geglu", 333, 1096, 72),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,rows,k,f", TABLE_SHAPES)
+def test_every_tile_class_matches_plain(cuda, kind, rows, k, f):
+    """Each K2 class of PROJ_TILES at a ragged shape, 3 weights for
+    ln_matmuls; the launch takes the class's tiles (from its kernel's name
+    in a trace)."""
+    tiles = fp.proj_tiles(kind, rows, k, f)
+    args = k2_inputs(cuda, kind, rows, k, f, rows + k + f, n_w=3)
+    with torch.no_grad():
+        launch_and_compare(fp.KERNELS[kind], lambda: call(kind, args),
+                           lambda: getattr(fp, f"{kind}_plain")(*args))
+        assert row_blocks(lambda: call(kind, args)) == (tiles,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ln_matmuls", "matmul_residual", "ln_geglu"])
+@pytest.mark.parametrize("rows,k,f", [(4 * 4126, 320, 320), (4 * 64, 1280, 8), (5, 8, 8)])
+def test_fuser_rows_and_narrow_outputs(cuda, kind, rows, k, f):
+    """The fuser's 4 x 4126 rows (a ragged last row block of 128), F = 8 (one
+    16-byte chunk a row, most of the tile's W rows TMA's zeros) and a
+    5-row, 8-wide call."""
+    args = k2_inputs(cuda, kind, rows, k, f, 3 * rows + f, n_w=2)
+    with torch.no_grad():
+        launch_and_compare(fp.KERNELS[kind], lambda: call(kind, args),
+                           lambda: getattr(fp, f"{kind}_plain")(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,rows,k,f", [("ln_matmuls", 4 * 4126, 320, 320),
+                                           ("matmul_residual", 4 * 4096, 1280, 320),
+                                           ("ln_geglu", 4 * 1024, 640, 2560)])
+def test_repeat_runs_are_bit_identical(cuda, kind, rows, k, f):
+    """No atomics and no split-K: each output is one sum in a fixed order."""
+    args = k2_inputs(cuda, kind, rows, k, f, 11, n_w=3)
+    with torch.no_grad():
+        first, second = call(kind, args), call(kind, args)
+    torch.cuda.synchronize()
+    for a, b in zip(*((first, second) if isinstance(first, tuple) else ((first,), (second,)))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_untabled_tiles_are_refused(cuda):
+    """The serving library holds only the table's configurations: any other
+    triple returns an error before a launch, and counts none."""
+    args = k2_inputs(cuda, "ln_matmuls", 256, 320, 320, 5)
+    before = fp.ln_matmuls.launches
+    with pytest.raises(RuntimeError, match="launch failed at tiles"):
+        fp.sweep_call("ln_matmuls", (128, 96, 2), *args, library="fused_proj")
+    assert fp.ln_matmuls.launches == before

@@ -135,10 +135,12 @@ def test_an_input_that_requires_grad_raises():
 
 
 def test_profiler_names_the_matmul_mode():
-    """A trace that holds K7 does not break the breakdown (mode digit 3)."""
-    name = "void (anonymous namespace)::fused_proj_kernel<3, 128>((anonymous namespace)::Params)"
+    """A trace that holds K7 does not break the breakdown (mode digit 3 of
+    ``fused_proj_kernel<MODE, BM, BN, STAGES>``)."""
+    name = ("void (anonymous namespace)::fused_proj_kernel<3, 128, 256, 3>"
+            "((anonymous namespace)::Params)")
     assert perf_probe.category(name) == "mm_only (K7)"
-    assert perf_probe.category(name.replace("<3, 128>", "<2, 64>")) == "ln_geglu"
+    assert perf_probe.category(name.replace("<3, 128, 256, 3>", "<2, 64, 128, 2>")) == "ln_geglu"
 
 
 # ---------------------------------------------------------------- the tools
@@ -205,20 +207,53 @@ def test_bench_proj_on_the_cpu(counted):
 
 
 def test_row_block_mirrors_wide_rows(monkeypatch):
-    """The row block a row prints is the one ``wide_rows`` chose for each
-    launch, read from the kernel's name ``fused_proj_kernel<MODE, BM>`` in
-    the call's trace; other kernels and host events are passed over."""
-    assert perf_probe.fused_proj_template("fused_proj_kernel<3, 128>") == (3, 128)
+    """The tiles (row block, BN, stages) a row prints are the ones the tile
+    table chose for each launch, read from the kernel's name
+    ``fused_proj_kernel<MODE, BM, BN, STAGES>`` in the call's trace; other
+    kernels and host events are passed over."""
+    assert perf_probe.fused_proj_template("fused_proj_kernel<3, 128, 256, 3>") == (3, 128, 256, 3)
     assert perf_probe.fused_proj_template(
-        "void (anonymous namespace)::fused_proj_kernel<0, 64>((anonymous namespace)::Params)") == (0, 64)
-    names = ["void (anonymous namespace)::fused_proj_kernel<3, 128>(Params)",
-             "void (anonymous namespace)::fused_proj_kernel<1, 64>(Params)",
-             "void (anonymous namespace)::fused_proj_kernel<3, 128>(Params)",
+        "void (anonymous namespace)::fused_proj_kernel<0, 64, 160, 4>((anonymous namespace)::Params)"
+    ) == (0, 64, 160, 4)
+    names = ["void (anonymous namespace)::fused_proj_kernel<3, 128, 160, 4>(Params)",
+             "void (anonymous namespace)::fused_proj_kernel<1, 64, 160, 3>(Params)",
+             "void (anonymous namespace)::fused_proj_kernel<3, 128, 160, 4>(Params)",
              "nvjet_tst_128x64_64x8_1x2_h_bz_TNT"]
     trace = {"traceEvents": [{"ph": "X", "cat": "kernel", "name": n} for n in names]
-             + [{"ph": "X", "cat": "cpu_op", "name": "fused_proj_kernel<2, 32>"}]}
+             + [{"ph": "X", "cat": "cpu_op", "name": "fused_proj_kernel<2, 32, 64, 2>"}]}
     monkeypatch.setattr(perf_probe, "traced", lambda fn: (fn(), trace))
-    assert bench_proj.row_blocks(lambda: None) == (64, 128)
+    assert bench_proj.row_blocks(lambda: None) == ((64, 160, 3), (128, 160, 4))
+
+
+def test_bench_proj_sweep_on_the_cpu():
+    """The sweep's rows: per site the table's tiles first, then each sweep
+    configuration that fits the site's shared memory (none of the LN modes'
+    128-row ones at K 1280); every row held against the plain version (here
+    the plain version itself, so exactly)."""
+    sites = [("ds1", "ln_matmuls", 64, 32, 32, 3), ("ds1", "matmul_residual", 64, 128, 32, 1),
+             ("ds1", "ln_geglu", 64, 32, 128, 1), ("ds1", "mm_only", 64, 32, 256, 1),
+             ("mid", "ln_matmuls", 16, 1280, 64, 3), ("mid", "ln_geglu", 16, 1280, 64, 1)]
+    rows = bench_proj.run_sweep(iters=1, device="cpu", sites=sites)
+    want = []
+    for level, kind, m, k, f, n_w in sites:
+        table = fp.proj_tiles(kind, m, k, f)
+        want += [(level, kind, table, True)] + [
+            (level, kind, t, False) for t in bench_proj.SWEEP_TILES[kind]
+            if t != table and fp.proj_smem(kind, t, k) <= fp.MAX_BLOCK_SMEM]
+    assert [(r["level"], r["kind"], r["tiles"], r["table"]) for r in rows] == want
+    # at K 1280 a 128-row panel (320 KB) fits no block: only 64-row tiles
+    mid = [r["tiles"] for r in rows if r["level"] == "mid" and r["kind"] == "ln_matmuls"]
+    assert mid[0] == fp.proj_tiles("ln_matmuls", 16, 1280, 64) and len(mid) > 1
+    assert all(t[0] == 64 for t in mid)
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 and r["bound_share"] is None for r in rows)
+    assert len(bench_proj.sweep_lines(rows)) == 1 + len(rows)
+    # the ds1 sites of the tool, K7's three products, and the K2 sites of ds4 and mid
+    full = bench_proj.sweep_sites(batch=16)
+    assert [s[:2] for s in full[:7]] == [("ds1", k) for k in (
+        "ln_matmuls", "matmul_residual", "ln_geglu", "matmul_residual", "mm_only", "mm_only",
+        "mm_only")]
+    assert [s[0] for s in full[7:]] == ["ds4"] * 4 + ["mid"] * 4
+    assert full[0][2] == 16 * 4096 and full[7][2] == 1024 and full[11][2] == 256
 
 
 @pytest.mark.parametrize("proj", ["1", "0"])

@@ -37,19 +37,21 @@ def inputs(device, rows, k, f, seed):
     return x, w
 
 
+MM_SHAPES = [
+    (4 * 4096, 320, 320, 128),    # q / to_out at ds1
+    (4 * 4096, 320, 2560, 128),   # GEGLU's product
+    (4 * 4096, 1280, 320, 128),   # net_2's product
+    (4 * 4126, 320, 320, 128),    # the fuser's N + 30 rows: a ragged last row block
+    (256, 320, 320, 64),          # the middle block: 64-row blocks
+    (999, 200, 104, 64),          # M, K, F off every row block, 64-column atom and tile
+    (37, 8, 8, 64),               # smaller than one tile
+    (12288 + 37, 200, 1096, 128), # the wide-F class, ragged in M, K and F
+    (12288 + 37, 1096, 104, 128), # the wide-row class, ragged likewise
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "rows,k,f,block",
-    [
-        (4 * 4096, 320, 320, 128),    # q / to_out at ds1
-        (4 * 4096, 320, 2560, 128),   # GEGLU's product
-        (4 * 4096, 1280, 320, 128),   # net_2's product
-        (4 * 4126, 320, 320, 128),    # the fuser's N + 30 rows: a ragged last row block
-        (256, 320, 320, 64),          # the middle block: 64-row blocks
-        (999, 200, 104, 64),          # M, K, F off every row block, column slab and K step
-        (37, 8, 8, 64),               # smaller than one tile
-    ],
-)
+@pytest.mark.parametrize("rows,k,f,block", MM_SHAPES)
 def test_mm_only_matches_plain(cuda, rows, k, f, block):
     x, w = inputs(cuda, rows, k, f, rows + k + f)
     before = fp.mm_only.launches
@@ -60,14 +62,16 @@ def test_mm_only_matches_plain(cuda, rows, k, f, block):
     want = fp.mm_only_plain(x, w)
     assert got.dtype == BF16 and got.shape == want.shape == (rows, f)
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=RTOL)
-    # the row block wide_rows chose (132 SMs), from the launched kernel's name
+    # the tiles the table gives the shape, from the launched kernel's name
+    tiles = fp.proj_tiles("mm_only", rows, k, f)
+    assert tiles[0] == block
     with torch.no_grad():
-        assert row_blocks(lambda: fp.mm_only(x, w)) == (block,)
+        assert row_blocks(lambda: fp.mm_only(x, w)) == (tiles,)
 
 
 @pytest.mark.gpu
 def test_repeat_runs_are_bit_identical(cuda):
-    """No atomics: each block owns its output tile."""
+    """No atomics and no split-K: each output is one sum in a fixed order."""
     x, w = inputs(cuda, 4 * 4126, 320, 2560, 7)
     first = fp.mm_only(x, w)
     second = fp.mm_only(x, w)
