@@ -9,10 +9,10 @@ Phases, each of which fails the run with a non-zero exit:
   2. build: compile csrc/flash_fwd.cu, flash_fwd_sweep.cu (the same
      kernel at the tile sweep's configurations), flash_bwd.cu,
      flash_bwd_sweep.cu (likewise), fused_proj.cu, fused_proj_sweep.cu
-     (likewise), fused_norm.cu and fused_conv.cu with nvcc, in parallel,
-     into build/kernels/; print the seconds it took and ptxas's registers,
-     spills and wgmma notes (for fused_proj, one line per tile
-     configuration).
+     (likewise), fused_norm.cu, fused_conv.cu and fused_conv_sweep.cu
+     (likewise) with nvcc, in parallel, into build/kernels/; print the
+     seconds it took and ptxas's registers, spills and wgmma notes (for
+     fused_proj and fused_conv, one line per tile configuration).
   3. kernel: compare each kernel with its plain PyTorch version on bf16
      inputs at every shape the 512^2 path launches, with the times of both
      and, where one PyTorch call computes the same function, that call's:
@@ -30,8 +30,13 @@ Phases, each of which fails the run with a non-zero exit:
      one shape ragged in M, K and F (each projection row with its tile
      configuration, TF/s and share of the bound, and for K2 the time of
      torch.matmul on its products alone); GroupNorm +- SiLU at every UNet and
-     VAE map, gn_affine, LayerNorm at every (rows, C) of the module path,
-     and the fused GN -> SiLU -> conv3x3 at every ResBlock conv shape.
+     VAE map and gn_affine (each row with its route, and a second call
+     that must repeat the first bit for bit), LayerNorm at
+     every (rows, C) of the module path, and the fused GN -> SiLU -> conv3x3
+     at every ResBlock conv shape (each row with the conv kernel's own time
+     beside the whole call's and cuDNN's bf16 conv alone, its tiles and
+     split, TF/s and share of the bound; repeated bit for bit).  Phase 10
+     counts each of these calls' CUDA launches.
      Times are device times per call (see ``timing.timed``); each
      kernel's bound is the larger of its bytes over the card's memory
      rate and its operations over the peak rate for their type.
@@ -84,6 +89,12 @@ Phases, each of which fails the run with a non-zero exit:
      (``bench_sweep_attn.py --bwd``) at the ds1 training shapes, B = 4,
      every configuration of ``BWD_CONFIGS`` beside the fixed table, each
      gradient held to BWD_REL_TOL against the plain backward.
+ 10. launches: the CUDA launches of one call of the GroupNorm, gn_affine
+     and LayerNorm kernels at every phase-3 shape and of the conv kernel
+     at every ResBlock conv, read from a torch.profiler trace of that call;
+     each must equal what its route or plan predicts (``fused_norm.
+     cuda_launches``, ``fused_conv.cuda_launches``).  Last, so that no
+     profiler session runs before the timed phases.
 
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
@@ -107,7 +118,7 @@ from gligen_tpu_torch.tools.timing import (FP32_FLOP_PER_S, bound, card_line, de
 
 REPO = Path(__file__).resolve().parent
 SOURCES = ("flash_fwd", "flash_fwd_sweep", "flash_bwd", "flash_bwd_sweep", "fused_proj",
-           "fused_proj_sweep", "fused_norm", "fused_conv")
+           "fused_proj_sweep", "fused_norm", "fused_conv", "fused_conv_sweep")
 
 # flash forward vs plain, bf16 output: the kernel rounds P to bf16 before
 # the PV product and O to bf16, a few bf16 ulps (2^-8 relative) of the
@@ -179,17 +190,19 @@ SMALL = dict(
 
 
 def ptxas_configs(report: str) -> list:
-    """(kernel, registers, spill stores, spill loads) of every
-    ``fused_proj_kernel<MODE, BM, BN, STAGES>`` in a ``-Xptxas -v`` report,
-    its name read back from the mangled one."""
+    """(kernel, registers, spill stores, spill loads) of every tile
+    configuration in a ``-Xptxas -v`` report: ``fused_proj_kernel<MODE, BM,
+    BN, STAGES>`` and ``conv3x3_kernel<BM, BN, STAGES>``, each name read
+    back from the mangled one."""
     import re
 
     out, name, spills = [], None, (0, 0)
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            tpl = re.search(r"fused_proj_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", entry.group(1))
-            name = f"fused_proj_kernel<{', '.join(tpl.groups())}>" if tpl else None
+            tpl = re.search(r"(fused_proj_kernel|conv3x3_kernel)I((?:Li\d+E)+)E", entry.group(1))
+            name = (f"{tpl.group(1)}<{', '.join(re.findall(r'Li(\d+)E', tpl.group(2)))}>"
+                    if tpl else None)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
             spills = tuple(int(x) for x in spill.groups())
@@ -360,6 +373,9 @@ TOOLS_BATCH = 16
 
 # phase 9's flash tile sweep: (BQ, BK, stages) beside the fixed table's
 SWEEP_CONFIGS = ((64, 128, 2), (128, 64, 3), (128, 128, 2))
+# the profiler categories (perf_probe.category) of each GroupNorm route's kernels
+GN_CATEGORIES = {"one": ("group_norm one launch (K5)",),
+                 "three": ("group_norm stats (K5)", "group_norm normalise (K5)")}
 
 
 def mm_cases(rows: int = TOOLS_BATCH):
@@ -567,15 +583,21 @@ def check_norms(torch, gn, ln, device):
     results = []
 
     def record(kind, name, desc, got, want, kernel, plain, library, nbytes, ops,
-               tol=(PROJ_ATOL, PROJ_RTOL)):
+               tol=(PROJ_ATOL, PROJ_RTOL), route=None, again=None):
         err, ok = compare(torch, got, want, *tol)
+        repeats = again is None or all(
+            torch.equal(g, a) for g, a in zip(*(t if isinstance(t, tuple) else (t,)
+                                                for t in (got, again))))
+        ok = ok and repeats
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         library_ms = None if library is None else time_ms(library)
         bound_ms, bound_by = bound(nbytes, ops, FP32_FLOP_PER_S)
         lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
         print(f"kernel {kind:11s} {name:22s} {desc:34s}: max_abs_err {err:.3e} "
-              f"(tol {tol[0]} + {tol[1]} rel) kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
-              f"{lib} bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"(tol {tol[0]} + {tol[1]} rel{'' if again is None else f'; repeats: {repeats}'}) "
+              f"{'' if route is None else f'route {route} '}kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms{lib} bound {bound_ms:.4f} ms ({bound_by}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
 
@@ -591,16 +613,21 @@ def check_norms(torch, gn, ln, device):
         if not silu:  # the library's GroupNorm on the (B, C, N) view of the same tensor
             xc, sc, bc = x.reshape(shape[0], -1, c).transpose(1, 2), s.to(x.dtype), sb.to(x.dtype)
             library = lambda: F.group_norm(xc, 32, sc, bc, eps)
+        rows = numel // (shape[0] * c)
+        route = fn.gn_plan(shape[0], rows, c)[0]
         record("group_norm", name, f"x {shape} {'+ SiLU ' if silu else ''}eps {eps:g}",
                fn.group_norm_fused(*args, silu=silu), fn.group_norm_plain(*args, silu=silu),
                lambda: fn.group_norm_fused(*args, silu=silu),
                lambda: fn.group_norm_plain(*args, silu=silu), library,
-               4 * numel + 8 * c, (9 if silu else 5) * numel)
+               4 * numel + 8 * c, (9 if silu else 5) * numel,
+               route=route, again=fn.group_norm_fused(*args, silu=silu))
         if name.startswith("res_"):  # the fused conv's inputs take gn_affine
             record("gn_affine", name, f"x {shape} -> a, v ({shape[0]}, {c})",
                    fn.gn_affine(*args), fn.gn_affine_plain(*args),
                    lambda: fn.gn_affine(*args), lambda: fn.gn_affine_plain(*args), None,
-                   2 * numel + 8 * c + 8 * shape[0] * c, 3 * numel, (AFFINE_TOL, AFFINE_TOL))
+                   2 * numel + 8 * c + 8 * shape[0] * c, 3 * numel, (AFFINE_TOL, AFFINE_TOL),
+                   route=fn.gn_plan(shape[0], rows, c, normalise=False)[0],
+                   again=fn.gn_affine(*args))
         del x, args, library
     for name, rows, c in ln:
         x = randn(rows, c, scale=2.0, dtype=torch.bfloat16) + 0.3
@@ -621,7 +648,12 @@ def check_convs(torch, cases, device):
     activations with statistics of their own per (sample, channel)
     (``grouped_input``) and a bf16 residual, the model's fp32 parameters
     (cast at each call), weights of std (9 C)^-1/2 so that outputs stay
-    O(1)."""
+    O(1); a second call must give the same bits.  The conv kernel alone
+    (the weight already bf16 (F, 3, 3, C), a and v given) against
+    ``_ref_chain`` from the same a and v, with its tiles and split, TF/s and
+    share of the bound, beside the whole call and cuDNN's bf16 conv alone
+    (channels_last, on the activated input) as its library time."""
+    import torch.nn.functional as F
     from gligen_tpu_torch.ops import fused_conv as fc
 
     gen = torch.Generator(device=device).manual_seed(5)
@@ -639,22 +671,102 @@ def check_convs(torch, cases, device):
         got = fc.gn_silu_conv3x3(*args)
         torch.cuda.synchronize()
         err, ok = compare(torch, got, fc.gn_silu_conv3x3_plain(*args))
-        ms = time_ms(lambda: fc.gn_silu_conv3x3(*args))
-        plain_ms = time_ms(lambda: fc.gn_silu_conv3x3_plain(*args))
+        repeats = torch.equal(got, fc.gn_silu_conv3x3(*args))
+        # the conv kernel alone, on the wrapper's own operands
+        a, v = fc.gn_affine(x, s, sb)
+        wt, wbf = w.to(x.dtype).permute(0, 2, 3, 1).contiguous(), wb.float()
+        conv_args = (x, a, v, wt, wbf, res)
+        conv_err, conv_ok = compare(torch, fc.gn_silu_conv3x3.conv(*conv_args),
+                                    fc._ref_chain(x, a, v, w, wb, res))
+        xn = F.silu(x.float() * a[:, None, None, :] + v[:, None, None, :]).to(x.dtype)
+        xn = xn.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+        wcl = w.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        wbb = wb.to(x.dtype)
+        ms = time_ms(lambda: fc.gn_silu_conv3x3.conv(*conv_args))
+        call_ms = time_ms(lambda: fc.gn_silu_conv3x3(*args))
+        plain_ms = time_ms(lambda: fc._ref_chain(x, a, v, w, wb, res))
+        library_ms = time_ms(lambda: F.conv2d(xn, wcl, wbb, padding=1))
         m = b * h * h
-        nbytes = 2 * m * cin + 4 * 9 * cin * cout + 4 * cout + 8 * cin + 2 * m * cout * (1 + residual)
+        plan = fc.conv_plan(b, h, h, cin, cout)
+        # each input read once, the output written once: x, a and v, the
+        # bf16 weights, the fp32 bias, the residual
+        nbytes = (2 * m * cin + 8 * b * cin + 2 * 9 * cin * cout + 4 * cout
+                  + 2 * m * cout * (1 + residual))
         flops = 2 * m * cout * 9 * cin
         bound_ms, bound_by = bound(nbytes, flops)
+        ok = ok and conv_ok and repeats
         print(f"kernel gn_silu_conv3x3 {name:16s} ({b},{h},{h},{cin}) -> {cout}"
-              f"{' + residual' if residual else ''}: max_abs_err {err:.3e} (tol {PROJ_ATOL} + "
-              f"{PROJ_RTOL} rel) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} "
-              f"ms ({bound_by}, {flops / ms / 1e9:.1f} TFLOP/s) {'ok' if ok else 'FAIL'}",
-              flush=True)
-        results.append(dict(name=name, kind="gn_silu_conv3x3", err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
-        del x, w, res, args, got
+              f"{' + residual' if residual else ''}: max_abs_err {max(err, conv_err):.3e} (tol "
+              f"{PROJ_ATOL} + {PROJ_RTOL} rel; repeats bit for bit: {repeats}) tiles "
+              f"{'x'.join(map(str, plan[:3]))} split {plan[3]} kernel {ms:.4f} ms "
+              f"{flops / ms / 1e9:.1f} TF/s "
+              f"{100 * bound_ms / ms:.1f}% of bound; call with gn_affine {call_ms:.4f} ms; "
+              f"plain {plain_ms:.4f} ms cuDNN bf16 conv alone {library_ms:.4f} ms "
+              f"(kernel/cuDNN {ms / library_ms:.2f}) bound {bound_ms:.4f} ms ({bound_by}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        results.append(dict(name=name, kind="gn_silu_conv3x3", err=max(err, conv_err), ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, ok=ok, call_ms=call_ms, plan=plan))
+        del x, w, res, args, got, conv_args, xn, wcl
     torch.cuda.empty_cache()
     return results
+
+
+def check_launches(torch, gn, ln, convs, device):
+    """Phase 10: the CUDA launches (kernels, copies, memsets) of one call of
+    the GroupNorm and gn_affine kernels at every GroupNorm map, of the
+    LayerNorm kernel at every LayerNorm shape and of the conv kernel at
+    every ResBlock conv, read from a torch.profiler trace of that call,
+    against what the route (``fused_norm.gn_plan``, ``cuda_launches``) or
+    the plan (``fused_conv.conv_plan``, ``cuda_launches``) predicts.  What
+    is launched does not depend on the values: zeros.  Returns (failures,
+    lines)."""
+    from gligen_tpu_torch.ops import fused_conv as fc
+    from gligen_tpu_torch.ops import fused_norm as fn
+    from gligen_tpu_torch.tools.perf_probe import device_breakdown, traced
+
+    def zeros(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    failures, lines = [], []
+
+    def row(kind, name, desc, call, want, why):
+        call()  # warm: the traced call launches only its own work
+        torch.cuda.synchronize()
+        got = device_breakdown(traced(lambda: (call(), torch.cuda.synchronize()))[1])[2]
+        ok = got == want
+        lines.append(f"launches: {kind:15s} {name:22s} {desc:28s}: {got} CUDA "
+                     f"launch{'' if got == 1 else 'es'} per call (profiled; {why} predicts "
+                     f"{want}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"launches {kind} {name}")
+
+    for name, shape, silu, eps in gn:
+        b, c = shape[0], shape[-1]
+        x, s = zeros(*shape), zeros(c, dtype=torch.float32)
+        rows = x.numel() // (b * c)
+        route = fn.gn_plan(b, rows, c)[0]
+        row("group_norm", name, f"x {shape}", lambda: fn.group_norm_fused(x, s, s, 32, eps, silu),
+            fn.cuda_launches(route, True), f"route {route}")
+        if name.startswith("res_"):
+            route = fn.gn_plan(b, rows, c, normalise=False)[0]
+            row("gn_affine", name, f"x {shape}", lambda: fn.gn_affine(x, s, s, 32, eps),
+                fn.cuda_launches(route, False), f"route {route}")
+    for name, rows, c in ln:
+        x, s = zeros(rows, c), zeros(c, dtype=torch.float32)
+        row("layer_norm", name, f"x ({rows}, {c})", lambda: fn.layer_norm_fused(x, s, s), 1,
+            "one pass")
+    for name, b, h, cin, cout, residual in convs:
+        x, a = zeros(b, h, h, cin), zeros(b, cin, dtype=torch.float32)
+        wt, wb = zeros(cout, 3, 3, cin), zeros(cout, dtype=torch.float32)
+        res = zeros(b, h, h, cout) if residual else None
+        plan = fc.conv_plan(b, h, h, cin, cout)
+        row("gn_silu_conv3x3", name, f"({b},{h},{h},{cin}) -> {cout}",
+            lambda: fc.gn_silu_conv3x3.conv(x, a, a, wt, wb, res), fc.cuda_launches(plan),
+            f"plan {'x'.join(map(str, plan[:3]))} split {plan[3]}")
+    del x, s
+    torch.cuda.empty_cache()
+    return failures, lines
 
 
 def bwd_cases(batch: int):
@@ -1045,6 +1157,7 @@ def run_tools(torch, device):
     each, in configuration (a).  Returns (failures, the launches of every
     wrapper during the bench_proj run but for its comparisons with the
     plain version, K7's comparisons as results, lines)."""
+    from gligen_tpu_torch.ops import fused_norm as fn
     from gligen_tpu_torch.tools import bench_block, bench_proj, bench_resblock, bench_sweep_attn
 
     set_config("a")
@@ -1081,14 +1194,16 @@ def run_tools(torch, device):
                  f"version (tol {PROJ_ATOL} + {PROJ_RTOL} rel): {ok}")
     if not ok:
         failures.append("tools bench_proj --sweep")
-    # each sandbox's profiled forward must show the kernels of its configuration
+    # each sandbox's profiled forward must show the kernels of its configuration,
+    # the GroupNorm's those of the route gn_plan gives the sandbox's map
     for tool, needs in (
-        (bench_block, ("flash_fwd", "ln_matmuls", "matmul_residual", "ln_geglu",
-                       "group_norm normalise (K5)")),
-        (bench_resblock, ("group_norm stats (K5)", "group_norm normalise (K5)")),
+        (bench_block, ("flash_fwd", "ln_matmuls", "matmul_residual", "ln_geglu")),
+        (bench_resblock, ()),
     ):
         name = tool.__name__.rsplit(".", 1)[1]
         result = tool.run(iters=3, device=device, profile=True)
+        b, h, w, c = result["shape"]
+        needs += GN_CATEGORIES[fn.gn_plan(b, h * w, c)[0]]
         missing = [cat for cat in needs if cat not in result["breakdown"]]
         ok = result["out_finite"] and result["ms"] > 0 and not missing
         lines += [f"tools: {name}: {line}" for line in tool.lines(result)]
@@ -1271,7 +1386,7 @@ def main() -> int:
           f"-> {library_path(SOURCES[0]).parent.parent.relative_to(REPO)}", flush=True)
     for src in SOURCES:
         report = (library_path(src).parent / "ptxas.txt").read_text()
-        if src.startswith("fused_proj"):  # one line per tile configuration
+        if src.startswith(("fused_proj", "fused_conv")):  # one line per tile configuration
             for name, regs, stores, loads in ptxas_configs(report):
                 print(f"build: {src}: {name}: {regs} registers, {stores} bytes spill stores, "
                       f"{loads} bytes spill loads")
@@ -1286,8 +1401,10 @@ def main() -> int:
     results = check_kernel(torch, kernel_cases(batch), device)
     results.append(check_kernel_1024(torch, device))
     results += check_proj(torch, proj_cases(batch) + mm_cases(), device)
-    results += check_norms(torch, norm_cases(comps.unet, comps.vae, batch), ln_cases(batch), device)
-    results += check_convs(torch, conv_cases(comps.unet, batch), device)
+    gn, ln, convs = (norm_cases(comps.unet, comps.vae, batch), ln_cases(batch),
+                     conv_cases(comps.unet, batch))
+    results += check_norms(torch, gn, ln, device)
+    results += check_convs(torch, convs, device)
     failures += [f"kernel {r['kind']} {r['name']}" for r in results if not r["ok"]]
 
     # ---- 4. the main path at full width, in each configuration ----
@@ -1359,6 +1476,11 @@ def main() -> int:
     print("\n".join(tool_report), flush=True)
     failures += tool_failures
 
+    # ---- 10. CUDA launches per call, from profiled calls ----
+    launch_failures, launch_lines = check_launches(torch, gn, ln, convs, device)
+    print("\n".join(launch_lines), flush=True)
+    failures += launch_failures
+
     print("summary: s/img " + ", ".join(f"({c}) {s:.3f}" for c, s in s_per_img.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")
     print(f"summary: {train_line[len('train: '):]} on {card}")
@@ -1374,6 +1496,8 @@ def main() -> int:
             bound_by=at["bound_by"], library_ms=at["library_ms"], timed_at=timed_at,
             launches_config=config,
         ))
+        if "call_ms" in at:  # K6: the whole wrapper call, gn_affine and the weight cast included
+            kernels[-1]["call_ms"] = at["call_ms"]
     print(json.dumps({"kernels": kernels}))
     if failures:
         print(f"chip_smoke: FAILED: {', '.join(failures)}", file=sys.stderr)

@@ -50,7 +50,16 @@ __device__ __forceinline__ void store8f(float* p, const float* f) {
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-// y * sigmoid(y); -0 where exp(-y) overflows, as the limit is
-__device__ __forceinline__ float silu(float y) { return y / (1.0f + expf(-y)); }
+// y * sigmoid(y) as two SFU operations: exp(-y) = 2^(-y log2 e) by
+// ex2.approx and 1 / (1 + exp(-y)) by rcp.approx, each within ~2^-22 of
+// the exact value, and no cancellation at negative y, so the result is the
+// fp32 silu to a few fp32 ulps (the bf16 rounding that follows is 2^-9).
+// -0 where exp(-y) overflows, as the limit is; y where it underflows.
+__device__ __forceinline__ float silu(float y) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(y * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.0f + e));
+  return y * r;
+}
 
 }  // namespace gligen

@@ -16,29 +16,55 @@
 //
 // Design.  The TPU kernel holds one whole sample in VMEM, one program per
 // sample.  Here that would be 4 blocks on 132 SMs, and the VAE's top level,
-// (2, 512, 512, 128) bf16, is 67 MB a sample.  So GroupNorm runs in three
-// launches from one entry point:
-//   1. gn_partial_kernel, grid (row chunks, B): each thread owns one 8-channel
-//      vector column and strides over the chunk's rows with 16-byte loads,
-//      keeping 8 sums and 8 sums of squares; the block folds its row lanes
-//      through shared memory in a fixed order and writes one (2, C) partial.
-//   2. gn_combine_kernel, grid (groups, B): one block folds a group's
-//      partials over chunks and channels (a fixed strided order, then a
-//      fixed shuffle tree), computes mean, var = max(E[x^2] - mean^2, 0),
-//      rstd = rsqrt(var + eps), and writes a, v for the group's channels.
-//   3. gn_normalize_kernel, grid (blocks, B): y = x * a + v (then y *
-//      sigmoid(y)), 8 channels per thread, the sample's a/v in shared memory.
-// No float atomics: a run repeats bit for bit.  LayerNorm gives each row to a
-// warp: one pass for the fp32 sums, a second over the same row (from L1/L2)
-// to normalise and store; any row count, the fuser's ragged N+30 included.
+// (2, 512, 512, 128) bf16, is 67 MB a sample.  So a sample's rows are cut
+// into chunks, one block each, and the statistics are summed across blocks.
+// Two routes, by the wrapper's plan (ops/fused_norm.py:gn_plan):
+//   * one launch (every UNet map: the maps up to 32 MB): gn_fused_kernel,
+//     one thread-block cluster per sample of up to 16 blocks, a block a row
+//     chunk.  Each block streams its chunk's rows through a ring of shared-
+//     memory slots, whole rows a slot, each brought in by one bulk async
+//     copy (cp.async.bulk), 128 KB in flight a block, where per-thread
+//     16-byte loads kept an eighth of that in flight.  It sums the
+//     rows per channel (a thread owns an 8-channel vector column and takes
+//     every RB-th row), folds its row lanes and then each group's channels
+//     in a fixed order into (sum, sum of squares) per group in its shared
+//     memory; after a cluster barrier every block reads the cluster's group
+//     sums through distributed shared memory in rank order, computes mean,
+//     var = max(E[x^2] - mean^2, 0), rstd = rsqrt(var + eps) and a, v for
+//     the sample's channels, and normalises its own chunk's rows, streamed
+//     again through the ring (from L2; the copies start during the first
+//     pass).  gn_affine stops after the affine.  A cluster was taken over a
+//     grid-wide barrier (a counter and a generation word in memory, over a
+//     cooperative launch of every block): that version spent most of a
+//     small map's time in the barrier even with no data to move, where a
+//     cluster's barrier is in hardware and needs no co-resident grid.  A
+//     cluster holds at most 16 blocks, so the UNet's 4 rows stream on 64
+//     SMs, with 1024 threads each: with 256, the passes were bound by
+//     instruction issue, not by bytes.
+//   * three launches (the VAE's top levels, 134-268 MB, read from HBM twice
+//     either way):
+//     1. gn_partial_kernel, grid (row chunks, B): the per-channel sums of each
+//        chunk, as above, one (2, C) partial per block;
+//     2. gn_combine_kernel, grid (groups, B): one block folds a group's
+//        partials over chunks and channels (a fixed strided order, then a
+//        fixed shuffle tree) into its a, v;
+//     3. gn_normalize_kernel, grid (blocks, B): y = x * a + v (then y *
+//        sigmoid(y)), 8 channels per thread, the sample's a/v in shared memory.
+// No float atomics on either route: a run repeats bit for bit.  LayerNorm
+// gives each row to a warp: one pass for the fp32 sums, a second over the
+// same row (from L1/L2) to normalise and store; any row count, the fuser's
+// ragged N+30 included.
 //
 // What bounds it on the H100: bytes.  GroupNorm reads x twice (stats, then
 // normalise) and writes y once; the second read comes from L2 where the
-// activation fits its 50 MB (every UNet activation: at most 10.5 MB), and
+// activation fits its 50 MB (every UNet activation: at most 31.5 MB), and
 // from HBM for the VAE's top levels (134-268 MB).  The least traffic, one read
 // and one write, is 21 MB (6.3 us at 3.35 TB/s) at ResBlock ds1 (4, 64, 64,
-// 320) and 268 MB (80 us) at the VAE's (2, 512, 512, 128).  LayerNorm moves
-// one read and one write, 21 MB (6.3 us) at (4*4096, 320).
+// 320) and 268 MB (80 us) at the VAE's (2, 512, 512, 128); the small maps
+// (8^2: 0.7 MB) are bound by the launch, not by bytes.
+// LayerNorm moves one read and one write, 21 MB (6.3 us) at (4*4096, 320).
+
+#include <cstring>
 
 #include "common.cuh"
 
@@ -199,6 +225,269 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   }
 }
 
+// ------------------------------------------------ one launch: gn_fused_kernel
+
+constexpr int kFusedThreads = 1024;  // 32 warps an SM: the passes are bound by issue, not bytes
+constexpr int kMaxCluster = 16;      // blocks a sample: a cluster (non-portable size above 8)
+// A block streams its rows through a ring of shared-memory slots, each a
+// whole number of rows brought in by one bulk async copy: 128 KB in flight a
+// block.
+constexpr int kSlots = 4;
+constexpr int kSlotBytes = 32768;
+constexpr int kRingBytes = kSlots * kSlotBytes;
+
+__device__ __forceinline__ uint32_t shared_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The slot's barrier: one arrival (the copy's issuer) plus its bytes.
+__device__ __forceinline__ void slot_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Spin until the barrier's phase of this parity completes; a wait of ~2^28
+// polls traps instead of hanging the card.
+__device__ __forceinline__ void slot_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// Every thread of every block of the cluster: the shared-memory writes
+// before it are visible to the whole cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Two adjacent floats of block `rank`'s shared memory, at the address of
+// `local` in this one: one round trip through distributed shared memory.
+__device__ __forceinline__ float2 cluster_load2(const float* local, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(shared_u32(local)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// Shared memory of gn_fused_kernel after the ring, in floats: the (RB, 2, C)
+// partials, later the sample's (2, groups) mean, rstd; then the block's
+// (groups, 2) group sums (sum, sum of squares), which the cluster reads.
+__host__ __device__ inline int gn_fused_floats(int c, int groups) {
+  const int rb = kFusedThreads / (c / 8);
+  return (rb * 2 * c > 2 * groups ? rb * 2 * c : 2 * groups) + 2 * groups;
+}
+
+// MODE 0: the affine a, v only (gn_affine); 1: normalise; 2: normalise + SiLU.
+// Grid (chunks, B), one cluster of `chunks` blocks a sample, a block a row
+// chunk.  A thread owns one 8-channel vector column of RB rows side by side
+// (V = C / 8 columns, RB = 1024 / V) in both passes.
+template <int MODE>
+__global__ void __launch_bounds__(kFusedThreads, 1)
+    gn_fused_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
+                    const float* __restrict__ bias, float* __restrict__ a_out,
+                    float* __restrict__ v_out, bf16* __restrict__ y, int n, int c, int groups,
+                    float eps) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t slot_bars[kSlots];
+  uint8_t* ring = smem;
+  float* red = reinterpret_cast<float*>(smem + kRingBytes);
+  float* mine = red + gn_fused_floats(c, groups) - 2 * groups;  // this block's group sums
+  const int tid = threadIdx.x, b = blockIdx.y, chunk = blockIdx.x, chunks = gridDim.x;
+  const int v = c / 8, cpg = c / groups;
+  const int rb = kFusedThreads / v, lane_row = tid / v, cv = tid % v;
+  const bool active = lane_row < rb;
+  const int rows = (n + chunks - 1) / chunks;
+  const int r0 = min(n, chunk * rows), r1 = min(n, r0 + rows);
+  const int piece_rows = max(1, kSlotBytes / (2 * c));
+  const int pieces = (r1 - r0 + piece_rows - 1) / piece_rows;
+  const int loads = MODE == 0 ? pieces : 2 * pieces;
+  const bf16* xb = x + (long long)b * n * c;
+  if (tid == 0) {
+    for (int k = 0; k < kSlots; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(shared_u32(&slot_bars[k]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // load q of the stream (q < pieces: the statistics pass; then the
+  // normalising pass, rows again) into slot q % kSlots, by thread 0
+  auto issue = [&](int q) {
+    const int pr0 = r0 + (q % pieces) * piece_rows;
+    const int bytes = min(piece_rows, r1 - pr0) * c * 2;
+    slot_load(shared_u32(ring + q % kSlots * kSlotBytes), xb + (long long)pr0 * c, bytes,
+              shared_u32(&slot_bars[q % kSlots]));
+  };
+  if (tid == 0)
+    for (int q = 0; q < min(kSlots, loads); ++q) issue(q);
+  // this thread's 8 channels' scale and shift, loaded while the rows arrive
+  float sc[8], sh[8];
+  if (active) {
+    load8f(scale + cv * 8, sc);
+    load8f(bias + cv * 8, sh);
+  }
+
+  float s[8], ss[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = ss[i] = 0.0f;
+  for (int q = 0; q < pieces; ++q) {
+    slot_wait(shared_u32(&slot_bars[q % kSlots]), (q / kSlots) & 1);
+    const uint8_t* tile = ring + q % kSlots * kSlotBytes;
+    const int prn = min(piece_rows, r1 - r0 - q * piece_rows);
+    if (active) {
+      for (int rr = lane_row; rr < prn; rr += rb) {  // the rows in order
+        float f[8];
+        unpack8(*reinterpret_cast<const uint4*>(tile + (rr * c + cv * 8) * 2), f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[i] += f[i];
+          ss[i] += f[i] * f[i];
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with the slot
+    if (tid == 0 && q + kSlots < loads) issue(q + kSlots);
+  }
+  if (active) {
+    store8f(red + lane_row * 2 * c + cv * 8, s);
+    store8f(red + lane_row * 2 * c + c + cv * 8, ss);
+  }
+  __syncthreads();
+  // row lanes, in order, into lane 0's row
+  for (int i = tid; i < 2 * c; i += kFusedThreads) {
+    float acc = red[i];
+    for (int k = 1; k < rb; ++k) acc += red[k * 2 * c + i];
+    red[i] = acc;
+  }
+  __syncthreads();
+  // each group's channels: a warp a group, lanes strided over its channels,
+  // then a fixed shuffle tree
+  const int warp = tid / 32, lane = tid % 32;
+  for (int g = warp; g < groups; g += kFusedThreads / 32) {
+    float gs = 0.0f, gss = 0.0f;
+    for (int j = lane; j < cpg; j += 32) {
+      gs += red[g * cpg + j];
+      gss += red[c + g * cpg + j];
+    }
+    gs = warp_sum(gs);
+    gss = warp_sum(gss);
+    if (lane == 0) *reinterpret_cast<float2*>(mine + 2 * g) = make_float2(gs, gss);
+  }
+  cluster_sync();  // every block's group sums are written
+
+  // the cluster's group sums, a warp a group, lane k reading block k's, then
+  // the same shuffle tree: each group's mean and rstd
+  float* stat = red;  // (2, groups): mean, rstd
+  const float count = (float)n * (float)cpg;
+  for (int g = warp; g < groups; g += kFusedThreads / 32) {
+    float2 sums = make_float2(0.0f, 0.0f);
+    if (lane < chunks) sums = cluster_load2(mine + 2 * g, lane);
+    const float gs = warp_sum(sums.x), gss = warp_sum(sums.y);
+    if (lane == 0) {
+      const float mean = gs / count;
+      stat[g] = mean;
+      stat[groups + g] = rsqrtf(fmaxf(gss / count - mean * mean, 0.0f) + eps);
+    }
+  }
+  // this block is done reading the cluster's sums; it waits for the others
+  // to be done with its own only before it exits
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  __syncthreads();
+  // this thread's 8 channels: a, v in registers
+  float av[8], vv[8];
+  if (active) {
+    int g = cv * 8 / cpg, next = (g + 1) * cpg;  // the group of channel cv * 8 + j
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      while (cv * 8 + j >= next) ++g, next += cpg;
+      av[j] = stat[groups + g] * sc[j];
+      vv[j] = sh[j] - stat[g] * av[j];
+    }
+    if (chunk == 0 && lane_row == 0) {
+      store8f(a_out + (long long)b * c + cv * 8, av);
+      store8f(v_out + (long long)b * c + cv * 8, vv);
+    }
+  }
+  if (MODE == 0) {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    return;
+  }
+
+  // the normalising pass over the same rows, streamed again (from L2)
+  bf16* yb = y + (long long)b * n * c;
+  for (int p = 0; p < pieces; ++p) {
+    const int q = pieces + p;
+    slot_wait(shared_u32(&slot_bars[q % kSlots]), (q / kSlots) & 1);
+    const uint8_t* tile = ring + q % kSlots * kSlotBytes;
+    const int pr0 = r0 + p * piece_rows, prn = min(piece_rows, r1 - pr0);
+    if (active) {
+      for (int rr = lane_row; rr < prn; rr += rb) {
+        float f[8];
+        unpack8(*reinterpret_cast<const uint4*>(tile + (rr * c + cv * 8) * 2), f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float t = f[j] * av[j] + vv[j];
+          f[j] = MODE == 2 ? silu(t) : t;
+        }
+        *reinterpret_cast<uint4*>(yb + (long long)(pr0 + rr) * c + cv * 8) = pack8(f);
+      }
+    }
+    __syncthreads();
+    if (tid == 0 && q + kSlots < loads) issue(q + kSlots);
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One launch of gn_fused_kernel<MODE>: b clusters of `chunks` blocks.
+template <int MODE>
+cudaError_t launch_fused(const bf16* x, const float* scale, const float* bias, float* a, float* v,
+                         bf16* y, int b, int n, int c, int groups, int chunks, float eps,
+                         cudaStream_t stream) {
+  const size_t smem = kRingBytes + gn_fused_floats(c, groups) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gn_fused_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gn_fused_kernel<MODE>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+
+  cudaLaunchConfig_t cfg;
+  memset(&cfg, 0, sizeof(cfg));
+  cfg.gridDim = dim3(chunks, b);
+  cfg.blockDim = dim3(kFusedThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = chunks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gn_fused_kernel<MODE>, x, scale, bias, a, v, y, n, c, groups,
+                            eps);
+}
+
 bool gn_shape_ok(int b, int n, int c, int groups, int chunks) {
   return b >= 1 && b <= 65535 && n >= 1 && c >= 8 && c % 8 == 0 && c <= kMaxC && groups >= 1 &&
          groups <= 65535 && c % groups == 0 && chunks >= 1 && chunks <= n &&
@@ -224,24 +513,36 @@ cudaError_t launch_affine(const bf16* x, const float* scale, const float* bias, 
 // Plain C entry points for ctypes.  Each returns a cudaError_t (0 = launched).
 // Every tensor is contiguous and 16-byte aligned; the caller checks shapes,
 // dtypes and devices.  x is (b, n, c) bf16 with n the flattened spatial axis;
-// scale/bias (c,) fp32; ws a (b, chunks, 2, c) fp32 scratch; a, v (b, c) fp32.
+// scale/bias (c,) fp32; a, v (b, c) fp32.  The route is the caller's
+// (ops/fused_norm.py:gn_plan): one_launch != 0 runs one launch of b clusters
+// of `chunks` blocks (at most 16; ws unused); else three launches, chunks row
+// chunks per sample, with ws a (b, chunks, 2, c) fp32 scratch.
 
 // a, v such that GroupNorm(x) * scale + bias == x * a + v.
 extern "C" int gn_affine_bf16(const void* x, const float* scale, const float* bias, float* ws,
                               float* a, float* v, int b, int n, int c, int groups, int chunks,
-                              float eps, void* stream) {
-  if (!gn_shape_ok(b, n, c, groups, chunks)) return (int)cudaErrorInvalidValue;
-  return (int)launch_affine(static_cast<const bf16*>(x), scale, bias, ws, a, v, b, n, c, groups,
-                            chunks, eps, static_cast<cudaStream_t>(stream));
+                              float eps, int one_launch, void* stream) {
+  if (!gn_shape_ok(b, n, c, groups, chunks) || (one_launch && chunks > kMaxCluster))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  if (one_launch)
+    return (int)launch_fused<0>(xb, scale, bias, a, v, nullptr, b, n, c, groups, chunks, eps, s);
+  return (int)launch_affine(xb, scale, bias, ws, a, v, b, n, c, groups, chunks, eps, s);
 }
 
 // y = GroupNorm(x) * scale + bias, then SiLU when silu != 0; y (b, n, c) bf16.
 extern "C" int group_norm_bf16(const void* x, const float* scale, const float* bias, float* ws,
                                float* a, float* v, void* y, int b, int n, int c, int groups,
-                               int chunks, float eps, int silu, void* stream) {
-  if (!gn_shape_ok(b, n, c, groups, chunks)) return (int)cudaErrorInvalidValue;
+                               int chunks, float eps, int silu, int one_launch, void* stream) {
+  if (!gn_shape_ok(b, n, c, groups, chunks) || (one_launch && chunks > kMaxCluster))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
+  bf16* yb = static_cast<bf16*>(y);
+  if (one_launch)
+    return (int)(silu ? launch_fused<2>(xb, scale, bias, a, v, yb, b, n, c, groups, chunks, eps, s)
+                      : launch_fused<1>(xb, scale, bias, a, v, yb, b, n, c, groups, chunks, eps, s));
   cudaError_t err = launch_affine(xb, scale, bias, ws, a, v, b, n, c, groups, chunks, eps, s);
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
@@ -249,7 +550,6 @@ extern "C" int group_norm_bf16(const void* x, const float* scale, const float* b
   const int per_sample = max(1, (8 * kSMs + b - 1) / b);  // ~8 blocks per SM in all
   const dim3 grid(min((vecs + threads - 1) / threads, per_sample), b);
   const size_t smem = 2 * (size_t)c * sizeof(float);
-  bf16* yb = static_cast<bf16*>(y);
   if (silu)
     gn_normalize_kernel<true><<<grid, threads, smem, s>>>(xb, a, v, yb, n, c);
   else

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Write ``wgmma.cuh``: the inline-PTX wrappers of Hopper's warpgroup
-matrix multiply that ``flash_fwd.cu``, ``flash_bwd.cu`` and the projection
-GEMM core (``gemm_sm90.cuh``) issue.
+matrix multiply that ``flash_fwd.cu``, ``flash_bwd.cu``, the projection
+GEMM core (``gemm_sm90.cuh``) and the fused conv (``fused_conv.cu``) issue.
 
     python3 gligen_tpu_torch/csrc/gen_wgmma.py
 
@@ -12,7 +12,8 @@ out in full.  Two forms, bf16 operands and fp32 accumulators:
   * ``wgmma_ss<N>``: A and B from shared memory, by descriptor (S = Q K^T,
     and the projections' tiles at every width of their tile table);
   * ``wgmma_rs<N>``: A from registers (four bf16x2 per thread, the layout
-    of the accumulator it was computed in), B from shared memory (O += P V).
+    of the accumulator it was computed in, or ``ldmatrix``'s), B from shared
+    memory (O += P V; the fused conv's activated input tiles).
 
 ``TRANS_B`` is the instruction's imm-trans-b: 0 for a K-major B, 1 for an
 MN-major one.  ``tests/test_torch_flash.py`` checks that the committed
@@ -25,7 +26,7 @@ from pathlib import Path
 
 HEADER = Path(__file__).resolve().parent / "wgmma.cuh"
 SS_WIDTHS = (32, 64, 96, 128, 160, 192, 256)
-RS_WIDTHS = (40, 80, 160, 256)
+RS_WIDTHS = (40, 80, 128, 160, 256)
 
 
 def _regs(n: int) -> str:

@@ -13,6 +13,11 @@ it in its own.  Layout: x NHWC (B, H, W, C); the conv weight is the port's
 Conv2d OIHW (F, C, 3, 3), which the wrapper casts to x's dtype and permutes
 to (F, 3, 3, C) at each call (K-contiguous per output channel).
 
+The kernel runs at a tile configuration (BM rows, BN columns, weight-ring
+stages) and a split of its 64-channel slices from a fixed table by shape
+class (``CONV_TILES``, ``conv_plan``); the wrapper passes them to the C
+entry, and the library is built at exactly the table's configurations.
+
 The wrapper runs the plain versions for a CPU tensor and the kernels for a
 CUDA tensor; it never falls back from one to the other, and raises on what
 the kernel does not take (a dtype other than bf16, C or F not multiples of
@@ -26,11 +31,92 @@ are differentiable on their own, and the conv's backward differentiates
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
 from gligen_tpu_torch.ops.fused_norm import gn_affine, gn_affine_plain
-from gligen_tpu_torch.ops.launch import I32, PTR, Kernel, check, check_widths, differentiable, on_cuda
+from gligen_tpu_torch.ops.launch import (
+    I32, PTR, Kernel, c_entry, check, check_widths, differentiable, on_cuda,
+)
+
+Tiles = Tuple[int, int, int]
+SMS = 132  # the H100 SXM's streaming multiprocessors
+MAX_BLOCK_SMEM = 232448  # a block's dynamic shared memory on the H100 (227 KB)
+
+# The tile table by shape class: (fewest output pixels M = B*H*W, (BM, BN,
+# stages), most split); the first rule a shape meets gives its tiles
+# (``conv_tiles``).  BM is 128 (two consumer warpgroups) or 64 (one); BN the
+# output columns of a tile, the wgmma width; stages the weight ring's depth.
+# Where the row and column tiles alone leave SMs idle (8^2 and 16^2: M =
+# 256, 1024 at 4 UNet rows), the channel slices are split into up to "most
+# split" ranges, as few as cover the card (``conv_split``; 1 wherever the
+# tiles fill it), summed in order by a second kernel.  The sweep
+# (perf_probe.py convs --sweep, SWEEP_CONV_TILES) found one configuration
+# the fastest, or within 3% of it, at every ResBlock conv of 512^2, so the
+# table has one class; the serving library (csrc/fused_conv.cu:
+# CONV_CONFIGS) holds exactly its configurations.
+CONV_TILES = ((0, (128, 160, 4), 8),)
+# The sweep library's (csrc/fused_conv_sweep.cu) configurations.
+SWEEP_CONV_TILES = ((128, 128, 4), (128, 160, 3), (128, 160, 5), (64, 128, 4), (64, 160, 4))
+
+
+def conv_tiles(m: int) -> Tuple[Tiles, int]:
+    """((BM, BN, stages), most split) of the first class M output pixels meet."""
+    for fewest_m, tiles, most in CONV_TILES:
+        if m >= fewest_m:
+            return tiles, most
+    raise ValueError(f"gn_silu_conv3x3: no tile class for M {m}")
+
+
+def halo_rows(bm: int, w: int) -> int:
+    """Rows of one halo buffer (csrc/fused_conv.cu:halo_rows): the row
+    block's pixels shifted by -W-1 .. W+1 as one window, or three windows
+    of BM + 2 (one per dy) where W is wide enough that they are fewer."""
+    return bm + 2 * w + 2 if bm + 2 * w + 2 <= 3 * (bm + 2) else 3 * (bm + 2)
+
+
+def conv_smem(tiles: Tiles, w: int) -> int:
+    """Dynamic shared memory at ``tiles`` and image width W, by
+    csrc/fused_conv.cu's arithmetic (ConvTile::smem): the weight ring, a
+    64-row bf16 staging tile per consumer warpgroup, the barriers, a row of
+    zeros, two halo buffers and 1 KB to align the base."""
+    bm, bn, stages = tiles
+    consumers = bm // 64
+    bars = stages * bn * 128 + consumers * 64 * bn * 2
+    zero = -(-(bars + 8 * (2 * stages + 4 + consumers)) // 128) * 128
+    halo = -(-(zero + 128) // 1024) * 1024
+    return halo + 2 * halo_rows(bm, w) * 128 + 1024
+
+
+def conv_split(m: int, c: int, f: int, tiles: Tiles, most: int) -> int:
+    """How many ranges the ceil(C / 64) channel slices are cut into: 1 where
+    the tiles alone give every SM a block; else, up to ``most``, the fewest
+    that minimise waves of blocks over the SMs times each block's share of
+    K."""
+    bm, bn, _ = tiles
+    blocks = -(-m // bm) * -(-f // bn)
+    if blocks >= SMS:
+        return 1
+    splits = range(1, max(1, min(most, -(-c // 64))) + 1)
+    return min(splits, key=lambda s: (-(-blocks * s // SMS) / s, s))
+
+
+def conv_plan(b: int, h: int, w: int, c: int, f: int) -> Tuple[int, int, int, int]:
+    """(BM, BN, stages, split) of the conv kernel for x (B, H, W, C) -> F."""
+    m = b * h * w
+    tiles, most = conv_tiles(m)
+    if conv_smem(tiles, w) > MAX_BLOCK_SMEM:
+        raise ValueError(f"gn_silu_conv3x3: tiles {tiles} at W {w} need {conv_smem(tiles, w)} "
+                         f"bytes of shared memory, more than {MAX_BLOCK_SMEM}")
+    return (*tiles, conv_split(m, c, f, tiles, most))
+
+
+def cuda_launches(plan) -> int:
+    """CUDA launches of one conv kernel call at ``plan``: the conv, and the
+    in-order reduction of the split partials."""
+    return 1 if plan[3] == 1 else 2
 
 
 def _ref_chain(x, a, v, w, wb, residual=None) -> torch.Tensor:
@@ -57,8 +143,8 @@ def gn_silu_conv3x3_plain(x, scale, bias, w, wb, residual=None, num_groups: int 
 
 class GnSiluConv3x3(Kernel):
     library, entry = "fused_conv", "gn_silu_conv3x3_bf16"
-    # x, a, v, w, bias, residual, y, b, h, w, c, f
-    argtypes = (PTR,) * 7 + (I32,) * 5
+    # x, a, v, w, bias, residual, y, part, b, h, w, c, f, bm, bn, stages, split
+    argtypes = (PTR,) * 8 + (I32,) * 9
 
     def __call__(self, x, scale, bias, w, wb, residual=None, num_groups: int = 32,
                  eps: float = 1e-5) -> torch.Tensor:
@@ -70,14 +156,17 @@ class GnSiluConv3x3(Kernel):
         return differentiable(self._forward, _ref_chain, x, a, v, w, wb, residual)
 
     @staticmethod
-    def _check(x, w, wb, residual):
+    def _check(x, w, wb, residual, taps_first=False):
+        """What the conv kernel refuses raises; w is OIHW (F, C, 3, 3), or
+        (F, 3, 3, C) with ``taps_first``."""
         if x.dim() != 4:
             raise ValueError(f"gn_silu_conv3x3: x must be (B, H, W, C), got {tuple(x.shape)}")
         b, h, wd, c = x.shape
         f = w.shape[0]
-        if w.shape != (f, c, 3, 3) or wb.shape != (f,):
-            raise ValueError(f"gn_silu_conv3x3: x (..., {c}) needs an (F, {c}, 3, 3) weight and "
-                             f"an (F,) bias; w is {tuple(w.shape)}")
+        want = (f, 3, 3, c) if taps_first else (f, c, 3, 3)
+        if w.shape != want or wb.shape != (f,):
+            raise ValueError(f"gn_silu_conv3x3: x (..., {c}) needs an {want} weight and an (F,) "
+                             f"bias; w is {tuple(w.shape)}")
         if residual is not None and residual.shape != (b, h, wd, f):
             raise ValueError(f"gn_silu_conv3x3: residual {tuple(residual.shape)} is not "
                              f"{(b, h, wd, f)}")
@@ -88,18 +177,36 @@ class GnSiluConv3x3(Kernel):
     def _forward(self, x, a, v, w, wb, residual):
         if not on_cuda(x, "gn_silu_conv3x3"):
             return _ref_chain(x, a, v, w, wb, residual)
+        return self.conv(x, a, v, w.to(x.dtype).permute(0, 2, 3, 1).contiguous(), wb.float(),
+                         residual)
+
+    def conv(self, x, a, v, wt, wb, residual=None, plan=None, library=None) -> torch.Tensor:
+        """The conv kernel alone on card tensors: x (B, H, W, C) bf16, the
+        affine a, v (B, C) fp32, the weight wt already (F, 3, 3, C) bf16, the
+        bias wb (F,) fp32, the residual (B, H, W, F) bf16 or None.  At the
+        table's ``conv_plan`` (a counted launch), or at ``plan`` (BM, BN,
+        stages, split) in ``library`` (the tile sweep's: not counted)."""
+        self._check(x, wt, wb, residual, taps_first=True)
         b, h, wd, c = x.shape
-        f = w.shape[0]
-        wt = w.to(x.dtype).permute(0, 2, 3, 1).contiguous()
-        wb = wb.float()
+        f = wt.shape[0]
         check("gn_silu_conv3x3", x.device, w=(wt, torch.bfloat16), wb=(wb, torch.float32),
               a=(a, torch.float32), v=(v, torch.float32))
+        if a.shape != (b, c) or v.shape != (b, c):
+            raise ValueError(f"gn_silu_conv3x3: a and v must be {(b, c)}")
         out = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
-        self._launch(
-            x.device, x.data_ptr(), a.data_ptr(), v.data_ptr(), wt.data_ptr(), wb.data_ptr(),
-            None if residual is None else residual.data_ptr(), out.data_ptr(),
-            b, h, wd, c, f,
-        )
+        plan = conv_plan(b, h, wd, c, f) if plan is None else tuple(plan)
+        part = (None if plan[3] == 1 else
+                torch.empty((plan[3], b * h * wd, f), dtype=torch.float32, device=x.device))
+        args = (x.data_ptr(), a.data_ptr(), v.data_ptr(), wt.data_ptr(), wb.data_ptr(),
+                None if residual is None else residual.data_ptr(), out.data_ptr(),
+                None if part is None else part.data_ptr(), b, h, wd, c, f, *plan)
+        if library is None:
+            self._launch(x.device, *args)
+            return out
+        fn = c_entry(library, self.entry, self.argtypes)
+        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{library} {self.entry} launch failed at {plan}: cudaError {err}")
         return out
 
 

@@ -12,6 +12,10 @@ holds three entry points:
     fused conv (ops/fused_conv.py) applies in its operand loader;
   * ``layer_norm_fused``: row LayerNorm, under ``ln`` or ``both``.
 
+A GroupNorm of a UNet map runs as one launch, a thread-block cluster per
+sample; the VAE's large maps as three launches (``gn_plan``: the route and
+the row chunks, passed to the C entry).
+
 Numerics are the TPU kernels': single-pass fp32 moments, the variance
 clamped at 0, rsqrt(var + eps), one cast.  The GroupNorm plain version is
 ``basic.group_norm_rowsum``, the same function as the TPU kernel summed in
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -39,7 +44,53 @@ from gligen_tpu_torch.ops.launch import (
 )
 
 MAX_CHANNELS = 4096  # the partial-sum block's (rows, 2, C) fp32 stays in 48 KB of shared memory
-CHUNK_BLOCKS = 4 * 132  # partial-sum blocks to aim for over all samples: 4 per SM of an H100
+SMS = 132  # the H100 SXM's streaming multiprocessors
+CHUNK_BLOCKS = 4 * SMS  # three-launch route: partial-sum blocks over all samples, 4 per SM
+MAX_CLUSTER = 16  # one-launch route: blocks a sample, one cluster (csrc kMaxCluster)
+# One launch for inputs up to this many bytes: they stay in the 50 MB L2
+# between the statistics pass and the normalising one (every UNet map, at
+# most 31.5 MB at 4 rows) ...
+ONE_LAUNCH_BYTES = 32 * 2**20
+# ... and where the samples' clusters put at least this many blocks (one an
+# SM) to work: a cluster streams one sample, so 2 samples (the VAE's batch)
+# would leave three quarters of the card idle, which the three-launch route
+# spreads them over.
+ONE_LAUNCH_BLOCKS = 64
+# One-launch route: a block per this many bytes of a sample (one slot of its
+# ring), up to a cluster.
+BLOCK_BYTES = 32 * 2**10
+
+
+def fused_smem(c: int, groups: int) -> int:
+    """Dynamic shared memory of the one-launch kernel (csrc/fused_norm.cu:
+    launch_fused): the 128 KB ring, the (RB, 2, C) fp32 partials of its
+    1024 threads (RB = 1024 / (C / 8) rows side by side) or the (2, groups)
+    statistics, and the block's (2, groups) group sums."""
+    return 4 * 32768 + 4 * (max(1024 // (c // 8) * 2 * c, 2 * groups) + 2 * groups)
+
+
+def gn_plan(b: int, n: int, c: int, groups: int = 32,
+            normalise: bool = True) -> Tuple[str, int]:
+    """(route, row chunks per sample) of a GroupNorm of x (B, N, C) bf16
+    (``normalise``) or of its statistics alone (``gn_affine``): "one" (one
+    launch, a cluster of up to MAX_CLUSTER blocks per sample) for inputs up
+    to ONE_LAUNCH_BYTES of at least ONE_LAUNCH_BLOCKS / MAX_CLUSTER samples,
+    whose block fits the H100's shared memory; else "three" (partials,
+    combine, normalise).  The statistics alone, one read of x, go to the
+    partials and the combine for the UNet's narrow maps of over 2 MB a
+    sample (C < 1280): there the partials spread the read over every SM, and
+    the cluster's 64 SMs were slower on the H100 (PERF.md)."""
+    one = (2 * b * n * c <= ONE_LAUNCH_BYTES and b * MAX_CLUSTER >= ONE_LAUNCH_BLOCKS
+           and fused_smem(c, groups) <= 232448)
+    if one and (normalise or c >= 1280 or 2 * n * c <= 2 * 2**20):
+        return "one", max(1, min(n, MAX_CLUSTER, -(-2 * n * c // BLOCK_BYTES)))
+    return "three", max(1, min(n, -(-CHUNK_BLOCKS // b)))
+
+
+def cuda_launches(route: str, normalise: bool) -> int:
+    """CUDA launches of one call: 1 on the one-launch route; else the
+    partials and the combine, and the normalising pass."""
+    return 1 if route == "one" else 2 + normalise
 
 
 def group_norm_plain(x, scale, bias, num_groups: int = 32, eps: float = 1e-5,
@@ -61,7 +112,7 @@ class _GroupStats(Kernel):
 
     library = "fused_norm"
 
-    def _prepare(self, op, x, scale, bias, num_groups):
+    def _prepare(self, op, x, scale, bias, num_groups, normalise):
         if x.dim() < 2:
             raise ValueError(f"{op}: x must be (B, ..., C), got {tuple(x.shape)}")
         b, c = x.shape[0], x.shape[-1]
@@ -74,17 +125,19 @@ class _GroupStats(Kernel):
         check_widths(op, C=c)
         check(op, x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
               bias=(bias, torch.float32))
-        chunks = max(1, min(n, -(-CHUNK_BLOCKS // b)))  # row chunks per sample
-        ws = torch.empty((b, chunks, 2, c), dtype=torch.float32, device=x.device)
+        route, chunks = gn_plan(b, n, c, num_groups, normalise)
+        ws = (None if route == "one" else
+              torch.empty((b, chunks, 2, c), dtype=torch.float32, device=x.device))
         a, v = (torch.empty((b, c), dtype=torch.float32, device=x.device) for _ in range(2))
-        return (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), ws.data_ptr(), a.data_ptr(),
-                v.data_ptr()), (b, n, c, num_groups, chunks), a, v
+        return (x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                None if ws is None else ws.data_ptr(), a.data_ptr(),
+                v.data_ptr()), (b, n, c, num_groups, chunks), a, v, int(route == "one")
 
 
 class GnAffine(_GroupStats):
     entry = "gn_affine_bf16"
-    # x, scale, bias, ws, a, v, b, n, c, groups, chunks, eps
-    argtypes = (PTR,) * 6 + (I32,) * 5 + (F32,)
+    # x, scale, bias, ws, a, v, b, n, c, groups, chunks, eps, one_launch
+    argtypes = (PTR,) * 6 + (I32,) * 5 + (F32, I32)
 
     def __call__(self, x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
         """Same contract as ``gn_affine_plain``.  Differentiable."""
@@ -96,15 +149,16 @@ class GnAffine(_GroupStats):
     def _forward(self, x, scale, bias, num_groups, eps):
         if not on_cuda(x, "gn_affine"):
             return gn_affine_plain(x, scale, bias, num_groups, eps)
-        ptrs, dims, a, v = self._prepare("gn_affine", x, scale, bias, num_groups)
-        self._launch(x.device, *ptrs, *dims, eps)
+        ptrs, dims, a, v, one_launch = self._prepare("gn_affine", x, scale, bias, num_groups,
+                                                     False)
+        self._launch(x.device, *ptrs, *dims, eps, one_launch)
         return a, v
 
 
 class GroupNorm(_GroupStats):
     entry = "group_norm_bf16"
-    # x, scale, bias, ws, a, v, y, b, n, c, groups, chunks, eps, silu
-    argtypes = (PTR,) * 7 + (I32,) * 5 + (F32, I32)
+    # x, scale, bias, ws, a, v, y, b, n, c, groups, chunks, eps, silu, one_launch
+    argtypes = (PTR,) * 7 + (I32,) * 5 + (F32, I32, I32)
 
     def __call__(self, x, scale, bias, num_groups: int = 32, eps: float = 1e-5,
                  silu: bool = False) -> torch.Tensor:
@@ -117,9 +171,10 @@ class GroupNorm(_GroupStats):
     def _forward(self, x, scale, bias, num_groups, eps, silu):
         if not on_cuda(x, "group_norm"):
             return group_norm_plain(x, scale, bias, num_groups, eps, silu)
-        ptrs, dims, _, _ = self._prepare("group_norm", x, scale, bias, num_groups)
+        ptrs, dims, _, _, one_launch = self._prepare("group_norm", x, scale, bias, num_groups,
+                                                     True)
         y = torch.empty_like(x)
-        self._launch(x.device, *ptrs, y.data_ptr(), *dims, eps, int(silu))
+        self._launch(x.device, *ptrs, y.data_ptr(), *dims, eps, int(silu), one_launch)
         return y
 
 

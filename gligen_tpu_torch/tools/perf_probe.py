@@ -8,7 +8,7 @@ and what each fused kernel costs against the module path's chain.
         [--norm gn|0|ln|both] [--conv 0|1|auto] [--remat full|none] [--batch 4] [--steps 5]
     python3 gligen_tpu_torch/tools/perf_probe.py chains
     python3 gligen_tpu_torch/tools/perf_probe.py norms
-    python3 gligen_tpu_torch/tools/perf_probe.py convs
+    python3 gligen_tpu_torch/tools/perf_probe.py convs [--sweep]
 
 request: builds SD-1.4 GLIGEN at full width with ``chip_smoke.py``'s
 seeded, de-zeroed random weights and generates one warm-up request
@@ -53,7 +53,13 @@ without the SiLU, against the library's F.group_norm / F.layer_norm.
 convs: at every ResBlock conv of ``chip_smoke.conv_cases``, the fused
 GN -> SiLU -> conv3x3 against the ``GLIGEN_TPU_FUSED_CONV=0`` chain of
 modules (the GroupNorm kernel with its SiLU, cuDNN's bf16 conv, the
-residual add) and against cuDNN's bf16 conv alone.
+residual add), and the conv kernel alone (bf16 (F, 3, 3, C) weight, a and
+v given) against cuDNN's bf16 conv alone.  ``--sweep``: the conv kernel at
+every shape, at the table's plan (``fused_conv.conv_plan``) and at each
+configuration of the sweep library (``SWEEP_CONV_TILES``, built from
+csrc/fused_conv_sweep.cu), each with the split ``conv_split`` gives it and
+without split, every output held against ``_ref_chain``; exits 1 on a
+mismatch.
 
 Every line names the card and its power limit.  JAX is not imported.
 """
@@ -106,13 +112,15 @@ def category(name: str) -> str:
         return "flash_bwd dq (K4)"
     if "flash_bwd_dkv_kernel" in name:
         return "flash_bwd dk/dv (K4)"
+    if "gn_fused_kernel" in name:
+        return "group_norm one launch (K5)"
     if "gn_partial_kernel" in name or "gn_combine_kernel" in name:
         return "group_norm stats (K5)"
     if "gn_normalize_kernel" in name:
         return "group_norm normalise (K5)"
     if "layer_norm_kernel" in name:
         return "layer_norm (K5)"
-    if "conv3x3_kernel" in name:
+    if "conv3x3_kernel" in name or "conv_split_reduce" in name:
         return "gn_silu_conv3x3 (K6)"
     if "fused_proj_kernel" in name:
         return ("ln_matmuls", "matmul_residual", "ln_geglu",
@@ -423,12 +431,14 @@ def convs(args) -> None:
     from gligen_tpu_torch.models.layers import Conv2d
     from gligen_tpu_torch.models.unet import GroupNorm32
     from gligen_tpu_torch.ops import fused_conv as fc
+    from gligen_tpu_torch.tools.timing import timed
 
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(5)
     unet, _ = _meta_models(torch)
     os.environ["GLIGEN_TPU_FUSED_NORM"] = "gn"  # the module chain of the default configuration
     print(f"convs: device ms (host ms) per call on {card}", flush=True)
+    bad = []
     with torch.no_grad():
         for name, b, h, cin, cout, residual in cs.conv_cases(unet, 2):
             norm = GroupNorm32(cin, act="silu").to(device)
@@ -438,11 +448,39 @@ def convs(args) -> None:
             res = (torch.randn((b, h, h, cout), generator=gen, device=device).to(torch.bfloat16)
                    if residual else None)
             xn = norm(x)
-            _compare(f"convs: {name:16s} ({b},{h},{h},{cin}) -> {cout}",
-                     lambda: fc.gn_silu_conv3x3(x, norm.weight, norm.bias, conv.weight,
-                                                conv.bias, residual=res),
-                     {"module": lambda: conv(norm(x)) if res is None else conv(norm(x)) + res,
-                      "cudnn conv": lambda: conv(xn)})
+            a, v = fc.gn_affine(x, norm.weight, norm.bias)
+            wt = conv.weight.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+            wb = conv.bias.float()
+            desc = f"convs: {name:16s} ({b},{h},{h},{cin}) -> {cout}"
+            if not args.sweep:
+                _compare(desc, lambda: fc.gn_silu_conv3x3(x, norm.weight, norm.bias, conv.weight,
+                                                          conv.bias, residual=res),
+                         {"module": lambda: conv(norm(x)) if res is None else conv(norm(x)) + res})
+                _compare(f"{desc} conv alone",
+                         lambda: fc.gn_silu_conv3x3.conv(x, a, v, wt, wb, res),
+                         {"cudnn conv": lambda: conv(xn)})
+                continue
+            want = fc._ref_chain(x, a, v, conv.weight, conv.bias, res)
+            flops = 2 * b * h * h * cout * 9 * cin
+            table = fc.conv_plan(b, h, h, cin, cout)
+            plans = [(table, None)]
+            for tiles in fc.SWEEP_CONV_TILES:
+                if fc.conv_smem(tiles, h) > fc.MAX_BLOCK_SMEM:
+                    continue
+                split = fc.conv_split(b * h * h, cin, cout, tiles, 8)
+                plans += [((*tiles, s), "fused_conv_sweep") for s in sorted({1, split})]
+            for plan, library in plans:
+                got = fc.gn_silu_conv3x3.conv(x, a, v, wt, wb, res, plan=plan, library=library)
+                ok = torch.allclose(got.float(), want.float(), atol=2e-2, rtol=1e-2)
+                ms = timed(lambda: fc.gn_silu_conv3x3.conv(x, a, v, wt, wb, res, plan=plan,
+                                                           library=library))[0]
+                print(f"{desc} {'table' if library is None else 'sweep'} "
+                      f"{'x'.join(map(str, plan[:3]))} split {plan[3]}: {ms:.4f} ms "
+                      f"{flops / ms / 1e9:.1f} TF/s {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    bad.append(f"{name} {plan}")
+    if bad:
+        raise SystemExit(f"convs --sweep: outputs off the plain version: {', '.join(bad)}")
 
 
 def main() -> None:
@@ -460,6 +498,7 @@ def main() -> None:
     train_args.add_argument("--steps", type=int, default=5)
     for mode in ("chains", "norms", "convs"):
         sub.add_parser(mode)
+    sub.choices["convs"].add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     {"request": request, "train": train, "chains": chains, "norms": norms,
      "convs": convs}[args.mode](args)

@@ -117,6 +117,112 @@ def test_other_devices_raise():
             kernel(x, s, s)
 
 
+# ------------------------------------------------ the GroupNorm route plan
+
+def _norm_maps():
+    """(name, (B, N, C)) of every GroupNorm input of a 512^2 request, from
+    chip_smoke.norm_cases on storage-free models."""
+    import math
+
+    import chip_smoke
+    from gligen_tpu_torch.models.unet import UNetModel
+    from gligen_tpu_torch.models.vae import AutoencoderKL
+
+    with torch.device("meta"):
+        unet, vae = UNetModel(), AutoencoderKL()
+    return [(name, (shape[0], math.prod(shape[1:-1]), shape[-1]))
+            for name, shape, _, _ in chip_smoke.norm_cases(unet, vae, 2)]
+
+
+@pytest.mark.parametrize("name,shape", _norm_maps())
+def test_every_unet_map_takes_one_launch(name, shape):
+    """Every UNet GroupNorm map takes the one-launch route: a cluster of at
+    most 16 blocks per sample, each block's shared memory (the ring and its
+    floats) within the H100's 227 KB; so do their statistics alone
+    (gn_affine) but at the narrow maps over 2 MB a sample; the VAE's top
+    levels, which read HBM twice on either route, keep three launches."""
+    b, n, c = shape
+    route, chunks = fn.gn_plan(b, n, c)
+    assert 1 <= chunks <= n
+    if name.startswith(("res_", "st_")):
+        assert route == "one" and fn.cuda_launches(route, True) == 1
+    # the statistics alone: one launch but for the narrow maps over 2 MB a sample
+    affine = fn.gn_plan(b, n, c, normalise=False)[0]
+    if name.startswith("res_"):
+        assert affine == ("three" if c < 1280 and 2 * n * c > 2 * 2**20 else "one")
+    if name in ("vae_512x128", "vae_256x512", "vae_256x256"):
+        assert route == "three" and fn.cuda_launches(route, True) == 3
+        assert fn.cuda_launches(route, False) == 2
+    if route == "one":
+        assert chunks <= fn.MAX_CLUSTER == 16 and fn.fused_smem(c, 32) <= 232448
+    assert fn.fused_smem(4096, 4096) <= 232448  # the widest map the kernels take fits a block
+
+
+@pytest.mark.parametrize("c,groups,smem", [
+    # the 128 KB ring (4 slots of 32 KB), then floats: RB = 1024 / (C / 8)
+    # rows of (2, C) partials (or the (2, groups) statistics, if larger),
+    # and the (2, groups) group sums
+    (320, 32, 131072 + 4 * (25 * 2 * 320 + 64)),       # RB 25: 195,328
+    (1280, 32, 131072 + 4 * (6 * 2 * 1280 + 64)),      # RB 6: 192,768
+    (32, 32, 131072 + 4 * (256 * 2 * 32 + 64)),        # RB 256: 196,864
+    (4096, 4096, 131072 + 4 * (2 * 2 * 4096 + 8192)),  # RB 2: 229,376
+])
+def test_fused_smem_worked_by_hand(c, groups, smem):
+    """The one-launch block's shared memory, worked out by hand from
+    csrc/fused_norm.cu's layout (kRingBytes, gn_fused_floats)."""
+    assert fn.fused_smem(c, groups) == smem
+
+
+def gn_partition_model(x, scale, bias, groups, eps, route, chunks):
+    """fused_norm.cu's partition of the statistics in torch: each of
+    ``chunks`` row chunks of a sample sums its channels; on the one-launch
+    route each chunk (a block of the sample's cluster) folds its channels
+    into group sums and the chunks are then added in rank order; on the
+    three-launch route a group's per-channel partials are added over chunks
+    and channels.  Returns (a, v), both (B, C)."""
+    b, n, c = x.shape
+    cpg, rows = c // groups, -(-n // chunks)
+    parts = []
+    for k in range(chunks):
+        xs = x[:, min(n, k * rows):min(n, k * rows + rows)]
+        parts.append(torch.stack([xs.sum(1), (xs * xs).sum(1)], 1))  # (B, 2, C)
+    if route == "one":
+        total = parts[0].reshape(b, 2, groups, cpg).sum(-1)
+        for p in parts[1:]:
+            total = total + p.reshape(b, 2, groups, cpg).sum(-1)
+    else:
+        total = torch.stack(parts, 1).reshape(b, chunks, 2, groups, cpg).sum((1, 4))
+    count = n * cpg
+    mean = total[:, 0] / count
+    rstd = torch.rsqrt(torch.clamp(total[:, 1] / count - mean * mean, min=0.0) + eps)
+    a = rstd.repeat_interleave(cpg, 1) * scale
+    return a, bias - mean.repeat_interleave(cpg, 1) * a
+
+
+@pytest.mark.parametrize("shape,route,chunks",
+                         [((2, 64, 320), "one", None), ((2, 64, 320), "one", 7),
+                          ((3, 24, 64), "one", None), ((2, 64, 320), "three", 5),
+                          ((2, 48, 32), "three", None)])
+@pytest.mark.parametrize("silu", [False, True])
+def test_gn_partition_matches_jax(shape, route, chunks, silu):
+    """Both routes' partitions (the plan's chunks, or a ragged count)
+    against the Pallas kernel in interpret mode and JAX's gn_affine: the
+    output, and (a, v) to gn_affine's tolerance."""
+    b, n, c = shape
+    if chunks is None:  # the plan's: gn_plan's on the one-launch route, else the partials'
+        chunks = (fn.gn_plan(b, n, c)[1] if route == "one"
+                  else max(1, min(n, -(-fn.CHUNK_BLOCKS // b))))
+    x, s, sh = norm_inputs(n + c, shape)
+    j = [jnp.asarray(arr) for arr in (x, s, sh)]
+    a, v = gn_partition_model(t(x), t(s), t(sh), 32, 1e-5, route, chunks)
+    ja, jv = jpc.gn_affine(*j)
+    close(a, ja, atol=1e-6)
+    close(v, jv, atol=ATOL)
+    y = t(x) * a[:, None] + v[:, None]
+    want = jpn.group_norm_fused(*j, 32, 1e-5, silu, interpret=True)
+    close(torch.nn.functional.silu(y) if silu else y, want, atol=ATOL)
+
+
 # ---------------------------------------------------------------- routing
 
 @pytest.mark.parametrize("value", [None, "0", "gn", "ln", "both", "1", "rowsum"])

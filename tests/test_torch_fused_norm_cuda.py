@@ -116,3 +116,55 @@ def test_refused_inputs_raise(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         fn.layer_norm_fused(torch.zeros((4, 20), dtype=BF16, device=cuda), ones[:20], ones[:20])
     assert {name: k.launches for name, k in fn.KERNELS.items()} == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["one", "three"])
+@pytest.mark.parametrize("shape,silu", [((4, 64, 64, 320), True), ((4, 4096, 320), False),
+                                        ((4, 8, 8, 2560), True), ((2, 128, 128, 512), True),
+                                        ((3, 12, 12, 64), False), ((2, 5, 7, 32), True)])
+def test_both_routes_match_plain_and_repeat(cuda, monkeypatch, route, shape, silu):
+    """Each map on each route (the plan's limits moved to force it):
+    GroupNorm and gn_affine against their plain versions, and a second
+    call of each bit for bit the first."""
+    import math
+
+    monkeypatch.setattr(fn, "ONE_LAUNCH_BYTES", 2**40 if route == "one" else 0)
+    monkeypatch.setattr(fn, "ONE_LAUNCH_BLOCKS", 1)
+    assert fn.gn_plan(shape[0], math.prod(shape[1:-1]), shape[-1])[0] == route
+    x, s, b = inputs(cuda, shape, len(shape) + shape[-1])
+    launch_and_compare(fn.group_norm_fused, lambda: fn.group_norm_fused(x, s, b, 32, 1e-6, silu),
+                       lambda: fn.group_norm_plain(x, s, b, 32, 1e-6, silu))
+    launch_and_compare(fn.gn_affine, lambda: fn.gn_affine(x, s, b),
+                       lambda: fn.gn_affine_plain(x, s, b), atol=1e-5, rtol=1e-5)
+    y, (a, v) = fn.group_norm_fused(x, s, b, 32, 1e-6, silu), fn.gn_affine(x, s, b)
+    assert torch.equal(y, fn.group_norm_fused(x, s, b, 32, 1e-6, silu))
+    assert all(torch.equal(p, q) for p, q in zip((a, v), fn.gn_affine(x, s, b)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [-5.0, -50.0])
+@pytest.mark.parametrize("route", ["one", "three"])
+@pytest.mark.parametrize("shape", [(4, 64, 64, 320), (4, 8, 8, 2560), (3, 12, 12, 64)])
+def test_group_norm_silu_is_silu_to_one_bf16_ulp(cuda, monkeypatch, route, shape, shift):
+    """GroupNorm + SiLU on each route with a shift of -5, so the activation
+    sees y in about [-8, -2], where 1 + exp(-y) is large and an approximate
+    sigmoid loses its digits, and of -50 (silu near -1e-20, far out in the
+    exponent range): each output
+    within one bf16 ulp of the fp32 silu of the plain affine's y (the
+    kernel's own a, v differ from it by a few fp32 ulps, far below a bf16
+    ulp here)."""
+    import math
+
+    monkeypatch.setattr(fn, "ONE_LAUNCH_BYTES", 2**40 if route == "one" else 0)
+    monkeypatch.setattr(fn, "ONE_LAUNCH_BLOCKS", 1)
+    assert fn.gn_plan(shape[0], math.prod(shape[1:-1]), shape[-1])[0] == route
+    x, s, _ = inputs(cuda, shape, 11)
+    bias = torch.full_like(s, shift)
+    got = fn.group_norm_fused(x, s, bias, 32, 1e-5, True)
+    a, v = fn.gn_affine_plain(x, s, bias, 32, 1e-5)
+    view = (shape[0],) + (1,) * (len(shape) - 2) + (shape[-1],)
+    want = torch.nn.functional.silu(x.float() * a.view(view) + v.view(view))
+    _, e = torch.frexp(want)
+    excess = (got.float() - want).abs() - torch.ldexp(torch.ones_like(want), e - 8)
+    assert excess.max() <= 0, f"{(excess > 0).sum()} values past one bf16 ulp, worst by {excess.max()}"
