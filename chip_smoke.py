@@ -21,7 +21,9 @@ Phases, each of which fails the run with a non-zero exit:
      middle block; the VAE's single 512-wide head over 4096 tokens; and
      attn1 at ds1 of a 1024^2 image, checked 512 query rows at a time;
      each row with its route, TF/s and share of the bound, and every one
-     must take the TMA route);
+     must take the TMA route; and the fp32 route at the inpaint encode's
+     VAE head, held to FP32_REL_TOL of its plain output's largest
+     magnitude and repeated bit for bit, beside SDPA in fp32);
      per level the fused projections (ln_matmuls for q/k/v, for q alone
      and for the fuser's k/v over N+30 rows, matmul_residual for to_out
      and net_2, ln_geglu) and the matmul-only mode of the same kernel
@@ -31,11 +33,13 @@ Phases, each of which fails the run with a non-zero exit:
      configuration, TF/s and share of the bound, and for K2 the time of
      torch.matmul on its products alone); GroupNorm +- SiLU at every UNet and
      VAE map and gn_affine (each row with its route, and a second call
-     that must repeat the first bit for bit), LayerNorm at
+     that must repeat the first bit for bit), the fp32 GroupNorm at every
+     map of the inpaint encode (held to GN_F32_TOL, repeated bit for
+     bit), LayerNorm at
      every (rows, C) of the module path, and the fused GN -> SiLU -> conv3x3
      at every ResBlock conv shape (each row with the conv kernel's own time
      beside the whole call's and cuDNN's bf16 conv alone, its tiles and
-     split, TF/s and share of the bound; repeated bit for bit).  Phase 10
+     split, TF/s and share of the bound; repeated bit for bit).  Phase 11
      counts each of these calls' CUDA launches.
      Times are device times per call (see ``timing.timed``); each
      kernel's bound is the larger of its bytes over the card's memory
@@ -89,12 +93,29 @@ Phases, each of which fails the run with a non-zero exit:
      (``bench_sweep_attn.py --bwd``) at the ds1 training shapes, B = 4,
      every configuration of ``BWD_CONFIGS`` beside the fixed table, each
      gradient held to BWD_REL_TOL against the plain backward.
- 10. launches: the CUDA launches of one call of the GroupNorm, gn_affine
-     and LayerNorm kernels at every phase-3 shape and of the conv kernel
-     at every ResBlock conv, read from a torch.profiler trace of that call;
-     each must equal what its route or plan predicts (``fused_norm.
-     cuda_launches``, ``fused_conv.cuda_launches``).  Last, so that no
-     profiler session runs before the timed phases.
+ 10. inpaint from a checkpoint: SD-1.4 GLIGEN's inpainting UNet at full
+     width (random de-zeroed weights) written as a reference-format
+     checkpoint in memory (``tools/reference_ckpt.py``: model, an ema
+     with moved fuser gates, autoencoder, text_encoder under
+     ``transformer.``, diffusion, config_dict with a non-default
+     linear_start), loaded back with the EMA overlay
+     (``inference/cli.py:components_from_checkpoint``): every loaded
+     tensor must equal its source bit for bit and the schedule must be the
+     config's.  Then two requests of batch 2 at 512^2 with box masks and a
+     seeded image, no alpha stages, in configuration (a), with DDIM and
+     with PLMS: images sound, launch counts as ``expected_launches``
+     predicts for the inpaint UNet, the sampler and the fp32 encode, every
+     bf16 flash launch on the TMA route and the encode's attention and
+     GroupNorms on the fp32 routes.  Last, the small-width inpaint
+     pipeline card vs CPU for both samplers (as phase 5).
+ 11. launches: the CUDA launches of one call of the GroupNorm, gn_affine
+     and LayerNorm kernels at every phase-3 shape (the fp32 GroupNorm
+     too) and of the conv kernel at every ResBlock conv, read from a
+     torch.profiler trace of that call (its launch calls; every device
+     record that reaches the trace must answer one of them); each must
+     equal what its route or plan predicts (``fused_norm.cuda_launches``,
+     ``fused_conv.cuda_launches``).  Last, so that no profiler session
+     runs before the timed phases.
 
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
@@ -139,6 +160,15 @@ PROJ_ATOL, PROJ_RTOL = 2e-2, 1e-2
 # gn_affine's fp32 (a, v) vs plain: fp32 sums of the same values in another
 # order, a few fp32 ulps
 AFFINE_TOL = 1e-5
+# the flash forward's fp32 route vs plain (fp32 on both sides, the products
+# summed in another order and exp2 to a few fp32 ulps): each output within
+# FP32_REL_TOL of the plain output's largest magnitude, the LSE (log2 units)
+# within FP32_LSE_TOL
+FP32_REL_TOL = 1e-4
+FP32_LSE_TOL = 1e-4
+# the fp32 GroupNorm vs plain: the same fp32 affine y = x * a + v from sums
+# taken in another order, a few fp32 ulps of outputs up to ~5
+GN_F32_TOL = 1e-5
 # small-width pipeline, bf16 on the card vs fp32 on the CPU: mean absolute
 # pixel difference (images in [0, 1])
 REF_MEAN_TOL = 2e-2
@@ -345,6 +375,48 @@ def check_kernel_1024(torch, device, rows=512):
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, route=route, ok=ok)
 
 
+def check_kernel_f32(torch, device, batch):
+    """The flash forward's fp32 route at the inpaint encode's VAE head,
+    (batch, 4096, 1x512) fp32, and at a ragged (1, 1000, 1x512) against
+    1030 keys: each against the plain version on the same fp32 tensors
+    (TF32 off), a second call bit for bit the first, beside SDPA in fp32."""
+    from gligen_tpu_torch.ops.flash_attention import flash_attention_plain, flash_fwd
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    results = []
+    for name, b, n, m in (("vae_mid_fp32", batch, 4096, 4096), ("ragged_fp32", 1, 1000, 1030)):
+        h, d = 1, 512
+        q, k, v = (torch.randn((b, L, h * d), generator=gen, device=device) for L in (n, m, m))
+        route, (out, lse) = routed(flash_fwd, lambda: flash_fwd(q, k, v, h))
+        torch.cuda.synchronize()
+        want, want_lse = flash_attention_plain(q, k, v, h)
+        err = (out - want).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        repeats = all(torch.equal(x, y) for x, y in zip((out, lse), flash_fwd(q, k, v, h)))
+        finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+        limit = FP32_REL_TOL * want.abs().max().item()
+        ms = time_ms(lambda: flash_fwd(q, k, v, h))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, h))
+        library_ms = time_ms(lambda: sdpa(torch, q, k, v, h, None))
+        flops = 4 * b * h * n * m * d
+        bound_ms, bound_by = bound(4 * (2 * b * n * h * d + 2 * b * m * h * d) + 4 * b * h * n,
+                                   flops, FP32_FLOP_PER_S)
+        ok = (finite and err <= limit and lse_err <= FP32_LSE_TOL and repeats and route == "fp32"
+              and out.dtype == torch.float32)
+        print(f"kernel {name:18s} q ({b},{n},{h}x{d}) kv {m} fp32: max_abs_err {err:.3e} (tol "
+              f"{limit:.3e}) lse_err {lse_err:.3e} (tol {FP32_LSE_TOL}) repeats {repeats} route "
+              f"{route} kernel {ms:.4f} ms {flops / ms / 1e9:.1f} TF/s "
+              f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.4f} ms sdpa fp32 "
+              f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        results.append(dict(name=name, kind="flash_fwd_fp32", err=err, lse_err=lse_err, ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, route=route, ok=ok))
+        del q, k, v, out, lse, want, want_lse
+    torch.cuda.empty_cache()
+    return results
+
+
 # (tokens, channels) of the transformer blocks at 512^2 (latent 64), SD-1.4
 LEVELS = {"ds1": (4096, 320), "ds2": (1024, 640), "ds4": (256, 1280), "mid": (64, 1280)}
 
@@ -376,8 +448,6 @@ SWEEP_CONFIGS = ((64, 128, 2), (128, 64, 3), (128, 128, 2))
 # the profiler categories (perf_probe.category) of each GroupNorm route's kernels
 GN_CATEGORIES = {"one": ("group_norm one launch (K5)",),
                  "three": ("group_norm stats (K5)", "group_norm normalise (K5)")}
-
-
 def mm_cases(rows: int = TOOLS_BATCH):
     """(name, "mm_only", rows, N, F, K) of K7 at the products that
     bench_proj.py gives it at ``rows`` x 4096 tokens (q/k/v and to_out,
@@ -405,8 +475,8 @@ def compare(torch, got, want, atol=PROJ_ATOL, rtol=PROJ_RTOL):
     return err, ok
 
 
-def grouped_input(randn, shape):
-    """A bf16 (B, ..., C) GroupNorm input whose every (sample, channel)
+def grouped_input(randn, shape, dtype=None):
+    """A bf16 (or ``dtype``) (B, ..., C) GroupNorm input whose every (sample, channel)
     has a mean and a spread of its own: N(mu[b, c], sigma[b, c]^2), with mu
     a per-sample N(0, 1) offset plus a per-channel N(0, 1) and sigma from
     0.37 to 2.7.  So every (sample, group) has statistics of its own, and a
@@ -416,7 +486,7 @@ def grouped_input(randn, shape):
     b, c = shape[0], shape[-1]
     view = (b,) + (1,) * (len(shape) - 2) + (c,)
     mu, sigma = randn(b, 1) + randn(b, c), (0.5 * randn(b, c)).exp()
-    return (randn(*shape) * sigma.view(view) + mu.view(view)).to(torch.bfloat16)
+    return (randn(*shape) * sigma.view(view) + mu.view(view)).to(dtype or torch.bfloat16)
 
 
 def check_proj(torch, cases, device):
@@ -527,6 +597,35 @@ def vae_norms(vae, latent: int):
     return out + [(size, dec.norm_out.weight.numel(), True)]
 
 
+def encoder_norms(vae, size: int):
+    """(H, C, SiLU) of every GroupNorm of one VAE encode of ``size``^2
+    images, walking the encoder's blocks in order."""
+    from gligen_tpu_torch.models.vae import AttnBlock, Downsample, ResnetBlock
+
+    enc, out = vae.encoder, []
+    for name in [*enc.down_names, "mid_block_1", "mid_attn_1", "mid_block_2"]:
+        m = getattr(enc, name)
+        if isinstance(m, ResnetBlock):
+            out += [(size, m.norm1.weight.numel(), True), (size, m.norm2.weight.numel(), True)]
+        elif isinstance(m, AttnBlock):
+            out.append((size, m.norm.weight.numel(), False))
+        elif isinstance(m, Downsample):
+            size //= 2
+    return out + [(size, enc.norm_out.weight.numel(), True)]
+
+
+def f32_norm_cases(vae, batch: int, size: int = 512):
+    """(name, shape, SiLU, eps) of every distinct fp32 GroupNorm input of
+    the inpaint encode at ``size``^2 on ``batch`` rows, and the top map
+    without SiLU, where F.group_norm computes the same function."""
+    norms = encoder_norms(vae, size)
+    cases = {f"enc_{h}x{c}{'' if silu else '_attn'}": ((batch, h, h, c), silu, 1e-6)
+             for h, c, silu in norms}
+    h, c, _ = norms[0]
+    cases[f"enc_{h}x{c}_gn"] = ((batch, h, h, c), False, 1e-6)
+    return [(name, *case) for name, case in cases.items()]
+
+
 def norm_cases(unet, vae, batch: int, latent: int = 64):
     """(name, shape, SiLU, eps) of every distinct GroupNorm input at 512^2:
     the ResBlocks' two norms (eps 1e-5, SiLU) and out_0, the
@@ -565,13 +664,14 @@ def conv_cases(unet, batch: int, latent: int = 64):
     return [(name, *case) for name, case in cases.items()]
 
 
-def check_norms(torch, gn, ln, device):
+def check_norms(torch, gn, ln, device, gn32=()):
     """The GroupNorm kernel (+- SiLU) and gn_affine at every GroupNorm map,
-    and the LayerNorm kernel at every LayerNorm shape, against their plain
-    versions on the same card tensors, with the library's F.group_norm /
-    F.layer_norm where it computes the same function (no SiLU).  The
-    GroupNorm inputs come from ``grouped_input``; gn_affine's fp32 (a, v)
-    is held to AFFINE_TOL."""
+    the fp32 GroupNorm at every map of ``gn32``, and the LayerNorm kernel at
+    every LayerNorm shape, against their plain versions on the same card
+    tensors, with the library's F.group_norm / F.layer_norm where it
+    computes the same function (no SiLU).  The GroupNorm inputs come from
+    ``grouped_input``; gn_affine's fp32 (a, v) is held to AFFINE_TOL, the
+    fp32 GroupNorm to GN_F32_TOL."""
     import torch.nn.functional as F
     from gligen_tpu_torch.ops import fused_norm as fn
 
@@ -601,12 +701,12 @@ def check_norms(torch, gn, ln, device):
         results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
 
-    for name, shape, silu, eps in gn:
+    for fp32, name, shape, silu, eps in [(False, *g) for g in gn] + [(True, *g) for g in gn32]:
         c = shape[-1]
         numel = 1
         for d in shape:
             numel *= d
-        x = grouped_input(randn, shape)
+        x = grouped_input(randn, shape, torch.float32 if fp32 else None)
         s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
         args = (x, s, sb, 32, eps)
         library = None
@@ -614,12 +714,14 @@ def check_norms(torch, gn, ln, device):
             xc, sc, bc = x.reshape(shape[0], -1, c).transpose(1, 2), s.to(x.dtype), sb.to(x.dtype)
             library = lambda: F.group_norm(xc, 32, sc, bc, eps)
         rows = numel // (shape[0] * c)
-        route = fn.gn_plan(shape[0], rows, c)[0]
-        record("group_norm", name, f"x {shape} {'+ SiLU ' if silu else ''}eps {eps:g}",
+        route = "fp32" if fp32 else fn.gn_plan(shape[0], rows, c)[0]
+        record("group_norm_fp32" if fp32 else "group_norm", name,
+               f"x {shape} {'fp32 ' if fp32 else ''}{'+ SiLU ' if silu else ''}eps {eps:g}",
                fn.group_norm_fused(*args, silu=silu), fn.group_norm_plain(*args, silu=silu),
                lambda: fn.group_norm_fused(*args, silu=silu),
                lambda: fn.group_norm_plain(*args, silu=silu), library,
-               4 * numel + 8 * c, (9 if silu else 5) * numel,
+               x.element_size() * 2 * numel + 8 * c, (9 if silu else 5) * numel,
+               (GN_F32_TOL, 0.0) if fp32 else (PROJ_ATOL, PROJ_RTOL),
                route=route, again=fn.group_norm_fused(*args, silu=silu))
         if name.startswith("res_"):  # the fused conv's inputs take gn_affine
             record("gn_affine", name, f"x {shape} -> a, v ({shape[0]}, {c})",
@@ -712,34 +814,48 @@ def check_convs(torch, cases, device):
     return results
 
 
-def check_launches(torch, gn, ln, convs, device):
-    """Phase 10: the CUDA launches (kernels, copies, memsets) of one call of
+def check_launches(torch, gn, ln, convs, device, gn32=()):
+    """Phase 11: the CUDA launches (kernels, copies, memsets) of one call of
     the GroupNorm and gn_affine kernels at every GroupNorm map, of the
     LayerNorm kernel at every LayerNorm shape and of the conv kernel at
     every ResBlock conv, read from a torch.profiler trace of that call,
     against what the route (``fused_norm.gn_plan``, ``cuda_launches``) or
     the plan (``fused_conv.conv_plan``, ``cuda_launches``) predicts.  What
-    is launched does not depend on the values: zeros.  Returns (failures,
-    lines)."""
+    is launched does not depend on the values: zeros.
+
+    The count is the trace's launch calls (``perf_probe.launch_calls``),
+    which the host records as it makes them.  CUPTI may drop the device's
+    records of the same work (see ``perf_probe.traced``): each record that
+    arrives must answer a counted launch call, no two the same one; the
+    row says how many arrived and the last line how many in all.  Returns
+    (failures, lines)."""
     from gligen_tpu_torch.ops import fused_conv as fc
     from gligen_tpu_torch.ops import fused_norm as fn
-    from gligen_tpu_torch.tools.perf_probe import device_breakdown, traced
+    from gligen_tpu_torch.tools.perf_probe import launch_calls, traced
 
     def zeros(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    failures, lines = [], []
+    failures, lines, arrived = [], [], [0, 0]
 
     def row(kind, name, desc, call, want, why):
         call()  # warm: the traced call launches only its own work
         torch.cuda.synchronize()
-        got = device_breakdown(traced(lambda: (call(), torch.cuda.synchronize()))[1])[2]
-        ok = got == want
+        calls, records = launch_calls(traced(lambda: (call(), torch.cuda.synchronize()))[1])
+        got = len(calls)
+        corrs = [c for c, _ in records]
+        answered = all(c in calls for c in corrs) and len(set(corrs)) == len(corrs)
+        arrived[0] += len(records)
+        arrived[1] += got
+        ok = got == want and answered
         lines.append(f"launches: {kind:15s} {name:22s} {desc:28s}: {got} CUDA "
                      f"launch{'' if got == 1 else 'es'} per call (profiled; {why} predicts "
-                     f"{want}) {'ok' if ok else 'FAIL'}")
+                     f"{want}; device records {len(records)}, each answering a launch "
+                     f"{answered}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"launches {kind} {name}")
+            lines.append(f"launches:   launch calls {sorted(calls.items())}, device records "
+                         f"(correlation, start) {records}")
 
     for name, shape, silu, eps in gn:
         b, c = shape[0], shape[-1]
@@ -752,6 +868,11 @@ def check_launches(torch, gn, ln, convs, device):
             route = fn.gn_plan(b, rows, c, normalise=False)[0]
             row("gn_affine", name, f"x {shape}", lambda: fn.gn_affine(x, s, s, 32, eps),
                 fn.cuda_launches(route, False), f"route {route}")
+    for name, shape, silu, eps in gn32:  # the fp32 route: three launches
+        x, s = zeros(*shape, dtype=torch.float32), zeros(shape[-1], dtype=torch.float32)
+        row("group_norm_fp32", name, f"x {shape}",
+            lambda: fn.group_norm_fused(x, s, s, 32, eps, silu), fn.cuda_launches("three", True),
+            "the fp32 route (three)")
     for name, rows, c in ln:
         x, s = zeros(rows, c), zeros(c, dtype=torch.float32)
         row("layer_norm", name, f"x ({rows}, {c})", lambda: fn.layer_norm_fused(x, s, s), 1,
@@ -766,6 +887,8 @@ def check_launches(torch, gn, ln, convs, device):
             f"plan {'x'.join(map(str, plan[:3]))} split {plan[3]}")
     del x, s
     torch.cuda.empty_cache()
+    lines.append(f"launches: {arrived[0]} device records reached the traces of "
+                 f"{arrived[1]} launch calls")
     return failures, lines
 
 
@@ -866,9 +989,12 @@ def check_bwd(torch, cases, device):
     return results
 
 
-def expected_launches(comps, steps, alpha_stages, latent, config):
+def expected_launches(comps, steps, alpha_stages, latent, config, sampler="plms",
+                      inpaint=False):
     """Launches of each kernel in one generate call of ``config``, from the
-    module structure and the sampler tables.  Per transformer block of N
+    module structure and the sampler tables: PLMS calls the UNet once a
+    step and twice more in its peeled Heun step, DDIM once a step.  Per
+    transformer block of N
     tokens, a gated UNet call runs attn1, the fuser and attn2 (3 flash
     launches); on the fused path (FUSED_PROJ=1, N >= 64) ln_matmuls for
     q/k/v, the fuser's q, the fuser's k/v and attn2's q (4),
@@ -878,20 +1004,25 @@ def expected_launches(comps, steps, alpha_stages, latent, config):
     or both) is one launch, but those of a ResBlock that takes the fused
     conv, which runs gn_affine and the conv twice instead.  The VAE decoder
     (not the encoder, which generation does not run) adds its AttnBlocks'
-    flash launches and its GroupNorms."""
+    flash launches and its GroupNorms; an ``inpaint`` request's encode adds
+    the encoder's (``expected_fp32``: all on the fp32 routes)."""
     from gligen_tpu_torch.diffusion.samplers import SamplerTables, _gate_zero_from
     from gligen_tpu_torch.models.layers import Normalize
     from gligen_tpu_torch.models.unet import fuses_conv
     from gligen_tpu_torch.models.vae import AttnBlock
 
     env = CONFIGS[config]
-    tables = SamplerTables.create(comps.schedule, steps, alpha_stages=alpha_stages)
+    tables = SamplerTables.create(comps.schedule, steps, alpha_stages=alpha_stages,
+                                  first_conv_restorable=comps.unet.first_conv_restorable)
     n = len(tables.ts)
     k0 = _gate_zero_from(tables)
-    split = max(k0, 1)
-    heun = 2  # the peeled step 0 calls the model twice
-    gated = (heun if k0 > 0 else 0) + (split - 1)
-    free = (heun if k0 == 0 else 0) + (n - split)
+    if sampler == "plms":
+        split = max(k0, 1)
+        heun = 2  # the peeled step 0 calls the model twice
+        gated = (heun if k0 > 0 else 0) + (split - 1)
+        free = (heun if k0 == 0 else 0) + (n - split)
+    else:
+        gated, free = k0, n - k0
     norm = {"1": "both"}.get(env["GLIGEN_TPU_FUSED_NORM"], env["GLIGEN_TPU_FUSED_NORM"])
     gn_on, ln_on = norm in ("gn", "both"), norm in ("ln", "both")
     res, sts = unet_maps(comps.unet, latent)
@@ -913,7 +1044,25 @@ def expected_launches(comps, steps, alpha_stages, latent, config):
         vae_norms_ = sum(isinstance(m, Normalize) for m in comps.vae.decoder.modules())
         counts["group_norm"] = (unet_norms - 2 * fused_res) * calls + vae_norms_
     counts["flash_fwd"] += sum(isinstance(m, AttnBlock) for m in comps.vae.decoder.modules())
+    if inpaint:
+        for name, n_enc in expected_fp32(comps, config).items():
+            counts[name] += n_enc
     return counts, gated, free
+
+
+def expected_fp32(comps, config):
+    """Launches of the fp32 routes in one inpaint encode (the flash
+    forward's, the GroupNorm's) of ``config``: every AttnBlock and, under
+    FUSED_NORM gn or both, every GroupNorm of the VAE encoder."""
+    from gligen_tpu_torch.models.layers import Normalize
+    from gligen_tpu_torch.models.vae import AttnBlock
+
+    norm = {"1": "both"}.get(CONFIGS[config]["GLIGEN_TPU_FUSED_NORM"],
+                             CONFIGS[config]["GLIGEN_TPU_FUSED_NORM"])
+    enc = list(comps.vae.encoder.modules())
+    return {"flash_fwd": sum(isinstance(m, AttnBlock) for m in enc),
+            "group_norm": sum(isinstance(m, Normalize) for m in enc) if norm in ("gn", "both")
+            else 0}
 
 
 def expected_train_launches(comps, image_size, config, use_checkpoint):
@@ -1293,6 +1442,12 @@ KERNEL_META = {
                       "attn1_ds1", "train"),
     "mm_only": ("gligen_tpu_torch/csrc/fused_proj.cu", "tools/bench_proj.py:90 (mm_only)",
                 "mm_320_320_ds1", "bench_proj"),
+    "flash_fwd_fp32": ("gligen_tpu_torch/csrc/flash_fwd.cu",
+                       "gligen_tpu/ops/pallas_attention.py:466 (_fwd_impl streamed, q/k/v in "
+                       "fp32: the inpaint encode's VAE mid-attention)", "vae_mid_fp32", "inpaint"),
+    "group_norm_fp32": ("gligen_tpu_torch/csrc/fused_norm.cu",
+                        "gligen_tpu/ops/pallas_norm.py:107 (_group_norm_pallas_flat, fp32 x: "
+                        "the inpaint encode's VAE encoder norms)", "enc_512x128_gn", "inpaint"),
 }
 
 
@@ -1304,18 +1459,19 @@ def kernel_wrappers():
 
 
 def run_requests(torch, pipe, requests, config, gen, **kw):
-    """Generate every request in one configuration, with every launch
-    count set to 0 just before and read just after.  Returns (seconds per
-    request, images, launch counts)."""
+    """Generate every request (ids, uc, grounding[, per-request keywords])
+    in one configuration, with every launch count set to 0 just before and
+    read just after.  Returns (seconds per request, images, launch
+    counts)."""
     set_config(config)
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     times, images = [], []
-    for ids, uc, grounding in requests:
+    for ids, uc, grounding, *own in requests:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        images.append(pipe.generate(ids, uc, grounding, generator=gen, **kw))
+        images.append(pipe.generate(ids, uc, grounding, generator=gen, **kw, **dict(*own)))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return times, images, {name: w.launches for name, w in wrappers.items()}
@@ -1345,6 +1501,174 @@ def small_reference(torch, np, seed, device, alpha, config):
     ok = ok and diff.mean().item() <= REF_MEAN_TOL
     return ok, (f"reference: {config_desc(config)}: small pipeline card bf16 vs CPU fp32: {desc}; "
                 f"mean abs diff {diff.mean().item():.4e} (tol {REF_MEAN_TOL}), "
+                f"max {diff.max().item():.4e} {'ok' if ok else 'FAIL'}")
+
+
+# The inpaint phase's model as the reference's checkpoint config gives it:
+# SD-1.4 GLIGEN (configs/flickr_text.yaml's widths) with the inpainting
+# UNet's 9-channel first conv, the text tokenizer under its reference name,
+# and a schedule that is not the default one.
+INPAINT_UNET = dict(
+    in_channels=4, out_channels=4, model_channels=320, attention_resolutions=[4, 2, 1],
+    num_res_blocks=2, channel_mult=[1, 2, 4, 4], num_heads=8, transformer_depth=1,
+    context_dim=768, fuser_type="gatedSA", inpaint_mode=True,
+    grounding_tokenizer={"target": "ldm.modules.diffusionmodules.text_grounding_net.PositionNet",
+                         "params": {"in_dim": 768, "out_dim": 768}},
+)
+INPAINT_SCHEDULE = dict(timesteps=1000, linear_start=0.001, linear_end=0.012)
+EMA_GATE = 0.25  # the checkpoint's EMA fuser gates
+
+
+def inpaint_request(rng, batch, vocab, ctx_dim, size, latent):
+    """``make_request`` plus an inpaint image in [-1, 1] (seeded, no
+    image file) and keep-masks drawn from the first two boxes, as the
+    reference's inpainting scenario has two (cli.py:486-493)."""
+    from gligen_tpu_torch.data.inpaint_masks import draw_masks_from_boxes
+
+    ids, uc, grounding = make_request(rng, batch, vocab, ctx_dim)
+    image = rng.uniform(-1.0, 1.0, (batch, size, size, 3)).astype("float32")
+    mask = draw_masks_from_boxes(grounding["boxes"][:, :2], size=latent)
+    return ids, uc, grounding, {"inpaint_image": image, "inpaint_mask": mask}
+
+
+def load_checkpoint(torch, np, seed, device):
+    """Build the inpaint components, write them as a reference-format
+    checkpoint in memory, load it back (EMA overlay).  Returns (loaded
+    components, ok, line)."""
+    from gligen_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from gligen_tpu_torch.inference.cli import components_from_checkpoint
+    from gligen_tpu_torch.inference.pipeline import GligenComponents
+    from gligen_tpu_torch.tools.reference_ckpt import reference_checkpoint
+
+    t0 = time.perf_counter()
+    src = GligenComponents.create(unet_config=dict(INPAINT_UNET), dtype=torch.bfloat16,
+                                  seed=seed + 7, device=device)
+    dezero_(src.unet, torch.Generator(device=device).manual_seed(seed + 8))
+    ckpt, sd_conv = reference_checkpoint(src, INPAINT_UNET, INPAINT_SCHEDULE, ema_gate=EMA_GATE)
+    comps = components_from_checkpoint(ckpt, sd_first_conv=sd_conv, use_ema=True,
+                                       dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    bad, n = [], 0
+    for tag, a, b in (("unet", src.unet, comps.unet), ("vae", src.vae, comps.vae),
+                      ("text", src.text_encoder, comps.text_encoder)):
+        want, got = a.state_dict(), b.state_dict()
+        bad += [f"{tag}: names differ"] if set(want) != set(got) else []
+        for name, t in got.items():
+            n += 1
+            w = want.get(name)
+            if tag == "unet" and name.endswith(("alpha_attn", "alpha_dense")):
+                w = torch.full_like(t, EMA_GATE)  # the EMA's gates
+            if w is None or t.dtype != w.dtype or not torch.equal(t, w):
+                bad.append(f"{tag}.{name}")
+    sched = comps.schedule.alphas_cumprod
+    sched_ok = (np.array_equal(sched, DiffusionSchedule.create(**INPAINT_SCHEDULE).alphas_cumprod)
+                and not np.array_equal(sched, src.schedule.alphas_cumprod))
+    ok = (not bad and sched_ok and comps.unet.inpaint_mode and sd_conv is None
+          and not hasattr(comps.unet, "first_conv_sd"))
+    line = (f"inpaint: reference-format checkpoint ({len(ckpt['model'])} model, "
+            f"{len(ckpt['autoencoder'])} autoencoder, {len(ckpt['text_encoder'])} text_encoder "
+            f"tensors; ema gates {EMA_GATE}; config linear_start "
+            f"{INPAINT_SCHEDULE['linear_start']}) built and loaded on the card in {seconds:.1f} s: "
+            f"{n - len(bad)} of {n} loaded tensors equal their source bit for bit "
+            f"{bad[:4] if bad else ''}, schedule from the config {sched_ok}, inpaint UNet with no "
+            f"SD first conv {comps.unet.inpaint_mode and not hasattr(comps.unet, 'first_conv_sd')} "
+            f"{'ok' if ok else 'FAIL'}")
+    return comps, ok, line
+
+
+def run_inpaint(torch, np, seed, device, steps, batch=2, size=512):
+    """Phase 10 at full width in configuration (a): the checkpoint, then two
+    inpaint requests with each sampler.  Returns (failures, launches of the
+    fp32 routes, s/img by sampler)."""
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline
+    from gligen_tpu_torch.ops.flash_attention import flash_fwd
+    from gligen_tpu_torch.ops.fused_norm import group_norm_fused
+
+    set_config("a")
+    comps, ok, line = load_checkpoint(torch, np, seed, device)
+    print(line, flush=True)
+    failures = [] if ok else ["inpaint checkpoint"]
+    torch.cuda.empty_cache()
+    pipe = GenerationPipeline(comps)
+    latent = size // comps.vae.downsample_factor
+    rng = np.random.default_rng(seed + 9)
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    fp32 = {"flash_fwd_fp32": 0, "group_norm_fp32": 0}
+    s_per_img = {}
+    for sampler in ("ddim", "plms"):
+        requests = [inpaint_request(rng, batch, 49408, 768, size, latent) for _ in range(2)]
+        expected, gated, free = expected_launches(comps, steps, None, latent, "a",
+                                                  sampler=sampler, inpaint=True)
+        want32 = {k: len(requests) * n for k, n in expected_fp32(comps, "a").items()}
+        before = dict(flash_fwd.routes), dict(group_norm_fused.routes)
+        times, images, counts = run_requests(torch, pipe, requests, "a", gen, steps=steps,
+                                             guidance_scale=7.5, sampler=sampler,
+                                             alpha_stages=None, latent_size=latent)
+        routes = {r: n - before[0][r] for r, n in flash_fwd.routes.items()}
+        gn32 = group_norm_fused.routes["fp32"] - before[1]["fp32"]
+        fp32["flash_fwd_fp32"] += routes["fp32"]
+        fp32["group_norm_fp32"] += gn32
+        for i, (img, t) in enumerate(zip(images, times)):
+            ok, desc = check_image(torch, img, batch, size)
+            print(f"inpaint: {sampler} request {i}: {desc} in {t:.3f} s = {t / batch:.3f} s/img "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"inpaint image ({sampler}) {i}")
+        want = {name: len(requests) * expected[name] for name in counts}
+        ok = counts == want
+        print(f"inpaint: {sampler} per request {gated} gated and {free} fuser-free UNet calls; "
+              f"launches {counts}, expected {want} {'ok' if ok else 'FAIL'}", flush=True)
+        route_ok = (routes["copy"] == 0 and routes["fp32"] == want32["flash_fwd"]
+                    and gn32 == want32["group_norm"])
+        print(f"inpaint: {sampler} flash_fwd launches by route {routes} (bf16 all tma, fp32 "
+              f"{want32['flash_fwd']} expected: the encode's attention); fp32 GroupNorm launches "
+              f"{gn32} (expected {want32['group_norm']}: the encode's norms) "
+              f"{'ok' if route_ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"inpaint launch count ({sampler})")
+        if not route_ok:
+            failures.append(f"inpaint routes ({sampler})")
+        s_per_img[sampler] = times[1] / batch
+        del images
+    del comps, pipe
+    torch.cuda.empty_cache()
+    return failures, fp32, s_per_img
+
+
+def small_inpaint_reference(torch, np, seed, device, sampler):
+    """The inpaint pipeline at a small width, card (bf16, kernels, the
+    encode on the fp32 routes) against CPU (fp32, plain versions), same
+    weights, image, masks and noise (the encode's and each step's
+    injected), in configuration (a).  Returns (ok, line)."""
+    from gligen_tpu_torch.diffusion.schedule import make_ddim_timesteps
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
+
+    set_config("a")
+    small = dict(SMALL, unet_config=dict(SMALL["unet_config"], inpaint_mode=True))
+    cpu = GligenComponents.create(dtype=torch.float32, seed=seed, device="cpu", **small)
+    dezero_(cpu.unet, torch.Generator().manual_seed(seed + 2))
+    gpu = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device, **small)
+    for a, b in ((cpu.unet, gpu.unet), (cpu.vae, gpu.vae), (cpu.text_encoder, gpu.text_encoder)):
+        b.load_state_dict(a.state_dict())
+    rng = np.random.default_rng(seed + 11)
+    ids, uc, grounding, inpaint = inpaint_request(rng, 2, 1000, 64, 32, 16)
+    steps = 4
+    n_steps = len(make_ddim_timesteps(steps, 1000))
+    shape = (2, 16, 16, 4)
+    noise = {k: rng.standard_normal(s).astype(np.float32) for k, s in
+             (("noise", shape), ("encode_noise", shape), ("blend_noise", (n_steps,) + shape))}
+    kw = dict(steps=steps, guidance_scale=7.5, sampler=sampler, latent_size=16, **inpaint,
+              **noise)
+    with torch.inference_mode():
+        torch.set_num_threads(4)
+        ref = GenerationPipeline(cpu).generate(ids, uc, grounding, **kw)
+    got = GenerationPipeline(gpu).generate(ids, uc, grounding, **kw).cpu()
+    diff = (got - ref).abs()
+    ok, desc = check_image(torch, got, 2, 32)
+    ok = ok and diff.mean().item() <= REF_MEAN_TOL
+    return ok, (f"inpaint reference: {sampler} small inpaint pipeline card bf16 (fp32 encode) vs "
+                f"CPU fp32: {desc}; mean abs diff {diff.mean().item():.4e} (tol {REF_MEAN_TOL}), "
                 f"max {diff.max().item():.4e} {'ok' if ok else 'FAIL'}")
 
 
@@ -1400,10 +1724,12 @@ def main() -> int:
     comps = GligenComponents.create(dtype=torch.bfloat16, seed=args.seed, device=device)
     results = check_kernel(torch, kernel_cases(batch), device)
     results.append(check_kernel_1024(torch, device))
+    results += check_kernel_f32(torch, device, batch)
     results += check_proj(torch, proj_cases(batch) + mm_cases(), device)
     gn, ln, convs = (norm_cases(comps.unet, comps.vae, batch), ln_cases(batch),
                      conv_cases(comps.unet, batch))
-    results += check_norms(torch, gn, ln, device)
+    gn32 = f32_norm_cases(comps.vae, batch)
+    results += check_norms(torch, gn, ln, device, gn32)
     results += check_convs(torch, convs, device)
     failures += [f"kernel {r['kind']} {r['name']}" for r in results if not r["ok"]]
 
@@ -1476,14 +1802,29 @@ def main() -> int:
     print("\n".join(tool_report), flush=True)
     failures += tool_failures
 
-    # ---- 10. CUDA launches per call, from profiled calls ----
-    launch_failures, launch_lines = check_launches(torch, gn, ln, convs, device)
+    # ---- 10. inpaint from a reference-format checkpoint, DDIM and PLMS ----
+    t0 = time.perf_counter()
+    inpaint_failures, launches["inpaint"], inpaint_s = run_inpaint(torch, np, args.seed, device,
+                                                                   args.steps)
+    failures += inpaint_failures
+    for sampler in ("ddim", "plms"):
+        ok, line = small_inpaint_reference(torch, np, args.seed, device, sampler)
+        print(line, flush=True)
+        if not ok:
+            failures.append(f"inpaint reference ({sampler})")
+    print(f"inpaint: phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 11. CUDA launches per call, from profiled calls ----
+    launch_failures, launch_lines = check_launches(torch, gn, ln, convs, device, gn32)
     print("\n".join(launch_lines), flush=True)
     failures += launch_failures
 
     print("summary: s/img " + ", ".join(f"({c}) {s:.3f}" for c, s in s_per_img.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")
     print(f"summary: {train_line[len('train: '):]} on {card}")
+    print("summary: inpaint from a checkpoint, s/img " + ", ".join(
+        f"{sampler} {s:.3f}" for sampler, s in inpaint_s.items())
+          + f" (request 1 of 2, batch {batch}, {args.steps} steps, fp32 encode, 512^2) on {card}")
     by_name = {(r["kind"], r["name"]): r for r in results}
     kernels = []
     for name, (source, replaces, timed_at, config) in KERNEL_META.items():

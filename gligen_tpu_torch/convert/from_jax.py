@@ -10,7 +10,8 @@ leaf maps mechanically:
   * everything else (biases, fuser alphas, null features) as it is
 
 ``first_conv_sd`` (the restorable SD first conv, which only the JAX
-package and this port have) is an ordinary conv leaf.  Subtrees the port
+package and this port have) is an ordinary conv leaf; an inpaint UNet has
+none on either side.  Subtrees the port
 does not have yet are skipped by an explicit list, never silently: the
 load is ``strict=True``.
 """

@@ -63,6 +63,22 @@
 //     arrives on the same barriers.  The wrapper chooses the route from the
 //     shape (ops/flash_attention.py:tma_ok) and counts launches per route.
 //
+// fp32 q/k/v (flash_fwd_f32, below): the inpaint image's fp32 VAE encode
+// runs its mid-attention (B, 4096, 1 x 512) in fp32, as the TPU kernel
+// computes it (pallas_attention.py:328-380, q/k/v cast to fp32).  TF32
+// wgmma would not be fp32, so this route is a plain CUDA-core kernel: a
+// block of 256 threads owns 32 query rows, 4 a warp, held in registers
+// (each lane 16 columns of the 4 rows, as it holds O); K and V tiles of 32
+// keys stream through shared memory by cp.async (V's copy runs under
+// S = Q K^T, the next K's under P V).  Each lane sums its columns' share of
+// the 4 x 8 scores of 8 keys and a reduce-scatter over the warp leaves the
+// lane one whole score; the online softmax runs in registers, a row over 8
+// lanes.  Its bound is the fp32 FMA rate: 4 B N M d operations, 68.7 GFLOP
+// at (2, 4096, 512), 1.0 ms at 67 TFLOP/s.  Every warp reads every K and V
+// row of a tile from shared memory for 4 rows' FMAs, 1 byte an FMA: shared
+// memory's 128 bytes a cycle match the SM's 128 FMAs, so the two limits
+// meet at this tile (more rows a warp would not fit the registers).
+//
 // The tile configuration per class comes from the wrapper's fixed table
 // (ops/flash_attention.py:FWD_TILES), which this library is built at
 // (dispatch below); flash_fwd_sweep.cu builds the d <= 40 class at every
@@ -463,6 +479,237 @@ cudaError_t dispatch(Params& p, int batch, int bq, int bk, int stages, cudaStrea
 
 }  // namespace
 
+#ifndef FLASH_FWD_SWEEP
+// ------------------------------------------------------------ the fp32 route
+
+namespace f32 {
+
+constexpr int kBQ = 32, kBK = 32, kThreads = 256;
+constexpr int kChunks = 4;  // O columns a thread: 4 x 4 of 512, lane-strided
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* bias;  // (B, M) rows at stride bias_sb, or null
+  float* o;
+  float* lse;  // (B, H, N) contiguous
+  int heads, n, m, d;
+  long long q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn, bias_sb;
+  float scale_log2;
+};
+
+// 16 bytes from global to shared memory, or zeros past the tensor's rows.
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows row0..row0+31 of a (rows, d) operand at row stride sn into a tile of
+// row stride ld; rows at or past `rows` are zeros.
+__device__ __forceinline__ void load_tile(float* tile, int ld, const float* base, long long sn,
+                                          int row0, int rows, int d) {
+  const int per_row = d / 4;
+  for (int i = threadIdx.x; i < 32 * per_row; i += kThreads) {
+    const int r = i / per_row, c = 4 * (i - r * per_row);
+    const bool valid = row0 + r < rows;
+    cp16(tile + r * ld + c, valid ? base + (row0 + r) * sn + c : base, valid);
+  }
+}
+
+// One step of a reduce-scatter over the warp: the lane keeps the half of
+// a[0..2W) that its lane bit W selects, plus its partner's same half.
+template <int W>
+__device__ __forceinline__ void reduce_half(float (&a)[32], int lane) {
+  const bool upper = lane & W;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float send = upper ? a[i] : a[i + W];
+    a[i] = (upper ? a[i + W] : a[i]) + __shfl_xor_sync(0xffffffffu, send, W);
+  }
+}
+
+// 32 values a lane -> lane l holds the warp's sum of value l, in 31 shuffles.
+__device__ __forceinline__ float reduce_scatter(float (&a)[32], int lane) {
+  reduce_half<16>(a, lane);
+  reduce_half<8>(a, lane);
+  reduce_half<4>(a, lane);
+  reduce_half<2>(a, lane);
+  reduce_half<1>(a, lane);
+  return a[0];
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(const Params p) {
+  extern __shared__ __align__(16) float sm[];
+  const int ld = p.d + 4;  // rows 4 banks apart
+  float* sK = sm;
+  float* sV = sK + kBK * ld;
+  float* sP = sV + kBK * ld;      // (BK, BQ): P transposed, a key's 4 rows in one read
+  float* sAlpha = sP + kBK * kBQ;  // (BQ): each row's rescale of O this tile
+
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+  const int ntiles = (p.m + kBK - 1) / kBK;
+
+  // The warp's 4 query rows in registers, each lane the columns 4 lane +
+  // 128 c (+0..3), scaled by scale * log2(e); zeros past N and d.  O has
+  // the same layout.
+  float q[4][kChunks][4], o[4][kChunks][4];
+  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + warp * 4 + r;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = 4 * lane + 128 * c;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (row < p.n && col < p.d) x = *reinterpret_cast<const float4*>(qb + row * p.q_sn + col);
+      q[r][c][0] = x.x * p.scale_log2, q[r][c][1] = x.y * p.scale_log2;
+      q[r][c][2] = x.z * p.scale_log2, q[r][c][3] = x.w * p.scale_log2;
+      o[r][c][0] = o[r][c][1] = o[r][c][2] = o[r][c][3] = 0.0f;
+    }
+  }
+  // the softmax's row and keys: row warp * 4 + lane / 8, keys lane % 8 + 8 j
+  const int sr = warp * 4 + lane / 8, sc = lane % 8;
+  float mrow = -INFINITY, lrow = 0.0f;
+
+  load_tile(sK, ld, kb, p.k_sn, 0, p.m, p.d);
+  cp_commit();
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kBK;
+    load_tile(sV, ld, vb, p.v_sn, k0, p.m, p.d);  // under the S product
+    cp_commit();
+    cp_wait<1>();  // this K
+    __syncthreads();
+
+    // S = Q K^T, 8 keys at a time: each lane's partial sums over its
+    // columns for the warp's 4 rows (value r * 8 + key), then summed over
+    // the warp so that the lane holds (row lane / 8, key lane % 8)
+    float s[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float part[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const float* kr = sK + (8 * j + kk) * ld;
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          if (4 * lane + 128 * c < p.d) {
+            const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * lane + 128 * c);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              float acc = part[r * 8 + kk];
+              acc = fmaf(q[r][c][0], kv.x, acc);
+              acc = fmaf(q[r][c][1], kv.y, acc);
+              acc = fmaf(q[r][c][2], kv.z, acc);
+              part[r * 8 + kk] = fmaf(q[r][c][3], kv.w, acc);
+            }
+          }
+        }
+      }
+      s[j] = reduce_scatter(part, lane);
+    }
+    // the online softmax in log2 units, the row over the 8 lanes lane / 8
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + sc + 8 * j;
+      float x = s[j];
+      if (bias && col < p.m) x = fmaf(bias[col], kLog2e, x);
+      s[j] = col < p.m ? x : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float mnew = fmaxf(mrow, mx);
+    const float use = mnew == -INFINITY ? 0.0f : mnew;  // a row with no key yet keeps O = 0
+    const float alpha = exp2f(mrow - use);
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] = exp2f(s[j] - use);
+      sum += s[j];
+      sP[(sc + 8 * j) * kBQ + sr] = s[j];
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    lrow = lrow * alpha + sum;
+    mrow = mnew;
+    if (sc == 0) sAlpha[sr] = alpha;
+    __syncthreads();  // every thread is done with this K; P and alpha are written
+
+    if (it + 1 < ntiles) {
+      load_tile(sK, ld, kb, p.k_sn, k0 + kBK, p.m, p.d);  // under the P V product
+      cp_commit();
+      cp_wait<1>();  // this V
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+
+    const float4 al = *reinterpret_cast<const float4*>(sAlpha + warp * 4);
+    const float a4[4] = {al.x, al.y, al.z, al.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[r][c][e] *= a4[r];
+    const int kvalid = min(kBK, p.m - k0);
+    for (int j = 0; j < kvalid; ++j) {
+      const float4 pj = *reinterpret_cast<const float4*>(sP + j * kBQ + warp * 4);
+      const float pr[4] = {pj.x, pj.y, pj.z, pj.w};
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        if (4 * lane + 128 * c < p.d) {
+          const float4 vv = *reinterpret_cast<const float4*>(sV + j * ld + 4 * lane + 128 * c);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            o[r][c][0] = fmaf(pr[r], vv.x, o[r][c][0]);
+            o[r][c][1] = fmaf(pr[r], vv.y, o[r][c][1]);
+            o[r][c][2] = fmaf(pr[r], vv.z, o[r][c][2]);
+            o[r][c][3] = fmaf(pr[r], vv.w, o[r][c][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // done with this V and P before the next tile's copies
+  }
+
+  // normalise once: row warp * 4 + r's sum is held by lane 8 r
+  float* ob = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float l = __shfl_sync(0xffffffffu, lrow, 8 * r);
+    const int row = q0 + warp * 4 + r;
+    if (row >= p.n) continue;
+    const float inv = 1.0f / l;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = 4 * lane + 128 * c;
+      if (col >= p.d) break;
+      *reinterpret_cast<float4*>(ob + row * p.o_sn + col) =
+          make_float4(o[r][c][0] * inv, o[r][c][1] * inv, o[r][c][2] * inv, o[r][c][3] * inv);
+    }
+  }
+  if (sc == 0 && q0 + sr < p.n)
+    p.lse[((long long)b * p.heads + h) * p.n + q0 + sr] = mrow + log2f(lrow);
+}
+
+}  // namespace f32
+#endif  // FLASH_FWD_SWEEP
+
 // Plain C entry point for ctypes.  Returns a cudaError_t (0 = launched).
 // Strides are in elements.  tma: 1 for the TMA route (the caller checked
 // tma_ok), 0 for the copy route.  (bq, bk, stages): the tile configuration,
@@ -481,3 +728,29 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const
     return (int)cudaErrorInvalidValue;
   return (int)dispatch(p, batch, bq, bk, stages, static_cast<cudaStream_t>(stream));
 }
+
+#ifndef FLASH_FWD_SWEEP
+// The fp32 route: q, k, v, bias, o and lse fp32, the rest as flash_fwd_bf16.
+// d <= 512 and a multiple of 4; every base 16-byte aligned and every batch,
+// head and row stride a multiple of 4 elements (the wrapper checks).
+extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, const float* bias,
+                             void* o, float* lse, int batch, int heads, int n, int m, int d,
+                             long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+                             long long k_sh, long long k_sn, long long v_sb, long long v_sh,
+                             long long v_sn, long long o_sb, long long o_sh, long long o_sn,
+                             long long bias_sb, float scale, void* stream) {
+  if (d < 4 || d > f32::kChunks * 128 || d % 4 || n < 1 || m < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  f32::Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), bias, static_cast<float*>(o), lse, heads, n, m, d,
+                q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn, bias_sb,
+                scale * kLog2e};
+  const int smem = (2 * f32::kBK * (d + 4) + f32::kBK * f32::kBQ + f32::kBQ) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(f32::flash_fwd_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + f32::kBQ - 1) / f32::kBQ, heads, batch);
+  f32::flash_fwd_f32_kernel<<<grid, f32::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+#endif

@@ -1,4 +1,5 @@
-// GroupNorm (+SiLU) and LayerNorm for Hopper (sm_90a): bf16 in / bf16 out, fp32 statistics.
+// GroupNorm (+SiLU) and LayerNorm for Hopper (sm_90a): bf16 in / bf16 out, fp32 statistics;
+// and the GroupNorm (+SiLU) of fp32 x into fp32 y (the inpaint image's fp32 VAE encode).
 //
 // Replaces the TPU Pallas kernels of gligen_tpu/ops/pallas_norm.py:
 //   * _group_norm_pallas_flat (pallas_call at :107, body _gn_kernel :62), reached
@@ -50,6 +51,11 @@
 //        fixed shuffle tree) into its a, v;
 //     3. gn_normalize_kernel, grid (blocks, B): y = x * a + v (then y *
 //        sigmoid(y)), 8 channels per thread, the sample's a/v in shared memory.
+//   * fp32 x and y (group_norm_f32): the three launches above, each kernel
+//     templated on the element type (8 channels a thread: one 16-byte load
+//     of bf16, two of fp32); the sums and the affine are the same fp32 code.
+//     It serves the VAE encoder's maps of the inpaint encode, 2 samples of
+//     up to 268 MB in fp32 (512^2 x 128), read twice and written once.
 // No float atomics on either route: a run repeats bit for bit.  LayerNorm
 // gives each row to a warp: one pass for the fp32 sums, a second over the
 // same row (from L1/L2) to normalise and store; any row count, the fuser's
@@ -84,8 +90,23 @@ __host__ __device__ inline int gn_row_lanes(int c) {
   return v >= kGnThreads ? 1 : kGnThreads / v;
 }
 
+// 8 consecutive elements of x as fp32, and 8 fp32 values stored as T.
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0], hi = reinterpret_cast<const float4*>(p)[1];
+  f[0] = lo.x, f[1] = lo.y, f[2] = lo.z, f[3] = lo.w;
+  f[4] = hi.x, f[5] = hi.y, f[6] = hi.z, f[7] = hi.w;
+}
+__device__ __forceinline__ void store8(bf16* p, const float* f) {
+  *reinterpret_cast<uint4*>(p) = pack8(f);
+}
+__device__ __forceinline__ void store8(float* p, const float* f) { store8f(p, f); }
+
 // ws: (B, chunks, 2, C) fp32: [.., 0, :] sums of x, [.., 1, :] sums of x^2.
-__global__ void gn_partial_kernel(const bf16* __restrict__ x, float* __restrict__ ws, int n, int c,
+template <typename T>
+__global__ void gn_partial_kernel(const T* __restrict__ x, float* __restrict__ ws, int n, int c,
                                   int chunks) {
   extern __shared__ __align__(16) float red[];  // (RB, 2, C)
   const int v = c / 8;
@@ -97,10 +118,10 @@ __global__ void gn_partial_kernel(const bf16* __restrict__ x, float* __restrict_
   float s[8], ss[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) s[i] = ss[i] = 0.0f;
-  const bf16* xb = x + (long long)b * n * c + cv * 8;
+  const T* xb = x + (long long)b * n * c + cv * 8;
   for (int r = r0 + lane_row; r < r1; r += rb) {
     float f[8];
-    unpack8(*reinterpret_cast<const uint4*>(xb + (long long)r * c), f);
+    load8(xb + (long long)r * c, f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       s[i] += f[i];
@@ -163,9 +184,9 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
 }
 
-template <bool SILU>
-__global__ void gn_normalize_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-                                    const float* __restrict__ v, bf16* __restrict__ y, int n,
+template <typename T, bool SILU>
+__global__ void gn_normalize_kernel(const T* __restrict__ x, const float* __restrict__ a,
+                                    const float* __restrict__ v, T* __restrict__ y, int n,
                                     int c) {
   extern __shared__ __align__(16) float av[];  // (2, C): the sample's a, then v
   const int b = blockIdx.y;
@@ -176,18 +197,18 @@ __global__ void gn_normalize_kernel(const bf16* __restrict__ x, const float* __r
   __syncthreads();
   const int vpr = c / 8;
   const int vecs = n * vpr;  // the wrapper keeps n * c < 2^31
-  const uint4* xs = reinterpret_cast<const uint4*>(x + (long long)b * n * c);
-  uint4* ys = reinterpret_cast<uint4*>(y + (long long)b * n * c);
+  const T* xs = x + (long long)b * n * c;
+  T* ys = y + (long long)b * n * c;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < vecs; i += gridDim.x * blockDim.x) {
     const int ch = (i % vpr) * 8;
     float f[8];
-    unpack8(xs[i], f);
+    load8(xs + (long long)i * 8, f);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float t = f[j] * av[ch + j] + av[c + ch + j];
       f[j] = SILU ? silu(t) : t;
     }
-    ys[i] = pack8(f);
+    store8(ys + (long long)i * 8, f);
   }
 }
 
@@ -495,16 +516,37 @@ bool gn_shape_ok(int b, int n, int c, int groups, int chunks) {
 }
 
 // Launches 1 and 2: the (B, C) affine a, v.
-cudaError_t launch_affine(const bf16* x, const float* scale, const float* bias, float* ws,
-                          float* a, float* v, int b, int n, int c, int groups, int chunks,
-                          float eps, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_affine(const T* x, const float* scale, const float* bias, float* ws, float* a,
+                          float* v, int b, int n, int c, int groups, int chunks, float eps,
+                          cudaStream_t stream) {
   const int threads = gn_row_lanes(c) * (c / 8);
   const size_t smem = (size_t)gn_row_lanes(c) * 2 * c * sizeof(float);
-  gn_partial_kernel<<<dim3(chunks, b), threads, smem, stream>>>(x, ws, n, c, chunks);
+  gn_partial_kernel<T><<<dim3(chunks, b), threads, smem, stream>>>(x, ws, n, c, chunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   gn_combine_kernel<<<dim3(groups, b), kCombineThreads, 0, stream>>>(ws, scale, bias, a, v, n, c,
                                                                      groups, chunks, eps);
+  return cudaGetLastError();
+}
+
+// The three launches: the affine, then y = x * a + v (then SiLU), ~8 blocks
+// an SM in all.
+template <typename T>
+cudaError_t launch_three(const T* x, const float* scale, const float* bias, float* ws, float* a,
+                         float* v, T* y, int b, int n, int c, int groups, int chunks, float eps,
+                         int silu, cudaStream_t s) {
+  cudaError_t err = launch_affine(x, scale, bias, ws, a, v, b, n, c, groups, chunks, eps, s);
+  if (err != cudaSuccess) return err;
+  const int threads = 256;
+  const int vecs = n * (c / 8);
+  const int per_sample = max(1, (8 * kSMs + b - 1) / b);
+  const dim3 grid(min((vecs + threads - 1) / threads, per_sample), b);
+  const size_t smem = 2 * (size_t)c * sizeof(float);
+  if (silu)
+    gn_normalize_kernel<T, true><<<grid, threads, smem, s>>>(x, a, v, y, n, c);
+  else
+    gn_normalize_kernel<T, false><<<grid, threads, smem, s>>>(x, a, v, y, n, c);
   return cudaGetLastError();
 }
 
@@ -528,7 +570,7 @@ extern "C" int gn_affine_bf16(const void* x, const float* scale, const float* bi
   const bf16* xb = static_cast<const bf16*>(x);
   if (one_launch)
     return (int)launch_fused<0>(xb, scale, bias, a, v, nullptr, b, n, c, groups, chunks, eps, s);
-  return (int)launch_affine(xb, scale, bias, ws, a, v, b, n, c, groups, chunks, eps, s);
+  return (int)launch_affine<bf16>(xb, scale, bias, ws, a, v, b, n, c, groups, chunks, eps, s);
 }
 
 // y = GroupNorm(x) * scale + bias, then SiLU when silu != 0; y (b, n, c) bf16.
@@ -543,18 +585,19 @@ extern "C" int group_norm_bf16(const void* x, const float* scale, const float* b
   if (one_launch)
     return (int)(silu ? launch_fused<2>(xb, scale, bias, a, v, yb, b, n, c, groups, chunks, eps, s)
                       : launch_fused<1>(xb, scale, bias, a, v, yb, b, n, c, groups, chunks, eps, s));
-  cudaError_t err = launch_affine(xb, scale, bias, ws, a, v, b, n, c, groups, chunks, eps, s);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  const int vecs = n * (c / 8);
-  const int per_sample = max(1, (8 * kSMs + b - 1) / b);  // ~8 blocks per SM in all
-  const dim3 grid(min((vecs + threads - 1) / threads, per_sample), b);
-  const size_t smem = 2 * (size_t)c * sizeof(float);
-  if (silu)
-    gn_normalize_kernel<true><<<grid, threads, smem, s>>>(xb, a, v, yb, n, c);
-  else
-    gn_normalize_kernel<false><<<grid, threads, smem, s>>>(xb, a, v, yb, n, c);
-  return (int)cudaGetLastError();
+  return (int)launch_three<bf16>(xb, scale, bias, ws, a, v, yb, b, n, c, groups, chunks, eps, silu,
+                                 s);
+}
+
+// The same with fp32 x and y (b, n, c), on the three launches only (ws a
+// (b, chunks, 2, c) fp32 scratch).
+extern "C" int group_norm_f32(const void* x, const float* scale, const float* bias, float* ws,
+                              float* a, float* v, void* y, int b, int n, int c, int groups,
+                              int chunks, float eps, int silu, void* stream) {
+  if (!gn_shape_ok(b, n, c, groups, chunks)) return (int)cudaErrorInvalidValue;
+  return (int)launch_three<float>(static_cast<const float*>(x), scale, bias, ws, a, v,
+                                  static_cast<float*>(y), b, n, c, groups, chunks, eps, silu,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // y = LayerNorm(x) * scale + bias over rows of c; x, y (rows, c) bf16.

@@ -1,7 +1,9 @@
 """Diffusion schedules (counterpart of ``gligen_tpu/diffusion/schedule.py``).
 
 The tables are computed on the host in float64 numpy and stored as
-float32, as the reference does.
+float32, as the reference does.  The beta schedule is the checkpoint's
+(``DiffusionSchedule.create``'s keywords are the reference config's
+``diffusion.params``).
 """
 
 from __future__ import annotations
@@ -11,6 +13,29 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+
+def make_beta_schedule(
+    schedule: str = "linear",
+    n_timestep: int = 1000,
+    linear_start: float = 1e-4,
+    linear_end: float = 2e-2,
+    cosine_s: float = 8e-3,
+) -> np.ndarray:
+    """Beta table, float64 (schedule.py:25-52): 'linear' (linear in sqrt
+    space), 'cosine', 'sqrt_linear' or 'sqrt'."""
+    if schedule == "linear":
+        return np.linspace(linear_start**0.5, linear_end**0.5, n_timestep, dtype=np.float64) ** 2
+    if schedule == "cosine":
+        steps = np.arange(n_timestep + 1, dtype=np.float64) / n_timestep + cosine_s
+        alphas = np.cos(steps / (1 + cosine_s) * np.pi / 2) ** 2
+        alphas = alphas / alphas[0]
+        return np.clip(1 - alphas[1:] / alphas[:-1], 0, 0.999)
+    if schedule == "sqrt_linear":
+        return np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64)
+    if schedule == "sqrt":
+        return np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64) ** 0.5
+    raise ValueError(f"schedule {schedule!r} unknown")
 
 
 def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int) -> np.ndarray:
@@ -59,10 +84,16 @@ class DiffusionSchedule:
 
     @classmethod
     def create(
-        cls, timesteps: int = 1000, linear_start: float = 1e-4, linear_end: float = 2e-2
+        cls,
+        beta_schedule: str = "linear",
+        timesteps: int = 1000,
+        linear_start: float = 1e-4,
+        linear_end: float = 2e-2,
+        cosine_s: float = 8e-3,
     ) -> "DiffusionSchedule":
-        """The linear beta schedule (in sqrt space), which every config uses."""
-        betas = np.linspace(linear_start**0.5, linear_end**0.5, timesteps, dtype=np.float64) ** 2
+        """The tables of ``make_beta_schedule(beta_schedule, ...)``
+        (schedule.py:134-162)."""
+        betas = make_beta_schedule(beta_schedule, timesteps, linear_start, linear_end, cosine_s)
         acp = np.cumprod(1.0 - betas, axis=0)
         f32 = lambda a: a.astype(np.float32)
         return cls(betas=f32(betas), alphas_cumprod=f32(acp), sqrt_alphas_cumprod=f32(np.sqrt(acp)),

@@ -1,8 +1,9 @@
 """End-to-end grounded generation (counterpart of
 ``gligen_tpu/inference/pipeline.py``): CLIP text encode, grounding tokens
-once per request (the CFG null pair included), PLMS over the GLIGEN UNet
-with the CFG pair batched as one UNet call on 2B rows, the fuser-free
-tail of the alpha schedule, and VAE decode.
+once per request (the CFG null pair included), the inpaint image's fp32
+VAE encode, PLMS or DDIM over the GLIGEN UNet with the CFG pair batched as
+one UNet call on 2B rows, the fuser-free tail of the alpha schedule, and
+VAE decode.
 
 PyTorch runs eagerly, so where the JAX package compiles one program, this
 pipeline is a Python loop of UNet calls.
@@ -16,7 +17,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from gligen_tpu_torch.diffusion.samplers import plms_sample
+from gligen_tpu_torch.diffusion.samplers import ddim_sample, plms_sample
 from gligen_tpu_torch.diffusion.schedule import DiffusionSchedule
 from gligen_tpu_torch.models.clip_text import CLIPTextModel
 from gligen_tpu_torch.models.layers import Conv2d, Dense
@@ -67,11 +68,17 @@ class GligenComponents:
         device: Any = "cuda",
         vae_config: Optional[Dict[str, Any]] = None,
         text_config: Optional[Dict[str, Any]] = None,
+        schedule_config: Optional[Dict[str, Any]] = None,
     ) -> "GligenComponents":
         """Components with the SD-1.4 GLIGEN architecture by default
         (configs/flickr_text.yaml), fp32 parameters on ``device`` (the card
         unless the caller asks for the CPU), drawn from a generator seeded
-        with ``seed``; real weights come through ``convert/from_jax.py``."""
+        with ``seed``; real weights come through ``convert/from_reference.py``
+        (``inference/cli.py:components_from_checkpoint``) or
+        ``convert/from_jax.py``.  ``unet_config`` may ask for
+        ``inpaint_mode``; ``schedule_config`` overrides the
+        ``DiffusionSchedule.create`` keywords (a checkpoint's own,
+        pipeline.py:66-68)."""
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "GligenComponents.create: no CUDA device for device="
@@ -86,8 +93,9 @@ class GligenComponents:
         gen = torch.Generator(device=device).manual_seed(seed)
         for module in (unet, vae, text):
             random_init_(module, gen)
-        schedule = DiffusionSchedule.create(timesteps=1000, linear_start=0.00085, linear_end=0.012)
-        return cls(unet, vae, text, schedule)
+        sched_kwargs = dict(timesteps=1000, linear_start=0.00085, linear_end=0.012)
+        sched_kwargs.update(schedule_config or {})
+        return cls(unet, vae, text, DiffusionSchedule.create(**sched_kwargs))
 
 
 class GenerationPipeline:
@@ -106,18 +114,33 @@ class GenerationPipeline:
         *,
         steps: int = 50,
         guidance_scale: float = 7.5,
+        sampler: str = "plms",
         alpha_stages: Optional[Sequence[float]] = None,
+        inpaint_image=None,
+        inpaint_mask=None,
         latent_size: int = 64,
         noise=None,
+        encode_noise=None,
+        blend_noise=None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """PLMS generation.  Returns images in [0, 1], (B, 8*latent,
-        8*latent, 3) float32.
+        """PLMS or DDIM (``sampler``, eta 0) generation.  Returns images in
+        [0, 1], (B, 8*latent, 8*latent, 3) float32.
 
         input_ids/uc_input_ids: (B, 77) tokenized prompt / negative prompt.
         grounding: the box tokenizer's inputs (boxes, masks,
-        positive_embeddings).  noise: optional (B, latent, latent, 4)
-        starting noise; drawn from ``generator`` otherwise."""
+        positive_embeddings).  inpaint_image: (B, H, W, 3) in [-1, 1] and
+        inpaint_mask: (B, latent, latent, 1) keep-mask (1 = known region)
+        inpaint; the UNet must be an inpaint UNet.  The random draws are
+        injected or come from ``generator``: noise (B, latent, latent, 4),
+        the starting noise; encode_noise (the same shape), the inpaint
+        encode's posterior noise; blend_noise (S, B, latent, latent, 4),
+        each step's blend noise (the JAX package's fold_in(k_blend, i) for
+        PLMS, fold_in(fold_in(k_blend, 1), i) for DDIM)."""
+        if sampler not in ("plms", "ddim"):
+            raise ValueError(f"unknown sampler {sampler!r}")
+        if (inpaint_image is None) != (inpaint_mask is None):
+            raise ValueError("inpaint_image and inpaint_mask go together")
         c, dev = self.c, self.device
         ids = torch.as_tensor(input_ids, device=dev).long()
         uc_ids = torch.as_tensor(uc_input_ids, device=dev).long()
@@ -132,15 +155,27 @@ class GenerationPipeline:
 
         scale = float(guidance_scale)
         use_cfg = scale != 1.0
+        pair = (lambda t: torch.cat([t, t])) if use_cfg else (lambda t: t)
         ctx = torch.cat([context, uc]) if use_cfg else context
         objs = torch.cat([objs_c, objs_u]) if use_cfg else objs_c
 
+        latent_shape = (b, latent_size, latent_size, 4)
+        mask = x0 = extra = None
+        if inpaint_image is not None:
+            # fp32 encode whatever the serving dtype (pipeline.py:295-310):
+            # the blend carries the encode's rounding into the image
+            image = torch.as_tensor(inpaint_image, device=dev).float()
+            if encode_noise is None:
+                encode_noise = torch.randn(latent_shape, generator=generator, device=dev)
+            x0 = c.vae.encode_fp32(image, torch.as_tensor(encode_noise, device=dev).float())
+            mask = torch.as_tensor(inpaint_mask, device=dev).float()
+            extra = pair(torch.cat([x0 * mask, mask], dim=-1))
+
         def make_eps_fn(skip):
             def eps_fn(x, t, gate, use_sd):
-                if use_cfg:
-                    x, t = torch.cat([x, x]), torch.cat([t, t])
-                e = c.unet(x, t, ctx, gate_scale=gate, use_sd_conv=use_sd,
-                           objs=None if skip else objs, skip_fusers=skip)
+                e = c.unet(pair(x), pair(t), ctx, gate_scale=gate, use_sd_conv=use_sd,
+                           inpainting_extra=extra, objs=None if skip else objs,
+                           skip_fusers=skip)
                 if not use_cfg:
                     return e
                 e_c, e_u = e.chunk(2)
@@ -149,12 +184,15 @@ class GenerationPipeline:
             return eps_fn
 
         if noise is None:
-            noise = torch.randn((b, latent_size, latent_size, 4), generator=generator, device=dev)
-        # the gate-0 tail of the alpha schedule runs a fuser-free UNet: exact
-        # for the alpha-scheduled gatedSA fuser, the one the port has
-        z = plms_sample(
-            make_eps_fn(False), c.schedule, torch.as_tensor(noise, device=dev).float(),
-            steps=steps, alpha_stages=alpha_stages, eps_fn_gate0=make_eps_fn(True),
-        )
+            noise = torch.randn(latent_shape, generator=generator, device=dev)
+        # the gate-0 tail of the alpha schedule runs a fuser-free UNet, exact
+        # for the fusers that gate (pipeline.py:395-399)
+        eps_fn0 = make_eps_fn(True) if c.unet.fuser_type in ("gatedSA", "gatedCA") else None
+        common = dict(steps=steps, alpha_stages=alpha_stages,
+                      first_conv_restorable=c.unet.first_conv_restorable, mask=mask, x0=x0,
+                      blend_noise=blend_noise, generator=generator, eps_fn_gate0=eps_fn0)
+        run = plms_sample if sampler == "plms" else ddim_sample
+        z = run(make_eps_fn(False), c.schedule, torch.as_tensor(noise, device=dev).float(),
+                **common)
         img = c.vae.decode(z)
         return img.float().clamp(-1.0, 1.0) * 0.5 + 0.5

@@ -15,6 +15,7 @@ from torch import nn
 
 from gligen_tpu_torch.models.layers import Dense
 from gligen_tpu_torch.ops.basic import fourier_embed
+from gligen_tpu_torch.utils.registry import GROUNDING_NETS
 
 
 class TextPositionNet(nn.Module):
@@ -38,3 +39,8 @@ class TextPositionNet(nn.Module):
         h = F.silu(self.linears_0(torch.cat([emb, xyxy], dim=-1)))
         h = F.silu(self.linears_2(h))
         return self.linears_4(h)
+
+
+GROUNDING_NETS.register(
+    "text", "ldm.modules.diffusionmodules.text_grounding_net.PositionNet"
+)(TextPositionNet)

@@ -31,8 +31,9 @@ each call (the JAX modules' ``dtype`` semantics).
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +74,23 @@ class Conv2d(nn.Conv2d):
         w = self.weight.to(dt, memory_format=torch.channels_last)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, self.bias.to(dt), self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
+
+
+@contextlib.contextmanager
+def computing_in(root: nn.Module, dtype: torch.dtype) -> Iterator[nn.Module]:
+    """Every module under ``root`` computes in ``dtype`` inside the block
+    (its ``compute_dtype`` or ``dtype``), then goes back to its own: the
+    JAX modules' ``clone(dtype=...)`` over the same fp32 parameters."""
+    saved = [(m, attr, getattr(m, attr)) for m in root.modules()
+             for attr in ("compute_dtype", "dtype")
+             if isinstance(getattr(m, attr, None), torch.dtype)]
+    for m, attr, _ in saved:
+        setattr(m, attr, dtype)
+    try:
+        yield root
+    finally:
+        for m, attr, old in saved:
+            setattr(m, attr, old)
 
 
 class Normalize(nn.Module):

@@ -4,7 +4,9 @@ The SD-1.4 epsilon-predictor UNet with grounding-token plumbing, NHWC.
 Submodule names mirror the JAX parameter tree (``input_blocks_1_0``,
 ``middle_block_1``, ``out_2``...).  The alpha-stage dual first conv is a
 host-side select: ``use_sd_conv`` picks the original SD 4-channel conv
-(``first_conv_sd``) or the GLIGEN one, and only the chosen conv runs.
+(``first_conv_sd``) or the GLIGEN one, and only the chosen conv runs.  An
+inpaint UNet (``inpaint_mode``) has no SD conv: its GLIGEN conv takes the
+latent and the 5 channels of ``inpainting_extra`` (z0 * mask, mask).
 """
 
 from __future__ import annotations
@@ -16,10 +18,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gligen_tpu_torch.models.grounding.text import TextPositionNet
+import gligen_tpu_torch.models.grounding.text  # noqa: F401  (registers "text")
 from gligen_tpu_torch.models.layers import Conv2d, Dense, Normalize, SpatialTransformer
 from gligen_tpu_torch.ops.basic import nearest_upsample_2x, timestep_embedding
 from gligen_tpu_torch.ops.fused_conv import gn_silu_conv3x3
+from gligen_tpu_torch.utils.registry import GROUNDING_NETS
 
 # The JAX package's routing table for GLIGEN_TPU_FUSED_CONV=auto, carried as
 # it is (gligen_tpu/models/unet.py:81): the (H, out_channels) of the
@@ -115,7 +118,7 @@ class Upsample(nn.Module):
 
 class UNetModel(nn.Module):
     """forward(x, timesteps, context, grounding, *, gate_scale, use_sd_conv,
-    objs, skip_fusers)
+    inpainting_extra, objs, skip_fusers)
 
       x: (B, H, W, in_channels) latent, NHWC
       timesteps: (B,) int
@@ -123,6 +126,8 @@ class UNetModel(nn.Module):
       grounding: the tokenizer's inputs (boxes, masks, positive_embeddings)
       gate_scale: the alpha schedule's value for every gated fuser
       use_sd_conv: run the original SD first conv instead of GLIGEN's
+      inpainting_extra: (B, H, W, in_channels + 1) z0 * mask, mask; an
+        inpaint UNet's GLIGEN conv reads it after x's channels
       objs: precomputed ``grounding_tokens(grounding)``, so the position
         net runs once per request, not once per step
       skip_fusers: run no fuser (exact where the gate is 0)
@@ -144,23 +149,32 @@ class UNetModel(nn.Module):
         transformer_depth: int = 1,
         context_dim: int = 768,
         fuser_type: str = "gatedSA",
+        inpaint_mode: bool = False,
         grounding_tokenizer: Optional[Dict[str, Any]] = None,
+        grounding_downsampler: Optional[Dict[str, Any]] = None,
         use_checkpoint: bool = False,
         dtype=torch.float32,
     ):
         super().__init__()
         tok_cfg = grounding_tokenizer or {"target": "text", "params": {}}
-        if tok_cfg["target"] != "text":
-            raise ValueError(f"grounding tokenizer {tok_cfg['target']!r} is not ported")
+        for kind, cfg in (("tokenizer", tok_cfg), ("downsampler", grounding_downsampler)):
+            if cfg is not None and (kind == "downsampler" or cfg["target"] not in GROUNDING_NETS):
+                raise ValueError(f"grounding {kind} {cfg['target']!r} is not ported (ROADMAP M9)")
         self.dtype = dtype
         self.model_channels = model_channels
-        self.position_net = TextPositionNet(**tok_cfg.get("params", {}), dtype=dtype)
+        self.fuser_type = fuser_type
+        self.inpaint_mode = inpaint_mode
+        self.position_net = GROUNDING_NETS.get(tok_cfg["target"])(
+            **tok_cfg.get("params", {}), dtype=dtype)
         objs_dim = tok_cfg.get("params", {}).get("out_dim", 768)
         emb_dim = model_channels * 4
         self.time_embed_0 = Dense(model_channels, emb_dim, dtype=dtype)
         self.time_embed_2 = Dense(emb_dim, emb_dim, dtype=dtype)
-        self.input_blocks_0_0 = Conv2d(in_channels, model_channels, 3, dtype=dtype)
-        self.first_conv_sd = Conv2d(in_channels, model_channels, 3, dtype=dtype)
+        # the inpaint extra is z0 * mask (in_channels) and the mask (1)
+        extra = in_channels + 1 if inpaint_mode else 0
+        self.input_blocks_0_0 = Conv2d(in_channels + extra, model_channels, 3, dtype=dtype)
+        if self.first_conv_restorable:
+            self.first_conv_sd = Conv2d(in_channels, model_channels, 3, dtype=dtype)
 
         def res(name, cin, cout):
             self.add_module(name, ResBlock(cin, cout, emb_dim, dtype=dtype))
@@ -223,6 +237,11 @@ class UNetModel(nn.Module):
         self.out_0 = GroupNorm32(ch, act="silu")
         self.out_2 = Conv2d(ch, out_channels, 3, dtype=dtype, zero_init=True)
 
+    @property
+    def first_conv_restorable(self) -> bool:
+        """Whether the original SD first conv exists (unet.py:250-252)."""
+        return not self.inpaint_mode
+
     def grounding_tokens(self, grounding: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The position net's (B, N, objs_dim) tokens for the tokenizer's inputs."""
         return self.position_net(**grounding)
@@ -247,9 +266,15 @@ class UNetModel(nn.Module):
         *,
         gate_scale: float = 1.0,
         use_sd_conv: bool = False,
+        inpainting_extra: Optional[torch.Tensor] = None,
         objs: Optional[torch.Tensor] = None,
         skip_fusers: bool = False,
     ) -> torch.Tensor:
+        if self.inpaint_mode == (inpainting_extra is None):
+            raise ValueError("inpainting_extra is required by an inpaint UNet and refused "
+                             "by any other")
+        if use_sd_conv and not self.first_conv_restorable:
+            raise ValueError("use_sd_conv: an inpaint UNet has no SD first conv")
         if objs is None and not (skip_fusers and grounding is None):
             objs = self.grounding_tokens(grounding)
 
@@ -257,7 +282,12 @@ class UNetModel(nn.Module):
         emb = self.time_embed_2(F.silu(self.time_embed_0(t_emb)))
 
         h = x.to(self.dtype)
-        h = self.first_conv_sd(h) if use_sd_conv else self.input_blocks_0_0(h)
+        if use_sd_conv:
+            h = self.first_conv_sd(h)
+        else:
+            if inpainting_extra is not None:  # unet.py:322-333: x first, then the extra
+                h = torch.cat([h, inpainting_extra.to(self.dtype)], dim=-1)
+            h = self.input_blocks_0_0(h)
         ctx = context.to(self.dtype)
         run = lambda names, h: self._run(names, h, emb, ctx, objs, gate_scale, skip_fusers)
 
@@ -270,3 +300,4 @@ class UNetModel(nn.Module):
             h = run(names, torch.cat([h, hs.pop()], dim=-1))
         h = self.out_2(self.out_0(h))
         return h.float()
+

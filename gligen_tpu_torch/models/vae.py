@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gligen_tpu_torch.models.layers import Conv2d, Dense, Normalize
+from gligen_tpu_torch.models.layers import Conv2d, Dense, Normalize, computing_in
 from gligen_tpu_torch.models.unet import Upsample  # the same nearest 2x + conv3x3
 from gligen_tpu_torch.ops.attention import multi_head_attention
 
@@ -199,6 +199,20 @@ class AutoencoderKL(nn.Module):
         caller (or a test) chooses the draw."""
         mean, logvar = self.encode_moments(x)
         return sample_posterior(mean, logvar, noise, self.scale_factor)
+
+    def encode_fp32(self, x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """``encode`` computed in fp32 whatever this module's ``dtype``, over
+        its fp32 parameters: the inpaint encode (the JAX pipeline's
+        ``vae.clone(dtype=float32)``, pipeline.py:295-310), whose rounding
+        the per-step blend would carry into the image.  On the card its
+        GroupNorms and its attention take the fp32 routes of the GroupNorm
+        and flash kernels; its convs and products are cuDNN's and
+        cuBLAS's, which are fp32 only with TF32 off
+        (``torch.backends.cuda.matmul.allow_tf32`` and
+        ``torch.backends.cudnn.allow_tf32`` False, as ``chip_smoke.py``
+        sets them)."""
+        with computing_in(self, torch.float32):
+            return self.encode(x.float(), noise.float())
 
     def encode_mode(self, x: torch.Tensor) -> torch.Tensor:
         """The posterior mode * scale_factor (deterministic)."""

@@ -24,6 +24,9 @@ loads its bf16 operands by TMA where TMA can read them (``tma_ok``) and by
 plain copies otherwise: a choice made from the layout, before the launch,
 and counted per route.  Each kernel's tiles come from a fixed table by
 head dim (``FWD_TILES``, ``BWD_TILES``) that its library is built at.
+The forward also takes fp32 q/k/v (the inpaint image's fp32 VAE encode):
+a route of its own, ``flash_fwd_f32`` of the same source, fp32 throughout
+(``launch_fwd_f32``), counted as route "fp32".
 """
 
 from __future__ import annotations
@@ -141,12 +144,49 @@ def launch_fwd(library, q, k, v, heads, bias, tiles):
     return out, lse, route
 
 
-def _check_inputs(q, k, v, heads, bias):
+# the fp32 route's entry: q, k, v, bias, o, lse, the shapes and strides, the scale
+_FWD32_ARGTYPES = (PTR,) * 6 + (I32,) * 5 + (ctypes.c_longlong,) * 13 + (F32,)
+
+
+def launch_fwd_f32(q, k, v, heads, bias):
+    """One launch of the fp32 route on checked CUDA inputs (``_check_f32``);
+    returns (out fp32, lse)."""
+    b, n, hc = q.shape
+    m = k.shape[1]
+    c = hc // heads
+    out = torch.empty((b, n, hc), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
+    strides = []
+    for t in (q, k, v, out):
+        strides += [t.stride(0), c, t.stride(1)]
+    err = c_entry("flash_fwd", "flash_fwd_f32", _FWD32_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr() if bias is not None else None, out.data_ptr(), lse.data_ptr(),
+        b, heads, n, m, c, *strides, bias.stride(0) if bias is not None else 0, c**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_f32 launch failed (d {c}): cudaError {err}")
+    return out, lse
+
+
+def _check_f32(q, k, v, heads, bias):
+    """What the fp32 route takes: ``_check_inputs`` in fp32, and 16-byte
+    vectors everywhere (a head dim, every base and every stride a multiple
+    of 4 elements)."""
+    _check_inputs(q, k, v, heads, bias, dtype=torch.float32)
+    c = q.shape[2] // heads
+    if c % 4 or any(t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4 for t in (q, k, v)):
+        raise ValueError(f"flash_fwd fp32: head dim {c}, bases and strides must be multiples "
+                         "of 4 elements (16 bytes)")
+
+
+def _check_inputs(q, k, v, heads, bias, dtype=torch.bfloat16):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_fwd takes bfloat16 q/k/v, {name} is {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"flash_fwd takes {dtype} q/k/v here, {name} is {t.dtype}")
         if t.dim() != 3 or t.stride(2) != 1:
             raise ValueError(f"{name} must be (B, L, H*C) with a unit last stride")
     b, n, hc = q.shape
@@ -171,11 +211,11 @@ class Counted:
     """A flash kernel's wrapper: ``launches`` counts kernel launches (never
     plain-version calls), so a run can show that its attention went
     through the kernel; ``routes`` counts them by route ("tma" or
-    "copy")."""
+    "copy", and the forward's "fp32")."""
 
-    def __init__(self):
+    def __init__(self, routes=("tma", "copy")):
         self.launches = 0
-        self.routes = {"tma": 0, "copy": 0}
+        self.routes = dict.fromkeys(routes, 0)
 
     def _count(self, route: str) -> None:
         self.launches += 1
@@ -183,7 +223,11 @@ class Counted:
 
 
 class FlashForward(Counted):
-    """Wrapper of ``csrc/flash_fwd.cu`` (routes by ``fwd_route``)."""
+    """Wrapper of ``csrc/flash_fwd.cu``: bf16 routes by ``fwd_route``, fp32
+    inputs by the "fp32" route."""
+
+    def __init__(self):
+        super().__init__(("tma", "copy", "fp32"))
 
     def __call__(
         self,
@@ -196,6 +240,11 @@ class FlashForward(Counted):
         """Same contract as ``flash_attention_plain``."""
         if not on_cuda(q, "flash_fwd"):
             return flash_attention_plain(q, k, v, heads, bias=bias)
+        if q.dtype == torch.float32:
+            _check_f32(q, k, v, heads, bias)
+            out, lse = launch_fwd_f32(q, k, v, heads, bias)
+            self._count("fp32")
+            return out, lse
         _check_inputs(q, k, v, heads, bias)
         tiles = fwd_tiles(q.shape[2] // heads)
         out, lse, route = launch_fwd("flash_fwd", q, k, v, heads, bias, tiles)

@@ -14,7 +14,9 @@ holds three entry points:
 
 A GroupNorm of a UNet map runs as one launch, a thread-block cluster per
 sample; the VAE's large maps as three launches (``gn_plan``: the route and
-the row chunks, passed to the C entry).
+the row chunks, passed to the C entry).  ``group_norm_fused`` also takes
+fp32 x (the inpaint image's fp32 VAE encode): its own entry,
+``group_norm_f32``, fp32 in and out on the three-launch route.
 
 Numerics are the TPU kernels': single-pass fp32 moments, the variance
 clamped at 0, rsqrt(var + eps), one cast.  The GroupNorm plain version is
@@ -23,8 +25,8 @@ another order (gligen_tpu/ops/basic.py:116).
 
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other, and raises on what
-the kernel does not take (a dtype other than bf16, widths that are not
-multiples of 8, more than 4096 channels).  Each output is differentiable
+the kernel does not take (a dtype other than bf16, or fp32 for the
+GroupNorm; widths that are not multiples of 8, more than 4096 channels).  Each output is differentiable
 (``launch.differentiable``): the backward differentiates the plain version,
 fp32 statistics included, as pallas_norm.py:231-270 differentiates its
 reference.
@@ -112,7 +114,7 @@ class _GroupStats(Kernel):
 
     library = "fused_norm"
 
-    def _prepare(self, op, x, scale, bias, num_groups, normalise):
+    def _prepare(self, op, x, scale, bias, num_groups, normalise, dtype=torch.bfloat16):
         if x.dim() < 2:
             raise ValueError(f"{op}: x must be (B, ..., C), got {tuple(x.shape)}")
         b, c = x.shape[0], x.shape[-1]
@@ -123,15 +125,17 @@ class _GroupStats(Kernel):
         if n < 1 or n * c >= 2**31:
             raise ValueError(f"{op}: {n} rows of {c} channels per sample: 1 to 2^31 elements")
         check_widths(op, C=c)
-        check(op, x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
+        check(op, x.device, x=(x, dtype), scale=(scale, torch.float32),
               bias=(bias, torch.float32))
         route, chunks = gn_plan(b, n, c, num_groups, normalise)
+        if dtype == torch.float32:  # group_norm_f32: the three launches only
+            route, chunks = "three", max(1, min(n, -(-CHUNK_BLOCKS // b)))
         ws = (None if route == "one" else
               torch.empty((b, chunks, 2, c), dtype=torch.float32, device=x.device))
         a, v = (torch.empty((b, c), dtype=torch.float32, device=x.device) for _ in range(2))
         return (x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                 None if ws is None else ws.data_ptr(), a.data_ptr(),
-                v.data_ptr()), (b, n, c, num_groups, chunks), a, v, int(route == "one")
+                v.data_ptr()), (b, n, c, num_groups, chunks), a, v, route
 
 
 class GnAffine(_GroupStats):
@@ -149,16 +153,24 @@ class GnAffine(_GroupStats):
     def _forward(self, x, scale, bias, num_groups, eps):
         if not on_cuda(x, "gn_affine"):
             return gn_affine_plain(x, scale, bias, num_groups, eps)
-        ptrs, dims, a, v, one_launch = self._prepare("gn_affine", x, scale, bias, num_groups,
-                                                     False)
-        self._launch(x.device, *ptrs, *dims, eps, one_launch)
+        ptrs, dims, a, v, route = self._prepare("gn_affine", x, scale, bias, num_groups, False)
+        self._launch(x.device, *ptrs, *dims, eps, int(route == "one"))
         return a, v
 
 
 class GroupNorm(_GroupStats):
+    """``routes`` counts the launches by route: "one" and "three" (bf16,
+    ``gn_plan``'s) and "fp32" (``group_norm_f32``, three launches)."""
+
     entry = "group_norm_bf16"
     # x, scale, bias, ws, a, v, y, b, n, c, groups, chunks, eps, silu, one_launch
     argtypes = (PTR,) * 7 + (I32,) * 5 + (F32, I32, I32)
+    # the same, without one_launch
+    f32_argtypes = (PTR,) * 7 + (I32,) * 5 + (F32, I32)
+
+    def __init__(self):
+        super().__init__()
+        self.routes = {"one": 0, "three": 0, "fp32": 0}
 
     def __call__(self, x, scale, bias, num_groups: int = 32, eps: float = 1e-5,
                  silu: bool = False) -> torch.Tensor:
@@ -171,10 +183,17 @@ class GroupNorm(_GroupStats):
     def _forward(self, x, scale, bias, num_groups, eps, silu):
         if not on_cuda(x, "group_norm"):
             return group_norm_plain(x, scale, bias, num_groups, eps, silu)
-        ptrs, dims, _, _, one_launch = self._prepare("group_norm", x, scale, bias, num_groups,
-                                                     True)
+        f32 = x.dtype == torch.float32
+        ptrs, dims, _, _, route = self._prepare("group_norm", x, scale, bias, num_groups, True,
+                                                x.dtype if f32 else torch.bfloat16)
         y = torch.empty_like(x)
-        self._launch(x.device, *ptrs, y.data_ptr(), *dims, eps, int(silu), one_launch)
+        if f32:
+            self._launch(x.device, *ptrs, y.data_ptr(), *dims, eps, int(silu),
+                         entry=("group_norm_f32", self.f32_argtypes))
+        else:
+            self._launch(x.device, *ptrs, y.data_ptr(), *dims, eps, int(silu),
+                         int(route == "one"))
+        self.routes["fp32" if f32 else route] += 1
         return y
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -74,11 +74,15 @@ class Kernel:
     def __init__(self):
         self.launches = 0
 
-    def _launch(self, device: torch.device, *args) -> None:
-        fn = c_entry(self.library, self.entry, self.argtypes)
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    def _launch(self, device: torch.device, *args,
+                entry: Optional[Tuple[str, tuple]] = None) -> None:
+        """Launch ``entry`` ((name, argtypes); this wrapper's own by default)
+        on ``args`` and count it."""
+        name, argtypes = entry or (self.entry, self.argtypes)
+        err = c_entry(self.library, name, argtypes)(*args,
+                                                    torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"{self.entry} launch failed: cudaError {err}")
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
         self.launches += 1
 
 

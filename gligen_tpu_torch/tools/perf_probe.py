@@ -142,6 +142,19 @@ def category(name: str) -> str:
     return "elementwise/other"
 
 
+# the chrome-trace categories of device work, and the CUDA API calls that
+# put work on the device (cudaLaunchKernel[ExC], cuLaunchKernel[Ex],
+# cudaMemcpy*/cudaMemset* and their driver forms)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+# On the H100, CUPTI now and then drops the device records of the first
+# kernels after the profiler starts (a call's first GroupNorm launches,
+# the whole of a short call), while their launch calls stay in the trace.
+# ``traced`` first launches this many one-element kernels, then cuts
+# them from the trace.
+WARM_LAUNCHES = 64
+
+
 def device_breakdown(trace: dict, phase_of=None):
     """Per-category device ms and launches, the busy ms (union of the
     kernel and copy intervals) and the kernel count of a chrome trace; and
@@ -149,7 +162,7 @@ def device_breakdown(trace: dict, phase_of=None):
     device event's phase."""
     spans, by_cat, by_phase = [], {}, {}
     for ev in trace.get("traceEvents", []):
-        if ev.get("ph") != "X" or ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+        if ev.get("ph") != "X" or ev.get("cat") not in DEVICE_CATS:
             continue
         start, dur = float(ev["ts"]), float(ev.get("dur", 0.0))
         spans.append((start, start + dur))
@@ -167,20 +180,56 @@ def device_breakdown(trace: dict, phase_of=None):
     return by_cat, busy / 1e3, len(spans), by_phase
 
 
+def launch_calls(trace: dict):
+    """({correlation: (name, start µs)} of a chrome trace's launch calls,
+    [(correlation, start µs) of each device record]): the calls are host
+    events (``cuda_runtime``, ``cuda_driver``) named by LAUNCH_PREFIXES;
+    the records are the device's kernels, copies and memsets."""
+    calls, records = {}, []
+    for ev in trace.get("traceEvents", []):
+        if ev.get("ph") != "X":
+            continue
+        corr, ts = ev.get("args", {}).get("correlation"), float(ev.get("ts", 0.0))
+        if ev.get("cat") in ("cuda_runtime", "cuda_driver") and \
+                ev.get("name", "").startswith(LAUNCH_PREFIXES):
+            calls[corr] = (ev["name"], ts)
+        elif ev.get("cat") in DEVICE_CATS:
+            records.append((corr, ts))
+    return calls, records
+
+
+def without_first_launches(trace: dict, n: int) -> dict:
+    """``trace`` less its first ``n`` launch calls (by start) and every
+    event that shares their correlation: their device records and flows."""
+    calls = launch_calls(trace)[0]
+    first = set(sorted(calls, key=lambda c: calls[c][1])[:n])
+    keep = [ev for ev in trace.get("traceEvents", [])
+            if ev.get("args", {}).get("correlation") not in first
+            and not (ev.get("cat") == "ac2g" and ev.get("id") in first)]
+    return {**trace, "traceEvents": keep}
+
+
 def traced(fn, cpu: bool = False):
     """(``fn()``, the chrome trace of that call under ``torch.profiler``):
     CUDA activity only, to keep the profiler's host cost low, or CPU too
-    where a host range must reach the device timeline."""
+    where a host range must reach the device timeline.  WARM_LAUNCHES
+    kernels run first inside the window and are cut from the trace."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
+    warm = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
+        for _ in range(WARM_LAUNCHES):
+            warm.add_(1)
+        torch.cuda.synchronize()
         out = fn()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return out, json.load(f)
+            return out, without_first_launches(json.load(f), WARM_LAUNCHES)
 
 
 def breakdown_lines(by_cat) -> list:

@@ -138,17 +138,17 @@ def make_loss_fn(
     ``loss_fn(batch, generator=None, draws=None)`` -> 0-d fp32 tensor.
     batch: {"image": (B, H, W, 3) in [-1, 1], or "latent_moments":
     (B, h, w, 8) posterior mean | logvar; "input_ids": (B, 77);
-    "grounding": the box tokenizer's inputs}.  The two latent branches give
-    the same loss for the same draws."""
+    "grounding": the box tokenizer's inputs; for an inpaint UNet,
+    "inpainting_mask": (B, h, w, 1) latent keep-mask}.  The two latent
+    branches give the same loss for the same draws."""
     device = next(unet.parameters()).device
     steps = schedule.num_timesteps
 
     def loss_fn(batch: Mapping[str, Any], generator: Optional[torch.Generator] = None,
                 draws: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
-        for key, item in (("inpainting_mask", "M8"), ("grounding_extra", "M9")):
-            if key in batch:
-                raise NotImplementedError(f"batch[{key!r}]: that training branch is not ported "
-                                          f"(ROADMAP {item})")
+        if "grounding_extra" in batch:
+            raise NotImplementedError("batch['grounding_extra']: that training branch is not "
+                                      "ported (ROADMAP M9)")
 
         if draws is not None and set(draws) != set(DRAW_KEYS):
             raise ValueError(f"draws has keys {sorted(draws)}, needs {sorted(DRAW_KEYS)}")
@@ -185,7 +185,12 @@ def make_loss_fn(
         drop = draw("u_drop", (), False) < grounding_drop_prob
         grounding = {k: torch.where(drop, torch.zeros_like(g), g)
                      for k, g in ((k, to_device(v)) for k, v in batch["grounding"].items())}
-        eps = unet(x_noisy, t, context, grounding, gate_scale=1.0, use_sd_conv=False)
+        extra = None
+        if "inpainting_mask" in batch:  # train_step.py:192-195: z * m, then m
+            m = to_device(batch["inpainting_mask"]).float()
+            extra = torch.cat([z.float() * m, m], dim=-1)
+        eps = unet(x_noisy, t, context, grounding, gate_scale=1.0, use_sd_conv=False,
+                   inpainting_extra=extra)
         return ((eps - noise) ** 2).mean() * l_simple_weight
 
     return loss_fn

@@ -157,6 +157,23 @@ def test_kernel_input_checks(change, error):
         _check_inputs(q, k, v, h, bias)
 
 
+@pytest.mark.parametrize("change,error", [(dict(c=6), ValueError), (dict(row_pad=2), ValueError),
+                                          (dict(dtype=torch.bfloat16), TypeError), ({}, None)])
+def test_fp32_route_input_checks(change, error):
+    """The fp32 route takes fp32 q/k/v whose head dim, bases and strides are
+    multiples of 4 elements; anything else raises before a launch."""
+    from gligen_tpu_torch.ops.flash_attention import _check_f32
+
+    b, n, h, c = 2, 8, 2, change.get("c", 16)
+    pad = change.get("row_pad", 0)
+    q = torch.zeros((b, n, h * c + pad), dtype=change.get("dtype", torch.float32))[:, :, :h * c]
+    if error is None:
+        _check_f32(q, q, q, h, None)
+    else:
+        with pytest.raises(error):
+            _check_f32(q, q, q, h, None)
+
+
 def test_port_imports_without_jax_or_nvcc():
     """Every module of the port (the training package and the tools
     included) imports, and a CPU call, its backward, an optimizer step and
@@ -170,7 +187,10 @@ for name in ("jax", "flax", "gligen_tpu"):
 import gligen_tpu_torch, torch
 for mod in pkgutil.walk_packages(gligen_tpu_torch.__path__, "gligen_tpu_torch."):
     importlib.import_module(mod.name)
-assert "gligen_tpu_torch.training.train_step" in sys.modules
+for name in ("training.train_step", "training.checkpoints", "convert.from_reference",
+             "convert.widen", "inference.cli", "utils.registry", "data.inpaint_masks",
+             "tools.reference_ckpt"):
+    assert f"gligen_tpu_torch.{name}" in sys.modules, name
 for tool in ("timing", "perf_probe", "bench_proj", "bench_block", "bench_resblock",
              "bench_sweep_attn"):
     assert f"gligen_tpu_torch.tools.{tool}" in sys.modules, tool

@@ -16,7 +16,10 @@ The log-sum-exp is fp32 on both sides: atol 1e-3 (log2 units); where
 every key of a row is masked by a NEG_INF bias the LSE is about -1.4e30,
 so there it is held to 1e-6 relative.  Every shape a transformer block or
 the VAE gives the kernel takes the TMA route; strided or unaligned inputs
-and head dims that are not multiples of 8 take the copy route.
+and head dims that are not multiples of 8 take the copy route.  fp32
+q/k/v (the inpaint encode's) take the fp32 route, fp32 throughout: its
+outputs within 1e-4 of the plain version's largest magnitude (fp32 sums in
+another order), its LSE within 1e-4.
 """
 
 import pytest
@@ -199,3 +202,44 @@ def test_untabled_tiles_are_refused(cuda):
         launch_fwd("flash_fwd", q, k, v, 2, None, (64, 64, 2))
     with pytest.raises(RuntimeError, match="launch failed"):
         launch_fwd("flash_fwd_sweep", q, k, v, 2, None, (128, 128, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,n,m,h,d,padbias",
+    [
+        (2, 4096, 4096, 1, 512, False),  # the inpaint encode's VAE head
+        (1, 1000, 1030, 1, 512, False),  # ragged query and key tiles
+        (2, 100, 77, 2, 64, True),       # two heads, a masking bias row
+        (1, 33, 5, 3, 4, False),         # the smallest head dim it takes
+    ],
+)
+def test_fp32_route_matches_plain_and_repeats(cuda, monkeypatch, b, n, m, h, d, padbias):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)  # a plain fp32 product
+    gen = torch.Generator(device=cuda).manual_seed(n + m + d)
+    q, k, v = (torch.randn((b, L, h * d), generator=gen, device=cuda) for L in (n, m, m))
+    bias = None
+    if padbias:
+        bias = torch.zeros((b, m), device=cuda)
+        bias[:, m - 20:] = NEG_INF
+    out, lse = launch(q, k, v, h, bias, "fp32")
+    want, want_lse = flash_attention_plain(q, k, v, h, bias=bias)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(out, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    again = flash_fwd(q, k, v, h, bias=bias)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.gpu
+def test_fp32_route_refuses_what_it_does_not_take(cuda):
+    """Head dims and strides that are not multiples of 4 elements raise
+    before any launch."""
+    before = flash_fwd.launches
+    q = torch.zeros((1, 8, 6), device=cuda)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        flash_fwd(q, q, q, 1)
+    q = torch.zeros((1, 8, 66), device=cuda)[:, :, :64]
+    with pytest.raises(ValueError, match="multiples of 4"):
+        flash_fwd(q, q, q, 1)
+    assert flash_fwd.launches == before

@@ -11,7 +11,9 @@ Tolerance, bf16 inputs and outputs of O(1): kernel and plain version take
 fp32 statistics of the same bf16 values in another order, so a normalised
 value may round to the neighbouring bf16 value: about one bf16 ulp (2^-7
 relative), atol 2e-2 plus rtol 1e-2.  The fp32 affine (a, v) agrees to a
-few fp32 ulps: atol 1e-5.
+few fp32 ulps: atol 1e-5.  So does the fp32 GroupNorm (fp32 x and y, the
+inpaint encode's): the same affine y = x * a + v from sums taken in
+another order, atol 1e-5 on outputs up to ~5.
 """
 
 import pytest
@@ -30,8 +32,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def inputs(cuda, shape, seed):
-    """x (B, ..., C) bf16 with a mean and a spread of its own per (sample,
+def inputs(cuda, shape, seed, dtype=BF16):
+    """x (B, ..., C) bf16 (or ``dtype``) with a mean and a spread of its own per (sample,
     channel), so a kernel that reads another group's or sample's statistics
     fails; the fp32 scale and shift (C,)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
@@ -42,7 +44,7 @@ def inputs(cuda, shape, seed):
     b, c = shape[0], shape[-1]
     view = (b,) + (1,) * (len(shape) - 2) + (c,)
     mu, sigma = randn(b, 1) + randn(b, c), (0.5 * randn(b, c)).exp()
-    x = (randn(*shape) * sigma.view(view) + mu.view(view)).to(BF16)
+    x = (randn(*shape) * sigma.view(view) + mu.view(view)).to(dtype)
     return x, 1.0 + 0.1 * randn(c), 0.1 * randn(c)
 
 
@@ -105,12 +107,19 @@ def test_layer_norm_matches_plain(cuda, rows, c):
 
 @pytest.mark.gpu
 def test_refused_inputs_raise(cuda):
-    """fp32 activations, widths that are not multiples of 8 and groups that
-    do not divide the channels are refused before any launch."""
+    """fp16 activations (fp32 ones too, for gn_affine and the LayerNorm),
+    widths that are not multiples of 8 and groups that do not divide the
+    channels are refused before any launch."""
     before = {name: k.launches for name, k in fn.KERNELS.items()}
     ones = torch.ones(64, device=cuda)
     with pytest.raises(TypeError):
-        fn.group_norm_fused(torch.zeros((2, 4, 64), device=cuda), ones, ones)
+        fn.group_norm_fused(torch.zeros((2, 4, 64), dtype=torch.float16, device=cuda), ones, ones)
+    with pytest.raises(TypeError):
+        fn.gn_affine(torch.zeros((2, 4, 64), device=cuda), ones, ones)
+    with pytest.raises(TypeError):
+        fn.layer_norm_fused(torch.zeros((4, 64), device=cuda), ones, ones)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fn.group_norm_fused(torch.zeros((2, 4, 36), device=cuda), ones[:36], ones[:36], 4)
     with pytest.raises(ValueError, match="groups"):
         fn.gn_affine(torch.zeros((2, 4, 48), dtype=BF16, device=cuda), ones[:48], ones[:48])
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -168,3 +177,20 @@ def test_group_norm_silu_is_silu_to_one_bf16_ulp(cuda, monkeypatch, route, shape
     _, e = torch.frexp(want)
     excess = (got.float() - want).abs() - torch.ldexp(torch.ones_like(want), e - 8)
     assert excess.max() <= 0, f"{(excess > 0).sum()} values past one bf16 ulp, worst by {excess.max()}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,silu", [((2, 512, 512, 128), True), ((2, 64, 64, 512), False),
+                                        ((2, 128, 128, 256), True), ((3, 33, 64), False),
+                                        ((2, 5, 7, 32), True)])
+def test_fp32_group_norm_matches_plain_and_repeats(cuda, shape, silu):
+    """fp32 x takes the fp32 route (three launches, fp32 y) at the inpaint
+    encode's maps and at ragged ones: within 1e-5 of the plain version, and
+    a second call bit for bit the first."""
+    x, s, b = inputs(cuda, shape, len(shape) + shape[-1], torch.float32)
+    routes = dict(fn.group_norm_fused.routes)
+    launch_and_compare(fn.group_norm_fused, lambda: fn.group_norm_fused(x, s, b, 32, 1e-6, silu),
+                       lambda: fn.group_norm_plain(x, s, b, 32, 1e-6, silu), atol=1e-5, rtol=0)
+    assert fn.group_norm_fused.routes == dict(routes, fp32=routes["fp32"] + 1)
+    y = fn.group_norm_fused(x, s, b, 32, 1e-6, silu)
+    assert y.dtype == torch.float32 and torch.equal(y, fn.group_norm_fused(x, s, b, 32, 1e-6, silu))

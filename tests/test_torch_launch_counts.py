@@ -24,6 +24,7 @@ import torch
 
 from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
 from gligen_tpu_torch.ops import basic, flash_attention, fused_conv, fused_norm, fused_proj
+from gligen_tpu_torch.tools import perf_probe
 from gligen_tpu_torch.training.train_step import create_train_state, make_train_step
 
 torch.set_num_threads(1)
@@ -77,6 +78,37 @@ def test_expected_launches_match_the_calls(monkeypatch, small, config, latent):
     assert ("gn_silu_conv3x3" in kernels) == (config == "c")
 
 
+@pytest.fixture(scope="module")
+def small_inpaint():
+    small = dict(chip_smoke.SMALL,
+                 unet_config=dict(chip_smoke.SMALL["unet_config"], inpaint_mode=True))
+    comps = GligenComponents.create(dtype=torch.float32, seed=0, device="cpu", **small)
+    chip_smoke.dezero_(comps.unet, torch.Generator().manual_seed(2))
+    return comps
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "plms"])
+@pytest.mark.parametrize("config", sorted(chip_smoke.CONFIGS))
+def test_expected_inpaint_launches_match_the_calls(monkeypatch, small_inpaint, config, sampler):
+    """An inpaint request (the smoke's phase 10, no alpha stages) with each
+    sampler: the inpaint UNet's calls and the encode's attention and
+    GroupNorms (``expected_fp32``, the fp32 routes on the card)."""
+    calls = count_calls(monkeypatch, config)
+    latent = 16
+    ids, uc, grounding, inpaint = chip_smoke.inpaint_request(
+        np.random.default_rng(1), 1, 1000, 64, 2 * latent, latent)
+    noise = np.random.default_rng(2).standard_normal((1, latent, latent, 4)).astype(np.float32)
+    with torch.no_grad():
+        GenerationPipeline(small_inpaint).generate(ids, uc, grounding, steps=4, sampler=sampler,
+                                                   latent_size=latent, noise=noise, **inpaint)
+    expected, gated, free = chip_smoke.expected_launches(small_inpaint, 4, None, latent, config,
+                                                         sampler=sampler, inpaint=True)
+    assert (gated, free) == ((5, 0) if sampler == "plms" else (4, 0))
+    assert {name: calls[name] for name in expected} == expected
+    fp32 = chip_smoke.expected_fp32(small_inpaint, config)
+    assert fp32 == {"flash_fwd": 1, "group_norm": 10}  # every config runs the GroupNorm kernel
+
+
 @pytest.mark.parametrize("use_checkpoint", [True, False])
 @pytest.mark.parametrize("config", sorted(chip_smoke.CONFIGS))
 def test_expected_train_launches_match_the_calls(monkeypatch, config, use_checkpoint):
@@ -97,3 +129,63 @@ def test_expected_train_launches_match_the_calls(monkeypatch, config, use_checkp
     assert {name: calls[name] for name in expected} == expected
     assert 0 < expected["flash_bwd_dkv"] < expected["flash_bwd_dq"]
     assert (expected["ln_matmuls"] > 0) == (config != "b")
+
+
+def _trace(calls, records):
+    """A chrome trace as torch.profiler writes it on the card: host events
+    (name, correlation) and the device records (category, correlation)."""
+    events = [{"ph": "M", "name": "process_name", "args": {"name": "python"}}]
+    events += [{"ph": "X", "cat": "cuda_runtime", "name": n, "ts": i, "dur": 1,
+                "args": {"correlation": c}} for i, (n, c) in enumerate(calls)]
+    events += [{"ph": "f", "cat": "ac2g", "name": "ac2g", "id": c} for _, c in calls]
+    events += [{"ph": "X", "cat": cat, "name": f"{cat} {c}", "ts": 100 + c, "dur": 1,
+                "args": {"correlation": c}} for cat, c in records]
+    return {"traceEvents": events}
+
+
+# (host calls, device records, launches counted, device records kept); the
+# one-launch GroupNorm's calls as the H100 trace has them, with its record
+# and without (CUPTI dropped it); the three-launch route with its first
+# record dropped; a copy and a memset; synchronisations alone
+_ONE = [("cudaFuncSetAttribute", 58), ("cudaFuncSetAttribute", 59),
+        ("cudaLaunchKernelExC", 60), ("cudaDeviceSynchronize", 63)]
+_THREE = [("cudaLaunchKernel", 7), ("cudaLaunchKernel", 8), ("cudaLaunchKernel", 9),
+          ("cudaDeviceSynchronize", 10)]
+
+
+@pytest.mark.parametrize("calls, records, n_calls, n_records", [
+    (_ONE, [("kernel", 60)], 1, 1),
+    (_ONE, [], 1, 0),
+    (_THREE, [("kernel", 8), ("kernel", 9)], 3, 2),
+    ([("cudaMemsetAsync", 1), ("cudaMemcpyAsync", 2), ("cuLaunchKernel", 3)],
+     [("gpu_memset", 1), ("gpu_memcpy", 2), ("kernel", 3)], 3, 3),
+    ([("cudaDeviceSynchronize", 1), ("cudaStreamIsCapturing", 2)], [], 0, 0),
+], ids=["one_launch", "one_launch_record_dropped", "three_launch_first_dropped",
+        "copy_memset_driver", "no_launch"])
+def test_launch_calls_counts_the_host_calls(calls, records, n_calls, n_records):
+    got_calls, got_records = perf_probe.launch_calls(_trace(calls, records))
+    assert len(got_calls) == n_calls
+    assert len(got_records) == n_records
+    assert all(c in got_calls for c, _ in got_records)
+    # the starts: each call at its index, each record at 100 + its correlation
+    assert {c: ts for c, (_, ts) in got_calls.items()} == {
+        c: float(i) for i, (_, c) in enumerate(calls) if c in got_calls}
+    assert [ts for _, ts in got_records] == [100.0 + c for _, c in records]
+
+
+def test_without_first_launches_cuts_the_warm_up():
+    """``traced``'s warm-up launches leave the trace with their device
+    records and flows; the call's own launches, records and other host
+    events stay, whatever order the events are written in."""
+    warm = [("cudaLaunchKernel", c) for c in range(1, 4)]
+    sync = [("cudaDeviceSynchronize", 4)]
+    own = [("cudaLaunchKernelExC", 9), ("cudaLaunchKernel", 10)]
+    trace = _trace(warm + sync + own, [("kernel", c) for c in (10, 1, 2, 3, 9)])
+    trace["traceEvents"].reverse()
+    cut = perf_probe.without_first_launches(trace, len(warm))
+    calls, records = perf_probe.launch_calls(cut)
+    assert sorted(calls) == [9, 10] and sorted(c for c, _ in records) == [9, 10]
+    flows = sorted(ev["id"] for ev in cut["traceEvents"] if ev.get("cat") == "ac2g")
+    assert flows == [4, 9, 10]
+    assert any(ev.get("name") == "cudaDeviceSynchronize" for ev in cut["traceEvents"])
+    assert perf_probe.device_breakdown(cut)[2] == 2
