@@ -21,9 +21,12 @@ Phases, each of which fails the run with a non-zero exit:
      middle block; the VAE's single 512-wide head over 4096 tokens; and
      attn1 at ds1 of a 1024^2 image, checked 512 query rows at a time;
      each row with its route, TF/s and share of the bound, and every one
-     must take the TMA route; and the fp32 route at the inpaint encode's
-     VAE head, held to FP32_REL_TOL of its plain output's largest
-     magnitude and repeated bit for bit, beside SDPA in fp32);
+     must take the TMA route; and the fp32 route (3xTF32 wgmma) at the
+     inpaint encode's VAE head, held to FP32_REL_TOL of its plain output's
+     largest magnitude and repeated bit for bit, beside SDPA in fp32, with
+     a TF32 witness (the plain version's error with one-pass TF32, which
+     must exceed the limit at one row at least) and its 3xTF32 and fp32
+     FMA bounds);
      per level the fused projections (ln_matmuls for q/k/v, for q alone
      and for the fuser's k/v over N+30 rows, matmul_residual for to_out
      and net_2, ln_geglu) and the matmul-only mode of the same kernel
@@ -134,8 +137,8 @@ from pathlib import Path
 
 # the card's name, the bound, the timer and the de-zeroing, shared with the
 # package's tools
-from gligen_tpu_torch.tools.timing import (FP32_FLOP_PER_S, bound, card_line, dezero_,
-                                           time_ms)
+from gligen_tpu_torch.tools.timing import (FP32_FLOP_PER_S, TF32_TENSOR_FLOP_PER_S, bound,
+                                           card_line, dezero_, time_ms)
 
 REPO = Path(__file__).resolve().parent
 SOURCES = ("flash_fwd", "flash_fwd_sweep", "flash_bwd", "flash_bwd_sweep", "fused_proj",
@@ -160,10 +163,11 @@ PROJ_ATOL, PROJ_RTOL = 2e-2, 1e-2
 # gn_affine's fp32 (a, v) vs plain: fp32 sums of the same values in another
 # order, a few fp32 ulps
 AFFINE_TOL = 1e-5
-# the flash forward's fp32 route vs plain (fp32 on both sides, the products
-# summed in another order and exp2 to a few fp32 ulps): each output within
-# FP32_REL_TOL of the plain output's largest magnitude, the LSE (log2 units)
-# within FP32_LSE_TOL
+# the flash forward's fp32 route vs plain: 3xTF32 products (each ~2^-22 of
+# a product dropped) summed in another order, chains of wgmma accumulations
+# cut at 12 and 48 steps and summed in fp32, and exp2 to a few fp32 ulps:
+# each output within FP32_REL_TOL of the plain output's largest magnitude,
+# the LSE (log2 units) within FP32_LSE_TOL.  One-pass TF32 exceeds it
 FP32_REL_TOL = 1e-4
 FP32_LSE_TOL = 1e-4
 # the fp32 GroupNorm vs plain: the same fp32 affine y = x * a + v from sums
@@ -379,7 +383,15 @@ def check_kernel_f32(torch, device, batch):
     """The flash forward's fp32 route at the inpaint encode's VAE head,
     (batch, 4096, 1x512) fp32, and at a ragged (1, 1000, 1x512) against
     1030 keys: each against the plain version on the same fp32 tensors
-    (TF32 off), a second call bit for bit the first, beside SDPA in fp32."""
+    (TF32 off), a second call bit for bit the first, beside SDPA in fp32.
+
+    Each row prints a TF32 witness, held to nothing: the plain version's
+    own error with one-pass TF32 products (``allow_tf32``) on the same
+    inputs.  At least one row's witness must exceed its limit, or the rows
+    could not tell the kernel's fp32 from TF32.  Each row prints two
+    bounds: the 3xTF32 tensor-core arithmetic the kernel does (3 x 4 B H N
+    M d at TF32_TENSOR_FLOP_PER_S; its share of the bound is taken against
+    this one) and the fp32 FMA rate's."""
     from gligen_tpu_torch.ops.flash_attention import flash_attention_plain, flash_fwd
 
     gen = torch.Generator(device=device).manual_seed(6)
@@ -395,24 +407,38 @@ def check_kernel_f32(torch, device, batch):
         repeats = all(torch.equal(x, y) for x, y in zip((out, lse), flash_fwd(q, k, v, h)))
         finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
         limit = FP32_REL_TOL * want.abs().max().item()
+        before = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            witness = (flash_attention_plain(q, k, v, h)[0] - want).abs().max().item()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = before
         ms = time_ms(lambda: flash_fwd(q, k, v, h))
         plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, h))
         library_ms = time_ms(lambda: sdpa(torch, q, k, v, h, None))
         flops = 4 * b * h * n * m * d
-        bound_ms, bound_by = bound(4 * (2 * b * n * h * d + 2 * b * m * h * d) + 4 * b * h * n,
-                                   flops, FP32_FLOP_PER_S)
+        nbytes = 4 * (2 * b * n * h * d + 2 * b * m * h * d) + 4 * b * h * n
+        bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_TENSOR_FLOP_PER_S)
+        fma_ms, fma_by = bound(nbytes, flops, FP32_FLOP_PER_S)
         ok = (finite and err <= limit and lse_err <= FP32_LSE_TOL and repeats and route == "fp32"
               and out.dtype == torch.float32)
         print(f"kernel {name:18s} q ({b},{n},{h}x{d}) kv {m} fp32: max_abs_err {err:.3e} (tol "
               f"{limit:.3e}) lse_err {lse_err:.3e} (tol {FP32_LSE_TOL}) repeats {repeats} route "
-              f"{route} kernel {ms:.4f} ms {flops / ms / 1e9:.1f} TF/s "
-              f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.4f} ms sdpa fp32 "
-              f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+              f"{route} TF32 witness {witness:.3e} ({witness / limit:.2f}x the tol) kernel "
+              f"{ms:.4f} ms {flops / ms / 1e9:.1f} TF/s {100 * bound_ms / ms:.1f}% of bound; plain "
+              f"{plain_ms:.4f} ms sdpa fp32 {library_ms:.4f} ms bound {bound_ms:.4f} ms (3xTF32 "
+              f"{bound_by}, the kernel's) fp32 FMA bound {fma_ms:.4f} ms ({fma_by}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         results.append(dict(name=name, kind="flash_fwd_fp32", err=err, lse_err=lse_err, ms=ms,
                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, route=route, ok=ok))
+                            bound_by=bound_by, route=route, ok=ok, limit=limit,
+                            tf32_witness=witness))
         del q, k, v, out, lse, want, want_lse
+    if not any(r["tf32_witness"] > r["limit"] for r in results):
+        print("kernel flash_fwd_fp32: one-pass TF32 is within every row's tol, so the rows cannot "
+              "tell fp32 from TF32 FAIL", flush=True)
+        for r in results:
+            r["ok"] = False
     torch.cuda.empty_cache()
     return results
 

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out, fp32 softmax.
+// Flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out, fp32 softmax;
+// and its fp32 route (3xTF32 on the tensor cores).
 //
 // Replaces the TPU Pallas forwards of gligen_tpu/ops/pallas_attention.py:
 //   * the single-KV forwards: _packed_fwd_impl's pallas_call at :836 and
@@ -65,19 +66,48 @@
 //
 // fp32 q/k/v (flash_fwd_f32, below): the inpaint image's fp32 VAE encode
 // runs its mid-attention (B, 4096, 1 x 512) in fp32, as the TPU kernel
-// computes it (pallas_attention.py:328-380, q/k/v cast to fp32).  TF32
-// wgmma would not be fp32, so this route is a plain CUDA-core kernel: a
-// block of 256 threads owns 32 query rows, 4 a warp, held in registers
-// (each lane 16 columns of the 4 rows, as it holds O); K and V tiles of 32
-// keys stream through shared memory by cp.async (V's copy runs under
-// S = Q K^T, the next K's under P V).  Each lane sums its columns' share of
-// the 4 x 8 scores of 8 keys and a reduce-scatter over the warp leaves the
-// lane one whole score; the online softmax runs in registers, a row over 8
-// lanes.  Its bound is the fp32 FMA rate: 4 B N M d operations, 68.7 GFLOP
-// at (2, 4096, 512), 1.0 ms at 67 TFLOP/s.  Every warp reads every K and V
-// row of a tile from shared memory for 4 rows' FMAs, 1 byte an FMA: shared
-// memory's 128 bytes a cycle match the SM's 128 FMAs, so the two limits
-// meet at this tile (more rows a warp would not fit the registers).
+// computes it (_fwd_kernel, pallas_attention.py:328-380, behind _fwd_impl's
+// streamed pallas_call at :466, q/k/v cast to fp32).  wgmma has no fp32
+// operands, and one TF32 pass keeps ~3 digits, so both products run as
+// 3xTF32: x = hi + lo with hi = rna(x) and lo = rna(x - hi) (TF32 rounded
+// to nearest, ties away, as cvt.rna.tf32.f32 rounds; wgmma reads only a
+// TF32 operand's top 19 bits, so lo is rounded too) and a b ~ hi_a hi_b +
+// hi_a lo_b + lo_a hi_b, which drops ~2^-22 of each product.  Its bound is
+// the tensor cores': 3 x 4 B N M d = 206 GFLOP at (2, 4096, 512), 0.42 ms
+// at 495 TFLOP/s of TF32 (1.03 ms at the 67 TFLOP/s of fp32 FMAs).  What
+// the design does about d = 512 in fp32:
+//   * keys are the products' M rows and 32 queries their N (a block):
+//     S^T = K Q^T and O^T = V^T P^T.  A 64 x 512 fp32 O would be 256
+//     registers a thread, and Q's 64 rows as hi + lo 256 KB; O^T over 32
+//     queries is 64 registers a thread over two warpgroups (256 head-dim
+//     rows each), and Q's hi + lo 128 KB, split once a block;
+//   * TF32 wgmma has no transposed operand: B must be K-major.  Q as
+//     stored is K-major for S^T; P^T is written K-major (keys contiguous
+//     per query) by the softmax.  The A operands, K and V^T, come from
+//     registers: K by ldmatrix from its 128-byte swizzled fp32 tile, V^T by
+//     16-byte loads of V rows, which is the transpose (the thread's 8
+//     head-dim rows of O^T are two 4-column chunks of one swizzle atom, so
+//     one load feeds two tiles and 8 lanes' loads hit 32 banks);
+//   * the split runs ~3 operations an operand value on the CUDA cores, as
+//     integer adds and masks: cvt's conversion pipe runs at a quarter of
+//     their rate and set the pace;
+//   * each consumer warpgroup computes S^T for 64 of a tile's 128 keys; the
+//     column (query) maxima meet through shared memory, each warpgroup
+//     writes its half of P hi / lo, and both read all of it for their half
+//     of O^T.  The online softmax, the rescale of O and the final
+//     normalisation stay fp32.  The tensor cores do not round a chain of
+//     accumulations to nearest, so each K slice's S^T (12 wgmmas) and each
+//     tile's O^T (48) starts from zero and is added by fp32 adds;
+//   * K (32 columns x 64 keys, one TMA request) and V (8 keys x 256
+//     columns, one request through a 5-D map) arrive from fp32 tensor maps
+//     into a ring of 4 stages a warpgroup, fed by the warpgroup's thread 0
+//     while the step's products run (no producer warp: a ninth warp would
+//     cap the block at 168 registers; the kernel uses ~250).  Rows past M
+//     and columns past d are TMA's zeros, keys at or past M get -inf
+//     (P = 0), queries past N are not stored.  Blocks start their key loop
+//     at different tiles, so the 256 blocks do not read the same lines at
+//     once.  A two-block cluster sharing each K/V stage by multicast was
+//     slower (each refill then waits for the other block) and is not used.
 //
 // The tile configuration per class comes from the wrapper's fixed table
 // (ops/flash_attention.py:FWD_TILES), which this library is built at
@@ -484,227 +514,470 @@ cudaError_t dispatch(Params& p, int batch, int bq, int bk, int stages, cudaStrea
 
 namespace f32 {
 
-constexpr int kBQ = 32, kBK = 32, kThreads = 256;
-constexpr int kChunks = 4;  // O columns a thread: 4 x 4 of 512, lane-strided
+constexpr int kBQ = 32;          // query rows a block: the products' N
+constexpr int kKeys = 128;       // keys a tile: 64 a consumer warpgroup in S^T
+constexpr int kThreads = 256;    // two consumer warpgroups; thread 0 of each feeds its ring
+constexpr int kStages = 4;       // ring stages a warpgroup
+constexpr int kStageBytes = 8192;
+constexpr int kMaxSlices = 16;   // 32-column slices of d <= 512
+constexpr int kQBytes = kMaxSlices * kBQ * 128;  // Q's hi (or lo): 32 rows x 512, 64 KB
+constexpr int kPBytes = kKeys * kBQ * 4;         // P's hi (or lo): 128 keys x 32, 16 KB
+constexpr int kOffP = 2 * kQBytes;
+constexpr int kOffRing = kOffP + 2 * kPBytes;
+constexpr int kOffRed = kOffRing + 2 * kStages * kStageBytes;
+constexpr int kOffBar = kOffRed + 8 * kBQ * 4;  // a row of 32 per warp
+constexpr int kSmem = kOffBar + 8 * 2 * kStages + 1024;  // + alignment slack
+static_assert(kSmem <= 232448, "shared memory");
 
 struct Params {
+  // K: 32 columns x 64 keys a box; V: 32 columns x 8 keys; V as (32, key,
+  // atom, head, batch): 8 atoms x 8 keys a box, one request for a whole
+  // V chunk (d % 32 == 0)
+  CUtensorMap tk, tv, tv5;
   const float* q;
-  const float* k;
-  const float* v;
   const float* bias;  // (B, M) rows at stride bias_sb, or null
   float* o;
   float* lse;  // (B, H, N) contiguous
   int heads, n, m, d;
-  long long q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn, bias_sb;
-  float scale_log2;
+  long long q_sb, q_sh, q_sn, o_sb, o_sh, o_sn, bias_sb;
+  float scale_log2;  // softmax scale * log2(e)
 };
 
-// 16 bytes from global to shared memory, or zeros past the tensor's rows.
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
+// TF32 of x, rounded to nearest with ties away from zero, as a 32-bit
+// operand: what cvt.rna.tf32.f32 gives, by two integer operations (half a
+// TF32 ulp added to the magnitude's bits, the low 13 bits cleared), since
+// cvt runs on the conversion pipe at a quarter of the integer rate.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// x = hi + lo to ~2^-22 relative: lo = x - hi is exact in fp32 and is
+// rounded too, since wgmma reads only a TF32 operand's top 19 bits.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
 template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows row0..row0+31 of a (rows, d) operand at row stride sn into a tile of
-// row stride ld; rows at or past `rows` are zeros.
-__device__ __forceinline__ void load_tile(float* tile, int ld, const float* base, long long sn,
-                                          int row0, int rows, int d) {
-  const int per_row = d / 4;
-  for (int i = threadIdx.x; i < 32 * per_row; i += kThreads) {
-    const int r = i / per_row, c = 4 * (i - r * per_row);
-    const bool valid = row0 + r < rows;
-    cp16(tile + r * ld + c, valid ? base + (row0 + r) * sn + c : base, valid);
-  }
-}
-
-// One step of a reduce-scatter over the warp: the lane keeps the half of
-// a[0..2W) that its lane bit W selects, plus its partner's same half.
-template <int W>
-__device__ __forceinline__ void reduce_half(float (&a)[32], int lane) {
-  const bool upper = lane & W;
+__device__ __forceinline__ void pin_u(uint32_t (&r)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float send = upper ? a[i] : a[i + W];
-    a[i] = (upper ? a[i + W] : a[i]) + __shfl_xor_sync(0xffffffffu, send, W);
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+template <int ID>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(kThreads) : "memory");
+}
+
+// The feeder's TMA requests as predicated instructions, so that the ring's
+// refill is the same code in every thread of a warpgroup: a branch on the
+// thread inside the products' pipeline would make ptxas serialize them.
+__device__ __forceinline__ void expect_tx_if(bool pred, uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(bar),
+      "r"(bytes), "r"((int)pred)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_5d_if(bool pred, uint32_t dst, const CUtensorMap* map,
+                                               uint32_t bar, int c0, int c1, int c2, int c3,
+                                               int c4) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %8, 0;\n"
+      "@p cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(bar), "r"((int)pred)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d_if(bool pred, uint32_t dst, const CUtensorMap* map,
+                                               uint32_t bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %7, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+
+// The A fragments of one warpgroup product step, as hi and lo: four
+// fragments of four TF32 values a thread.
+struct Frags {
+  uint32_t hi[4][4], lo[4][4];
+};
+
+// Which item of a warpgroup's stream comes next: per key tile, the K
+// slices (32 columns x the warpgroup's 64 keys) and then the V chunks (8
+// keys x the warpgroup's 256 columns), as many as the tile has keys.
+struct Feed {
+  int i = 0, j = 0, tile;  // i: tiles done; tile = (first + i) % tiles
+  int first, tiles;
+  __device__ Feed(int first_, int tiles_) : tile(first_), first(first_), tiles(tiles_) {}
+  __device__ void advance(int slices, int m) {
+    if (++j == slices + min(16, (m - tile * kKeys + 7) / 8)) {
+      j = 0;
+      tile = (first + ++i) % tiles;
+    }
+  }
+};
+
+// Load `item` into a ring stage.  A TMA request takes its thread hundreds
+// of cycles to issue, so a V chunk is one request where d % 32 == 0 (the
+// 5-D map puts its 8 atoms where the 4-D boxes would), and otherwise one
+// per atom from as many threads at once.  `lead`: the warpgroup's thread 0.
+__device__ __forceinline__ void issue(bool lead, int wtid, const Params& p, const Feed& item,
+                                      int slices, int wg, uint8_t* stage, uint32_t full, int h,
+                                      int b) {
+  const int k0 = item.tile * kKeys;
+  if (item.j < slices) {
+    expect_tx_if(lead, full, kStageBytes);
+    tma_load_4d_if(lead, smem_u32(stage), &p.tk, full, 32 * item.j, h, k0 + 64 * wg, b);
+    return;
+  }
+  // the 32-column atoms of this warpgroup's 256 that hold columns < d; the
+  // rest of the stage feeds only O rows at or past d, never stored
+  const int atoms = max(0, min(8, (p.d - 256 * wg + 31) / 32));
+  const int key0 = k0 + 8 * (item.j - slices);
+  if (p.d % 32 == 0) {
+    expect_tx_if(lead, full, atoms ? kStageBytes : 0);
+    tma_load_5d_if(lead && atoms, smem_u32(stage), &p.tv5, full, 0, key0, 8 * wg, h, b);
+  } else {
+    expect_tx_if(lead, full, atoms * 1024);
+    tma_load_4d_if(wtid < atoms, smem_u32(stage + wtid * 1024), &p.tv, full, 256 * wg + 32 * wtid,
+                   h, key0, b);
   }
 }
 
-// 32 values a lane -> lane l holds the warp's sum of value l, in 31 shuffles.
-__device__ __forceinline__ float reduce_scatter(float (&a)[32], int lane) {
-  reduce_half<16>(a, lane);
-  reduce_half<8>(a, lane);
-  reduce_half<4>(a, lane);
-  reduce_half<2>(a, lane);
-  reduce_half<1>(a, lane);
-  return a[0];
+// The V map of a d % 32 == 0 head: (32 columns, key, 32-column atom, head,
+// batch), boxes of 32 x 8 keys x 8 atoms, laid out in shared memory atom by
+// atom as the 4-D map's boxes would be, 128-byte swizzled by key.
+bool make_map_v5(CUtensorMap* map, const void* base, int d, int heads, int m, int batch,
+                 long long sh, long long sn, long long sb) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[5] = {32, (cuuint64_t)m, (cuuint64_t)(d / 32), (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[4] = {(cuuint64_t)(sn * 4), 128, (cuuint64_t)(sh * 4),
+                                 (cuuint64_t)(sb * 4)};
+  const cuuint32_t box[5] = {32, 8, 8, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(const Params p) {
-  extern __shared__ __align__(16) float sm[];
-  const int ld = p.d + 4;  // rows 4 banks apart
-  float* sK = sm;
-  float* sV = sK + kBK * ld;
-  float* sP = sV + kBK * ld;      // (BK, BQ): P transposed, a key's 4 rows in one read
-  float* sAlpha = sP + kBK * kBQ;  // (BQ): each row's rescale of O this tile
-
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / 128, w = tid / 32 % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-  const int ntiles = (p.m + kBK - 1) / kBK;
+  const int slices = (p.d + 31) / 32;
+  const int ntiles = (p.m + kKeys - 1) / kKeys;
+  const int total = ntiles * slices + (p.m + 7) / 8;  // items of each warpgroup's stream
+  uint8_t* ring = smem + kOffRing + wg * kStages * kStageBytes;
+  const uint32_t bars = smem_u32(smem + kOffBar);
+  auto full = [&](int s) { return bars + 8 * (wg * kStages + s); };
+  float* red = reinterpret_cast<float*>(smem + kOffRed);
+  const uint32_t sq = smem_u32(smem), sp = smem_u32(smem + kOffP);
 
-  // The warp's 4 query rows in registers, each lane the columns 4 lane +
-  // 128 c (+0..3), scaled by scale * log2(e); zeros past N and d.  O has
-  // the same layout.
-  float q[4][kChunks][4], o[4][kChunks][4];
-  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + warp * 4 + r;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int col = 4 * lane + 128 * c;
+  if (tid == 0) {
+    for (int s = 0; s < 2 * kStages; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const bool feeder = tid % 128 == 0;
+  // Blocks start their key loop at different tiles, so that the blocks in
+  // flight do not all read the same K and V lines at once.
+  const int first = blockIdx.x % ntiles;
+  Feed feed(first, ntiles);  // every thread of the warpgroup tracks its stream
+  for (int u = 0; u < min(kStages, total); ++u, feed.advance(slices, p.m))
+    issue(feeder, tid % 128, p, feed, slices, wg, ring + u * kStageBytes, full(u), h, b);
+
+  // Q's 32 rows split once into hi and lo, K-major 128-byte swizzled atoms
+  // of 32 columns (wgmma's B of S^T = K Q^T); zeros past N and d
+  {
+    const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+    const int per_row = slices * 8;
+    for (int i = tid; i < kBQ * per_row; i += kThreads) {
+      const int r = i / per_row, c4 = i % per_row;
       float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (row < p.n && col < p.d) x = *reinterpret_cast<const float4*>(qb + row * p.q_sn + col);
-      q[r][c][0] = x.x * p.scale_log2, q[r][c][1] = x.y * p.scale_log2;
-      q[r][c][2] = x.z * p.scale_log2, q[r][c][3] = x.w * p.scale_log2;
-      o[r][c][0] = o[r][c][1] = o[r][c][2] = o[r][c][3] = 0.0f;
+      if (q0 + r < p.n && 4 * c4 < p.d)
+        x = *reinterpret_cast<const float4*>(qb + (q0 + r) * p.q_sn + 4 * c4);
+      uint4 hi, lo;
+      split(x.x, hi.x, lo.x);
+      split(x.y, hi.y, lo.y);
+      split(x.z, hi.z, lo.z);
+      split(x.w, hi.w, lo.w);
+      const int off = (c4 / 8) * kBQ * 128 + r * 128 + (((c4 % 8) ^ (r & 7)) << 4);
+      *reinterpret_cast<uint4*>(smem + off) = hi;
+      *reinterpret_cast<uint4*>(smem + kQBytes + off) = lo;
     }
-  }
-  // the softmax's row and keys: row warp * 4 + lane / 8, keys lane % 8 + 8 j
-  const int sr = warp * 4 + lane / 8, sc = lane % 8;
-  float mrow = -INFINITY, lrow = 0.0f;
-
-  load_tile(sK, ld, kb, p.k_sn, 0, p.m, p.d);
-  cp_commit();
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * kBK;
-    load_tile(sV, ld, vb, p.v_sn, k0, p.m, p.d);  // under the S product
-    cp_commit();
-    cp_wait<1>();  // this K
+    fence_proxy_async();
     __syncthreads();
-
-    // S = Q K^T, 8 keys at a time: each lane's partial sums over its
-    // columns for the warp's 4 rows (value r * 8 + key), then summed over
-    // the warp so that the lane holds (row lane / 8, key lane % 8)
-    float s[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float part[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) part[i] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const float* kr = sK + (8 * j + kk) * ld;
-#pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          if (4 * lane + 128 * c < p.d) {
-            const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * lane + 128 * c);
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              float acc = part[r * 8 + kk];
-              acc = fmaf(q[r][c][0], kv.x, acc);
-              acc = fmaf(q[r][c][1], kv.y, acc);
-              acc = fmaf(q[r][c][2], kv.z, acc);
-              part[r * 8 + kk] = fmaf(q[r][c][3], kv.w, acc);
-            }
-          }
-        }
-      }
-      s[j] = reduce_scatter(part, lane);
-    }
-    // the online softmax in log2 units, the row over the 8 lanes lane / 8
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + sc + 8 * j;
-      float x = s[j];
-      if (bias && col < p.m) x = fmaf(bias[col], kLog2e, x);
-      s[j] = col < p.m ? x : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float mnew = fmaxf(mrow, mx);
-    const float use = mnew == -INFINITY ? 0.0f : mnew;  // a row with no key yet keeps O = 0
-    const float alpha = exp2f(mrow - use);
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[j] = exp2f(s[j] - use);
-      sum += s[j];
-      sP[(sc + 8 * j) * kBQ + sr] = s[j];
-    }
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    lrow = lrow * alpha + sum;
-    mrow = mnew;
-    if (sc == 0) sAlpha[sr] = alpha;
-    __syncthreads();  // every thread is done with this K; P and alpha are written
-
-    if (it + 1 < ntiles) {
-      load_tile(sK, ld, kb, p.k_sn, k0 + kBK, p.m, p.d);  // under the P V product
-      cp_commit();
-      cp_wait<1>();  // this V
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-
-    const float4 al = *reinterpret_cast<const float4*>(sAlpha + warp * 4);
-    const float a4[4] = {al.x, al.y, al.z, al.w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[r][c][e] *= a4[r];
-    const int kvalid = min(kBK, p.m - k0);
-    for (int j = 0; j < kvalid; ++j) {
-      const float4 pj = *reinterpret_cast<const float4*>(sP + j * kBQ + warp * 4);
-      const float pr[4] = {pj.x, pj.y, pj.z, pj.w};
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        if (4 * lane + 128 * c < p.d) {
-          const float4 vv = *reinterpret_cast<const float4*>(sV + j * ld + 4 * lane + 128 * c);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            o[r][c][0] = fmaf(pr[r], vv.x, o[r][c][0]);
-            o[r][c][1] = fmaf(pr[r], vv.y, o[r][c][1]);
-            o[r][c][2] = fmaf(pr[r], vv.z, o[r][c][2]);
-            o[r][c][3] = fmaf(pr[r], vv.w, o[r][c][3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // done with this V and P before the next tile's copies
   }
 
-  // normalise once: row warp * 4 + r's sum is held by lane 8 r
+  // S^T: s[4j + 2hf + e] = (key 16w + g + 8hf of the warpgroup's 64, query
+  // 8j + 2t + e).  O^T: o[i][4j + 2hf + e] = (head-dim column col(i, hf),
+  // query 8j + 2t + e), where the thread's 8 columns are two 4-column
+  // chunks, L1 and L2 = L1 + 2, of 32-column atom 2w + g / 4 of the
+  // warpgroup's 256: i = 0, 1 in L1, i = 2, 3 in L2, at 2 (i % 2) + hf.
+  // So one 16-byte load of a V row gives a key's values for two tiles, and
+  // the chunks {0, 4, 1, 5}[g % 4] keep 8 lanes' loads on 32 banks.
+  //
+  // The tensor cores sum a product's terms into the accumulator without
+  // rounding to nearest, so the error of a chain of wgmmas grows with its
+  // length (~1536 steps of O over 4096 keys lost ~5e-5 of O).  So each K
+  // slice's S^T (12 steps) and each tile's O^T (48) start from zero and are
+  // added to s and o by fp32 adds, in a fixed order.
+  const int atom = 2 * w + g / 4, l1 = (g % 4) / 2 + 4 * (g % 2);
+  float o[4][16], ot[4][16], s[16];
+  float mrow[8], lrow[8], alpha[8];  // per query column 2j + e
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) o[i][e] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) mrow[c] = -INFINITY, lrow[c] = 0.0f;
+  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+  Frags f;  // the current item's A fragments
+  int u = 0;  // items consumed
+
+  // Refill the stage of the item before the current one with the item
+  // kStages after it.  That stage is free: the warpgroup's products of its
+  // item completed (wgmma_wait) before this item began, and they took their
+  // A fragments from all four warps' registers, so every warp had finished
+  // its loads from the stage.  Called with the current item's products in
+  // flight, so that the requests' issue runs under them.
+  auto refill = [&]() {
+    if (u > 1 && u - 2 + kStages < total) {
+      const int prev = (u - 2) % kStages;
+      issue(feeder, tid % 128, p, feed, slices, wg, ring + prev * kStageBytes, full(prev), h, b);
+      feed.advance(slices, p.m);
+    }
+  };
+  // Lane 0 of each warp waits for the stage's bytes; the warp follows it.
+  auto wait_full = [&](int st) {
+    if (lane == 0) mbar_wait(full(st), (u / kStages) & 1);
+    __syncwarp();
+  };
+
+  // One K slice: four k8 steps of K Q^T, 3 passes each, into a fresh
+  // accumulator added to s.  The A fragments by ldmatrix (four 8-row x
+  // 16-byte matrices: rows g and g + 8, columns t and t + 4 of the step),
+  // split in registers.
+  auto s_slice = [&](int j) {
+    float part[16];
+    const int st = u % kStages;
+    wait_full(st);
+    const uint32_t base = smem_u32(ring + st * kStageBytes);
+    const int row = 16 * w + 8 * ((lane / 8) & 1) + lane % 8;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t addr = base + row * 128 + (((2 * kk + lane / 16) ^ (lane % 8)) << 4);
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(f.hi[kk][0]), "=r"(f.hi[kk][1]), "=r"(f.hi[kk][2]), "=r"(f.hi[kk][3])
+                   : "r"(addr)
+                   : "memory");
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(__uint_as_float(f.hi[kk][e]), f.hi[kk][e], f.lo[kk][e]);
+    ++u;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t qa = sq + j * kBQ * 128 + kk * 32;
+      const uint64_t qhi = sw128_desc(qa, 16, 1024), qlo = sw128_desc(qa + kQBytes, 16, 1024);
+      WgmmaRsTf32<kBQ>::rs(part, f.hi[kk], qhi, kk > 0);
+      WgmmaRsTf32<kBQ>::rs(part, f.hi[kk], qlo, 1);
+      WgmmaRsTf32<kBQ>::rs(part, f.lo[kk], qhi, 1);
+    }
+    wgmma_commit();
+    refill();
+    wgmma_wait<0>();
+    pin_u(f.hi), pin_u(f.lo), pin(part);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = j == 0 ? part[i] : s[i] + part[i];
+  };
+
+  // One V chunk (key step c of the tile): O^T += V^T P^T for the
+  // warpgroup's four 64-row tiles, 3 passes each.  Keys t and t + 4 of the
+  // chunk are rows t and t + 4 of each atom.
+  auto o_chunk = [&](int c) {
+    const int st = u % kStages;
+    wait_full(st);
+    const uint8_t* at = ring + st * kStageBytes + atom * 1024;
+    float4 v[2][2];  // [chunk L1, L2][key t, t + 4]
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {
+        const int key = t + 4 * kh;
+        v[ch][kh] = *reinterpret_cast<const float4*>(at + key * 128 + (((l1 + 2 * ch) ^ key) << 4));
+      }
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+      split(v[ch][0].x, f.hi[2 * ch][0], f.lo[2 * ch][0]);
+      split(v[ch][0].y, f.hi[2 * ch][1], f.lo[2 * ch][1]);
+      split(v[ch][1].x, f.hi[2 * ch][2], f.lo[2 * ch][2]);
+      split(v[ch][1].y, f.hi[2 * ch][3], f.lo[2 * ch][3]);
+      split(v[ch][0].z, f.hi[2 * ch + 1][0], f.lo[2 * ch + 1][0]);
+      split(v[ch][0].w, f.hi[2 * ch + 1][1], f.lo[2 * ch + 1][1]);
+      split(v[ch][1].z, f.hi[2 * ch + 1][2], f.lo[2 * ch + 1][2]);
+      split(v[ch][1].w, f.hi[2 * ch + 1][3], f.lo[2 * ch + 1][3]);
+    }
+    ++u;
+    pin(ot[0]), pin(ot[1]), pin(ot[2]), pin(ot[3]);
+    wgmma_fence();
+    const uint32_t pa = sp + (c / 4) * kBQ * 128 + (c % 4) * 32;
+    const uint64_t phi = sw128_desc(pa, 16, 1024), plo = sw128_desc(pa + kPBytes, 16, 1024);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      WgmmaRsTf32<kBQ>::rs(ot[i], f.hi[i], phi, c > 0);
+      WgmmaRsTf32<kBQ>::rs(ot[i], f.hi[i], plo, 1);
+      WgmmaRsTf32<kBQ>::rs(ot[i], f.lo[i], phi, 1);
+    }
+    wgmma_commit();
+    refill();
+    wgmma_wait<0>();
+    pin_u(f.hi), pin_u(f.lo);
+  };
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int tile = (first + i) % ntiles;
+    for (int j = 0; j < slices; ++j) s_slice(j);  // S^T = K Q^T
+
+    // the online softmax down the key rows, in log2 units: keys at or past
+    // M get -inf (TMA's zero fill gives s = 0), the bias a per-row add
+    float bl[2];
+    bool valid[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = tile * kKeys + 64 * wg + 16 * w + 8 * hf + g;
+      valid[hf] = key < p.m;
+      bl[hf] = bias && valid[hf] ? bias[key] * kLog2e : 0.0f;
+    }
+    float cmax[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x0 = s[4 * j + e];
+        float& x1 = s[4 * j + 2 + e];
+        x0 = valid[0] ? fmaf(x0, p.scale_log2, bl[0]) : -INFINITY;
+        x1 = valid[1] ? fmaf(x1, p.scale_log2, bl[1]) : -INFINITY;
+        float mx = fmaxf(x0, x1);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        cmax[2 * j + e] = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      }
+    if (g == 0)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float2*>(red + (4 * wg + w) * kBQ + 8 * j + 2 * t) =
+            make_float2(cmax[2 * j], cmax[2 * j + 1]);
+    bar_sync<1>();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float2 mx = make_float2(-INFINITY, -INFINITY);
+#pragma unroll
+      for (int wi = 0; wi < 8; ++wi) {
+        const float2 r = *reinterpret_cast<const float2*>(red + wi * kBQ + 8 * j + 2 * t);
+        mx.x = fmaxf(mx.x, r.x);
+        mx.y = fmaxf(mx.y, r.y);
+      }
+      cmax[2 * j] = mx.x;
+      cmax[2 * j + 1] = mx.y;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * j + e;
+        const float mnew = fmaxf(mrow[c], cmax[c]);
+        const float use = mnew == -INFINITY ? 0.0f : mnew;  // no key yet: O = 0, p = 0
+        alpha[c] = ex2(mrow[c] - use);
+        mrow[c] = mnew;
+        const float p0 = ex2(s[4 * j + e] - use), p1 = ex2(s[4 * j + 2 + e] - use);
+        lrow[c] = lrow[c] * alpha[c] + p0 + p1;
+        s[4 * j + e] = p0;
+        s[4 * j + 2 + e] = p1;
+      }
+    // P^T as wgmma's B (keys K-major): row = query, 32-key swizzled atoms;
+    // every earlier product that read P finished before the barrier above
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int key = 64 * wg + 16 * w + 8 * hf + g, n = 8 * j + 2 * t + e;
+          const int off = (key / 32) * kBQ * 128 + n * 128 +
+                          ((((key % 32) / 4) ^ (n & 7)) << 4) + (key % 4) * 4;
+          uint32_t hi, lo;
+          split(s[4 * j + 2 * hf + e], hi, lo);
+          *reinterpret_cast<uint32_t*>(smem + kOffP + off) = hi;
+          *reinterpret_cast<uint32_t*>(smem + kOffP + kPBytes + off) = lo;
+        }
+    fence_proxy_async();
+    bar_sync<2>();
+
+    // O^T = V^T P^T over the tile's key steps, then o = alpha o + O^T
+    const int chunks = min(16, (p.m - tile * kKeys + 7) / 8);
+    for (int c = 0; c < chunks; ++c) o_chunk(c);
+    pin(ot[0]), pin(ot[1]), pin(ot[2]), pin(ot[3]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          o[i][4 * j + e] = fmaf(o[i][4 * j + e], alpha[2 * j + e], ot[i][4 * j + e]);
+          o[i][4 * j + 2 + e] = fmaf(o[i][4 * j + 2 + e], alpha[2 * j + e], ot[i][4 * j + 2 + e]);
+        }
+  }
+
+  // the sums over the block: the warp's 16 keys, then its 8 warps
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    lrow[c] += __shfl_xor_sync(0xffffffffu, lrow[c], 4);
+    lrow[c] += __shfl_xor_sync(0xffffffffu, lrow[c], 8);
+    lrow[c] += __shfl_xor_sync(0xffffffffu, lrow[c], 16);
+  }
+  if (g == 0)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float2*>(red + (4 * wg + w) * kBQ + 8 * j + 2 * t) =
+          make_float2(lrow[2 * j], lrow[2 * j + 1]);
+  bar_sync<1>();
   float* ob = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const float l = __shfl_sync(0xffffffffu, lrow, 8 * r);
-    const int row = q0 + warp * 4 + r;
-    if (row >= p.n) continue;
-    const float inv = 1.0f / l;
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int col = 4 * lane + 128 * c;
-      if (col >= p.d) break;
-      *reinterpret_cast<float4*>(ob + row * p.o_sn + col) =
-          make_float4(o[r][c][0] * inv, o[r][c][1] * inv, o[r][c][2] * inv, o[r][c][3] * inv);
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * j + 2 * t + e;
+      float l = 0.0f;
+#pragma unroll
+      for (int wi = 0; wi < 8; ++wi) l += red[wi * kBQ + n];
+      if (q0 + n >= p.n) continue;
+      if (wg == 0 && w == 0 && g == 0)
+        p.lse[((long long)b * p.heads + h) * p.n + q0 + n] = mrow[2 * j + e] + log2f(l);
+      const float inv = 1.0f / l;
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        const int col = 256 * wg + 32 * atom + 4 * (l1 + 2 * ch);
+        if (col < p.d)
+          *reinterpret_cast<float4*>(ob + (q0 + n) * p.o_sn + col) =
+              make_float4(o[2 * ch][4 * j + e] * inv, o[2 * ch][4 * j + 2 + e] * inv,
+                          o[2 * ch + 1][4 * j + e] * inv, o[2 * ch + 1][4 * j + 2 + e] * inv);
+      }
     }
-  }
-  if (sc == 0 && q0 + sr < p.n)
-    p.lse[((long long)b * p.heads + h) * p.n + q0 + sr] = mrow + log2f(lrow);
 }
 
 }  // namespace f32
@@ -732,25 +1005,35 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const
 #ifndef FLASH_FWD_SWEEP
 // The fp32 route: q, k, v, bias, o and lse fp32, the rest as flash_fwd_bf16.
 // d <= 512 and a multiple of 4; every base 16-byte aligned and every batch,
-// head and row stride a multiple of 4 elements (the wrapper checks).
+// head and row stride a multiple of 4 elements (the wrapper checks), which
+// is what TMA takes of an fp32 operand.
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, const float* bias,
                              void* o, float* lse, int batch, int heads, int n, int m, int d,
                              long long q_sb, long long q_sh, long long q_sn, long long k_sb,
                              long long k_sh, long long k_sn, long long v_sb, long long v_sh,
                              long long v_sn, long long o_sb, long long o_sh, long long o_sn,
                              long long bias_sb, float scale, void* stream) {
-  if (d < 4 || d > f32::kChunks * 128 || d % 4 || n < 1 || m < 1 || batch < 1)
+  if (d < 4 || d > 32 * f32::kMaxSlices || d % 4 || n < 1 || m < 1 || batch < 1)
     return (int)cudaErrorInvalidValue;
-  f32::Params p{static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), bias, static_cast<float*>(o), lse, heads, n, m, d,
-                q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn, bias_sb,
-                scale * kLog2e};
-  const int smem = (2 * f32::kBK * (d + 4) + f32::kBK * f32::kBQ + f32::kBQ) * (int)sizeof(float);
+  f32::Params p;
+  p.q = static_cast<const float*>(q);
+  p.bias = bias;
+  p.o = static_cast<float*>(o);
+  p.lse = lse;
+  p.heads = heads, p.n = n, p.m = m, p.d = d;
+  p.q_sb = q_sb, p.q_sh = q_sh, p.q_sn = q_sn;
+  p.o_sb = o_sb, p.o_sh = o_sh, p.o_sn = o_sn;
+  p.bias_sb = bias_sb;
+  p.scale_log2 = scale * kLog2e;
+  if (!make_map(&p.tk, k, d, heads, m, batch, k_sh, k_sn, k_sb, 64, 4) ||
+      !(d % 32 ? make_map(&p.tv, v, d, heads, m, batch, v_sh, v_sn, v_sb, 8, 4)
+               : f32::make_map_v5(&p.tv5, v, d, heads, m, batch, v_sh, v_sn, v_sb)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(f32::flash_fwd_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, f32::kSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + f32::kBQ - 1) / f32::kBQ, heads, batch);
-  f32::flash_fwd_f32_kernel<<<grid, f32::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  f32::flash_fwd_f32_kernel<<<grid, f32::kThreads, f32::kSmem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 #endif

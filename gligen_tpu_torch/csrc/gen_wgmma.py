@@ -7,13 +7,19 @@ GEMM core (``gemm_sm90.cuh``) and the fused conv (``fused_conv.cu``) issue.
 
 A ``wgmma.mma_async`` instruction names every accumulator register, N/2 of
 them for an m64nNk16 fp32 product, so each width is one wrapper written
-out in full.  Two forms, bf16 operands and fp32 accumulators:
+out in full.  Three forms, all with fp32 accumulators, two of them with
+bf16 operands:
 
   * ``wgmma_ss<N>``: A and B from shared memory, by descriptor (S = Q K^T,
     and the projections' tiles at every width of their tile table);
   * ``wgmma_rs<N>``: A from registers (four bf16x2 per thread, the layout
     of the accumulator it was computed in, or ``ldmatrix``'s), B from shared
-    memory (O += P V; the fused conv's activated input tiles).
+    memory (O += P V; the fused conv's activated input tiles);
+  * ``WgmmaRsTf32<N>``: m64nNk8 with TF32 operands, A from registers (four
+    TF32 values per thread: rows g and g + 8 of the thread's warp, columns
+    t and t + 4, g = lane / 4, t = lane % 4), B from shared memory, K-major
+    (TF32 has no transposed form).  The fp32 flash route's 3xTF32 products
+    (S^T = K Q^T, O^T = V^T P^T, flash_fwd.cu).
 
 ``TRANS_B`` is the instruction's imm-trans-b: 0 for a K-major B, 1 for an
 MN-major one.  ``tests/test_torch_flash.py`` checks that the committed
@@ -27,6 +33,7 @@ from pathlib import Path
 HEADER = Path(__file__).resolve().parent / "wgmma.cuh"
 SS_WIDTHS = (32, 64, 96, 128, 160, 192, 256)
 RS_WIDTHS = (40, 80, 128, 160, 256)
+RS_TF32_WIDTHS = (32,)
 
 
 def _regs(n: int) -> str:
@@ -77,16 +84,37 @@ struct WgmmaRs<{n}> {{
 """
 
 
+def _rs_tf32(n: int) -> str:
+    r = n // 2
+    return f"""template <>
+struct WgmmaRsTf32<{n}> {{
+  static __device__ __forceinline__ void rs(float (&d)[{r}], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 "
+        "{{{_regs(n)}}}, {{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, %{r + 4}, p, 1, 1;\\n}}\\n"
+        :
+{_outs(n)}
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }}
+}};
+"""
+
+
 def render() -> str:
     parts = [
         "// Generated by gen_wgmma.py: do not edit.  Warpgroup MMA wrappers, m64nNk16,\n"
         "// bf16 x bf16 -> fp32.  Wgmma<N>::ss: A and B by shared-memory descriptor;\n"
-        "// WgmmaRs<N>::rs: A from registers.  acc = 0 overwrites d, 1 accumulates.\n",
+        "// WgmmaRs<N>::rs: A from registers.  WgmmaRsTf32<N>::rs: m64nNk8, TF32 x TF32\n"
+        "// -> fp32, A from registers.  acc = 0 overwrites d, 1 accumulates.\n",
         "#pragma once\n\n#include <stdint.h>\n\n",
-        "template <int N>\nstruct Wgmma;\n\ntemplate <int N>\nstruct WgmmaRs;\n\n",
+        "template <int N>\nstruct Wgmma;\n\ntemplate <int N>\nstruct WgmmaRs;\n\n"
+        "template <int N>\nstruct WgmmaRsTf32;\n\n",
     ]
     parts += [_ss(n) + "\n" for n in SS_WIDTHS]
     parts += [_rs(n) + "\n" for n in RS_WIDTHS]
+    parts += [_rs_tf32(n) + "\n" for n in RS_TF32_WIDTHS]
     return "".join(parts).rstrip("\n") + "\n"
 
 

@@ -184,20 +184,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (d, head, row, batch) map of a bf16 tensor with a unit stride along d;
-// boxes of 64 columns x `rows` rows of one (head, batch), 128-byte swizzled.
-// Columns >= d and rows >= `len` read as zeros.
+// A (d, head, row, batch) map of a tensor with a unit stride along d and
+// `elem` bytes an element (2: bf16, 4: fp32); boxes of 128 bytes (64 bf16
+// or 32 fp32 columns) x `rows` rows of one (head, batch), 128-byte
+// swizzled.  Columns >= d and rows >= `len` read as zeros.
 bool make_map(CUtensorMap* map, const void* base, int d, int heads, int len, int batch,
-              long long sh, long long sn, long long sb, int rows) {
+              long long sh, long long sn, long long sb, int rows, int elem = 2) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)len, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const cuuint64_t strides[3] = {(cuuint64_t)(sh * elem), (cuuint64_t)(sn * elem),
+                                 (cuuint64_t)(sb * elem)};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem), 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A (rows, cols) row-major bf16 matrix: boxes of `box_cols` (64 or 32)

@@ -10,7 +10,8 @@ with the logvar clamp, ``encode`` with the posterior noise passed in,
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from contextlib import contextmanager
+from typing import Iterator, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +20,22 @@ from torch import nn
 from gligen_tpu_torch.models.layers import Conv2d, Dense, Normalize, computing_in
 from gligen_tpu_torch.models.unet import Upsample  # the same nearest 2x + conv3x3
 from gligen_tpu_torch.ops.attention import multi_head_attention
+
+
+@contextmanager
+def tf32_off() -> Iterator[None]:
+    """Both TF32 switches off inside the block, cuBLAS's matmuls and cuDNN's
+    convs, each restored afterwards.  Saved and set by hand:
+    ``torch.backends.cudnn.flags`` would also reset cuDNN's other switches
+    to its own defaults, and the matmul switch has no context manager in
+    every torch version."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 class ResnetBlock(nn.Module):
@@ -206,12 +223,12 @@ class AutoencoderKL(nn.Module):
         ``vae.clone(dtype=float32)``, pipeline.py:295-310), whose rounding
         the per-step blend would carry into the image.  On the card its
         GroupNorms and its attention take the fp32 routes of the GroupNorm
-        and flash kernels; its convs and products are cuDNN's and
-        cuBLAS's, which are fp32 only with TF32 off
-        (``torch.backends.cuda.matmul.allow_tf32`` and
-        ``torch.backends.cudnn.allow_tf32`` False, as ``chip_smoke.py``
-        sets them)."""
-        with computing_in(self, torch.float32):
+        and flash kernels, and its convs and products are cuDNN's and
+        cuBLAS's.  The method pins those to fp32 itself: both TF32 switches
+        (``torch.backends.cudnn.allow_tf32``, on by default, and
+        ``torch.backends.cuda.matmul.allow_tf32``) are off for the encode's
+        duration and restored afterwards, also when it raises."""
+        with tf32_off(), computing_in(self, torch.float32):
             return self.encode(x.float(), noise.float())
 
     def encode_mode(self, x: torch.Tensor) -> torch.Tensor:

@@ -25,8 +25,10 @@ plain copies otherwise: a choice made from the layout, before the launch,
 and counted per route.  Each kernel's tiles come from a fixed table by
 head dim (``FWD_TILES``, ``BWD_TILES``) that its library is built at.
 The forward also takes fp32 q/k/v (the inpaint image's fp32 VAE encode):
-a route of its own, ``flash_fwd_f32`` of the same source, fp32 throughout
-(``launch_fwd_f32``), counted as route "fp32".
+a route of its own, ``flash_fwd_f32`` of the same source
+(``launch_fwd_f32``), counted as route "fp32": fp32 in and out, an fp32
+softmax, and both products as 3xTF32 on the tensor cores (x = hi + lo in
+TF32; hi.hi + hi.lo + lo.hi), fp32-accurate to a few ulps.
 """
 
 from __future__ import annotations
@@ -171,9 +173,9 @@ def launch_fwd_f32(q, k, v, heads, bias):
 
 
 def _check_f32(q, k, v, heads, bias):
-    """What the fp32 route takes: ``_check_inputs`` in fp32, and 16-byte
-    vectors everywhere (a head dim, every base and every stride a multiple
-    of 4 elements)."""
+    """What the fp32 route takes: ``_check_inputs`` in fp32, and what TMA
+    reads of an fp32 operand (a head dim, every base and every stride a
+    multiple of 4 elements: 16 bytes)."""
     _check_inputs(q, k, v, heads, bias, dtype=torch.float32)
     c = q.shape[2] // heads
     if c % 4 or any(t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4 for t in (q, k, v)):

@@ -24,6 +24,7 @@ import time
 # operations over the peak rate for their type.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOP_PER_S = 989e12
+TF32_TENSOR_FLOP_PER_S = 495e12
 FP32_FLOP_PER_S = 67e12
 
 SLEEP_CYCLES = 50_000_000  # ~25 ms of one spinning block at the H100's clock

@@ -350,3 +350,80 @@ def test_sweep_output_limit_is_relative(want_max, err, ok):
     lse = torch.zeros((1, 1, 4))
     assert out_ok(want - err, lse, want, lse)[2] is ok
     assert out_ok(torch.zeros_like(want), lse, want, lse)[2] is False
+
+
+# ---- the fp32 route's arithmetic: 3xTF32 (csrc/flash_fwd.cu, flash_fwd_f32)
+
+FP32_REL_TOL = 1e-4  # chip_smoke.FP32_REL_TOL: the fp32 route vs plain, of max |plain|
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32's 10 mantissa bits, ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: half a TF32 ulp (bit 12) added to the
+    magnitude's bits, then the low 13 bits cleared (a carry moves into the
+    exponent, as it should)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) with hi = rna(x) and lo = rna(x - hi), the kernel's split:
+    x - hi is exact in fp32, and lo is rounded too because wgmma reads
+    only a TF32 operand's top 19 bits (an unrounded lo would truncate)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the tensor cores compute it from TF32 operands: products
+    exact, sums in fp32 (here in fp64, then rounded once).  passes=3 is
+    hi.hi + hi.lo + lo.hi (3xTF32), passes=1 one TF32 product."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    out = ah.double() @ bh.double()
+    if passes == 3:
+        out = out + ah.double() @ bl.double() + al.double() @ bh.double()
+    return out.float()
+
+
+def tf32_attention(q, k, v, passes: int) -> torch.Tensor:
+    """One head's softmax(q k^T / sqrt(d)) v with both products in TF32
+    (3 passes or 1) and the softmax in fp32, as the kernel splits S's
+    operands and P."""
+    s = tf32_matmul(q, k.T, passes) * q.shape[-1] ** -0.5
+    return tf32_matmul(torch.softmax(s, dim=-1), v, passes)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    x = torch.tensor([1 + 2**-11, 1 + 3 * 2**-12, -(1 + 2**-11), 1 + 2**-12, 2 - 2**-12],
+                     dtype=torch.float32)
+    want = torch.tensor([1 + 2**-10, 1 + 2**-10, -(1 + 2**-10), 1.0, 2.0])
+    assert torch.equal(tf32_rna(x), want)
+    assert not (tf32_rna(x).view(torch.int32) & 0x1FFF).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tf32_split_recovers_fp32(seed):
+    """hi + lo is x to 2^-21 relative (the dropped part is lo's own
+    rounding, 2^-11 of a lo below 2^-11 |x|), and hi, lo are TF32 values."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal(100_000) * 10.0 ** rng.uniform(-6, 6, 100_000))
+                         .astype(np.float32))
+    hi, lo = tf32_split(x)
+    assert ((hi + lo - x).abs() <= 2**-21 * x.abs()).all()
+    assert not ((hi.view(torch.int32) | lo.view(torch.int32)) & 0x1FFF).any()
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+def test_3xtf32_attention_is_fp32_accurate_and_1xtf32_is_not(scale):
+    """At (1, 64, 1x32), 64 keys: the 3xTF32 attention is within
+    FP32_REL_TOL of the plain fp32 version's largest output, and one TF32
+    pass is not, on unit inputs and with q, k scaled x4 (the card's
+    discriminating case: sharper scores)."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rand(rng, 1, 64, 32)) for _ in range(3))
+    q, k = q * scale, k * scale
+    want, _ = flash_attention_plain(q, k, v, 1)
+    limit = FP32_REL_TOL * want.abs().max().item()
+    three = tf32_attention(q[0], k[0], v[0], passes=3)
+    one = tf32_attention(q[0], k[0], v[0], passes=1)
+    assert (three - want[0]).abs().max().item() <= limit
+    assert (one - want[0]).abs().max().item() > limit

@@ -17,9 +17,10 @@ every key of a row is masked by a NEG_INF bias the LSE is about -1.4e30,
 so there it is held to 1e-6 relative.  Every shape a transformer block or
 the VAE gives the kernel takes the TMA route; strided or unaligned inputs
 and head dims that are not multiples of 8 take the copy route.  fp32
-q/k/v (the inpaint encode's) take the fp32 route, fp32 throughout: its
-outputs within 1e-4 of the plain version's largest magnitude (fp32 sums in
-another order), its LSE within 1e-4.
+q/k/v (the inpaint encode's) take the fp32 route, 3xTF32 products on the
+tensor cores (each drops ~2^-22 of a product) and an fp32 softmax: its
+outputs within 1e-4 of the plain version's largest magnitude, its LSE
+within 1e-4; one-pass TF32 products miss that limit at the VAE head.
 """
 
 import pytest
@@ -212,6 +213,8 @@ def test_untabled_tiles_are_refused(cuda):
         (1, 1000, 1030, 1, 512, False),  # ragged query and key tiles
         (2, 100, 77, 2, 64, True),       # two heads, a masking bias row
         (1, 33, 5, 3, 4, False),         # the smallest head dim it takes
+        (2, 300, 500, 2, 40, False),     # head dims that are no multiple of 32 or 64:
+        (1, 257, 286, 2, 80, True),      # V by one TMA box an atom
     ],
 )
 def test_fp32_route_matches_plain_and_repeats(cuda, monkeypatch, b, n, m, h, d, padbias):
@@ -229,6 +232,42 @@ def test_fp32_route_matches_plain_and_repeats(cuda, monkeypatch, b, n, m, h, d, 
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
     again = flash_fwd(q, k, v, h, bias=bias)
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.gpu
+def test_fp32_route_with_one_unmasked_key(cuda, monkeypatch):
+    """Every key of a bias row masked by NEG_INF but one (another key in
+    each batch row): the softmax puts all its weight on that key, as the
+    plain version's does."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    b, n, m, h, d = 2, 150, 300, 2, 80
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v = (torch.randn((b, L, h * d), generator=gen, device=cuda) for L in (n, m, m))
+    bias = torch.full((b, m), NEG_INF, device=cuda)
+    bias[0, 7] = bias[1, 290] = 0.0
+    out, lse = launch(q, k, v, h, bias, "fp32")
+    want, want_lse = flash_attention_plain(q, k, v, h, bias=bias)
+    torch.testing.assert_close(out, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    again = flash_fwd(q, k, v, h, bias=bias)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.gpu
+def test_fp32_route_tells_fp32_from_tf32(cuda, monkeypatch):
+    """At the VAE head, one-pass TF32 products (the plain version with
+    allow_tf32) miss the fp32 route's limit, and the kernel's 3xTF32 meets
+    it: the limit can tell fp32 arithmetic from TF32."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn((2, 4096, 512), generator=gen, device=cuda) for _ in range(3))
+    out, _ = launch(q, k, v, 1, None, "fp32")
+    want, _ = flash_attention_plain(q, k, v, 1)
+    limit = 1e-4 * want.abs().max().item()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    tf32, _ = flash_attention_plain(q, k, v, 1)
+    assert (out - want).abs().max().item() <= limit
+    assert (tf32 - want).abs().max().item() > limit
 
 
 @pytest.mark.gpu
