@@ -18,7 +18,9 @@ Phases, each of which fails the run with a non-zero exit:
      and, where one PyTorch call computes the same function, that call's:
      flash attention (UNet attn1, the gated fuser's N+30 keys,
      cross-attention over 77 text tokens, at ds1/ds2/ds4 and the 64-token
-     middle block; the VAE's single 512-wide head over 4096 tokens; and
+     middle block; the gatedSA fuser over N+60 (box+text+image) and N+136
+     (keypoint) keys, the gatedCA fuser's N queries over 30, 60 and 136
+     keys, the gatedSA2 fuser's 36 queries over N+36 keys; the VAE's single 512-wide head over 4096 tokens; and
      attn1 at ds1 of a 1024^2 image, checked 512 query rows at a time;
      each row with its route, TF/s and share of the bound, and every one
      must take the TMA route; and the fp32 route (3xTF32 wgmma) at the
@@ -28,7 +30,7 @@ Phases, each of which fails the run with a non-zero exit:
      must exceed the limit at one row at least) and its 3xTF32 and fp32
      FMA bounds);
      per level the fused projections (ln_matmuls for q/k/v, for q alone
-     and for the fuser's k/v over N+30 rows, matmul_residual for to_out
+     and for the fuser's k/v over N+30, N+60 and N+136 rows, matmul_residual for to_out
      and net_2, ln_geglu) and the matmul-only mode of the same kernel
      (mm_only, K7) at the products and rows (16 x 4096) that phase 9's
      projection budget gives it, over the fuser's 16 x 4126 rows and at
@@ -39,7 +41,7 @@ Phases, each of which fails the run with a non-zero exit:
      that must repeat the first bit for bit), the fp32 GroupNorm at every
      map of the inpaint encode (held to GN_F32_TOL, repeated bit for
      bit), LayerNorm at
-     every (rows, C) of the module path, and the fused GN -> SiLU -> conv3x3
+     every (rows, C) of the module path (the fusers' N+T rows too), and the fused GN -> SiLU -> conv3x3
      at every ResBlock conv shape (each row with the conv kernel's own time
      beside the whole call's and cuDNN's bf16 conv alone, its tiles and
      split, TF/s and share of the bound; repeated bit for bit).  Phase 11
@@ -111,6 +113,27 @@ Phases, each of which fails the run with a non-zero exit:
      bf16 flash launch on the TMA route and the encode's attention and
      GroupNorms on the fp32 routes.  Last, the small-width inpaint
      pipeline card vs CPU for both samplers (as phase 5).
+ 12. grounding modalities (run after 5, in phase 4's host state: a
+     profiler session slows the host for the rest of the process): the
+     box+text+image model
+     (configs/flickr_text_image.yaml) and the keypoint one
+     (configs/coco2017K.yaml) at full width, random de-zeroed weights,
+     each written as a reference-format checkpoint in memory with its
+     tokenizer under the reference's dotted alias and loaded back (every
+     tensor bit for bit); a CLIP ViT-L/14 vision tower at full width
+     (fp32, random weights through HF's names and convert_clip_vision) and
+     a seeded 768 x 768 projection.  Box+text+image grounding from
+     ``prepare_batch_box`` and ``FeatureExtractor``: pooled CLIP text
+     features of seeded phrase ids and image features of seeded 512^2
+     arrays, a box with text, image or both; keypoints from
+     ``prepare_batch_kp`` of seeded skeletons with invisible points; each
+     through the config's input adapter (reference alias).  Two requests
+     of batch 2 at 512^2, PLMS with alpha stages [0.3, 0, 0.7], in
+     configuration (a): images sound, launch counts as
+     ``expected_launches`` predicts, every flash launch on the TMA route;
+     the vision tower's device ms per image.  Then ``SMALL_GROUNDING``'s
+     small models (box+text+image, keypoint, gatedCA, gatedSA2) card vs
+     CPU (as phase 5).
  11. launches: the CUDA launches of one call of the GroupNorm, gn_affine
      and LayerNorm kernels at every phase-3 shape (the fp32 GroupNorm
      too) and of the conv kernel at every ResBlock conv, read from a
@@ -221,6 +244,20 @@ SMALL = dict(
     vae_config=dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, resolution=64),
     text_config=dict(vocab_size=1000, hidden_size=64, layers=2, heads=4),
 )
+# Phase 12 (c)'s small models: (SMALL's UNet keywords replaced, the
+# tokenizer, its box count): the box+text+image and keypoint tokenizers, and
+# the gatedCA and gatedSA2 fusers over box+text (gatedSA2 over a square
+# count, 4 x 4 boxes).
+SMALL_GROUNDING = {
+    "text_image": ({"grounding_tokenizer": {"target": "text_image",
+                                            "params": {"in_dim": 64, "out_dim": 64}}},
+                   "text_image", 30),
+    "keypoint": ({"grounding_tokenizer": {"target": "keypoint",
+                                          "params": {"max_persons_per_image": 8,
+                                                     "out_dim": 64}}}, "keypoint", 0),
+    "gatedCA": ({"fuser_type": "gatedCA"}, "text", 30),
+    "gatedSA2": ({"fuser_type": "gatedSA2"}, "text", 16),
+}
 
 
 def ptxas_configs(report: str) -> list:
@@ -255,9 +292,19 @@ def config_desc(name: str) -> str:
     return f"({name}) " + " ".join(f"{k[len('GLIGEN_TPU_'):]}={v}" for k, v in CONFIGS[name].items())
 
 
+# grounding tokens of each tokenizer at its released size: 30 boxes (text);
+# 2 x 30 (text_image: a text and an image token per box); 8 persons x 17
+# (keypoint); and a 6 x 6 count for gatedSA2, which needs a square one
+GROUNDING_TOKENS = {"text": 30, "text_image": 60, "keypoint": 136}
+GATED_SA2_TOKENS = 36
+
+
 def kernel_cases(batch: int):
     """(name, rows, N, M, heads, head dim, padded-key bias) of every
-    flash launch shape at 512^2 (latent 64), SD-1.4 widths."""
+    flash launch shape at 512^2 (latent 64), SD-1.4 widths: attn1, the
+    gatedSA fuser over N+30, N+60 and N+136 keys, cross-attention, the
+    gatedCA fuser (N queries over 30, 60 or 136 grounding keys) and the
+    gatedSA2 fuser (36 grounding queries over N+36 keys)."""
     rows = 2 * batch  # CFG pair in one UNet call
     cases = []
     for level, (n, d) in {"ds1": (4096, 40), "ds2": (1024, 80), "ds4": (256, 160),
@@ -266,7 +313,14 @@ def kernel_cases(batch: int):
             (f"attn1_{level}", rows, n, n, 8, d, False),
             (f"fuser_{level}", rows, n, n + 30, 8, d, False),
             (f"cross_{level}", rows, n, 77, 8, d, False),
+            (f"fuser_text_image_{level}", rows, n, n + GROUNDING_TOKENS["text_image"], 8, d,
+             False),
+            (f"fuser_keypoint_{level}", rows, n, n + GROUNDING_TOKENS["keypoint"], 8, d, False),
         ]
+        cases += [(f"gated_ca_{t}_{level}", rows, n, t, 8, d, False)
+                  for t in GROUNDING_TOKENS.values()]
+        cases.append((f"gated_sa2_{level}", rows, GATED_SA2_TOKENS, n + GATED_SA2_TOKENS, 8, d,
+                      False))
     # the TPU's padded fuser form: N+30 keys padded to a multiple of 128,
     # masked by a NEG_INF bias row (exercises the kernel's bias input)
     cases.append(("fuser_ds1_padbias", rows, 4096, 4224, 8, 40, True))
@@ -449,7 +503,8 @@ LEVELS = {"ds1": (4096, 320), "ds2": (1024, 640), "ds4": (256, 1280), "mid": (64
 
 def proj_cases(batch: int):
     """(name, kernel, rows, N, C, K or weights) of every fused-projection
-    launch shape at 512^2: 2*batch UNet rows of N tokens each."""
+    launch shape at 512^2: 2*batch UNet rows of N tokens each; the gatedSA
+    fuser's k/v over N+30, N+60 and N+136 rows."""
     rows = 2 * batch
     cases = []
     for level, (n, c) in LEVELS.items():
@@ -457,6 +512,10 @@ def proj_cases(batch: int):
             (f"qkv_{level}", "ln_matmuls", rows, n, c, 3),
             (f"q_{level}", "ln_matmuls", rows, n, c, 1),
             (f"fuser_kv_{level}", "ln_matmuls", rows, n + 30, c, 2),
+            (f"fuser_kv_text_image_{level}", "ln_matmuls", rows,
+             n + GROUNDING_TOKENS["text_image"], c, 2),
+            (f"fuser_kv_keypoint_{level}", "ln_matmuls", rows, n + GROUNDING_TOKENS["keypoint"],
+             c, 2),
             (f"to_out_{level}", "matmul_residual", rows, n, c, c),
             (f"net_2_{level}", "matmul_residual", rows, n, c, 4 * c),
             (f"geglu_{level}", "ln_geglu", rows, n, c, None),
@@ -671,10 +730,13 @@ def norm_cases(unet, vae, batch: int, latent: int = 64):
 
 def ln_cases(batch: int):
     """(name, rows, C) of the module path's LayerNorms at 512^2: every
-    block's N rows, and the fuser's N+30."""
+    block's N rows (gatedCA's norm1 too), and the gatedSA and gatedSA2
+    fusers' N+T (T = 30, 60, 136 grounding tokens)."""
     cases = []
     for level, (n, c) in LEVELS.items():
         cases += [(f"ln_{level}", 2 * batch * n, c), (f"ln_fuser_{level}", 2 * batch * (n + 30), c)]
+        cases += [(f"ln_fuser_{name}_{level}", 2 * batch * (n + t), c)
+                  for name, t in GROUNDING_TOKENS.items() if name != "text"]
     return cases
 
 
@@ -1019,13 +1081,15 @@ def expected_launches(comps, steps, alpha_stages, latent, config, sampler="plms"
                       inpaint=False):
     """Launches of each kernel in one generate call of ``config``, from the
     module structure and the sampler tables: PLMS calls the UNet once a
-    step and twice more in its peeled Heun step, DDIM once a step.  Per
-    transformer block of N
-    tokens, a gated UNet call runs attn1, the fuser and attn2 (3 flash
-    launches); on the fused path (FUSED_PROJ=1, N >= 64) ln_matmuls for
-    q/k/v, the fuser's q, the fuser's k/v and attn2's q (4),
-    matmul_residual for the three to_out and the two net_2 (5) and ln_geglu
-    for the two feed-forwards (2); on the module path 5 LayerNorms.  A
+    step and twice more in its peeled Heun step, DDIM once a step; a
+    gatedSA2 UNet has no fuser-free tail (every call runs its fusers).  Per
+    transformer block of N tokens, a gated UNet call runs attn1, the fuser
+    and attn2 (3 flash launches).  With the gatedSA fuser, on the fused
+    path (FUSED_PROJ=1, N >= 64) ln_matmuls for q/k/v, the fuser's q, the
+    fuser's k/v and attn2's q (4), matmul_residual for the three to_out and
+    the two net_2 (5) and ln_geglu for the two feed-forwards (2); on the
+    module path 5 LayerNorms.  The gatedSA2 and gatedCA fusers take the
+    module path inside a fused block: 2, 3, 1 and their 2 LayerNorms.  A
     fuser-free call runs 2 / 2, 3, 1 / 3.  Every GroupNorm (FUSED_NORM gn
     or both) is one launch, but those of a ResBlock that takes the fused
     conv, which runs gn_affine and the conv twice instead.  The VAE decoder
@@ -1041,7 +1105,8 @@ def expected_launches(comps, steps, alpha_stages, latent, config, sampler="plms"
     tables = SamplerTables.create(comps.schedule, steps, alpha_stages=alpha_stages,
                                   first_conv_restorable=comps.unet.first_conv_restorable)
     n = len(tables.ts)
-    k0 = _gate_zero_from(tables)
+    # the pipeline's fuser-free tail, for the fusers the alpha schedule gates
+    k0 = _gate_zero_from(tables) if comps.unet.fuser_type in ("gatedSA", "gatedCA") else n
     if sampler == "plms":
         split = max(k0, 1)
         heun = 2  # the peeled step 0 calls the model twice
@@ -1053,15 +1118,18 @@ def expected_launches(comps, steps, alpha_stages, latent, config, sampler="plms"
     gn_on, ln_on = norm in ("gn", "both"), norm in ("ln", "both")
     res, sts = unet_maps(comps.unet, latent)
     counts = dict.fromkeys(kernel_wrappers(), 0)
+    fused_fuser = comps.unet.fuser_type == "gatedSA"
     for h, _, depth in sts:
         fused = env["GLIGEN_TPU_FUSED_PROJ"] == "1" and h * h >= 64
         counts["flash_fwd"] += depth * (3 * gated + 2 * free)
         if fused:
             for name, (g, f) in {"ln_matmuls": (4, 2), "matmul_residual": (5, 3),
                                  "ln_geglu": (2, 1)}.items():
-                counts[name] += depth * (g * gated + f * free)
-        elif ln_on:
+                counts[name] += depth * ((g if fused_fuser else f) * gated + f * free)
+        if ln_on and not fused:
             counts["layer_norm"] += depth * (5 * gated + 3 * free)
+        elif ln_on and not fused_fuser:
+            counts["layer_norm"] += depth * 2 * gated
     calls = gated + free
     fused_res = sum(fuses_conv(env["GLIGEN_TPU_FUSED_CONV"], h, h, cout) for h, _, cout in res)
     counts["gn_silu_conv3x3"] = counts["gn_affine"] = 2 * fused_res * calls
@@ -1409,18 +1477,33 @@ def run_tools(torch, device):
     return failures, counts, checks, lines
 
 
-def make_request(rng, batch, vocab, ctx_dim):
+def make_request(rng, batch, vocab, ctx_dim, tokenizer="text", n_box=30):
+    """Token ids, negative ids and the inputs of ``tokenizer``: 1 to 7 live
+    boxes of ``n_box`` (text; text_image with each live box's text and
+    image masks drawn), or 8 persons' 17 keypoints, 30% invisible at (0, 0)
+    (keypoint)."""
     import numpy as np
 
     ids = rng.integers(1, vocab - 1, size=(batch, 77)).astype(np.int64)
     uc = np.full((batch, 77), vocab - 1, np.int64)
-    n_box = 30
+    if tokenizer == "keypoint":
+        masks = (rng.random((batch, 8 * 17)) > 0.3).astype(np.float32)
+        points = rng.random((batch, 8 * 17, 2)).astype(np.float32) * masks[..., None]
+        return ids, uc, {"points": points, "masks": masks}
     boxes = np.sort(rng.random((batch, n_box, 4)).astype(np.float32).reshape(-1, 2, 2), axis=1)
+    masks = (np.arange(n_box)[None, :] < rng.integers(1, 8, size=(batch, 1))).astype(np.float32)
     grounding = {
         "boxes": boxes.reshape(batch, n_box, 4),
-        "masks": (np.arange(n_box)[None, :] < rng.integers(1, 8, size=(batch, 1))).astype(np.float32),
+        "masks": masks,
         "positive_embeddings": rng.standard_normal((batch, n_box, ctx_dim)).astype(np.float32),
     }
+    if tokenizer == "text_image":
+        grounding = {"boxes": grounding["boxes"], "masks": masks,
+                     "text_masks": masks * (rng.random((batch, n_box)) > 0.3),
+                     "image_masks": masks * (rng.random((batch, n_box)) > 0.3),
+                     "text_embeddings": grounding["positive_embeddings"],
+                     "image_embeddings": rng.standard_normal((batch, n_box, ctx_dim))
+                     .astype(np.float32)}
     return ids, uc, grounding
 
 
@@ -1503,19 +1586,25 @@ def run_requests(torch, pipe, requests, config, gen, **kw):
     return times, images, {name: w.launches for name, w in wrappers.items()}
 
 
-def small_reference(torch, np, seed, device, alpha, config):
+def small_reference(torch, np, seed, device, alpha, config, model=None):
     """The pipeline at a small width: card (bf16, kernels) against CPU
-    (fp32, plain versions), same weights and noise, in one configuration.
-    Returns (ok, line)."""
+    (fp32, plain versions), same weights and noise, in one configuration;
+    ``model`` names one of ``SMALL_GROUNDING`` in place of the box+text
+    gatedSA UNet.  Returns (ok, line)."""
     from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
 
     set_config(config)
-    cpu = GligenComponents.create(dtype=torch.float32, seed=seed, device="cpu", **SMALL)
+    small, tokenizer, n_box = dict(SMALL), "text", 30
+    if model is not None:
+        unet, tokenizer, n_box = SMALL_GROUNDING[model]
+        small["unet_config"] = dict(SMALL["unet_config"], **unet)
+    cpu = GligenComponents.create(dtype=torch.float32, seed=seed, device="cpu", **small)
     dezero_(cpu.unet, torch.Generator().manual_seed(seed + 2))
-    gpu = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device, **SMALL)
+    gpu = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device, **small)
     for a, b in ((cpu.unet, gpu.unet), (cpu.vae, gpu.vae), (cpu.text_encoder, gpu.text_encoder)):
         b.load_state_dict(a.state_dict())
-    ids, uc, grounding = make_request(np.random.default_rng(seed + 3), 2, 1000, 64)
+    ids, uc, grounding = make_request(np.random.default_rng(seed + 3), 2, 1000, 64, tokenizer,
+                                      n_box)
     noise = np.random.default_rng(seed + 4).standard_normal((2, 16, 16, 4)).astype(np.float32)
     kw = dict(steps=4, guidance_scale=7.5, alpha_stages=alpha, latent_size=16, noise=noise)
     with torch.inference_mode():
@@ -1525,19 +1614,24 @@ def small_reference(torch, np, seed, device, alpha, config):
     diff = (got - ref).abs()
     ok, desc = check_image(torch, got, 2, 32)
     ok = ok and diff.mean().item() <= REF_MEAN_TOL
-    return ok, (f"reference: {config_desc(config)}: small pipeline card bf16 vs CPU fp32: {desc}; "
-                f"mean abs diff {diff.mean().item():.4e} (tol {REF_MEAN_TOL}), "
+    what = "" if model is None else f" ({model})"
+    return ok, (f"reference: {config_desc(config)}: small pipeline{what} card bf16 vs CPU fp32: "
+                f"{desc}; mean abs diff {diff.mean().item():.4e} (tol {REF_MEAN_TOL}), "
                 f"max {diff.max().item():.4e} {'ok' if ok else 'FAIL'}")
 
 
-# The inpaint phase's model as the reference's checkpoint config gives it:
-# SD-1.4 GLIGEN (configs/flickr_text.yaml's widths) with the inpainting
-# UNet's 9-channel first conv, the text tokenizer under its reference name,
-# and a schedule that is not the default one.
-INPAINT_UNET = dict(
+# SD-1.4 GLIGEN's UNet widths (configs/flickr_text.yaml's), gatedSA fuser.
+SD14_UNET = dict(
     in_channels=4, out_channels=4, model_channels=320, attention_resolutions=[4, 2, 1],
     num_res_blocks=2, channel_mult=[1, 2, 4, 4], num_heads=8, transformer_depth=1,
-    context_dim=768, fuser_type="gatedSA", inpaint_mode=True,
+    context_dim=768, fuser_type="gatedSA",
+)
+# The inpaint phase's model as the reference's checkpoint config gives it:
+# SD-1.4 GLIGEN with the inpainting UNet's 9-channel first conv, the text
+# tokenizer under its reference name, and a schedule that is not the
+# default one.
+INPAINT_UNET = dict(
+    SD14_UNET, inpaint_mode=True,
     grounding_tokenizer={"target": "ldm.modules.diffusionmodules.text_grounding_net.PositionNet",
                          "params": {"in_dim": 768, "out_dim": 768}},
 )
@@ -1555,6 +1649,27 @@ def inpaint_request(rng, batch, vocab, ctx_dim, size, latent):
     image = rng.uniform(-1.0, 1.0, (batch, size, size, 3)).astype("float32")
     mask = draw_masks_from_boxes(grounding["boxes"][:, :2], size=latent)
     return ids, uc, grounding, {"inpaint_image": image, "inpaint_mask": mask}
+
+
+def loaded_differences(torch, src, comps, ema_gate=None):
+    """(the names of the loaded tensors that differ from their source in
+    name, dtype or any bit, the number of tensors compared) over the UNet,
+    the VAE and the text encoder; with ``ema_gate`` every UNet fuser gate
+    must be that (the EMA's)."""
+    bad, n = [], 0
+    for tag, a, b in (("unet", src.unet, comps.unet), ("vae", src.vae, comps.vae),
+                      ("text", src.text_encoder, comps.text_encoder)):
+        want, got = a.state_dict(), b.state_dict()
+        bad += [f"{tag}: names differ"] if set(want) != set(got) else []
+        for name, t in got.items():
+            n += 1
+            w = want.get(name)
+            if ema_gate is not None and tag == "unet" and name.endswith(("alpha_attn",
+                                                                          "alpha_dense")):
+                w = torch.full_like(t, ema_gate)
+            if w is None or t.dtype != w.dtype or not torch.equal(t, w):
+                bad.append(f"{tag}.{name}")
+    return bad, n
 
 
 def load_checkpoint(torch, np, seed, device):
@@ -1575,18 +1690,7 @@ def load_checkpoint(torch, np, seed, device):
                                        dtype=torch.bfloat16, device=device)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    bad, n = [], 0
-    for tag, a, b in (("unet", src.unet, comps.unet), ("vae", src.vae, comps.vae),
-                      ("text", src.text_encoder, comps.text_encoder)):
-        want, got = a.state_dict(), b.state_dict()
-        bad += [f"{tag}: names differ"] if set(want) != set(got) else []
-        for name, t in got.items():
-            n += 1
-            w = want.get(name)
-            if tag == "unet" and name.endswith(("alpha_attn", "alpha_dense")):
-                w = torch.full_like(t, EMA_GATE)  # the EMA's gates
-            if w is None or t.dtype != w.dtype or not torch.equal(t, w):
-                bad.append(f"{tag}.{name}")
+    bad, n = loaded_differences(torch, src, comps, ema_gate=EMA_GATE)
     sched = comps.schedule.alphas_cumprod
     sched_ok = (np.array_equal(sched, DiffusionSchedule.create(**INPAINT_SCHEDULE).alphas_cumprod)
                 and not np.array_equal(sched, src.schedule.alphas_cumprod))
@@ -1698,6 +1802,221 @@ def small_inpaint_reference(torch, np, seed, device, sampler):
                 f"max {diff.max().item():.4e} {'ok' if ok else 'FAIL'}")
 
 
+# Phase 12's models as their configs give them: configs/flickr_text_image.yaml
+# (box+text+image) and configs/coco2017K.yaml (keypoint), SD-1.4 GLIGEN's
+# widths with the gatedSA fuser, each tokenizer and its input adapter named
+# by the reference's dotted alias.  Python literals, since the card's
+# machine has no PyYAML; tests/test_torch_launch_counts.py holds them to
+# the files.
+GROUNDING_MODELS = {
+    "text_image": dict(SD14_UNET, grounding_tokenizer={
+        "target": "ldm.modules.diffusionmodules.text_image_grounding_net.PositionNet",
+        "params": {"in_dim": 768, "out_dim": 768}}),
+    "keypoint": dict(SD14_UNET, grounding_tokenizer={
+        "target": "ldm.modules.diffusionmodules.keypoint_grounding_net.PositionNet",
+        "params": {"max_persons_per_image": 8, "out_dim": 768}}),
+}
+GROUNDING_INPUTS = {
+    "text_image": "grounding_input.text_image_grounding_tokinzer_input.GroundingNetInput",
+    "keypoint": "grounding_input.keypoint_grounding_tokinzer_input.GroundingNetInput",
+}
+GROUNDING_SCHEDULE = dict(timesteps=1000, linear_start=0.00085, linear_end=0.012)
+# the kernels every request of phase 12 must launch in configuration (a)
+PATH_KERNELS = ("flash_fwd", "ln_matmuls", "matmul_residual", "ln_geglu", "group_norm")
+
+
+def elapsed_ms(torch, fn, iters=5):
+    """ms per call of ``fn`` between CUDA events around ``iters`` calls
+    after one warm-up: the device's elapsed time, the host's gaps between
+    launches included.  For a module of ~1,000 small launches a call (the
+    vision tower), which ``timed`` cannot queue ten calls of ahead of the
+    device: the launch queue fills."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phrase_tokenizer(rng, phrases, vocab=49408):
+    """A seeded stand-in for CLIP's tokenizer (the port's is ROADMAP M10):
+    each phrase gets (1, 77) ids, the start token, 2 to 6 random ids, the
+    end-of-text token (the largest id, which ``pooled`` reads) and padding."""
+    import numpy as np
+
+    table = {}
+    for p in phrases:
+        body = rng.integers(1, vocab - 2, size=int(rng.integers(2, 7)))
+        ids = np.zeros(77, np.int64)
+        ids[:len(body) + 2] = [vocab - 2, *body, vocab - 1]
+        table[p] = ids
+    return lambda batch: np.stack([table[p] for p in batch])
+
+
+def box_metas(rng, n_requests, n_box=6):
+    """Box+text+image metas: each box holds a phrase only, an image only or
+    both, in turn from a seeded start; the images are seeded uint8 512^2
+    arrays (no image file).  Returns (metas, the phrases)."""
+    import numpy as np
+
+    metas, phrases = [], []
+    for r in range(n_requests):
+        boxes = np.sort(rng.random((n_box, 2, 2)), axis=1).reshape(n_box, 4)
+        kinds = [(r + i) % 3 for i in range(n_box)]  # 0 text, 1 image, 2 both
+        texts = [f"phrase {r}.{i}" if k != 1 else None for i, k in enumerate(kinds)]
+        images = [rng.integers(0, 256, size=(512, 512, 3), dtype=np.uint8) if k else None
+                  for k in kinds]
+        phrases += [t for t in texts if t]
+        metas.append({"locations": boxes.tolist(), "phrases": texts, "images": images})
+    return metas, phrases
+
+
+def keypoint_metas(rng, n_requests):
+    """Keypoint metas: 3 to 8 persons' 17 (x, y) points, about a fifth of
+    them invisible at (0, 0)."""
+    metas = []
+    for _ in range(n_requests):
+        people = rng.random((int(rng.integers(3, 9)), 17, 2))
+        people *= rng.random((people.shape[0], 17, 1)) > 0.2
+        metas.append({"locations": people.tolist()})
+    return metas
+
+
+def vision_tower(torch, np, seed, device):
+    """CLIP ViT-L/14's vision tower at full width (fp32, as the reference's
+    feature extractor runs it) with random weights from ``seed``, written
+    with HF's names and loaded back through ``convert_clip_vision``, and a
+    seeded 768 x 768 projection.  Returns (tower, projection, tensors equal
+    to their source, tensors)."""
+    from gligen_tpu_torch.convert.from_reference import convert_clip_vision
+    from gligen_tpu_torch.inference.pipeline import random_init_
+    from gligen_tpu_torch.models.clip_vision import CLIPVisionModel
+    from gligen_tpu_torch.tools.reference_ckpt import clip_vision_to_reference
+
+    with torch.device(device):
+        src, vision = CLIPVisionModel().eval(), CLIPVisionModel().eval()
+    random_init_(src, torch.Generator(device=device).manual_seed(seed))
+    vision.load_state_dict(convert_clip_vision(clip_vision_to_reference(src.state_dict())),
+                           strict=True)
+    want = src.state_dict()
+    same = sum(torch.equal(t, want[n]) for n, t in vision.state_dict().items())
+    projection = (np.random.default_rng(seed).standard_normal((768, 768)) / np.sqrt(768))
+    return vision, projection.astype(np.float32), same, len(want)
+
+
+def run_grounding(torch, np, seed, device, steps, batch=2, size=512):
+    """Phase 12 (a) and (b): each model of ``GROUNDING_MODELS`` built from ``seed``,
+    de-zeroed, written as a reference-format checkpoint in memory and loaded
+    back through ``components_from_checkpoint``; its grounding from the
+    CLI's batch preparation (box+text+image: CLIP text features of seeded
+    phrase ids and image features of seeded arrays through the vision
+    tower; keypoint: seeded skeletons) through the config's input adapter;
+    two requests of ``batch`` at ``size``^2, PLMS with alpha stages [0.3,
+    0, 0.7], configuration (a).  Returns (failures, s/img of request 1 by
+    model, the vision tower's device ms per image)."""
+    from gligen_tpu_torch.inference.adapters import get_adapter
+    from gligen_tpu_torch.inference.cli import (FeatureExtractor, components_from_checkpoint,
+                                                prepare_batch_box, prepare_batch_kp)
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
+    from gligen_tpu_torch.models.clip_vision import clip_preprocess
+    from gligen_tpu_torch.ops.flash_attention import flash_fwd
+    from gligen_tpu_torch.tools.reference_ckpt import reference_checkpoint
+
+    set_config("a")
+    failures, s_per_img, vision_ms = [], {}, None
+    alpha, latent = [0.3, 0.0, 0.7], size // 8
+    rng = np.random.default_rng(seed + 12)
+    gen = torch.Generator(device=device).manual_seed(seed + 13)
+    for name, unet_config in GROUNDING_MODELS.items():
+        t0 = time.perf_counter()
+        src = GligenComponents.create(unet_config=dict(unet_config), dtype=torch.bfloat16,
+                                      seed=seed + 14, device=device)
+        dezero_(src.unet, torch.Generator(device=device).manual_seed(seed + 15))
+        ckpt, sd_conv = reference_checkpoint(src, unet_config, GROUNDING_SCHEDULE)
+        comps = components_from_checkpoint(ckpt, sd_first_conv=sd_conv, dtype=torch.bfloat16,
+                                           device=device)
+        bad, n = loaded_differences(torch, src, comps)
+        net = type(comps.unet.position_net).__name__
+        del src, ckpt, sd_conv
+        torch.cuda.empty_cache()
+        print(f"grounding: {name}: reference-format checkpoint (tokenizer "
+              f"{unet_config['grounding_tokenizer']['target']}) loaded on the card in "
+              f"{time.perf_counter() - t0:.1f} s as {net}: {n - len(bad)} of {n} tensors equal "
+              f"their source bit for bit {bad[:4] if bad else ''} "
+              f"{'ok' if not bad else 'FAIL'}", flush=True)
+        if bad:
+            failures.append(f"grounding checkpoint ({name})")
+        if name == "text_image":
+            vision, projection, same, total = vision_tower(torch, np, seed + 16, device)
+            print(f"grounding: CLIP ViT-L/14 vision tower (24 x 1024, fp32, random weights) "
+                  f"through HF's names and convert_clip_vision: {same} of {total} tensors equal "
+                  f"{'ok' if same == total else 'FAIL'}", flush=True)
+            if same != total:
+                failures.append("grounding vision tower load")
+            metas, phrases = box_metas(rng, 2)
+            features = FeatureExtractor(comps.text_encoder, phrase_tokenizer(rng, phrases),
+                                        vision, projection)
+            t1 = time.perf_counter()
+            batches = [prepare_batch_box(meta, batch, features) for meta in metas]
+            n_images = sum(i is not None for meta in metas for i in meta["images"])
+            feature_s = time.perf_counter() - t1
+            pixels = clip_preprocess(torch.from_numpy(metas[0]["images"][1]).to(device)[None])
+            with torch.no_grad():
+                vision_ms = elapsed_ms(torch, lambda: vision(pixels))
+            norms = [float(np.linalg.norm(f)) for b in batches
+                     for f, m in zip(b["image_embeddings"][0], b["image_masks"][0]) if m]
+            feats_ok = (all(np.isfinite(b[k]).all() for b in batches for k in b)
+                        and np.allclose(norms, 28.7, rtol=1e-4) and len(norms) == n_images)
+            print(f"grounding: {name}: features of {len(phrases)} phrases and {n_images} images "
+                  f"in {feature_s:.2f} s (host clock); the vision tower {vision_ms:.3f} ms per "
+                  f"image (CUDA events, host gaps included); image features renormed to 28.7 "
+                  f"{feats_ok} "
+                  f"{'ok' if feats_ok else 'FAIL'}", flush=True)
+            if not feats_ok:
+                failures.append("grounding features")
+            del vision, features, pixels
+        else:
+            batches = [prepare_batch_kp(meta, batch) for meta in keypoint_metas(rng, 2)]
+        adapter = get_adapter(GROUNDING_INPUTS[name])
+        requests = []
+        for grounding in batches:
+            ids, uc, _ = make_request(rng, batch, 49408, 768)
+            requests.append((ids, uc, adapter.prepare(grounding)))
+        expected, gated, free = expected_launches(comps, steps, alpha, latent, "a")
+        routes = dict(flash_fwd.routes)
+        pipe = GenerationPipeline(comps)
+        times, images, counts = run_requests(torch, pipe, requests, "a", gen, steps=steps,
+                                             guidance_scale=7.5, alpha_stages=alpha,
+                                             latent_size=latent)
+        routes = {r: c - routes[r] for r, c in flash_fwd.routes.items()}
+        for i, (img, t) in enumerate(zip(images, times)):
+            ok, desc = check_image(torch, img, batch, size)
+            print(f"grounding: {name} request {i}: {desc} in {t:.3f} s = {t / batch:.3f} s/img "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"grounding image ({name}) {i}")
+        want = {k: len(requests) * expected[k] for k in counts}
+        launched = all(counts[k] > 0 for k in PATH_KERNELS)
+        ok = counts == want and launched
+        print(f"grounding: {name} per request {gated} gated and {free} fuser-free UNet calls; "
+              f"launches {counts}, expected {want}; {', '.join(PATH_KERNELS)} each launched "
+              f"{launched} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"grounding launch count ({name})")
+        print(f"grounding: {name} flash_fwd launches by route {routes} (every one must be tma) "
+              f"{'ok' if routes['copy'] == 0 else 'FAIL'}", flush=True)
+        if routes["copy"]:
+            failures.append(f"grounding flash_fwd copy route ({name})")
+        s_per_img[name] = times[1] / batch
+        del comps, pipe, images, requests, batches
+        torch.cuda.empty_cache()
+    return failures, s_per_img, vision_ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -1806,6 +2125,19 @@ def main() -> int:
         if not ok:
             failures.append(f"reference ({config})")
 
+    # ---- 12. the other grounding modalities and fusers, in phase 4's host state:
+    # before the train phases and any profiler session (phases 9, 11) ----
+    t0 = time.perf_counter()
+    grounding_failures, grounding_s, vision_ms = run_grounding(torch, np, args.seed, device,
+                                                               args.steps)
+    failures += grounding_failures
+    for model in SMALL_GROUNDING:
+        ok, line = small_reference(torch, np, args.seed, device, alpha, "a", model=model)
+        print(line, flush=True)
+        if not ok:
+            failures.append(f"grounding reference ({model})")
+    print(f"grounding: phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 6. the flash backward kernels vs plain ----
     results += check_bwd(torch, bwd_cases(4), device)
     failures += [f"kernel {r['kind']} {r['name']}" for r in results
@@ -1851,6 +2183,10 @@ def main() -> int:
     print("summary: inpaint from a checkpoint, s/img " + ", ".join(
         f"{sampler} {s:.3f}" for sampler, s in inpaint_s.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} steps, fp32 encode, 512^2) on {card}")
+    print("summary: grounding s/img " + ", ".join(f"{m} {t:.3f}" for m, t in grounding_s.items())
+          + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, alpha stages, 512^2, "
+          f"loaded from a checkpoint); CLIP ViT-L/14 vision {vision_ms:.3f} ms per image (fp32) "
+          f"on {card}")
     by_name = {(r["kind"], r["name"]): r for r in results}
     kernels = []
     for name, (source, replaces, timed_at, config) in KERNEL_META.items():

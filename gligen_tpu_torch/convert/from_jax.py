@@ -73,3 +73,11 @@ def load_jax_params(components, params: Mapping[str, Mapping[str, Any]]) -> None
     }
     for key, module in modules.items():
         module.load_state_dict(state_dict_from_jax(params[key], SKIPPED[key]), strict=True)
+
+
+def load_clip_vision_params(vision: nn.Module, params: Mapping[str, Any]) -> None:
+    """Load the JAX ``CLIPVisionModel``'s parameter tree into the port's
+    ``models/clip_vision.py:CLIPVisionModel``, strictly: the patch conv's
+    HWIO kernel and the position ``Embed`` take the generic leaf map, the
+    ``class_embedding`` stays as it is."""
+    vision.load_state_dict(state_dict_from_jax(params), strict=True)

@@ -12,8 +12,9 @@ key map is the JAX converter's, without its layout transposes:
     ``down.0.downsample`` -> ``down_0_downsample``, ``mid.block_1`` ->
     ``mid_block_1``);
   * CLIP's ``text_model.embeddings.`` / ``text_model.encoder.`` /
-    ``text_model.`` prefixes go, ``mlp.fc`` -> ``mlp_fc``, and the
-    ``position_ids`` buffer is dropped.
+    ``text_model.`` prefixes go (``vision_model.`` ones for the vision
+    tower), ``mlp.fc`` -> ``mlp_fc``, and the ``position_ids`` buffer is
+    dropped.
 
 Layouts: Linear (O, I) and Conv2d (O, I, kh, kw) stay as they are (the
 port's modules are torch's); the 1x1 convs that the port runs as Dense
@@ -79,6 +80,22 @@ def convert_clip_text(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if "position_ids" in k:
             continue  # a buffer, not a parameter
         for prefix in ("text_model.embeddings.", "text_model.encoder.", "text_model."):
+            k = k.replace(prefix, "")
+        renamed[k.replace("mlp.fc", "mlp_fc")] = v
+    return convert_state_dict(renamed)
+
+
+def convert_clip_vision(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An HF CLIPVisionModelWithProjection state dict, the image tower of
+    box+text+image grounding (torch_to_jax.py:131-143): the
+    ``vision_model.embeddings.`` / ``vision_model.encoder.`` /
+    ``vision_model.`` prefixes go, ``mlp.fc`` -> ``mlp_fc``, and the
+    ``position_ids`` buffer is dropped."""
+    renamed = {}
+    for k, v in state.items():
+        if "position_ids" in k:
+            continue
+        for prefix in ("vision_model.embeddings.", "vision_model.encoder.", "vision_model."):
             k = k.replace(prefix, "")
         renamed[k.replace("mlp.fc", "mlp_fc")] = v
     return convert_state_dict(renamed)

@@ -1,21 +1,27 @@
-"""Components from a reference checkpoint: the checkpoint half of
-``gligen_tpu/inference/cli.py`` (``_vae_config_from_reference`` :260-279
-and ``build_pipeline``'s checkpoint branch :313-332).
+"""The checkpoint and feature halves of ``gligen_tpu/inference/cli.py``.
 
-Checkpoints are self-describing: the UNet's keywords, the first stage's
-``ddconfig`` and the diffusion schedule ride in the embedded config, and
-the reference instantiates all its modules from it
-(gligen_inference.py:72-77).  The tokenizer, the scenarios and the rest of
-the command line are ROADMAP M10.
+Components from a reference checkpoint (``_vae_config_from_reference``
+:260-279 and ``build_pipeline``'s checkpoint branch :313-332): checkpoints
+are self-describing, the UNet's keywords, the first stage's ``ddconfig``
+and the diffusion schedule ride in the embedded config, and the reference
+instantiates all its modules from it (gligen_inference.py:72-77).
+
+The grounding inputs of a scenario's meta (:34-158): CLIP phrase and image
+features (``FeatureExtractor``) and the per-modality batches
+(``prepare_batch_box`` for box+text(+image), ``prepare_batch_kp``).  The
+tokenizer, the scenarios, the command line and PNG saving are ROADMAP M10.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import os
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from gligen_tpu_torch.inference.pipeline import GligenComponents
+from gligen_tpu_torch.models.clip_vision import clip_preprocess
 from gligen_tpu_torch.training.checkpoints import gligen_state_dicts
 
 SCHEDULE_KEYS = ("timesteps", "linear_start", "linear_end")
@@ -63,3 +69,138 @@ def components_from_checkpoint(
                         ("text_encoder", comps.text_encoder)):
         module.load_state_dict(state[key], strict=True)
     return comps
+
+
+MAX_OBJS = 30
+FEATURE_DIM = 768  # CLIP ViT-L/14's text and reprojected image features
+FEATURE_NORM = 28.7  # the reprojected image feature's norm (gligen_inference.py:116)
+
+
+def complete_mask(has_mask, max_objs: int = MAX_OBJS) -> np.ndarray:
+    """A meta's ``text_mask`` / ``image_mask`` as a (1, max_objs) mask
+    (gligen_inference.py:131-141): all ones when absent, a scalar times
+    ones, or a per-slot list over ones."""
+    mask = np.ones((1, max_objs), np.float32)
+    if has_mask is None:
+        return mask
+    if isinstance(has_mask, (int, float)):
+        return mask * has_mask
+    for idx, value in enumerate(has_mask):
+        mask[0, idx] = value
+    return mask
+
+
+class FeatureExtractor:
+    """CLIP phrase and image features (gligen_inference.py:100-127).
+
+    ``text_feature``: the pooled CLIP text output of ``tokenizer([phrase])``
+    (a callable giving (1, 77) token ids; the port's tokenizer is ROADMAP
+    M10).  ``image_feature``: the vision tower's image embedding, then
+    ``@ projection_matrix`` into the text-penultimate space, renormed to
+    28.7.  ``allow_random`` (a smoke run without CLIP vision weights or the
+    projection): a deterministic pseudo-feature of the image's pixels in
+    their place.  Features come back as fp32 numpy (768,)."""
+
+    def __init__(self, text_encoder, tokenizer: Optional[Callable[[Sequence[str]], Any]] = None,
+                 vision=None, projection_matrix: Optional[np.ndarray] = None,
+                 allow_random: bool = False):
+        self.text_encoder = text_encoder
+        self.tokenizer = tokenizer
+        self.vision = vision
+        self.projection_matrix = projection_matrix
+        self.allow_random = allow_random
+
+    @torch.no_grad()
+    def text_feature(self, phrase: str) -> np.ndarray:
+        if self.tokenizer is None:
+            raise ValueError("text_feature needs a tokenizer")
+        device = next(self.text_encoder.parameters()).device
+        ids = torch.as_tensor(np.asarray(self.tokenizer([phrase])), device=device).long()
+        _, _, pooled = self.text_encoder(ids)
+        return pooled[0].float().cpu().numpy()
+
+    def image_feature(self, image) -> np.ndarray:
+        """``image``: a path (read with PIL, imported here) or a uint8
+        (H, W, 3) array."""
+        if isinstance(image, (str, os.PathLike)):
+            from PIL import Image
+
+            image = np.asarray(Image.open(image).convert("RGB"))
+        return self.image_feature_from_array(image)
+
+    @torch.no_grad()
+    def image_feature_from_array(self, image: np.ndarray) -> np.ndarray:
+        """The feature of a uint8 (H, W, 3) image, whole (CLIP's resize to
+        224^2 is ``clip_preprocess``'s)."""
+        if (self.vision is None or self.projection_matrix is None) and self.allow_random:
+            seed = int(np.asarray(image, np.uint8).sum()) % (2**31)
+            feat = np.random.default_rng(seed).standard_normal(FEATURE_DIM).astype(np.float32)
+            return feat / np.linalg.norm(feat) * FEATURE_NORM
+        if self.vision is None or self.projection_matrix is None:
+            raise ValueError("image grounding needs CLIP vision weights and projection_matrix")
+        device = next(self.vision.parameters()).device
+        pixels = clip_preprocess(torch.as_tensor(np.asarray(image, np.float32), device=device)[None])
+        embeds, _ = self.vision(pixels)
+        # reproject into the text-penultimate space, renorm to 28.7
+        # (gligen_inference.py:113-116: project(feature, P.T) == feature @ P)
+        feat = embeds[0].float().cpu().numpy() @ self.projection_matrix
+        return feat / np.linalg.norm(feat) * FEATURE_NORM
+
+
+def prepare_batch_box(meta: Mapping[str, Any], batch: int, features: FeatureExtractor,
+                      max_objs: int = MAX_OBJS) -> Dict[str, np.ndarray]:
+    """Box+text(+image) grounding (gligen_inference.py:144-187): per box
+    slot a phrase, an image or both (``meta["locations"]``, ``"phrases"``,
+    ``"images"``), and ``text_mask`` / ``image_mask`` from the meta; the
+    arrays repeated over ``batch`` rows.  The text tokenizer takes
+    ``positive_embeddings`` = ``text_embeddings``
+    (``inference/adapters.py``)."""
+    phrases = meta.get("phrases")
+    images = meta.get("images")
+    images = [None] * len(phrases) if images is None else images
+    phrases = [None] * len(images) if phrases is None else phrases
+
+    boxes = np.zeros((max_objs, 4), np.float32)
+    masks = np.zeros(max_objs, np.float32)
+    text_masks = np.zeros(max_objs, np.float32)
+    image_masks = np.zeros(max_objs, np.float32)
+    text_embeddings = np.zeros((max_objs, FEATURE_DIM), np.float32)
+    image_embeddings = np.zeros((max_objs, FEATURE_DIM), np.float32)
+
+    for idx, (box, phrase, image) in enumerate(zip(meta["locations"], phrases, images)):
+        boxes[idx] = box
+        masks[idx] = 1
+        if phrase is not None:
+            text_embeddings[idx] = features.text_feature(phrase)
+            text_masks[idx] = 1
+        if image is not None:
+            image_embeddings[idx] = features.image_feature(image)
+            image_masks[idx] = 1
+
+    rep = lambda a: np.repeat(a[None], batch, axis=0)
+    return {
+        "boxes": rep(boxes),
+        "masks": rep(masks),
+        "text_masks": rep(text_masks) * complete_mask(meta.get("text_mask"), max_objs),
+        "image_masks": rep(image_masks) * complete_mask(meta.get("image_mask"), max_objs),
+        "text_embeddings": rep(text_embeddings),
+        "image_embeddings": rep(image_embeddings),
+    }
+
+
+def prepare_batch_kp(meta: Mapping[str, Any], batch: int,
+                     max_persons: int = 8) -> Dict[str, np.ndarray]:
+    """Keypoint grounding (gligen_inference.py:199-218): each person's 17
+    (x, y) points in order (``meta["locations"]``), a point at (0, 0)
+    invisible (mask 0); repeated over ``batch`` rows."""
+    points = np.zeros((max_persons * 17, 2), np.float32)
+    idx = 0
+    for person in meta["locations"]:
+        for kp in person:
+            points[idx] = kp
+            idx += 1
+    masks = (points.mean(axis=1) != 0).astype(np.float32)
+    return {
+        "points": np.repeat(points[None], batch, 0),
+        "masks": np.repeat(masks[None], batch, 0),
+    }

@@ -19,7 +19,9 @@ from torch import nn
 
 from gligen_tpu_torch.diffusion.samplers import ddim_sample, plms_sample
 from gligen_tpu_torch.diffusion.schedule import DiffusionSchedule
+from gligen_tpu_torch.inference.adapters import null_input
 from gligen_tpu_torch.models.clip_text import CLIPTextModel
+from gligen_tpu_torch.models.clip_vision import CLIPVisionModel, PatchEmbedding
 from gligen_tpu_torch.models.layers import Conv2d, Dense
 from gligen_tpu_torch.models.unet import UNetModel
 from gligen_tpu_torch.models.vae import AutoencoderKL
@@ -31,20 +33,23 @@ _TRUNC_STD = 0.87962566103423978
 def random_init_(root: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialisers, drawn from ``generator``: lecun
     normal for Dense/Conv weights (zeros where the module is zero-init),
-    zero biases, unit norm scales, zero fuser alphas and null features."""
+    zero biases, unit norm scales, zero fuser alphas and null features,
+    and CLIP vision's class embedding ~ N(0, 0.02^2)."""
     with torch.no_grad():
         for m in root.modules():
-            if isinstance(m, (Dense, Conv2d)):
-                if m.zero_init:
+            if isinstance(m, (Dense, Conv2d, PatchEmbedding)):
+                if getattr(m, "zero_init", False):
                     m.weight.zero_()
                 else:
                     std = m.weight[0].numel() ** -0.5 / _TRUNC_STD
                     nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
                                           generator=generator)
-                if m.bias is not None:
+                if getattr(m, "bias", None) is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.Embedding):
                 nn.init.normal_(m.weight, std=m.embedding_dim**-0.5, generator=generator)
+            elif isinstance(m, CLIPVisionModel):
+                nn.init.normal_(m.class_embedding, std=0.02, generator=generator)
             else:
                 for name, p in m.named_parameters(recurse=False):
                     p.fill_(1.0 if name == "weight" else 0.0)
@@ -128,8 +133,11 @@ class GenerationPipeline:
         [0, 1], (B, 8*latent, 8*latent, 3) float32.
 
         input_ids/uc_input_ids: (B, 77) tokenized prompt / negative prompt.
-        grounding: the box tokenizer's inputs (boxes, masks,
-        positive_embeddings).  inpaint_image: (B, H, W, 3) in [-1, 1] and
+        grounding: the UNet's tokenizer's inputs (``inference/adapters.py``:
+        boxes, masks, positive_embeddings for text; text_image's boxes,
+        masks, text and image masks and embeddings; keypoint's points,
+        masks); the null batch of CFG is its zeros
+        (``adapters.null_input``).  inpaint_image: (B, H, W, 3) in [-1, 1] and
         inpaint_mask: (B, latent, latent, 1) keep-mask (1 = known region)
         inpaint; the UNet must be an inpaint UNet.  The random draws are
         injected or come from ``generator``: noise (B, latent, latent, 4),
@@ -151,7 +159,7 @@ class GenerationPipeline:
         uc = c.text_encoder.encode(uc_ids)
         # grounding tokens are loop-invariant: once per request, null pair included
         objs_c = c.unet.grounding_tokens(grounding)
-        objs_u = c.unet.grounding_tokens({k: torch.zeros_like(v) for k, v in grounding.items()})
+        objs_u = c.unet.grounding_tokens(null_input(grounding))
 
         scale = float(guidance_scale)
         use_cfg = scale != 1.0

@@ -74,16 +74,30 @@ class CLIPTextModel(nn.Module):
             self.add_module(f"layers_{i}", CLIPEncoderLayer(hidden_size, heads, dtype=dtype))
         self.final_layer_norm = LayerNorm(hidden_size)
 
-    def encode(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """(B, 77) token ids -> last_hidden_state (B, 77, hidden), after the
-        final LayerNorm (what FrozenCLIPEmbedder.encode returns)."""
-        n = input_ids.shape[1]
+    def forward(self, input_ids: torch.Tensor):
+        """(B, N) token ids -> (last, penultimate, pooled): the
+        last_hidden_state after the final LayerNorm (B, N, hidden); the
+        hidden states before the last layer (the dataset's "before" layer
+        select); and ``last`` at each row's end-of-text token, the
+        argmax of its ids (CLIP's pooler output, the text feature of
+        box+text+image grounding)."""
+        b, n = input_ids.shape
         pos = torch.arange(n, device=input_ids.device)
         x = (self.token_embedding(input_ids) + self.position_embedding(pos)[None]).to(self.dtype)
         neg = torch.finfo(torch.float32).min
         causal = torch.triu(
             torch.full((n, n), neg, dtype=torch.float32, device=input_ids.device), diagonal=1
         )
+        penultimate = None
         for i in range(self.layers):
+            if i == self.layers - 1:
+                penultimate = x
             x = getattr(self, f"layers_{i}")(x, causal)
-        return self.final_layer_norm(x)
+        last = self.final_layer_norm(x)
+        pooled = last[torch.arange(b, device=input_ids.device), input_ids.argmax(dim=-1)]
+        return last, penultimate, pooled
+
+    def encode(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """(B, 77) token ids -> last_hidden_state (B, 77, hidden), after the
+        final LayerNorm (what FrozenCLIPEmbedder.encode returns)."""
+        return self(input_ids)[0]

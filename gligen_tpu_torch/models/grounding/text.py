@@ -22,6 +22,7 @@ class TextPositionNet(nn.Module):
     def __init__(self, in_dim: int = 768, out_dim: int = 768, fourier_freqs: int = 8,
                  dtype=torch.float32):
         super().__init__()
+        self.out_dim = out_dim
         self.fourier_freqs = fourier_freqs
         position_dim = fourier_freqs * 2 * 4  # sin&cos x xyxy
         self.null_positive_feature = nn.Parameter(torch.zeros(in_dim))

@@ -1,12 +1,13 @@
-"""Transformer blocks with the GLIGEN gated self-attention fuser
-(counterpart of ``gligen_tpu/models/layers.py``).
+"""Transformer blocks with the GLIGEN gated fusers (counterpart of
+``gligen_tpu/models/layers.py``).
 
 Two paths compute the same blocks, picked as in the JAX package by
 ``GLIGEN_TPU_FUSED_PROJ`` (default ``"1"``, read at call time):
 
   * the fused path (``_fused_proj_ok``): every LayerNorm -> projection,
     projection -> gated residual and LayerNorm -> GEGLU chain is one
-    kernel of ``ops/fused_proj.py``;
+    kernel of ``ops/fused_proj.py``, but inside the gatedSA2 and gatedCA
+    fusers, which take the module path as in the JAX package;
   * the module path (``GLIGEN_TPU_FUSED_PROJ=0``, or fewer tokens than
     the floor): LayerNorm and Dense modules, one op at a time.
 
@@ -43,6 +44,7 @@ from torch import nn
 from gligen_tpu_torch.ops.attention import multi_head_attention
 from gligen_tpu_torch.ops.basic import group_norm, layer_norm
 from gligen_tpu_torch.ops.fused_proj import ln_geglu, ln_matmuls, matmul_residual
+from gligen_tpu_torch.ops.interpolate import resize_2d
 
 
 class Dense(nn.Linear):
@@ -205,7 +207,7 @@ def _fused_self_attn(x, kv, norm: LayerNorm, attn: SelfAttention, gate=None):
         q, k, v = ln_matmuls(x, s, b, (attn.to_q.weight, attn.to_k.weight, attn.to_v.weight))
     else:
         (q,) = ln_matmuls(x, s, b, (attn.to_q.weight,))
-        # the N+30 rows as they are: the flash kernel masks a ragged key tile
+        # the N+T rows as they are: the flash kernel masks a ragged key tile
         k, v = ln_matmuls(kv, s, b, (attn.to_k.weight, attn.to_v.weight))
     out = multi_head_attention(q, k, v, attn.heads)
     return matmul_residual(out, attn.to_out.weight, attn.to_out.bias, x, gate=gate)
@@ -226,24 +228,40 @@ def _fused_ff(x, norm: LayerNorm, ff: FeedForward, gate=None):
     return matmul_residual(h, ff.net_2.weight, ff.net_2.bias, x, gate=gate)
 
 
-class GatedSelfAttentionDense(nn.Module):
+class GatedFuser(nn.Module):
+    """What the three gated fusers share: the zero-initialised gates
+    ``alpha_attn`` and ``alpha_dense``, ``norm1``, ``norm2`` and the gated
+    GEGLU feed-forward.  Each term is scaled by gate_scale * tanh(alpha)."""
+
+    def __init__(self, query_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.alpha_attn = nn.Parameter(torch.zeros(()))
+        self.alpha_dense = nn.Parameter(torch.zeros(()))
+        self.norm1 = LayerNorm(query_dim)
+        self.norm2 = LayerNorm(query_dim)
+        self.ff = FeedForward(query_dim, dtype=dtype)
+
+    def _gated_attn(self, x: torch.Tensor, attn_out: torch.Tensor, gate_scale) -> torch.Tensor:
+        return x + (gate_scale * torch.tanh(self.alpha_attn)).to(x.dtype) * attn_out
+
+    def _gated_ff(self, x: torch.Tensor, gate_scale) -> torch.Tensor:
+        g2 = (gate_scale * torch.tanh(self.alpha_dense)).to(x.dtype)
+        return x + g2 * self.ff(self.norm2(x))
+
+
+class GatedSelfAttentionDense(GatedFuser):
     """The GLIGEN fuser: x += gate*tanh(alpha_attn) * SelfAttn over
     [x, W objs] for the visual rows, then the gated GEGLU feed-forward.
     Queries are computed for the visual rows only (the same result as
-    attending all N+30 rows and slicing, with less work).  ``small_fused``
+    attending all N+T rows and slicing, with less work).  ``small_fused``
     is ``_fused_proj_ok``'s ``small_n``."""
 
     def __init__(self, query_dim: int, objs_dim: int, heads: int, dim_head: int,
                  dtype=torch.float32, small_fused: bool = True):
-        super().__init__()
+        super().__init__(query_dim, dtype=dtype)
         self.small_fused = small_fused
-        self.alpha_attn = nn.Parameter(torch.zeros(()))
-        self.alpha_dense = nn.Parameter(torch.zeros(()))
         self.linear = Dense(objs_dim, query_dim, dtype=dtype)
-        self.norm1 = LayerNorm(query_dim)
         self.attn = SelfAttention(query_dim, heads, dim_head, dtype=dtype)
-        self.norm2 = LayerNorm(query_dim)
-        self.ff = FeedForward(query_dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, objs: torch.Tensor, gate_scale: float = 1.0) -> torch.Tensor:
         if _fused_proj_ok(x.shape[1], self.small_fused):
@@ -254,31 +272,82 @@ class GatedSelfAttentionDense(nn.Module):
             return _fused_ff(x, self.norm2, self.ff, gate=gate_scale * torch.tanh(self.alpha_dense))
         n_visual = x.shape[1]
         normed = self.norm1(torch.cat([x, self.linear(objs)], dim=1))
-        attn_out = self.attn(normed[:, :n_visual], kv=normed)
-        x = x + (gate_scale * torch.tanh(self.alpha_attn)).to(x.dtype) * attn_out
-        g2 = (gate_scale * torch.tanh(self.alpha_dense)).to(x.dtype)
-        return x + g2 * self.ff(self.norm2(x))
+        x = self._gated_attn(x, self.attn(normed[:, :n_visual], kv=normed), gate_scale)
+        return self._gated_ff(x, gate_scale)
+
+
+class GatedSelfAttentionDense2(GatedFuser):
+    """The reference's second self-attention fuser (attention.py:251-297):
+    self-attention over [x, W objs] with queries from the grounding rows
+    only; their (B, g, g, C) output, resized bicubically onto the visual
+    grid, is the gated residual; then the gated feed-forward.  Both token
+    counts must be perfect squares.  The module path alone, as in the JAX
+    package: its attention is the flash kernel on the card, its LayerNorms
+    ``ops/basic.py:layer_norm``'s."""
+
+    def __init__(self, query_dim: int, objs_dim: int, heads: int, dim_head: int,
+                 dtype=torch.float32):
+        super().__init__(query_dim, dtype=dtype)
+        self.linear = Dense(objs_dim, query_dim, dtype=dtype)
+        self.attn = SelfAttention(query_dim, heads, dim_head, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, objs: torch.Tensor, gate_scale: float = 1.0) -> torch.Tensor:
+        b, n_visual, _ = x.shape
+        n_ground = objs.shape[1]
+        size_v, size_g = round(n_visual**0.5), round(n_ground**0.5)
+        if size_v * size_v != n_visual or size_g * size_g != n_ground:
+            raise ValueError(f"gatedSA2 needs square token counts, got {n_visual} visual and "
+                             f"{n_ground} grounding tokens")
+        normed = self.norm1(torch.cat([x, self.linear(objs)], dim=1))
+        out = self.attn(normed[:, n_visual:], kv=normed).reshape(b, size_g, size_g, -1)
+        residual = resize_2d(out, (size_v, size_v), mode="bicubic").reshape(b, n_visual, -1)
+        return self._gated_ff(self._gated_attn(x, residual, gate_scale), gate_scale)
+
+
+class GatedCrossAttentionDense(GatedFuser):
+    """The reference's cross-attention fuser (attention.py:190-212): LN(x)
+    attends over the grounding tokens (to_k/to_v from ``objs_dim``), as a
+    gated residual; then the gated feed-forward.  The module path alone,
+    as in the JAX package."""
+
+    def __init__(self, query_dim: int, objs_dim: int, heads: int, dim_head: int,
+                 dtype=torch.float32):
+        super().__init__(query_dim, dtype=dtype)
+        self.attn = CrossAttention(query_dim, objs_dim, heads, dim_head, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, objs: torch.Tensor, gate_scale: float = 1.0) -> torch.Tensor:
+        x = self._gated_attn(x, self.attn(self.norm1(x), objs), gate_scale)
+        return self._gated_ff(x, gate_scale)
+
+
+FUSERS = {
+    "gatedSA": GatedSelfAttentionDense,
+    "gatedSA2": GatedSelfAttentionDense2,
+    "gatedCA": GatedCrossAttentionDense,
+}
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attention -> gated fuser -> cross-attention -> feed-forward.
+    """self-attention -> gated fuser (``FUSERS[fuser_type]``) ->
+    cross-attention -> feed-forward.
 
     ``skip_fuser`` omits the fuser; that is exact when the sampler's
     alpha gate is 0 for the step, since both fuser terms are then
-    multiplied by zero.  ``small_fused`` is ``_fused_proj_ok``'s
-    ``small_n``."""
+    multiplied by zero.  gatedSA2 never gets the alpha schedule (its gate
+    stays 1), so it refuses ``skip_fuser``.  ``small_fused`` is
+    ``_fused_proj_ok``'s ``small_n``."""
 
     def __init__(self, dim: int, context_dim: int, objs_dim: int, heads: int, dim_head: int,
                  fuser_type: str = "gatedSA", dtype=torch.float32, small_fused: bool = True):
         super().__init__()
-        if fuser_type != "gatedSA":
-            raise ValueError(f"fuser {fuser_type!r} is not ported; have 'gatedSA'")
+        if fuser_type not in FUSERS:
+            raise ValueError(f"unknown fuser {fuser_type!r}; have {sorted(FUSERS)}")
         self.fuser_type = fuser_type
         self.small_fused = small_fused
         self.norm1 = LayerNorm(dim)
         self.attn1 = SelfAttention(dim, heads, dim_head, dtype=dtype)
-        self.fuser = GatedSelfAttentionDense(dim, objs_dim, heads, dim_head, dtype=dtype,
-                                             small_fused=small_fused)
+        extra = {"small_fused": small_fused} if fuser_type == "gatedSA" else {}
+        self.fuser = FUSERS[fuser_type](dim, objs_dim, heads, dim_head, dtype=dtype, **extra)
         self.norm2 = LayerNorm(dim)
         self.attn2 = CrossAttention(dim, context_dim, heads, dim_head, dtype=dtype)
         self.norm3 = LayerNorm(dim)
@@ -286,6 +355,9 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, objs: Optional[torch.Tensor],
                 gate_scale: float = 1.0, skip_fuser: bool = False) -> torch.Tensor:
+        if skip_fuser and self.fuser_type == "gatedSA2":
+            raise ValueError("skip_fuser with gatedSA2: it is not alpha-scheduled and never "
+                             "reduces to the identity")
         fused = _fused_proj_ok(x.shape[1], self.small_fused)
         if fused:
             x = _fused_self_attn(x, None, self.norm1, self.attn1)

@@ -1,6 +1,8 @@
 """GLIGEN UNet (counterpart of ``gligen_tpu/models/unet.py``).
 
-The SD-1.4 epsilon-predictor UNet with grounding-token plumbing, NHWC.
+The SD-1.4 epsilon-predictor UNet with grounding-token plumbing, NHWC:
+the box+text, box+text+image and keypoint tokenizers, and the gatedSA,
+gatedSA2 and gatedCA fusers (``fuser_type``).
 Submodule names mirror the JAX parameter tree (``input_blocks_1_0``,
 ``middle_block_1``, ``out_2``...).  The alpha-stage dual first conv is a
 host-side select: ``use_sd_conv`` picks the original SD 4-channel conv
@@ -18,7 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-import gligen_tpu_torch.models.grounding.text  # noqa: F401  (registers "text")
+# the tokenizers register themselves ("text", "text_image", "keypoint")
+import gligen_tpu_torch.models.grounding.keypoint  # noqa: F401
+import gligen_tpu_torch.models.grounding.text  # noqa: F401
+import gligen_tpu_torch.models.grounding.text_image  # noqa: F401
 from gligen_tpu_torch.models.layers import Conv2d, Dense, Normalize, SpatialTransformer
 from gligen_tpu_torch.ops.basic import nearest_upsample_2x, timestep_embedding
 from gligen_tpu_torch.ops.fused_conv import gn_silu_conv3x3
@@ -123,7 +128,7 @@ class UNetModel(nn.Module):
       x: (B, H, W, in_channels) latent, NHWC
       timesteps: (B,) int
       context: (B, 77, context_dim) text encoding
-      grounding: the tokenizer's inputs (boxes, masks, positive_embeddings)
+      grounding: the tokenizer's inputs (``inference/adapters.py``)
       gate_scale: the alpha schedule's value for every gated fuser
       use_sd_conv: run the original SD first conv instead of GLIGEN's
       inpainting_extra: (B, H, W, in_channels + 1) z0 * mask, mask; an
@@ -166,7 +171,7 @@ class UNetModel(nn.Module):
         self.inpaint_mode = inpaint_mode
         self.position_net = GROUNDING_NETS.get(tok_cfg["target"])(
             **tok_cfg.get("params", {}), dtype=dtype)
-        objs_dim = tok_cfg.get("params", {}).get("out_dim", 768)
+        objs_dim = self.position_net.out_dim
         emb_dim = model_channels * 4
         self.time_embed_0 = Dense(model_channels, emb_dim, dtype=dtype)
         self.time_embed_2 = Dense(emb_dim, emb_dim, dtype=dtype)

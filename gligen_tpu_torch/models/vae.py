@@ -10,8 +10,7 @@ with the logvar clamp, ``encode`` with the posterior noise passed in,
 
 from __future__ import annotations
 
-from contextlib import contextmanager
-from typing import Iterator, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,22 +19,7 @@ from torch import nn
 from gligen_tpu_torch.models.layers import Conv2d, Dense, Normalize, computing_in
 from gligen_tpu_torch.models.unet import Upsample  # the same nearest 2x + conv3x3
 from gligen_tpu_torch.ops.attention import multi_head_attention
-
-
-@contextmanager
-def tf32_off() -> Iterator[None]:
-    """Both TF32 switches off inside the block, cuBLAS's matmuls and cuDNN's
-    convs, each restored afterwards.  Saved and set by hand:
-    ``torch.backends.cudnn.flags`` would also reset cuDNN's other switches
-    to its own defaults, and the matmul switch has no context manager in
-    every torch version."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+from gligen_tpu_torch.ops.basic import tf32_off
 
 
 class ResnetBlock(nn.Module):

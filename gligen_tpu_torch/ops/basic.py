@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+from contextlib import contextmanager
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -178,3 +179,19 @@ def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
     return x.reshape(b, h * 2, w * 2, c)
+
+
+@contextmanager
+def tf32_off() -> Iterator[None]:
+    """Both TF32 switches off inside the block, cuBLAS's matmuls and cuDNN's
+    convs, each restored afterwards.  Saved and set by hand:
+    ``torch.backends.cudnn.flags`` would also reset cuDNN's other switches
+    to its own defaults, and the matmul switch has no context manager in
+    every torch version."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

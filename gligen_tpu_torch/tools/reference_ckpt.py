@@ -88,6 +88,27 @@ def clip_to_reference(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tens
     return out
 
 
+def clip_vision_to_reference(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's CLIPVisionModel state dict -> HF
+    CLIPVisionModelWithProjection names, with the ``position_ids`` buffer
+    HF keeps (which the loader drops)."""
+    out = {}
+    for name, t in state.items():
+        key = re.sub(r"\.mlp_fc(\d)\.", r".mlp.fc\1.", ".".join(
+            _split_merged(p) for p in name.split(".")))
+        if key.startswith(("class_embedding", "patch_embedding.", "position_embedding.")):
+            key = "vision_model.embeddings." + key
+        elif key.startswith("layers."):
+            key = "vision_model.encoder." + key
+        elif not key.startswith("visual_projection."):
+            key = "vision_model." + key
+        out[key] = t
+    positions = state["position_embedding.weight"].shape[0]
+    device = state["position_embedding.weight"].device
+    out["vision_model.embeddings.position_ids"] = torch.arange(positions, device=device)[None]
+    return out
+
+
 def _vae_config(vae) -> Dict[str, Any]:
     """The reference's AutoencoderKL config section of ``vae``."""
     enc = vae.encoder

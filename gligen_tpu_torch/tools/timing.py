@@ -109,18 +109,25 @@ def ms_per_call(fn, iters: int, device) -> float:
 
 def dezero_(module, generator) -> None:
     """Random values for the zero-initialised weights (UNet out_2,
-    out_layers_3, proj_out) and 0.5 for the fuser gates, so the output
-    depends on every layer: a fresh model otherwise predicts eps = 0."""
+    out_layers_3, proj_out), 0.5 for every fuser's gates, and N(0, 1) for
+    the position nets' zero-initialised features (every ``null_*`` feature,
+    the keypoint net's person and keypoint identities), so the output
+    depends on every layer: a fresh model otherwise predicts eps = 0, and
+    every keypoint token of a fresh keypoint net is the same."""
     import torch
 
-    from gligen_tpu_torch.models.layers import Conv2d, Dense, GatedSelfAttentionDense
+    from gligen_tpu_torch.models.layers import Conv2d, Dense, GatedFuser
 
+    zero_features = ("person_embeddings", "keypoint_embeddings")
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (Dense, Conv2d)) and m.zero_init:
                 std = m.weight[0].numel() ** -0.5
                 m.weight.copy_(torch.randn(m.weight.shape, generator=generator,
                                            device=m.weight.device) * std)
-            elif isinstance(m, GatedSelfAttentionDense):
+            elif isinstance(m, GatedFuser):
                 m.alpha_attn.fill_(0.5)
                 m.alpha_dense.fill_(0.5)
+            for name, p in m.named_parameters(recurse=False):
+                if name.startswith("null_") or name in zero_features:
+                    p.copy_(torch.randn(p.shape, generator=generator, device=p.device))

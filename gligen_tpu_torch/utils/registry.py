@@ -40,6 +40,8 @@ class Registry:
         return name in self._entries
 
 
-# The grounding tokenizers, registered by their modules; the other kinds of
-# the JAX package's registry come with the modules that use them.
+# The grounding tokenizers and their input adapters, registered by their
+# modules; the other kinds of the JAX package's registry come with the
+# modules that use them.
 GROUNDING_NETS = Registry("grounding_tokenizer")
+INPUT_ADAPTERS = Registry("grounding_input")

@@ -42,17 +42,20 @@ from gligen_tpu_torch.tools import reference_ckpt as ref
 from gligen_tpu_torch.training import checkpoints as ckpts
 
 from test_torch_modules import CLIP, CTX, LATENT, UNET, VAE, grounding_inputs, random_params
+from test_torch_pipeline import tokenizer_inputs
 
 torch.set_num_threads(1)
 
 SCHED = dict(timesteps=1000, linear_start=0.001, linear_end=0.015)  # not the default
 
 
-def jax_trees(inpaint):
-    """Random JAX parameter trees of a small UNet (generation or inpaint),
-    VAE and text encoder."""
-    g = {k: jnp.asarray(v[:1]) for k, v in grounding_inputs(np.random.default_rng(0), 1).items()}
-    unet = JaxUNet(**UNET, inpaint_mode=inpaint, use_checkpoint=False)
+def jax_trees(inpaint, unet_config=UNET, grounding=None):
+    """Random JAX parameter trees of a small UNet (generation or inpaint;
+    ``unet_config`` with the tokenizer whose inputs are ``grounding``), VAE
+    and text encoder."""
+    grounding = grounding or grounding_inputs(np.random.default_rng(0), 1)
+    g = {k: jnp.asarray(v[:1]) for k, v in grounding.items()}
+    unet = JaxUNet(**unet_config, inpaint_mode=inpaint, use_checkpoint=False)
     extra = jnp.zeros((1, LATENT, LATENT, 5)) if inpaint else None
     return {
         "model": random_params(unet, jnp.zeros((1, LATENT, LATENT, 4)), jnp.zeros((1,), jnp.int32),
@@ -152,9 +155,9 @@ def test_inpaint_unet_loads_from_jax_strictly():
                                   np.asarray(wide).transpose(3, 2, 0, 1))
 
 
-def reference_checkpoint(inpaint, ema_gate=0.25):
+def reference_checkpoint(inpaint, ema_gate=0.25, unet_config=UNET):
     """A reference-format checkpoint dict of small port components."""
-    unet_config = dict(UNET, inpaint_mode=inpaint)
+    unet_config = dict(unet_config, inpaint_mode=inpaint)
     comps = GligenComponents.create(unet_config=unet_config, vae_config=VAE, text_config=CLIP,
                                     dtype=torch.float32, seed=5, device="cpu",
                                     schedule_config=SCHED)
@@ -288,14 +291,17 @@ def test_schedule_from_the_checkpoint_config():
 
 
 def test_registry_takes_the_reference_aliases():
-    """The released configs name the text tokenizer by the reference's
-    dotted path; other modalities are not ported yet and say so."""
-    dotted = "ldm.modules.diffusionmodules.text_grounding_net.PositionNet"
-    cfg = dict(UNET, grounding_tokenizer={"target": dotted, "params": {"in_dim": CTX,
-                                                                       "out_dim": CTX}})
-    unet = UNetModel(**cfg)
-    assert type(unet.position_net).__name__ == "TextPositionNet"
-    for target in ("keypoint", "ldm.modules.diffusionmodules.hed_grounding_net.PositionNet"):
+    """The released configs name the tokenizer by the reference's dotted
+    path (text, text_image, keypoint); the spatial modalities are not
+    ported yet and say so."""
+    for dotted, net, params in (
+            ("text_grounding_net", "TextPositionNet", {"in_dim": CTX, "out_dim": CTX}),
+            ("text_image_grounding_net", "TextImagePositionNet", {"in_dim": CTX, "out_dim": CTX}),
+            ("keypoint_grounding_net", "KeypointPositionNet", {"out_dim": CTX})):
+        target = f"ldm.modules.diffusionmodules.{dotted}.PositionNet"
+        unet = UNetModel(**dict(UNET, grounding_tokenizer={"target": target, "params": params}))
+        assert type(unet.position_net).__name__ == net
+    for target in ("hed", "ldm.modules.diffusionmodules.hed_grounding_net.PositionNet"):
         with pytest.raises(ValueError, match="not ported"):
             UNetModel(**dict(UNET, grounding_tokenizer={"target": target, "params": {}}))
     with pytest.raises(ValueError, match="not ported"):
@@ -313,3 +319,47 @@ def test_widen_matches_jax():
                                   np.asarray(want).transpose(3, 2, 0, 1))
     assert got["out_2.weight"] is state["out_2.weight"]
     assert add_additional_channels(state, 0) is state
+
+
+# the small UNet with each other tokenizer, under its reference name
+DOTTED_TOKENIZERS = {
+    "text_image": {"target": "ldm.modules.diffusionmodules.text_image_grounding_net.PositionNet",
+                   "params": {"in_dim": CTX, "out_dim": CTX}},
+    "keypoint": {"target": "ldm.modules.diffusionmodules.keypoint_grounding_net.PositionNet",
+                 "params": {"max_persons_per_image": 8, "out_dim": CTX}},
+}
+
+
+@pytest.mark.parametrize("tokenizer", sorted(DOTTED_TOKENIZERS))
+def test_tokenizer_checkpoints_load_strictly(tokenizer):
+    """A text_image or keypoint UNet: the inverse map's reference dict
+    (``linears_text.0``, ``person_embeddings``...) goes back to the JAX
+    tree through the JAX converter exactly, the port's converter gives the
+    bridge's state dict of that conversion bit for bit and loads strictly;
+    a reference-format checkpoint whose config names the tokenizer by its
+    reference alias loads into components equal to their source."""
+    config = dict(UNET, grounding_tokenizer=DOTTED_TOKENIZERS[tokenizer])
+    trees = jax_trees(False, config, tokenizer_inputs(np.random.default_rng(0), tokenizer, 1))
+    refs = reference_dicts(trees)
+    keys = {"text_image": ("position_net.linears_text.0.weight",
+                           "position_net.linears_image.4.bias",
+                           "position_net.null_image_feature"),
+            "keypoint": ("position_net.linears.2.weight", "position_net.person_embeddings",
+                         "position_net.null_xy_feature")}[tokenizer]
+    assert set(keys) <= set(refs["model"])
+    assert_trees_equal(jconv.convert_unet(refs["model"], sd_first_conv=refs["sd_conv"]),
+                       trees["model"])
+    got = conv.convert_unet(refs["model"], sd_first_conv=refs["sd_conv"])
+    assert_state_equal(got, state_dict_from_jax(
+        jconv.convert_unet(refs["model"], sd_first_conv=refs["sd_conv"])))
+    UNetModel(**config).load_state_dict(got, strict=True)
+
+    src, ckpt, sd_conv = reference_checkpoint(False, unet_config=config)
+    assert ckpt["config_dict"]["_content"]["model"]["params"]["grounding_tokenizer"][
+        "target"] == DOTTED_TOKENIZERS[tokenizer]["target"]
+    comps = components_from_checkpoint(ckpt, sd_first_conv=sd_conv, dtype=torch.float32,
+                                       device="cpu", text_config=CLIP)
+    assert type(comps.unet.position_net) is type(src.unet.position_net)
+    for a, b in ((src.unet, comps.unet), (src.vae, comps.vae),
+                 (src.text_encoder, comps.text_encoder)):
+        assert_state_equal(b.state_dict(), a.state_dict())

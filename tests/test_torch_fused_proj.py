@@ -196,7 +196,7 @@ def test_every_smoke_shape_has_a_tabled_triple():
     triple the serving library holds; the LN modes' K stays within their
     panel's reach."""
     shapes = smoke_shapes()
-    assert len(shapes) == 4 * 6 + 5 + 4
+    assert len(shapes) == 4 * 8 + 5 + 4
     for mode, m, k, f in shapes:
         assert fp.proj_tiles(mode, m, k, f) in table_triples(mode), (mode, m, k, f)
     # the ds1 rows take 128-row blocks, the middle block's 64-row ones

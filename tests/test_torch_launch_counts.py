@@ -79,6 +79,74 @@ def test_expected_launches_match_the_calls(monkeypatch, small, config, latent):
 
 
 @pytest.fixture(scope="module")
+def small_grounding():
+    """The smoke's small models of each other tokenizer and fuser, built
+    once each."""
+    models = {}
+
+    def get(model):
+        if model not in models:
+            unet, _, _ = chip_smoke.SMALL_GROUNDING[model]
+            config = dict(chip_smoke.SMALL,
+                          unet_config=dict(chip_smoke.SMALL["unet_config"], **unet))
+            models[model] = GligenComponents.create(dtype=torch.float32, seed=0, device="cpu",
+                                                    **config)
+            chip_smoke.dezero_(models[model].unet, torch.Generator().manual_seed(2))
+        return models[model]
+
+    return get
+
+
+@pytest.mark.parametrize("latent", [16, 8])
+@pytest.mark.parametrize("config", sorted(chip_smoke.CONFIGS))
+@pytest.mark.parametrize("model", sorted(chip_smoke.SMALL_GROUNDING))
+def test_expected_launches_for_each_tokenizer_and_fuser(monkeypatch, small_grounding, model,
+                                                        config, latent):
+    """The walk for the box+text+image and keypoint tokenizers (the gatedSA
+    fuser: the same launches as box+text) and for the gatedCA (module path
+    inside a fused block, a fuser-free tail) and gatedSA2 fusers (module
+    path, every call gated: no fuser-free tail)."""
+    comps = small_grounding(model)
+    calls = count_calls(monkeypatch, config)
+    _, tokenizer, n_box = chip_smoke.SMALL_GROUNDING[model]
+    steps, alpha = 4, [0.3, 0.0, 0.7]
+    ids, uc, grounding = chip_smoke.make_request(np.random.default_rng(1), 1, 1000, 64,
+                                                 tokenizer, n_box)
+    noise = np.random.default_rng(2).standard_normal((1, latent, latent, 4)).astype(np.float32)
+    with torch.no_grad():
+        GenerationPipeline(comps).generate(ids, uc, grounding, steps=steps, alpha_stages=alpha,
+                                           latent_size=latent, noise=noise)
+    expected, gated, free = chip_smoke.expected_launches(comps, steps, alpha, latent, config)
+    assert (gated, free) == ((5, 0) if model == "gatedSA2" else (2, 3))
+    assert {name: calls[name] for name in expected} == expected
+    assert ("layer_norm" in {n for n, c in expected.items() if c}) == (config == "b")
+
+
+@pytest.mark.parametrize("model", sorted(chip_smoke.GROUNDING_MODELS))
+def test_grounding_models_are_the_configs(model):
+    """Phase 12's literals are configs/flickr_text_image.yaml's and
+    configs/coco2017K.yaml's model, schedule and input adapter, each
+    tokenizer and adapter under a reference alias of the config's own."""
+    import yaml
+
+    from gligen_tpu_torch.inference.adapters import get_adapter
+    from gligen_tpu_torch.utils.registry import GROUNDING_NETS
+
+    path = {"text_image": "flickr_text_image.yaml", "keypoint": "coco2017K.yaml"}[model]
+    cfg = yaml.safe_load((Path(__file__).resolve().parents[1] / "configs" / path).read_text())
+    want = dict(cfg["model"]["params"])
+    want.pop("image_size")
+    got = dict(chip_smoke.GROUNDING_MODELS[model])
+    tok, want_tok = got.pop("grounding_tokenizer"), want.pop("grounding_tokenizer")
+    assert got == want
+    assert tok["params"] == want_tok["params"] and tok["target"] != want_tok["target"]
+    assert GROUNDING_NETS.get(tok["target"]) is GROUNDING_NETS.get(want_tok["target"])
+    assert chip_smoke.GROUNDING_SCHEDULE == cfg["diffusion"]["params"]
+    assert chip_smoke.GROUNDING_INPUTS[model] == cfg["grounding_tokenizer_input"]["target"]
+    assert get_adapter(chip_smoke.GROUNDING_INPUTS[model]) is get_adapter(model)
+
+
+@pytest.fixture(scope="module")
 def small_inpaint():
     small = dict(chip_smoke.SMALL,
                  unet_config=dict(chip_smoke.SMALL["unet_config"], inpaint_mode=True))
