@@ -20,7 +20,9 @@ Phases, each of which fails the run with a non-zero exit:
      cross-attention over 77 text tokens, at ds1/ds2/ds4 and the 64-token
      middle block; the gatedSA fuser over N+60 (box+text+image) and N+136
      (keypoint) keys, the gatedCA fuser's N queries over 30, 60 and 136
-     keys, the gatedSA2 fuser's 36 queries over N+36 keys; the VAE's single 512-wide head over 4096 tokens; and
+     keys, the gatedSA2 fuser's 36 queries over N+36 keys; at ds1 and ds2
+     the gatedSA fuser over the spatial tokenizers' N+196 and N+64 keys;
+     the VAE's single 512-wide head over 4096 tokens; and
      attn1 at ds1 of a 1024^2 image, checked 512 query rows at a time;
      each row with its route, TF/s and share of the bound, and every one
      must take the TMA route; and the fp32 route (3xTF32 wgmma) at the
@@ -30,7 +32,8 @@ Phases, each of which fails the run with a non-zero exit:
      must exceed the limit at one row at least) and its 3xTF32 and fp32
      FMA bounds);
      per level the fused projections (ln_matmuls for q/k/v, for q alone
-     and for the fuser's k/v over N+30, N+60 and N+136 rows, matmul_residual for to_out
+     and for the fuser's k/v over N+30, N+60 and N+136 rows (and at ds1 over
+     N+196 and N+64), matmul_residual for to_out
      and net_2, ln_geglu) and the matmul-only mode of the same kernel
      (mm_only, K7) at the products and rows (16 x 4096) that phase 9's
      projection budget gives it, over the fuser's 16 x 4126 rows and at
@@ -41,7 +44,9 @@ Phases, each of which fails the run with a non-zero exit:
      that must repeat the first bit for bit), the fp32 GroupNorm at every
      map of the inpaint encode (held to GN_F32_TOL, repeated bit for
      bit), LayerNorm at
-     every (rows, C) of the module path (the fusers' N+T rows too), and the fused GN -> SiLU -> conv3x3
+     every (rows, C) of the module path (the fusers' N+T rows too) and of
+     ConvNeXt-tiny at its four widths over 448^2 and 256^2 maps (eps
+     1e-6), and the fused GN -> SiLU -> conv3x3
      at every ResBlock conv shape (each row with the conv kernel's own time
      beside the whole call's and cuDNN's bf16 conv alone, its tiles and
      split, TF/s and share of the bound; repeated bit for bit).  Phase 11
@@ -134,6 +139,22 @@ Phases, each of which fails the run with a non-zero exit:
      the vision tower's device ms per image.  Then ``SMALL_GROUNDING``'s
      small models (box+text+image, keypoint, gatedCA, gatedSA2) card vs
      CPU (as phase 5).
+ 13. spatial modalities (run right after 12, in the same host state): the
+     hed, canny, depth, normal and sem models (configs/cc3m_hed.yaml,
+     cc3m_canny.yaml, cc3m_depth.yaml, diode_normal.yaml, ade_sem.yaml:
+     ConvNeXt-tiny tokenizers over 448^2 or 256^2 maps, the grounding
+     downsamplers, the widened first conv) at full width, random weights
+     de-zeroed down to ConvNeXt's layer scales, each written as a
+     reference-format checkpoint in memory (tokenizer and downsampler under
+     their dotted names, an in-memory SD first conv) and loaded back (every
+     tensor bit for bit).  Two requests of batch 2 at 512^2 each, a seeded
+     uint8 map through ``prepare_batch_for`` and the config's input
+     adapter, PLMS with the scenario's alpha stages, configuration (a):
+     images sound, launch counts as ``expected_launches`` predicts, every
+     flash launch on the TMA route; s/img and the tokenizer's ms per
+     request (CUDA events, host gaps included).  One hed request in configuration (b), whose count includes
+     ConvNeXt's LayerNorms on the LayerNorm kernel.  Then
+     ``SMALL_SPATIAL``'s five small models card vs CPU (as phase 5).
  11. launches: the CUDA launches of one call of the GroupNorm, gn_affine
      and LayerNorm kernels at every phase-3 shape (the fp32 GroupNorm
      too) and of the conv kernel at every ResBlock conv, read from a
@@ -297,14 +318,20 @@ def config_desc(name: str) -> str:
 # (keypoint); and a 6 x 6 count for gatedSA2, which needs a square one
 GROUNDING_TOKENS = {"text": 30, "text_image": 60, "keypoint": 136}
 GATED_SA2_TOKENS = 36
+# the spatial tokenizers' (resize_input / 32)^2 tokens: hed, canny, depth and
+# normal at 448^2, sem at 256^2
+SPATIAL_TOKENS = {"spatial": 196, "sem": 64}
+# ConvNeXt-tiny's stage widths, each LayerNorm's input a (H/4 / 2^i)^2 map
+CONVNEXT_WIDTHS = (96, 192, 384, 768)
 
 
 def kernel_cases(batch: int):
     """(name, rows, N, M, heads, head dim, padded-key bias) of every
     flash launch shape at 512^2 (latent 64), SD-1.4 widths: attn1, the
     gatedSA fuser over N+30, N+60 and N+136 keys, cross-attention, the
-    gatedCA fuser (N queries over 30, 60 or 136 grounding keys) and the
-    gatedSA2 fuser (36 grounding queries over N+36 keys)."""
+    gatedCA fuser (N queries over 30, 60 or 136 grounding keys), the
+    gatedSA2 fuser (36 grounding queries over N+36 keys), and the gatedSA
+    fuser over the spatial tokenizers' N+196 and N+64."""
     rows = 2 * batch  # CFG pair in one UNet call
     cases = []
     for level, (n, d) in {"ds1": (4096, 40), "ds2": (1024, 80), "ds4": (256, 160),
@@ -321,6 +348,8 @@ def kernel_cases(batch: int):
                   for t in GROUNDING_TOKENS.values()]
         cases.append((f"gated_sa2_{level}", rows, GATED_SA2_TOKENS, n + GATED_SA2_TOKENS, 8, d,
                       False))
+        cases += [(f"fuser_{name}_{level}", rows, n, n + t, 8, d, False)
+                  for name, t in SPATIAL_TOKENS.items()]
     # the TPU's padded fuser form: N+30 keys padded to a multiple of 128,
     # masked by a NEG_INF bias row (exercises the kernel's bias input)
     cases.append(("fuser_ds1_padbias", rows, 4096, 4224, 8, 40, True))
@@ -504,7 +533,8 @@ LEVELS = {"ds1": (4096, 320), "ds2": (1024, 640), "ds4": (256, 1280), "mid": (64
 def proj_cases(batch: int):
     """(name, kernel, rows, N, C, K or weights) of every fused-projection
     launch shape at 512^2: 2*batch UNet rows of N tokens each; the gatedSA
-    fuser's k/v over N+30, N+60 and N+136 rows."""
+    fuser's k/v over N+30, N+60 and N+136 rows, and over the spatial
+    tokenizers' N+196 and N+64."""
     rows = 2 * batch
     cases = []
     for level, (n, c) in LEVELS.items():
@@ -520,6 +550,8 @@ def proj_cases(batch: int):
             (f"net_2_{level}", "matmul_residual", rows, n, c, 4 * c),
             (f"geglu_{level}", "ln_geglu", rows, n, c, None),
         ]
+        cases += [(f"fuser_kv_{name}_{level}", "ln_matmuls", rows, n + t, c, 2)
+                  for name, t in SPATIAL_TOKENS.items()]
     return cases
 
 
@@ -729,14 +761,23 @@ def norm_cases(unet, vae, batch: int, latent: int = 64):
 
 
 def ln_cases(batch: int):
-    """(name, rows, C) of the module path's LayerNorms at 512^2: every
+    """(name, rows, C, eps) of the module path's LayerNorms at 512^2: every
     block's N rows (gatedCA's norm1 too), and the gatedSA and gatedSA2
-    fusers' N+T (T = 30, 60, 136 grounding tokens)."""
+    fusers' N+T (T = 30, 60, 136 grounding tokens; 196 and 64 spatial
+    ones), eps 1e-5; and
+    ConvNeXt-tiny's (eps 1e-6) in a spatial tokenizer's forward over
+    ``batch`` maps at 448^2 and (sem) 256^2: (batch * (S/4 / 2^i)^2, width
+    i) for its four widths."""
     cases = []
     for level, (n, c) in LEVELS.items():
-        cases += [(f"ln_{level}", 2 * batch * n, c), (f"ln_fuser_{level}", 2 * batch * (n + 30), c)]
-        cases += [(f"ln_fuser_{name}_{level}", 2 * batch * (n + t), c)
-                  for name, t in GROUNDING_TOKENS.items() if name != "text"]
+        cases += [(f"ln_{level}", 2 * batch * n, c, 1e-5),
+                  (f"ln_fuser_{level}", 2 * batch * (n + 30), c, 1e-5)]
+        cases += [(f"ln_fuser_{name}_{level}", 2 * batch * (n + t), c, 1e-5)
+                  for name, t in {**GROUNDING_TOKENS, **SPATIAL_TOKENS}.items()
+                  if name != "text"]
+    for size in (448, 256):
+        cases += [(f"ln_convnext_{size}_{c}", batch * (size // 4 >> i) ** 2, c, 1e-6)
+                  for i, c in enumerate(CONVNEXT_WIDTHS)]
     return cases
 
 
@@ -819,14 +860,15 @@ def check_norms(torch, gn, ln, device, gn32=()):
                    route=fn.gn_plan(shape[0], rows, c, normalise=False)[0],
                    again=fn.gn_affine(*args))
         del x, args, library
-    for name, rows, c in ln:
+    for name, rows, c, eps in ln:
         x = randn(rows, c, scale=2.0, dtype=torch.bfloat16) + 0.3
         s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
         sc, bc = s.to(x.dtype), sb.to(x.dtype)
-        record("layer_norm", name, f"x ({rows}, {c})", fn.layer_norm_fused(x, s, sb),
-               fn.layer_norm_plain(x, s, sb), lambda: fn.layer_norm_fused(x, s, sb),
-               lambda: fn.layer_norm_plain(x, s, sb), lambda: F.layer_norm(x, (c,), sc, bc),
-               4 * rows * c + 8 * c, 7 * rows * c)
+        record("layer_norm", name, f"x ({rows}, {c}) eps {eps:g}",
+               fn.layer_norm_fused(x, s, sb, eps), fn.layer_norm_plain(x, s, sb, eps),
+               lambda: fn.layer_norm_fused(x, s, sb, eps),
+               lambda: fn.layer_norm_plain(x, s, sb, eps),
+               lambda: F.layer_norm(x, (c,), sc, bc, eps), 4 * rows * c + 8 * c, 7 * rows * c)
         del x
     torch.cuda.empty_cache()
     return results
@@ -961,9 +1003,9 @@ def check_launches(torch, gn, ln, convs, device, gn32=()):
         row("group_norm_fp32", name, f"x {shape}",
             lambda: fn.group_norm_fused(x, s, s, 32, eps, silu), fn.cuda_launches("three", True),
             "the fp32 route (three)")
-    for name, rows, c in ln:
+    for name, rows, c, eps in ln:
         x, s = zeros(rows, c), zeros(c, dtype=torch.float32)
-        row("layer_norm", name, f"x ({rows}, {c})", lambda: fn.layer_norm_fused(x, s, s), 1,
+        row("layer_norm", name, f"x ({rows}, {c})", lambda: fn.layer_norm_fused(x, s, s, eps), 1,
             "one pass")
     for name, b, h, cin, cout, residual in convs:
         x, a = zeros(b, h, h, cin), zeros(b, cin, dtype=torch.float32)
@@ -1095,9 +1137,11 @@ def expected_launches(comps, steps, alpha_stages, latent, config, sampler="plms"
     conv, which runs gn_affine and the conv twice instead.  The VAE decoder
     (not the encoder, which generation does not run) adds its AttnBlocks'
     flash launches and its GroupNorms; an ``inpaint`` request's encode adds
-    the encoder's (``expected_fp32``: all on the fp32 routes)."""
+    the encoder's (``expected_fp32``: all on the fp32 routes).  Under
+    FUSED_NORM ln or both, a spatial tokenizer's LayerNorms (ConvNeXt's 22)
+    run twice a request: the conditional and the null forward."""
     from gligen_tpu_torch.diffusion.samplers import SamplerTables, _gate_zero_from
-    from gligen_tpu_torch.models.layers import Normalize
+    from gligen_tpu_torch.models.layers import LayerNorm, Normalize
     from gligen_tpu_torch.models.unet import fuses_conv
     from gligen_tpu_torch.models.vae import AttnBlock
 
@@ -1130,6 +1174,9 @@ def expected_launches(comps, steps, alpha_stages, latent, config, sampler="plms"
             counts["layer_norm"] += depth * (5 * gated + 3 * free)
         elif ln_on and not fused_fuser:
             counts["layer_norm"] += depth * 2 * gated
+    if ln_on:
+        counts["layer_norm"] += 2 * sum(isinstance(m, LayerNorm)
+                                        for m in comps.unet.position_net.modules())
     calls = gated + free
     fused_res = sum(fuses_conv(env["GLIGEN_TPU_FUSED_CONV"], h, h, cout) for h, _, cout in res)
     counts["gn_silu_conv3x3"] = counts["gn_affine"] = 2 * fused_res * calls
@@ -1589,13 +1636,17 @@ def run_requests(torch, pipe, requests, config, gen, **kw):
 def small_reference(torch, np, seed, device, alpha, config, model=None):
     """The pipeline at a small width: card (bf16, kernels) against CPU
     (fp32, plain versions), same weights and noise, in one configuration;
-    ``model`` names one of ``SMALL_GROUNDING`` in place of the box+text
-    gatedSA UNet.  Returns (ok, line)."""
+    ``model`` names one of ``SMALL_GROUNDING`` or ``SMALL_SPATIAL`` in place
+    of the box+text gatedSA UNet (a spatial one at latent 64^2, with a
+    seeded map).  Returns (ok, line)."""
     from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
 
     set_config(config)
-    small, tokenizer, n_box = dict(SMALL), "text", 30
-    if model is not None:
+    small, tokenizer, n_box, latent = dict(SMALL), "text", 30, 16
+    if model in SMALL_SPATIAL:
+        small["unet_config"] = dict(SMALL["unet_config"], **SMALL_SPATIAL[model])
+        latent = SPATIAL_LATENT
+    elif model is not None:
         unet, tokenizer, n_box = SMALL_GROUNDING[model]
         small["unet_config"] = dict(SMALL["unet_config"], **unet)
     cpu = GligenComponents.create(dtype=torch.float32, seed=seed, device="cpu", **small)
@@ -1603,16 +1654,19 @@ def small_reference(torch, np, seed, device, alpha, config, model=None):
     gpu = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device, **small)
     for a, b in ((cpu.unet, gpu.unet), (cpu.vae, gpu.vae), (cpu.text_encoder, gpu.text_encoder)):
         b.load_state_dict(a.state_dict())
-    ids, uc, grounding = make_request(np.random.default_rng(seed + 3), 2, 1000, 64, tokenizer,
-                                      n_box)
-    noise = np.random.default_rng(seed + 4).standard_normal((2, 16, 16, 4)).astype(np.float32)
-    kw = dict(steps=4, guidance_scale=7.5, alpha_stages=alpha, latent_size=16, noise=noise)
+    rng = np.random.default_rng(seed + 3)
+    ids, uc, grounding = make_request(rng, 2, 1000, 64, tokenizer, n_box)
+    noise = np.random.default_rng(seed + 4).standard_normal((2, latent, latent, 4)).astype(
+        np.float32)
+    kw = dict(steps=4, guidance_scale=7.5, alpha_stages=alpha, latent_size=latent, noise=noise)
+    if model in SMALL_SPATIAL:
+        grounding, kw["grounding_extra"] = spatial_request(rng, model, 2)
     with torch.inference_mode():
         torch.set_num_threads(4)
         ref = GenerationPipeline(cpu).generate(ids, uc, grounding, **kw)
     got = GenerationPipeline(gpu).generate(ids, uc, grounding, **kw).cpu()
     diff = (got - ref).abs()
-    ok, desc = check_image(torch, got, 2, 32)
+    ok, desc = check_image(torch, got, 2, 2 * latent)
     ok = ok and diff.mean().item() <= REF_MEAN_TOL
     what = "" if model is None else f" ({model})"
     return ok, (f"reference: {config_desc(config)}: small pipeline{what} card bf16 vs CPU fp32: "
@@ -1825,6 +1879,72 @@ GROUNDING_SCHEDULE = dict(timesteps=1000, linear_start=0.00085, linear_end=0.012
 PATH_KERNELS = ("flash_fwd", "ln_matmuls", "matmul_residual", "ln_geglu", "group_norm")
 
 
+def _spatial_model(name, tokenizer, downsampler):
+    """SD-1.4 GLIGEN with a spatial tokenizer and its downsampler, each
+    under the reference's dotted name."""
+    prefix = "ldm.modules.diffusionmodules"
+    return dict(SD14_UNET,
+                grounding_tokenizer={"target": f"{prefix}.{name}_grounding_net.PositionNet",
+                                     "params": tokenizer},
+                grounding_downsampler={
+                    "target": f"{prefix}.{name}_grounding_downsampler.GroundingDownsampler",
+                    "params": downsampler})
+
+
+# Phase 13's models as their configs give them: configs/cc3m_hed.yaml,
+# cc3m_canny.yaml, cc3m_depth.yaml, diode_normal.yaml and ade_sem.yaml
+# (tests/test_torch_spatial.py holds the literals to the files).
+_MAP_TOKENIZER = {"resize_input": 448, "out_dim": 768}
+_CONV_DOWNSAMPLER = {"resize_input": 256, "out_dim": 8}
+SPATIAL_MODELS = {
+    "hed": _spatial_model("hed", _MAP_TOKENIZER, {"out_dim": 1}),
+    "canny": _spatial_model("canny", _MAP_TOKENIZER, _CONV_DOWNSAMPLER),
+    "depth": _spatial_model("depth", _MAP_TOKENIZER, _CONV_DOWNSAMPLER),
+    "normal": _spatial_model("normal", _MAP_TOKENIZER, _CONV_DOWNSAMPLER),
+    "sem": _spatial_model("sem", {"resize_input": 256, "in_dim": 152, "out_dim": 768},
+                          {"resize_input": 256, "in_dim": 152, "out_dim": 8}),
+}
+SPATIAL_INPUTS = {name: f"grounding_input.{name}_grounding_tokinzer_input.GroundingNetInput"
+                  for name in SPATIAL_MODELS}
+# each scenario's alpha stages (gligen_tpu/inference/cli.py:525-560)
+SPATIAL_ALPHA = {"hed": [0.9, 0.0, 0.1], "canny": [0.9, 0.0, 0.1], "depth": [0.7, 0.0, 0.3],
+                 "normal": [0.7, 0.0, 0.3], "sem": [0.7, 0.0, 0.3]}
+SEM_CLASSES = 152
+# Phase 13's small models (SMALL's UNet keywords replaced): each spatial
+# tokenizer at resize_input 64 (4 tokens) and its downsampler as its config
+# has it, attention at the inner level only; the hed downsampler's 64^2
+# channels fix the latent at 64^2.
+SPATIAL_LATENT = 64
+SMALL_SPATIAL = {
+    name: {"attention_resolutions": (2,),
+           "grounding_tokenizer": {"target": name, "params": dict(
+               {"resize_input": 64, "out_dim": 64},
+               **({"in_dim": SEM_CLASSES} if name == "sem" else {}))},
+           "grounding_downsampler": {"target": name,
+                                     "params": cfg["grounding_downsampler"]["params"]}}
+    for name, cfg in SPATIAL_MODELS.items()
+}
+
+
+def spatial_request(rng, modality, batch, size=512):
+    """(tokenizer inputs, the downsampler's map) of one seeded uint8 map
+    (sem: labels in [0, 152); else RGB pixels) at ``size``^2, through the
+    CLI's ``prepare_batch_for`` and the config's input adapter."""
+    import numpy as np
+
+    from gligen_tpu_torch.inference.adapters import get_adapter
+    from gligen_tpu_torch.inference.cli import SPATIAL_KEYS, prepare_batch_for
+
+    shape = (size, size) if modality == "sem" else (size, size, 3)
+    top = SEM_CLASSES if modality == "sem" else 256
+    image = rng.integers(0, top, size=shape).astype(np.uint8)
+    image_key = {m: k for m, _, k in SPATIAL_KEYS}.get(modality, "sem_image")
+    meta = {"ckpt": f"checkpoint_generation_{modality}.pth", image_key: image}
+    raw = prepare_batch_for(meta, batch)
+    adapter = get_adapter(SPATIAL_INPUTS[modality])
+    return adapter.prepare(raw), adapter.prepare_extra(raw)
+
+
 def elapsed_ms(torch, fn, iters=5):
     """ms per call of ``fn`` between CUDA events around ``iters`` calls
     after one warm-up: the device's elapsed time, the host's gaps between
@@ -1840,6 +1960,27 @@ def elapsed_ms(torch, fn, iters=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def tokenizer_device_ms(torch, tokenizers):
+    """{model: (the device-busy ms of its tokenizer's conditional and null
+    forwards, device records, launch calls)}: one call traced after a warm
+    one, busy being the union of its kernel and copy intervals
+    (``perf_probe.device_breakdown``).  ``tokenizers`` maps a model to
+    (position net, its inputs, their null pair).  A profiler session slows
+    the host for the rest of the process, so this runs after every timed
+    phase."""
+    from gligen_tpu_torch.tools.perf_probe import device_breakdown, launch_calls, traced
+
+    out = {}
+    for name, (net, g, null) in tokenizers.items():
+        call = lambda: (net(**g), net(**null), torch.cuda.synchronize())
+        with torch.no_grad():
+            call()
+            trace = traced(call)[1]
+        calls, records = launch_calls(trace)
+        out[name] = (device_breakdown(trace)[1], len(records), len(calls))
+    return out
 
 
 def phrase_tokenizer(rng, phrases, vocab=49408):
@@ -2017,6 +2158,107 @@ def run_grounding(torch, np, seed, device, steps, batch=2, size=512):
     return failures, s_per_img, vision_ms
 
 
+def run_spatial(torch, np, seed, device, steps, batch=2, size=512):
+    """Phase 13: each model of ``SPATIAL_MODELS`` built from ``seed``,
+    de-zeroed (ConvNeXt's layer scales too), written as a reference-format
+    checkpoint in memory (tokenizer and downsampler under their dotted
+    names, an in-memory SD first conv) and loaded back through
+    ``components_from_checkpoint``; two requests of ``batch`` at ``size``^2,
+    each a seeded uint8 map through ``prepare_batch_for`` and the config's
+    input adapter, PLMS with the scenario's alpha stages, configuration (a);
+    the hed model also serves one request in configuration (b), where
+    ConvNeXt's LayerNorms take the LayerNorm kernel.  Returns (failures,
+    s/img of request 1 by model, the tokenizer's ms per request (its
+    conditional and null forwards, ``elapsed_ms``) by model, the (b)
+    request's LayerNorm launches, {model: (its position net, a request's
+    tokenizer inputs, their null pair)} for ``tokenizer_device_ms``)."""
+    from gligen_tpu_torch.inference.adapters import null_input
+    from gligen_tpu_torch.inference.cli import components_from_checkpoint
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
+    from gligen_tpu_torch.ops.flash_attention import flash_fwd
+    from gligen_tpu_torch.tools.reference_ckpt import reference_checkpoint
+
+    failures, s_per_img, tokenizer_ms, ln_launches, tokenizers = [], {}, {}, None, {}
+    latent = size // 8
+    rng = np.random.default_rng(seed + 17)
+    gen = torch.Generator(device=device).manual_seed(seed + 18)
+    for name, unet_config in SPATIAL_MODELS.items():
+        set_config("a")
+        t0 = time.perf_counter()
+        src = GligenComponents.create(unet_config=dict(unet_config), dtype=torch.bfloat16,
+                                      seed=seed + 19, device=device)
+        dezero_(src.unet, torch.Generator(device=device).manual_seed(seed + 20))
+        ckpt, sd_conv = reference_checkpoint(src, unet_config, GROUNDING_SCHEDULE)
+        comps = components_from_checkpoint(ckpt, sd_first_conv=sd_conv, dtype=torch.bfloat16,
+                                           device=device)
+        bad, n = loaded_differences(torch, src, comps)
+        nets = ", ".join(type(m).__name__
+                         for m in (comps.unet.position_net, comps.unet.downsample_net))
+        width = comps.unet.input_blocks_0_0.weight.shape[1]
+        del src, ckpt, sd_conv
+        torch.cuda.empty_cache()
+        print(f"spatial: {name}: reference-format checkpoint loaded on the card in "
+              f"{time.perf_counter() - t0:.1f} s as {nets}, first conv {width} channels: "
+              f"{n - len(bad)} of {n} tensors equal their source bit for bit "
+              f"{bad[:4] if bad else ''} {'ok' if not bad else 'FAIL'}", flush=True)
+        if bad:
+            failures.append(f"spatial checkpoint ({name})")
+        alpha = SPATIAL_ALPHA[name]
+        requests = []
+        for _ in range(2):
+            ids, uc, _ = make_request(rng, batch, 49408, 768)
+            grounding, extra = spatial_request(rng, name, batch, size)
+            requests.append((ids, uc, grounding, {"grounding_extra": extra}))
+        pipe = GenerationPipeline(comps)
+        runs = [("a", requests)] + ([("b", requests[:1])] if name == "hed" else [])
+        for config, reqs in runs:
+            expected, gated, free = expected_launches(comps, steps, alpha, latent, config)
+            routes = dict(flash_fwd.routes)
+            times, images, counts = run_requests(torch, pipe, reqs, config, gen, steps=steps,
+                                                 guidance_scale=7.5, alpha_stages=alpha,
+                                                 latent_size=latent)
+            routes = {r: c - routes[r] for r, c in flash_fwd.routes.items()}
+            for i, (img, t) in enumerate(zip(images, times)):
+                ok, desc = check_image(torch, img, batch, size)
+                print(f"spatial: {name} {config_desc(config)} request {i}: {desc} in {t:.3f} s "
+                      f"= {t / batch:.3f} s/img {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    failures.append(f"spatial image ({name}, {config}) {i}")
+            want = {k: len(reqs) * expected[k] for k in counts}
+            if config == "a":
+                launched = all(counts[k] > 0 for k in PATH_KERNELS)
+            else:  # the module path: the tokenizer's LayerNorms beside the blocks'
+                launched = counts["layer_norm"] > 0 and counts["ln_matmuls"] == 0
+                ln_launches = counts["layer_norm"]
+            ok = counts == want and launched
+            print(f"spatial: {name} ({config}) per request {gated} gated and {free} fuser-free "
+                  f"UNet calls; launches {counts}, expected {want} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failures.append(f"spatial launch count ({name}, {config})")
+            print(f"spatial: {name} ({config}) flash_fwd launches by route {routes} (every one "
+                  f"must be tma) {'ok' if routes['copy'] == 0 else 'FAIL'}", flush=True)
+            if routes["copy"]:
+                failures.append(f"spatial flash_fwd copy route ({name}, {config})")
+            if config == "a":
+                s_per_img[name] = times[1] / batch
+            del images
+        set_config("a")
+        grounding = requests[0][2]
+        g = {k: v.to(device) for k, v in grounding.items()}
+        null = null_input(g)
+        with torch.no_grad():
+            tokenizer_ms[name] = elapsed_ms(torch, lambda: (comps.unet.grounding_tokens(g),
+                                                            comps.unet.grounding_tokens(null)))
+        print(f"spatial: {name}: the tokenizer's conditional and null forwards (batch {batch}, "
+              f"{comps.unet.position_net.resize_input}^2 maps) {tokenizer_ms[name]:.3f} ms per "
+              f"request (CUDA events, host gaps included)", flush=True)
+        tokenizers[name] = (comps.unet.position_net, g, null)
+        del comps, pipe, requests
+        torch.cuda.empty_cache()
+    return failures, s_per_img, tokenizer_ms, ln_launches, tokenizers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -2138,6 +2380,19 @@ def main() -> int:
             failures.append(f"grounding reference ({model})")
     print(f"grounding: phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 13. the spatial modalities, right after 12 in the same host state ----
+    t0 = time.perf_counter()
+    spatial_failures, spatial_s, tokenizer_ms, spatial_ln, tokenizers = run_spatial(
+        torch, np, args.seed, device, args.steps)
+    failures += spatial_failures
+    for model in SMALL_SPATIAL:
+        ok, line = small_reference(torch, np, args.seed, device, SPATIAL_ALPHA[model], "a",
+                                   model=model)
+        print(line, flush=True)
+        if not ok:
+            failures.append(f"spatial reference ({model})")
+    print(f"spatial: phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 6. the flash backward kernels vs plain ----
     results += check_bwd(torch, bwd_cases(4), device)
     failures += [f"kernel {r['kind']} {r['name']}" for r in results
@@ -2176,6 +2431,14 @@ def main() -> int:
     launch_failures, launch_lines = check_launches(torch, gn, ln, convs, device, gn32)
     print("\n".join(launch_lines), flush=True)
     failures += launch_failures
+    # the spatial tokenizers' device time, under the profiler: after every timed phase
+    set_config("a")
+    tokenizer_device = tokenizer_device_ms(torch, tokenizers)
+    for name, (busy, records, calls) in tokenizer_device.items():
+        print(f"spatial: {name}: the tokenizer's conditional and null forwards (batch {batch}) "
+              f"{busy:.3f} ms device busy per request (profiled; {records} device records of "
+              f"{calls} launch calls)", flush=True)
+    del tokenizers
 
     print("summary: s/img " + ", ".join(f"({c}) {s:.3f}" for c, s in s_per_img.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")
@@ -2187,6 +2450,14 @@ def main() -> int:
           + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, alpha stages, 512^2, "
           f"loaded from a checkpoint); CLIP ViT-L/14 vision {vision_ms:.3f} ms per image (fp32) "
           f"on {card}")
+    print("summary: spatial s/img " + ", ".join(f"{m} {t:.3f}" for m, t in spatial_s.items())
+          + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, each scenario's alpha "
+          f"stages, 512^2, loaded from a checkpoint); the tokenizer's ms per request (conditional "
+          f"and null forwards), device busy " + ", ".join(
+              f"{m} {t[0]:.3f}" for m, t in tokenizer_device.items())
+          + ", CUDA events with host gaps " + ", ".join(
+              f"{m} {t:.3f}" for m, t in tokenizer_ms.items())
+          + f"; hed (b) LayerNorm launches {spatial_ln} on {card}")
     by_name = {(r["kind"], r["name"]): r for r in results}
     kernels = []
     for name, (source, replaces, timed_at, config) in KERNEL_META.items():

@@ -6,10 +6,12 @@ are self-describing, the UNet's keywords, the first stage's ``ddconfig``
 and the diffusion schedule ride in the embedded config, and the reference
 instantiates all its modules from it (gligen_inference.py:72-77).
 
-The grounding inputs of a scenario's meta (:34-158): CLIP phrase and image
+The grounding inputs of a scenario's meta (:34-227): CLIP phrase and image
 features (``FeatureExtractor``) and the per-modality batches
-(``prepare_batch_box`` for box+text(+image), ``prepare_batch_kp``).  The
-tokenizer, the scenarios, the command line and PNG saving are ROADMAP M10.
+(``prepare_batch_box`` for box+text(+image), ``prepare_batch_kp``,
+``prepare_batch_spatial`` for hed/canny/depth/normal maps,
+``prepare_batch_sem``), picked by ``prepare_batch_for``.  The tokenizer,
+the scenarios, the command line and PNG saving are ROADMAP M10.
 """
 
 from __future__ import annotations
@@ -204,3 +206,99 @@ def prepare_batch_kp(meta: Mapping[str, Any], batch: int,
         "points": np.repeat(points[None], batch, 0),
         "masks": np.repeat(masks[None], batch, 0),
     }
+
+
+MAP_SIZE = 512  # the reference's map size (gligen_inference.py:222-338)
+
+
+def _meta_image(meta: Mapping[str, Any], *keys: str):
+    """The meta's map under the first of ``keys`` it has: the reference's
+    metas name it ``hed_image``/``canny_image`` or ``normal``/``depth``/``sem``
+    (gligen_inference.py:532-578)."""
+    for k in keys:
+        if k in meta:
+            return meta[k]
+    raise KeyError(f"meta missing any of {keys}: {sorted(meta)}")
+
+
+def _open_square(path, size: int, mode: str, resample=None) -> np.ndarray:
+    """The image at ``path`` (read with PIL, imported here) in ``mode``,
+    center-cropped to a square and resized to ``size``^2 (the JAX CLI's
+    ``crop_and_resize``, gligen_inference.py:190-195)."""
+    from PIL import Image
+
+    img = Image.open(path).convert(mode)
+    w, h = img.size
+    crop = min(w, h)
+    left, top = (w - crop) // 2, (h - crop) // 2
+    img = img.crop((left, top, left + crop, top + crop))
+    img = img.resize((size, size)) if resample is None else img.resize((size, size), resample)
+    return np.asarray(img, np.uint8)
+
+
+def _map_array(image, shape: tuple, what: str) -> np.ndarray:
+    """A map given as an array: uint8 of ``shape`` (already cropped and
+    resized), or a ValueError."""
+    arr = np.asarray(image)
+    if arr.dtype != np.uint8 or arr.shape != shape:
+        raise ValueError(f"{what}: a map array must be uint8 {shape} (or give its path), got "
+                         f"{arr.dtype} {arr.shape}")
+    return arr
+
+
+def prepare_batch_spatial(meta: Mapping[str, Any], batch: int, key: str,
+                          image_key: str) -> Dict[str, np.ndarray]:
+    """A hed, canny, depth or normal map (gligen_inference.py:222-297) as
+    raw uint8 pixels, (batch, 512, 512, 3), with ``mask`` ones: the
+    tokenizer and the downsampler normalise them on the device
+    (``prepare_spatial_map``).  The meta gives a path (read as RGB,
+    center-cropped and resized to 512^2) or a uint8 (512, 512, 3) array."""
+    image = _meta_image(meta, image_key, image_key.replace("_image", ""))
+    if isinstance(image, (str, os.PathLike)):
+        arr = _open_square(image, MAP_SIZE, "RGB")
+    else:
+        arr = _map_array(image, (MAP_SIZE, MAP_SIZE, 3), key)
+    return {key: np.repeat(arr[None], batch, 0), "mask": np.ones(batch, np.float32)}
+
+
+def prepare_batch_sem(meta: Mapping[str, Any], batch: int,
+                      num_classes: int = 152) -> Dict[str, np.ndarray]:
+    """A semantic label map (gligen_inference.py:317-338) as uint8 labels,
+    (batch, 512, 512), with ``mask`` ones: the one-hot happens on the
+    device (``prepare_spatial_map``).  The meta gives a path (read as
+    grayscale, center-cropped, resized to 512^2 by nearest) or a uint8
+    (512, 512) array.  A label of ``num_classes`` or more is a ValueError
+    (the device's one-hot would give its pixels no class)."""
+    image = _meta_image(meta, "sem_image", "sem")
+    if isinstance(image, (str, os.PathLike)):
+        from PIL import Image
+
+        sem = _open_square(image, MAP_SIZE, "L", Image.NEAREST)
+    else:
+        sem = _map_array(image, (MAP_SIZE, MAP_SIZE), "sem")
+    if int(sem.max()) >= num_classes:
+        raise ValueError(f"sem: label {int(sem.max())} is not below num_classes {num_classes}")
+    return {"sem": np.repeat(sem[None], batch, 0), "mask": np.ones(batch, np.float32)}
+
+
+SPATIAL_KEYS = (("hed", "hed_edge", "hed_image"), ("canny", "canny_edge", "canny_image"),
+                ("depth", "depth", "depth_image"), ("normal", "normal", "normal_image"))
+
+
+def prepare_batch_for(meta: Mapping[str, Any], batch: int,
+                      features: Optional[FeatureExtractor] = None) -> Dict[str, np.ndarray]:
+    """The raw batch of the modality that ``meta["ckpt"]`` names
+    (gligen_inference.py:361-376: keypoint, the spatial maps, sem, else
+    box+text(+image), which needs ``features``); the modality's input
+    adapter maps it to the tokenizer's keywords and the downsampler's map."""
+    ckpt = meta["ckpt"]
+    if "keypoint" in ckpt:
+        return prepare_batch_kp(meta, batch)
+    for modality, key, image_key in SPATIAL_KEYS:
+        if modality in ckpt:
+            return prepare_batch_spatial(meta, batch, key, image_key)
+    if "sem" in ckpt:
+        return prepare_batch_sem(meta, batch)
+    if features is None:
+        raise ValueError("box grounding needs a FeatureExtractor")
+    return prepare_batch_box(meta, batch, features)

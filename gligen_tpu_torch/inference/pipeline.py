@@ -1,9 +1,9 @@
 """End-to-end grounded generation (counterpart of
 ``gligen_tpu/inference/pipeline.py``): CLIP text encode, grounding tokens
-once per request (the CFG null pair included), the inpaint image's fp32
-VAE encode, PLMS or DDIM over the GLIGEN UNet with the CFG pair batched as
-one UNet call on 2B rows, the fuser-free tail of the alpha schedule, and
-VAE decode.
+once per request (the CFG null pair included), a spatial map's downsampler
+channels once per request, the inpaint image's fp32 VAE encode, PLMS or
+DDIM over the GLIGEN UNet with the CFG pair batched as one UNet call on 2B
+rows, the fuser-free tail of the alpha schedule, and VAE decode.
 
 PyTorch runs eagerly, so where the JAX package compiles one program, this
 pipeline is a Python loop of UNet calls.
@@ -22,6 +22,8 @@ from gligen_tpu_torch.diffusion.schedule import DiffusionSchedule
 from gligen_tpu_torch.inference.adapters import null_input
 from gligen_tpu_torch.models.clip_text import CLIPTextModel
 from gligen_tpu_torch.models.clip_vision import CLIPVisionModel, PatchEmbedding
+from gligen_tpu_torch.models.grounding.convnext import LAYER_SCALE_INIT, ConvNeXtBlock
+from gligen_tpu_torch.models.grounding.spatial import SpatialPositionNet
 from gligen_tpu_torch.models.layers import Conv2d, Dense
 from gligen_tpu_torch.models.unet import UNetModel
 from gligen_tpu_torch.models.vae import AutoencoderKL
@@ -34,7 +36,8 @@ def random_init_(root: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialisers, drawn from ``generator``: lecun
     normal for Dense/Conv weights (zeros where the module is zero-init),
     zero biases, unit norm scales, zero fuser alphas and null features,
-    and CLIP vision's class embedding ~ N(0, 0.02^2)."""
+    CLIP vision's class embedding and the spatial tokenizers' position
+    embedding ~ N(0, 0.02^2), and ConvNeXt's layer scale ``gamma`` 1e-6."""
     with torch.no_grad():
         for m in root.modules():
             if isinstance(m, (Dense, Conv2d, PatchEmbedding)):
@@ -50,6 +53,11 @@ def random_init_(root: nn.Module, generator: torch.Generator) -> None:
                 nn.init.normal_(m.weight, std=m.embedding_dim**-0.5, generator=generator)
             elif isinstance(m, CLIPVisionModel):
                 nn.init.normal_(m.class_embedding, std=0.02, generator=generator)
+            elif isinstance(m, SpatialPositionNet):
+                nn.init.normal_(m.pos_embedding, std=0.02, generator=generator)
+                m.null_feature.zero_()
+            elif isinstance(m, ConvNeXtBlock):
+                m.gamma.fill_(LAYER_SCALE_INIT)
             else:
                 for name, p in m.named_parameters(recurse=False):
                     p.fill_(1.0 if name == "weight" else 0.0)
@@ -121,6 +129,7 @@ class GenerationPipeline:
         guidance_scale: float = 7.5,
         sampler: str = "plms",
         alpha_stages: Optional[Sequence[float]] = None,
+        grounding_extra=None,
         inpaint_image=None,
         inpaint_mask=None,
         latent_size: int = 64,
@@ -136,10 +145,14 @@ class GenerationPipeline:
         grounding: the UNet's tokenizer's inputs (``inference/adapters.py``:
         boxes, masks, positive_embeddings for text; text_image's boxes,
         masks, text and image masks and embeddings; keypoint's points,
-        masks); the null batch of CFG is its zeros
-        (``adapters.null_input``).  inpaint_image: (B, H, W, 3) in [-1, 1] and
-        inpaint_mask: (B, latent, latent, 1) keep-mask (1 = known region)
-        inpaint; the UNet must be an inpaint UNet.  The random draws are
+        masks; a spatial modality's map and mask); the null batch of CFG
+        is its zeros (``adapters.null_input``).  grounding_extra: the
+        spatial map of a UNet with a grounding downsampler (the adapter's
+        ``prepare_extra``); its channels are computed once, from this
+        conditional map, and serve both halves of the CFG pair: they are
+        never nulled (pipeline.py:312-331).  inpaint_image: (B, H, W, 3) in
+        [-1, 1] and inpaint_mask: (B, latent, latent, 1) keep-mask (1 =
+        known region) inpaint; the UNet must be an inpaint UNet.  The random draws are
         injected or come from ``generator``: noise (B, latent, latent, 4),
         the starting noise; encode_noise (the same shape), the inpaint
         encode's posterior noise; blend_noise (S, B, latent, latent, 4),
@@ -166,6 +179,9 @@ class GenerationPipeline:
         pair = (lambda t: torch.cat([t, t])) if use_cfg else (lambda t: t)
         ctx = torch.cat([context, uc]) if use_cfg else context
         objs = torch.cat([objs_c, objs_u]) if use_cfg else objs_c
+        ds = None
+        if grounding_extra is not None:
+            ds = pair(c.unet.downsampler_features(torch.as_tensor(grounding_extra, device=dev)))
 
         latent_shape = (b, latent_size, latent_size, 4)
         mask = x0 = extra = None
@@ -182,8 +198,8 @@ class GenerationPipeline:
         def make_eps_fn(skip):
             def eps_fn(x, t, gate, use_sd):
                 e = c.unet(pair(x), pair(t), ctx, gate_scale=gate, use_sd_conv=use_sd,
-                           inpainting_extra=extra, objs=None if skip else objs,
-                           skip_fusers=skip)
+                           inpainting_extra=extra, grounding_extra_features=ds,
+                           objs=None if skip else objs, skip_fusers=skip)
                 if not use_cfg:
                     return e
                 e_c, e_u = e.chunk(2)

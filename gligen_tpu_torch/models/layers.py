@@ -63,18 +63,24 @@ class Dense(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """SAME-padded conv over an NHWC tensor, computing in ``dtype``."""
+    """A conv over an NHWC tensor, computing in ``dtype``: SAME-padded
+    (``kernel // 2`` on each side) unless ``padding`` says otherwise (0 is
+    VALID); ``groups`` as ``nn.Conv2d``'s (the depthwise conv's is the
+    channel count)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
-        super().__init__(in_channels, out_channels, kernel, stride=stride, padding=kernel // 2)
+                 dtype: torch.dtype = torch.float32, zero_init: bool = False,
+                 padding: Optional[int] = None, groups: int = 1):
+        super().__init__(in_channels, out_channels, kernel, stride=stride,
+                         padding=kernel // 2 if padding is None else padding, groups=groups)
         self.compute_dtype = dtype
         self.zero_init = zero_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         w = self.weight.to(dt, memory_format=torch.channels_last)
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, self.bias.to(dt), self.stride, self.padding)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, self.bias.to(dt), self.stride, self.padding,
+                     groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 

@@ -1,14 +1,17 @@
 """GLIGEN UNet (counterpart of ``gligen_tpu/models/unet.py``).
 
 The SD-1.4 epsilon-predictor UNet with grounding-token plumbing, NHWC:
-the box+text, box+text+image and keypoint tokenizers, and the gatedSA,
-gatedSA2 and gatedCA fusers (``fuser_type``).
+the box+text, box+text+image, keypoint and spatial (hed, canny, depth,
+normal, sem) tokenizers, the spatial modalities' grounding downsamplers,
+and the gatedSA, gatedSA2 and gatedCA fusers (``fuser_type``).
 Submodule names mirror the JAX parameter tree (``input_blocks_1_0``,
 ``middle_block_1``, ``out_2``...).  The alpha-stage dual first conv is a
 host-side select: ``use_sd_conv`` picks the original SD 4-channel conv
-(``first_conv_sd``) or the GLIGEN one, and only the chosen conv runs.  An
-inpaint UNet (``inpaint_mode``) has no SD conv: its GLIGEN conv takes the
-latent and the 5 channels of ``inpainting_extra`` (z0 * mask, mask).
+(``first_conv_sd``) or the GLIGEN one, and only the chosen conv runs.  The
+GLIGEN conv is widened by the downsampler's channels (``downsample_net``: 1
+for hed, 8 for the others), which it reads after the latent's; an inpaint
+UNet (``inpaint_mode``) has no SD conv, and its GLIGEN conv reads the 5
+channels of ``inpainting_extra`` (z0 * mask, mask) last.
 """
 
 from __future__ import annotations
@@ -20,14 +23,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# the tokenizers register themselves ("text", "text_image", "keypoint")
-import gligen_tpu_torch.models.grounding.keypoint  # noqa: F401
-import gligen_tpu_torch.models.grounding.text  # noqa: F401
-import gligen_tpu_torch.models.grounding.text_image  # noqa: F401
+# the tokenizers and downsamplers register themselves
+import gligen_tpu_torch.models.grounding  # noqa: F401
 from gligen_tpu_torch.models.layers import Conv2d, Dense, Normalize, SpatialTransformer
 from gligen_tpu_torch.ops.basic import nearest_upsample_2x, timestep_embedding
 from gligen_tpu_torch.ops.fused_conv import gn_silu_conv3x3
-from gligen_tpu_torch.utils.registry import GROUNDING_NETS
+from gligen_tpu_torch.utils.registry import DOWNSAMPLERS, GROUNDING_NETS
 
 # The JAX package's routing table for GLIGEN_TPU_FUSED_CONV=auto, carried as
 # it is (gligen_tpu/models/unet.py:81): the (H, out_channels) of the
@@ -133,6 +134,9 @@ class UNetModel(nn.Module):
       use_sd_conv: run the original SD first conv instead of GLIGEN's
       inpainting_extra: (B, H, W, in_channels + 1) z0 * mask, mask; an
         inpaint UNet's GLIGEN conv reads it after x's channels
+      grounding_extra_features: ``downsampler_features`` of the spatial
+        map of a UNet with a grounding downsampler (its channels follow
+        x's into the GLIGEN conv)
       objs: precomputed ``grounding_tokens(grounding)``, so the position
         net runs once per request, not once per step
       skip_fusers: run no fuser (exact where the gate is 0)
@@ -162,9 +166,6 @@ class UNetModel(nn.Module):
     ):
         super().__init__()
         tok_cfg = grounding_tokenizer or {"target": "text", "params": {}}
-        for kind, cfg in (("tokenizer", tok_cfg), ("downsampler", grounding_downsampler)):
-            if cfg is not None and (kind == "downsampler" or cfg["target"] not in GROUNDING_NETS):
-                raise ValueError(f"grounding {kind} {cfg['target']!r} is not ported (ROADMAP M9)")
         self.dtype = dtype
         self.model_channels = model_channels
         self.fuser_type = fuser_type
@@ -172,11 +173,17 @@ class UNetModel(nn.Module):
         self.position_net = GROUNDING_NETS.get(tok_cfg["target"])(
             **tok_cfg.get("params", {}), dtype=dtype)
         objs_dim = self.position_net.out_dim
+        self.downsample_net = None
+        if grounding_downsampler is not None:
+            self.downsample_net = DOWNSAMPLERS.get(grounding_downsampler["target"])(
+                **grounding_downsampler.get("params", {}), dtype=dtype)
         emb_dim = model_channels * 4
         self.time_embed_0 = Dense(model_channels, emb_dim, dtype=dtype)
         self.time_embed_2 = Dense(emb_dim, emb_dim, dtype=dtype)
-        # the inpaint extra is z0 * mask (in_channels) and the mask (1)
-        extra = in_channels + 1 if inpaint_mode else 0
+        # the downsampler's channels; the inpaint extra, z0 * mask
+        # (in_channels) and the mask (1)
+        extra = 0 if self.downsample_net is None else self.downsample_net.out_dim
+        extra += in_channels + 1 if inpaint_mode else 0
         self.input_blocks_0_0 = Conv2d(in_channels + extra, model_channels, 3, dtype=dtype)
         if self.first_conv_restorable:
             self.first_conv_sd = Conv2d(in_channels, model_channels, 3, dtype=dtype)
@@ -251,6 +258,14 @@ class UNetModel(nn.Module):
         """The position net's (B, N, objs_dim) tokens for the tokenizer's inputs."""
         return self.position_net(**grounding)
 
+    def downsampler_features(self, grounding_extra: torch.Tensor) -> torch.Tensor:
+        """The grounding downsampler's (B, H, W, out_dim) channels of a
+        spatial map, which the GLIGEN first conv reads after the latent's
+        (the JAX UNet's ``tokens_only`` second output, unet.py:302-313)."""
+        if self.downsample_net is None:
+            raise ValueError("grounding_extra: this UNet has no grounding downsampler")
+        return self.downsample_net(grounding_extra)
+
     def _run(self, names, h, emb, ctx, objs, gate_scale, skip_fusers):
         for name in names:
             layer = getattr(self, name)
@@ -272,6 +287,7 @@ class UNetModel(nn.Module):
         gate_scale: float = 1.0,
         use_sd_conv: bool = False,
         inpainting_extra: Optional[torch.Tensor] = None,
+        grounding_extra_features: Optional[torch.Tensor] = None,
         objs: Optional[torch.Tensor] = None,
         skip_fusers: bool = False,
     ) -> torch.Tensor:
@@ -288,11 +304,23 @@ class UNetModel(nn.Module):
 
         h = x.to(self.dtype)
         if use_sd_conv:
+            # the JAX UNet computes both first convs and selects one
+            # (unet.py:329-333): the SD conv reads no grounding channel
             h = self.first_conv_sd(h)
         else:
-            if inpainting_extra is not None:  # unet.py:322-333: x first, then the extra
-                h = torch.cat([h, inpainting_extra.to(self.dtype)], dim=-1)
-            h = self.input_blocks_0_0(h)
+            # unet.py:315-328: x, the downsampler's channels, the inpaint extra
+            parts = [h]
+            if self.downsample_net is not None:
+                if grounding_extra_features is None:
+                    raise ValueError("a UNet with a grounding downsampler needs "
+                                     "grounding_extra_features")
+                parts.append(grounding_extra_features.to(self.dtype))
+            elif grounding_extra_features is not None:
+                raise ValueError("grounding_extra_features: this UNet has no grounding "
+                                 "downsampler")
+            if inpainting_extra is not None:
+                parts.append(inpainting_extra.to(self.dtype))
+            h = self.input_blocks_0_0(torch.cat(parts, dim=-1) if len(parts) > 1 else h)
         ctx = context.to(self.dtype)
         run = lambda names, h: self._run(names, h, emb, ctx, objs, gate_scale, skip_fusers)
 

@@ -3,7 +3,7 @@
 and what each fused kernel costs against the module path's chain.
 
     python3 gligen_tpu_torch/tools/perf_probe.py request [--root DIR] [--fused 1|0]
-        [--norm gn|0|ln|both] [--conv 0|1|auto]
+        [--norm gn|0|ln|both] [--conv 0|1|auto] [--model text|hed|sem]
     python3 gligen_tpu_torch/tools/perf_probe.py train [--root DIR] [--fused 1|0]
         [--norm gn|0|ln|both] [--conv 0|1|auto] [--remat full|none] [--batch 4] [--steps 5]
     python3 gligen_tpu_torch/tools/perf_probe.py chains
@@ -19,7 +19,12 @@ the device time by kernel category, the launches,
 and the device's idle share of the wall (1 - busy/wall, busy being the
 union of kernel and copy intervals), against the profiled wall and
 against the mean unprofiled one; then one more unprofiled request, which
-shows whether the profiler left a cost behind.  ``GLIGEN_TPU_FUSED_PROJ``
+shows whether the profiler left a cost behind.  ``--model`` names a spatial
+model of ``chip_smoke.SPATIAL_MODELS`` in place of box+text, hed for the
+448^2 tokenizer (canny, depth and normal differ from it only in their
+downsampler's two small convs) or sem for the 256^2 one: its
+config, a seeded uint8 map each request (``chip_smoke.spatial_request``)
+and its scenario's alpha stages.  ``GLIGEN_TPU_FUSED_PROJ``
 is set to ``--fused``, ``GLIGEN_TPU_FUSED_NORM`` to ``--norm`` and
 ``GLIGEN_TPU_FUSED_CONV`` to ``--conv``.  ``--root`` imports
 ``gligen_tpu_torch`` from
@@ -251,23 +256,30 @@ def request(args) -> None:
     os.environ.update(GLIGEN_TPU_FUSED_PROJ=args.fused, GLIGEN_TPU_FUSED_NORM=args.norm,
                       GLIGEN_TPU_FUSED_CONV=args.conv)
     device = torch.device("cuda", 0)
-    comps = GligenComponents.create(dtype=torch.bfloat16, seed=0, device=device)
+    spatial = args.model != "text"
+    unet_config = dict(cs.SPATIAL_MODELS[args.model]) if spatial else None
+    comps = GligenComponents.create(unet_config=unet_config, dtype=torch.bfloat16, seed=0,
+                                    device=device)
     gen = torch.Generator(device=device).manual_seed(1)
     dezero_(comps.unet, gen)
     pipe = GenerationPipeline(comps)
     rng = np.random.default_rng(0)
-    kw = dict(steps=10, guidance_scale=7.5, alpha_stages=[0.3, 0.0, 0.7],
-              latent_size=64, generator=gen)
+    alpha = cs.SPATIAL_ALPHA[args.model] if spatial else [0.3, 0.0, 0.7]
+    kw = dict(steps=10, guidance_scale=7.5, alpha_stages=alpha, latent_size=64, generator=gen)
 
     def run() -> float:
         ids, uc, grounding = cs.make_request(rng, 2, 49408, 768)
+        extra = {}
+        if spatial:
+            grounding, extra["grounding_extra"] = cs.spatial_request(rng, args.model, 2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe.generate(ids, uc, grounding, **kw)
+        pipe.generate(ids, uc, grounding, **kw, **extra)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    tag = f"root {root.name} PROJ={args.fused} NORM={args.norm} CONV={args.conv}"
+    tag = (f"root {root.name} {args.model} PROJ={args.fused} NORM={args.norm} "
+           f"CONV={args.conv}")
     first = run()
     walls = [run() for _ in range(3)]
     mean = sum(walls) / len(walls)
@@ -465,14 +477,14 @@ def norms(args) -> None:
                 others["F.group_norm"] = lambda: F.group_norm(xc, 32, sc, bc, eps)
             _compare(f"norms: group_norm {name:16s} {str(shape):22s}",
                      lambda: fn.group_norm_fused(x, s, b, 32, eps, silu), others)
-        for name, rows, c in cs.ln_cases(2):
+        for name, rows, c, eps in cs.ln_cases(2):
             x = torch.randn((rows, c), generator=gen, device=device).to(torch.bfloat16)
             s, b = torch.ones(c, device=device), torch.zeros(c, device=device)
             sc, bc = s.bfloat16(), b.bfloat16()
             _compare(f"norms: layer_norm {name:14s} ({rows}, {c})",
-                     lambda: fn.layer_norm_fused(x, s, b),
-                     {"module": lambda: basic.layer_norm(x, s, b),
-                      "F.layer_norm": lambda: F.layer_norm(x, (c,), sc, bc)})
+                     lambda: fn.layer_norm_fused(x, s, b, eps),
+                     {"module": lambda: basic.layer_norm(x, s, b, eps),
+                      "F.layer_norm": lambda: F.layer_norm(x, (c,), sc, bc, eps)})
 
 
 def convs(args) -> None:
@@ -541,6 +553,8 @@ def main() -> None:
         req.add_argument("--fused", choices=("0", "1"), default="1")
         req.add_argument("--norm", choices=("gn", "0", "ln", "both"), default="gn")
         req.add_argument("--conv", choices=("0", "1", "auto"), default="0")
+    sub.choices["request"].add_argument(
+        "--model", choices=("text", "hed", "sem"), default="text")
     train_args = sub.choices["train"]
     train_args.add_argument("--remat", choices=("full", "none"), default="full")
     train_args.add_argument("--batch", type=int, default=4)

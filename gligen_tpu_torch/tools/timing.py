@@ -109,13 +109,16 @@ def ms_per_call(fn, iters: int, device) -> float:
 
 def dezero_(module, generator) -> None:
     """Random values for the zero-initialised weights (UNet out_2,
-    out_layers_3, proj_out), 0.5 for every fuser's gates, and N(0, 1) for
-    the position nets' zero-initialised features (every ``null_*`` feature,
-    the keypoint net's person and keypoint identities), so the output
-    depends on every layer: a fresh model otherwise predicts eps = 0, and
-    every keypoint token of a fresh keypoint net is the same."""
+    out_layers_3, proj_out), 0.5 for every fuser's gates, N(0, 1) for the
+    position nets' zero-initialised features (every ``null_*`` feature, the
+    keypoint net's person and keypoint identities) and U(0.1, 1) for
+    ConvNeXt's layer scales (``gamma``, 1e-6 fresh), so the output depends
+    on every layer: a fresh model otherwise predicts eps = 0, every
+    keypoint token of a fresh keypoint net is the same, and a ConvNeXt
+    block's residual branch is 1e-6 of its input."""
     import torch
 
+    from gligen_tpu_torch.models.grounding.convnext import ConvNeXtBlock
     from gligen_tpu_torch.models.layers import Conv2d, Dense, GatedFuser
 
     zero_features = ("person_embeddings", "keypoint_embeddings")
@@ -128,6 +131,9 @@ def dezero_(module, generator) -> None:
             elif isinstance(m, GatedFuser):
                 m.alpha_attn.fill_(0.5)
                 m.alpha_dense.fill_(0.5)
+            elif isinstance(m, ConvNeXtBlock):
+                m.gamma.copy_(0.1 + 0.9 * torch.rand(m.gamma.shape, generator=generator,
+                                                     device=m.gamma.device))
             for name, p in m.named_parameters(recurse=False):
                 if name.startswith("null_") or name in zero_features:
                     p.copy_(torch.randn(p.shape, generator=generator, device=p.device))

@@ -138,18 +138,16 @@ def make_loss_fn(
     ``loss_fn(batch, generator=None, draws=None)`` -> 0-d fp32 tensor.
     batch: {"image": (B, H, W, 3) in [-1, 1], or "latent_moments":
     (B, h, w, 8) posterior mean | logvar; "input_ids": (B, 77);
-    "grounding": the box tokenizer's inputs; for an inpaint UNet,
-    "inpainting_mask": (B, h, w, 1) latent keep-mask}.  The two latent
+    "grounding": the tokenizer's inputs; for a UNet with a grounding
+    downsampler, "grounding_extra": its spatial map (never dropped with the
+    grounding); for an inpaint UNet, "inpainting_mask": (B, h, w, 1) latent
+    keep-mask}.  The two latent
     branches give the same loss for the same draws."""
     device = next(unet.parameters()).device
     steps = schedule.num_timesteps
 
     def loss_fn(batch: Mapping[str, Any], generator: Optional[torch.Generator] = None,
                 draws: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
-        if "grounding_extra" in batch:
-            raise NotImplementedError("batch['grounding_extra']: that training branch is not "
-                                      "ported (ROADMAP M9)")
-
         if draws is not None and set(draws) != set(DRAW_KEYS):
             raise ValueError(f"draws has keys {sorted(draws)}, needs {sorted(DRAW_KEYS)}")
 
@@ -189,8 +187,11 @@ def make_loss_fn(
         if "inpainting_mask" in batch:  # train_step.py:192-195: z * m, then m
             m = to_device(batch["inpainting_mask"]).float()
             extra = torch.cat([z.float() * m, m], dim=-1)
+        # a spatial map is not dropped with the grounding (train_step.py:184-201)
+        ds_map = batch.get("grounding_extra")
+        feats = None if ds_map is None else unet.downsampler_features(to_device(ds_map))
         eps = unet(x_noisy, t, context, grounding, gate_scale=1.0, use_sd_conv=False,
-                   inpainting_extra=extra)
+                   inpainting_extra=extra, grounding_extra_features=feats)
         return ((eps - noise) ** 2).mean() * l_simple_weight
 
     return loss_fn

@@ -40,8 +40,9 @@ class Registry:
         return name in self._entries
 
 
-# The grounding tokenizers and their input adapters, registered by their
-# modules; the other kinds of the JAX package's registry come with the
+# The grounding tokenizers, downsamplers and input adapters, registered by
+# their modules; the other kinds of the JAX package's registry come with the
 # modules that use them.
 GROUNDING_NETS = Registry("grounding_tokenizer")
+DOWNSAMPLERS = Registry("grounding_downsampler")
 INPUT_ADAPTERS = Registry("grounding_input")

@@ -49,17 +49,20 @@ torch.set_num_threads(1)
 SCHED = dict(timesteps=1000, linear_start=0.001, linear_end=0.015)  # not the default
 
 
-def jax_trees(inpaint, unet_config=UNET, grounding=None):
+def jax_trees(inpaint, unet_config=UNET, grounding=None, latent=LATENT, grounding_extra=None):
     """Random JAX parameter trees of a small UNet (generation or inpaint;
-    ``unet_config`` with the tokenizer whose inputs are ``grounding``), VAE
+    ``unet_config`` with the tokenizer whose inputs are ``grounding`` and
+    the downsampler whose map is ``grounding_extra``, at ``latent``^2), VAE
     and text encoder."""
     grounding = grounding or grounding_inputs(np.random.default_rng(0), 1)
     g = {k: jnp.asarray(v[:1]) for k, v in grounding.items()}
     unet = JaxUNet(**unet_config, inpaint_mode=inpaint, use_checkpoint=False)
-    extra = jnp.zeros((1, LATENT, LATENT, 5)) if inpaint else None
+    extra = jnp.zeros((1, latent, latent, 5)) if inpaint else None
+    ds_map = None if grounding_extra is None else jnp.asarray(grounding_extra[:1])
     return {
-        "model": random_params(unet, jnp.zeros((1, LATENT, LATENT, 4)), jnp.zeros((1,), jnp.int32),
-                               jnp.zeros((1, 77, CTX)), g, inpainting_extra=extra, seed=1),
+        "model": random_params(unet, jnp.zeros((1, latent, latent, 4)), jnp.zeros((1,), jnp.int32),
+                               jnp.zeros((1, 77, CTX)), g, inpainting_extra=extra,
+                               grounding_extra=ds_map, seed=1),
         "autoencoder": random_params(JaxVAE(**VAE), jnp.zeros((1, 2 * LATENT, 2 * LATENT, 3)),
                                      jax.random.PRNGKey(0), seed=2),
         "text_encoder": random_params(JaxCLIP(**CLIP), jnp.zeros((1, 77), jnp.int32), seed=3),
@@ -291,21 +294,41 @@ def test_schedule_from_the_checkpoint_config():
 
 
 def test_registry_takes_the_reference_aliases():
-    """The released configs name the tokenizer by the reference's dotted
-    path (text, text_image, keypoint); the spatial modalities are not
-    ported yet and say so."""
-    for dotted, net, params in (
-            ("text_grounding_net", "TextPositionNet", {"in_dim": CTX, "out_dim": CTX}),
-            ("text_image_grounding_net", "TextImagePositionNet", {"in_dim": CTX, "out_dim": CTX}),
-            ("keypoint_grounding_net", "KeypointPositionNet", {"out_dim": CTX})):
-        target = f"ldm.modules.diffusionmodules.{dotted}.PositionNet"
-        unet = UNetModel(**dict(UNET, grounding_tokenizer={"target": target, "params": params}))
-        assert type(unet.position_net).__name__ == net
-    for target in ("hed", "ldm.modules.diffusionmodules.hed_grounding_net.PositionNet"):
-        with pytest.raises(ValueError, match="not ported"):
-            UNetModel(**dict(UNET, grounding_tokenizer={"target": target, "params": {}}))
-    with pytest.raises(ValueError, match="not ported"):
-        UNetModel(**UNET, grounding_downsampler={"target": "hed", "params": {}})
+    """The released configs name the tokenizer and the downsampler by the
+    reference's dotted path: every tokenizer (text, text_image, keypoint
+    and the five spatial ones) and every downsampler builds under its short
+    name and under its dotted one, the same class."""
+    prefix = "ldm.modules.diffusionmodules"
+    tokenizers = {
+        "text": ("TextPositionNet", {"in_dim": CTX, "out_dim": CTX}),
+        "text_image": ("TextImagePositionNet", {"in_dim": CTX, "out_dim": CTX}),
+        "keypoint": ("KeypointPositionNet", {"out_dim": CTX}),
+        "hed": ("HedPositionNet", {"resize_input": 64, "out_dim": CTX}),
+        "canny": ("CannyPositionNet", {"resize_input": 64, "out_dim": CTX}),
+        "depth": ("DepthPositionNet", {"resize_input": 64, "out_dim": CTX}),
+        "normal": ("NormalPositionNet", {"resize_input": 64, "out_dim": CTX}),
+        "sem": ("SemPositionNet", {"resize_input": 64, "in_dim": 152, "out_dim": CTX}),
+    }
+    for name, (net, params) in tokenizers.items():
+        for target in (name, f"{prefix}.{name}_grounding_net.PositionNet"):
+            unet = UNetModel(**dict(UNET, grounding_tokenizer={"target": target,
+                                                               "params": params}))
+            assert type(unet.position_net).__name__ == net, target
+            assert unet.downsample_net is None
+    downsamplers = {"hed": ("HedDownsampler", {"out_dim": 1}, 1),
+                    "canny": ("CannyDownsampler", {"resize_input": 256, "out_dim": 8}, 8),
+                    "depth": ("DepthDownsampler", {"resize_input": 256, "out_dim": 8}, 8),
+                    "normal": ("NormalDownsampler", {"resize_input": 256, "out_dim": 8}, 8),
+                    "sem": ("SemDownsampler", {"resize_input": 256, "in_dim": 152,
+                                               "out_dim": 8}, 8)}
+    for name, (net, params, width) in downsamplers.items():
+        for target in (name, f"{prefix}.{name}_grounding_downsampler.GroundingDownsampler"):
+            unet = UNetModel(**UNET, grounding_downsampler={"target": target, "params": params})
+            assert type(unet.downsample_net).__name__ == net, target
+            assert unet.input_blocks_0_0.weight.shape[1] == 4 + width
+            assert unet.first_conv_sd.weight.shape[1] == 4
+    with pytest.raises(KeyError, match="unknown target"):
+        UNetModel(**UNET, grounding_downsampler={"target": "seg", "params": {}})
 
 
 def test_widen_matches_jax():

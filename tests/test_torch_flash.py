@@ -190,12 +190,20 @@ for mod in pkgutil.walk_packages(gligen_tpu_torch.__path__, "gligen_tpu_torch.")
 for name in ("training.train_step", "training.checkpoints", "convert.from_reference",
              "convert.widen", "inference.cli", "utils.registry", "data.inpaint_masks",
              "tools.reference_ckpt", "ops.interpolate", "models.clip_vision",
-             "models.grounding.text_image", "models.grounding.keypoint", "inference.adapters"):
+             "models.grounding.text_image", "models.grounding.keypoint", "inference.adapters",
+             "models.grounding.convnext", "models.grounding.spatial",
+             "models.grounding.downsamplers"):
     assert f"gligen_tpu_torch.{name}" in sys.modules, name
 from gligen_tpu_torch.models.clip_vision import clip_preprocess
 assert clip_preprocess(torch.zeros((1, 30, 20, 3), dtype=torch.uint8)).shape == (1, 224, 224, 3)
 from gligen_tpu_torch.utils.registry import GROUNDING_NETS, INPUT_ADAPTERS
 assert all(n in GROUNDING_NETS and n in INPUT_ADAPTERS for n in ("text", "text_image", "keypoint"))
+from gligen_tpu_torch.utils.registry import DOWNSAMPLERS
+spatial = ("hed", "canny", "depth", "normal", "sem")
+assert all(n in GROUNDING_NETS and n in DOWNSAMPLERS and n in INPUT_ADAPTERS for n in spatial)
+from gligen_tpu_torch.models.grounding.spatial import prepare_spatial_map
+assert prepare_spatial_map(torch.zeros((1, 8, 8), dtype=torch.uint8), 32, "nearest",
+                           num_classes=152).shape == (1, 32, 32, 152)
 for tool in ("timing", "perf_probe", "bench_proj", "bench_block", "bench_resblock",
              "bench_sweep_attn"):
     assert f"gligen_tpu_torch.tools.{tool}" in sys.modules, tool

@@ -193,10 +193,14 @@ def smoke_shapes():
 
 def test_every_smoke_shape_has_a_tabled_triple():
     """Every shape phase 3 and the tools launch falls in a class, whose
-    triple the serving library holds; the LN modes' K stays within their
-    panel's reach."""
+    triple the serving library holds (the spatial fusers' k/v over 4 x
+    (N + 196) and 4 x (N + 64) rows at every level too); the LN modes' K
+    stays within their panel's reach."""
     shapes = smoke_shapes()
-    assert len(shapes) == 4 * 8 + 5 + 4
+    assert len(shapes) == 4 * 10 + 5 + 4
+    for n, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
+        for t in (196, 64):
+            assert ("ln_matmuls", 4 * (n + t), c, c) in shapes, (n, t)
     for mode, m, k, f in shapes:
         assert fp.proj_tiles(mode, m, k, f) in table_triples(mode), (mode, m, k, f)
     # the ds1 rows take 128-row blocks, the middle block's 64-row ones

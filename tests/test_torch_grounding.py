@@ -189,11 +189,14 @@ def test_generate_builds_the_null_batch(monkeypatch, name):
 
 
 def test_registry_aliases_match_jax():
-    """Every name and reference alias the JAX registries hold for the three
-    tokenizers and their input adapters resolves in the port, to the same
-    kind of object; the port's registries hold no other name."""
+    """Every name and reference alias the JAX registries hold for the
+    tokenizers (box+text, box+text+image, keypoint and the five spatial
+    ones) and their input adapters resolves in the port, to the same kind
+    of object; the port's registries hold no other name."""
     nets = {"text": "TextPositionNet", "text_image": "TextImagePositionNet",
-            "keypoint": "KeypointPositionNet"}
+            "keypoint": "KeypointPositionNet", "hed": "HedPositionNet",
+            "canny": "CannyPositionNet", "depth": "DepthPositionNet",
+            "normal": "NormalPositionNet", "sem": "SemPositionNet"}
     jax_nets = {k for k, v in JAX_NETS._entries.items() if v.__name__ in nets.values()}
     assert set(GROUNDING_NETS._entries) == jax_nets
     for key in jax_nets:

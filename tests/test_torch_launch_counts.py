@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from gligen_tpu_torch.inference.adapters import null_input
 from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
 from gligen_tpu_torch.ops import basic, flash_attention, fused_conv, fused_norm, fused_proj
 from gligen_tpu_torch.tools import perf_probe
@@ -120,6 +121,53 @@ def test_expected_launches_for_each_tokenizer_and_fuser(monkeypatch, small_groun
     assert (gated, free) == ((5, 0) if model == "gatedSA2" else (2, 3))
     assert {name: calls[name] for name in expected} == expected
     assert ("layer_norm" in {n for n, c in expected.items() if c}) == (config == "b")
+
+
+@pytest.fixture(scope="module")
+def small_spatial():
+    """The smoke's small model of each spatial modality, built once each."""
+    models = {}
+
+    def get(model):
+        if model not in models:
+            config = dict(chip_smoke.SMALL, unet_config=dict(chip_smoke.SMALL["unet_config"],
+                                                             **chip_smoke.SMALL_SPATIAL[model]))
+            models[model] = GligenComponents.create(dtype=torch.float32, seed=0, device="cpu",
+                                                    **config)
+            chip_smoke.dezero_(models[model].unet, torch.Generator().manual_seed(2))
+        return models[model]
+
+    return get
+
+
+@pytest.mark.parametrize("config", sorted(chip_smoke.CONFIGS))
+@pytest.mark.parametrize("model", sorted(chip_smoke.SMALL_SPATIAL))
+def test_expected_launches_for_each_spatial_modality(monkeypatch, small_spatial, model, config):
+    """A spatial request (phase 13's: the map through ``prepare_batch_for``
+    and the adapter, the scenario's alpha stages) at latent 64: the UNet's
+    launches as box+text's, and under FUSED_NORM both (b) ConvNeXt's 22
+    LayerNorms in each of the tokenizer's two forwards."""
+    comps = small_spatial(model)
+    calls = count_calls(monkeypatch, config)
+    steps, alpha, latent = 4, chip_smoke.SPATIAL_ALPHA[model], chip_smoke.SPATIAL_LATENT
+    rng = np.random.default_rng(1)
+    ids, uc, _ = chip_smoke.make_request(rng, 1, 1000, 64)
+    grounding, extra = chip_smoke.spatial_request(rng, model, 1)
+    noise = np.random.default_rng(2).standard_normal((1, latent, latent, 4)).astype(np.float32)
+    with torch.no_grad():
+        GenerationPipeline(comps).generate(ids, uc, grounding, steps=steps, alpha_stages=alpha,
+                                           latent_size=latent, noise=noise,
+                                           grounding_extra=extra)
+    expected, gated, free = chip_smoke.expected_launches(comps, steps, alpha, latent, config)
+    assert gated + free == 5 and gated > 0 and free > 0
+    assert {name: calls[name] for name in expected} == expected
+    assert ("layer_norm" in {n for n, c in expected.items() if c}) == (config == "b")
+    calls.clear()  # the tokenizer's two forwards alone
+    with torch.no_grad():
+        comps.unet.grounding_tokens(grounding)
+        comps.unet.grounding_tokens(null_input(grounding))
+    assert calls["layer_norm"] == (2 * 22 if config == "b" else 0)
+    assert not calls["flash_fwd"] and not calls["group_norm"]
 
 
 @pytest.mark.parametrize("model", sorted(chip_smoke.GROUNDING_MODELS))

@@ -60,7 +60,8 @@ def random_params(module, *args, seed=0, **kwargs):
     of its init, so nothing is initialised twice).  No leaf is zero, so
     every weight, gate and null feature takes part in the comparison:
     kernels ~ N(0, 1/fan_in), norm scales ~ 1, biases and null features
-    ~ N(0, 0.1^2), fuser gates in [0.3, 0.8]."""
+    ~ N(0, 0.1^2), fuser gates and ConvNeXt's layer scales (``gamma``, 1e-6
+    at init, where a wrong block would not show) in [0.3, 0.8]."""
     rng = np.random.default_rng(seed)
     init = functools.partial(module.init, **kwargs)
     shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *args)["params"]
@@ -73,7 +74,7 @@ def random_params(module, *args, seed=0, **kwargs):
             flat[path] = rand(rng, *shape, scale=shape[-1] ** -0.5)
         elif name == "scale":
             flat[path] = 1.0 + rand(rng, *shape, scale=0.1)
-        elif name in ("alpha_attn", "alpha_dense"):
+        elif name in ("alpha_attn", "alpha_dense", "gamma"):
             flat[path] = rng.uniform(0.3, 0.8, size=shape).astype(np.float32)
         else:
             flat[path] = rand(rng, *shape, scale=0.1)

@@ -36,31 +36,33 @@ torch.set_num_threads(1)
 
 
 def compare_pipelines(unet_config, grounding, guidance=7.5, steps=4, alpha=(0.3, 0.0, 0.7),
-                      sampler="plms"):
+                      sampler="plms", grounding_extra=None, latent=LATENT):
     """The port's generate against the JAX pipeline's for a small UNet of
     ``unet_config``, the same random weights (carried by the bridge),
-    prompts, ``grounding`` (the tokenizer's inputs, batch 2) and starting
-    noise."""
+    prompts, ``grounding`` (the tokenizer's inputs, batch 2), the
+    downsampler's map ``grounding_extra`` where the UNet has one, and
+    starting noise at ``latent``^2."""
     b = 2
     rng = np.random.default_rng(0)
     ids = rng.integers(1, CLIP["vocab_size"] - 1, size=(b, 77)).astype(np.int32)
     uc_ids = np.full((b, 77), CLIP["vocab_size"] - 1, np.int32)
-    noise = rng.standard_normal((b, LATENT, LATENT, 4)).astype(np.float32)
+    noise = rng.standard_normal((b, latent, latent, 4)).astype(np.float32)
     alpha = None if alpha is None else list(alpha)
 
     unet = JaxUNet(**unet_config, use_checkpoint=False)
     vae, clip = JaxVAE(**VAE), JaxCLIP(**CLIP)
     g1 = {k: jnp.asarray(v[:1]) for k, v in grounding.items()}
+    extra1 = None if grounding_extra is None else jnp.asarray(grounding_extra[:1])
     params = {
-        "model": random_params(unet, jnp.zeros((1, LATENT, LATENT, 4)), jnp.zeros((1,), jnp.int32),
-                               jnp.zeros((1, 77, CTX)), g1, seed=1),
+        "model": random_params(unet, jnp.zeros((1, latent, latent, 4)), jnp.zeros((1,), jnp.int32),
+                               jnp.zeros((1, 77, CTX)), g1, grounding_extra=extra1, seed=1),
         "autoencoder": random_params(vae, jnp.zeros((1, 2 * LATENT, 2 * LATENT, 3)),
                                      jax.random.PRNGKey(0), seed=2),
         "text_encoder": random_params(clip, jnp.zeros((1, 77), jnp.int32), seed=3),
     }
     sched = dict(timesteps=1000, linear_start=0.00085, linear_end=0.012)
     kwargs = dict(steps=steps, guidance_scale=guidance, alpha_stages=alpha, sampler=sampler,
-                  latent_size=LATENT, noise=noise)
+                  latent_size=latent, noise=noise, grounding_extra=grounding_extra)
 
     jax_comps = JaxComponents(unet, vae, clip, JaxSchedule.create(**sched), params)
     want = np.asarray(JaxPipeline(jax_comps).generate(ids, uc_ids, grounding, **kwargs))
@@ -70,7 +72,7 @@ def compare_pipelines(unet_config, grounding, guidance=7.5, steps=4, alpha=(0.3,
     load_jax_params(comps, params)
     got = GenerationPipeline(comps).generate(ids, uc_ids, grounding, **kwargs)
 
-    assert got.shape == (b, 2 * LATENT, 2 * LATENT, 3) and got.dtype == torch.float32
+    assert got.shape == (b, 2 * latent, 2 * latent, 3) and got.dtype == torch.float32
     assert 0.0 <= float(got.min()) and float(got.max()) <= 1.0
     assert float(got.std()) > 1e-2  # not a constant image
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)

@@ -304,3 +304,91 @@ def test_remat_policies(monkeypatch):
     monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", "dots")
     with pytest.raises(NotImplementedError, match="dots"):
         loss_fn(batch, draws=draws)
+
+
+# A tiny hed UNet: the hed downsampler's 64^2 channels fix the latent at
+# 64^2, where the UNet attends at its inner level only (32^2 tokens).
+HED_UNET = dict(TINY_UNET, attention_resolutions=(2,),
+                grounding_tokenizer={"target": "hed",
+                                     "params": {"resize_input": 64, "out_dim": CTX}},
+                grounding_downsampler={"target": "hed", "params": {}})
+HED_LATENT = 64
+
+
+@pytest.fixture(scope="module")
+def jax_hed_setup(jax_setup):
+    """The hed UNet's random parameters (the VAE's and the text encoder's
+    from ``jax_setup``) and a cached-latent batch whose grounding is a
+    uint8 hed map with its mask, and whose ``grounding_extra`` is the same
+    map, as the spatial datasets give it."""
+    _, vae, text, params, schedule, _ = jax_setup
+    rng = np.random.default_rng(15)
+    edge = rng.integers(0, 256, size=(B, 128, 128, 3)).astype(np.uint8)
+    grounding = {"hed_edge": edge, "mask": np.ones(B, np.float32)}
+    unet = JaxUNet(**HED_UNET, use_checkpoint=True)
+    model = random_params(unet, jnp.zeros((1, HED_LATENT, HED_LATENT, 4)),
+                          jnp.zeros((1,), jnp.int32), jnp.zeros((1, 8, CTX)),
+                          {k: jnp.asarray(v[:1]) for k, v in grounding.items()},
+                          grounding_extra=jnp.asarray(edge[:1]), seed=16)
+    moments = np.concatenate([rand(rng, B, HED_LATENT, HED_LATENT, 4),
+                              rand(rng, B, HED_LATENT, HED_LATENT, 4, scale=0.5) - 2.0], axis=-1)
+    batch = {"latent_moments": moments, "input_ids": rng.integers(1, 63, size=(B, 8)).astype(
+        np.int32), "grounding": grounding, "grounding_extra": edge}
+    return unet, vae, text, dict(params, model=model), schedule, batch
+
+
+@pytest.mark.parametrize("drop_prob", [0.0, 1.0])
+def test_spatial_loss_and_gradients_match_jax(jax_hed_setup, drop_prob):
+    """The hed UNet's loss and trainable gradients (ConvNeXt's, the position
+    net's and the fusers') with ``grounding_extra`` in the batch, against
+    the JAX loss with the same draws.  With drop_prob 1.0 the grounding is
+    dropped (mask 0: ConvNeXt gets zero gradients on both sides) and the
+    map still reaches the first conv, as in the JAX step."""
+    unet, vae, text, params, schedule, batch = jax_hed_setup
+    train, frozen = jts.partition(params["model"], jts.trainable_mask(params["model"]))
+    aux = {"autoencoder": params["autoencoder"], "text_encoder": params["text_encoder"]}
+    loss_fn = jts.make_loss_fn(unet, vae, text, schedule, grounding_drop_prob=drop_prob)
+    rng = jax.random.PRNGKey(17)
+    want_loss, grads = jax.jit(jax.value_and_grad(loss_fn))(
+        train, frozen, aux, jax.tree.map(jnp.asarray, batch), rng)
+    k_vae, k_t, k_noise, k_drop = jax.random.split(rng, 4)
+    shape = (B, HED_LATENT, HED_LATENT, 4)
+    draws = {"posterior": np.array(jax.random.normal(k_vae, shape, jnp.float32)),
+             "u_t": np.array(jax.random.uniform(k_t, (B,))),
+             "noise": np.array(jax.random.normal(k_noise, shape, jnp.float32)),
+             "u_drop": np.array(jax.random.uniform(k_drop, ()))}
+    want_grads = {port_name(p): np.asarray(g) for p, g in grads.items()}
+
+    comps = GligenComponents.create(unet_config=dict(HED_UNET, use_checkpoint=True),
+                                    dtype=torch.float32, vae_config=TINY_VAE,
+                                    text_config=TINY_CLIP, device="cpu")
+    load_jax_params(comps, params)
+    state = tts.create_train_state(comps.unet)
+    port_loss = tts.make_loss_fn(comps.unet, comps.vae, comps.text_encoder, comps.schedule,
+                                 grounding_drop_prob=drop_prob)
+    tb = {"latent_moments": t(batch["latent_moments"]), "input_ids": t(batch["input_ids"]),
+          "grounding": {k: t(v) for k, v in batch["grounding"].items()},
+          "grounding_extra": t(batch["grounding_extra"])}
+    loss = port_loss(tb, draws=draws)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=LOSS_RTOL)
+    assert set(state.params) == set(want_grads)
+    assert any("convnext_tiny_backbone" in n for n in state.params)
+    # every mask is 1 (no null feature read) unless the grounding is dropped
+    # (no ConvNeXt output read)
+    zero = {n for n, g in want_grads.items() if not np.abs(g).max()}
+    if drop_prob == 0.0:
+        assert zero == {"position_net.null_feature"}
+    else:
+        assert zero and all("convnext_tiny_backbone" in n for n in zero)
+    for name, p in state.params.items():
+        want = want_grads[name]
+        if p.grad.dim() == 2:
+            want = want.T  # Dense kernels are (I, O) in JAX
+        elif p.grad.dim() == 4:
+            want = want.transpose(3, 2, 0, 1)  # conv kernels HWIO -> OIHW
+        if name in zero:
+            assert not p.grad.any(), name
+            continue
+        np.testing.assert_allclose(p.grad.numpy(), want, atol=GRAD_RTOL * np.abs(want).max(),
+                                   rtol=0, err_msg=name)
