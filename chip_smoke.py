@@ -30,7 +30,14 @@ Phases, each of which fails the run with a non-zero exit:
      largest magnitude and repeated bit for bit, beside SDPA in fp32, with
      a TF32 witness (the plain version's error with one-pass TF32, which
      must exceed the limit at one row at least) and its 3xTF32 and fp32
-     FMA bounds);
+     FMA bounds); and the fp32 routes of a model served in fp32 (fault
+     F5, ``check_fp32``): the flash forward at attn1, the fuser's N+30 and
+     the cross-attention of every level, the fused projections (q/k/v, q,
+     the fuser's k/v, to_out, net_2, GEGLU), the LayerNorm at the blocks'
+     and the fuser's rows, gn_affine and the fused conv at every ResBlock
+     conv, each on fp32 inputs within FP32_REL_TOL of its plain output's
+     largest magnitude (TF32 off) and repeated bit for bit, beside SDPA,
+     torch.matmul on the products, F.layer_norm or cuDNN's fp32 conv;
      per level the fused projections (ln_matmuls for q/k/v, for q alone
      and for the fuser's k/v over N+30, N+60 and N+136 rows (and at ds1 over
      N+196 and N+64), matmul_residual for to_out
@@ -42,8 +49,8 @@ Phases, each of which fails the run with a non-zero exit:
      torch.matmul on its products alone); GroupNorm +- SiLU at every UNet and
      VAE map and gn_affine (each row with its route, and a second call
      that must repeat the first bit for bit), the fp32 GroupNorm at every
-     map of the inpaint encode (held to GN_F32_TOL, repeated bit for
-     bit), LayerNorm at
+     map of the inpaint encode and of a request in fp32 (held to
+     GN_F32_TOL, repeated bit for bit), LayerNorm at
      every (rows, C) of the module path (the fusers' N+T rows too) and of
      ConvNeXt-tiny at its four widths over 448^2 and 256^2 maps (eps
      1e-6), and the fused GN -> SiLU -> conv3x3
@@ -155,6 +162,21 @@ Phases, each of which fails the run with a non-zero exit:
      request (CUDA events, host gaps included).  One hed request in configuration (b), whose count includes
      ConvNeXt's LayerNorms on the LayerNorm kernel.  Then
      ``SMALL_SPATIAL``'s five small models card vs CPU (as phase 5).
+ 14. fp32 (fault F5; after 13, in the same host state): SD-1.4 GLIGEN
+     served in fp32 at full width (random de-zeroed weights), one request
+     of batch 2 at 512^2, 10 PLMS steps, alpha stages, in each of
+     ``CONFIGS``: the image sound, every kernel launch on its fp32 route,
+     as many as ``expected_launches`` predicts; then the small-width
+     pipeline in fp32, card vs CPU, held to FP32_REF_MEAN_TOL.
+ 15. cli (M10; right after 14): ``inference/cli.py`` in this process,
+     ``--ckpt random --dezero``, batch 2, 10 steps, configuration (a): the
+     reference's scenarios whose inputs are PNGs or none through ``main``,
+     the three that read JPEGs through ``run`` with seeded uint8 arrays in
+     their place (this machine has no PIL); each PNG written reads back
+     (``data/png.py``) equal to ``(img * 255).astype(uint8)`` of the image
+     ``generate`` returned, and each scenario launches the path's kernels;
+     s/img per scenario.  Then ``tools/bench_matrix.py``'s rows plms50 and
+     hed at the users' operating point: batch 8, 50 steps, one repeat.
  11. launches: the CUDA launches of one call of the GroupNorm, gn_affine
      and LayerNorm kernels at every phase-3 shape (the fp32 GroupNorm
      too) and of the conv kernel at every ResBlock conv, read from a
@@ -522,6 +544,138 @@ def check_kernel_f32(torch, device, batch):
               "tell fp32 from TF32 FAIL", flush=True)
         for r in results:
             r["ok"] = False
+    torch.cuda.empty_cache()
+    return results
+
+
+# The fp32 routes of a model served in fp32 (phase 14's path): the flash
+# forward at the UNet's attention sites, the fused projections (K2), the
+# LayerNorm, gn_affine and the fused conv (K6), each held to FP32_REL_TOL of
+# its plain output's largest magnitude (TF32 off) and repeated bit for bit.
+FP32_SITES = ("attn1", "fuser", "cross")
+FP32_PROJ = ("qkv", "q", "fuser_kv", "to_out", "net_2", "geglu")
+
+
+def check_fp32(torch, unet, device, batch):
+    """Phase 3's fp32 rows (fault F5): every fp32 route on fp32 card tensors
+    at the shapes a 512^2 request in fp32 gives it, against its plain
+    version (TF32 off), a second call bit for bit the first; beside the
+    library call that computes the same function in fp32 with TF32 off
+    (SDPA, ``F.layer_norm``, cuDNN's fp32 conv; the products alone by
+    ``torch.matmul`` for K2, which no one call computes), and the bound:
+    operations at the fp32 FMA rate (the flash route's at its 3xTF32
+    tensor-core rate), or bytes."""
+    import torch.nn.functional as F
+    from gligen_tpu_torch.ops import flash_attention as fa
+    from gligen_tpu_torch.ops import fused_conv as fc
+    from gligen_tpu_torch.ops import fused_norm as fn
+    from gligen_tpu_torch.ops import fused_proj as fp
+
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    results = []
+
+    def record(kind, name, desc, wrapper, call, plain, library, nbytes, ops, rate=FP32_FLOP_PER_S):
+        before = wrapper.routes["fp32"]
+        got = call()
+        torch.cuda.synchronize()
+        launched = wrapper.routes["fp32"] - before
+        want = plain()
+        again = call()
+        got, want, again = ((t if isinstance(t, tuple) else (t,)) for t in (got, want, again))
+        limit = FP32_REL_TOL * max(w.abs().max().item() for w in want)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        repeats = all(torch.equal(g, a) for g, a in zip(got, again))
+        ok = (launched == 1 and repeats and err <= limit
+              and all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in got))
+        ms, plain_ms = time_ms(call), time_ms(plain)
+        library_ms = None if library is None else time_ms(library)
+        bound_ms, bound_by = bound(nbytes, ops, rate)
+        lib = "" if library is None else f" library {library_ms:.4f} ms"
+        print(f"kernel {kind:20s} {name:18s} {desc:34s}: max_abs_err {err:.3e} (tol {limit:.3e}; "
+              f"repeats bit for bit: {repeats}) kernel {ms:.4f} ms {ops / ms / 1e9:.1f} TF/s "
+              f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.4f} ms{lib} "
+              f"bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+        results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+
+    # the flash forward's fp32 route (3xTF32) at the UNet's sites
+    for name, b, n, m, h, d, _ in kernel_cases(batch):
+        if name.rsplit("_", 1)[0] not in FP32_SITES:
+            continue
+        q, k, v = (randn(b, L, h * d) for L in (n, m, m))
+        flops = 4 * b * h * n * m * d
+        record("flash_fwd_fp32", f"{name}_fp32", f"q ({b},{n},{h}x{d}) kv {m}", fa.flash_fwd,
+               lambda: fa.flash_fwd(q, k, v, h), lambda: fa.flash_attention_plain(q, k, v, h),
+               lambda: sdpa(torch, q, k, v, h, None),
+               4 * (2 * b * n * h * d + 2 * b * m * h * d) + 4 * b * h * n, 3 * flops,
+               TF32_TENSOR_FLOP_PER_S)
+        del q, k, v
+    # K2's fp32 route at every level
+    for name, kind, b, n, c, k in proj_cases(batch):
+        if name.rsplit("_", 1)[0] not in FP32_PROJ:
+            continue
+        x, m = randn(b, n, c, scale=2.0) + 0.3, b * n
+        s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+        if kind == "ln_matmuls":
+            ws = [randn(c, c, scale=c**-0.5) for _ in range(k)]
+            args, products, desc = (x, s, sb, ws), [(x, w) for w in ws], f"x ({b},{n},{c}) -> {k} x {c}"
+            nbytes, flops = 4 * (m * c * (1 + k) + 2 * c + k * c * c), 2 * m * c * c * k
+        elif kind == "matmul_residual":
+            h = randn(b, n, k)
+            gate = torch.tensor(0.37, device=device) if k == c else None
+            w = randn(c, k, scale=k**-0.5)
+            args, products, desc = (h, w, randn(c, scale=0.1), x, gate), [(h, w)], f"h ({b},{n},{k}) -> {c}"
+            nbytes, flops = 4 * (m * (k + 2 * c) + c * k + c + 1), 2 * m * k * c
+        else:
+            w = randn(8 * c, c, scale=c**-0.5)
+            args, products = (x, s, sb, w, randn(8 * c, scale=0.1)), [(x, w)]
+            desc = f"x ({b},{n},{c}) -> {8 * c} -> {4 * c}"
+            nbytes, flops = 4 * (m * 5 * c + 2 * c + 8 * c * c + 8 * c), 16 * m * c * c
+        kernel, plain = fp.KERNELS[kind], getattr(fp, f"{kind}_plain")
+        record(f"{kind}_fp32", f"{name}_fp32", desc, kernel, lambda: kernel(*args),
+               lambda: plain(*args), lambda: [torch.matmul(a, w.T) for a, w in products],
+               nbytes, flops)
+        del x, args, products
+    # the LayerNorm's fp32 route at the module path's rows
+    for name, rows, c, eps in ln_cases(batch):
+        if name.rsplit("_", 1)[0] not in ("ln", "ln_fuser"):
+            continue
+        x = randn(rows, c, scale=2.0) + 0.3
+        s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+        record("layer_norm_fp32", f"{name}_fp32", f"x ({rows}, {c}) eps {eps:g}",
+               fn.layer_norm_fused, lambda: fn.layer_norm_fused(x, s, sb, eps),
+               lambda: fn.layer_norm_plain(x, s, sb, eps), lambda: F.layer_norm(x, (c,), s, sb, eps),
+               8 * rows * c + 8 * c, 7 * rows * c)
+        del x
+    # the fused conv's fp32 route, and its statistics (gn_affine's), at every ResBlock conv
+    seen = set()
+    for name, b, h, cin, cout, residual in conv_cases(unet, batch):
+        x = grouped_input(randn, (b, h, h, cin), torch.float32)
+        s, sb = 1.0 + randn(cin, scale=0.1), randn(cin, scale=0.1)
+        w, wb = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5), randn(cout, scale=0.1)
+        res = randn(b, h, h, cout) if residual else None
+        numel, m = b * h * h * cin, b * h * h
+        if (h, cin) not in seen:
+            seen.add((h, cin))
+            record("gn_affine_fp32", f"res_{h}x{cin}_fp32", f"x ({b},{h},{h},{cin}) -> a, v",
+                   fn.gn_affine, lambda: fn.gn_affine(x, s, sb), lambda: fn.gn_affine_plain(x, s, sb),
+                   None, 4 * numel + 8 * cin + 8 * b * cin, 3 * numel)
+        a, v = fn.gn_affine_plain(x, s, sb)
+        wt = w.permute(0, 2, 3, 1).contiguous()
+        xn = F.silu(x * a[:, None, None, :] + v[:, None, None, :]).permute(0, 3, 1, 2)
+        wcl = w.contiguous(memory_format=torch.channels_last)
+        record("gn_silu_conv3x3_fp32", f"{name}_fp32",
+               f"({b},{h},{h},{cin}) -> {cout}{' + res' if residual else ''}",
+               fc.gn_silu_conv3x3, lambda: fc.gn_silu_conv3x3.conv(x, a, v, wt, wb, res),
+               lambda: fc._ref_chain(x, a, v, w, wb, res),
+               lambda: F.conv2d(xn, wcl, wb, padding=1),
+               4 * (m * cin + 2 * b * cin + 9 * cin * cout + cout + m * cout * (1 + residual)),
+               2 * m * cout * 9 * cin)
+        del x, w, res, xn, wcl, wt
     torch.cuda.empty_cache()
     return results
 
@@ -1604,6 +1758,26 @@ KERNEL_META = {
     "group_norm_fp32": ("gligen_tpu_torch/csrc/fused_norm.cu",
                         "gligen_tpu/ops/pallas_norm.py:107 (_group_norm_pallas_flat, fp32 x: "
                         "the inpaint encode's VAE encoder norms)", "enc_512x128_gn", "inpaint"),
+    # the fp32 routes of a model served in fp32 (fault F5), launches from phase 14
+    "ln_matmuls_fp32": ("gligen_tpu_torch/csrc/fused_proj.cu",
+                        "gligen_tpu/ops/pallas_matmul.py:132 (_ln_matmuls, fp32 x)",
+                        "qkv_ds1_fp32", "fp32_a"),
+    "matmul_residual_fp32": ("gligen_tpu_torch/csrc/fused_proj.cu",
+                             "gligen_tpu/ops/pallas_matmul.py:212 (_matmul_residual, fp32 x)",
+                             "to_out_ds1_fp32", "fp32_a"),
+    "ln_geglu_fp32": ("gligen_tpu_torch/csrc/fused_proj.cu",
+                      "gligen_tpu/ops/pallas_matmul.py:297 (_ln_geglu, fp32 x)", "geglu_ds1_fp32",
+                      "fp32_a"),
+    "layer_norm_fp32": ("gligen_tpu_torch/csrc/fused_norm.cu",
+                        "gligen_tpu/ops/pallas_norm.py:169 (_layer_norm_pallas_flat, fp32 x)",
+                        "ln_ds1_fp32", "fp32_b"),
+    "gn_affine_fp32": ("gligen_tpu_torch/csrc/fused_norm.cu",
+                       "gligen_tpu/ops/pallas_norm.py:107 (_group_norm_pallas_flat, the "
+                       "statistics of fp32 x, as gligen_tpu/ops/pallas_conv.py:47 gn_affine folds "
+                       "them)", "res_64x320_fp32", "fp32_c"),
+    "gn_silu_conv3x3_fp32": ("gligen_tpu_torch/csrc/fused_conv.cu",
+                             "gligen_tpu/ops/pallas_conv.py:141 (_fused, fp32 x)",
+                             "out_64_320_fp32", "fp32_c"),
 }
 
 
@@ -1633,12 +1807,15 @@ def run_requests(torch, pipe, requests, config, gen, **kw):
     return times, images, {name: w.launches for name, w in wrappers.items()}
 
 
-def small_reference(torch, np, seed, device, alpha, config, model=None):
-    """The pipeline at a small width: card (bf16, kernels) against CPU
-    (fp32, plain versions), same weights and noise, in one configuration;
+def small_reference(torch, np, seed, device, alpha, config, model=None, dtype=None,
+                    tol=REF_MEAN_TOL):
+    """The pipeline at a small width: card (bf16, or ``dtype``, kernels)
+    against CPU (fp32, plain versions), same weights and noise, in one
+    configuration, held to a mean absolute pixel difference of ``tol``;
     ``model`` names one of ``SMALL_GROUNDING`` or ``SMALL_SPATIAL`` in place
     of the box+text gatedSA UNet (a spatial one at latent 64^2, with a
     seeded map).  Returns (ok, line)."""
+    dtype = dtype or torch.bfloat16
     from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
 
     set_config(config)
@@ -1651,7 +1828,7 @@ def small_reference(torch, np, seed, device, alpha, config, model=None):
         small["unet_config"] = dict(SMALL["unet_config"], **unet)
     cpu = GligenComponents.create(dtype=torch.float32, seed=seed, device="cpu", **small)
     dezero_(cpu.unet, torch.Generator().manual_seed(seed + 2))
-    gpu = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device, **small)
+    gpu = GligenComponents.create(dtype=dtype, seed=seed, device=device, **small)
     for a, b in ((cpu.unet, gpu.unet), (cpu.vae, gpu.vae), (cpu.text_encoder, gpu.text_encoder)):
         b.load_state_dict(a.state_dict())
     rng = np.random.default_rng(seed + 3)
@@ -1667,10 +1844,11 @@ def small_reference(torch, np, seed, device, alpha, config, model=None):
     got = GenerationPipeline(gpu).generate(ids, uc, grounding, **kw).cpu()
     diff = (got - ref).abs()
     ok, desc = check_image(torch, got, 2, 2 * latent)
-    ok = ok and diff.mean().item() <= REF_MEAN_TOL
+    ok = ok and diff.mean().item() <= tol
     what = "" if model is None else f" ({model})"
-    return ok, (f"reference: {config_desc(config)}: small pipeline{what} card bf16 vs CPU fp32: "
-                f"{desc}; mean abs diff {diff.mean().item():.4e} (tol {REF_MEAN_TOL}), "
+    card = "fp32" if dtype == torch.float32 else "bf16"
+    return ok, (f"reference: {config_desc(config)}: small pipeline{what} card {card} vs CPU fp32: "
+                f"{desc}; mean abs diff {diff.mean().item():.4e} (tol {tol}), "
                 f"max {diff.max().item():.4e} {'ok' if ok else 'FAIL'}")
 
 
@@ -2259,6 +2437,156 @@ def run_spatial(torch, np, seed, device, steps, batch=2, size=512):
     return failures, s_per_img, tokenizer_ms, ln_launches, tokenizers
 
 
+# The small-width pipeline in fp32, card (the fp32 routes) vs CPU (plain
+# versions, fp32): the same arithmetic summed in other orders, so ten times
+# under the bf16 limit (tests/test_torch_fp32_cuda.py holds the same)
+FP32_REF_MEAN_TOL = 2e-3
+
+
+def run_fp32(torch, np, seed, device, steps, batch=2, size=512):
+    """Phase 14 (fault F5): the SD-1.4 GLIGEN box+text model served in fp32
+    at full width (random de-zeroed weights), one request of ``batch`` at
+    ``size``^2 with PLMS and alpha stages [0.3, 0, 0.7] in each of
+    ``CONFIGS``: the image sound, and every kernel launch on its fp32 route,
+    as many as ``expected_launches`` predicts.  Returns (failures, s/img by
+    configuration, {"fp32_<config>": {"<kernel>_fp32": launches}})."""
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
+
+    failures, s_per_img, launches = [], {}, {}
+    comps = GligenComponents.create(dtype=torch.float32, seed=seed + 21, device=device)
+    dezero_(comps.unet, torch.Generator(device=device).manual_seed(seed + 22))
+    pipe = GenerationPipeline(comps)
+    alpha, latent = [0.3, 0.0, 0.7], size // 8
+    rng = np.random.default_rng(seed + 23)
+    gen = torch.Generator(device=device).manual_seed(seed + 24)
+    wrappers = kernel_wrappers()
+    for config in CONFIGS:
+        expected, gated, free = expected_launches(comps, steps, alpha, latent, config)
+        before = {name: dict(w.routes) for name, w in wrappers.items()}
+        times, images, counts = run_requests(torch, pipe, [make_request(rng, batch, 49408, 768)],
+                                             config, gen, steps=steps, guidance_scale=7.5,
+                                             alpha_stages=alpha, latent_size=latent)
+        routes = {name: {r: n - before[name][r] for r, n in w.routes.items()}
+                  for name, w in wrappers.items()}
+        fp32 = {name: r.get("fp32", 0) for name, r in routes.items()}
+        other = {name: n - fp32[name] for name, n in counts.items() if n != fp32[name]}
+        ok, desc = check_image(torch, images[0], batch, size)
+        print(f"fp32: {config_desc(config)} request 0: {desc} in {times[0]:.3f} s = "
+              f"{times[0] / batch:.3f} s/img {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"fp32 image ({config})")
+        ok = counts == expected and fp32 == expected and not other
+        print(f"fp32: ({config}) {gated} gated and {free} fuser-free UNet calls; fp32-route "
+              f"launches {fp32}, expected {expected}; launches on another route {other} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"fp32 launch count ({config})")
+        s_per_img[config] = times[0] / batch
+        launches[f"fp32_{config}"] = {f"{name}_fp32": n for name, n in fp32.items()}
+        del images
+    del comps, pipe
+    torch.cuda.empty_cache()
+    return failures, s_per_img, launches
+
+
+# Phase 15: the reference's scenarios through the CLI.  The 8 whose inputs
+# are PNGs or none run through ``main``; the 3 that read JPEGs through
+# ``run`` with seeded uint8 arrays in their place (the GPU machine has no
+# PIL, so no JPEG decoder).
+CLI_MAIN_SCENARIOS = ("generation_box_text", "generation_box_image", "hed", "canny", "normal",
+                      "depth", "sem", "keypoint")
+CLI_ARRAY_SCENARIOS = ("inpainting_box_text", "generation_box_text_style",
+                       "inpainting_box_image")
+CLI_DIR = REPO / "build" / "chip_smoke_cli"
+# bench_matrix's rows at the users' operating point
+MATRIX_ROWS = ("plms50", "hed")
+MATRIX_BATCH = 8
+
+
+def run_cli(torch, np, seed, device, steps, batch=2):
+    """Phase 15 (M10): ``inference/cli.py`` in this process, ``--ckpt random
+    --dezero`` at full width, ``batch`` images, ``steps`` PLMS steps, in
+    configuration (a): each of ``CLI_MAIN_SCENARIOS`` through ``main``, each
+    of ``CLI_ARRAY_SCENARIOS`` through ``run`` with arrays for its JPEGs.
+    Every PNG written must read back (``data/png.py``) equal to
+    ``(img * 255).astype(uint8)`` of the image ``generate`` returned, and
+    each scenario must launch the path's kernels.  Then ``bench_matrix``'s
+    ``MATRIX_ROWS`` at batch ``MATRIX_BATCH``, 50 steps, one repeat.
+    Returns (failures, s/img by scenario, the bench_matrix rows)."""
+    import shutil
+
+    from gligen_tpu_torch.data import png
+    from gligen_tpu_torch.inference import cli
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline
+    from gligen_tpu_torch.tools.bench_matrix import ROWS, bench_row
+
+    set_config("a")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    flags = ["--ckpt", "random", "--dezero", "--batch_size", str(batch), "--steps", str(steps),
+             "--seed", str(seed), "--folder", str(CLI_DIR)]
+    metas = {m["save_folder_name"]: m for m in cli.default_meta_list()}
+    rng = np.random.default_rng(seed + 31)
+    wrappers = kernel_wrappers()
+    failures, s_per_img, recorded = [], {}, []
+    real_generate = GenerationPipeline.generate
+
+    def recording(self, *args, **kw):  # generate, timed, its images kept
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = real_generate(self, *args, **kw)
+        torch.cuda.synchronize()
+        recorded.append((img.cpu().numpy(), time.perf_counter() - t0))
+        return img
+
+    def array(size):
+        return rng.integers(0, 256, size=(size, size, 3)).astype(np.uint8)
+
+    cwd = os.getcwd()
+    GenerationPipeline.generate = recording
+    os.chdir(REPO)  # the scenarios name their inputs from the repository's root
+    try:
+        for name in CLI_MAIN_SCENARIOS + CLI_ARRAY_SCENARIOS:
+            for w in wrappers.values():
+                w.launches = 0
+            recorded.clear()
+            if name in CLI_MAIN_SCENARIOS:
+                cli.main(flags + ["--scenarios", name])
+                how = "main()"
+            else:
+                meta = dict(metas[name], ckpt=cli._tag_random(metas[name], "random"))
+                jpegs = [p for p in [meta.get("input_image"), *meta.get("images", [])]
+                         if isinstance(p, str) and p.endswith(".jpg")]
+                if "input_image" in meta:
+                    meta["input_image"] = array(512)
+                meta["images"] = [array(224) if p.endswith(".jpg") else p
+                                  for p in meta.get("images", [])]
+                cli.run(meta, cli.parser().parse_args(flags))
+                how = (f"run() with seeded uint8 arrays for {jpegs} (no JPEG decoder, PIL, on "
+                       "this machine)")
+            (images, seconds), = recorded
+            written = [png.read_png(CLI_DIR / name / f"{i}.png") for i in range(batch)]
+            same = all(mode == "RGB" and np.array_equal(pix, (img * 255).astype(np.uint8))
+                       for (pix, mode), img in zip(written, images))
+            launched = {k: wrappers[k].launches for k in PATH_KERNELS}
+            ok = same and len(images) == batch and all(launched.values())
+            s_per_img[name] = seconds / batch
+            print(f"cli: {name} through {how}: {batch} PNGs read back equal to the images "
+                  f"{same}; generate {seconds:.3f} s = {seconds / batch:.3f} s/img; launches "
+                  f"{launched} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"cli ({name})")
+    finally:
+        GenerationPipeline.generate = real_generate
+        os.chdir(cwd)
+    torch.cuda.empty_cache()
+    rows = []
+    for name in MATRIX_ROWS:
+        modality, sampler, n_steps = ROWS[name]
+        rows.append(bench_row(name, modality, sampler, n_steps, MATRIX_BATCH, 1, device))
+        torch.cuda.empty_cache()
+    return failures, s_per_img, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -2307,6 +2635,7 @@ def main() -> int:
                 print(f"build: {src}: {line.strip()}")
 
     # ---- 3. kernels vs plain ----
+    t0 = time.perf_counter()
     batch = 2
     comps = GligenComponents.create(dtype=torch.bfloat16, seed=args.seed, device=device)
     results = check_kernel(torch, kernel_cases(batch), device)
@@ -2315,10 +2644,14 @@ def main() -> int:
     results += check_proj(torch, proj_cases(batch) + mm_cases(), device)
     gn, ln, convs = (norm_cases(comps.unet, comps.vae, batch), ln_cases(batch),
                      conv_cases(comps.unet, batch))
-    gn32 = f32_norm_cases(comps.vae, batch)
+    # the fp32 GroupNorm at the inpaint encode's maps and, for a model served
+    # in fp32 (phase 14), at the UNet's and the decoder's
+    gn32 = f32_norm_cases(comps.vae, batch) + gn
     results += check_norms(torch, gn, ln, device, gn32)
     results += check_convs(torch, convs, device)
+    results += check_fp32(torch, comps.unet, device, batch)
     failures += [f"kernel {r['kind']} {r['name']}" for r in results if not r["ok"]]
+    print(f"kernel: phase 3 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 4. the main path at full width, in each configuration ----
     t0 = time.perf_counter()
@@ -2359,13 +2692,16 @@ def main() -> int:
         del images
     del comps, pipe
     torch.cuda.empty_cache()
+    print(f"generate: phase 4 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. small-width reference: card (bf16, kernels) vs CPU (fp32, plain) ----
+    t0 = time.perf_counter()
     for config in CONFIGS:
         ok, line = small_reference(torch, np, args.seed, device, alpha, config)
         print(line, flush=True)
         if not ok:
             failures.append(f"reference ({config})")
+    print(f"reference: phase 5 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 12. the other grounding modalities and fusers, in phase 4's host state:
     # before the train phases and any profiler session (phases 9, 11) ----
@@ -2393,27 +2729,54 @@ def main() -> int:
             failures.append(f"spatial reference ({model})")
     print(f"spatial: phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 14. a model served in fp32 (fault F5), in the same host state ----
+    t0 = time.perf_counter()
+    fp32_failures, fp32_s, fp32_launches = run_fp32(torch, np, args.seed, device, args.steps)
+    failures += fp32_failures
+    launches.update(fp32_launches)
+    for config in CONFIGS:
+        ok, line = small_reference(torch, np, args.seed, device, alpha, config,
+                                   dtype=torch.float32, tol=FP32_REF_MEAN_TOL)
+        print(line, flush=True)
+        if not ok:
+            failures.append(f"fp32 reference ({config})")
+    print(f"fp32: phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 15. the CLI's scenarios and bench_matrix, in the same host state ----
+    t0 = time.perf_counter()
+    cli_failures, cli_s, matrix_rows = run_cli(torch, np, args.seed, device, args.steps)
+    failures += cli_failures
+    print(f"cli: phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 6. the flash backward kernels vs plain ----
+    t0 = time.perf_counter()
     results += check_bwd(torch, bwd_cases(4), device)
     failures += [f"kernel {r['kind']} {r['name']}" for r in results
                  if r["kind"].startswith("flash_bwd") and not r["ok"]]
+    print(f"backward: phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 7. the train step at full width ----
+    t0 = time.perf_counter()
     train_failures, launches["train"], train_line = run_train(torch, np, args.seed, device)
     failures += train_failures
+    print(f"train: phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 8. small-width train step: card (bf16, kernels) vs CPU (fp32, plain) ----
+    t0 = time.perf_counter()
     for use_checkpoint in (True, False):
         ok, lines = train_reference(torch, np, args.seed, device, use_checkpoint)
         print("\n".join(lines), flush=True)
         if not ok:
             failures.append(f"train reference (use_checkpoint={use_checkpoint})")
+    print(f"train: phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 9. the tools at full ds1 width ----
+    t0 = time.perf_counter()
     tool_failures, launches["bench_proj"], tool_checks, tool_report = run_tools(torch, device)
     results += tool_checks
     print("\n".join(tool_report), flush=True)
     failures += tool_failures
+    print(f"tools: phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 10. inpaint from a reference-format checkpoint, DDIM and PLMS ----
     t0 = time.perf_counter()
@@ -2428,9 +2791,11 @@ def main() -> int:
     print(f"inpaint: phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 11. CUDA launches per call, from profiled calls ----
+    t0 = time.perf_counter()
     launch_failures, launch_lines = check_launches(torch, gn, ln, convs, device, gn32)
     print("\n".join(launch_lines), flush=True)
     failures += launch_failures
+    print(f"launches: phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
     # the spatial tokenizers' device time, under the profiler: after every timed phase
     set_config("a")
     tokenizer_device = tokenizer_device_ms(torch, tokenizers)
@@ -2458,6 +2823,15 @@ def main() -> int:
           + ", CUDA events with host gaps " + ", ".join(
               f"{m} {t:.3f}" for m, t in tokenizer_ms.items())
           + f"; hed (b) LayerNorm launches {spatial_ln} on {card}")
+    print("summary: fp32 s/img " + ", ".join(f"({c}) {t:.3f}" for c, t in fp32_s.items())
+          + f" (one request, batch {batch}, {args.steps} PLMS steps, alpha stages, 512^2, a "
+          f"model served in fp32) on {card}")
+    print("summary: cli s/img " + ", ".join(f"{m} {t:.3f}" for m, t in cli_s.items())
+          + f" (--ckpt random --dezero, batch {batch}, {args.steps} steps, 512^2) on {card}")
+    for row in matrix_rows:
+        print(f"summary: bench_matrix {row['row']} ({row['modality']}, {row['sampler']} "
+              f"{row['steps']} steps, batch {row['batch']}): {row['img_per_sec']:.4f} img/s, "
+              f"{row['sec_per_img']:.4f} s/img, first call {row['first_call_s']:.2f} s on {card}")
     by_name = {(r["kind"], r["name"]): r for r in results}
     kernels = []
     for name, (source, replaces, timed_at, config) in KERNEL_META.items():

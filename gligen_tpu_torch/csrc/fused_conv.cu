@@ -53,6 +53,15 @@
 // exactly the table's configurations (CONV_CONFIGS below), and
 // fused_conv_sweep.cu at those of perf_probe.py convs --sweep.
 //
+// fp32 route (gn_silu_conv3x3_f32): fp32 x, a, v, weights, residual and
+// output, for a model served in fp32 (the JAX kernel computes in x.dtype,
+// pallas_conv.py:191-200): the same function with no bf16 rounding of the
+// activation, the implicit GEMM as fp32 FMAs on the CUDA cores
+// (gemm_f32.cuh), never one-pass TF32.  A simple kernel: 64 x 64 output
+// tiles, each A element activated as it is staged (nine times per pixel and
+// channel, once per tap), zero padding after the activation.  Its affine
+// comes from fused_norm.cu's gn_affine_f32.  Bound by the fp32 FMA rate.
+//
 // What bounds it on the H100: the tensor cores at 16^2 and up (64^2, 320 ->
 // 320 at 4 UNet rows: 30.2 GFLOP, 30.5 us at 989 TFLOP/s, over 21 MB of
 // activations and 1.8 MB of bf16 weights, 7 us at 3.35 TB/s); at 8^2 the
@@ -77,6 +86,7 @@
 #include <cstring>
 
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
@@ -490,3 +500,78 @@ extern "C" int gn_silu_conv3x3_bf16(const void* x, const float* a, const float* 
   }
   return (int)cudaErrorInvalidValue;
 }
+
+#ifndef FUSED_CONV_SWEEP
+// ------------------------------------------------------------ the fp32 route
+
+namespace {
+
+struct ConvF32 {
+  const float* x;     // (B, H, W, C)
+  const float* a;     // (B, C)
+  const float* v;     // (B, C)
+  const float* wt;    // (F, 3, 3, C): (F, 9C) row-major, k = tap * C + c
+  const float* bias;  // (F,)
+  const float* res;   // (B, H, W, F) or null
+  float* y;           // (B, H, W, F)
+  int h, width, c, f, m, hw;
+};
+
+// One 64 x 64 tile of (B*H*W, F) at row block blockIdx.x, column tile blockIdx.y.
+__global__ void __launch_bounds__(gemm32::kThreads) conv3x3_f32_kernel(const ConvF32 p) {
+  __shared__ gemm32::Smem<false> sm;
+  const int m0 = blockIdx.x * gemm32::kBM, n0 = blockIdx.y * gemm32::kBN, k = 9 * p.c;
+  // A (pixel, tap * C + c): silu(x * a + v) of the pixel's neighbour at tap,
+  // 0 outside the image (the padding comes after the activation)
+  auto load_a = [&](int row, int col) {
+    float4 out = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row >= p.m || col >= k) return out;
+    const int tap = col / p.c, ch = col - tap * p.c;
+    const int b = row / p.hw, rem = row - b * p.hw;
+    const int yy = rem / p.width + tap / 3 - 1, xx = rem % p.width + tap % 3 - 1;
+    if (yy < 0 || yy >= p.h || xx < 0 || xx >= p.width) return out;
+    const float4 xv = __ldg(reinterpret_cast<const float4*>(
+        p.x + ((long long)b * p.hw + (long long)yy * p.width + xx) * p.c + ch));
+    const float4 av = __ldg(reinterpret_cast<const float4*>(p.a + (long long)b * p.c + ch));
+    const float4 vv = __ldg(reinterpret_cast<const float4*>(p.v + (long long)b * p.c + ch));
+    return make_float4(gligen::silu(xv.x * av.x + vv.x), gligen::silu(xv.y * av.y + vv.y),
+                       gligen::silu(xv.z * av.z + vv.z), gligen::silu(xv.w * av.w + vv.w));
+  };
+  float acc[1][4][4];
+  gemm32::mainloop<false>(sm, load_a, p.wt, nullptr, m0, n0, p.f, k, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long row = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (row >= p.m || col >= p.f) continue;
+      float out = acc[0][i][j] + p.bias[col];
+      if (p.res) out += p.res[row * p.f + col];
+      p.y[row * p.f + col] = out;
+    }
+  }
+}
+
+}  // namespace
+
+// The fp32 route: y = conv3x3_SAME(silu(x * a + v), wt) + bias (+ res), every
+// tensor fp32; x (b, h, w, c), a/v (b, c), wt (f, 3, 3, c), bias (f,), res
+// (b, h, w, f) or null, y (b, h, w, f).
+extern "C" int gn_silu_conv3x3_f32(const float* x, const float* a, const float* v,
+                                   const float* wt, const float* bias, const float* res, float* y,
+                                   int b, int h, int w, int c, int f, void* stream) {
+  const long long m = (long long)b * h * w;
+  if (b < 1 || h < 1 || w < 1 || c < 8 || c % 8 || f < 8 || f % 8 || m > (1LL << 30) ||
+      9LL * c >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  ConvF32 p;
+  p.x = x, p.a = a, p.v = v, p.wt = wt, p.bias = bias, p.res = res, p.y = y;
+  p.h = h, p.width = w, p.c = c, p.f = f, p.m = (int)m, p.hw = h * w;
+  const dim3 grid((unsigned)((m + gemm32::kBM - 1) / gemm32::kBM),
+                  (f + gemm32::kBN - 1) / gemm32::kBN);
+  conv3x3_f32_kernel<<<grid, gemm32::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+#endif

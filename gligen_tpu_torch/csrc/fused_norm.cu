@@ -1,5 +1,6 @@
 // GroupNorm (+SiLU) and LayerNorm for Hopper (sm_90a): bf16 in / bf16 out, fp32 statistics;
-// and the GroupNorm (+SiLU) of fp32 x into fp32 y (the inpaint image's fp32 VAE encode).
+// and the GroupNorm (+SiLU), its affine and the LayerNorm of fp32 x into fp32 y (the
+// inpaint image's fp32 VAE encode, a model served in fp32).
 //
 // Replaces the TPU Pallas kernels of gligen_tpu/ops/pallas_norm.py:
 //   * _group_norm_pallas_flat (pallas_call at :107, body _gn_kernel :62), reached
@@ -59,7 +60,9 @@
 // No float atomics on either route: a run repeats bit for bit.  LayerNorm
 // gives each row to a warp: one pass for the fp32 sums, a second over the
 // same row (from L1/L2) to normalise and store; any row count, the fuser's
-// ragged N+30 included.
+// ragged N+30 included.  It is templated on the element type, as the
+// three-launch GroupNorm is: layer_norm_f32 serves a model in fp32, and
+// gn_affine_f32 (launches 1 and 2 in fp32) the fused conv's fp32 route.
 //
 // What bounds it on the H100: bytes.  GroupNorm reads x twice (stats, then
 // normalise) and writes y once; the second read comes from L2 where the
@@ -212,18 +215,19 @@ __global__ void gn_normalize_kernel(const T* __restrict__ x, const float* __rest
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kLnWarps * 32)
-    layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                      const float* __restrict__ bias, bf16* __restrict__ y, int rows, int c,
+    layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                      const float* __restrict__ bias, T* __restrict__ y, int rows, int c,
                       float eps) {
   const int lane = threadIdx.x % 32;
   const int r = blockIdx.x * kLnWarps + threadIdx.x / 32;
   if (r >= rows) return;
-  const bf16* xr = x + (long long)r * c;
+  const T* xr = x + (long long)r * c;
   float s = 0.0f, ss = 0.0f;
   for (int k = lane * 8; k < c; k += 32 * 8) {
     float f[8];
-    unpack8(*reinterpret_cast<const uint4*>(xr + k), f);
+    load8(xr + k, f);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       s += f[j];
@@ -234,15 +238,15 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   ss = warp_sum(ss);
   const float mean = s / c;
   const float rstd = rsqrtf(fmaxf(ss / c - mean * mean, 0.0f) + eps);
-  bf16* yr = y + (long long)r * c;
+  T* yr = y + (long long)r * c;
   for (int k = lane * 8; k < c; k += 32 * 8) {
     float f[8], sc[8], bi[8];
-    unpack8(*reinterpret_cast<const uint4*>(xr + k), f);
+    load8(xr + k, f);
     load8f(scale + k, sc);
     load8f(bias + k, bi);
 #pragma unroll
     for (int j = 0; j < 8; ++j) f[j] = (f[j] - mean) * rstd * sc[j] + bi[j];
-    *reinterpret_cast<uint4*>(yr + k) = pack8(f);
+    store8(yr + k, f);
   }
 }
 
@@ -600,12 +604,36 @@ extern "C" int group_norm_f32(const void* x, const float* scale, const float* bi
                                   static_cast<cudaStream_t>(stream));
 }
 
-// y = LayerNorm(x) * scale + bias over rows of c; x, y (rows, c) bf16.
-extern "C" int layer_norm_bf16(const void* x, const float* scale, const float* bias, void* y,
-                               int rows, int c, float eps, void* stream) {
+// The affine a, v of fp32 x (b, n, c): launches 1 and 2 of the three-launch
+// route (ws a (b, chunks, 2, c) fp32 scratch), the statistics of the fused
+// conv's fp32 route (fused_conv.cu: gn_silu_conv3x3_f32).
+extern "C" int gn_affine_f32(const void* x, const float* scale, const float* bias, float* ws,
+                             float* a, float* v, int b, int n, int c, int groups, int chunks,
+                             float eps, void* stream) {
+  if (!gn_shape_ok(b, n, c, groups, chunks)) return (int)cudaErrorInvalidValue;
+  return (int)launch_affine<float>(static_cast<const float*>(x), scale, bias, ws, a, v, b, n, c,
+                                   groups, chunks, eps, static_cast<cudaStream_t>(stream));
+}
+
+// y = LayerNorm(x) * scale + bias over rows of c, x and y (rows, c) of type T.
+template <typename T>
+int launch_layer_norm(const void* x, const float* scale, const float* bias, void* y, int rows,
+                      int c, float eps, void* stream) {
   if (rows < 1 || c < 8 || c % 8) return (int)cudaErrorInvalidValue;
   const int blocks = (rows + kLnWarps - 1) / kLnWarps;
-  layer_norm_kernel<<<blocks, kLnWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), scale, bias, static_cast<bf16*>(y), rows, c, eps);
+  layer_norm_kernel<T><<<blocks, kLnWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, c, eps);
   return (int)cudaGetLastError();
+}
+
+// bf16 x and y.
+extern "C" int layer_norm_bf16(const void* x, const float* scale, const float* bias, void* y,
+                               int rows, int c, float eps, void* stream) {
+  return launch_layer_norm<bf16>(x, scale, bias, y, rows, c, eps, stream);
+}
+
+// fp32 x and y (a model served in fp32; pallas_norm.py:155-178 computes in x.dtype).
+extern "C" int layer_norm_f32(const void* x, const float* scale, const float* bias, void* y,
+                              int rows, int c, float eps, void* stream) {
+  return launch_layer_norm<float>(x, scale, bias, y, rows, c, eps, stream);
 }

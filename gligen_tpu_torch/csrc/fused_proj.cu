@@ -75,6 +75,17 @@
 //     split-K: each output is one sum, in a fixed order, with no atomics,
 //     so two runs give the same bits.
 //
+// fp32 routes (ln_matmuls_f32, matmul_residual_f32, ln_geglu_f32): fp32 x, h,
+// weights and outputs, for a model served in fp32 (the JAX package runs the
+// same Pallas kernels in x.dtype, pallas_matmul.py:174-185, 246-252).  The
+// statistics and epilogues are the bf16 kernels' in fp32 (no rounding of the
+// normalised row), and the products are fp32 FMAs on the CUDA cores
+// (gemm_f32.cuh), never one-pass TF32: the JAX kernels' fp32 dot answers to
+// an fp32 plain version.  A simple kernel: 64 x 64 output tiles, the LN
+// statistics of a tile's 64 rows computed by its block (a warp a row) and
+// applied as the A tile is staged, so each column tile recomputes them.
+// Bound by the fp32 FMA rate.
+//
 // What bounds it on the H100.  At ds1 most sites are bound by bytes: 320 ->
 // 320 does 160 FLOP per byte, below the card's ~295; ln_geglu (320 -> 2 x
 // 1280) and the tools' K7 at 320 -> 2560 are bound by the tensor cores.  The
@@ -89,6 +100,7 @@
 #include <cstring>
 
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
@@ -445,3 +457,161 @@ extern "C" int matmul_bf16(const void* a, const void* w, void* y, int m, int k, 
   p.m = m, p.k = k, p.f = f;
   return dispatch<kMatmul>(p, static_cast<const bf16*>(a), ws, ys, nullptr, bm, bn, stages, stream);
 }
+
+#ifndef FUSED_PROJ_SWEEP
+// ------------------------------------------------------------ the fp32 routes
+
+namespace {
+
+struct ParamsF32 {
+  const float* a;                // A (m, k): x (LN modes) or h
+  const float* w[kMaxWeights];   // W_i (f, k); GEGLU: w[0] (2f, k), a rows then gate rows
+  float* y[kMaxWeights];         // y_i (m, f)
+  const float* x;                // the residual input (m, f)
+  const float* ln_s;             // (k,) LayerNorm scale (LN modes)
+  const float* ln_b;             // (k,) LayerNorm shift (LN modes)
+  const float* bias;             // (f,) residual, (2f,) GEGLU
+  const float* gate;             // device fp32 scalar, or null
+  float gate_value;              // the gate when `gate` is null
+  float eps;
+  int m, k, f;
+};
+
+// One 64 x 64 tile of output blockIdx.z (a weight of ln_matmuls) at row block
+// blockIdx.x and column tile blockIdx.y.
+template <int MODE>
+__global__ void __launch_bounds__(gemm32::kThreads) fused_proj_f32_kernel(const ParamsF32 p) {
+  constexpr bool LN = MODE == kLnMatmuls || MODE == kGeglu, PAIR = MODE == kGeglu;
+  __shared__ gemm32::Smem<PAIR> sm;
+  __shared__ float mean[gemm32::kBM], rstd[gemm32::kBM];
+  const int m0 = blockIdx.x * gemm32::kBM, n0 = blockIdx.y * gemm32::kBN, wsel = blockIdx.z;
+  if constexpr (LN) {
+    // _ln_rows' statistics of the tile's rows in fp32, a warp a row: one
+    // pass of sums and sums of squares, the variance clamped at 0
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int r = warp; r < gemm32::kBM; r += gemm32::kThreads / 32) {
+      const long long row = m0 + r;
+      float s = 0.0f, ss = 0.0f;
+      if (row < p.m)
+        for (int c = lane; c < p.k; c += 32) {
+          const float v = p.a[row * p.k + c];
+          s += v;
+          ss += v * v;
+        }
+      s = gligen::warp_sum(s);
+      ss = gligen::warp_sum(ss);
+      if (lane == 0) {
+        const float mu = s / p.k;
+        mean[r] = mu;
+        rstd[r] = rsqrtf(fmaxf(ss / p.k - mu * mu, 0.0f) + p.eps);
+      }
+    }
+    __syncthreads();
+  }
+  auto load_a = [&](int row, int col) {
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row >= p.m || col >= p.k) return v;
+    v = __ldg(reinterpret_cast<const float4*>(p.a + (long long)row * p.k + col));
+    if constexpr (LN) {
+      const float mu = mean[row - m0], rs = rstd[row - m0];
+      const float4 s = __ldg(reinterpret_cast<const float4*>(p.ln_s + col));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(p.ln_b + col));
+      v = make_float4((v.x - mu) * rs * s.x + b.x, (v.y - mu) * rs * s.y + b.y,
+                      (v.z - mu) * rs * s.z + b.z, (v.w - mu) * rs * s.w + b.w);
+    }
+    return v;
+  };
+  // selects, not an indexed address: the pointers stay in parameter space
+  const float* w = wsel == 0 ? p.w[0] : wsel == 1 ? p.w[1] : p.w[2];
+  float* y = wsel == 0 ? p.y[0] : wsel == 1 ? p.y[1] : p.y[2];
+  float acc[PAIR ? 2 : 1][4][4];
+  gemm32::mainloop<PAIR>(sm, load_a, w, PAIR ? w + (long long)p.f * p.k : nullptr, m0, n0, p.f,
+                         p.k, acc);
+  const float g = MODE == kResidual ? (p.gate ? *p.gate : p.gate_value) : 1.0f;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long row = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (row >= p.m || col >= p.f) continue;
+      float out = acc[0][i][j];
+      if constexpr (MODE == kResidual) {
+        out = p.x[row * p.f + col] + (out + p.bias[col]) * g;
+      } else if constexpr (MODE == kGeglu) {
+        const float gg = acc[PAIR][i][j] + p.bias[p.f + col];
+        out = (out + p.bias[col]) * (0.5f * gg * (1.0f + erff(gg * 0.7071067811865476f)));
+      }
+      y[row * p.f + col] = out;
+    }
+  }
+}
+
+template <int MODE>
+int launch_f32(const ParamsF32& p, int n_w, void* stream) {
+  if (p.m < 1 || p.k < 8 || p.f < 8 || p.k % 8 || p.f % 8 || n_w < 1 || n_w > kMaxWeights)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((p.m + gemm32::kBM - 1) / gemm32::kBM, (p.f + gemm32::kBN - 1) / gemm32::kBN,
+                  n_w);
+  fused_proj_f32_kernel<MODE>
+      <<<grid, gemm32::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+ParamsF32 empty_params_f32() {
+  ParamsF32 p;
+  memset(&p, 0, sizeof(p));
+  p.gate_value = 1.0f;
+  return p;
+}
+
+}  // namespace
+
+// The fp32 routes: the same functions with fp32 x, h, weights, outputs (and
+// fp32 norm parameters, bias and gate as above), no tile arguments.
+
+extern "C" int ln_matmuls_f32(const float* x, const float* ln_s, const float* ln_b, int n_w,
+                              const float* w0, const float* w1, const float* w2, float* y0,
+                              float* y1, float* y2, int m, int k, int f, float eps, void* stream) {
+  ParamsF32 p = empty_params_f32();
+  p.a = x;
+  p.ln_s = ln_s;
+  p.ln_b = ln_b;
+  p.w[0] = w0, p.w[1] = w1, p.w[2] = w2;
+  p.y[0] = y0, p.y[1] = y1, p.y[2] = y2;
+  p.m = m, p.k = k, p.f = f;
+  p.eps = eps;
+  return launch_f32<kLnMatmuls>(p, n_w, stream);
+}
+
+extern "C" int matmul_residual_f32(const float* h, const float* w, const float* bias,
+                                   const float* x, const float* gate, float gate_value, float* y,
+                                   int m, int k, int f, void* stream) {
+  ParamsF32 p = empty_params_f32();
+  p.a = h;
+  p.w[0] = w;
+  p.y[0] = y;
+  p.x = x;
+  p.bias = bias;
+  p.gate = gate;
+  p.gate_value = gate_value;
+  p.m = m, p.k = k, p.f = f;
+  return launch_f32<kResidual>(p, 1, stream);
+}
+
+extern "C" int ln_geglu_f32(const float* x, const float* ln_s, const float* ln_b, const float* w,
+                            const float* bias, float* y, int m, int k, int f, float eps,
+                            void* stream) {
+  ParamsF32 p = empty_params_f32();
+  p.a = x;
+  p.ln_s = ln_s;
+  p.ln_b = ln_b;
+  p.w[0] = w;
+  p.y[0] = y;
+  p.bias = bias;
+  p.m = m, p.k = k, p.f = f;
+  p.eps = eps;
+  return launch_f32<kGeglu>(p, 1, stream);
+}
+#endif

@@ -1,4 +1,17 @@
-"""The checkpoint and feature halves of ``gligen_tpu/inference/cli.py``.
+"""The inference command line (counterpart of ``gligen_tpu/inference/cli.py``,
+the reference's gligen_inference.py).
+
+    python -m gligen_tpu_torch.inference.cli --ckpt random --dezero [--meta meta.json]
+        [--scenarios generation_box_text,hed] [--device cuda|cpu] [--dtype bfloat16|float32]
+
+runs grounded generation scenarios, by default the reference's 11
+(``default_meta_list``): per-modality batch preparation, CLIP phrase and
+image features (``FeatureExtractor``), alpha stages, inpainting (a box
+mask and the pm1 image), PLMS (50 steps) or DDIM (``--no_plms``, 250), and
+sequentially numbered PNGs (``save_images``, through ``data/png.py``: no
+PIL).  ``--ckpt random[:tags]`` runs randomly initialised weights with the
+modality of each tag, a smoke and speed mode, not image quality;
+``--ckpt <path>`` a reference checkpoint.
 
 Components from a reference checkpoint (``_vae_config_from_reference``
 :260-279 and ``build_pipeline``'s checkpoint branch :313-332): checkpoints
@@ -10,21 +23,32 @@ The grounding inputs of a scenario's meta (:34-227): CLIP phrase and image
 features (``FeatureExtractor``) and the per-modality batches
 (``prepare_batch_box`` for box+text(+image), ``prepare_batch_kp``,
 ``prepare_batch_spatial`` for hed/canny/depth/normal maps,
-``prepare_batch_sem``), picked by ``prepare_batch_for``.  The tokenizer,
-the scenarios, the command line and PNG saving are ROADMAP M10.
+``prepare_batch_sem``), picked by ``prepare_batch_for``.  An image is a
+path (a PNG through ``data/png.py``; JPEG and any resize through PIL,
+imported there) or a uint8 array already at its size.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import math
 import os
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence
+import zlib
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
-from gligen_tpu_torch.inference.pipeline import GligenComponents
+from gligen_tpu_torch.data import png
+from gligen_tpu_torch.data.inpaint_masks import draw_masks_from_boxes
+from gligen_tpu_torch.data.tokenizer import load_tokenizer
+from gligen_tpu_torch.inference.adapters import get_adapter
+from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
 from gligen_tpu_torch.models.clip_vision import clip_preprocess
-from gligen_tpu_torch.training.checkpoints import gligen_state_dicts
+from gligen_tpu_torch.ops.basic import tf32_off
+from gligen_tpu_torch.training.checkpoints import checkpoint_config, gligen_state_dicts
 
 SCHEDULE_KEYS = ("timesteps", "linear_start", "linear_end")
 
@@ -122,12 +146,9 @@ class FeatureExtractor:
         return pooled[0].float().cpu().numpy()
 
     def image_feature(self, image) -> np.ndarray:
-        """``image``: a path (read with PIL, imported here) or a uint8
-        (H, W, 3) array."""
+        """``image``: a path (``png.open_image``) or a uint8 (H, W, 3) array."""
         if isinstance(image, (str, os.PathLike)):
-            from PIL import Image
-
-            image = np.asarray(Image.open(image).convert("RGB"))
+            image = png.open_image(image, "RGB")
         return self.image_feature_from_array(image)
 
     @torch.no_grad()
@@ -221,19 +242,39 @@ def _meta_image(meta: Mapping[str, Any], *keys: str):
     raise KeyError(f"meta missing any of {keys}: {sorted(meta)}")
 
 
-def _open_square(path, size: int, mode: str, resample=None) -> np.ndarray:
-    """The image at ``path`` (read with PIL, imported here) in ``mode``,
-    center-cropped to a square and resized to ``size``^2 (the JAX CLI's
-    ``crop_and_resize``, gligen_inference.py:190-195)."""
-    from PIL import Image
-
-    img = Image.open(path).convert(mode)
-    w, h = img.size
+def crop_and_resize(pixels: np.ndarray, size: int = 512, nearest: bool = False) -> np.ndarray:
+    """Center-crop uint8 pixels to a square and resize it to ``size``^2
+    (gligen_inference.py:190-195, the JAX CLI's ``crop_and_resize``), with
+    PIL's default filter or, when ``nearest``, nearest neighbour.  A square
+    already at ``size`` is returned as it is, which is what PIL's
+    ``resize`` gives it (a copy); any other goes through PIL (imported
+    here)."""
+    h, w = pixels.shape[:2]
     crop = min(w, h)
     left, top = (w - crop) // 2, (h - crop) // 2
-    img = img.crop((left, top, left + crop, top + crop))
-    img = img.resize((size, size)) if resample is None else img.resize((size, size), resample)
+    pixels = pixels[top:top + crop, left:left + crop]
+    if crop == size:
+        return pixels
+    from PIL import Image
+
+    img = Image.fromarray(np.ascontiguousarray(pixels))
+    img = img.resize((size, size), Image.NEAREST) if nearest else img.resize((size, size))
     return np.asarray(img, np.uint8)
+
+
+def _open_square(path, size: int, mode: str, nearest: bool = False) -> np.ndarray:
+    """The image at ``path`` in ``mode``, center-cropped to a square and
+    resized to ``size``^2."""
+    return crop_and_resize(png.open_image(path, mode), size, nearest)
+
+
+def load_image_pm1(image, size: int = 512, mode: str = "RGB") -> np.ndarray:
+    """An image in [-1, 1], (size, size, channels) float32: ``image`` a path
+    or uint8 pixels, center-cropped and resized (cli.py:46-53)."""
+    pixels = (_open_square(image, size, mode) if isinstance(image, (str, os.PathLike))
+              else crop_and_resize(np.asarray(image, np.uint8), size))
+    arr = np.asarray(pixels, dtype=np.float32) / 255.0 * 2.0 - 1.0
+    return arr[..., None] if arr.ndim == 2 else arr
 
 
 def _map_array(image, shape: tuple, what: str) -> np.ndarray:
@@ -271,9 +312,7 @@ def prepare_batch_sem(meta: Mapping[str, Any], batch: int,
     (the device's one-hot would give its pixels no class)."""
     image = _meta_image(meta, "sem_image", "sem")
     if isinstance(image, (str, os.PathLike)):
-        from PIL import Image
-
-        sem = _open_square(image, MAP_SIZE, "L", Image.NEAREST)
+        sem = _open_square(image, MAP_SIZE, "L", nearest=True)
     else:
         sem = _map_array(image, (MAP_SIZE, MAP_SIZE), "sem")
     if int(sem.max()) >= num_classes:
@@ -302,3 +341,394 @@ def prepare_batch_for(meta: Mapping[str, Any], batch: int,
     if features is None:
         raise ValueError("box grounding needs a FeatureExtractor")
     return prepare_batch_box(meta, batch, features)
+
+
+# -------------------------------------------------------------------- run
+
+GATES = ("alpha_attn", "alpha_dense")
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+MODALITIES = ("text_image", "keypoint", "hed", "canny", "depth", "normal", "sem")
+RANDOM_TAGS = ("keypoint", "hed", "canny", "depth", "normal", "sem", "inpaint", "text_image")
+SEM_CLASSES = 152
+
+
+@torch.no_grad()
+def dezero_(module: nn.Module) -> None:
+    """De-zero a fresh model in place so that a random-weight run is not
+    vacuous (the JAX CLI's ``dezero_params``, cli.py:230-257): the fusers'
+    ``alpha_attn``/``alpha_dense`` gates -> 0.5, and every all-zero tensor
+    of one dimension or more (zero-init convs, null features, biases) ->
+    N(0, 1) / sqrt(fan_in), fan_in the product of its dims after the first
+    (torch's layout: a weight's inputs) or, for a vector, its size.  The
+    values come from a generator on the parameter's device seeded with
+    crc32 of the parameter's name, so two processes de-zero the same model
+    on the same device alike (they are not the JAX package's values: its
+    generator differs)."""
+    for name, p in module.named_parameters():
+        if name.rsplit(".", 1)[-1] in GATES:
+            p.fill_(0.5)
+        elif p.dim() >= 1 and not bool(p.any()):
+            fan_in = math.prod(p.shape[1:]) if p.dim() >= 2 else p.numel()
+            gen = torch.Generator(device=p.device).manual_seed(zlib.crc32(name.encode()) % 2**31)
+            p.copy_(torch.randn(p.shape, generator=gen, device=p.device, dtype=p.dtype)
+                    / max(fan_in, 1) ** 0.5)
+
+
+def random_unet_config(ckpt: str) -> Dict[str, Any]:
+    """The UNet keywords of ``--ckpt random[:tags]`` (cli.py:293-305): an
+    inpaint UNet for "inpaint", and the grounding tokenizer (and the
+    downsampler of a spatial modality) of the modality a tag names."""
+    unet_config: Dict[str, Any] = {}
+    if "inpaint" in ckpt:
+        unet_config["inpaint_mode"] = True
+    if "text_image" in ckpt:
+        unet_config["grounding_tokenizer"] = {"target": "text_image", "params": {}}
+    for tag in ("keypoint", "hed", "canny", "depth", "normal", "sem"):
+        if tag in ckpt:
+            params = {"in_dim": SEM_CLASSES} if tag == "sem" else {}
+            unet_config["grounding_tokenizer"] = {"target": tag, "params": params}
+            if tag != "keypoint":
+                unet_config["grounding_downsampler"] = {"target": tag, "params": dict(params)}
+    return unet_config
+
+
+def _load(path: str) -> Any:
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def build_pipeline(ckpt: str, args, create: Callable[..., GligenComponents] = GligenComponents.create
+                   ) -> GenerationPipeline:
+    """The pipeline of ``ckpt`` (cli.py:282-367) on ``args.device`` (``parser``'s
+    arguments), with its
+    tokenizer as ``pipe.tokenizer`` and the UNet's keywords as
+    ``pipe.unet_config``: "random[:tags]" builds random components with
+    ``create`` (``GligenComponents.create``'s keywords; a test passes a
+    smaller model), de-zeroed with ``--dezero``; a path loads a reference
+    checkpoint (``--sd_input_conv``, ``--use_ema``).  Real weights need a
+    CLIP vocab (``--vocab_path`` / $GLIGEN_TPU_ASSETS) unless
+    ``--allow_hash_tokenizer``: the hash fallback would condition on
+    garbage."""
+    if args.train_ckpt:
+        raise NotImplementedError("--train_ckpt overlays a native training run: ROADMAP M11b "
+                                  "(the Trainer and its checkpoints) has not been ported")
+    if args.data_parallel:
+        raise NotImplementedError("--data_parallel shards the batch over several cards: ROADMAP "
+                                  "M12 (multi-GPU) has not been ported")
+    dtype, device = DTYPES[args.dtype], torch.device(args.device)
+    is_random = ckpt == "random" or ckpt.startswith("random:")
+    allow_hash = is_random or args.allow_hash_tokenizer
+    try:
+        tokenizer = load_tokenizer(args.vocab_path, allow_fallback=allow_hash)
+    except FileNotFoundError as e:
+        raise SystemExit(
+            f"{e}\nReal checkpoint given but no CLIP vocab available: tokenization would be "
+            "garbage. Provide --vocab_path/$GLIGEN_TPU_ASSETS or pass --allow_hash_tokenizer "
+            "to opt into the smoke fallback."
+        ) from e
+    if is_random:
+        unet_config = random_unet_config(ckpt)
+        comps = create(unet_config=unet_config, dtype=dtype, seed=args.seed, device=device)
+        if args.dezero:
+            dezero_(comps.unet)
+    else:
+        ckpt_dict = _load(ckpt)
+        conv = args.sd_input_conv
+        sd_conv = _load(conv) if conv and os.path.exists(conv) else None
+        comps = components_from_checkpoint(ckpt_dict, sd_first_conv=sd_conv,
+                                           use_ema=args.use_ema, dtype=dtype,
+                                           device=device)
+        unet_config = dict(checkpoint_config(ckpt_dict).get("model", {}).get("params", {}))
+    pipe = GenerationPipeline(comps)
+    pipe.tokenizer = tokenizer
+    pipe.unet_config = unet_config
+    return pipe
+
+
+def load_projection_matrix(path: str) -> np.ndarray:
+    """The CLIP image -> text projection (box_dataset.py:197-204): a
+    torch-saved 768 x 768 tensor, or a .npy file."""
+    if path.endswith(".npy"):
+        return np.load(path).astype(np.float32)
+    return np.asarray(_load(path), dtype=np.float32)
+
+
+def load_vision(path: str, device) -> nn.Module:
+    """CLIP ViT-L/14's vision tower (fp32) from an HF
+    CLIPVisionModelWithProjection checkpoint."""
+    from gligen_tpu_torch.convert.from_reference import convert_clip_vision
+    from gligen_tpu_torch.models.clip_vision import CLIPVisionModel
+
+    state = _load(path)
+    state = state.get("state_dict", state)
+    with torch.device(device):
+        vision = CLIPVisionModel().eval()
+    vision.load_state_dict(convert_clip_vision(state), strict=True)
+    return vision
+
+
+def modality_of(pipe: GenerationPipeline) -> str:
+    """The modality of the pipeline's grounding tokenizer (its target or
+    reference alias names it; "text" when it names none)."""
+    target = (pipe.unet_config.get("grounding_tokenizer") or {"target": "text"})["target"]
+    return next((m for m in MODALITIES if m in target), "text")
+
+
+def run(meta: Mapping[str, Any], args, create: Callable[..., GligenComponents] = GligenComponents.create
+        ) -> List[str]:
+    """One scenario end to end (cli.py:370-437); returns the saved paths.
+    An image in the meta is a path or uint8 pixels."""
+    pipe = build_pipeline(meta["ckpt"], args, create)
+    projection = None
+    if args.projection_matrix and os.path.exists(args.projection_matrix):
+        projection = load_projection_matrix(args.projection_matrix)
+    vision = None
+    if args.clip_vision_ckpt and os.path.exists(args.clip_vision_ckpt):
+        vision = load_vision(args.clip_vision_ckpt, pipe.device)
+    features = FeatureExtractor(pipe.c.text_encoder, pipe.tokenizer, vision=vision,
+                                projection_matrix=projection,
+                                allow_random=meta["ckpt"].startswith("random"))
+
+    batch = args.batch_size
+    raw = prepare_batch_for(meta, batch, features)
+    adapter = get_adapter(modality_of(pipe))
+    grounding = adapter.prepare(raw)
+    grounding_extra = (adapter.prepare_extra(raw) if pipe.unet_config.get("grounding_downsampler")
+                       else None)
+
+    ids = pipe.tokenizer([meta["prompt"]] * batch)
+    uc_ids = pipe.tokenizer([args.negative_prompt or ""] * batch)
+
+    inpaint_image = inpaint_mask = None
+    if "input_image" in meta:
+        inpaint_mask = draw_masks_from_boxes(
+            np.repeat(np.asarray(meta["locations"], np.float32)[None], batch, 0), 64)
+        inpaint_image = np.repeat(load_image_pm1(meta["input_image"], 512)[None], batch, 0)
+
+    generator = torch.Generator(device=pipe.device).manual_seed(args.seed)
+    # fp32 means fp32: cuBLAS's and cuDNN's TF32 off (bf16 products never use it)
+    with tf32_off():
+        images = pipe.generate(
+            ids, uc_ids, grounding,
+            steps=args.steps or (250 if args.no_plms else 50),
+            sampler="ddim" if args.no_plms else "plms",
+            guidance_scale=args.guidance_scale,
+            alpha_stages=meta.get("alpha_type"),
+            grounding_extra=grounding_extra,
+            inpaint_image=inpaint_image,
+            inpaint_mask=inpaint_mask,
+            generator=generator,
+        )
+    return save_images(images.cpu().numpy(),
+                       os.path.join(args.folder, meta["save_folder_name"]))
+
+
+def save_images(images: np.ndarray, folder: str) -> List[str]:
+    """Images in [0, 1], (B, H, W, 3), as PNGs numbered on from the files
+    the folder holds (gligen_inference.py:434-446); each pixel is
+    ``(img * 255).astype(uint8)``, truncated as in the JAX CLI."""
+    os.makedirs(folder, exist_ok=True)
+    start = len(os.listdir(folder))
+    paths = []
+    for i, img in enumerate(images):
+        path = os.path.join(folder, f"{start + i}.png")
+        png.write_png(path, (img * 255).astype(np.uint8))
+        paths.append(path)
+    return paths
+
+
+# The reference's two full 17-keypoint skeletons (gligen_inference.py:588-631,
+# "from id=18150 val set in coco2017k").
+KEYPOINT_DEMO_SKELETONS = [
+    [
+        [0.7598, 0.2542], [0.7431, 0.2104], [0.8118, 0.2021], [0.0, 0.0],
+        [0.9514, 0.1813], [0.7806, 0.2917], [0.0, 0.0], [0.6785, 0.5125],
+        [0.0, 0.0], [0.5389, 0.6479], [0.6785, 0.6750], [0.7973, 0.7042],
+        [0.0, 0.0], [0.6181, 0.7375], [0.9764, 0.8458], [0.0, 0.0], [0.0, 0.0],
+    ],
+    [
+        [0.2681, 0.4313], [0.2514, 0.3979], [0.0, 0.0], [0.0785, 0.3854],
+        [0.0, 0.0], [0.0910, 0.5583], [0.0, 0.0], [0.1243, 0.8479],
+        [0.0, 0.0], [0.0, 0.0], [0.0, 0.0], [0.0, 0.0],
+        [0.0, 0.0], [0.2410, 0.8146], [0.1202, 0.6146], [0.0, 0.0],
+        [0.2743, 0.7188],
+    ],
+]
+
+
+def default_meta_list(ckpt_root: str = "gligen_checkpoints") -> List[Dict[str, Any]]:
+    """All 11 of the reference's demonstration scenarios
+    (gligen_inference.py:467-637), in the reference's order."""
+    j = lambda name: os.path.join(ckpt_root, name)
+    return [
+        dict(
+            ckpt=j("checkpoint_generation_text.pth"),
+            prompt="a teddy bear sitting next to a bird",
+            phrases=["a teddy bear", "a bird"],
+            locations=[[0.0, 0.09, 0.33, 0.76], [0.55, 0.11, 1.0, 0.8]],
+            alpha_type=[0.3, 0.0, 0.7],
+            save_folder_name="generation_box_text",
+        ),
+        dict(
+            ckpt=j("checkpoint_inpainting_text.pth"),
+            input_image="inference_images/dalle2_museum.jpg",
+            prompt="a corgi and a cake",
+            phrases=["corgi", "cake"],
+            locations=[[0.25, 0.28, 0.42, 0.52], [0.14, 0.58, 0.58, 0.92]],
+            save_folder_name="inpainting_box_text",
+        ),
+        dict(
+            ckpt=j("checkpoint_generation_text_image.pth"),
+            prompt="an alarm clock sitting on the beach",
+            images=["inference_images/clock.png"],
+            phrases=["alarm clock"],
+            locations=[[0.0, 0.09, 0.53, 0.76]],
+            alpha_type=[1.0, 0.0, 0.0],
+            save_folder_name="generation_box_image",
+        ),
+        # Style grounding: a pseudo-phrase slot carrying a style image whose
+        # text feature is masked out and image feature kept
+        # (gligen_inference.py:505-516).
+        dict(
+            ckpt=j("checkpoint_generation_text_image.pth"),
+            prompt="a brick house in the woods, anime, oil painting",
+            phrases=["a brick house", "placehoder"],
+            images=["inference_images/placeholder.png", "inference_images/style_golden.jpg"],
+            locations=[[0.4, 0.2, 1.0, 0.8], [0.0, 1.0, 0.0, 1.0]],
+            alpha_type=[1.0, 0.0, 0.0],
+            text_mask=[1, 0],   # the second text feature is masked
+            image_mask=[0, 1],  # the first image feature is masked
+            save_folder_name="generation_box_text_style",
+        ),
+        # Inpainting grounded by a reference image (gligen_inference.py:519-527).
+        dict(
+            ckpt=j("checkpoint_inpainting_text_image.pth"),
+            input_image="inference_images/beach.jpg",
+            prompt="a bigben on the beach",
+            images=["inference_images/bigben.jpg"],
+            locations=[[0.18, 0.08, 0.62, 0.75]],
+            save_folder_name="inpainting_box_image",
+        ),
+        dict(
+            ckpt=j("checkpoint_generation_hed.pth"),
+            prompt="a man is eating breakfast",
+            hed_image="inference_images/hed.png",
+            alpha_type=[0.9, 0.0, 0.1],
+            save_folder_name="hed",
+        ),
+        dict(
+            ckpt=j("checkpoint_generation_canny.pth"),
+            prompt="A Humanoid Robot Designed for Companionship",
+            canny_image="inference_images/canny.png",
+            alpha_type=[0.9, 0.0, 0.1],
+            save_folder_name="canny",
+        ),
+        dict(
+            ckpt=j("checkpoint_generation_normal.pth"),
+            prompt="a large tree with no leaves in front of a building",
+            normal="inference_images/normal.png",
+            alpha_type=[0.7, 0.0, 0.3],
+            save_folder_name="normal",
+        ),
+        dict(
+            ckpt=j("checkpoint_generation_depth.pth"),
+            prompt="a Vibrant colorful Bird Sitting on Tree Branch",
+            depth="inference_images/depth.png",
+            alpha_type=[0.7, 0.0, 0.3],
+            save_folder_name="depth",
+        ),
+        dict(
+            ckpt=j("checkpoint_generation_sem.pth"),
+            prompt="a living room filled with lots of furniture and plants",
+            sem="inference_images/sem.png",
+            alpha_type=[0.7, 0.0, 0.3],
+            save_folder_name="sem",
+        ),
+        dict(
+            ckpt=j("checkpoint_generation_keypoint.pth"),
+            prompt="A young man and a small boy are talking",
+            locations=KEYPOINT_DEMO_SKELETONS,
+            alpha_type=[0.3, 0.0, 0.7],
+            save_folder_name="keypoint",
+        ),
+    ]
+
+
+def _tag_random(meta: Mapping[str, Any], base: str) -> str:
+    """``base`` ("random") with the modality tags the meta's folder or
+    checkpoint name carries, so the modality dispatch works on random
+    weights; a meta may carry several (inpainting_box_image: inpaint and
+    text_image)."""
+    tags = [tag for tag in RANDOM_TAGS
+            if tag in meta.get("save_folder_name", "") or tag in meta["ckpt"]]
+    return ":".join([base] + tags) if tags else base
+
+
+def parser() -> argparse.ArgumentParser:
+    """The JAX CLI's flags and defaults (cli.py:571-630), and ``--device``."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--folder", type=str, default="generation_samples")
+    ap.add_argument("--batch_size", type=int, default=5)
+    ap.add_argument("--no_plms", action="store_true")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="override sampler steps (default 50 PLMS / 250 DDIM)")
+    ap.add_argument("--guidance_scale", type=float, default=7.5)
+    ap.add_argument(
+        "--negative_prompt", type=str,
+        default="longbody, lowres, bad anatomy, bad hands, missing fingers, "
+        "extra digit, fewer digits, cropped, worst quality, low quality",
+    )
+    ap.add_argument("--ckpt", type=str, default=None,
+                    help="single ckpt override; 'random' for smoke")
+    ap.add_argument("--meta", type=str, default=None, help="json file with meta dict(s)")
+    ap.add_argument("--ckpt_root", type=str, default="gligen_checkpoints")
+    ap.add_argument("--sd_input_conv", type=str, default="SD_input_conv_weight_bias.pth")
+    ap.add_argument("--projection_matrix", type=str, default="projection_matrix")
+    ap.add_argument("--clip_vision_ckpt", type=str, default=None)
+    ap.add_argument("--vocab_path", type=str, default=None)
+    ap.add_argument("--allow_hash_tokenizer", action="store_true",
+                    help="permit the hash-fallback tokenizer even with real weights (smoke only)")
+    ap.add_argument("--dtype", type=str, default="bfloat16", choices=sorted(DTYPES))
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="the card (default) or 'cpu' (the kernels' plain versions)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data_parallel", action="store_true",
+                    help="shard the batch over every card (ROADMAP M12: not ported; raises)")
+    ap.add_argument("--train_ckpt", type=str, default=None,
+                    help="native training checkpoint to overlay (ROADMAP M11b: not ported; "
+                    "raises)")
+    ap.add_argument("--dezero", action="store_true",
+                    help="de-zero a random-init model's zero-init tensors and fuser gates "
+                    "(deterministic in the parameter name) so random-weight runs exercise "
+                    "every path")
+    ap.add_argument("--use_ema", action="store_true",
+                    help="load the EMA shadow of the trainable params (the checkpoint's 'ema' "
+                    "entry) instead of the live weights")
+    ap.add_argument("--scenarios", type=str, default=None,
+                    help="comma-separated save_folder_name filter over the meta list "
+                    "(e.g. 'generation_box_text,hed'); default runs all")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         create: Callable[..., GligenComponents] = GligenComponents.create) -> None:
+    args = parser().parse_args(argv)
+    if args.meta:
+        with open(args.meta) as f:
+            metas = json.load(f)
+        metas = metas if isinstance(metas, list) else [metas]
+    else:
+        metas = default_meta_list(args.ckpt_root)
+    if args.ckpt:
+        for m in metas:
+            m["ckpt"] = args.ckpt if "random" not in args.ckpt else _tag_random(m, args.ckpt)
+    if args.scenarios:
+        keep = {s.strip() for s in args.scenarios.split(",") if s.strip()}
+        metas = [m for m in metas if m.get("save_folder_name") in keep]
+
+    for meta in metas:
+        paths = run(meta, args, create)
+        print(f"{meta['save_folder_name']}: wrote {len(paths)} images -> {paths[0]}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

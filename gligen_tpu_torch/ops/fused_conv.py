@@ -20,8 +20,12 @@ entry, and the library is built at exactly the table's configurations.
 
 The wrapper runs the plain versions for a CPU tensor and the kernels for a
 CUDA tensor; it never falls back from one to the other, and raises on what
-the kernel does not take (a dtype other than bf16, C or F not multiples of
-8).  W need not be a multiple of 8: that is the TPU's sublane rule, which
+the kernel does not take (a dtype other than bf16 or fp32, C or F not
+multiples of 8).  fp32 x (a model served in fp32, as pallas_conv.py
+computes in ``x.dtype``) takes the fp32 route of the same source,
+``gn_silu_conv3x3_f32``: the statistics from ``gn_affine``'s fp32 route,
+the activation unrounded, the conv as fp32 FMAs (never one-pass TF32), one
+fp32 output; counted as route "fp32" beside the bf16 kernel's "wgmma".  W need not be a multiple of 8: that is the TPU's sublane rule, which
 stays in the routing (models/unet.py).
 
 Gradients, as in pallas_conv.py:121-171: the statistics (``gn_affine``)
@@ -38,7 +42,7 @@ import torch.nn.functional as F
 
 from gligen_tpu_torch.ops.fused_norm import gn_affine, gn_affine_plain
 from gligen_tpu_torch.ops.launch import (
-    I32, PTR, Kernel, c_entry, check, check_widths, differentiable, on_cuda,
+    I32, PTR, Kernel, c_entry, check, check_widths, differentiable, kernel_dtype, on_cuda,
 )
 
 Tiles = Tuple[int, int, int]
@@ -142,9 +146,15 @@ def gn_silu_conv3x3_plain(x, scale, bias, w, wb, residual=None, num_groups: int 
 
 
 class GnSiluConv3x3(Kernel):
+    """``routes`` counts the conv kernel's launches by route: "wgmma" (bf16)
+    and "fp32" (``gn_silu_conv3x3_f32``)."""
+
     library, entry = "fused_conv", "gn_silu_conv3x3_bf16"
+    ROUTES = ("wgmma", "fp32")
     # x, a, v, w, bias, residual, y, part, b, h, w, c, f, bm, bn, stages, split
     argtypes = (PTR,) * 8 + (I32,) * 9
+    # x, a, v, w, bias, residual, y, b, h, w, c, f
+    f32_argtypes = (PTR,) * 7 + (I32,) * 5
 
     def __call__(self, x, scale, bias, w, wb, residual=None, num_groups: int = 32,
                  eps: float = 1e-5) -> torch.Tensor:
@@ -171,8 +181,9 @@ class GnSiluConv3x3(Kernel):
             raise ValueError(f"gn_silu_conv3x3: residual {tuple(residual.shape)} is not "
                              f"{(b, h, wd, f)}")
         check_widths("gn_silu_conv3x3", C=c, F=f)
-        check("gn_silu_conv3x3", x.device, x=(x, torch.bfloat16),
-              **({} if residual is None else {"residual": (residual, torch.bfloat16)}))
+        dtype = kernel_dtype("gn_silu_conv3x3", x)
+        check("gn_silu_conv3x3", x.device, x=(x, dtype),
+              **({} if residual is None else {"residual": (residual, dtype)}))
 
     def _forward(self, x, a, v, w, wb, residual):
         if not on_cuda(x, "gn_silu_conv3x3"):
@@ -185,15 +196,24 @@ class GnSiluConv3x3(Kernel):
         affine a, v (B, C) fp32, the weight wt already (F, 3, 3, C) bf16, the
         bias wb (F,) fp32, the residual (B, H, W, F) bf16 or None.  At the
         table's ``conv_plan`` (a counted launch), or at ``plan`` (BM, BN,
-        stages, split) in ``library`` (the tile sweep's: not counted)."""
+        stages, split) in ``library`` (the tile sweep's: not counted).  With
+        fp32 x, wt and residual: the fp32 route (counted; no plan)."""
         self._check(x, wt, wb, residual, taps_first=True)
         b, h, wd, c = x.shape
         f = wt.shape[0]
-        check("gn_silu_conv3x3", x.device, w=(wt, torch.bfloat16), wb=(wb, torch.float32),
+        check("gn_silu_conv3x3", x.device, w=(wt, x.dtype), wb=(wb, torch.float32),
               a=(a, torch.float32), v=(v, torch.float32))
         if a.shape != (b, c) or v.shape != (b, c):
             raise ValueError(f"gn_silu_conv3x3: a and v must be {(b, c)}")
         out = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
+        if x.dtype == torch.float32:
+            if plan is not None or library is not None:
+                raise ValueError("gn_silu_conv3x3: the fp32 route takes no plan or library")
+            self._launch(x.device, x.data_ptr(), a.data_ptr(), v.data_ptr(), wt.data_ptr(),
+                         wb.data_ptr(), None if residual is None else residual.data_ptr(),
+                         out.data_ptr(), b, h, wd, c, f,
+                         entry=("gn_silu_conv3x3_f32", self.f32_argtypes), route="fp32")
+            return out
         plan = conv_plan(b, h, wd, c, f) if plan is None else tuple(plan)
         part = (None if plan[3] == 1 else
                 torch.empty((plan[3], b * h * wd, f), dtype=torch.float32, device=x.device))
@@ -201,7 +221,7 @@ class GnSiluConv3x3(Kernel):
                 None if residual is None else residual.data_ptr(), out.data_ptr(),
                 None if part is None else part.data_ptr(), b, h, wd, c, f, *plan)
         if library is None:
-            self._launch(x.device, *args)
+            self._launch(x.device, *args, route="wgmma")
             return out
         fn = c_entry(library, self.entry, self.argtypes)
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)

@@ -15,8 +15,11 @@ holds three entry points:
 A GroupNorm of a UNet map runs as one launch, a thread-block cluster per
 sample; the VAE's large maps as three launches (``gn_plan``: the route and
 the row chunks, passed to the C entry).  ``group_norm_fused`` also takes
-fp32 x (the inpaint image's fp32 VAE encode): its own entry,
-``group_norm_f32``, fp32 in and out on the three-launch route.
+fp32 x (the inpaint image's fp32 VAE encode, a model served in fp32): its
+own entry, ``group_norm_f32``, fp32 in and out on the three-launch route;
+so do ``gn_affine`` (``gn_affine_f32``: that route's statistics and fold
+launches, for the fused conv's fp32 route) and ``layer_norm_fused``
+(``layer_norm_f32``: the LayerNorm kernel on fp32 rows).
 
 Numerics are the TPU kernels': single-pass fp32 moments, the variance
 clamped at 0, rsqrt(var + eps), one cast.  The GroupNorm plain version is
@@ -25,8 +28,8 @@ another order (gligen_tpu/ops/basic.py:116).
 
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other, and raises on what
-the kernel does not take (a dtype other than bf16, or fp32 for the
-GroupNorm; widths that are not multiples of 8, more than 4096 channels).  Each output is differentiable
+the kernel does not take (a dtype other than bf16 or fp32; widths that
+are not multiples of 8, more than 4096 channels).  Each output is differentiable
 (``launch.differentiable``): the backward differentiates the plain version,
 fp32 statistics included, as pallas_norm.py:231-270 differentiates its
 reference.
@@ -42,7 +45,7 @@ import torch
 
 from gligen_tpu_torch.ops.basic import gn_affine_rowsum, group_norm_rowsum, layer_norm_xla
 from gligen_tpu_torch.ops.launch import (
-    F32, I32, PTR, Kernel, check, check_widths, differentiable, on_cuda,
+    F32, I32, PTR, Kernel, check, check_widths, differentiable, kernel_dtype, on_cuda,
 )
 
 MAX_CHANNELS = 4096  # the partial-sum block's (rows, 2, C) fp32 stays in 48 KB of shared memory
@@ -139,9 +142,15 @@ class _GroupStats(Kernel):
 
 
 class GnAffine(_GroupStats):
+    """``routes`` counts the launches by route: "one" and "three" (bf16,
+    ``gn_plan``'s) and "fp32" (``gn_affine_f32``, the three-launch route's
+    first two launches)."""
+
     entry = "gn_affine_bf16"
-    # x, scale, bias, ws, a, v, b, n, c, groups, chunks, eps, one_launch
-    argtypes = (PTR,) * 6 + (I32,) * 5 + (F32, I32)
+    ROUTES = ("one", "three", "fp32")
+    # x, scale, bias, ws, a, v, b, n, c, groups, chunks, eps[, one_launch]
+    f32_argtypes = (PTR,) * 6 + (I32,) * 5 + (F32,)
+    argtypes = f32_argtypes + (I32,)
 
     def __call__(self, x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
         """Same contract as ``gn_affine_plain``.  Differentiable."""
@@ -153,8 +162,14 @@ class GnAffine(_GroupStats):
     def _forward(self, x, scale, bias, num_groups, eps):
         if not on_cuda(x, "gn_affine"):
             return gn_affine_plain(x, scale, bias, num_groups, eps)
-        ptrs, dims, a, v, route = self._prepare("gn_affine", x, scale, bias, num_groups, False)
-        self._launch(x.device, *ptrs, *dims, eps, int(route == "one"))
+        dtype = kernel_dtype("gn_affine", x)
+        ptrs, dims, a, v, route = self._prepare("gn_affine", x, scale, bias, num_groups, False,
+                                                dtype)
+        if dtype == torch.float32:
+            self._launch(x.device, *ptrs, *dims, eps, entry=("gn_affine_f32", self.f32_argtypes),
+                         route="fp32")
+        else:
+            self._launch(x.device, *ptrs, *dims, eps, int(route == "one"), route=route)
         return a, v
 
 
@@ -163,14 +178,10 @@ class GroupNorm(_GroupStats):
     ``gn_plan``'s) and "fp32" (``group_norm_f32``, three launches)."""
 
     entry = "group_norm_bf16"
-    # x, scale, bias, ws, a, v, y, b, n, c, groups, chunks, eps, silu, one_launch
-    argtypes = (PTR,) * 7 + (I32,) * 5 + (F32, I32, I32)
-    # the same, without one_launch
+    ROUTES = ("one", "three", "fp32")
+    # x, scale, bias, ws, a, v, y, b, n, c, groups, chunks, eps, silu[, one_launch]
     f32_argtypes = (PTR,) * 7 + (I32,) * 5 + (F32, I32)
-
-    def __init__(self):
-        super().__init__()
-        self.routes = {"one": 0, "three": 0, "fp32": 0}
+    argtypes = f32_argtypes + (I32,)
 
     def __call__(self, x, scale, bias, num_groups: int = 32, eps: float = 1e-5,
                  silu: bool = False) -> torch.Tensor:
@@ -183,22 +194,25 @@ class GroupNorm(_GroupStats):
     def _forward(self, x, scale, bias, num_groups, eps, silu):
         if not on_cuda(x, "group_norm"):
             return group_norm_plain(x, scale, bias, num_groups, eps, silu)
-        f32 = x.dtype == torch.float32
+        dtype = kernel_dtype("group_norm", x)
         ptrs, dims, _, _, route = self._prepare("group_norm", x, scale, bias, num_groups, True,
-                                                x.dtype if f32 else torch.bfloat16)
+                                                dtype)
         y = torch.empty_like(x)
-        if f32:
+        if dtype == torch.float32:
             self._launch(x.device, *ptrs, y.data_ptr(), *dims, eps, int(silu),
-                         entry=("group_norm_f32", self.f32_argtypes))
+                         entry=("group_norm_f32", self.f32_argtypes), route="fp32")
         else:
             self._launch(x.device, *ptrs, y.data_ptr(), *dims, eps, int(silu),
-                         int(route == "one"))
-        self.routes["fp32" if f32 else route] += 1
+                         int(route == "one"), route=route)
         return y
 
 
 class LayerNorm(Kernel):
+    """``routes`` counts the launches by route: "bf16" and "fp32"
+    (``layer_norm_f32``, the same kernel on fp32 rows)."""
+
     library, entry = "fused_norm", "layer_norm_bf16"
+    ROUTES = ("bf16", "fp32")
     # x, scale, bias, y, rows, c, eps
     argtypes = (PTR,) * 4 + (I32, I32, F32)
 
@@ -216,11 +230,15 @@ class LayerNorm(Kernel):
         if scale.shape != (c,) or bias.shape != (c,) or x.numel() == 0:
             raise ValueError(f"layer_norm: x {tuple(x.shape)} needs ({c},) scale and bias")
         check_widths("layer_norm", C=c)
-        check("layer_norm", x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
+        dtype = kernel_dtype("layer_norm", x)
+        check("layer_norm", x.device, x=(x, dtype), scale=(scale, torch.float32),
               bias=(bias, torch.float32))
         y = torch.empty_like(x)
+        f32 = dtype == torch.float32
         self._launch(x.device, x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                     x.numel() // c, c, eps)
+                     x.numel() // c, c, eps,
+                     entry=("layer_norm_f32" if f32 else self.entry, self.argtypes),
+                     route="fp32" if f32 else "bf16")
         return y
 
 

@@ -24,6 +24,13 @@ ring stages) from a fixed table by shape class (``PROJ_TILES``,
 ``proj_tiles``); the wrapper passes it to the C entry, and the library is
 built at exactly the table's configurations.
 
+The three K2 wrappers also take fp32 x, h and weights (a model served in
+fp32, as the JAX kernels compute in ``x.dtype``): each mode's fp32 route
+of the same source (``ln_matmuls_f32``, ``matmul_residual_f32``,
+``ln_geglu_f32``), counted as route "fp32" beside the bf16 kernel's
+"wgmma": fp32 statistics, products and epilogue, the products as fp32 FMAs
+(never one-pass TF32), one fp32 output.  Any other dtype raises.
+
 Weights are ``nn.Linear``'s (F, K), not JAX's (K, F).  Each K2 wrapper
 casts them to x's dtype at every call (the JAX modules' ``dtype`` semantics),
 outside the autograd Function, so the gradient reaches the fp32
@@ -49,9 +56,9 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from gligen_tpu_torch.ops.basic import layer_norm_xla
+from gligen_tpu_torch.ops.basic import layer_norm_xla, tf32_off
 from gligen_tpu_torch.ops.launch import (
-    F32, I32, PTR, Kernel, c_entry, check, check_widths, differentiable, on_cuda,
+    F32, I32, PTR, Kernel, c_entry, check, check_widths, differentiable, kernel_dtype, on_cuda,
 )
 
 MAX_WEIGHTS = 3
@@ -116,8 +123,10 @@ def proj_smem(mode: str, tiles: Tiles, k: int) -> int:
 
 def _product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a @ w.T in real fp32 from operands rounded to a's dtype (no bf16
-    cuBLAS reductions): the plain versions' reference product."""
-    return a.float() @ w.to(a.dtype).float().T
+    cuBLAS reductions, and TF32 off on the card whatever the caller's
+    switch): the plain versions' reference product."""
+    with tf32_off():
+        return a.float() @ w.to(a.dtype).float().T
 
 
 def ln_matmuls_plain(
@@ -195,15 +204,23 @@ def _ln_geglu_chain(x, scale, bias, w, w_bias, eps):
 
 class _Proj(Kernel):
     """A mode of csrc/fused_proj.cu.  ``_run`` launches the C entry at the
-    table's tiles for the shape (counted), or at ``tiles`` in ``library``
-    (the tile sweep's: not counted, since that is no launch of this
-    wrapper's kernel)."""
+    table's tiles for the shape (counted, route "wgmma"), its fp32 route
+    ``f32_entry`` for fp32 operands (counted, route "fp32"), or the bf16
+    entry at ``tiles`` in ``library`` (the tile sweep's: not counted, since
+    that is no launch of this wrapper's kernel)."""
 
     library, mode = "fused_proj", ""
+    ROUTES = ("wgmma", "fp32")
+    f32_entry, f32_argtypes = "", ()
 
-    def _run(self, device, c_args, shape, tiles=None, library=None) -> None:
+    def _run(self, device, c_args, shape, tiles=None, library=None, f32=False) -> None:
+        if f32:
+            if library is not None:
+                raise ValueError(f"{self.mode}: the tile sweep runs the bf16 kernel only")
+            self._launch(device, *c_args, entry=(self.f32_entry, self.f32_argtypes), route="fp32")
+            return
         if library is None:
-            self._launch(device, *c_args, *proj_tiles(self.mode, *shape))
+            self._launch(device, *c_args, *proj_tiles(self.mode, *shape), route="wgmma")
             return
         fn = c_entry(library, self.entry, self.argtypes)
         err = fn(*c_args, *tiles, torch.cuda.current_stream(device).cuda_stream)
@@ -216,9 +233,10 @@ TILE_ARGS = (I32,) * 3  # bm, bn, stages
 
 
 class LnMatmuls(_Proj):
-    mode, entry = "ln_matmuls", "ln_matmuls_bf16"
-    # x, scale, bias, n_w, w0..w2, y0..y2, m, k, f, eps, bm, bn, stages
-    argtypes = (PTR,) * 3 + (I32,) + (PTR,) * 6 + (I32,) * 3 + (F32,) + TILE_ARGS
+    mode, entry, f32_entry = "ln_matmuls", "ln_matmuls_bf16", "ln_matmuls_f32"
+    # x, scale, bias, n_w, w0..w2, y0..y2, m, k, f, eps[, bm, bn, stages]
+    f32_argtypes = (PTR,) * 3 + (I32,) + (PTR,) * 6 + (I32,) * 3 + (F32,)
+    argtypes = f32_argtypes + TILE_ARGS
 
     def __call__(self, x, scale, bias, ws, eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
         """Same contract as ``ln_matmuls_plain``; 1 to 3 weights of one
@@ -239,21 +257,24 @@ class LnMatmuls(_Proj):
             raise ValueError(f"ln_matmuls: x (..., {c}) needs (F, {c}) weights of one shape "
                              f"and ({c},) norm parameters")
         check_widths("ln_matmuls", C=c, F=f)
-        check("ln_matmuls", x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
-               bias=(bias, torch.float32), **{f"w{i}": (w, torch.bfloat16) for i, w in enumerate(ws)})
+        dtype = kernel_dtype("ln_matmuls", x)
+        check("ln_matmuls", x.device, x=(x, dtype), scale=(scale, torch.float32),
+               bias=(bias, torch.float32), **{f"w{i}": (w, dtype) for i, w in enumerate(ws)})
         outs = tuple(torch.empty((*x.shape[:-1], f), dtype=x.dtype, device=x.device) for _ in ws)
         pad = (None,) * (MAX_WEIGHTS - len(ws))
         m = x.numel() // c
         self._run(x.device, (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), len(ws),
                              *(w.data_ptr() for w in ws), *pad, *(o.data_ptr() for o in outs),
-                             *pad, m, c, f, eps), (m, c, f), tiles, library)
+                             *pad, m, c, f, eps), (m, c, f), tiles, library,
+                  dtype == torch.float32)
         return outs
 
 
 class MatmulResidual(_Proj):
-    mode, entry = "matmul_residual", "matmul_residual_bf16"
-    # h, w, bias, x, gate, gate_value, y, m, k, f, bm, bn, stages
-    argtypes = (PTR,) * 5 + (F32, PTR) + (I32,) * 3 + TILE_ARGS
+    mode, entry, f32_entry = "matmul_residual", "matmul_residual_bf16", "matmul_residual_f32"
+    # h, w, bias, x, gate, gate_value, y, m, k, f[, bm, bn, stages]
+    f32_argtypes = (PTR,) * 5 + (F32, PTR) + (I32,) * 3
+    argtypes = f32_argtypes + TILE_ARGS
 
     def __call__(self, h, w, bias, x, gate: Gate = None) -> torch.Tensor:
         """Same contract as ``matmul_residual_plain``.  A tensor gate is
@@ -273,8 +294,9 @@ class MatmulResidual(_Proj):
             raise ValueError(f"matmul_residual: h {tuple(h.shape)}, w {tuple(w.shape)}, "
                              f"bias {tuple(bias.shape)} and x {tuple(x.shape)} do not fit")
         check_widths("matmul_residual", K=k, C=c)
-        check("matmul_residual", x.device, h=(h, torch.bfloat16), w=(w, torch.bfloat16),
-               bias=(bias, torch.float32), x=(x, torch.bfloat16))
+        dtype = kernel_dtype("matmul_residual", x)
+        check("matmul_residual", x.device, h=(h, dtype), w=(w, dtype),
+               bias=(bias, torch.float32), x=(x, dtype))
         gate_ptr = None
         if gate is not None:
             if gate.numel() != 1:
@@ -284,14 +306,16 @@ class MatmulResidual(_Proj):
         out = torch.empty_like(x)
         m = x.numel() // c
         self._run(x.device, (h.data_ptr(), w.data_ptr(), bias.data_ptr(), x.data_ptr(), gate_ptr,
-                             gate_value, out.data_ptr(), m, k, c), (m, k, c), tiles, library)
+                             gate_value, out.data_ptr(), m, k, c), (m, k, c), tiles, library,
+                  dtype == torch.float32)
         return out
 
 
 class LnGeglu(_Proj):
-    mode, entry = "ln_geglu", "ln_geglu_bf16"
-    # x, scale, bias, w, w_bias, y, m, k, f, eps, bm, bn, stages
-    argtypes = (PTR,) * 6 + (I32,) * 3 + (F32,) + TILE_ARGS
+    mode, entry, f32_entry = "ln_geglu", "ln_geglu_bf16", "ln_geglu_f32"
+    # x, scale, bias, w, w_bias, y, m, k, f, eps[, bm, bn, stages]
+    f32_argtypes = (PTR,) * 6 + (I32,) * 3 + (F32,)
+    argtypes = f32_argtypes + TILE_ARGS
 
     def __call__(self, x, scale, bias, w, w_bias, eps: float = 1e-5) -> torch.Tensor:
         """Same contract as ``ln_geglu_plain``.  Differentiable."""
@@ -310,13 +334,14 @@ class LnGeglu(_Proj):
                              f"and ({c},) norm parameters; w is {tuple(w.shape)}")
         f = f2 // 2
         check_widths("ln_geglu", C=c, F=f)
-        check("ln_geglu", x.device, x=(x, torch.bfloat16), scale=(scale, torch.float32),
-               bias=(bias, torch.float32), w=(w, torch.bfloat16), w_bias=(w_bias, torch.float32))
+        dtype = kernel_dtype("ln_geglu", x)
+        check("ln_geglu", x.device, x=(x, dtype), scale=(scale, torch.float32),
+               bias=(bias, torch.float32), w=(w, dtype), w_bias=(w_bias, torch.float32))
         out = torch.empty((*x.shape[:-1], f), dtype=x.dtype, device=x.device)
         m = x.numel() // c
         self._run(x.device, (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
                              w_bias.data_ptr(), out.data_ptr(), m, c, f, eps), (m, c, f),
-                  tiles, library)
+                  tiles, library, dtype == torch.float32)
         return out
 
 

@@ -65,25 +65,39 @@ class Kernel:
     """One C entry point ``entry`` of ``csrc/<library>.cu`` taking
     ``argtypes`` and then the stream, returning a cudaError_t.
     ``launches`` counts calls that launched it (never plain-version
-    calls), so a run can show that its path went through the kernel."""
+    calls), so a run can show that its path went through the kernel;
+    ``routes`` counts them by route (``ROUTES``: e.g. the bf16 kernel's
+    and the fp32 route's)."""
 
     library = ""
     entry = ""
     argtypes: tuple = ()
+    ROUTES: tuple = ()
 
     def __init__(self):
         self.launches = 0
+        self.routes = dict.fromkeys(self.ROUTES, 0)
 
-    def _launch(self, device: torch.device, *args,
-                entry: Optional[Tuple[str, tuple]] = None) -> None:
+    def _launch(self, device: torch.device, *args, entry: Optional[Tuple[str, tuple]] = None,
+                route: Optional[str] = None) -> None:
         """Launch ``entry`` ((name, argtypes); this wrapper's own by default)
-        on ``args`` and count it."""
+        on ``args`` and count it, under ``route`` too when given."""
         name, argtypes = entry or (self.entry, self.argtypes)
         err = c_entry(self.library, name, argtypes)(*args,
                                                     torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
         self.launches += 1
+        if route is not None:
+            self.routes[route] += 1
+
+
+def kernel_dtype(op: str, x: torch.Tensor) -> torch.dtype:
+    """The dtype of a kernel that has a bf16 kernel and an fp32 route: x's,
+    if it is one of the two; anything else raises."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{op}: x must be bfloat16 or float32 (the fp32 route), got {x.dtype}")
+    return x.dtype
 
 
 class _ChainVJP(torch.autograd.Function):

@@ -3,7 +3,7 @@
 and what each fused kernel costs against the module path's chain.
 
     python3 gligen_tpu_torch/tools/perf_probe.py request [--root DIR] [--fused 1|0]
-        [--norm gn|0|ln|both] [--conv 0|1|auto] [--model text|hed|sem]
+        [--norm gn|0|ln|both] [--conv 0|1|auto] [--model text|hed|sem] [--batch 2] [--steps 10]
     python3 gligen_tpu_torch/tools/perf_probe.py train [--root DIR] [--fused 1|0]
         [--norm gn|0|ln|both] [--conv 0|1|auto] [--remat full|none] [--batch 4] [--steps 5]
     python3 gligen_tpu_torch/tools/perf_probe.py chains
@@ -12,8 +12,8 @@ and what each fused kernel costs against the module path's chain.
 
 request: builds SD-1.4 GLIGEN at full width with ``chip_smoke.py``'s
 seeded, de-zeroed random weights and generates one warm-up request
-(batch 2, 512^2, 10 PLMS steps, alpha stages [0.3, 0, 0.7]), then
-three timed ones.  It then traces one more under ``torch.profiler``
+(batch 2, 512^2, 10 PLMS steps, alpha stages [0.3, 0, 0.7]; ``--batch``
+and ``--steps`` set the users' 8 and 50), then three timed ones.  It then traces one more under ``torch.profiler``
 (CUDA activity only, to keep the profiler's host cost low) and prints
 the device time by kernel category, the launches,
 and the device's idle share of the wall (1 - busy/wall, busy being the
@@ -265,13 +265,14 @@ def request(args) -> None:
     pipe = GenerationPipeline(comps)
     rng = np.random.default_rng(0)
     alpha = cs.SPATIAL_ALPHA[args.model] if spatial else [0.3, 0.0, 0.7]
-    kw = dict(steps=10, guidance_scale=7.5, alpha_stages=alpha, latent_size=64, generator=gen)
+    kw = dict(steps=args.steps, guidance_scale=7.5, alpha_stages=alpha, latent_size=64,
+              generator=gen)
 
     def run() -> float:
-        ids, uc, grounding = cs.make_request(rng, 2, 49408, 768)
+        ids, uc, grounding = cs.make_request(rng, args.batch, 49408, 768)
         extra = {}
         if spatial:
-            grounding, extra["grounding_extra"] = cs.spatial_request(rng, args.model, 2)
+            grounding, extra["grounding_extra"] = cs.spatial_request(rng, args.model, args.batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe.generate(ids, uc, grounding, **kw, **extra)
@@ -279,12 +280,12 @@ def request(args) -> None:
         return (time.perf_counter() - t0) * 1e3
 
     tag = (f"root {root.name} {args.model} PROJ={args.fused} NORM={args.norm} "
-           f"CONV={args.conv}")
+           f"CONV={args.conv} batch {args.batch} {args.steps} steps")
     first = run()
     walls = [run() for _ in range(3)]
     mean = sum(walls) / len(walls)
     print(f"request: {tag}: first {first:.1f} ms, warm {', '.join(f'{w:.1f}' for w in walls)} ms "
-          f"(mean {mean:.1f} ms = {mean / 2e3:.4f} s/img) on {card}", flush=True)
+          f"(mean {mean:.1f} ms = {mean / (args.batch * 1e3):.4f} s/img) on {card}", flush=True)
     wall, trace = traced(run)
     by_cat, busy, n, _ = device_breakdown(trace)
     total = sum(ms for ms, _ in by_cat.values())
@@ -555,6 +556,8 @@ def main() -> None:
         req.add_argument("--conv", choices=("0", "1", "auto"), default="0")
     sub.choices["request"].add_argument(
         "--model", choices=("text", "hed", "sem"), default="text")
+    sub.choices["request"].add_argument("--batch", type=int, default=2)
+    sub.choices["request"].add_argument("--steps", type=int, default=10)
     train_args = sub.choices["train"]
     train_args.add_argument("--remat", choices=("full", "none"), default="full")
     train_args.add_argument("--batch", type=int, default=4)

@@ -176,13 +176,15 @@ def test_fp32_route_input_checks(change, error):
 
 def test_port_imports_without_jax_or_nvcc():
     """Every module of the port (the training package and the tools
-    included) imports, and a CPU call, its backward, an optimizer step and
-    the projection budget tool run, in a Python where jax, flax and
-    gligen_tpu cannot be imported and no nvcc is on the PATH; only a kernel
-    build asks for nvcc."""
+    included) imports, and a CPU call, its backward, an optimizer step, the
+    projection budget tool, the tokenizer on non-ASCII text, the PNG codec
+    and the CLI's image reader run, in a Python where jax, flax,
+    gligen_tpu, regex, PIL and yaml cannot be imported (the GPU machine has
+    none of the last three) and no nvcc is on the PATH; only a kernel build
+    asks for nvcc."""
     code = """
-import importlib, pkgutil, sys
-for name in ("jax", "flax", "gligen_tpu"):
+import importlib, pkgutil, sys, tempfile
+for name in ("jax", "flax", "gligen_tpu", "regex", "PIL", "yaml"):
     sys.modules[name] = None
 import gligen_tpu_torch, torch
 for mod in pkgutil.walk_packages(gligen_tpu_torch.__path__, "gligen_tpu_torch."):
@@ -192,8 +194,21 @@ for name in ("training.train_step", "training.checkpoints", "convert.from_refere
              "tools.reference_ckpt", "ops.interpolate", "models.clip_vision",
              "models.grounding.text_image", "models.grounding.keypoint", "inference.adapters",
              "models.grounding.convnext", "models.grounding.spatial",
-             "models.grounding.downsamplers"):
+             "models.grounding.downsamplers", "data.tokenizer", "data.png",
+             "tools.bench_matrix"):
     assert f"gligen_tpu_torch.{name}" in sys.modules, name
+import numpy as np
+from gligen_tpu_torch.data import png, tokenizer
+assert tokenizer.pre_tokenize("café it's ²") == ["café", "it", "'s", "²"]
+assert tokenizer.HashTokenizer()(["a teddy bear"]).shape == (1, 77)
+with tempfile.TemporaryDirectory() as d:
+    png.write_png(d + "/x.png", np.arange(48, dtype=np.uint8).reshape(4, 4, 3))
+    assert png.read_png(d + "/x.png")[0].tolist() == np.arange(48).reshape(4, 4, 3).tolist()
+from gligen_tpu_torch.inference import cli
+assert cli.load_image_pm1("inference_images/hed.png").shape == (512, 512, 3)
+assert cli.prepare_batch_sem({"sem": "inference_images/sem.png"}, 1)["sem"].shape == (1, 512, 512)
+from gligen_tpu_torch.tools import bench_matrix
+assert bench_matrix._grounding("sem", 1)[1].shape == (1, 512, 512)
 from gligen_tpu_torch.models.clip_vision import clip_preprocess
 assert clip_preprocess(torch.zeros((1, 30, 20, 3), dtype=torch.uint8)).shape == (1, 224, 224, 3)
 from gligen_tpu_torch.utils.registry import GROUNDING_NETS, INPUT_ADAPTERS

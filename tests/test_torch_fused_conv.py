@@ -105,16 +105,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 @pytest.mark.parametrize("source,headers", [
-    ("fused_conv", ["common.cuh", "gemm_sm90.cuh", "hopper.cuh", "wgmma.cuh"]),
-    ("fused_conv_sweep", ["fused_conv.cu", "common.cuh", "gemm_sm90.cuh", "hopper.cuh",
-                          "wgmma.cuh"]),
-    ("fused_proj", ["common.cuh", "gemm_sm90.cuh", "hopper.cuh", "wgmma.cuh"]),
+    ("fused_conv", ["common.cuh", "gemm_f32.cuh", "gemm_sm90.cuh", "hopper.cuh", "wgmma.cuh"]),
+    ("fused_conv_sweep", ["fused_conv.cu", "common.cuh", "gemm_f32.cuh", "gemm_sm90.cuh",
+                          "hopper.cuh", "wgmma.cuh"]),
+    ("fused_proj", ["common.cuh", "gemm_f32.cuh", "gemm_sm90.cuh", "hopper.cuh", "wgmma.cuh"]),
 ])
 def test_library_hash_covers_the_shared_headers(monkeypatch, tmp_path, source, headers):
-    """The conv and the projections include common.cuh and the Hopper core
-    gemm_sm90.cuh, which includes hopper.cuh and wgmma.cuh (the conv's sweep
-    library includes the conv's source): a change to any of them gives the
-    source another library path, so a stale library is never reused."""
+    """The conv and the projections include common.cuh, the fp32 routes'
+    tile gemm_f32.cuh and the Hopper core gemm_sm90.cuh, which includes
+    hopper.cuh and wgmma.cuh (the conv's sweep library includes the conv's
+    source): a change to any of them gives the source another library path,
+    so a stale library is never reused."""
     from gligen_tpu_torch.ops import cuda_build
 
     files = cuda_build.source_files(source)

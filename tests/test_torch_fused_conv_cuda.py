@@ -63,13 +63,15 @@ def test_gn_silu_conv3x3_matches_plain(cuda, b, h, w, c, f, residual):
 
 @pytest.mark.gpu
 def test_refused_inputs_raise(cuda):
-    """fp32 activations and channel counts that are not multiples of 8 are
-    refused before any launch."""
+    """fp16 activations (the kernel takes bf16, and has an fp32 route) and
+    channel counts that are not multiples of 8 are refused before any
+    launch."""
     before = fc.gn_silu_conv3x3.launches, fc.gn_affine.launches
     ones = torch.ones(64, device=cuda)
     w = torch.zeros((32, 64, 3, 3), device=cuda)
     with pytest.raises(TypeError):
-        fc.gn_silu_conv3x3(torch.zeros((1, 4, 4, 64), device=cuda), ones, ones, w, ones[:32])
+        fc.gn_silu_conv3x3(torch.zeros((1, 4, 4, 64), dtype=torch.float16, device=cuda), ones,
+                           ones, w, ones[:32])
     with pytest.raises(ValueError, match="multiple of 8"):
         fc.gn_silu_conv3x3(torch.zeros((1, 4, 4, 64), dtype=BF16, device=cuda), ones, ones,
                            torch.zeros((12, 64, 3, 3), device=cuda), ones[:12])

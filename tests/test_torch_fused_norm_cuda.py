@@ -107,7 +107,7 @@ def test_layer_norm_matches_plain(cuda, rows, c):
 
 @pytest.mark.gpu
 def test_refused_inputs_raise(cuda):
-    """fp16 activations (fp32 ones too, for gn_affine and the LayerNorm),
+    """fp16 activations (every kernel takes bf16, and has an fp32 route),
     widths that are not multiples of 8 and groups that do not divide the
     channels are refused before any launch."""
     before = {name: k.launches for name, k in fn.KERNELS.items()}
@@ -115,9 +115,9 @@ def test_refused_inputs_raise(cuda):
     with pytest.raises(TypeError):
         fn.group_norm_fused(torch.zeros((2, 4, 64), dtype=torch.float16, device=cuda), ones, ones)
     with pytest.raises(TypeError):
-        fn.gn_affine(torch.zeros((2, 4, 64), device=cuda), ones, ones)
+        fn.gn_affine(torch.zeros((2, 4, 64), dtype=torch.float16, device=cuda), ones, ones)
     with pytest.raises(TypeError):
-        fn.layer_norm_fused(torch.zeros((4, 64), device=cuda), ones, ones)
+        fn.layer_norm_fused(torch.zeros((4, 64), dtype=torch.float16, device=cuda), ones, ones)
     with pytest.raises(ValueError, match="multiple of 8"):
         fn.group_norm_fused(torch.zeros((2, 4, 36), device=cuda), ones[:36], ones[:36], 4)
     with pytest.raises(ValueError, match="groups"):
