@@ -185,6 +185,23 @@ Phases, each of which fails the run with a non-zero exit:
      equal what its route or plan predicts (``fused_norm.cuda_launches``,
      ``fused_conv.cuda_launches``).  Last, so that no profiler session
      runs before the timed phases.
+ 16. trainer (M11b part 1; run after 8, its traced steps after 11):
+     ``gligen_tpu_torch.main.main`` in this process on
+     ``configs/flickr_text.yaml`` at full width (random weights de-zeroed
+     alike in every run), a 16-row TSV written under ``build/`` with PNG
+     payloads of 512 x 512, 640 x 512 and 1100 x 800 images and a seeded
+     projection matrix, batch 4, EMA, 2 fork workers, the preview on,
+     configuration (a), remat full: 6 steps (finite losses, the
+     checkpoints the JAX package's rule writes, frozen tensors bit for
+     bit, every trainable moved, each step's launches against
+     ``expected_train_launches``, every flash launch on the TMA route);
+     a resume to 8 restoring the saved state bit for bit; a SIGTERM after
+     the first logged step (a checkpoint at that step); the latent cache
+     of ``tools/prepare_latents.py``, the loss each way on the same draws;
+     the CLI serving the run's EMA shadow (``--train_ckpt --use_ema``),
+     one request; s/step with data, the host's decode and collate per
+     batch, peak memory, and the device's idle share over two traced
+     steps.  Where libjpeg is missing, a JPEG row must raise naming it.
 
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
@@ -2587,6 +2604,416 @@ def run_cli(torch, np, seed, device, steps, batch=2):
     return failures, s_per_img, rows
 
 
+# Phase 16: the Trainer through the training command line, on a TSV written
+# here.  Image sizes: 512^2 (at size, a copy), 640 x 512 (the crop alone) and
+# 1100 x 800 (bicubic down by 1.5625, center_crop_arr's other branch)
+TRAIN_DIR = REPO / "build" / "chip_smoke_train"
+TRAIN_ROWS = 16
+TRAIN_SHAPES = ((512, 512), (512, 640), (800, 1100))
+# a 4 x 4 JPEG (quality 95) and the sum of its decoded RGB pixels, PIL's
+# and libjpeg's accurate integer IDCT alike: decoded where libjpeg is
+JPEG_4X4 = (
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAIBAQEBAQIBAQECAgICAgQDAgICAgUEBAMEBgUGBgYFBgYGBwkIBgcJBwYG"
+    "CAsICQoKCgoKBggLDAsKDAkKCgr/2wBDAQICAgICAgUDAwUKBwYHCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoK"
+    "CgoKCgoKCgoKCgoKCgoKCgoKCgr/wAARCAAEAAQDASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcI"
+    "CQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRol"
+    "JicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ip"
+    "qrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAA"
+    "AAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLR"
+    "ChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaX"
+    "mJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEA"
+    "PwD2j9n/AFW9Hwwsf3vr/IUUUU+Gox/1fwun/LuP5I/IOHsFg/7Dw37uPwR6LsvI/9k=")
+JPEG_4X4_SUM = 5825
+# the cached-latent loss against the live encode's, same draws: both encode
+# the same pixels in bf16, the cache beside the flipped copy at batch 8 and
+# the step at batch 4 (cuDNN may pick other algorithms), so a few bf16 ulps
+# of the latents, far below a wrong latent (a flip or a row off: O(1))
+CACHE_LOSS_REL_TOL = 1e-2
+
+
+def write_train_data(np, seed):
+    """The phase's TSV at ``catalog.py``'s FlickrGrounding path under
+    ``TRAIN_DIR / "DATA"`` (``TRAIN_ROWS`` rows in the item format of the
+    data tests: a seeded uint8 image of ``TRAIN_SHAPES``, 1 to 6 boxes
+    inside the center crop, each with its 768-d embeddings) and a seeded
+    768 x 768 projection matrix; PNG payloads.  Returns (TSV path,
+    projection path, whether libjpeg decodes here, its line)."""
+    import shutil
+
+    from gligen_tpu_torch.data import jpeg, tsv
+    from gligen_tpu_torch.data.catalog import dataset_catalog
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    path = dataset_catalog(str(TRAIN_DIR / "DATA"))["FlickrGrounding"]["train_params"]["tsv_path"]
+    os.makedirs(os.path.dirname(path))
+    rng = np.random.default_rng(seed + 16)
+    proj = str(TRAIN_DIR / "projection_matrix.npy")
+    np.save(proj, (rng.standard_normal((768, 768)) / np.sqrt(768)).astype(np.float32))
+    writer = tsv.TSVWriter(path)
+    for i in range(TRAIN_ROWS):
+        h, w = TRAIN_SHAPES[i % len(TRAIN_SHAPES)]
+        annos = []
+        for k in range(1 + i % 6):
+            x0, y0 = rng.uniform(0.2 * w, 0.6 * w), rng.uniform(0.2 * h, 0.6 * h)
+            anno = {"bbox": [float(x0), float(y0), float(rng.uniform(0.1, 0.3) * w),
+                             float(rng.uniform(0.1, 0.3) * h)]}
+            for key in tsv.EMBEDDING_KEYS:
+                anno[key] = tsv.encode_base64_fp32(rng.standard_normal(768))
+            annos.append(anno)
+        item = {"data_id": i, "caption": f"a scene number {i}", "annos": annos,
+                "image": tsv.encode_base64_image(rng.integers(0, 256, (h, w, 3), np.uint8))}
+        writer.write([i, json.dumps(item)])
+    writer.close()
+    try:
+        jpeg.jpeg_library()
+    except OSError as e:
+        try:  # a JPEG row must raise, naming libjpeg
+            tsv.decode_base64_image(JPEG_4X4)
+            return path, proj, False, "FAIL: a JPEG row decoded without libjpeg"
+        except OSError as raised:
+            named = "libjpeg" in str(raised)
+        lines = str(e).splitlines()
+        why = next((l for l in lines if "error" in l), lines[-1]).strip()
+        return path, proj, False, (
+            f"no libjpeg on this machine ({why}): the rows are PNG; "
+            f"a JPEG row raises naming libjpeg {named}" + ("" if named else " FAIL"))
+    pixels = tsv.decode_base64_image(JPEG_4X4)
+    ok = pixels.shape == (4, 4, 3) and int(pixels.astype(np.int64).sum()) == JPEG_4X4_SUM
+    return path, proj, True, (f"libjpeg decodes here: a 4 x 4 JPEG's pixels as PIL's {ok}; the "
+                              f"rows are PNG (no JPEG encoder without PIL)" + ("" if ok else " FAIL"))
+
+
+def run_trainer(torch, np, seed, device, batch=4):
+    """Phase 16 (M11b part 1): ``gligen_tpu_torch.main.main`` in this process
+    on ``configs/flickr_text.yaml`` at full SD-1.4 GLIGEN width, the TSV of
+    ``write_train_data``, configuration (a), remat full, the preview on:
+    (1) 6 steps with EMA and 2 fork workers: a finite loss at every step and
+    logged step, the JAX rule's checkpoints, frozen tensors bit for bit,
+    every trainable moved, the preview's size, each step's launches against
+    ``expected_train_launches``, every flash launch on the TMA route; (2) a
+    resume to 8 in the same tag from step 6, its restored state bit for bit
+    the saved one; (3) a SIGTERM after the first logged step: a checkpoint
+    at that step, the event logged; (4) the latent cache of
+    ``tools/prepare_latents.py`` with the run's VAE, the loss each way on
+    the same draws; (5) the CLI serving the run's EMA shadow, one request.
+    Returns (failures, the Trainer, summary line); the Trainer's two traced
+    steps come after phase 11 (``train_idle_share``)."""
+    import shutil
+    import signal
+    import threading
+
+    from gligen_tpu_torch import main as train_main
+    from gligen_tpu_torch.data import png
+    from gligen_tpu_torch.inference import cli
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline
+    from gligen_tpu_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from gligen_tpu_torch.tools import prepare_latents
+    from gligen_tpu_torch.training import checkpoints as ckpt_io
+    from gligen_tpu_torch.training import trainer as trainer_mod
+    from gligen_tpu_torch.training.train_step import make_loss_fn
+
+    set_config("a")
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
+    failures = []
+    t0 = time.perf_counter()
+    tsv_path, proj, _, jpeg_line = write_train_data(np, seed)
+    from importlib.util import find_spec
+
+    present = ", ".join(f"{m} {'installed' if find_spec(m) else 'absent'}" for m in ("PIL", "yaml"))
+    print(f"trainer: wrote {TRAIN_ROWS} rows of {', '.join(f'{w} x {h}' for h, w in TRAIN_SHAPES)}"
+          f" images in {time.perf_counter() - t0:.1f} s; {jpeg_line}; on this machine {present} "
+          f"(the port imports neither)", flush=True)
+    if "FAIL" in jpeg_line:
+        failures.append("trainer jpeg")
+    os.environ["GLIGEN_TPU_PROJECTION_MATRIX"] = proj
+    out = TRAIN_DIR / "OUT"
+    flags = ["--yaml_file", str(REPO / "configs" / "flickr_text.yaml"), "--DATA_ROOT",
+             str(TRAIN_DIR / "DATA"), "--OUTPUT_ROOT", str(out), "--name", "smoke",
+             "--batch_size", str(batch), "--save_every_iters", "3", "--warmup_steps", "1",
+             "--enable_ema", "--workers", "2", "--seed", str(seed), "--device", str(device)]
+    wrappers = kernel_wrappers()
+    bwd = (flash_bwd_dq, flash_bwd_dkv)
+    rec = {"steps": [], "saves": [], "first": None, "unet": None}
+    real_components = trainer_mod.GligenComponents
+
+    class Dezeroed(real_components):
+        """Random weights de-zeroed from a seeded generator, alike in every
+        run: at a fresh init the zero output conv blocks every gradient."""
+
+        @classmethod
+        def create(cls, *args, **kwargs):
+            comps = real_components.create(*args, **kwargs)
+            dezero_(comps.unet, torch.Generator(device=device).manual_seed(seed + 161))
+            rec["unet"] = comps.unet
+            return comps
+
+    real_make, real_save = trainer_mod.make_train_step, trainer_mod.Trainer._save
+
+    def make_recording(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def recording(state, batch_, generator=None, draws=None):
+            if rec["first"] is not None:
+                rec["first"](state)
+                rec["first"] = None
+            for w in wrappers.values():
+                w.launches = 0
+            routes = [dict(flash_fwd.routes)] + [dict(k.routes) for k in bwd]
+            t = time.perf_counter()
+            metrics = step(state, batch_, generator, draws)
+            loss = metrics["loss"].item()
+            rec["steps"].append(dict(
+                t=t, step=state.step, loss=loss,
+                launches={name: w.launches for name, w in wrappers.items()},
+                copy=sum(k.routes["copy"] - r["copy"]
+                         for k, r in zip((flash_fwd, *bwd), routes))))
+            return metrics
+
+        return recording
+
+    def recording_save(self):
+        rec["saves"].append(time.perf_counter())
+        return real_save(self)
+
+    def run(total, first=None, extra=()):
+        rec["first"] = first
+        return train_main.main(flags + ["--total_iters", str(total), *extra])
+
+    trainer_mod.GligenComponents, trainer_mod.make_train_step = Dezeroed, make_recording
+    trainer_mod.Trainer._save = recording_save
+    try:
+        # ---- (1) six steps ----
+        torch.cuda.reset_peak_memory_stats()
+        start = {}
+
+        def snapshot(state):  # the UNet before its first step
+            start.update({n: p.detach().clone() for n, p in rec["unet"].named_parameters()})
+
+        t0 = time.perf_counter()
+        tr = run(6, first=snapshot)
+        wall1 = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tag = tr.tag_dir
+        steps1, saves1 = list(rec["steps"]), list(rec["saves"])
+        losses = [s["loss"] for s in steps1]
+        with open(os.path.join(tag, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        finite = bool(np.all(np.isfinite(losses))) and all(
+            np.isfinite(r["loss"]) for r in logged if "loss" in r)
+        frozen_ok = all(torch.equal(p, start[n]) for n, p in tr.unet.named_parameters()
+                        if n not in tr.state.params)
+        moved = all(not torch.equal(p, start[n]) for n, p in tr.state.params.items())
+        want_ckpts = {f"checkpoint_{it + 1:08d}" for it in range(6)
+                      if it == 5 or (it > 0 and it % 3 == 0)}
+        names = set(os.listdir(tag))
+        ckpt_ok = want_ckpts <= names and "checkpoint_latest" in names
+        previews = sorted(n for n in names if n.startswith("preview_"))
+        pixels, mode = png.read_png(os.path.join(tag, previews[-1]))
+        preview_ok = mode == "RGB" and pixels.shape == (2 * 512, batch * 512, 3)
+        expected = expected_train_launches(tr.components, 512, "a", use_checkpoint=True)
+        counts_ok = all({k: s["launches"][k] for k in expected} == expected for s in steps1)
+        copy = sum(s["copy"] for s in steps1)
+        print(f"trainer: (1) main() on configs/flickr_text.yaml, batch {batch}, 6 steps, EMA, "
+              f"2 fork workers: losses {', '.join(f'{x:.5f}' for x in losses)} (logged "
+              f"{[r['iter'] for r in logged]}) finite {finite}; {sorted(want_ckpts)} and "
+              f"checkpoint_latest {ckpt_ok}; frozen UNet tensors bit for bit {frozen_ok}, every "
+              f"one of {len(tr.state.params)} trainable tensors moved {moved}; {previews} "
+              f"{pixels.shape} {preview_ok}; launches per step as expected_train_launches "
+              f"{counts_ok} ({steps1[-1]['launches']}); flash launches on the copy route {copy}",
+              flush=True)
+        for ok, what in ((finite, "loss"), (ckpt_ok, "checkpoints"), (frozen_ok, "frozen"),
+                         (moved, "moved"), (preview_ok, "preview"), (counts_ok, "launches"),
+                         (copy == 0, "flash route")):
+            if not ok:
+                failures.append(f"trainer (1) {what}")
+        del start
+
+        # ---- (2) resume to 8 from step 6: the restored state bit for bit
+        # run (1)'s final state, which checkpoint_00000006 saved ----
+        saved = tr.state
+        restored = {}
+
+        def compare(state):
+            opt, want = state.optimizer.state_dict(), saved.optimizer.state_dict()
+            moments = all(torch.equal(opt["state"][i][k], s[k]) for i, s in want["state"].items()
+                          for k in ("step", "exp_avg", "exp_avg_sq"))
+            restored["ok"] = (
+                state.step == saved.step == 6
+                and all(torch.equal(p, saved.params[n]) for n, p in state.params.items())
+                and all(torch.equal(e, saved.ema_params[n]) for n, e in state.ema_params.items())
+                and moments and opt["param_groups"] == want["param_groups"]
+                and state.scheduler.state_dict() == saved.scheduler.state_dict())
+
+        rec["steps"].clear()
+        tr2 = run(8, first=compare)
+        resume_ok = (tr2.tag_dir == tag and tr2.starting_iter == 6 and tr2.state.step == 8
+                     and restored.get("ok", False))
+        print(f"trainer: (2) resume to 8 in {os.path.relpath(tag, REPO)} from step "
+              f"{tr2.starting_iter}: trainable, EMA, AdamW moments, schedule and step bit for "
+              f"bit the saved checkpoint {restored.get('ok')}; now at {tr2.state.step} "
+              f"{'ok' if resume_ok else 'FAIL'}", flush=True)
+        if not resume_ok:
+            failures.append("trainer (2) resume")
+        del saved, tr, tr2
+
+        # ---- (3) SIGTERM after the first logged step ----
+        metrics_path = os.path.join(tag, "metrics.jsonl")
+        with open(metrics_path) as f:
+            lines_before = len(f.readlines())
+
+        def send():
+            while True:
+                with open(metrics_path) as f:
+                    if len(f.readlines()) > lines_before:
+                        break
+                time.sleep(0.02)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        sender = threading.Thread(target=send, daemon=True)
+        sender.start()
+        rec["steps"].clear()
+        rec["saves"].clear()
+        tr3 = run(40, extra=["--save_every_iters", "1000"])  # no save before the signal
+        sender.join(timeout=60)
+        with open(metrics_path) as f:
+            last = json.loads(f.readlines()[-1])
+        latest = ckpt_io.latest_checkpoint(tag)
+        pre_ok = (last.get("event") == "preempted, checkpointed" and not sender.is_alive()
+                  and tr3.state.step == last["iter"] + 1 < 40
+                  and os.path.basename(latest) == f"checkpoint_{tr3.state.step:08d}")
+        print(f"trainer: (3) SIGTERM after the first logged step of a run to 40 from 8: "
+              f"{last} and {os.path.basename(latest)} {'ok' if pre_ok else 'FAIL'}", flush=True)
+        if not pre_ok:
+            failures.append("trainer (3) preemption")
+        # the loop's s/step, data included: the intervals between step starts
+        # of runs (1) and (3) that hold no checkpoint or preview, each run's
+        # first step left out
+        gaps = []
+        for steps, saves in ((steps1, saves1), (rec["steps"], rec["saves"])):
+            starts = [s["t"] for s in steps]
+            gaps += [b - a for a, b in list(zip(starts, starts[1:]))[1:]
+                     if not any(a < t < b for t in saves)]
+    finally:
+        trainer_mod.GligenComponents, trainer_mod.make_train_step = real_components, real_make
+        trainer_mod.Trainer._save = real_save
+    s_step = sum(gaps) / max(len(gaps), 1)
+
+    # ---- the host's decode and collate per batch, serial ----
+    dataset = tr3.build_dataset()
+    decode, collate = [], []
+    for i in range(0, TRAIN_ROWS, batch):
+        t = time.perf_counter()
+        items = [dataset[j] for j in range(i, i + batch)]
+        decode.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        tr3.collate(items)
+        collate.append(time.perf_counter() - t)
+
+    # ---- (4) the latent cache with the run's VAE, one step's loss each way ----
+    cache_dir = str(TRAIN_DIR / "latents")
+    prepare_latents.main(["--tsv", tsv_path, "--out_dir", cache_dir, "--batch", str(batch)],
+                         vae=tr3.vae)
+    tr3.run.cached_latents = cache_dir
+    cached_ds = tr3.build_dataset()
+    tr3.run.cached_latents = None
+    live_ds = tr3.build_dataset()
+    items_c, items_l = [cached_ds[i] for i in range(batch)], [live_ds[i] for i in range(batch)]
+    batch_c, batch_l = tr3.collate(items_c), tr3.collate(items_l)
+    batch_c.pop("image")
+    rng = np.random.default_rng(seed + 162)
+    lat = (batch, 64, 64, 4)
+    draws = {"posterior": rng.standard_normal(lat), "u_t": rng.random(batch),
+             "noise": rng.standard_normal(lat), "u_drop": rng.random(())}
+    loss_fn = make_loss_fn(tr3.unet, tr3.vae, tr3.text_encoder, tr3.schedule)
+    with torch.no_grad():
+        cached, live = loss_fn(batch_c, draws=draws).item(), loss_fn(batch_l, draws=draws).item()
+    diff = abs(cached - live)
+    cache_ok = np.isfinite(cached) and diff <= CACHE_LOSS_REL_TOL * abs(live)
+    print(f"trainer: (4) tools/prepare_latents.py with the run's VAE: the loss on {batch} cached "
+          f"latents {cached:.6f}, on the live encode {live:.6f} (same draws): "
+          f"{'equal' if cached == live else f'differ by {diff:.3e} = {diff / abs(live):.2e} of it'}"
+          f" (limit {CACHE_LOSS_REL_TOL:g} relative) {'ok' if cache_ok else 'FAIL'}", flush=True)
+    if not cache_ok:
+        failures.append("trainer (4) latent cache")
+
+    # ---- (5) the CLI serves the run's EMA shadow: its UNet checked as the
+    # request's generate starts ----
+    serve = ["--ckpt", "random", "--dezero", "--train_ckpt", tag, "--use_ema", "--batch_size",
+             "2", "--steps", "10", "--seed", str(seed), "--folder", str(TRAIN_DIR / "served"),
+             "--device", str(device)]
+    args = cli.parser().parse_args(serve)
+    ema = ckpt_io.load_training_params(tag, use_ema=True)
+    served = {}
+    real_generate = GenerationPipeline.generate
+
+    def checking(self, *a, **kw):
+        params = dict(self.c.unet.named_parameters())
+        served["ok"] = sorted(ema) == sorted(tr3.state.params) and all(
+            torch.equal(params[n].detach().cpu(), t) for n, t in ema.items())
+        return real_generate(self, *a, **kw)
+
+    meta = dict(next(m for m in cli.default_meta_list()
+                     if m["save_folder_name"] == "generation_box_text"), ckpt="random")
+    GenerationPipeline.generate = checking
+    try:
+        t = time.perf_counter()
+        paths = cli.run(meta, args)
+        request_s = time.perf_counter() - t
+    finally:
+        GenerationPipeline.generate = real_generate
+    served_ok = served.get("ok", False)
+    images = [png.read_png(p) for p in paths]
+    served_ok = served_ok and len(images) == 2 and all(
+        m == "RGB" and px.shape == (512, 512, 3) for px, m in images)
+    print(f"trainer: (5) the CLI with --ckpt random --train_ckpt {os.path.relpath(tag, REPO)} "
+          f"--use_ema: its UNet's {len(ema)} trainable tensors bit for bit the checkpoint's EMA "
+          f"shadow, one request of 2 images at 512^2 in {request_s:.2f} s (build included) "
+          f"{'ok' if served_ok else 'FAIL'}", flush=True)
+    if not served_ok:
+        failures.append("trainer (5) serving")
+    shutil.rmtree(out, ignore_errors=True)  # ~3 GB a checkpoint
+    line = (f"trainer: {s_step:.4f} s/step of the loop, data included (mean of {len(gaps)} "
+            f"intervals between step starts without a checkpoint or preview: "
+            f"{', '.join(f'{g:.4f}' for g in gaps)}), batch {batch} at 512^2, 2 fork workers; "
+            f"the host's decode {1e3 * sum(decode) / len(decode):.1f} ms and collate "
+            f"{1e3 * sum(collate) / len(collate):.1f} ms per batch (serial, mean of "
+            f"{len(decode)}); peak memory {peak:.2f} GiB over run (1) ({wall1:.1f} s wall, "
+            f"builds and previews included)")
+    print(line, flush=True)
+    return failures, tr3, line
+
+
+def train_idle_share(torch, trainer, batch=4):
+    """The device's idle share over two traced steps of phase 16's Trainer
+    (a batch from its loader, profiled with CUDA activity only): 1 - device
+    busy / the traced wall.  Run after phase 11, as no profiler run may
+    precede a timed phase."""
+    from gligen_tpu_torch.tools.perf_probe import device_breakdown, traced
+
+    set_config("a")
+    loader = trainer.batches(trainer.build_dataset())
+    try:
+        batches = [next(loader) for _ in range(2)]
+    finally:
+        loader.close()
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+
+    def two_steps():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in batches:
+            trainer._train_step(trainer.state, b, generator=gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    two_steps()  # warm
+    wall, trace = traced(two_steps)
+    _, busy, n, _ = device_breakdown(trace)
+    return (f"trainer: two traced steps (batch {batch} at 512^2, host batches ready): wall "
+            f"{wall:.1f} ms, device busy {busy:.1f} ms over {n} kernels and copies: idle "
+            f"{1 - busy / wall:.1%}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -2770,6 +3197,12 @@ def main() -> int:
             failures.append(f"train reference (use_checkpoint={use_checkpoint})")
     print(f"train: phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 16. the Trainer through the training command line ----
+    t0 = time.perf_counter()
+    trainer_failures, trainer, trainer_line = run_trainer(torch, np, args.seed, device)
+    failures += trainer_failures
+    print(f"trainer: phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 9. the tools at full ds1 width ----
     t0 = time.perf_counter()
     tool_failures, launches["bench_proj"], tool_checks, tool_report = run_tools(torch, device)
@@ -2804,10 +3237,15 @@ def main() -> int:
               f"{busy:.3f} ms device busy per request (profiled; {records} device records of "
               f"{calls} launch calls)", flush=True)
     del tokenizers
+    # phase 16's two traced steps, under the profiler: after every timed phase
+    idle_line = train_idle_share(torch, trainer)
+    print(idle_line, flush=True)
+    del trainer
 
     print("summary: s/img " + ", ".join(f"({c}) {s:.3f}" for c, s in s_per_img.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")
     print(f"summary: {train_line[len('train: '):]} on {card}")
+    print(f"summary: {trainer_line[len('trainer: '):]}; {idle_line[len('trainer: '):]} on {card}")
     print("summary: inpaint from a checkpoint, s/img " + ", ".join(
         f"{sampler} {s:.3f}" for sampler, s in inpaint_s.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} steps, fp32 encode, 512^2) on {card}")

@@ -1,0 +1,88 @@
+"""Dataset catalog (counterpart of ``gligen_tpu/data/catalog.py``, the
+reference's dataset/catalog.py:3-140): the 12 named training datasets
+mapped to {target, train_params}.  Targets are ``DATASETS`` registry names
+(``utils/registry.py``); the reference's dotted paths are the registered
+aliases.  The port registers the box-grounding TSV dataset
+(``data/box_dataset.py``); a target it does not register raises
+``KeyError`` when a config names it."""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+
+def dataset_catalog(root: str) -> Dict[str, Dict]:
+    j = lambda *p: os.path.join(root, *p)
+    box = "dataset.tsv_dataset.TSVDataset"
+    return {
+        "VGGrounding": {
+            "target": box,
+            "train_params": dict(tsv_path=j("GROUNDING/gqa/tsv/train-00.tsv")),
+        },
+        "FlickrGrounding": {
+            "target": box,
+            "train_params": dict(tsv_path=j("GROUNDING/flickr30k/tsv/train-00.tsv")),
+        },
+        "SBUGrounding": {
+            "target": box,
+            "train_params": dict(tsv_path=j("GROUNDING/SBU/tsv/train-00.tsv")),
+        },
+        "CC3MGrounding": {
+            "target": box,
+            "train_params": dict(tsv_path=j("GROUNDING/CC3M/tsv/train-00.tsv")),
+        },
+        "CC12MGrounding": {
+            "target": box,
+            "train_params": dict(tsv_path=j("GROUNDING/CC12M/tsv/train-00.tsv")),
+        },
+        "Obj365Detection": {
+            "target": box,
+            "train_params": dict(tsv_path=j("OBJECTS365/tsv/train-00.tsv")),
+        },
+        "CC3MGroundingHed": {
+            "target": "dataset.dataset_hed.HedDataset",
+            "train_params": dict(
+                tsv_path=j("GROUNDING/CC3M/tsv/train-00.tsv"),
+                hed_tsv_path=j("GROUNDING/CC3M/tsv_hed/train-00.tsv"),
+            ),
+        },
+        "CC3MGroundingCanny": {
+            "target": "dataset.dataset_canny.CannyDataset",
+            "train_params": dict(
+                tsv_path=j("GROUNDING/CC3M/tsv/train-00.tsv"),
+                canny_tsv_path=j("GROUNDING/CC3M/tsv_canny/train-00.tsv"),
+            ),
+        },
+        "CC3MGroundingDepth": {
+            "target": "dataset.dataset_depth.DepthDataset",
+            "train_params": dict(
+                tsv_path=j("GROUNDING/CC3M/tsv/train-00.tsv"),
+                depth_tsv_path=j("GROUNDING/CC3M/tsv_depth/train-00.tsv"),
+            ),
+        },
+        "COCO2017Keypoint": {
+            "target": "dataset.dataset_kp.KeypointDataset",
+            "train_params": dict(
+                image_root=j("COCO/images"),
+                keypoints_json_path=j("COCO/annotations2017/person_keypoints_train2017.json"),
+                caption_json_path=j("COCO/annotations2017/captions_train2017.json"),
+            ),
+        },
+        "DIODENormal": {
+            "target": "dataset.dataset_normal.NormalDataset",
+            "train_params": dict(
+                image_rootdir=j("normal/image_train"),
+                normal_rootdir=j("normal/normal_train"),
+                caption_path=j("normal/diode_cation.json"),
+            ),
+        },
+        "ADESemantic": {
+            "target": "dataset.dataset_sem.SemanticDataset",
+            "train_params": dict(
+                image_rootdir=j("ADE/ADEChallengeData2016/images/training"),
+                sem_rootdir=j("ADE/ADEChallengeData2016/annotations/training"),
+                caption_path=j("ADE/ade_train_images_cation.json"),
+            ),
+        },
+    }

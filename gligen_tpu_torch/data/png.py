@@ -12,7 +12,9 @@ caller that has it):
     by replication, RGBA -> RGB by dropping alpha, RGB (or RGBA) -> L as
     (19595 R + 38470 G + 7471 B + 0x8000) >> 16, PIL's ITU-R 601-2 luma in
     16-bit fixed point;
-  * writing: uint8 (H, W, 3) RGB or (H, W) L, filter None, zlib level 6.
+  * writing: uint8 (H, W, 3) RGB or (H, W) L, filter None, zlib level 6;
+  * both to and from bytes in memory (``decode_png``, ``encode_png``): the
+    training TSVs carry images as base64 payloads.
 
 JPEG, any other PNG, and any resize go through PIL, imported where they
 are used (``open_image``), so those calls raise where PIL is missing.
@@ -97,11 +99,11 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path) -> Tuple[np.ndarray, str]:
-    """(pixels, mode) of the PNG at ``path``: uint8 (H, W) for "L", (H, W, 3)
-    for "RGB", (H, W, 4) for "RGBA"."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_png(data: bytes, what: str = "the PNG") -> Tuple[np.ndarray, str]:
+    """(pixels, mode) of PNG bytes: uint8 (H, W) for "L", (H, W, 3) for
+    "RGB", (H, W, 4) for "RGBA"."""
+    if data[:8] != SIGNATURE:
+        raise ValueError(f"png: {what} is not a PNG")
     header, idat = None, []
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
@@ -109,15 +111,21 @@ def read_png(path) -> Tuple[np.ndarray, str]:
         elif kind == b"IDAT":
             idat.append(payload)
     if header is None:
-        raise ValueError(f"png: {path} has no IHDR")
+        raise ValueError(f"png: {what} has no IHDR")
     w, h, depth, colour, compression, filtering, interlace = header
     if depth != 8 or colour not in CHANNELS or compression or filtering or interlace:
-        raise _unsupported(f"{path}: bit depth {depth}, colour type {colour}, interlace "
+        raise _unsupported(f"{what}: bit depth {depth}, colour type {colour}, interlace "
                            f"{interlace}")
     bpp = CHANNELS[colour]
     pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp)
     shape = (h, w) if bpp == 1 else (h, w, bpp)
     return pixels.reshape(shape), MODES[colour]
+
+
+def read_png(path) -> Tuple[np.ndarray, str]:
+    """``decode_png`` of the file at ``path``."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), os.fspath(path))
 
 
 def convert(pixels: np.ndarray, mode: str, to: str) -> np.ndarray:
@@ -134,8 +142,8 @@ def convert(pixels: np.ndarray, mode: str, to: str) -> np.ndarray:
     return luma.astype(np.uint8)
 
 
-def write_png(path, pixels: np.ndarray) -> None:
-    """Write uint8 (H, W, 3) RGB or (H, W) L pixels as a PNG."""
+def encode_png(pixels: np.ndarray) -> bytes:
+    """uint8 (H, W, 3) RGB or (H, W) L pixels as PNG bytes."""
     pixels = np.asarray(pixels)
     if pixels.dtype != np.uint8 or not (pixels.ndim == 2 or (pixels.ndim == 3
                                                              and pixels.shape[2] == 3)):
@@ -149,9 +157,15 @@ def write_png(path, pixels: np.ndarray) -> None:
         return (struct.pack(">I", len(payload)) + kind + payload
                 + struct.pack(">I", zlib.crc32(kind + payload)))
 
+    return (SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path, pixels: np.ndarray) -> None:
+    """Write uint8 (H, W, 3) RGB or (H, W) L pixels as a PNG."""
+    data = encode_png(pixels)
     with open(path, "wb") as f:
-        f.write(SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+        f.write(data)
 
 
 def open_image(path, mode: str) -> np.ndarray:

@@ -48,7 +48,11 @@ from gligen_tpu_torch.inference.adapters import get_adapter
 from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
 from gligen_tpu_torch.models.clip_vision import clip_preprocess
 from gligen_tpu_torch.ops.basic import tf32_off
-from gligen_tpu_torch.training.checkpoints import checkpoint_config, gligen_state_dicts
+from gligen_tpu_torch.training.checkpoints import (
+    checkpoint_config,
+    gligen_state_dicts,
+    load_training_params,
+)
 
 SCHEDULE_KEYS = ("timesteps", "linear_start", "linear_end")
 
@@ -404,13 +408,12 @@ def build_pipeline(ckpt: str, args, create: Callable[..., GligenComponents] = Gl
     ``pipe.unet_config``: "random[:tags]" builds random components with
     ``create`` (``GligenComponents.create``'s keywords; a test passes a
     smaller model), de-zeroed with ``--dezero``; a path loads a reference
-    checkpoint (``--sd_input_conv``, ``--use_ema``).  Real weights need a
+    checkpoint (``--sd_input_conv``, ``--use_ema``).  ``--train_ckpt``
+    then overlays a native training run's trainable tensors (its EMA shadow
+    with ``--use_ema``; cli.py:333-348).  Real weights need a
     CLIP vocab (``--vocab_path`` / $GLIGEN_TPU_ASSETS) unless
     ``--allow_hash_tokenizer``: the hash fallback would condition on
     garbage."""
-    if args.train_ckpt:
-        raise NotImplementedError("--train_ckpt overlays a native training run: ROADMAP M11b "
-                                  "(the Trainer and its checkpoints) has not been ported")
     if args.data_parallel:
         raise NotImplementedError("--data_parallel shards the batch over several cards: ROADMAP "
                                   "M12 (multi-GPU) has not been ported")
@@ -438,10 +441,28 @@ def build_pipeline(ckpt: str, args, create: Callable[..., GligenComponents] = Gl
                                            use_ema=args.use_ema, dtype=dtype,
                                            device=device)
         unet_config = dict(checkpoint_config(ckpt_dict).get("model", {}).get("params", {}))
+    if args.train_ckpt:
+        overlay_training_params(comps.unet, load_training_params(args.train_ckpt,
+                                                                 use_ema=args.use_ema))
     pipe = GenerationPipeline(comps)
     pipe.tokenizer = tokenizer
     pipe.unet_config = unet_config
     return pipe
+
+
+def overlay_training_params(unet: nn.Module, loaded: Mapping[str, torch.Tensor]) -> None:
+    """Copy a native training checkpoint's tensors (``load_training_params``:
+    the fusers, the position net, the downsampler, a widened first conv)
+    into the UNet's parameters of the same names: train on the card, serve
+    the result.  A name the UNet does not have raises ``ValueError``."""
+    params = dict(unet.named_parameters())
+    missing = sorted(set(loaded) - set(params))
+    if missing:
+        raise ValueError(f"train_ckpt tensors not in the UNet: {missing[:4]}"
+                         + (f" and {len(missing) - 4} more" if len(missing) > 4 else ""))
+    with torch.no_grad():
+        for name, val in loaded.items():
+            params[name].copy_(val)
 
 
 def load_projection_matrix(path: str) -> np.ndarray:
@@ -694,8 +715,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--data_parallel", action="store_true",
                     help="shard the batch over every card (ROADMAP M12: not ported; raises)")
     ap.add_argument("--train_ckpt", type=str, default=None,
-                    help="native training checkpoint to overlay (ROADMAP M11b: not ported; "
-                    "raises)")
+                    help="a native training checkpoint (a checkpoint_<step> file or its tag "
+                    "dir) whose trainable tensors overlay the model's (--use_ema: its EMA shadow)")
     ap.add_argument("--dezero", action="store_true",
                     help="de-zero a random-init model's zero-init tensors and fuser gates "
                     "(deterministic in the parameter name) so random-weight runs exercise "

@@ -1,5 +1,6 @@
-"""Reference-format checkpoint loading (counterpart of the torch-file part
-of ``gligen_tpu/training/checkpoints.py``, :38-88).
+"""Checkpoints (counterpart of ``gligen_tpu/training/checkpoints.py``):
+reference-format loading (:38-88) and the Trainer's native save/resume
+(:91-177).
 
 The reference saves monolithic torch dicts {model, ema, autoencoder,
 text_encoder, diffusion, opt, scheduler, iters, config_dict}
@@ -7,13 +8,23 @@ text_encoder, diffusion, opt, scheduler, iters, config_dict}
 (gligen_inference.py:70-86); the official SD checkpoint is one state dict
 split by key prefix (trainer.py:64-85).  Each loader is ``torch.load``
 followed by a function of the loaded dict, so a checkpoint already in
-memory (on any device) loads the same way.  Native save/resume is the
-Trainer's (ROADMAP M11b).
+memory (on any device) loads the same way.
+
+A native training checkpoint is one ``torch.save`` file,
+``<tag dir>/checkpoint_<step:08d>``, of {"step", "train_params" and
+optionally "ema_params" (the trainable tensors by the UNet's parameter
+names), "optimizer" (AdamW's ``state_dict``), "scheduler" (the LR
+schedule's)}, beside a ``checkpoint_latest`` marker naming the newest and
+the run's ``config.json``; runs resume from the newest ``tagNN`` directory
+that holds one (trainer.py:126-153), as in the JAX package, whose
+checkpoints are orbax trees of the same content.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -97,3 +108,94 @@ def official_sd_state_dicts(ckpt: Mapping[str, Any]) -> StateDicts:
 def load_official_sd_checkpoint(path: str) -> StateDicts:
     """``sd-v1-4.ckpt`` -> ``official_sd_state_dicts`` of it."""
     return official_sd_state_dicts(_load(path))
+
+
+# ---------------------------------------------------------- native
+
+def save_training_checkpoint(directory: str, step: int, state: Mapping[str, Any],
+                             config: Optional[Dict] = None) -> str:
+    """Write ``<directory>/checkpoint_<step:08d>`` (``torch.save`` of
+    ``state``, its tensors on the CPU), then ``config.json`` and the
+    ``checkpoint_latest`` marker; each file is written under a temporary
+    name and renamed, so a reader never sees half a file."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"checkpoint_{step:08d}")
+    torch.save(_to_cpu(state), path + ".tmp")
+    os.replace(path + ".tmp", path)
+    if config is not None:
+        _write_text(os.path.join(directory, "config.json"),
+                    json.dumps(config, indent=2, default=str))
+    _write_text(os.path.join(directory, "checkpoint_latest"), os.path.basename(path))
+    return path
+
+
+def _write_text(path: str, text: str) -> None:
+    with open(path + ".tmp", "w") as f:
+        f.write(text)
+    os.replace(path + ".tmp", path)
+
+
+def _to_cpu(obj: Any) -> Any:
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, Mapping):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def latest_checkpoint(directory: str) -> Optional[str]:
+    """The checkpoint the marker names, else the highest-numbered one."""
+    marker = os.path.join(directory, "checkpoint_latest")
+    if os.path.exists(marker):
+        with open(marker) as f:
+            name = f.read().strip()
+        path = os.path.join(directory, name)
+        if os.path.exists(path):
+            return path
+    steps = sorted(
+        n for n in (os.listdir(directory) if os.path.isdir(directory) else [])
+        if re.fullmatch(r"checkpoint_\d+", n)
+    )
+    return os.path.join(directory, steps[-1]) if steps else None
+
+
+def restore_training_checkpoint(path: str) -> Dict[str, Any]:
+    """The state ``save_training_checkpoint`` wrote, tensors on the CPU
+    (tensors and plain values only: nothing is unpickled)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_training_params(path_or_dir: str, use_ema: bool = False) -> Dict[str, torch.Tensor]:
+    """A native checkpoint's trainable tensors by UNet parameter name, for
+    serving: ``path_or_dir`` is a checkpoint file or a tag dir (its latest
+    is taken); ``use_ema`` gives the EMA shadow (trainer.py:252-257)."""
+    path = path_or_dir
+    if not os.path.basename(os.path.normpath(path)).startswith("checkpoint_"):
+        found = latest_checkpoint(path_or_dir)
+        if found is None:
+            raise FileNotFoundError(f"no checkpoint_* under {path_or_dir}")
+        path = found
+    state = restore_training_checkpoint(path)
+    key = "ema_params" if use_ema else "train_params"
+    if state.get(key) is None:
+        raise ValueError(f"{path} has no {key!r}"
+                         + (" (trained without enable_ema)" if use_ema else ""))
+    return dict(state[key])
+
+
+def find_resume_dir(output_root: str, name: str) -> Tuple[str, Optional[str]]:
+    """Auto-resume tag scan (trainer.py:126-153): (tag dir to use,
+    checkpoint or None).  Existing tags are scanned newest first; one with
+    a checkpoint is resumed in place, else a fresh tagNN is made."""
+    base = os.path.join(output_root, name)
+    os.makedirs(base, exist_ok=True)
+    tags = sorted((t for t in os.listdir(base) if re.fullmatch(r"tag\d\d", t)), reverse=True)
+    for tag in tags:
+        ckpt = latest_checkpoint(os.path.join(base, tag))
+        if ckpt:
+            return os.path.join(base, tag), ckpt
+    tag_dir = os.path.join(base, f"tag{len(tags):02d}")
+    os.makedirs(tag_dir, exist_ok=True)
+    return tag_dir, None

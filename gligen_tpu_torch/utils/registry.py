@@ -40,9 +40,10 @@ class Registry:
         return name in self._entries
 
 
-# The grounding tokenizers, downsamplers and input adapters, registered by
-# their modules; the other kinds of the JAX package's registry come with the
-# modules that use them.
+# The grounding tokenizers, downsamplers, input adapters and training
+# datasets, registered by their modules; the other kinds of the JAX
+# package's registry come with the modules that use them.
 GROUNDING_NETS = Registry("grounding_tokenizer")
 DOWNSAMPLERS = Registry("grounding_downsampler")
 INPUT_ADAPTERS = Registry("grounding_input")
+DATASETS = Registry("dataset")

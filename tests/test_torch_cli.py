@@ -299,8 +299,7 @@ def test_real_checkpoint_without_a_vocab_exits(monkeypatch, tmp_path):
         cli.build_pipeline(str(tmp_path / "real.pth"), args_for(tmp_path))
 
 
-@pytest.mark.parametrize("flag,item", [(["--train_ckpt", "run/tag01"], "M11b"),
-                                       (["--data_parallel"], "M12")])
+@pytest.mark.parametrize("flag,item", [(["--data_parallel"], "M12")])
 def test_unported_flags_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.build_pipeline("random", args_for(tmp_path, *flag))

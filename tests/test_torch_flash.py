@@ -177,8 +177,10 @@ def test_fp32_route_input_checks(change, error):
 def test_port_imports_without_jax_or_nvcc():
     """Every module of the port (the training package and the tools
     included) imports, and a CPU call, its backward, an optimizer step, the
-    projection budget tool, the tokenizer on non-ASCII text, the PNG codec
-    and the CLI's image reader run, in a Python where jax, flax,
+    projection budget tool, the tokenizer on non-ASCII text, the PNG codec,
+    the CLI's image reader, the YAML reader on every config, the training
+    command line's parser, the crop and the TSV image codec run, in a
+    Python where jax, flax,
     gligen_tpu, regex, PIL and yaml cannot be imported (the GPU machine has
     none of the last three) and no nvcc is on the PATH; only a kernel build
     asks for nvcc."""
@@ -195,7 +197,9 @@ for name in ("training.train_step", "training.checkpoints", "convert.from_refere
              "models.grounding.text_image", "models.grounding.keypoint", "inference.adapters",
              "models.grounding.convnext", "models.grounding.spatial",
              "models.grounding.downsamplers", "data.tokenizer", "data.png",
-             "tools.bench_matrix"):
+             "tools.bench_matrix", "config", "main", "data.tsv", "data.native", "data.jpeg",
+             "data.transforms", "data.catalog", "data.concat", "data.box_dataset",
+             "data.latent_cache", "training.trainer", "tools.prepare_latents"):
     assert f"gligen_tpu_torch.{name}" in sys.modules, name
 import numpy as np
 from gligen_tpu_torch.data import png, tokenizer
@@ -209,6 +213,17 @@ assert cli.load_image_pm1("inference_images/hed.png").shape == (512, 512, 3)
 assert cli.prepare_batch_sem({"sem": "inference_images/sem.png"}, 1)["sem"].shape == (1, 512, 512)
 from gligen_tpu_torch.tools import bench_matrix
 assert bench_matrix._grounding("sem", 1)[1].shape == (1, 512, 512)
+import glob
+from gligen_tpu_torch import config, main
+for path in glob.glob("configs/*.yaml"):
+    assert config.load_yaml_config(path)["model"]["params"]["model_channels"] == 320, path
+assert main.parse_args([]).device == "cuda"
+from gligen_tpu_torch.data import transforms, tsv
+img = np.arange(40 * 30 * 3, dtype=np.uint8).reshape(40, 30, 3)
+assert transforms.center_crop_arr(img, 16)[0].shape == (16, 16, 3)
+assert (tsv.decode_base64_image(tsv.encode_base64_image(img)) == img).all()
+from gligen_tpu_torch.training.trainer import TrainerConfig
+assert TrainerConfig().seed == 123
 from gligen_tpu_torch.models.clip_vision import clip_preprocess
 assert clip_preprocess(torch.zeros((1, 30, 20, 3), dtype=torch.uint8)).shape == (1, 224, 224, 3)
 from gligen_tpu_torch.utils.registry import GROUNDING_NETS, INPUT_ADAPTERS
