@@ -1388,7 +1388,9 @@ def expected_train_launches(comps, image_size, config, use_checkpoint):
     remat 'full').  The backward launches dq for attn1, the fuser and attn2
     (whose q derive from the trainable fusers), and dk/dv for attn1 and the
     fuser, but neither for the first block's attn1, whose input derives
-    from frozen layers alone.  GroupNorms run once each (none is inside a
+    from frozen layers alone, unless the first conv trains (a model with a
+    grounding downsampler, or inpainting: train_step.py's
+    ``input_conv_train``), when it gets both.  GroupNorms run once each (none is inside a
     block), as in ``expected_launches``, plus the VAE encoder's; its
     AttnBlocks add flash forwards.  The norm and projection backwards are
     plain PyTorch and launch no kernel."""
@@ -1403,7 +1405,7 @@ def expected_train_launches(comps, image_size, config, use_checkpoint):
     runs = 2 if use_checkpoint else 1
     floor = 1024 if use_checkpoint else 64
     counts = dict.fromkeys(kernel_wrappers(), 0)
-    first = 1
+    first = 0 if comps.unet.downsample_net is not None or comps.unet.inpaint_mode else 1
     for h, _, depth in sts:
         fused = env["GLIGEN_TPU_FUSED_PROJ"] == "1" and h * h >= floor
         for _ in range(depth):
@@ -2506,15 +2508,21 @@ def run_fp32(torch, np, seed, device, steps, batch=2, size=512):
     return failures, s_per_img, launches
 
 
-# Phase 15: the reference's scenarios through the CLI.  The 8 whose inputs
-# are PNGs or none run through ``main``; the 3 that read JPEGs through
-# ``run`` with seeded uint8 arrays in their place (the GPU machine has no
-# PIL, so no JPEG decoder).
+# Phase 15: the reference's 11 scenarios through the CLI's ``main``, each
+# reading its inputs from inference_images/ (PNG, and JPEG through the
+# port's decoder).
 CLI_MAIN_SCENARIOS = ("generation_box_text", "generation_box_image", "hed", "canny", "normal",
-                      "depth", "sem", "keypoint")
-CLI_ARRAY_SCENARIOS = ("inpainting_box_text", "generation_box_text_style",
-                       "inpainting_box_image")
+                      "depth", "sem", "keypoint", "inpainting_box_text",
+                      "generation_box_text_style", "inpainting_box_image")
 CLI_DIR = REPO / "build" / "chip_smoke_cli"
+# sha256 of PIL's (libjpeg-turbo's) RGB decode of each inference_images/*.jpg;
+# tests/test_torch_jpeg.py holds them to PIL's decode on the CPU
+JPEG_DIGESTS = {
+    "beach": "6ff1e7dd489f29cf147c4e0b1d086d308e8bc04edb83420ebd62d47fb29bc9d6",
+    "bigben": "e9c9dfe66febb2bc84e5ac505243c50bd0445ef82f6682ce45a0d5ae1cd2ac7b",
+    "dalle2_museum": "f064ba689dac6b65e35932ad11c99044b2a4331c8b27712ca590e28553bf0c69",
+    "style_golden": "734d4acecea05c496d26ebeddd9e6fcd91765ba16c856e02753610000d6ed9cc",
+}
 # bench_matrix's rows at the users' operating point
 MATRIX_ROWS = ("plms50", "hed")
 MATRIX_BATCH = 8
@@ -2523,9 +2531,9 @@ MATRIX_BATCH = 8
 def run_cli(torch, np, seed, device, steps, batch=2):
     """Phase 15 (M10): ``inference/cli.py`` in this process, ``--ckpt random
     --dezero`` at full width, ``batch`` images, ``steps`` PLMS steps, in
-    configuration (a): each of ``CLI_MAIN_SCENARIOS`` through ``main``, each
-    of ``CLI_ARRAY_SCENARIOS`` through ``run`` with arrays for its JPEGs.
-    Every PNG written must read back (``data/png.py``) equal to
+    configuration (a): each of ``CLI_MAIN_SCENARIOS`` through ``main``, its
+    inputs read from their files (the JPEGs by the port's decoder).  Every
+    PNG written must read back (``data/png.py``) equal to
     ``(img * 255).astype(uint8)`` of the image ``generate`` returned, and
     each scenario must launch the path's kernels.  Then ``bench_matrix``'s
     ``MATRIX_ROWS`` at batch ``MATRIX_BATCH``, 50 steps, one repeat.
@@ -2542,7 +2550,6 @@ def run_cli(torch, np, seed, device, steps, batch=2):
     flags = ["--ckpt", "random", "--dezero", "--batch_size", str(batch), "--steps", str(steps),
              "--seed", str(seed), "--folder", str(CLI_DIR)]
     metas = {m["save_folder_name"]: m for m in cli.default_meta_list()}
-    rng = np.random.default_rng(seed + 31)
     wrappers = kernel_wrappers()
     failures, s_per_img, recorded = [], {}, []
     real_generate = GenerationPipeline.generate
@@ -2555,31 +2562,19 @@ def run_cli(torch, np, seed, device, steps, batch=2):
         recorded.append((img.cpu().numpy(), time.perf_counter() - t0))
         return img
 
-    def array(size):
-        return rng.integers(0, 256, size=(size, size, 3)).astype(np.uint8)
-
     cwd = os.getcwd()
     GenerationPipeline.generate = recording
     os.chdir(REPO)  # the scenarios name their inputs from the repository's root
     try:
-        for name in CLI_MAIN_SCENARIOS + CLI_ARRAY_SCENARIOS:
+        for name in CLI_MAIN_SCENARIOS:
             for w in wrappers.values():
                 w.launches = 0
             recorded.clear()
-            if name in CLI_MAIN_SCENARIOS:
-                cli.main(flags + ["--scenarios", name])
-                how = "main()"
-            else:
-                meta = dict(metas[name], ckpt=cli._tag_random(metas[name], "random"))
-                jpegs = [p for p in [meta.get("input_image"), *meta.get("images", [])]
-                         if isinstance(p, str) and p.endswith(".jpg")]
-                if "input_image" in meta:
-                    meta["input_image"] = array(512)
-                meta["images"] = [array(224) if p.endswith(".jpg") else p
-                                  for p in meta.get("images", [])]
-                cli.run(meta, cli.parser().parse_args(flags))
-                how = (f"run() with seeded uint8 arrays for {jpegs} (no JPEG decoder, PIL, on "
-                       "this machine)")
+            cli.main(flags + ["--scenarios", name])
+            meta = metas[name]
+            jpegs = [p for p in [meta.get("input_image"), *meta.get("images", [])]
+                     if isinstance(p, str) and p.endswith(".jpg")]
+            how = "main()" + (f", reading {', '.join(jpegs)}" if jpegs else "")
             (images, seconds), = recorded
             written = [png.read_png(CLI_DIR / name / f"{i}.png") for i in range(batch)]
             same = all(mode == "RGB" and np.array_equal(pix, (img * 255).astype(np.uint8))
@@ -2611,7 +2606,7 @@ TRAIN_DIR = REPO / "build" / "chip_smoke_train"
 TRAIN_ROWS = 16
 TRAIN_SHAPES = ((512, 512), (512, 640), (800, 1100))
 # a 4 x 4 JPEG (quality 95) and the sum of its decoded RGB pixels, PIL's
-# and libjpeg's accurate integer IDCT alike: decoded where libjpeg is
+# and the port's decoder's (the accurate integer IDCT) alike
 JPEG_4X4 = (
     "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAIBAQEBAQIBAQECAgICAgQDAgICAgUEBAMEBgUGBgYFBgYGBwkIBgcJBwYG"
     "CAsICQoKCgoKBggLDAsKDAkKCgr/2wBDAQICAgICAgUDAwUKBwYHCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoK"
@@ -2637,10 +2632,10 @@ def write_train_data(np, seed):
     data tests: a seeded uint8 image of ``TRAIN_SHAPES``, 1 to 6 boxes
     inside the center crop, each with its 768-d embeddings) and a seeded
     768 x 768 projection matrix; PNG payloads.  Returns (TSV path,
-    projection path, whether libjpeg decodes here, its line)."""
+    projection path, whether the JPEG decoder decodes here, its line)."""
     import shutil
 
-    from gligen_tpu_torch.data import jpeg, tsv
+    from gligen_tpu_torch.data import tsv
     from gligen_tpu_torch.data.catalog import dataset_catalog
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -2664,23 +2659,11 @@ def write_train_data(np, seed):
                 "image": tsv.encode_base64_image(rng.integers(0, 256, (h, w, 3), np.uint8))}
         writer.write([i, json.dumps(item)])
     writer.close()
-    try:
-        jpeg.jpeg_library()
-    except OSError as e:
-        try:  # a JPEG row must raise, naming libjpeg
-            tsv.decode_base64_image(JPEG_4X4)
-            return path, proj, False, "FAIL: a JPEG row decoded without libjpeg"
-        except OSError as raised:
-            named = "libjpeg" in str(raised)
-        lines = str(e).splitlines()
-        why = next((l for l in lines if "error" in l), lines[-1]).strip()
-        return path, proj, False, (
-            f"no libjpeg on this machine ({why}): the rows are PNG; "
-            f"a JPEG row raises naming libjpeg {named}" + ("" if named else " FAIL"))
     pixels = tsv.decode_base64_image(JPEG_4X4)
     ok = pixels.shape == (4, 4, 3) and int(pixels.astype(np.int64).sum()) == JPEG_4X4_SUM
-    return path, proj, True, (f"libjpeg decodes here: a 4 x 4 JPEG's pixels as PIL's {ok}; the "
-                              f"rows are PNG (no JPEG encoder without PIL)" + ("" if ok else " FAIL"))
+    return path, proj, True, (f"the port's JPEG decoder (no libjpeg): a 4 x 4 JPEG's pixels as "
+                              f"PIL's {ok}; the rows are PNG (phase 17 trains on JPEG rows)"
+                              + ("" if ok else " FAIL"))
 
 
 def run_trainer(torch, np, seed, device, batch=4):
@@ -2983,7 +2966,7 @@ def run_trainer(torch, np, seed, device, batch=4):
     return failures, tr3, line
 
 
-def train_idle_share(torch, trainer, batch=4):
+def train_idle_share(torch, trainer, batch=4, label="trainer"):
     """The device's idle share over two traced steps of phase 16's Trainer
     (a batch from its loader, profiled with CUDA activity only): 1 - device
     busy / the traced wall.  Run after phase 11, as no profiler run may
@@ -3009,9 +2992,292 @@ def train_idle_share(torch, trainer, batch=4):
     two_steps()  # warm
     wall, trace = traced(two_steps)
     _, busy, n, _ = device_breakdown(trace)
-    return (f"trainer: two traced steps (batch {batch} at 512^2, host batches ready): wall "
+    return (f"{label}: two traced steps (batch {batch} at 512^2, host batches ready): wall "
             f"{wall:.1f} ms, device busy {busy:.1f} ms over {n} kernels and copies: idle "
             f"{1 - busy / wall:.1%}")
+
+
+# Phase 17 (M11b part 2): the keypoint and spatial modalities trained from
+# the reference's on-disk formats, written under MODALITY_DIR at the
+# catalog's paths from the repository's JPEGs: (modality, config, steps)
+MODALITY_DIR = REPO / "build" / "chip_smoke_modalities"
+MODALITY_RUNS = (("keypoint", "coco2017K.yaml", 3), ("hed", "cc3m_hed.yaml", 3),
+                 ("normal", "diode_normal.yaml", 2), ("sem", "ade_sem.yaml", 2))
+# hed's dataset class: one collated batch each on the host
+MODALITY_HOST = (("canny", "cc3m_canny.yaml"), ("depth", "cc3m_depth.yaml"))
+MODALITY_TRACED = ("keypoint", "hed")
+REALDATA_ROWS = 64
+
+
+def check_jpegs(np, repeats=5):
+    """The four inference_images/*.jpg through the port's decoder on this
+    host: each decode's sha256 against ``JPEG_DIGESTS`` (PIL's), and its
+    ms (median of ``repeats``, the build before).  Returns (ok, line)."""
+    import hashlib
+
+    from gligen_tpu_torch.data import jpeg
+
+    t0 = time.perf_counter()
+    jpeg.jpeg_library()
+    build_s = time.perf_counter() - t0
+    ok, parts = True, []
+    for name, digest in JPEG_DIGESTS.items():
+        raw = (REPO / "inference_images" / f"{name}.jpg").read_bytes()
+        times = []
+        for _ in range(repeats):
+            t = time.perf_counter()
+            pixels = jpeg.decode_rgb(raw)
+            times.append(time.perf_counter() - t)
+        same = hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest() == digest
+        ok = ok and same
+        parts.append(f"{name} {pixels.shape[1]}x{pixels.shape[0]} "
+                     f"{1e3 * sorted(times)[repeats // 2]:.2f} ms"
+                     + (" = PIL's" if same else " DIFFERS from PIL's"))
+    return ok, (f"modalities: JPEG decode on the host (csrc/jpeg_baseline.cpp, no library; built "
+                f"in {build_s:.1f} s), sha256 of each image's pixels against PIL's, median of "
+                f"{repeats}: {'; '.join(parts)} {'ok' if ok else 'FAIL'}")
+
+
+def write_modality_data(np, seed):
+    """The phase's datasets under ``MODALITY_DIR / "DATA"``
+    (``tools/modality_data.py``): a COCO keypoint tree of the four JPEGs
+    (1 to 3 seeded persons each) with captions; the CC3M image TSV of their
+    bytes with hed, canny and depth TSVs of seeded PNG maps; a DIODE tree
+    of their pixels as PNG with seeded .npy normals; an ADE tree of the
+    JPEGs with seeded label PNGs in [0, 151].  Returns the data root."""
+    import shutil
+
+    from gligen_tpu_torch.data import jpeg, png
+    from gligen_tpu_torch.tools import modality_data as md
+
+    shutil.rmtree(MODALITY_DIR, ignore_errors=True)
+    data = str(MODALITY_DIR / "DATA")
+    rng = np.random.default_rng(seed + 17)
+    jpegs = md.images_from_files([REPO / "inference_images" / f"{n}.jpg" for n in JPEG_DIGESTS])
+    md.write_keypoint_tree(data, jpegs, rng)
+    md.write_paired_tsvs(data, jpegs, rng)
+    md.write_normal_tree(data, [(n.replace(".jpg", ".png"), png.encode_png(jpeg.decode_rgb(raw)),
+                                 hw) for n, raw, hw in jpegs], rng)
+    md.write_sem_tree(data, jpegs, rng)
+    return data
+
+
+def bad_sem_label(np, seed):
+    """A label PNG holding 152 must raise ``ValueError`` naming its file and
+    the label.  Returns (ok, line)."""
+    from gligen_tpu_torch.data import png
+    from gligen_tpu_torch.data.spatial_datasets import SemanticDataset
+    from gligen_tpu_torch.tools import modality_data as md
+
+    rng = np.random.default_rng(seed + 172)
+    jpegs = md.images_from_files([REPO / "inference_images" / "beach.jpg"])
+    params = md.write_sem_tree(str(MODALITY_DIR / "BAD"), jpegs, rng)
+    path = os.path.join(params["sem_rootdir"], "beach.png")
+    labels, _ = png.read_png(path)
+    labels[256, 256] = 152
+    png.write_png(path, labels)
+    try:
+        SemanticDataset(image_size=512, **params)[0]
+        raised = "nothing raised"
+    except ValueError as e:
+        raised = str(e)
+    ok = "beach.png" in raised and "label 152" in raised
+    return ok, (f"modalities: a label of 152 in {os.path.relpath(path, REPO)}: ValueError "
+                f"{raised!r} {'ok' if ok else 'FAIL'}")
+
+
+def run_modalities(torch, np, seed, device, batch=4):
+    """Phase 17 (M11b part 2): the JPEG check; the datasets of
+    ``write_modality_data``; ``gligen_tpu_torch.main.main`` in this process
+    on each of ``MODALITY_RUNS`` at full SD-1.4 GLIGEN width (random weights,
+    de-zeroed), configuration (a), remat full, batch ``batch``, 2 fork
+    workers, no preview: finite losses, frozen tensors bit for bit, every
+    trainable tensor moved unless its gradient was zero at every step
+    (Adam's first moment zero: the null features behind masks of 1), each
+    step's launches as ``expected_train_launches``, every flash launch on
+    the TMA route; s/step, the serial decode of a batch, peak memory.  The
+    Trainer's checkpoint writes (~3 GB each) are recorded, not made: phase
+    16 writes and resumes them.  Then canny and depth as one collated batch
+    each, a bad sem label, and ``tools/bench_train_realdata.py`` (``--make
+    --rows REALDATA_ROWS``, ``--input_only`` at 1 and 2 workers).  Returns
+    (failures, {modality: Trainer} of ``MODALITY_TRACED`` for the traced
+    steps after phase 11, summary line)."""
+    from gligen_tpu_torch import main as train_main
+    from gligen_tpu_torch.config import load_yaml_config, normalize_model_config
+    from gligen_tpu_torch.data.catalog import dataset_catalog
+    from gligen_tpu_torch.data.concat import ConCatDataset
+    from gligen_tpu_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from gligen_tpu_torch.tools import bench_train_realdata as bench
+    from gligen_tpu_torch.training import trainer as trainer_mod
+
+    set_config("a")
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
+    failures = []
+    ok, line = check_jpegs(np)
+    print(line, flush=True)
+    if not ok:
+        failures.append("modalities jpeg")
+    t0 = time.perf_counter()
+    data = write_modality_data(np, seed)
+    print(f"modalities: wrote the keypoint, CC3M (hed, canny, depth), DIODE and ADE datasets of "
+          f"{len(JPEG_DIGESTS)} images under {os.path.relpath(data, REPO)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    wrappers = kernel_wrappers()
+    bwd = (flash_bwd_dq, flash_bwd_dkv)
+    rec = {"steps": [], "unet": None, "start": None, "saves": [], "on": True}
+    real_components = trainer_mod.GligenComponents
+    real_make, real_save = trainer_mod.make_train_step, trainer_mod.Trainer._save
+
+    class Dezeroed(real_components):
+        @classmethod
+        def create(cls, *args, **kwargs):
+            comps = real_components.create(*args, **kwargs)
+            dezero_(comps.unet, torch.Generator(device=device).manual_seed(seed + 171))
+            rec["unet"] = comps.unet
+            return comps
+
+    def make_recording(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def recording(state, batch_, generator=None, draws=None):
+            if not rec["on"]:  # the traced steps after phase 11
+                return step(state, batch_, generator, draws)
+            if rec["start"] is None:  # the UNet before its first step
+                rec["start"] = {n: p.detach().clone() for n, p in rec["unet"].named_parameters()}
+            for w in wrappers.values():
+                w.launches = 0
+            routes = [dict(flash_fwd.routes)] + [dict(k.routes) for k in bwd]
+            t = time.perf_counter()
+            metrics = step(state, batch_, generator, draws)
+            loss = metrics["loss"].item()
+            rec["steps"].append(dict(
+                t=t, end=time.perf_counter(), loss=loss,
+                launches={name: w.launches for name, w in wrappers.items()},
+                copy=sum(k.routes["copy"] - r["copy"] for k, r in zip((flash_fwd, *bwd), routes))))
+            return metrics
+
+        return recording
+
+    def recorded_save(self):
+        rec["saves"].append(self.state.step)
+
+    traced, s_step, summary = {}, {}, []
+    trainer_mod.GligenComponents, trainer_mod.make_train_step = Dezeroed, make_recording
+    trainer_mod.Trainer._save = recorded_save
+    try:
+        for modality, yaml_name, steps in MODALITY_RUNS:
+            rec["steps"].clear()
+            rec["saves"].clear()
+            rec["start"] = None
+            torch.cuda.reset_peak_memory_stats()
+            # the Trainers kept for the traced steps stay allocated: the run's
+            # own peak is the peak above them
+            resident = torch.cuda.memory_allocated() / 2**30
+            flags = ["--yaml_file", str(REPO / "configs" / yaml_name), "--DATA_ROOT", data,
+                     "--OUTPUT_ROOT", str(MODALITY_DIR / "OUT"), "--name", modality,
+                     "--batch_size", str(batch), "--warmup_steps", "1", "--workers", "2",
+                     "--total_iters", str(steps), "--save_every_iters", "1000",
+                     "--disable_inference_in_training", "true", "--seed", str(seed),
+                     "--device", str(device)]
+            t0 = time.perf_counter()
+            tr = train_main.main(flags)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30 - resident
+            done, start = list(rec["steps"]), rec["start"]
+            rec["start"] = None
+            losses = [s["loss"] for s in done]
+            finite = len(losses) == steps and bool(np.all(np.isfinite(losses)))
+            frozen_ok = all(torch.equal(p, start[n]) for n, p in tr.unet.named_parameters()
+                            if n not in tr.state.params)
+            opt = tr.state.optimizer.state
+
+            def zero_moment(p):
+                m = opt.get(p, {}).get("exp_avg")
+                return m is None or not bool(m.abs().max() > 0)
+
+            unmoved = [n for n, p in tr.state.params.items() if torch.equal(p, start[n])]
+            stuck = [n for n in unmoved if not zero_moment(tr.state.params[n])]
+            del start
+            expected = expected_train_launches(tr.components, 512, "a", use_checkpoint=True)
+            counts_ok = all({k: s["launches"][k] for k in expected} == expected for s in done)
+            copy = sum(s["copy"] for s in done)
+            s_step[modality] = (done[-1]["end"] - done[1]["t"]) / (steps - 1)
+            dataset = tr.build_dataset()
+            t = time.perf_counter()
+            for j in range(batch):
+                dataset[j]
+            decode_ms = 1e3 * (time.perf_counter() - t)
+            ok = (finite and frozen_ok and not stuck and counts_ok and copy == 0
+                  and tr.run.grounding_modality == modality and tr.state.step == steps)
+            print(f"modalities: {modality}: main() on configs/{yaml_name}, batch {batch}, "
+                  f"{steps} steps, 2 fork workers: losses {', '.join(f'{x:.5f}' for x in losses)}"
+                  f" finite {finite}; frozen UNet tensors bit for bit {frozen_ok}; "
+                  f"{len(tr.state.params) - len(unmoved)} of {len(tr.state.params)} trainable "
+                  f"tensors moved, the rest with zero gradient throughout "
+                  f"({', '.join(unmoved) or 'none'}); moved despite a gradient: {stuck or 'none'};"
+                  f" launches per step as expected_train_launches {counts_ok} "
+                  f"({done[-1]['launches']}); flash launches on the copy route {copy}; "
+                  f"{s_step[modality]:.4f} s/step after the first; serial decode "
+                  f"{decode_ms:.1f} ms a batch; peak {peak:.2f} GiB above the {resident:.2f} "
+                  f"GiB allocated before the run; {wall:.1f} s wall (build "
+                  f"included); checkpoint writes recorded, not made, at steps {rec['saves']} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"modalities {modality}")
+            summary.append(f"{modality} {s_step[modality]:.4f} s/step, decode {decode_ms:.1f} ms"
+                           f" a batch, peak {peak:.2f} GiB")
+            if modality in MODALITY_TRACED:
+                traced[modality] = tr
+            del tr, dataset
+            torch.cuda.empty_cache()
+    finally:
+        trainer_mod.GligenComponents, trainer_mod.make_train_step = real_components, real_make
+        trainer_mod.Trainer._save = real_save
+        rec["on"] = False
+
+    # ---- canny and depth: one collated batch each, on the host ----
+    for modality, yaml_name in MODALITY_HOST:
+        config = normalize_model_config(load_yaml_config(str(REPO / "configs" / yaml_name)))
+        ds = ConCatDataset.from_catalog(config["train_dataset_names"], dataset_catalog(data))
+        shim = bench.input_shim(1, batch, modality)
+        t = time.perf_counter()
+        b = shim.collate([ds[i] for i in range(batch)])
+        host_ms = 1e3 * (time.perf_counter() - t)
+        key = {"canny": "canny_edge", "depth": "depth"}[modality]
+        g = b["grounding"]
+        ok = (tuple(g[key].shape) == (batch, 512, 512, 3) and g[key].dtype == torch.uint8
+              and tuple(g["mask"].shape) == (batch,) and torch.equal(b["grounding_extra"], g[key])
+              and b["image"].shape == (batch, 512, 512, 3) and bool(np.isfinite(b["image"]).all())
+              and -1.0 <= float(b["image"].min()) and float(b["image"].max()) <= 1.0)
+        print(f"modalities: {modality}: configs/{yaml_name}'s dataset from the catalog, one batch "
+              f"decoded and collated on the host in {host_ms:.1f} ms: image {b['image'].shape}, "
+              f"{key} {tuple(g[key].shape)} {g[key].dtype}, grounding_extra the same map "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"modalities {modality}")
+    ok, line = bad_sem_label(np, seed)
+    print(line, flush=True)
+    if not ok:
+        failures.append("modalities sem label")
+
+    # ---- the real-data bench: JPEG rows through the Trainer's batches ----
+    path = str(MODALITY_DIR / "realdata" / "grounding_512.tsv")
+    made, = bench.main(["--tsv", path, "--make", "--rows", str(REALDATA_ROWS)], device=device)
+    recs = [bench.main(["--tsv", path, "--input_only", "--workers", str(w)], device=device)[0]
+            for w in (1, 2)]
+    line = (f"realdata: {made['rows']} JPEG rows ({made['mb']} MB): "
+            + "; ".join(f"{r['workers']} worker(s) {r['batches_per_sec']:.3f} batches/s "
+                        f"({r['value']:.2f} img/s, batch {r['batch']}, {r['host_cores_busy']:.2f} "
+                        f"of {r['host_cores']} host cores busy, serial decode "
+                        f"{r['serial_decode_ms_per_batch']:.1f} ms a batch)" for r in recs)
+            + "; beside the phase's train step at "
+            + ", ".join(f"{m} {1 / s:.3f} steps/s" for m, s in s_step.items()))
+    print(line, flush=True)
+    ok = all(r["value"] > 0 for r in recs)
+    if not ok:
+        failures.append("modalities realdata")
+    return failures, traced, "modalities: " + "; ".join(summary) + "; " + line
 
 
 def main() -> int:
@@ -3203,6 +3469,13 @@ def main() -> int:
     failures += trainer_failures
     print(f"trainer: phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 17. the keypoint and spatial modalities trained from the reference's formats ----
+    t0 = time.perf_counter()
+    modality_failures, modality_trainers, modality_line = run_modalities(torch, np, args.seed,
+                                                                         device)
+    failures += modality_failures
+    print(f"modalities: phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 9. the tools at full ds1 width ----
     t0 = time.perf_counter()
     tool_failures, launches["bench_proj"], tool_checks, tool_report = run_tools(torch, device)
@@ -3241,11 +3514,19 @@ def main() -> int:
     idle_line = train_idle_share(torch, trainer)
     print(idle_line, flush=True)
     del trainer
+    # phase 17's traced steps, likewise
+    modality_idle = []
+    for modality in list(modality_trainers):
+        modality_idle.append(train_idle_share(torch, modality_trainers.pop(modality),
+                                              label=f"modalities: {modality}"))
+        print(modality_idle[-1], flush=True)
 
     print("summary: s/img " + ", ".join(f"({c}) {s:.3f}" for c, s in s_per_img.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")
     print(f"summary: {train_line[len('train: '):]} on {card}")
     print(f"summary: {trainer_line[len('trainer: '):]}; {idle_line[len('trainer: '):]} on {card}")
+    print(f"summary: {modality_line}; " + "; ".join(l[len('modalities: '):] for l in modality_idle)
+          + f" on {card}")
     print("summary: inpaint from a checkpoint, s/img " + ", ".join(
         f"{sampler} {s:.3f}" for sampler, s in inpaint_s.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} steps, fp32 encode, 512^2) on {card}")

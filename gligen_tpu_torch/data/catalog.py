@@ -2,14 +2,17 @@
 reference's dataset/catalog.py:3-140): the 12 named training datasets
 mapped to {target, train_params}.  Targets are ``DATASETS`` registry names
 (``utils/registry.py``); the reference's dotted paths are the registered
-aliases.  The port registers the box-grounding TSV dataset
-(``data/box_dataset.py``); a target it does not register raises
-``KeyError`` when a config names it."""
+aliases.  Importing this module registers all of them: the box-grounding
+TSVs (``data/box_dataset.py``), COCO keypoints
+(``data/keypoint_dataset.py``) and the spatial modalities
+(``data/spatial_datasets.py``)."""
 
 from __future__ import annotations
 
 import os
 from typing import Dict
+
+from gligen_tpu_torch.data import box_dataset, keypoint_dataset, spatial_datasets  # noqa: F401
 
 
 def dataset_catalog(root: str) -> Dict[str, Dict]:

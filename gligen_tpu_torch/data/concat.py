@@ -8,7 +8,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from gligen_tpu_torch.data import box_dataset  # noqa: F401  (registers its dataset)
+from gligen_tpu_torch.data import catalog  # noqa: F401  (registers every dataset)
 from gligen_tpu_torch.utils.registry import DATASETS
 
 

@@ -1,50 +1,64 @@
-"""JPEG decode through the system's libjpeg (counterpart of
-``gligen_tpu/data/jpeg.py``): ``native/jpeg_decode.cpp``, built by
-``data/native.py`` at first use, with the accurate integer IDCT, the
-default of PIL too, so both give the same pixels.
+"""Baseline JPEG decoding with no library behind it (the port's counterpart
+of ``gligen_tpu/data/jpeg.py``, which links libjpeg).
 
-There is no fallback: where libjpeg (its header or its library) is
-missing, ``decode_rgb`` raises an ``OSError`` that names it.
+``csrc/jpeg_baseline.cpp``, built by ``data/native.py`` at first use with
+``g++`` and linked with nothing, decodes SOF0/SOF1 streams of one or three
+components to the pixels libjpeg-turbo gives PIL (the accurate integer
+IDCT, fancy upsampling, the same YCbCr tables), bit for bit.  A stream it
+does not take (progressive, lossless, arithmetic-coded, 12-bit, CMYK/YCCK)
+or a corrupt or truncated one raises ``ValueError`` naming why; there is
+no fallback to another decoder.  Each call owns its decoder and releases
+the GIL, so thread pools and forked workers decode at once.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import numpy as np
 
-from gligen_tpu_torch.data.native import build_library
+from gligen_tpu_torch.data.native import CSRC, build_library
 
+SOURCE = CSRC / "jpeg_baseline.cpp"
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_ERR_LEN = 256
 
 
 @functools.lru_cache(maxsize=None)
 def jpeg_library() -> ctypes.CDLL:
-    try:
-        lib = build_library("jpeg_decode", ("-ljpeg", "-lpthread"))
-    except OSError as e:
-        raise OSError(f"JPEG decoding needs libjpeg (jpeglib.h and libjpeg.so) to build "
-                      f"native/jpeg_decode.cpp: {e}") from e
-    lib.jpeg_probe_dims.restype = ctypes.c_int32
-    lib.jpeg_probe_dims.argtypes = [ctypes.c_char_p, ctypes.c_int64, _I32P, _I32P]
-    lib.jpeg_decode_to_rgb.restype = ctypes.c_int32
-    lib.jpeg_decode_to_rgb.argtypes = [ctypes.c_char_p, ctypes.c_int64, _U8P, ctypes.c_int64,
-                                       _I32P, _I32P]
+    lib = build_library("jpeg_baseline", (), CSRC)
+    lib.jpeg_baseline_info.restype = ctypes.c_int32
+    lib.jpeg_baseline_info.argtypes = [ctypes.c_char_p, ctypes.c_int64, _I32P, ctypes.c_char_p,
+                                       ctypes.c_int32]
+    lib.jpeg_baseline_decode.restype = ctypes.c_int32
+    lib.jpeg_baseline_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, _U8P, ctypes.c_int64,
+                                         ctypes.c_char_p, ctypes.c_int32]
     return lib
 
 
-def decode_rgb(data: bytes) -> np.ndarray:
-    """One JPEG -> (H, W, 3) uint8 (grayscale expanded to RGB).  Raises
-    ``OSError`` without libjpeg and ``ValueError`` on a corrupt stream."""
+def decode(data: bytes) -> Tuple[np.ndarray, str]:
+    """(pixels, mode) of one JPEG: uint8 (H, W) "L" for one component,
+    (H, W, 3) "RGB" for three.  Raises ``ValueError`` on a stream the
+    decoder does not take."""
     lib = jpeg_library()
-    w, h = ctypes.c_int32(), ctypes.c_int32()
-    if lib.jpeg_probe_dims(data, len(data), ctypes.byref(w), ctypes.byref(h)):
-        raise ValueError("not a decodable JPEG header")
-    out = np.empty((h.value, w.value, 3), np.uint8)
-    rc = lib.jpeg_decode_to_rgb(data, len(data), out.ctypes.data_as(_U8P), out.size,
-                                ctypes.byref(w), ctypes.byref(h))
-    if rc:
-        raise ValueError(f"libjpeg failed to decode the stream (code {rc})")
-    return out
+    data = bytes(data)
+    info = (ctypes.c_int32 * 3)()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.jpeg_baseline_info(data, len(data), info, err, _ERR_LEN):
+        raise ValueError(f"jpeg: {err.value.decode()}")
+    w, h, c = info
+    out = np.empty((h, w) if c == 1 else (h, w, 3), np.uint8)
+    if lib.jpeg_baseline_decode(data, len(data), out.ctypes.data_as(_U8P), out.size, err,
+                                _ERR_LEN):
+        raise ValueError(f"jpeg: {err.value.decode()}")
+    return out, "L" if c == 1 else "RGB"
+
+
+def decode_rgb(data: bytes) -> np.ndarray:
+    """One JPEG -> (H, W, 3) uint8, a grayscale one replicated to RGB (as
+    PIL's ``convert("RGB")``)."""
+    pixels, mode = decode(data)
+    return np.repeat(pixels[..., None], 3, axis=-1) if mode == "L" else pixels

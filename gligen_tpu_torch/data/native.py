@@ -3,11 +3,12 @@ and bound with ``ctypes`` (counterpart of ``gligen_tpu/data/native.py``).
 
 ``native/tsv_reader.cpp`` reads TSV rows by their ``.lineidx`` offsets
 with ``pread`` (no shared file position, so one handle serves every thread
-and forked worker); ``native/jpeg_decode.cpp`` (``data/jpeg.py``) decodes
-JPEG through the system's libjpeg.  Each source is compiled into
-``build/native/<name>-<hash>/lib<name>.so`` at the repository root, keyed
-by the source's bytes and the flags; the ``.so`` files committed under
-``native/`` are not loaded.  Nothing is built when the module is imported.
+and forked worker); ``gligen_tpu_torch/csrc/jpeg_baseline.cpp``
+(``data/jpeg.py``) decodes baseline JPEG with no library behind it.  Each
+source is compiled into ``build/native/<name>-<hash>/lib<name>.so`` at the
+repository root, keyed by the source's bytes and the flags; the ``.so``
+files committed under ``native/`` are not loaded.  Nothing is built when
+the module is imported.
 """
 
 from __future__ import annotations
@@ -24,26 +25,28 @@ from typing import Sequence
 
 REPO = Path(__file__).resolve().parents[2]
 NATIVE_SRC = REPO / "native"
+CSRC = REPO / "gligen_tpu_torch" / "csrc"
 BUILD_DIR = REPO / "build" / "native"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
-def library_path(name: str, libs: Sequence[str] = ()) -> Path:
+def library_path(name: str, libs: Sequence[str] = (), src_dir: Path = NATIVE_SRC) -> Path:
     digest = hashlib.sha256(" ".join(CXX_FLAGS + tuple(libs)).encode())
-    digest.update((NATIVE_SRC / f"{name}.cpp").read_bytes())
+    digest.update((src_dir / f"{name}.cpp").read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 @functools.lru_cache(maxsize=None)
-def build_library(name: str, libs: Sequence[str] = ()) -> ctypes.CDLL:
-    """Compile ``native/<name>.cpp`` (linked with ``libs``) if its library
-    is missing, then load it.  Raises ``OSError`` with the compiler's
-    message when there is no ``g++`` or the build fails."""
-    lib = library_path(name, libs)
+def build_library(name: str, libs: Sequence[str] = (), src_dir: Path = NATIVE_SRC) -> ctypes.CDLL:
+    """Compile ``<src_dir>/<name>.cpp`` (linked with ``libs``) if its
+    library is missing, then load it.  Raises ``OSError`` with the
+    compiler's message when there is no ``g++`` or the build fails."""
+    lib = library_path(name, libs, src_dir)
+    src = src_dir / f"{name}.cpp"
     if not lib.exists():
         cxx = shutil.which("g++")
         if cxx is None:
-            raise OSError(f"g++ not found: native/{name}.cpp is built at first use")
+            raise OSError(f"g++ not found: {src.name} is built at first use")
         lib.parent.mkdir(parents=True, exist_ok=True)
         # build under a temporary name, then rename: concurrent builds
         # (forked decode workers, test processes) never load a partial file
@@ -51,10 +54,10 @@ def build_library(name: str, libs: Sequence[str] = ()) -> ctypes.CDLL:
         os.close(fd)
         try:
             proc = subprocess.run(
-                [cxx, *CXX_FLAGS, str(NATIVE_SRC / f"{name}.cpp"), "-o", tmp, *libs],
+                [cxx, *CXX_FLAGS, str(src), "-o", tmp, *libs],
                 capture_output=True, text=True, timeout=300)
             if proc.returncode:
-                raise OSError(f"g++ failed on native/{name}.cpp:\n{proc.stderr.strip()}")
+                raise OSError(f"g++ failed on {src}:\n{proc.stderr.strip()}")
             os.replace(tmp, lib)
         finally:
             if os.path.exists(tmp):

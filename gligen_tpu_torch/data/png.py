@@ -5,9 +5,11 @@ The port reads the repository's PNG inputs (``inference_images/*.png``:
 the GPU machine lacks.  What it takes, and what raises (naming PIL, for a
 caller that has it):
 
-  * reading: 8-bit samples, no interlace, colour types 0 (L), 2 (RGB) and
-    6 (RGBA), every scanline filter (None, Sub, Up, Average, Paeth);
-    ancillary chunks are skipped, CRCs checked;
+  * reading: 8-bit samples, no interlace, colour types 0 (L), 2 (RGB),
+    3 (palette, at 1, 2, 4 or 8 bits an index, read as the RGB of its PLTE
+    entries, which is what PIL's ``convert`` to "RGB" or "L" works from)
+    and 6 (RGBA), every scanline filter (None, Sub, Up, Average, Paeth);
+    other ancillary chunks are skipped, CRCs checked;
   * ``convert`` to "RGB" or "L" as PIL's ``Image.convert`` does: L -> RGB
     by replication, RGBA -> RGB by dropping alpha, RGB (or RGBA) -> L as
     (19595 R + 38470 G + 7471 B + 0x8000) >> 16, PIL's ITU-R 601-2 luma in
@@ -16,8 +18,9 @@ caller that has it):
   * both to and from bytes in memory (``decode_png``, ``encode_png``): the
     training TSVs carry images as base64 payloads.
 
-JPEG, any other PNG, and any resize go through PIL, imported where they
-are used (``open_image``), so those calls raise where PIL is missing.
+``open_image`` reads JPEG files through the port's own decoder
+(``data/jpeg.py``); only a file that is neither PNG nor JPEG goes to PIL,
+imported there, so that call raises where PIL is missing.
 """
 
 from __future__ import annotations
@@ -29,9 +32,11 @@ from typing import Tuple
 
 import numpy as np
 
+from gligen_tpu_torch.data.transforms import to_luma
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples a pixel
-MODES = {0: "L", 2: "RGB", 6: "RGBA"}
+CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}  # colour type -> samples a pixel
+MODES = {0: "L", 2: "RGB", 3: "RGB", 6: "RGBA"}
 
 
 def _unsupported(what: str) -> ValueError:
@@ -99,25 +104,41 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _palette(palette, idx: np.ndarray, what: str) -> np.ndarray:
+    if palette is None or int(idx.max(initial=0)) >= len(palette):
+        raise ValueError(f"png: {what} has a palette index past its PLTE")
+    return palette[idx]
+
+
 def decode_png(data: bytes, what: str = "the PNG") -> Tuple[np.ndarray, str]:
     """(pixels, mode) of PNG bytes: uint8 (H, W) for "L", (H, W, 3) for
     "RGB", (H, W, 4) for "RGBA"."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"png: {what} is not a PNG")
-    header, idat = None, []
+    header, idat, palette = None, [], None
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
         elif kind == b"IDAT":
             idat.append(payload)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
     if header is None:
         raise ValueError(f"png: {what} has no IHDR")
     w, h, depth, colour, compression, filtering, interlace = header
+    if colour == 3 and depth in (1, 2, 4) and not (compression or filtering or interlace):
+        # packed palette indices: unfilter the packed bytes, then unpack
+        packed = _unfilter(zlib.decompress(b"".join(idat)), h, -(-w * depth // 8), 1)
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        idx = ((packed[..., None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+        return _palette(palette, idx, what), "RGB"
     if depth != 8 or colour not in CHANNELS or compression or filtering or interlace:
         raise _unsupported(f"{what}: bit depth {depth}, colour type {colour}, interlace "
                            f"{interlace}")
     bpp = CHANNELS[colour]
     pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp)
+    if colour == 3:
+        return _palette(palette, pixels, what), "RGB"
     shape = (h, w) if bpp == 1 else (h, w, bpp)
     return pixels.reshape(shape), MODES[colour]
 
@@ -137,9 +158,7 @@ def convert(pixels: np.ndarray, mode: str, to: str) -> np.ndarray:
         return pixels
     if to == "RGB":
         return np.repeat(pixels[..., None], 3, axis=-1) if mode == "L" else pixels[..., :3].copy()
-    rgb = pixels[..., :3].astype(np.uint32)
-    luma = (19595 * rgb[..., 0] + 38470 * rgb[..., 1] + 7471 * rgb[..., 2] + 0x8000) >> 16
-    return luma.astype(np.uint8)
+    return to_luma(pixels[..., :3])
 
 
 def encode_png(pixels: np.ndarray) -> bytes:
@@ -170,11 +189,16 @@ def write_png(path, pixels: np.ndarray) -> None:
 
 def open_image(path, mode: str) -> np.ndarray:
     """The image at ``path`` as uint8 pixels in ``mode`` ("RGB" or "L"): a
-    PNG through this module (one it does not read raises), anything else
-    through PIL (imported here)."""
+    PNG through this module, a JPEG through ``data/jpeg.py`` (a file either
+    does not read raises), anything else through PIL (imported here)."""
     with open(path, "rb") as f:
-        if f.read(8) == SIGNATURE:
-            return convert(*read_png(path), mode)
+        data = f.read()
+    if data[:8] == SIGNATURE:
+        return convert(*decode_png(data, os.fspath(path)), mode)
+    if data[:2] == b"\xff\xd8":
+        from gligen_tpu_torch.data import jpeg
+
+        return convert(*jpeg.decode(data), mode)
     from PIL import Image
 
     return np.asarray(Image.open(os.fspath(path)).convert(mode), np.uint8)

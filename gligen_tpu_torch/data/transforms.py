@@ -11,6 +11,13 @@ filter's support widened by the downscale factor, centred at
 integers in 22-bit fixed point rounded half away from zero; each pass sums
 uint8 x weight from 2^21 (the rounding half) and clips the sum shifted
 down by 22 bits to [0, 255].  A size already at the target is a copy.
+``resize(..., "nearest")`` is ``Image.NEAREST`` (Geometry.c's
+``ImagingScaleAffine``): source index ``int(x0)`` of a coordinate stepped
+from ``scale / 2`` by repeated double additions of ``scale``.
+
+The spatial datasets' helpers: ``center_crop_square`` (the crop of their
+``_center_crop_resize``), ``to_luma`` (``convert("L")`` from RGB), and an
+array flip in place of ``ImageOps.mirror``.
 """
 
 from __future__ import annotations
@@ -69,6 +76,19 @@ def resample_coeffs(in_size: int, out_size: int, kind: str) -> Tuple[np.ndarray,
     return first, weights
 
 
+@functools.lru_cache(maxsize=256)
+def nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output pixel along one axis, as
+    ``ImagingScaleAffine`` tabulates it (``xo += a[0]`` in double)."""
+    step = in_size / out_size
+    out = np.empty(out_size, np.int64)
+    pos = step * 0.5
+    for x in range(out_size):
+        out[x] = int(pos)
+        pos += step
+    return out
+
+
 def _pass(pixels: np.ndarray, out_size: int, kind: str, axis: int) -> np.ndarray:
     """One separable pass along ``axis`` (1: horizontal, 0: vertical)."""
     in_size = pixels.shape[axis]
@@ -87,11 +107,16 @@ def _pass(pixels: np.ndarray, out_size: int, kind: str, axis: int) -> np.ndarray
 
 
 def resize(pixels: np.ndarray, size: Tuple[int, int], kind: str) -> np.ndarray:
-    """uint8 (H, W, C) pixels resized to ``size`` = (width, height), as
-    PIL's ``Image.resize(size, resample=Image.BOX or Image.BICUBIC)``."""
+    """uint8 (H, W[, C]) pixels resized to ``size`` = (width, height), as
+    PIL's ``Image.resize(size, resample=Image.BOX, BICUBIC or NEAREST)``
+    (``kind`` "box", "bicubic" or "nearest")."""
     w, h = size
     if (h, w) == pixels.shape[:2]:
         return pixels.copy()
+    if kind == "nearest":
+        rows = nearest_index(pixels.shape[0], h)
+        cols = nearest_index(pixels.shape[1], w)
+        return pixels[rows][:, cols]
     if w != pixels.shape[1]:
         pixels = _pass(pixels, w, kind, axis=1)
     if h != pixels.shape[0]:
@@ -119,6 +144,23 @@ def center_crop_arr(image: np.ndarray, image_size: int):
         "HH": hh,
     }
     return image[crop_y : crop_y + image_size, crop_x : crop_x + image_size], info
+
+
+def center_crop_square(pixels: np.ndarray) -> np.ndarray:
+    """The centred square of side min(H, W) (spatial_datasets.py:30-37,
+    torchvision's ``center_crop`` offsets)."""
+    h, w = pixels.shape[:2]
+    crop = min(w, h)
+    left, top = (w - crop) // 2, (h - crop) // 2
+    return pixels[top:top + crop, left:left + crop]
+
+
+def to_luma(pixels: np.ndarray) -> np.ndarray:
+    """uint8 (H, W, 3) RGB -> (H, W) L, PIL's ``convert("L")``: ITU-R 601-2
+    luma, (19595 R + 38470 G + 7471 B + 0x8000) >> 16."""
+    rgb = pixels.astype(np.uint32)
+    luma = (19595 * rgb[..., 0] + 38470 * rgb[..., 1] + 7471 * rgb[..., 2] + 0x8000) >> 16
+    return luma.astype(np.uint8)
 
 
 def random_crop_arr(

@@ -24,8 +24,9 @@ features (``FeatureExtractor``) and the per-modality batches
 (``prepare_batch_box`` for box+text(+image), ``prepare_batch_kp``,
 ``prepare_batch_spatial`` for hed/canny/depth/normal maps,
 ``prepare_batch_sem``), picked by ``prepare_batch_for``.  An image is a
-path (a PNG through ``data/png.py``; JPEG and any resize through PIL,
-imported there) or a uint8 array already at its size.
+path (a PNG or a JPEG through ``data/png.py:open_image``, with no PIL;
+resizes PIL's bit for bit, ``data/transforms.py``) or a uint8 array already
+at its size.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import torch
 from torch import nn
 
 from gligen_tpu_torch.data import png
+from gligen_tpu_torch.data.transforms import center_crop_square, resize
 from gligen_tpu_torch.data.inpaint_masks import draw_masks_from_boxes
 from gligen_tpu_torch.data.tokenizer import load_tokenizer
 from gligen_tpu_torch.inference.adapters import get_adapter
@@ -249,21 +251,14 @@ def _meta_image(meta: Mapping[str, Any], *keys: str):
 def crop_and_resize(pixels: np.ndarray, size: int = 512, nearest: bool = False) -> np.ndarray:
     """Center-crop uint8 pixels to a square and resize it to ``size``^2
     (gligen_inference.py:190-195, the JAX CLI's ``crop_and_resize``), with
-    PIL's default filter or, when ``nearest``, nearest neighbour.  A square
-    already at ``size`` is returned as it is, which is what PIL's
-    ``resize`` gives it (a copy); any other goes through PIL (imported
-    here)."""
-    h, w = pixels.shape[:2]
-    crop = min(w, h)
-    left, top = (w - crop) // 2, (h - crop) // 2
-    pixels = pixels[top:top + crop, left:left + crop]
-    if crop == size:
+    PIL's default filter (bicubic) or, when ``nearest``, nearest neighbour,
+    bit for bit PIL's (``data/transforms.py:resize``).  A square already at
+    ``size`` is returned as it is, which is what PIL's ``resize`` gives it
+    (a copy)."""
+    pixels = center_crop_square(pixels)
+    if pixels.shape[0] == size:
         return pixels
-    from PIL import Image
-
-    img = Image.fromarray(np.ascontiguousarray(pixels))
-    img = img.resize((size, size), Image.NEAREST) if nearest else img.resize((size, size))
-    return np.asarray(img, np.uint8)
+    return resize(np.ascontiguousarray(pixels), (size, size), "nearest" if nearest else "bicubic")
 
 
 def _open_square(path, size: int, mode: str, nearest: bool = False) -> np.ndarray:

@@ -132,6 +132,7 @@ class GenerationPipeline:
         grounding_extra=None,
         inpaint_image=None,
         inpaint_mask=None,
+        inpainting_extra=None,
         latent_size: int = 64,
         noise=None,
         encode_noise=None,
@@ -152,7 +153,10 @@ class GenerationPipeline:
         conditional map, and serve both halves of the CFG pair: they are
         never nulled (pipeline.py:312-331).  inpaint_image: (B, H, W, 3) in
         [-1, 1] and inpaint_mask: (B, latent, latent, 1) keep-mask (1 =
-        known region) inpaint; the UNet must be an inpaint UNet.  The random draws are
+        known region) inpaint; the UNet must be an inpaint UNet.
+        inpainting_extra: (B, latent, latent, 5) concat(z * m, m) given as it
+        is to an inpaint UNet, with no blend of a known region (the
+        training preview, trainer.py:522-530).  The random draws are
         injected or come from ``generator``: noise (B, latent, latent, 4),
         the starting noise; encode_noise (the same shape), the inpaint
         encode's posterior noise; blend_noise (S, B, latent, latent, 4),
@@ -162,6 +166,8 @@ class GenerationPipeline:
             raise ValueError(f"unknown sampler {sampler!r}")
         if (inpaint_image is None) != (inpaint_mask is None):
             raise ValueError("inpaint_image and inpaint_mask go together")
+        if inpaint_image is not None and inpainting_extra is not None:
+            raise ValueError("inpainting_extra replaces inpaint_image and inpaint_mask")
         c, dev = self.c, self.device
         ids = torch.as_tensor(input_ids, device=dev).long()
         uc_ids = torch.as_tensor(uc_input_ids, device=dev).long()
@@ -194,6 +200,8 @@ class GenerationPipeline:
             x0 = c.vae.encode_fp32(image, torch.as_tensor(encode_noise, device=dev).float())
             mask = torch.as_tensor(inpaint_mask, device=dev).float()
             extra = pair(torch.cat([x0 * mask, mask], dim=-1))
+        elif inpainting_extra is not None:
+            extra = pair(torch.as_tensor(inpainting_extra, device=dev).float())
 
         def make_eps_fn(skip):
             def eps_fn(x, t, gate, use_sd):

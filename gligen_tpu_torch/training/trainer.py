@@ -361,22 +361,26 @@ class Trainer:
     @torch.no_grad()
     def save_preview(self, host_batch: Mapping[str, Any], it: int) -> str:
         """In-training PLMS sample grid (trainer.py:419-470): samples from
-        the batch's conditioning (guidance ``preview_guidance``, noise from
+        the batch's conditioning (guidance ``preview_guidance``, draws from
         a generator seeded 1000 + it) above the batch's real images, as
-        ``preview_<it>.png``, and the captions in ``captions.txt``."""
+        ``preview_<it>.png``, and the captions in ``captions.txt``.  An
+        inpaint model samples as the JAX preview does (trainer.py:522-530):
+        plain PLMS, no blend of a known region; the batch's own latents,
+        encoded by the VAE at its dtype, reach the UNet only as
+        ``inpainting_extra`` = concat(z * m, m)."""
         swapped = self._swap_ema() if self.run.preview_use_ema else None
         try:
             b = host_batch["image"].shape[0]
-            inpaint = {}
-            if "inpainting_mask" in host_batch:  # the batch's own latents for the masked z
-                inpaint = dict(inpaint_image=host_batch["image"],
-                               inpaint_mask=host_batch["inpainting_mask"])
+            generator = torch.Generator(device=self.device).manual_seed(1000 + it)
+            extra = None
+            if "inpainting_mask" in host_batch:
+                extra = self.preview_inpainting_extra(host_batch, generator)
             images = GenerationPipeline(self.components).generate(
                 host_batch["input_ids"], np.zeros_like(host_batch["input_ids"]),
                 host_batch["grounding"], steps=self.run.preview_steps,
                 guidance_scale=self.run.preview_guidance, sampler="plms",
-                grounding_extra=host_batch.get("grounding_extra"), latent_size=self.latent_size,
-                generator=torch.Generator(device=self.device).manual_seed(1000 + it), **inpaint)
+                grounding_extra=host_batch.get("grounding_extra"), inpainting_extra=extra,
+                latent_size=self.latent_size, generator=generator)
         finally:
             if swapped is not None:
                 self._swap_ema(swapped)
@@ -390,6 +394,18 @@ class Trainer:
         with open(os.path.join(self.tag_dir, "captions.txt"), "a") as f:
             f.write(f"iter {it}: " + " | ".join(captions) + "\n")
         return out
+
+    def preview_inpainting_extra(self, host_batch: Mapping[str, Any],
+                                 generator: torch.Generator) -> torch.Tensor:
+        """concat(z * m, m) of the batch: z its images' posterior sample by
+        the VAE at the VAE's own dtype (noise drawn first from
+        ``generator``), m its inpainting mask."""
+        vae_dtype = next(self.vae.parameters()).dtype
+        image = torch.as_tensor(host_batch["image"], device=self.device).to(vae_dtype)
+        m = torch.as_tensor(host_batch["inpainting_mask"], device=self.device).float()
+        noise = torch.randn(m.shape[:3] + (4,), generator=generator, device=self.device)
+        z = self.vae.encode(image, noise).float()
+        return torch.cat([z * m, m], dim=-1)
 
     def _swap_ema(self, saved: Optional[Dict[str, torch.Tensor]] = None):
         """Load the EMA shadow into the trainable parameters and return

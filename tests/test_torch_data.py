@@ -1,7 +1,7 @@
 """The port's training data path against the JAX package's, on the CPU:
 the TSV engine and its native reader, the payload codecs (PNG without PIL,
-JPEG through libjpeg), the PIL-exact resizes of the crop, the box dataset
-item for item (the same numpy RNG draws), the catalog, the concatenation,
+JPEG through the port's own decoder), the PIL-exact resizes of the crop,
+the box dataset item for item (the same numpy RNG draws), the catalog, the concatenation,
 and the latent cache with its VAE weight digest.
 
 Tolerances: everything is exact (bytes, uint8 pixels, float32 items, the
@@ -162,17 +162,14 @@ def test_other_payloads_raise():
         tsv.decode_base64_image(base64.b64encode(b"GIF89a....").decode())
 
 
-def test_jpeg_without_libjpeg_raises_naming_it(monkeypatch):
-    def no_libjpeg(name, libs=()):
-        raise OSError("g++ failed: jpeglib.h: No such file or directory")
-
-    jpeg.jpeg_library.cache_clear()
-    monkeypatch.setattr(jpeg, "build_library", no_libjpeg)
-    try:
-        with pytest.raises(OSError, match="libjpeg"):
-            tsv.decode_base64_image(_jpeg_b64(np.random.default_rng(5), 8, 8))
-    finally:
-        jpeg.jpeg_library.cache_clear()
+def test_jpeg_decoder_links_no_library():
+    source = jpeg.SOURCE.read_text()
+    assert "jpeglib.h" not in source and "#include <j" not in source
+    jpeg.jpeg_library()
+    lib = native.library_path("jpeg_baseline", (), native.CSRC)
+    assert lib.exists() and lib.parent.parent == native.BUILD_DIR
+    # the shared object names no libjpeg among the libraries it needs
+    assert b"libjpeg" not in lib.read_bytes()
 
 
 # (H, W) of seeded images and the crop size: downscaled by more than 2x
@@ -329,6 +326,9 @@ def test_concat_from_catalog_and_repeats(tmp_path):
     assert len(ds) == 4 and names["FlickrGrounding"]["repeat"] == 2
     assert ds[1]["image"].shape == ds[3]["image"].shape == (32, 32, 3)
     with pytest.raises(KeyError, match="unknown target"):
+        ConCatDataset.from_catalog({"X": {}}, {"X": {"target": "dataset.no_such.Dataset"}})
+    # every catalog name resolves now; this one's files are absent
+    with pytest.raises(FileNotFoundError, match="CC3M/tsv/train-00"):
         ConCatDataset.from_catalog({"CC3MGroundingHed": {}}, catalog.dataset_catalog(root))
     ds.reseed(5)
     assert ds.datasets[0].rng.bit_generator.state == \

@@ -179,8 +179,11 @@ def test_port_imports_without_jax_or_nvcc():
     included) imports, and a CPU call, its backward, an optimizer step, the
     projection budget tool, the tokenizer on non-ASCII text, the PNG codec,
     the CLI's image reader, the YAML reader on every config, the training
-    command line's parser, the crop and the TSV image codec run, in a
-    Python where jax, flax,
+    command line's parser, the crop and the TSV image codec, the JPEG
+    decoder on the repository's JPEGs (built by g++, linked with nothing),
+    the keypoint and spatial datasets from files the data writer made, the
+    TSV split and merge, ``prepare_grounding``'s rows and the real-data
+    bench's ``--make`` run, in a Python where jax, flax,
     gligen_tpu, regex, PIL and yaml cannot be imported (the GPU machine has
     none of the last three) and no nvcc is on the PATH; only a kernel build
     asks for nvcc."""
@@ -199,7 +202,9 @@ for name in ("training.train_step", "training.checkpoints", "convert.from_refere
              "models.grounding.downsamplers", "data.tokenizer", "data.png",
              "tools.bench_matrix", "config", "main", "data.tsv", "data.native", "data.jpeg",
              "data.transforms", "data.catalog", "data.concat", "data.box_dataset",
-             "data.latent_cache", "training.trainer", "tools.prepare_latents"):
+             "data.latent_cache", "training.trainer", "tools.prepare_latents",
+             "data.spatial_datasets", "data.keypoint_dataset", "data.prepare_grounding",
+             "data.tsv_split_merge", "tools.modality_data", "tools.bench_train_realdata"):
     assert f"gligen_tpu_torch.{name}" in sys.modules, name
 import numpy as np
 from gligen_tpu_torch.data import png, tokenizer
@@ -239,6 +244,29 @@ for tool in ("timing", "perf_probe", "bench_proj", "bench_block", "bench_resbloc
     assert f"gligen_tpu_torch.tools.{tool}" in sys.modules, tool
 from gligen_tpu_torch.tools import bench_proj
 assert len(bench_proj.run(batch=1, n=8, iters=1, device="cpu", channels=16)) == 8
+from gligen_tpu_torch.data import jpeg, keypoint_dataset, prepare_grounding, spatial_datasets
+from gligen_tpu_torch.data import tsv_split_merge
+from gligen_tpu_torch.tools import bench_train_realdata, modality_data
+assert png.open_image("inference_images/beach.jpg", "RGB").shape == (512, 512, 3)
+assert jpeg.decode(open("inference_images/style_golden.jpg", "rb").read())[1] == "RGB"
+with tempfile.TemporaryDirectory() as d:
+    rng = np.random.default_rng(0)
+    imgs = modality_data.images_from_files(["inference_images/style_golden.jpg"])
+    kp = keypoint_dataset.KeypointDataset(image_size=32, **modality_data.write_keypoint_tree(
+        d, imgs, rng))
+    assert kp[0]["points"].shape == (8 * 17, 2)
+    hed = spatial_datasets.HedDataset(image_size=32, **modality_data.write_paired_tsvs(
+        d, imgs, rng)["hed"])
+    assert hed[0]["hed_edge"].shape == (32, 32, 3)
+    sem = spatial_datasets.SemanticDataset(image_size=32, **modality_data.write_sem_tree(
+        d, imgs, rng))
+    assert sem[0]["sem"].shape == (32, 32)
+    shards = tsv_split_merge.split_tsv(d + "/GROUNDING/CC3M/tsv/train-00.tsv", 1, d)
+    assert tsv_split_merge.merge_tsv(shards, d + "/m.tsv") == 1
+    row = prepare_grounding.item_to_row({"data_id": 0, "annos": [{"bbox": [1, 2, 20, 30]}]}, img)
+    assert row[0] == 0
+    assert bench_train_realdata.main(["--tsv", d + "/r.tsv", "--make", "--rows", "2"],
+                                     device="cpu")[0]["rows"] == 2
 from gligen_tpu_torch.ops import cuda_build
 from gligen_tpu_torch.ops.attention import multi_head_attention
 from gligen_tpu_torch.training.train_step import lr_multiplier, make_optimizer

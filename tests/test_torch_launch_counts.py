@@ -247,6 +247,42 @@ def test_expected_train_launches_match_the_calls(monkeypatch, config, use_checkp
     assert (expected["ln_matmuls"] > 0) == (config != "b")
 
 
+@pytest.mark.parametrize("model", ["keypoint", "hed"])
+def test_expected_train_launches_match_the_calls_of_the_modalities(monkeypatch, model):
+    """Phase 17's models at the smoke's small width, one train step in (a)
+    under remat: the keypoint tokenizer (latent 32); hed's ConvNeXt
+    tokenizer and downsampler (latent 64), whose trainable first conv gives
+    the first block's attn1 a gradient, so its dq and dk/dv launch too."""
+    calls = count_calls(monkeypatch, "a")
+    monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", "full")
+    rng = np.random.default_rng(5)
+    if model == "keypoint":
+        extra_config, size = chip_smoke.SMALL_GROUNDING["keypoint"][0], 64
+        ids, _, grounding = chip_smoke.make_request(rng, 1, 1000, 64, tokenizer="keypoint")
+        extra = None
+    else:
+        extra_config, size = chip_smoke.SMALL_SPATIAL["hed"], 2 * chip_smoke.SPATIAL_LATENT
+        ids = rng.integers(1, 999, size=(1, 77)).astype(np.int64)
+        grounding, extra = chip_smoke.spatial_request(rng, "hed", 1)  # a 512^2 map
+    unet_config = dict(chip_smoke.SMALL["unet_config"], **extra_config, use_checkpoint=True)
+    comps = GligenComponents.create(dtype=torch.float32, seed=0, device="cpu",
+                                    **dict(chip_smoke.SMALL, unet_config=unet_config))
+    chip_smoke.dezero_(comps.unet, torch.Generator().manual_seed(2))
+    state = create_train_state(comps.unet, input_conv_train=extra is not None, warmup_steps=1)
+    step = make_train_step(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
+    batch = {"image": torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32)),
+             "input_ids": torch.from_numpy(ids),
+             "grounding": {k: torch.as_tensor(v) for k, v in grounding.items()}}
+    if extra is not None:
+        batch["grounding_extra"] = torch.as_tensor(extra)
+    step(state, batch, generator=torch.Generator().manual_seed(4))
+    expected = chip_smoke.expected_train_launches(comps, size, "a", use_checkpoint=True)
+    assert {name: calls[name] for name in expected} == expected
+    # the first block's attn1: dq and dk/dv only where the first conv trains
+    blocks = expected["flash_fwd"] // 6
+    assert expected["flash_bwd_dq"] == 3 * blocks - (extra is None)
+
+
 def _trace(calls, records):
     """A chrome trace as torch.profiler writes it on the card: host events
     (name, correlation) and the device records (category, correlation)."""

@@ -2,7 +2,8 @@
 against PIL: every ``inference_images/*.png`` reads equal to PIL's
 ``convert("RGB")`` and ``convert("L")``; each colour type's conversion on
 seeded images equals PIL's; every scanline filter decodes; what it writes
-reads back equal through PIL; what it does not take raises, naming PIL.
+reads back equal through PIL; palette PNGs read as PIL converts them; what
+it does not take raises, naming PIL.
 All comparisons are exact (uint8).
 """
 
@@ -107,11 +108,24 @@ def test_written_pngs_read_back_through_pil(tmp_path, shape):
     assert np.array_equal(png.read_png(path)[0], pixels)
 
 
+@pytest.mark.parametrize("colors", [2, 4, 16, 200])
+def test_palette_pngs_read_as_pil(tmp_path, colors):
+    """Palette PNGs at 1, 2, 4 and 8 bits an index read as the RGB of their
+    entries: PIL's convert("RGB") and convert("L")."""
+    rng = np.random.default_rng(colors)
+    path = tmp_path / "p.png"
+    img = Image.fromarray(rng.integers(0, 256, (9, 13, 3), np.uint8)).convert(
+        "P", palette=Image.ADAPTIVE, colors=colors)
+    img.save(path)
+    for mode in ("RGB", "L"):
+        assert np.array_equal(png.open_image(path, mode), np.asarray(img.convert(mode)))
+
+
 def test_what_it_does_not_take_raises_naming_pil(tmp_path):
-    palette = tmp_path / "p.png"
-    Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(palette)
+    gray_alpha = tmp_path / "la.png"  # colour type 4
+    Image.fromarray(np.zeros((4, 4), np.uint8)).convert("LA").save(gray_alpha)
     with pytest.raises(ValueError, match="PIL"):
-        png.read_png(palette)
+        png.read_png(gray_alpha)
     deep = tmp_path / "d.png"
     Image.fromarray(np.zeros((4, 4), np.uint16)).save(deep)
     with pytest.raises(ValueError, match="PIL"):

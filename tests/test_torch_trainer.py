@@ -15,6 +15,7 @@ encode batches other images beside the same one); the served generate
 within the pipeline tests' atol 1e-4 of the JAX pipeline's.
 """
 
+import base64
 import dataclasses
 import json
 import multiprocessing as mp
@@ -44,7 +45,7 @@ from gligen_tpu.training import trainer as jtrainer
 from gligen_tpu_torch import main as tmain
 from gligen_tpu_torch.config import load_yaml_config, normalize_model_config
 from gligen_tpu_torch.convert.from_jax import state_dict_from_jax
-from gligen_tpu_torch.data import png
+from gligen_tpu_torch.data import png, tsv
 from gligen_tpu_torch.data.tokenizer import load_tokenizer
 from gligen_tpu_torch.inference import adapters, cli
 from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
@@ -530,3 +531,188 @@ def test_preview_from_the_ema_shadow_restores_the_live_weights(tmp_path):
     with pytest.raises(ValueError, match="enable_ema"):
         small_trainer(root, name="no_ema", preview_use_ema=True).save_preview(
             tr.collate([ds[0], ds[1]]), 7)
+
+
+# ---- the inpaint preview (fault F8) -----------------------------------------
+def test_inpaint_preview_samples_plain_plms_with_the_batchs_inpainting_extra(tmp_path,
+                                                                               monkeypatch):
+    """As the JAX preview (trainer.py:455-535): ``plms_sample`` gets no mask
+    and no x0 (no blend of a known region); the UNet gets concat(z * m, m)
+    with z the batch's encode by the VAE at its own dtype (not
+    ``encode_fp32``), its noise the preview generator's first draw."""
+    from gligen_tpu_torch.inference import pipeline
+
+    root = str(tmp_path)
+    write_setup(root)
+    tr = small_trainer(root, name="inpaint_preview", inpaint_mode=True, preview_steps=2)
+    ds = tr.build_dataset()
+    batch = tr.collate([ds[0], ds[1]])
+    calls, seen = [], []
+
+    def sampler(eps_fn, schedule, x_init, **kw):
+        calls.append(kw)
+        hook = tr.unet.register_forward_pre_hook(
+            lambda module, args, kwargs: seen.append(kwargs["inpainting_extra"]),
+            with_kwargs=True)
+        try:
+            eps_fn(x_init, torch.full((x_init.shape[0],), 500, dtype=torch.int32), 1.0, False)
+        finally:
+            hook.remove()
+        return x_init
+
+    def no_fp32_encode(*args, **kw):
+        raise AssertionError("the preview encodes at the VAE's own dtype")
+
+    monkeypatch.setattr(pipeline, "plms_sample", sampler)
+    monkeypatch.setattr(tr.vae, "encode_fp32", no_fp32_encode)
+    out = tr.save_preview(batch, 3)
+    assert png.read_png(out)[0].shape == (2 * 2 * LATENT, 2 * 2 * LATENT, 3)
+    assert len(calls) == 1 and calls[0]["mask"] is None and calls[0]["x0"] is None
+    generator = torch.Generator().manual_seed(1000 + 3)
+    noise = torch.randn((2, LATENT, LATENT, 4), generator=generator)
+    with torch.no_grad():
+        z = tr.vae.encode(torch.as_tensor(batch["image"]).to(next(tr.vae.parameters()).dtype),
+                          noise).float()
+    m = torch.as_tensor(batch["inpainting_mask"]).float()
+    want = torch.cat([z * m, m], dim=-1)
+    assert len(seen) == 1 and torch.equal(seen[0], torch.cat([want, want]))
+
+
+def test_box_text_preview_draws_only_the_starting_noise(tmp_path, monkeypatch):
+    """A box+text preview is what it was: ``generate`` with no inpaint input,
+    its draws all from the generator seeded 1000 + it."""
+    from gligen_tpu_torch.inference import pipeline
+
+    root = str(tmp_path)
+    write_setup(root)
+    tr = small_trainer(root, name="box_preview", preview_steps=2)
+    ds = tr.build_dataset()
+    batch = tr.collate([ds[0], ds[1]])
+    seen = []
+
+    def sampler(eps_fn, schedule, x_init, **kw):
+        seen.append((x_init.clone(), kw["mask"], kw["x0"]))
+        return x_init
+
+    monkeypatch.setattr(pipeline, "plms_sample", sampler)
+    tr.save_preview(batch, 5)
+    want = torch.randn((2, LATENT, LATENT, 4), generator=torch.Generator().manual_seed(1005))
+    (x_init, mask, x0), = seen
+    assert mask is None and x0 is None and torch.equal(x_init, want)
+
+
+# ---- the keypoint and spatial modalities ------------------------------------
+MODALITY_SETUPS = {
+    # (tokenizer, downsampler, latent, catalog name, its params, adapter target)
+    "keypoint": ({"target": "keypoint", "params": {"max_persons_per_image": 2, "out_dim": CTX}},
+                 None, LATENT, "COCO2017Keypoint",
+                 {"max_persons_per_image": 2, "prob_real_caption": 0.5, "random_flip": True}),
+    # the hed and sem downsamplers fix the latent at 64^2
+    "hed": ({"target": "hed", "params": {"resize_input": 64, "out_dim": CTX}},
+            {"target": "hed", "params": {}}, 64, "CC3MGroundingHed",
+            {"prob_use_caption": 0.5, "random_flip": True}),
+    "sem": ({"target": "sem", "params": {"resize_input": 64, "in_dim": 152, "out_dim": CTX}},
+            {"target": "sem", "params": {"resize_input": 256, "in_dim": 152, "out_dim": 8}}, 64,
+            "ADESemantic", {"prob_use_caption": 0.5, "random_flip": True}),
+}
+
+
+def write_modality_setup(root, modality):
+    """A small config for ``modality`` and its dataset in the reference's
+    format under ``root/DATA`` (``tools/modality_data.py``); returns the
+    config's path."""
+    from gligen_tpu_torch.tools import modality_data
+
+    from test_torch_modality_datasets import seeded_images
+
+    tokenizer, downsampler, latent, name, ds_params = MODALITY_SETUPS[modality]
+    rng = np.random.default_rng(41)
+    images = seeded_images(rng, [(150, 180), (140, 130), (170, 140), (130, 200)])
+    data = os.path.join(root, "DATA")
+    if modality == "keypoint":
+        modality_data.write_keypoint_tree(data, images, rng)
+    elif modality == "hed":
+        modality_data.write_paired_tsvs(data, images, rng, ("hed",))
+    else:
+        modality_data.write_sem_tree(data, images, rng)
+    params = dict(UNET, grounding_tokenizer=tokenizer, image_size=latent)
+    if latent != LATENT:  # a third level: attention at 16^2 tokens, not 32^2
+        params.update(channel_mult=[1, 2, 2], attention_resolutions=[4])
+    if downsampler is not None:
+        params["grounding_downsampler"] = downsampler
+    image_size = 2 * latent  # the small VAE halves
+    lines = ["model:", "  target: unet", "  params:"]
+    lines += [f"    {k}: {_flow(v)}" for k, v in params.items()]
+    lines += [f"diffusion: {_flow({'params': dict(timesteps=1000, linear_start=0.00085, linear_end=0.012)})}",
+              f"autoencoder: {_flow({'params': dict(VAE, resolution=image_size)})}",
+              f"text_encoder: {_flow({'params': CLIP})}",
+              "train_dataset_names:",
+              f"  {name}: {_flow(dict(ds_params, image_size=image_size))}",
+              "grounding_tokenizer_input:",
+              f"  target: grounding_input.{modality}_grounding_tokinzer_input.GroundingNetInput"]
+    path = os.path.join(root, "small.yaml")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+@pytest.mark.parametrize("modality", ["keypoint", "hed", "sem"])
+def test_modality_trainer_steps_from_the_reference_format(tmp_path, monkeypatch, modality):
+    """Two steps (the first at learning rate 0, the warmup's) through
+    ``python -m gligen_tpu_torch.main`` from the dataset on disk: finite
+    losses, trainable tensors moved, frozen ones kept; the collated batch
+    equal to the JAX ``collate``'s on the same items; a latent cache refused
+    for a dataset that is not a box TSV."""
+    initial = {}
+
+    class Recorded(DezeroedComponents):
+        @classmethod
+        def create(cls, *args, **kwargs):
+            comps = DezeroedComponents.create(*args, **kwargs)
+            initial.update({n: p.detach().clone() for n, p in comps.unet.named_parameters()})
+            return comps
+
+    monkeypatch.setattr(trainer, "GligenComponents", Recorded)
+    root = str(tmp_path)
+    write_modality_setup(root, modality)
+    tr = tmain.main(main_argv(root, "--total_iters", "2", "--save_every_iters", "1000",
+                              "--disable_inference_in_training", "true"))
+    assert tr.run.grounding_modality == modality and tr.state.step == 2
+    with open(tr._metrics_path) as f:
+        assert np.isfinite(json.loads(f.readline())["loss"])
+    moved = [n for n, p in tr.unet.named_parameters() if not torch.equal(p, initial[n])]
+    assert moved and set(moved) <= set(tr.state.params)
+
+    ds = tr.build_dataset()
+    items = [ds[i] for i in range(len(ds))]
+    port, want_fn = _collate_stubs(modality, False)
+    got, want = port(items[:2]), want_fn(items[:2])
+    assert sorted(got) == sorted(want)
+    for key in ("image", "input_ids"):
+        assert got[key].dtype == want[key].dtype and np.array_equal(got[key], want[key])
+    assert sorted(got["grounding"]) == sorted(want["grounding"])
+    for key, value in want["grounding"].items():
+        assert np.array_equal(got["grounding"][key].numpy(), np.asarray(value)), key
+    if modality != "keypoint":
+        assert np.array_equal(got["grounding_extra"].numpy(), np.asarray(want["grounding_extra"]))
+    tr.run.cached_latents = str(tmp_path / "latents")
+    with pytest.raises(ValueError, match="latent-cache"):
+        tr.build_dataset()
+
+
+def test_bench_train_realdata_input_only_on_a_small_tsv(tmp_path, capsys):
+    from gligen_tpu_torch.tools import bench_train_realdata as bench
+
+    path = str(tmp_path / "g.tsv")
+    made, = bench.main(["--tsv", path, "--make", "--rows", "4"], device="cpu")
+    assert made["rows"] == 4 and "inference_images" in made["images"]
+    rows = tsv.TSVFile(path)
+    # the payloads are the repository's JPEG bytes, unchanged
+    raw = base64.b64decode(json.loads(rows[1][1])["image"])
+    assert raw == bench.JPEGS[1].read_bytes()
+    rec, = bench.main(["--tsv", path, "--input_only", "--batches", "2", "--batch", "2"],
+                      device="cpu")
+    assert rec["metric"] == "input_pipeline_images_per_sec" and rec["value"] > 0
+    assert rec["batch"] == 2 and rec["workers"] == 1 and rec["host_cores_busy"] > 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(line) for line in lines] == [made, rec]

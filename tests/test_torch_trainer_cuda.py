@@ -1,7 +1,6 @@
 """The training data path's host code and a small Trainer on the card.
-The native readers are built by ``g++`` from the checkout at first use, and
-the GPU machine's libjpeg is checked by what the port does there: a JPEG
-row decodes, or raises naming libjpeg.  The CPU runs of the same code are
+The native readers and the JPEG decoder (no libjpeg) are built by ``g++``
+from the checkout at first use; a JPEG row decodes as PIL's.  The CPU runs of the same code are
 in ``test_torch_data.py`` and ``test_torch_trainer.py``.
 
 This file imports neither jax nor gligen_tpu, so it also runs where JAX is
@@ -52,14 +51,11 @@ def test_native_tsv_reader_builds_from_the_checkout(cuda, tmp_path):
 
 
 def test_jpeg_decodes_or_raises_naming_libjpeg(cuda):
+    """The port's own decoder (no libjpeg) builds on the card's machine and
+    decodes a JPEG row as PIL does."""
     import chip_smoke
 
-    try:
-        jpeg.jpeg_library()
-    except OSError:
-        with pytest.raises(OSError, match="libjpeg"):
-            tsv.decode_base64_image(chip_smoke.JPEG_4X4)
-        return
+    jpeg.jpeg_library()
     pixels = tsv.decode_base64_image(chip_smoke.JPEG_4X4)
     assert pixels.shape == (4, 4, 3) and int(pixels.astype(np.int64).sum()) == JPEG_4X4_SUM
 
