@@ -202,6 +202,29 @@ Phases, each of which fails the run with a non-zero exit:
      one request; s/step with data, the host's decode and collate per
      batch, peak memory, and the device's idle share over two traced
      steps.  Where libjpeg is missing, a JPEG row must raise naming it.
+ 18. serving (M13; right after 15, in the same host state): phase 4's
+     model served by ``serving/server.py``'s ``ServingSession`` (a 25 ms
+     batching window) over ``make_server`` on 127.0.0.1 in a thread:
+     warmup of buckets 1 and 2 at 512^2 and 1024^2 in the background
+     (/ready 503 "warming", then 200); a burst of six batch-1 requests
+     (the pipeline calls and their buckets; every image decoded by the
+     port's PNG decoder, not constant, within BURST_TOL mean abs pixel of
+     its seed sent alone); a 1024^2 request of batch 2 (flash launches
+     over 16,384 keys, every one on TMA; peak memory); a malformed body
+     (500) and /metrics' counts; one request alone launching what phase
+     4's request launches; ``tools/bench_serve_overlap.py`` (pipelined,
+     serialized, pipelined again: img/s and the gain); a request's CLIP
+     features ready while a batch-8 request is still on the card.  Then
+     phase 10's inpaint checkpoint (a drawn sketch and box masks, the
+     direct path, the fp32 encode's routes), phase 13's hed checkpoint (a
+     map request) and a sem model (a label of 152 answered 500, /health
+     still ok), each in a session of its own.  The idle share of a
+     pipelined pair, run and then traced, comes after phase 11.
+ 19. fidelity (M14 part 1): ``tools/fidelity_gate.py`` over the 11
+     scenarios at ``--steps`` and batch 1, the fp32 and bf16 arms in
+     subprocesses of the CLI; PSNR, proxy-LPIPS and max |dpixel| per
+     scenario, each within the budget (LPIPS <= 0.025, PSNR >= 20 dB);
+     the JSON under build/chip_smoke_fidelity/.
 
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
@@ -3280,6 +3303,414 @@ def run_modalities(torch, np, seed, device, batch=4):
     return failures, traced, "modalities: " + "; ".join(summary) + "; " + line
 
 
+# Phase 18 (M13): the server at full width, over HTTP on 127.0.0.1.  Each
+# burst image is held to its seed's image sent alone (another bucket: the
+# kernels' tiles differ with the batch) at the small-reference limit.
+SERVE_WINDOW_MS = 25
+SERVE_BURST = 6
+BURST_TOL = 2e-2  # mean abs pixel in [0, 1]
+SERVE_PHRASES = ["a teddy bear", "a bird"]
+SERVE_BOXES = [[0.0, 0.09, 0.33, 0.76], [0.55, 0.11, 1.0, 0.8]]
+# bench_serve_overlap at the users' operating point
+OVERLAP = dict(clients=2, reqs=3, steps=50, batch=8)
+INPAINT_BOXES = [[0.25, 0.28, 0.42, 0.52], [0.14, 0.58, 0.58, 0.92]]
+
+
+class Served:
+    """A ``ServingSession`` behind ``make_server`` on 127.0.0.1 (a free
+    port) in a thread; ``close`` stops the server and the session."""
+
+    def __init__(self, session):
+        import threading
+
+        from gligen_tpu_torch.serving.server import make_server
+
+        self.session = session
+        self.server = make_server(session, host="127.0.0.1", port=0)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def _call(self, req):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(req, timeout=900) as r:
+                return r.status, json.load(r)
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def get(self, path):
+        return self._call(f"{self.url}{path}")
+
+    def post(self, body):
+        import urllib.request
+
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+        return self._call(urllib.request.Request(f"{self.url}/generate", data,
+                                                 {"Content-Type": "application/json"}))
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+        self.session.close()
+
+
+def serving_session(comps, unet_config, steps, window_ms=SERVE_WINDOW_MS):
+    """The session ``serving/server.py:build_session`` makes of random
+    weights: the hash tokenizer, CLIP text features and the pseudo image
+    features of ``allow_random``; ``steps`` by default."""
+    from gligen_tpu_torch.data.tokenizer import HashTokenizer
+    from gligen_tpu_torch.inference.cli import FeatureExtractor
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline
+    from gligen_tpu_torch.serving.server import ServingSession
+
+    pipe = GenerationPipeline(comps)
+    pipe.tokenizer, pipe.unet_config = HashTokenizer(), dict(unet_config)
+    features = FeatureExtractor(comps.text_encoder, pipe.tokenizer, allow_random=True)
+    return ServingSession(pipe, pipe.tokenizer, features, default_steps=steps,
+                          batch_window_ms=window_ms)
+
+
+def served_images(np, body, size):
+    """(the images of a /generate answer in [0, 1], decoded by the port's
+    PNG decoder; whether each is size^2 RGB and not constant)."""
+    import base64
+
+    from gligen_tpu_torch.data import png
+
+    imgs = [png.decode_png(base64.b64decode(b))[0].astype(np.float32) / 255.0
+            for b in body.get("images", [])]
+    ok = bool(imgs) and all(i.shape == (size, size, 3) and float(i.std()) > 1e-3 for i in imgs)
+    return imgs, ok
+
+
+def box_request(batch, seed, steps, **kw):
+    return dict({"prompt": "a teddy bear sitting next to a bird", "phrases": SERVE_PHRASES,
+                 "locations": SERVE_BOXES, "batch_size": batch, "seed": seed, "steps": steps},
+                **kw)
+
+
+def run_serving(torch, np, seed, device, steps, phase4_launches):
+    """Phase 18: phase 4's model (configuration (a)) served by a
+    ``ServingSession`` with a 25 ms window over ``make_server``: warmup and
+    /ready, a burst, 1024^2, /metrics after a malformed body, one request's
+    launches, ``bench_serve_overlap`` and features mid-batch; then phase
+    10's inpaint checkpoint, phase 13's hed checkpoint and a sem model each
+    in a session of its own.  Returns (failures, summary numbers)."""
+    import base64
+    import collections
+    import threading
+
+    from gligen_tpu_torch.data import png
+    from gligen_tpu_torch.inference.cli import components_from_checkpoint
+    from gligen_tpu_torch.inference.pipeline import GligenComponents
+    from gligen_tpu_torch.ops import flash_attention
+    from gligen_tpu_torch.ops.flash_attention import flash_fwd
+    from gligen_tpu_torch.ops.fused_norm import group_norm_fused
+    from gligen_tpu_torch.tools import bench_serve_overlap
+    from gligen_tpu_torch.tools.reference_ckpt import reference_checkpoint
+
+    set_config("a")
+    failures, out = [], {}
+
+    def check(ok, name, line):
+        print(f"serving: {line} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"serving {name}")
+
+    comps = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device)
+    dezero_(comps.unet, torch.Generator(device=device).manual_seed(seed + 1))
+    served = Served(serving_session(comps, {}, steps))
+    session, pipe = served.session, served.session.pipe
+    calls, entered = [], threading.Event()  # (rows, latent) of each pipeline call
+    real_generate = pipe.generate
+
+    def generate(ids, *a, **kw):
+        calls.append((len(ids), kw["latent_size"]))
+        entered.set()
+        return real_generate(ids, *a, **kw)
+
+    pipe.generate = generate
+    sent = collections.Counter()
+    try:
+        # 1. warmup in the background; /ready 503 "warming", then 200
+        t0 = time.perf_counter()
+        session.warmup(buckets=(1, 2), resolutions=(512, 1024), background=True)
+        first = served.get("/ready")
+        while session.warmup_error is None and not session.ready \
+                and time.perf_counter() - t0 < 600:
+            time.sleep(0.05)
+        out["warmup_s"] = time.perf_counter() - t0
+        ready = served.get("/ready")
+        warmed = sorted(calls)
+        sent.update(requests=len(warmed), images=sum(b for b, _ in warmed))
+        check(first == (503, {"status": "warming"}) and ready == (200, {"status": "ready"})
+              and warmed == [(1, 64), (1, 128), (2, 64), (2, 128)], "warmup",
+              f"warmup of buckets 1, 2 at 512^2 and 1024^2 ({steps} steps) in the background: "
+              f"/ready {first} then {ready} after {out['warmup_s']:.1f} s; pipeline calls (rows, "
+              f"latent) {warmed}")
+
+        # 2. a burst of single-image requests, then each seed alone
+        calls.clear()
+        barrier, burst = threading.Barrier(SERVE_BURST), {}
+
+        def client(s):
+            barrier.wait()
+            burst[s] = served.post(box_request(1, s, steps))
+
+        threads = [threading.Thread(target=client, args=(s,)) for s in range(SERVE_BURST)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out["burst_s_per_img"] = (time.perf_counter() - t0) / SERVE_BURST
+        burst_calls = list(calls)
+        diffs, ok = [], len(burst) == SERVE_BURST
+        for s in range(SERVE_BURST):
+            code, body = burst.get(s, (0, {}))
+            imgs, sound = served_images(np, body, 512)
+            code_alone, alone = served.post(box_request(1, s, steps))
+            imgs_alone, sound_alone = served_images(np, alone, 512)
+            ok &= code == code_alone == 200 and sound and sound_alone
+            if imgs and imgs_alone:
+                diffs.append(float(np.abs(imgs[0] - imgs_alone[0]).mean()))
+        sent.update(requests=2 * SERVE_BURST, images=2 * SERVE_BURST)
+        check(ok and len(diffs) == SERVE_BURST and max(diffs) <= BURST_TOL
+              and len(burst_calls) < SERVE_BURST, "burst",
+              f"burst of {SERVE_BURST} requests of batch 1 ({steps} steps, seeds 0-"
+              f"{SERVE_BURST - 1}): {len(burst_calls)} pipeline calls at buckets "
+              f"{[b for b, _ in burst_calls]}, {out['burst_s_per_img']:.4f} s/img over the burst; "
+              f"each image against its seed alone: mean abs pixel "
+              f"{', '.join(f'{d:.5f}' for d in diffs)} (limit {BURST_TOL})")
+
+        # 3. 1024^2 at batch 2: attention over 16,384 keys on the TMA route
+        seen, real_launch = [], flash_attention.launch_fwd
+
+        def observe(library, q, k, v, heads, bias, tiles):
+            res = real_launch(library, q, k, v, heads, bias, tiles)
+            seen.append((k.shape[1], q.shape[2] // heads, res[2]))
+            return res
+
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launch_fwd = observe
+        t0 = time.perf_counter()
+        try:
+            code, body = served.post(box_request(2, 11, steps, resolution=1024))
+        finally:
+            flash_attention.launch_fwd = real_launch
+        out["s_per_img_1024"] = (time.perf_counter() - t0) / 2
+        out["peak_gib_1024"] = torch.cuda.max_memory_allocated() / 2**30
+        sent.update(requests=1, images=2)
+        _, sound = served_images(np, body, 1024)
+        at16k = collections.Counter(f"d {d} {route}" for m, d, route in seen if m == 16384)
+        check(code == 200 and sound and at16k.get("d 40 tma", 0) > 0
+              and all(route == "tma" for _, _, route in seen), "1024",
+              f"1024^2, batch 2 ({steps} steps): {out['s_per_img_1024']:.4f} s/img, peak "
+              f"allocated {out['peak_gib_1024']:.2f} GiB ({resident:.2f} GiB resident before); "
+              f"flash launches over 16,384 keys {dict(at16k)} (attn1 at ds1 is d 40, the VAE's "
+              f"mid-attention d 512), every launch on TMA")
+
+        # 6. a malformed body, then /metrics
+        code, body = served.post(b"{not json")
+        sent.update(requests=1, errors=1)
+        mcode, m = served.get("/metrics")
+        check(code == 500 and body["error"].startswith("JSONDecodeError") and mcode == 200
+              and all(m[k] == sent[k] for k in ("requests", "images", "errors"))
+              and 0 <= m["latency_p50_sec"] <= m["latency_p95_sec"], "metrics",
+              f"malformed body -> {code} {body}; /metrics {m} (sent {dict(sent)})")
+
+        # 7. one request alone launches what phase 4's request launches
+        wrappers = kernel_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        code, body = served.post(box_request(2, 3, steps))
+        counts = {name: w.launches for name, w in wrappers.items()}
+        expected, _, _ = expected_launches(comps, steps, [0.3, 0.0, 0.7], 64, "a")
+        phase4 = {k: v // 2 for k, v in phase4_launches.items()}
+        check(code == 200 and counts == expected == phase4, "launches",
+              f"one request alone (batch 2, {steps} steps, the default alpha stages): launches "
+              f"{counts}, phase 4's per request {phase4}")
+
+        # 8. pipelined against serialized completion
+        rates = bench_serve_overlap.run(session, **OVERLAP)
+        out["overlap"] = rates
+        print(f"serving: bench_serve_overlap ({OVERLAP['clients']} clients x {OVERLAP['reqs']} "
+              f"back-to-back requests of batch {OVERLAP['batch']}, {OVERLAP['steps']} steps): "
+              + ", ".join(f"{arm} {rates[arm]:.4f} img/s" for arm in bench_serve_overlap.ARMS)
+              + f"; pipelined vs serialized {rates['gain_pct']:+.2f}%", flush=True)
+
+        # 9. a request's features while a batch-8 request is on the card
+        done, real_run = [], session.streams.run
+
+        def run(fn):
+            res = real_run(fn)
+            done.append(res[1])
+            return res
+
+        session.streams.run = run
+        entered.clear()
+        batch_answer = {}
+        t = threading.Thread(target=lambda: batch_answer.update(
+            r=served.post(box_request(8, 21, OVERLAP["steps"]))))
+        t0 = time.perf_counter()
+        t.start()
+        entered.wait(600)
+        time.sleep(0.3)
+        n_done = len(done)
+        t1 = time.perf_counter()
+        with session.streams.for_features():
+            grounding, _ = session._grounding_for_modality(
+                {"phrases": ["a red car", "a tree", "a dog"],
+                 "locations": SERVE_BOXES + [[0.2, 0.2, 0.4, 0.4]]}, 1)
+        feat_ms = (time.perf_counter() - t1) * 1e3
+        in_flight = len(done) == n_done or not done[-1].query()
+        t.join()
+        batch_s = time.perf_counter() - t0
+        session.streams.run = real_run
+        feats_ok = bool(np.abs(grounding["positive_embeddings"][0, :3]).sum(-1).all())
+        check(in_flight and feats_ok and batch_answer["r"][0] == 200, "features mid-batch",
+              f"three phrases' CLIP features {feat_ms:.1f} ms, ready while the batch-8 request "
+              f"({OVERLAP['steps']} steps, {batch_s:.2f} s in all) was still on the card "
+              f"{in_flight}")
+        out["features_ms"], out["features_batch_s"] = feat_ms, batch_s
+    finally:
+        served.close()
+    del comps, session, pipe, served
+    torch.cuda.empty_cache()
+
+    # 4. inpainting on phase 10's checkpoint, the direct path
+    comps, ok, line = load_checkpoint(torch, np, seed, device)
+    print(line, flush=True)
+    if not ok:
+        failures.append("serving inpaint checkpoint")
+    served = Served(serving_session(comps, INPAINT_UNET, steps))
+    try:
+        beach = base64.b64encode((REPO / "inference_images" / "beach.jpg").read_bytes()).decode()
+        sketch = np.zeros((512, 512), np.uint8)
+        sketch[128:320, 160:400] = 255  # the region to repaint
+        sketch = base64.b64encode(png.encode_png(sketch)).decode()
+        want32 = expected_fp32(comps, "a")
+        for name, extra in (("actual_mask", {"actual_mask": sketch}), ("boxes", {})):
+            before = flash_fwd.routes["fp32"], group_norm_fused.routes["fp32"], \
+                flash_fwd.routes["copy"]
+            t0 = time.perf_counter()
+            code, body = served.post(dict(
+                {"prompt": "a corgi and a cake", "phrases": ["corgi", "cake"],
+                 "locations": INPAINT_BOXES, "task": "inpainting", "input_image": beach,
+                 "batch_size": 2, "seed": 5, "steps": steps}, **extra))
+            sec = time.perf_counter() - t0
+            got32 = {"flash_fwd": flash_fwd.routes["fp32"] - before[0],
+                     "group_norm": group_norm_fused.routes["fp32"] - before[1]}
+            _, sound = served_images(np, body, 512)
+            check(code == 200 and sound and got32 == want32
+                  and flash_fwd.routes["copy"] == before[2], f"inpaint ({name})",
+                  f"inpainting with {name} (beach.jpg, batch 2, {steps} steps, the direct "
+                  f"path): {sec / 2:.4f} s/img; the fp32 encode's launches {got32} (expected "
+                  f"{want32})")
+    finally:
+        served.close()
+    del comps, served
+    torch.cuda.empty_cache()
+
+    # 5. hed from phase 13's checkpoint; sem's label check
+    rng = np.random.default_rng(seed + 23)
+    src = GligenComponents.create(unet_config=dict(SPATIAL_MODELS["hed"]), dtype=torch.bfloat16,
+                                  seed=seed + 19, device=device)
+    dezero_(src.unet, torch.Generator(device=device).manual_seed(seed + 20))
+    ckpt, sd_conv = reference_checkpoint(src, SPATIAL_MODELS["hed"], GROUNDING_SCHEDULE)
+    comps = components_from_checkpoint(ckpt, sd_first_conv=sd_conv, dtype=torch.bfloat16,
+                                       device=device)
+    del src, ckpt, sd_conv
+    served = Served(serving_session(comps, SPATIAL_MODELS["hed"], steps))
+    try:
+        edges = base64.b64encode(png.encode_png(
+            rng.integers(0, 256, (512, 512, 3)).astype(np.uint8))).decode()
+        t0 = time.perf_counter()
+        code, body = served.post({"prompt": "a man is eating breakfast", "map_image": edges,
+                                  "batch_size": 2, "seed": 6, "steps": steps,
+                                  "alpha_type": SPATIAL_ALPHA["hed"]})
+        _, sound = served_images(np, body, 512)
+        check(code == 200 and sound, "hed",
+              f"hed map request (batch 2, {steps} steps): "
+              f"{(time.perf_counter() - t0) / 2:.4f} s/img")
+    finally:
+        served.close()
+    del comps, served
+    torch.cuda.empty_cache()
+    comps = GligenComponents.create(unet_config=dict(SPATIAL_MODELS["sem"]),
+                                    dtype=torch.bfloat16, seed=seed + 21, device=device)
+    served = Served(serving_session(comps, SPATIAL_MODELS["sem"], steps))
+    try:
+        labels = rng.integers(0, SEM_CLASSES, (512, 512)).astype(np.uint8)
+        labels[100, 200] = SEM_CLASSES
+        code, body = served.post({"prompt": "a living room", "batch_size": 1, "steps": steps,
+                                  "map_image": base64.b64encode(png.encode_png(labels)).decode()})
+        health = served.get("/health")
+        check(code == 500 and str(SEM_CLASSES) in body.get("error", "")
+              and health == (200, {"status": "ok"}), "sem label",
+              f"sem map with a label of {SEM_CLASSES} -> {code} {body}; then /health {health}")
+    finally:
+        served.close()
+    del comps, served
+    torch.cuda.empty_cache()
+    return failures, out
+
+
+def serving_idle_share(torch, seed, device, steps):
+    """The card's idle share over a pipelined pair of phase 18's
+    ``bench_serve_overlap`` requests, run as it is and traced (after phase
+    11: no profiler run may precede a timed phase)."""
+    from gligen_tpu_torch.inference.pipeline import GligenComponents
+    from gligen_tpu_torch.tools import bench_serve_overlap
+
+    set_config("a")
+    comps = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device)
+    dezero_(comps.unet, torch.Generator(device=device).manual_seed(seed + 1))
+    session = serving_session(comps, {}, steps)
+    try:
+        bench_serve_overlap.drive(session, 1, 1, OVERLAP["steps"], OVERLAP["batch"])  # warm
+        plain, wall, busy = bench_serve_overlap.idle_share(session, OVERLAP["steps"],
+                                                           OVERLAP["batch"])
+    finally:
+        session.close()
+    del comps, session
+    torch.cuda.empty_cache()
+    return (f"serving: a pipelined pair (2 clients, one request of batch {OVERLAP['batch']} "
+            f"each, {OVERLAP['steps']} steps): wall {plain:.1f} ms, traced {wall:.1f} ms with the "
+            f"device busy {busy:.1f} ms: idle {1 - busy / plain:.1%} of the unprofiled wall, "
+            f"{1 - busy / wall:.1%} of the traced one")
+
+
+# Phase 19 (M14 part 1): the fidelity gate of the served configuration
+FIDELITY_DIR = REPO / "build" / "chip_smoke_fidelity"
+
+
+def run_fidelity(torch, steps):
+    """``tools/fidelity_gate.py`` over the 11 scenarios at ``steps`` steps
+    and batch 1, both arms in subprocesses of the CLI; each scenario within
+    the budget.  Returns (failures, results)."""
+    from gligen_tpu_torch.tools import fidelity_gate
+
+    torch.cuda.empty_cache()
+    results = fidelity_gate.main(["--out", str(FIDELITY_DIR), "--steps", str(steps),
+                                  "--batch", "1"])
+    bad = fidelity_gate.over_budget(results)
+    for sc in fidelity_gate.SCENARIOS:
+        r = results[sc]
+        print(f"fidelity: {sc}: " + (f"PSNR {r['psnr']:.4f} dB, proxy-LPIPS {r['lpips']:.6f}, "
+                                     f"max |dpixel| {r['max_abs_pixel_delta']:.4f} over "
+                                     f"{r['images']} images" if "lpips" in r else "missing")
+              + f" {'FAIL' if sc in bad else 'ok'} (budget LPIPS <= {fidelity_gate.LPIPS_MAX}, "
+              f"PSNR >= {fidelity_gate.PSNR_MIN})", flush=True)
+    return [f"fidelity {sc}" for sc in bad], results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -3441,6 +3872,19 @@ def main() -> int:
     failures += cli_failures
     print(f"cli: phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 18. the server at full width, in the same host state ----
+    t0 = time.perf_counter()
+    serving_failures, serving = run_serving(torch, np, args.seed, device, args.steps,
+                                            launches["a"])
+    failures += serving_failures
+    print(f"serving: phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 19. the fidelity gate: 11 scenarios, fp32 arm against bf16 ----
+    t0 = time.perf_counter()
+    fidelity_failures, fidelity = run_fidelity(torch, args.steps)
+    failures += fidelity_failures
+    print(f"fidelity: phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 6. the flash backward kernels vs plain ----
     t0 = time.perf_counter()
     results += check_bwd(torch, bwd_cases(4), device)
@@ -3510,6 +3954,9 @@ def main() -> int:
               f"{busy:.3f} ms device busy per request (profiled; {records} device records of "
               f"{calls} launch calls)", flush=True)
     del tokenizers
+    # phase 18's traced pipelined pair, likewise
+    serving_idle = serving_idle_share(torch, args.seed, device, args.steps)
+    print(serving_idle, flush=True)
     # phase 16's two traced steps, under the profiler: after every timed phase
     idle_line = train_idle_share(torch, trainer)
     print(idle_line, flush=True)
@@ -3547,6 +3994,17 @@ def main() -> int:
           f"model served in fp32) on {card}")
     print("summary: cli s/img " + ", ".join(f"{m} {t:.3f}" for m, t in cli_s.items())
           + f" (--ckpt random --dezero, batch {batch}, {args.steps} steps, 512^2) on {card}")
+    rates = serving["overlap"]
+    print(f"summary: serving (phase 18, a 25 ms window): warmup {serving['warmup_s']:.1f} s; burst "
+          f"{serving['burst_s_per_img']:.4f} s/img (batch 1 x {SERVE_BURST}, {args.steps} steps, "
+          f"512^2); 1024^2 batch 2 {serving['s_per_img_1024']:.4f} s/img, peak allocated "
+          f"{serving['peak_gib_1024']:.2f} GiB; bench_serve_overlap pipelined "
+          f"{rates['pipelined']:.4f} / {rates['pipelined2']:.4f}, serialized "
+          f"{rates['serialized']:.4f} img/s ({rates['gain_pct']:+.2f}%); features mid-batch "
+          f"{serving['features_ms']:.1f} ms; {serving_idle[len('serving: '):]} on {card}")
+    print(f"summary: fidelity (phase 19, {args.steps} steps, batch 1, bf16 vs fp32): " + ", ".join(
+        f"{sc} {r['psnr']:.2f} dB / {r['lpips']:.5f}" for sc, r in fidelity.items()
+        if "lpips" in r) + f" on {card}")
     for row in matrix_rows:
         print(f"summary: bench_matrix {row['row']} ({row['modality']}, {row['sampler']} "
               f"{row['steps']} steps, batch {row['batch']}): {row['img_per_sec']:.4f} img/s, "

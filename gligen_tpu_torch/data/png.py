@@ -187,18 +187,35 @@ def write_png(path, pixels: np.ndarray) -> None:
         f.write(data)
 
 
-def open_image(path, mode: str) -> np.ndarray:
-    """The image at ``path`` as uint8 pixels in ``mode`` ("RGB" or "L"): a
-    PNG through this module, a JPEG through ``data/jpeg.py`` (a file either
-    does not read raises), anything else through PIL (imported here)."""
-    with open(path, "rb") as f:
-        data = f.read()
+# magic bytes of formats neither decoder here reads, to name them in an error
+OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                 (b"\x00\x00\x01\x00", "ICO"))
+JPEG_SOI = b"\xff\xd8"
+
+
+def decode_image(data: bytes, mode: str, what: str = "the image") -> np.ndarray:
+    """PNG or JPEG bytes (``data/jpeg.py``) as uint8 pixels in ``mode``
+    ("RGB" or "L"), as PIL's ``Image.open(...).convert(mode)`` gives them;
+    another format raises ``ValueError`` naming it."""
     if data[:8] == SIGNATURE:
-        return convert(*decode_png(data, os.fspath(path)), mode)
-    if data[:2] == b"\xff\xd8":
+        return convert(*decode_png(data, what), mode)
+    if data[:2] == JPEG_SOI:
         from gligen_tpu_torch.data import jpeg
 
         return convert(*jpeg.decode(data), mode)
+    name = "WebP" if data[:4] == b"RIFF" and data[8:12] == b"WEBP" else next(
+        (n for magic, n in OTHER_FORMATS if data.startswith(magic)), "an unknown format")
+    raise ValueError(f"{what}: {name} is not supported (PNG or baseline JPEG)")
+
+
+def open_image(path, mode: str) -> np.ndarray:
+    """The image at ``path`` as uint8 pixels in ``mode`` ("RGB" or "L"): a
+    PNG or a JPEG through ``decode_image`` (a file either does not read
+    raises), anything else through PIL (imported here)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == SIGNATURE or data[:2] == JPEG_SOI:
+        return decode_image(data, mode, os.fspath(path))
     from PIL import Image
 
     return np.asarray(Image.open(os.fspath(path)).convert(mode), np.uint8)

@@ -20,6 +20,8 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
+from collections import defaultdict
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -67,12 +69,25 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 
+# one lock a library: two threads of a process (a server's warmup and a
+# request) never both run nvcc for it; other libraries still build at once
+_BUILD_LOCKS = defaultdict(threading.Lock)
+_BUILD_LOCKS_GUARD = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, then load it.
 
     The compiler's resource report (``-Xptxas -v``: registers, shared
     memory, spills) is kept beside the library as ``ptxas.txt``."""
+    with _BUILD_LOCKS_GUARD:
+        lock = _BUILD_LOCKS[name]
+    with lock:
+        return _build_and_load(name)
+
+
+def _build_and_load(name: str) -> ctypes.CDLL:
     lib = library_path(name)
     if not lib.exists():
         nvcc = find_nvcc()

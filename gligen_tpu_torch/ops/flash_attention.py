@@ -34,6 +34,7 @@ TF32; hi.hi + hi.lo + lo.hi), fp32-accurate to a few ulps.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -213,15 +214,18 @@ class Counted:
     """A flash kernel's wrapper: ``launches`` counts kernel launches (never
     plain-version calls), so a run can show that its attention went
     through the kernel; ``routes`` counts them by route ("tma" or
-    "copy", and the forward's "fp32")."""
+    "copy", and the forward's "fp32").  The counts take a lock: a server
+    launches from several threads at once."""
 
     def __init__(self, routes=("tma", "copy")):
         self.launches = 0
         self.routes = dict.fromkeys(routes, 0)
+        self._count_lock = threading.Lock()
 
     def _count(self, route: str) -> None:
-        self.launches += 1
-        self.routes[route] += 1
+        with self._count_lock:
+            self.launches += 1
+            self.routes[route] += 1
 
 
 class FlashForward(Counted):

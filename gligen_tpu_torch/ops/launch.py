@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -67,7 +68,8 @@ class Kernel:
     ``launches`` counts calls that launched it (never plain-version
     calls), so a run can show that its path went through the kernel;
     ``routes`` counts them by route (``ROUTES``: e.g. the bf16 kernel's
-    and the fp32 route's)."""
+    and the fp32 route's).  The counts take a lock: a server launches from
+    several threads at once."""
 
     library = ""
     entry = ""
@@ -77,6 +79,7 @@ class Kernel:
     def __init__(self):
         self.launches = 0
         self.routes = dict.fromkeys(self.ROUTES, 0)
+        self._count_lock = threading.Lock()
 
     def _launch(self, device: torch.device, *args, entry: Optional[Tuple[str, tuple]] = None,
                 route: Optional[str] = None) -> None:
@@ -87,9 +90,10 @@ class Kernel:
                                                     torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
-        self.launches += 1
-        if route is not None:
-            self.routes[route] += 1
+        with self._count_lock:
+            self.launches += 1
+            if route is not None:
+                self.routes[route] += 1
 
 
 def kernel_dtype(op: str, x: torch.Tensor) -> torch.dtype:

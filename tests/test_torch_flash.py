@@ -182,8 +182,9 @@ def test_port_imports_without_jax_or_nvcc():
     command line's parser, the crop and the TSV image codec, the JPEG
     decoder on the repository's JPEGs (built by g++, linked with nothing),
     the keypoint and spatial datasets from files the data writer made, the
-    TSV split and merge, ``prepare_grounding``'s rows and the real-data
-    bench's ``--make`` run, in a Python where jax, flax,
+    TSV split and merge, ``prepare_grounding``'s rows, the real-data
+    bench's ``--make`` run, the server's image codecs and a warmup of a
+    session, PSNR, SSIM and the LPIPS proxy, in a Python where jax, flax,
     gligen_tpu, regex, PIL and yaml cannot be imported (the GPU machine has
     none of the last three) and no nvcc is on the PATH; only a kernel build
     asks for nvcc."""
@@ -204,7 +205,9 @@ for name in ("training.train_step", "training.checkpoints", "convert.from_refere
              "data.transforms", "data.catalog", "data.concat", "data.box_dataset",
              "data.latent_cache", "training.trainer", "tools.prepare_latents",
              "data.spatial_datasets", "data.keypoint_dataset", "data.prepare_grounding",
-             "data.tsv_split_merge", "tools.modality_data", "tools.bench_train_realdata"):
+             "data.tsv_split_merge", "tools.modality_data", "tools.bench_train_realdata",
+             "serving.server", "serving.demo_page", "eval.metrics", "eval.lpips",
+             "tools.fidelity_gate", "tools.bench_serve_overlap"):
     assert f"gligen_tpu_torch.{name}" in sys.modules, name
 import numpy as np
 from gligen_tpu_torch.data import png, tokenizer
@@ -267,6 +270,26 @@ with tempfile.TemporaryDirectory() as d:
     assert row[0] == 0
     assert bench_train_realdata.main(["--tsv", d + "/r.tsv", "--make", "--rows", "2"],
                                      device="cpu")[0]["rows"] == 2
+import base64
+from gligen_tpu_torch.serving import server
+from gligen_tpu_torch.eval import lpips, metrics
+from gligen_tpu_torch.tools import fidelity_gate
+jpg = base64.b64encode(open("inference_images/beach.jpg", "rb").read()).decode()
+assert server._b64_to_image(jpg, "L").shape == (512, 512)
+out = server._b64_to_image(server._image_to_b64(np.full((4, 4, 3), 0.5, np.float32)))
+assert out.shape == (4, 4, 3) and int(out[0, 0, 0]) == 127
+class Pipe:
+    unet_config = {"grounding_tokenizer": {"target": "sem"}, "grounding_downsampler": {}}
+    def generate(self, ids, uc_ids, grounding, **kw):
+        return torch.full((ids.shape[0], 8, 8, 3), 0.5)
+session = server.ServingSession(Pipe(), tokenizer.HashTokenizer(), batch_window_ms=1)
+session.warmup(buckets=(1, 2))
+assert session.ready, session.warmup_error
+assert fidelity_gate.SCENARIOS[-1] == "keypoint"
+a = np.random.default_rng(0).random((1, 16, 16, 3)).astype(np.float32)
+assert float(metrics.psnr(a, a * 0.5)[0]) > 0 and float(metrics.ssim(a, a)[0]) > 0.99
+stack = lpips.PerceptualConvStack(features=(8, 16))
+assert lpips.make_lpips_fn(module=stack, device="cpu")(a, a * 0.5)[0] > 0
 from gligen_tpu_torch.ops import cuda_build
 from gligen_tpu_torch.ops.attention import multi_head_attention
 from gligen_tpu_torch.training.train_step import lr_multiplier, make_optimizer
