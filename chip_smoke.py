@@ -12,7 +12,8 @@ Phases, each of which fails the run with a non-zero exit:
      (likewise), fused_norm.cu, fused_conv.cu and fused_conv_sweep.cu
      (likewise) with nvcc, in parallel, into build/kernels/; print the
      seconds it took and ptxas's registers, spills and wgmma notes (for
-     fused_proj and fused_conv, one line per tile configuration).
+     fused_proj and fused_conv, one line per tile configuration; the fp32
+     routes' 3xTF32 kernels must not spill).
   3. kernel: compare each kernel with its plain PyTorch version on bf16
      inputs at every shape the 512^2 path launches, with the times of both
      and, where one PyTorch call computes the same function, that call's:
@@ -37,8 +38,11 @@ Phases, each of which fails the run with a non-zero exit:
      and the fuser's rows, gn_affine and the fused conv at every ResBlock
      conv, each on fp32 inputs within FP32_REL_TOL of its plain output's
      largest magnitude (TF32 off) and repeated bit for bit, beside SDPA,
-     torch.matmul on the products, F.layer_norm or cuDNN's fp32 conv;
-     per level the fused projections (ln_matmuls for q/k/v, for q alone
+     torch.matmul on the products, F.layer_norm or cuDNN's fp32 conv; the
+     3xTF32 routes (flash, K2, K6) with their tensor-core bound beside the
+     fp32 FMA bound, K2's and K6's rows with a TF32 witness (one-pass TF32
+     must exceed the limit at one row of each kernel), K6's with its
+     whole wrapper call; per level the fused projections (ln_matmuls for q/k/v, for q alone
      and for the fuser's k/v over N+30, N+60 and N+136 rows (and at ds1 over
      N+196 and N+64), matmul_residual for to_out
      and net_2, ln_geglu) and the matmul-only mode of the same kernel
@@ -346,16 +350,19 @@ SMALL_GROUNDING = {
 def ptxas_configs(report: str) -> list:
     """(kernel, registers, spill stores, spill loads) of every tile
     configuration in a ``-Xptxas -v`` report: ``fused_proj_kernel<MODE, BM,
-    BN, STAGES>`` and ``conv3x3_kernel<BM, BN, STAGES>``, each name read
-    back from the mangled one."""
+    BN, STAGES>``, ``conv3x3_kernel<BM, BN, STAGES>`` and the fp32 routes'
+    ``proj_tf32_kernel<MODE, BM, BN, STAGES, PANEL>`` and
+    ``conv3x3_tf32_kernel<BM, BN, STAGES>``, each name read back from the
+    mangled one (a bool argument as 0 or 1)."""
     import re
 
     out, name, spills = [], None, (0, 0)
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            tpl = re.search(r"(fused_proj_kernel|conv3x3_kernel)I((?:Li\d+E)+)E", entry.group(1))
-            name = (f"{tpl.group(1)}<{', '.join(re.findall(r'Li(\d+)E', tpl.group(2)))}>"
+            tpl = re.search(r"(fused_proj_kernel|conv3x3_kernel|proj_tf32_kernel|"
+                            r"conv3x3_tf32_kernel)I((?:L[ib]\d+E)+)E", entry.group(1))
+            name = (f"{tpl.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', tpl.group(2)))}>"
                     if tpl else None)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
@@ -603,22 +610,43 @@ def check_fp32(torch, unet, device, batch):
     library call that computes the same function in fp32 with TF32 off
     (SDPA, ``F.layer_norm``, cuDNN's fp32 conv; the products alone by
     ``torch.matmul`` for K2, which no one call computes), and the bound:
-    operations at the fp32 FMA rate (the flash route's at its 3xTF32
-    tensor-core rate), or bytes."""
+    operations at the fp32 FMA rate, or bytes; the 3xTF32 routes' (flash,
+    K2, K6) at their tensor-core arithmetic, 3 x the operations at
+    TF32_TENSOR_FLOP_PER_S, with the fp32 FMA bound beside it.
+
+    K2's and K6's rows print a TF32 witness, held to nothing: the plain
+    function with one-pass TF32 products (``allow_tf32``) on the same
+    inputs, against the plain version.  For each of the four kernels at
+    least one row's witness must exceed its limit, or the rows could not
+    tell the kernel's fp32 from TF32.  K6's rows add the whole wrapper
+    call (``call_ms``: gn_affine and the weight's permute included)."""
+    import contextlib
+
     import torch.nn.functional as F
     from gligen_tpu_torch.ops import flash_attention as fa
     from gligen_tpu_torch.ops import fused_conv as fc
     from gligen_tpu_torch.ops import fused_norm as fn
     from gligen_tpu_torch.ops import fused_proj as fp
+    from gligen_tpu_torch.ops.basic import layer_norm_xla
 
     gen = torch.Generator(device=device).manual_seed(11)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=device) * scale
 
+    @contextlib.contextmanager
+    def tf32_on():
+        before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
     results = []
 
-    def record(kind, name, desc, wrapper, call, plain, library, nbytes, ops, rate=FP32_FLOP_PER_S):
+    def record(kind, name, desc, wrapper, call, plain, library, nbytes, ops, rate=FP32_FLOP_PER_S,
+               tc=False, witness=None, whole=None):
         before = wrapper.routes["fp32"]
         got = call()
         torch.cuda.synchronize()
@@ -631,16 +659,39 @@ def check_fp32(torch, unet, device, batch):
         repeats = all(torch.equal(g, a) for g, a in zip(got, again))
         ok = (launched == 1 and repeats and err <= limit
               and all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in got))
+        extra = ""
+        if witness is not None:
+            with tf32_on():
+                seen = witness()
+            seen = seen if isinstance(seen, tuple) else (seen,)
+            seen = max((a - w).abs().max().item() for a, w in zip(seen, want))
+            extra = f" TF32 witness {seen:.3e} ({seen / limit:.2f}x the tol)"
         ms, plain_ms = time_ms(call), time_ms(plain)
         library_ms = None if library is None else time_ms(library)
-        bound_ms, bound_by = bound(nbytes, ops, rate)
+        call_ms = None if whole is None else time_ms(whole)
+        if tc:  # 3xTF32: the tensor cores' three products, and the fp32 FMA bound beside
+            bound_ms, bound_by = bound(nbytes, 3 * ops, TF32_TENSOR_FLOP_PER_S)
+            fma_ms, fma_by = bound(nbytes, ops, FP32_FLOP_PER_S)
+            bounds = (f"bound {bound_ms:.4f} ms (3xTF32 {bound_by}, the kernel's) fp32 FMA bound "
+                      f"{fma_ms:.4f} ms ({fma_by})")
+        else:
+            bound_ms, bound_by = bound(nbytes, ops, rate)
+            bounds = f"bound {bound_ms:.4f} ms ({bound_by})"
         lib = "" if library is None else f" library {library_ms:.4f} ms"
+        lib += "" if whole is None else f" whole call {call_ms:.4f} ms"
         print(f"kernel {kind:20s} {name:18s} {desc:34s}: max_abs_err {err:.3e} (tol {limit:.3e}; "
-              f"repeats bit for bit: {repeats}) kernel {ms:.4f} ms {ops / ms / 1e9:.1f} TF/s "
-              f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.4f} ms{lib} "
-              f"bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"repeats bit for bit: {repeats}){extra} kernel {ms:.4f} ms "
+              f"{(3 * ops if tc else ops) / ms / 1e9:.1f} TF/s {100 * bound_ms / ms:.1f}% of "
+              f"bound; plain {plain_ms:.4f} ms{lib} {bounds} {'ok' if ok else 'FAIL'}", flush=True)
         results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok,
+                            limit=limit))
+        if tc:
+            results[-1]["fma_bound_ms"] = fma_ms
+        if witness is not None:
+            results[-1]["tf32_witness"] = seen
+        if whole is not None:
+            results[-1]["call_ms"] = call_ms
 
     # the flash forward's fp32 route (3xTF32) at the UNet's sites
     for name, b, n, m, h, d, _ in kernel_cases(batch):
@@ -651,10 +702,9 @@ def check_fp32(torch, unet, device, batch):
         record("flash_fwd_fp32", f"{name}_fp32", f"q ({b},{n},{h}x{d}) kv {m}", fa.flash_fwd,
                lambda: fa.flash_fwd(q, k, v, h), lambda: fa.flash_attention_plain(q, k, v, h),
                lambda: sdpa(torch, q, k, v, h, None),
-               4 * (2 * b * n * h * d + 2 * b * m * h * d) + 4 * b * h * n, 3 * flops,
-               TF32_TENSOR_FLOP_PER_S)
+               4 * (2 * b * n * h * d + 2 * b * m * h * d) + 4 * b * h * n, flops, tc=True)
         del q, k, v
-    # K2's fp32 route at every level
+    # K2's fp32 route (3xTF32) at every level
     for name, kind, b, n, c, k in proj_cases(batch):
         if name.rsplit("_", 1)[0] not in FP32_PROJ:
             continue
@@ -664,22 +714,28 @@ def check_fp32(torch, unet, device, batch):
             ws = [randn(c, c, scale=c**-0.5) for _ in range(k)]
             args, products, desc = (x, s, sb, ws), [(x, w) for w in ws], f"x ({b},{n},{c}) -> {k} x {c}"
             nbytes, flops = 4 * (m * c * (1 + k) + 2 * c + k * c * c), 2 * m * c * c * k
+            witness = lambda: tuple(layer_norm_xla(x, s, sb) @ w.T for w in ws)
         elif kind == "matmul_residual":
             h = randn(b, n, k)
             gate = torch.tensor(0.37, device=device) if k == c else None
-            w = randn(c, k, scale=k**-0.5)
-            args, products, desc = (h, w, randn(c, scale=0.1), x, gate), [(h, w)], f"h ({b},{n},{k}) -> {c}"
+            w, wb = randn(c, k, scale=k**-0.5), randn(c, scale=0.1)
+            args, products, desc = (h, w, wb, x, gate), [(h, w)], f"h ({b},{n},{k}) -> {c}"
             nbytes, flops = 4 * (m * (k + 2 * c) + c * k + c + 1), 2 * m * k * c
+            witness = lambda: x + (1.0 if gate is None else gate) * (h @ w.T + wb)
         else:
-            w = randn(8 * c, c, scale=c**-0.5)
-            args, products = (x, s, sb, w, randn(8 * c, scale=0.1)), [(x, w)]
+            w, wb = randn(8 * c, c, scale=c**-0.5), randn(8 * c, scale=0.1)
+            args, products = (x, s, sb, w, wb), [(x, w)]
             desc = f"x ({b},{n},{c}) -> {8 * c} -> {4 * c}"
             nbytes, flops = 4 * (m * 5 * c + 2 * c + 8 * c * c + 8 * c), 16 * m * c * c
+
+            def witness():
+                a, g = (layer_norm_xla(x, s, sb) @ w.T + wb).chunk(2, dim=-1)
+                return a * F.gelu(g)
         kernel, plain = fp.KERNELS[kind], getattr(fp, f"{kind}_plain")
         record(f"{kind}_fp32", f"{name}_fp32", desc, kernel, lambda: kernel(*args),
                lambda: plain(*args), lambda: [torch.matmul(a, w.T) for a, w in products],
-               nbytes, flops)
-        del x, args, products
+               nbytes, flops, tc=True, witness=witness)
+        del x, args, products, witness
     # the LayerNorm's fp32 route at the module path's rows
     for name, rows, c, eps in ln_cases(batch):
         if name.rsplit("_", 1)[0] not in ("ln", "ln_fuser"):
@@ -691,7 +747,8 @@ def check_fp32(torch, unet, device, batch):
                lambda: fn.layer_norm_plain(x, s, sb, eps), lambda: F.layer_norm(x, (c,), s, sb, eps),
                8 * rows * c + 8 * c, 7 * rows * c)
         del x
-    # the fused conv's fp32 route, and its statistics (gn_affine's), at every ResBlock conv
+    # the fused conv's fp32 route (3xTF32), and its statistics (gn_affine's),
+    # at every ResBlock conv
     seen = set()
     for name, b, h, cin, cout, residual in conv_cases(unet, batch):
         x = grouped_input(randn, (b, h, h, cin), torch.float32)
@@ -708,14 +765,27 @@ def check_fp32(torch, unet, device, batch):
         wt = w.permute(0, 2, 3, 1).contiguous()
         xn = F.silu(x * a[:, None, None, :] + v[:, None, None, :]).permute(0, 3, 1, 2)
         wcl = w.contiguous(memory_format=torch.channels_last)
+
+        def witness():
+            out = F.conv2d(xn, w, wb, padding=1).permute(0, 2, 3, 1)
+            return out if res is None else out + res
         record("gn_silu_conv3x3_fp32", f"{name}_fp32",
                f"({b},{h},{h},{cin}) -> {cout}{' + res' if residual else ''}",
                fc.gn_silu_conv3x3, lambda: fc.gn_silu_conv3x3.conv(x, a, v, wt, wb, res),
                lambda: fc._ref_chain(x, a, v, w, wb, res),
                lambda: F.conv2d(xn, wcl, wb, padding=1),
                4 * (m * cin + 2 * b * cin + 9 * cin * cout + cout + m * cout * (1 + residual)),
-               2 * m * cout * 9 * cin)
-        del x, w, res, xn, wcl, wt
+               2 * m * cout * 9 * cin, tc=True, witness=witness,
+               whole=lambda: fc.gn_silu_conv3x3(x, s, sb, w, wb, res))
+        del x, w, res, xn, wcl, wt, witness
+    for kind in ("ln_matmuls_fp32", "matmul_residual_fp32", "ln_geglu_fp32",
+                 "gn_silu_conv3x3_fp32"):
+        rows = [r for r in results if r["kind"] == kind]
+        if not any(r["tf32_witness"] > r["limit"] for r in rows):
+            print(f"kernel {kind}: one-pass TF32 is within every row's tol, so the rows cannot "
+                  f"tell fp32 from TF32 FAIL", flush=True)
+            for r in rows:
+                r["ok"] = False
     torch.cuda.empty_cache()
     return results
 
@@ -3750,9 +3820,17 @@ def main() -> int:
     for src in SOURCES:
         report = (library_path(src).parent / "ptxas.txt").read_text()
         if src.startswith(("fused_proj", "fused_conv")):  # one line per tile configuration
-            for name, regs, stores, loads in ptxas_configs(report):
+            configs = ptxas_configs(report)
+            if src in ("fused_proj", "fused_conv") and not any("tf32" in c[0] for c in configs):
+                print(f"build: {src}: no 3xTF32 kernel read from the ptxas report FAIL")
+                failures.append(f"build {src} no 3xTF32 kernel")
+            for name, regs, stores, loads in configs:
+                # the fp32 routes' 3xTF32 kernels must not spill
+                ok = "tf32" not in name or stores + loads == 0
                 print(f"build: {src}: {name}: {regs} registers, {stores} bytes spill stores, "
-                      f"{loads} bytes spill loads")
+                      f"{loads} bytes spill loads{'' if ok else ' FAIL'}")
+                if not ok:
+                    failures.append(f"build {src} {name} spills")
             report = "\n".join(l for l in report.splitlines() if "wgmma" in l)
         for line in report.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "wgmma")):
@@ -4021,8 +4099,12 @@ def main() -> int:
             bound_by=at["bound_by"], library_ms=at["library_ms"], timed_at=timed_at,
             launches_config=config,
         ))
-        if "call_ms" in at:  # K6: the whole wrapper call, gn_affine and the weight cast included
-            kernels[-1]["call_ms"] = at["call_ms"]
+        # K6: the whole wrapper call (gn_affine and the weight cast included);
+        # the 3xTF32 routes: the fp32 FMA bound beside bound_ms (theirs, at
+        # the tensor cores' TF32 rate); K2/K6 fp32: the one-pass TF32 witness
+        for key in ("call_ms", "fma_bound_ms", "tf32_witness"):
+            if key in at:
+                kernels[-1][key] = at[key]
     print(json.dumps({"kernels": kernels}))
     if failures:
         print(f"chip_smoke: FAILED: {', '.join(failures)}", file=sys.stderr)

@@ -543,21 +543,6 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-// TF32 of x, rounded to nearest with ties away from zero, as a 32-bit
-// operand: what cvt.rna.tf32.f32 gives, by two integer operations (half a
-// TF32 ulp added to the magnitude's bits, the low 13 bits cleared), since
-// cvt runs on the conversion pipe at a quarter of the integer rate.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to ~2^-22 relative: lo = x - hi is exact in fp32 and is
-// rounded too, since wgmma reads only a TF32 operand's top 19 bits.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
 template <int N>
 __device__ __forceinline__ void pin_u(uint32_t (&r)[N][4]) {
 #pragma unroll

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Write ``wgmma.cuh``: the inline-PTX wrappers of Hopper's warpgroup
 matrix multiply that ``flash_fwd.cu``, ``flash_bwd.cu``, the projection
-GEMM core (``gemm_sm90.cuh``) and the fused conv (``fused_conv.cu``) issue.
+GEMM core (``gemm_sm90.cuh``), the fused conv (``fused_conv.cu``) and the
+fp32 routes' 3xTF32 core (``gemm_tf32.cuh``) issue.
 
     python3 gligen_tpu_torch/csrc/gen_wgmma.py
 
@@ -18,8 +19,10 @@ bf16 operands:
   * ``WgmmaRsTf32<N>``: m64nNk8 with TF32 operands, A from registers (four
     TF32 values per thread: rows g and g + 8 of the thread's warp, columns
     t and t + 4, g = lane / 4, t = lane % 4), B from shared memory, K-major
-    (TF32 has no transposed form).  The fp32 flash route's 3xTF32 products
-    (S^T = K Q^T, O^T = V^T P^T, flash_fwd.cu).
+    (TF32 has no transposed form).  The 3xTF32 products of the fp32 flash
+    route (S^T = K Q^T, O^T = V^T P^T, flash_fwd.cu), of the fp32 fused
+    projections (the normalised rows as A, fused_proj.cu) and of the fp32
+    fused conv (the activated halo rows as A, fused_conv.cu).
 
 ``TRANS_B`` is the instruction's imm-trans-b: 0 for a K-major B, 1 for an
 MN-major one.  ``tests/test_torch_flash.py`` checks that the committed
@@ -33,7 +36,7 @@ from pathlib import Path
 HEADER = Path(__file__).resolve().parent / "wgmma.cuh"
 SS_WIDTHS = (32, 64, 96, 128, 160, 192, 256)
 RS_WIDTHS = (40, 80, 128, 160, 256)
-RS_TF32_WIDTHS = (32,)
+RS_TF32_WIDTHS = (32, 64, 80)
 
 
 def _regs(n: int) -> str:

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu) and the projection GEMM core (gemm_sm90.cuh):
-// mbarriers, 2-D and 4-D TMA loads, 2-D TMA stores, the wgmma fence/commit/wait and
-// shared-memory descriptors, the fp32 helpers of a register-resident
-// softmax, the copy route's plain loads into TMA's swizzled layout, and on
-// the host the tensor maps and the rule for which operands TMA can read.
+// (flash_fwd.cu, flash_bwd.cu), the projection GEMM core (gemm_sm90.cuh)
+// and the fp32 routes' 3xTF32 core (gemm_tf32.cuh): mbarriers, 2-D and 4-D
+// TMA loads, 2-D TMA stores, the wgmma fence/commit/wait and shared-memory
+// descriptors, the TF32 split of an fp32 operand, the fp32 helpers of a
+// register-resident softmax, the copy route's plain loads into TMA's
+// swizzled layout, and on the host the tensor maps and the rule for which
+// operands TMA can read.
 //
 // Tiles are stored as TMA writes them with a 128-byte swizzle: 64-column
 // (128-byte) atoms, each `rows` rows of 128 bytes, atoms one after another.
@@ -110,6 +112,16 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Four 8 x 8 matrices of 16-bit pairs (or 32-bit values: a row of 16 bytes)
+// from shared memory, each lane giving one row's address: lanes 8i..8i+7
+// matrix i's rows; r[i] is matrix i's (row lane / 4, word lane % 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
 // Keep the compiler from moving accesses of wgmma's registers across the
 // fence, commit and wait above.
 template <int N>
@@ -129,6 +141,21 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// TF32 of x, rounded to nearest with ties away from zero, as a 32-bit
+// operand: what cvt.rna.tf32.f32 gives, by two integer operations (half a
+// TF32 ulp added to the magnitude's bits, the low 13 bits cleared), since
+// cvt runs on the conversion pipe at a quarter of the integer rate.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to ~2^-22 relative: lo = x - hi is exact in fp32 and is
+// rounded too, since wgmma reads only a TF32 operand's top 19 bits.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
 }
 
 // 2^x on the special-function unit, one instruction (2^-inf = 0).
@@ -219,6 +246,25 @@ bool make_map_2d(CUtensorMap* map, const void* base, int cols, int rows, int box
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
              elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (rows, cols) row-major fp32 matrix: boxes of 32 columns (128 bytes) x
+// `box_rows` rows, 128-byte swizzled (or, with swizzle false, rows as they
+// are); columns outside [0, cols) and rows outside [0, rows) read as
+// zeros.  The row stride is cols elements, so cols must be a multiple of 4
+// (16 bytes) and the base 16-byte aligned.
+bool make_map_2d_f32(CUtensorMap* map, const void* base, int cols, int rows, int box_rows,
+                     bool swizzle = true) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc || cols % 4 || reinterpret_cast<uintptr_t>(base) % 16) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

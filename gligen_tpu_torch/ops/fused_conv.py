@@ -24,8 +24,11 @@ the kernel does not take (a dtype other than bf16 or fp32, C or F not
 multiples of 8).  fp32 x (a model served in fp32, as pallas_conv.py
 computes in ``x.dtype``) takes the fp32 route of the same source,
 ``gn_silu_conv3x3_f32``: the statistics from ``gn_affine``'s fp32 route,
-the activation unrounded, the conv as fp32 FMAs (never one-pass TF32), one
-fp32 output; counted as route "fp32" beside the bf16 kernel's "wgmma".  W need not be a multiple of 8: that is the TPU's sublane rule, which
+the activation unrounded, the conv as 3xTF32 wgmma (``csrc/
+gemm_tf32.cuh``: each operand split into TF32 hi and lo, never one-pass
+TF32), one fp32 output, at its own tiles and split (``CONV_TILES_F32``,
+``conv_plan_f32``); counted as route "fp32" beside the bf16 kernel's
+"wgmma".  W need not be a multiple of 8: that is the TPU's sublane rule, which
 stays in the routing (models/unet.py).
 
 Gradients, as in pallas_conv.py:121-171: the statistics (``gn_affine``)
@@ -42,11 +45,11 @@ import torch.nn.functional as F
 
 from gligen_tpu_torch.ops.fused_norm import gn_affine, gn_affine_plain
 from gligen_tpu_torch.ops.launch import (
-    I32, PTR, Kernel, c_entry, check, check_widths, differentiable, kernel_dtype, on_cuda,
+    I32, PTR, SMS, Kernel, c_entry, check, check_widths, differentiable, kernel_dtype, on_cuda,
+    split_k,
 )
 
 Tiles = Tuple[int, int, int]
-SMS = 132  # the H100 SXM's streaming multiprocessors
 MAX_BLOCK_SMEM = 232448  # a block's dynamic shared memory on the H100 (227 KB)
 
 # The tile table by shape class: (fewest output pixels M = B*H*W, (BM, BN,
@@ -117,9 +120,47 @@ def conv_plan(b: int, h: int, w: int, c: int, f: int) -> Tuple[int, int, int, in
     return (*tiles, conv_split(m, c, f, tiles, most))
 
 
+# The fp32 route's tiles (csrc/fused_conv.cu:CONV_F32_CONFIGS), the first
+# whose shared memory holds the shape's halo: 128 rows (two consumer
+# warpgroups), 64 columns, 3 weight stages; 64 rows where a 128-row block's
+# fp32 halo (hi and lo, two buffers, and the raw rows) would not fit, W > 64.
+CONV_TILES_F32 = ((128, 64, 3), (64, 64, 3))
+
+
+def conv_smem_f32(tiles: Tiles, w: int) -> int:
+    """Dynamic shared memory of the fp32 route at ``tiles`` and image width
+    W, by csrc/fused_conv.cu's arithmetic (ConvTf32Tile::smem): the weight
+    ring (hi and lo a stage), three barriers a stage and two for the raw halo,
+    a row of zeros, two halo buffers of hi and lo rows (128 bytes: 32
+    channels), the raw rows (TMA boxes of BM + 2 rows: as many as cover one
+    window, or three) and 1 KB to align the base."""
+    bm, bn, stages = tiles
+    bars = stages * 2 * bn * 128
+    zero = -(-(bars + 8 * (3 * stages + 2)) // 128) * 128
+    halo = -(-(zero + 128) // 1024) * 1024
+    rows = halo_rows(bm, w)
+    boxes = -(-rows // (bm + 2)) if bm + 2 * w + 2 <= 3 * (bm + 2) else 3
+    return halo + (4 * rows + boxes * (bm + 2)) * 128 + 1024
+
+
+def conv_plan_f32(b: int, h: int, w: int, c: int, f: int) -> Tuple[int, int, int, int]:
+    """(BM, BN, stages, split) of the fp32 route for x (B, H, W, C) -> F:
+    the first tiles whose shared memory fits, and the 32-channel slices
+    cut into ``split`` ranges where that fills the card
+    (``launch.split_k``)."""
+    m = b * h * w
+    tiles = next((t for t in CONV_TILES_F32 if conv_smem_f32(t, w) <= MAX_BLOCK_SMEM), None)
+    if tiles is None:
+        raise ValueError(f"gn_silu_conv3x3: no fp32 tiles fit W {w} in {MAX_BLOCK_SMEM} bytes")
+    bm, bn, _ = tiles
+    units = -(-m // bm) * -(-f // bn)
+    split = split_k(units, -(-c // 32), 6 * bm * bn * 9 * c, 4 * m * f)
+    return (*tiles, split)
+
+
 def cuda_launches(plan) -> int:
-    """CUDA launches of one conv kernel call at ``plan``: the conv, and the
-    in-order reduction of the split partials."""
+    """CUDA launches of one conv kernel call at ``plan`` (either route's):
+    the conv, and the in-order reduction of the split partials."""
     return 1 if plan[3] == 1 else 2
 
 
@@ -152,9 +193,8 @@ class GnSiluConv3x3(Kernel):
     library, entry = "fused_conv", "gn_silu_conv3x3_bf16"
     ROUTES = ("wgmma", "fp32")
     # x, a, v, w, bias, residual, y, part, b, h, w, c, f, bm, bn, stages, split
+    # (both routes)
     argtypes = (PTR,) * 8 + (I32,) * 9
-    # x, a, v, w, bias, residual, y, b, h, w, c, f
-    f32_argtypes = (PTR,) * 7 + (I32,) * 5
 
     def __call__(self, x, scale, bias, w, wb, residual=None, num_groups: int = 32,
                  eps: float = 1e-5) -> torch.Tensor:
@@ -197,7 +237,8 @@ class GnSiluConv3x3(Kernel):
         bias wb (F,) fp32, the residual (B, H, W, F) bf16 or None.  At the
         table's ``conv_plan`` (a counted launch), or at ``plan`` (BM, BN,
         stages, split) in ``library`` (the tile sweep's: not counted).  With
-        fp32 x, wt and residual: the fp32 route (counted; no plan)."""
+        fp32 x, wt and residual: the fp32 route at ``conv_plan_f32``
+        (counted; no plan or library)."""
         self._check(x, wt, wb, residual, taps_first=True)
         b, h, wd, c = x.shape
         f = wt.shape[0]
@@ -205,21 +246,22 @@ class GnSiluConv3x3(Kernel):
               a=(a, torch.float32), v=(v, torch.float32))
         if a.shape != (b, c) or v.shape != (b, c):
             raise ValueError(f"gn_silu_conv3x3: a and v must be {(b, c)}")
+        f32 = x.dtype == torch.float32
+        if f32 and (plan is not None or library is not None):
+            raise ValueError("gn_silu_conv3x3: the fp32 route takes no plan or library")
         out = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
-        if x.dtype == torch.float32:
-            if plan is not None or library is not None:
-                raise ValueError("gn_silu_conv3x3: the fp32 route takes no plan or library")
-            self._launch(x.device, x.data_ptr(), a.data_ptr(), v.data_ptr(), wt.data_ptr(),
-                         wb.data_ptr(), None if residual is None else residual.data_ptr(),
-                         out.data_ptr(), b, h, wd, c, f,
-                         entry=("gn_silu_conv3x3_f32", self.f32_argtypes), route="fp32")
-            return out
-        plan = conv_plan(b, h, wd, c, f) if plan is None else tuple(plan)
+        if plan is None:
+            plan = (conv_plan_f32 if f32 else conv_plan)(b, h, wd, c, f)
+        plan = tuple(plan)
         part = (None if plan[3] == 1 else
                 torch.empty((plan[3], b * h * wd, f), dtype=torch.float32, device=x.device))
         args = (x.data_ptr(), a.data_ptr(), v.data_ptr(), wt.data_ptr(), wb.data_ptr(),
                 None if residual is None else residual.data_ptr(), out.data_ptr(),
                 None if part is None else part.data_ptr(), b, h, wd, c, f, *plan)
+        if f32:
+            self._launch(x.device, *args, entry=("gn_silu_conv3x3_f32", self.argtypes),
+                         route="fp32")
+            return out
         if library is None:
             self._launch(x.device, *args, route="wgmma")
             return out

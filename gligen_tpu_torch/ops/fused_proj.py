@@ -28,8 +28,11 @@ The three K2 wrappers also take fp32 x, h and weights (a model served in
 fp32, as the JAX kernels compute in ``x.dtype``): each mode's fp32 route
 of the same source (``ln_matmuls_f32``, ``matmul_residual_f32``,
 ``ln_geglu_f32``), counted as route "fp32" beside the bf16 kernel's
-"wgmma": fp32 statistics, products and epilogue, the products as fp32 FMAs
-(never one-pass TF32), one fp32 output.  Any other dtype raises.
+"wgmma": fp32 statistics and epilogue, the products as 3xTF32 wgmma
+(``csrc/gemm_tf32.cuh``: each operand split into TF32 hi and lo, never
+one-pass TF32), one fp32 output, at a tile configuration from its own
+table (``PROJ_TILES_F32``) and a split of the k-slices from
+``proj_plan_f32``.  Any other dtype raises.
 
 Weights are ``nn.Linear``'s (F, K), not JAX's (K, F).  Each K2 wrapper
 casts them to x's dtype at every call (the JAX modules' ``dtype`` semantics),
@@ -59,6 +62,7 @@ import torch.nn.functional as F
 from gligen_tpu_torch.ops.basic import layer_norm_xla, tf32_off
 from gligen_tpu_torch.ops.launch import (
     F32, I32, PTR, Kernel, c_entry, check, check_widths, differentiable, kernel_dtype, on_cuda,
+    split_k,
 )
 
 MAX_WEIGHTS = 3
@@ -119,6 +123,48 @@ def proj_smem(mode: str, tiles: Tiles, k: int) -> int:
     bars = stages * stage + consumers * 64 * out * 2
     panel_offset = -(-(bars + 8 * (2 * stages + 2 + consumers)) // 1024) * 1024
     return panel_offset + (bm * -(-k // 64) * 128 if panel else 0) + 1024
+
+
+# The fp32 routes' tiles, every mode's (csrc/fused_proj.cu:PROJ_F32_CONFIGS):
+# 128 rows (two consumer warpgroups), 80 wgmma columns (ln_geglu: 40 output
+# columns and their gates; 80 and 40 divide every UNet width, 320 to 5120),
+# 3 ring stages of one 32-column k-slice each.
+# A block's A slices stay resident where they fit (``proj_smem_f32``),
+# else they stream with W, so any K.
+PROJ_TILES_F32 = ((128, 80, 3),)
+
+
+def proj_smem_f32(tiles: Tiles, k: int, split: int = 1) -> Tuple[int, bool]:
+    """(dynamic shared memory, whether A is resident) of the fp32 routes at
+    ``tiles``, input width K and ``split`` ranges of its 32-column
+    k-slices, by csrc/fused_proj.cu's arithmetic (ProjTf32Tile::smem,
+    launch_f32): the stages (W hi and lo, and the A slice when A streams),
+    three barriers a stage and two for the panel, the row block's LN
+    statistics, the panel (a range's A slices, when they fit in a block's
+    227 KB), 1 KB to align the base."""
+    bm, bn, stages = tiles
+    kslices = -(-k // 32)
+    slices = -(-kslices // split)  # the longest range's
+
+    def smem(panel: bool) -> int:
+        stage = (0 if panel else bm * 128) + 2 * bn * 128
+        panel_at = -(-(stages * stage + 8 * (3 * stages + 2) + 8 * bm) // 1024) * 1024
+        return panel_at + (slices * bm * 128 if panel else 0) + 1024
+
+    return (smem(True), True) if smem(True) <= MAX_BLOCK_SMEM else (smem(False), False)
+
+
+def proj_plan_f32(mode: str, m: int, k: int, f: int, n_w: int = 1) -> Tuple[int, int, int, int]:
+    """(BM, BN, stages, split) of ``mode``'s fp32 route for M rows, input
+    width K, output width F (ln_geglu: half of W's rows) and ``n_w``
+    weights: the table's tiles, and the k-slices (32 columns each) cut into
+    ``split`` ranges where that fills the card (``launch.split_k``)."""
+    (bm, bn, stages), = PROJ_TILES_F32
+    out = bn // 2 if mode == "ln_geglu" else bn
+    units = -(-m // bm) * n_w * -(-f // out)
+    fw = 2 * f if mode == "ln_geglu" else f
+    split = split_k(units, -(-k // 32), 6 * bm * bn * k, 4 * n_w * m * fw)
+    return bm, bn, stages, split
 
 
 def _product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -205,19 +251,26 @@ def _ln_geglu_chain(x, scale, bias, w, w_bias, eps):
 class _Proj(Kernel):
     """A mode of csrc/fused_proj.cu.  ``_run`` launches the C entry at the
     table's tiles for the shape (counted, route "wgmma"), its fp32 route
-    ``f32_entry`` for fp32 operands (counted, route "fp32"), or the bf16
-    entry at ``tiles`` in ``library`` (the tile sweep's: not counted, since
-    that is no launch of this wrapper's kernel)."""
+    ``f32_entry`` for fp32 operands at ``proj_plan_f32``'s plan (counted,
+    route "fp32"), or the bf16 entry at ``tiles`` in ``library`` (the tile
+    sweep's: not counted, since that is no launch of this wrapper's
+    kernel)."""
 
     library, mode = "fused_proj", ""
     ROUTES = ("wgmma", "fp32")
     f32_entry, f32_argtypes = "", ()
 
-    def _run(self, device, c_args, shape, tiles=None, library=None, f32=False) -> None:
+    def _run(self, device, c_args, shape, tiles=None, library=None, f32=False, n_w=1) -> None:
         if f32:
             if library is not None:
                 raise ValueError(f"{self.mode}: the tile sweep runs the bf16 kernel only")
-            self._launch(device, *c_args, entry=(self.f32_entry, self.f32_argtypes), route="fp32")
+            m, _, f = shape
+            plan = proj_plan_f32(self.mode, *shape, n_w)
+            fw = 2 * f if self.mode == "ln_geglu" else f
+            part = (None if plan[3] == 1 else
+                    torch.empty((plan[3], n_w, m, fw), dtype=torch.float32, device=device))
+            self._launch(device, *c_args, None if part is None else part.data_ptr(), *plan,
+                         entry=(self.f32_entry, self.f32_argtypes), route="fp32")
             return
         if library is None:
             self._launch(device, *c_args, *proj_tiles(self.mode, *shape), route="wgmma")
@@ -230,13 +283,15 @@ class _Proj(Kernel):
 
 
 TILE_ARGS = (I32,) * 3  # bm, bn, stages
+F32_PLAN_ARGS = (PTR,) + (I32,) * 4  # part, bm, bn, stages, split
 
 
 class LnMatmuls(_Proj):
     mode, entry, f32_entry = "ln_matmuls", "ln_matmuls_bf16", "ln_matmuls_f32"
-    # x, scale, bias, n_w, w0..w2, y0..y2, m, k, f, eps[, bm, bn, stages]
-    f32_argtypes = (PTR,) * 3 + (I32,) + (PTR,) * 6 + (I32,) * 3 + (F32,)
-    argtypes = f32_argtypes + TILE_ARGS
+    # x, scale, bias, n_w, w0..w2, y0..y2, m, k, f, eps, then bm, bn, stages
+    # (fp32: part, bm, bn, stages, split)
+    argtypes = (PTR,) * 3 + (I32,) + (PTR,) * 6 + (I32,) * 3 + (F32,) + TILE_ARGS
+    f32_argtypes = argtypes[:-3] + F32_PLAN_ARGS
 
     def __call__(self, x, scale, bias, ws, eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
         """Same contract as ``ln_matmuls_plain``; 1 to 3 weights of one
@@ -266,15 +321,16 @@ class LnMatmuls(_Proj):
         self._run(x.device, (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), len(ws),
                              *(w.data_ptr() for w in ws), *pad, *(o.data_ptr() for o in outs),
                              *pad, m, c, f, eps), (m, c, f), tiles, library,
-                  dtype == torch.float32)
+                  dtype == torch.float32, len(ws))
         return outs
 
 
 class MatmulResidual(_Proj):
     mode, entry, f32_entry = "matmul_residual", "matmul_residual_bf16", "matmul_residual_f32"
-    # h, w, bias, x, gate, gate_value, y, m, k, f[, bm, bn, stages]
-    f32_argtypes = (PTR,) * 5 + (F32, PTR) + (I32,) * 3
-    argtypes = f32_argtypes + TILE_ARGS
+    # h, w, bias, x, gate, gate_value, y, m, k, f, then bm, bn, stages
+    # (fp32: part, bm, bn, stages, split)
+    argtypes = (PTR,) * 5 + (F32, PTR) + (I32,) * 3 + TILE_ARGS
+    f32_argtypes = argtypes[:-3] + F32_PLAN_ARGS
 
     def __call__(self, h, w, bias, x, gate: Gate = None) -> torch.Tensor:
         """Same contract as ``matmul_residual_plain``.  A tensor gate is
@@ -313,9 +369,10 @@ class MatmulResidual(_Proj):
 
 class LnGeglu(_Proj):
     mode, entry, f32_entry = "ln_geglu", "ln_geglu_bf16", "ln_geglu_f32"
-    # x, scale, bias, w, w_bias, y, m, k, f, eps[, bm, bn, stages]
-    f32_argtypes = (PTR,) * 6 + (I32,) * 3 + (F32,)
-    argtypes = f32_argtypes + TILE_ARGS
+    # x, scale, bias, w, w_bias, y, m, k, f, eps, then bm, bn, stages
+    # (fp32: part, bm, bn, stages, split)
+    argtypes = (PTR,) * 6 + (I32,) * 3 + (F32,) + TILE_ARGS
+    f32_argtypes = argtypes[:-3] + F32_PLAN_ARGS
 
     def __call__(self, x, scale, bias, w, w_bias, eps: float = 1e-5) -> torch.Tensor:
         """Same contract as ``ln_geglu_plain``.  Differentiable."""

@@ -21,6 +21,12 @@ import torch
 
 PTR, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+SMS = 132  # the H100 SXM's streaming multiprocessors
+TF32_FLOP_PER_SM_S = 495e12 / SMS  # its dense TF32 tensor-core rate, per SM
+HBM_BYTES_PER_S = 3.35e12
+REDUCE_LAUNCH_S = 4e-6  # a second kernel's launch and its wave's ramp, roughly
+SPLIT_MOST = 8  # the fp32 routes' most ranges of the k-slices
+
 
 def on_cuda(x: torch.Tensor, op: str) -> bool:
     """False for a CPU tensor (plain version), True for a CUDA one (kernel)."""
@@ -94,6 +100,25 @@ class Kernel:
             self.launches += 1
             if route is not None:
                 self.routes[route] += 1
+
+
+def split_k(units: int, slices: int, unit_flops: float, part_bytes: float,
+            most: int = SPLIT_MOST) -> int:
+    """Into how many ranges a 3xTF32 kernel (the fp32 routes of
+    csrc/fused_proj.cu and csrc/fused_conv.cu) cuts the k-slices of its
+    ``units`` output tiles of ``unit_flops`` tensor-core operations each:
+    the fewest of 1 .. min(most, slices) that minimise the estimated time,
+    waves of blocks (one an SM) times a block's share of its tile at the
+    TF32 rate, plus the in-order reduction of the partial products
+    (``part_bytes`` a range, written once and read once) at the memory
+    rate and its launch."""
+
+    def cost(s: int) -> float:
+        waves = -(-units * s // SMS)
+        reduce = REDUCE_LAUNCH_S + 2 * s * part_bytes / HBM_BYTES_PER_S if s > 1 else 0.0
+        return waves * unit_flops / s / TF32_FLOP_PER_SM_S + reduce
+
+    return min(range(1, max(1, min(most, slices)) + 1), key=lambda s: (cost(s), s))
 
 
 def kernel_dtype(op: str, x: torch.Tensor) -> torch.dtype:

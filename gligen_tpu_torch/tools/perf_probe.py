@@ -4,6 +4,7 @@ and what each fused kernel costs against the module path's chain.
 
     python3 gligen_tpu_torch/tools/perf_probe.py request [--root DIR] [--fused 1|0]
         [--norm gn|0|ln|both] [--conv 0|1|auto] [--model text|hed|sem] [--batch 2] [--steps 10]
+        [--dtype bfloat16|float32]
     python3 gligen_tpu_torch/tools/perf_probe.py train [--root DIR] [--fused 1|0]
         [--norm gn|0|ln|both] [--conv 0|1|auto] [--remat full|none] [--batch 4] [--steps 5]
     python3 gligen_tpu_torch/tools/perf_probe.py chains
@@ -24,7 +25,9 @@ model of ``chip_smoke.SPATIAL_MODELS`` in place of box+text, hed for the
 448^2 tokenizer (canny, depth and normal differ from it only in their
 downsampler's two small convs) or sem for the 256^2 one: its
 config, a seeded uint8 map each request (``chip_smoke.spatial_request``)
-and its scenario's alpha stages.  ``GLIGEN_TPU_FUSED_PROJ``
+and its scenario's alpha stages.  ``--dtype float32`` serves the model in
+fp32 (every fused kernel on its fp32 route) and adds a line with the
+fp32 K2 and K6 kernels' device ms and share.  ``GLIGEN_TPU_FUSED_PROJ``
 is set to ``--fused``, ``GLIGEN_TPU_FUSED_NORM`` to ``--norm`` and
 ``GLIGEN_TPU_FUSED_CONV`` to ``--conv``.  ``--root`` imports
 ``gligen_tpu_torch`` from
@@ -110,9 +113,22 @@ def fused_proj_template(name: str):
     return int(mode), int(bm), int(bn), int(stages)
 
 
+FP32_PROJ = ("ln_matmuls fp32 (K2)", "matmul_residual fp32 (K2)", "ln_geglu fp32 (K2)")
+FP32_CONV = "gn_silu_conv3x3 fp32 (K6)"
+
+
 def category(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "flash_fwd"
+    if "flash_fwd_f32_kernel" in name:
+        return "flash_fwd fp32 (K3)"
+    # the fp32 routes of K2 and K6: the 3xTF32 kernels and their split
+    # reductions, and the CUDA-core kernels they replaced (a parent tree's)
+    for kernel in ("proj_tf32_kernel<", "proj_split_reduce_f32<", "fused_proj_f32_kernel<"):
+        if kernel in name:
+            return FP32_PROJ[int(name.split(kernel, 1)[1].split(",", 1)[0].split(">", 1)[0])]
+    if any(k in name for k in ("conv3x3_tf32_kernel", "conv_split_reduce_f32", "conv3x3_f32_kernel")):
+        return FP32_CONV
     if "flash_bwd_dq_kernel" in name:
         return "flash_bwd dq (K4)"
     if "flash_bwd_dkv_kernel" in name:
@@ -258,8 +274,8 @@ def request(args) -> None:
     device = torch.device("cuda", 0)
     spatial = args.model != "text"
     unet_config = dict(cs.SPATIAL_MODELS[args.model]) if spatial else None
-    comps = GligenComponents.create(unet_config=unet_config, dtype=torch.bfloat16, seed=0,
-                                    device=device)
+    comps = GligenComponents.create(unet_config=unet_config, dtype=getattr(torch, args.dtype),
+                                    seed=0, device=device)
     gen = torch.Generator(device=device).manual_seed(1)
     dezero_(comps.unet, gen)
     pipe = GenerationPipeline(comps)
@@ -279,7 +295,7 @@ def request(args) -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    tag = (f"root {root.name} {args.model} PROJ={args.fused} NORM={args.norm} "
+    tag = (f"root {root.name} {args.model} {args.dtype} PROJ={args.fused} NORM={args.norm} "
            f"CONV={args.conv} batch {args.batch} {args.steps} steps")
     first = run()
     walls = [run() for _ in range(3)]
@@ -296,6 +312,11 @@ def request(args) -> None:
           f"unprofiled request after the trace {after:.1f} ms", flush=True)
     for line in breakdown_lines(by_cat):
         print(f"profile:   {line}")
+    if args.dtype == "float32":
+        k2 = sum(by_cat.get(c, (0.0, 0))[0] for c in FP32_PROJ)
+        k6 = by_cat.get(FP32_CONV, (0.0, 0))[0]
+        print(f"profile: {tag}: K2 fp32 {k2:.1f} ms ({k2 / total:.1%} of device time), K6 fp32 "
+              f"{k6:.1f} ms ({k6 / total:.1%})", flush=True)
 
 
 TRAIN_PHASES = ("loss", "backward", "optimizer")
@@ -557,6 +578,8 @@ def main() -> None:
     sub.choices["request"].add_argument(
         "--model", choices=("text", "hed", "sem"), default="text")
     sub.choices["request"].add_argument("--batch", type=int, default=2)
+    sub.choices["request"].add_argument("--dtype", choices=("bfloat16", "float32"),
+                                        default="bfloat16")
     sub.choices["request"].add_argument("--steps", type=int, default=10)
     train_args = sub.choices["train"]
     train_args.add_argument("--remat", choices=("full", "none"), default="full")

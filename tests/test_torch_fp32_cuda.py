@@ -15,11 +15,12 @@ installed (the GPU machine):
     python -m pytest tests/test_torch_fp32_cuda.py -m gpu --noconftest -q
 
 Tolerances.  Each fp32 route against its plain version (TF32 off): the
-same fp32 operands, products as fp32 FMAs summed in another order, so
-within FP32_REL_TOL = 1e-4 of the plain output's largest magnitude (the
-limit of the flash kernel's fp32 route, ``chip_smoke.FP32_REL_TOL``; one-
-pass TF32, ~2^-11 relative per product, misses it), and a second call
-repeats the first bit for bit.  The pipeline, fp32 on the card (kernels,
+same fp32 operands; K2's and K6's products as 3xTF32 (each ~2^-22 of a
+product dropped, chains of 12 accumulations summed in fp32), the rest as
+fp32 FMAs, summed in another order, so within FP32_REL_TOL = 1e-4 of the
+plain output's largest magnitude (the limit of the flash kernel's fp32
+route, ``chip_smoke.FP32_REL_TOL``; one-pass TF32, ~2^-11 relative per
+product, misses it), and a second call repeats the first bit for bit.  The pipeline, fp32 on the card (kernels,
 TF32 off) against fp32 on the CPU (plain versions): a mean absolute pixel
 difference of at most 2e-3 (images in [0, 1]), ten times under the bf16
 smoke's 2e-2.
@@ -80,9 +81,27 @@ def held(kernel, call, plain):
     assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
+# The K2 and K6 shapes below reach every fp32 tile class, split 1 and
+# split > 1 of each kernel, and a ragged M and F
+# (tests/test_torch_fp32_tc.py::test_card_tests_cover_every_fp32_class_and_split).
+# No ln_geglu shape of the UNet splits (its 40-column tiles fill the card),
+# so its third case forces a split of 3 through the plan.  The cases of
+# 2 * 16384 rows (1024^2 at ds1, batch 1 with guidance) have more row
+# blocks than the card has SMs, so a block walks a second row block: with
+# the panel resident (K = 320) and with A streamed (K = 1280).
+LN_CASES = [(4 * 1024, 640, 640, 3), (2 * 1030, 320, 320, 2), (333, 104, 200, 1),
+            (256, 1280, 1280, 1), (2 * 16384, 320, 320, 3)]
+RESIDUAL_CASES = [(4 * 1024, 2560, 640, False), (4 * 256, 1280, 1280, True), (333, 200, 104, True),
+                  (256, 5120, 1280, False), (2 * 16384, 1280, 320, True),
+                  (2 * 16384, 320, 320, False)]
+GEGLU_CASES = [(4 * 1024, 640, None), (333, 104, None), (333, 104, 3), (2 * 16384, 320, None)]
+CONV_CASES = [(4, 64, 64, 320, 320, True), (4, 16, 16, 1280, 640, False), (2, 12, 12, 64, 32, True),
+              (1, 5, 7, 32, 16, False), (4, 8, 8, 2560, 1280, False), (1, 128, 128, 320, 320, True),
+              (2, 8, 8, 1280, 1280, True)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,c,f,n_w", [(4 * 1024, 640, 640, 3), (2 * 1030, 320, 320, 2),
-                                       (333, 104, 200, 1)])
+@pytest.mark.parametrize("m,c,f,n_w", LN_CASES)
 def test_ln_matmuls_f32(cuda, m, c, f, n_w):
     x = randn(cuda, 1, m, c, scale=2.0) + 0.3
     s, b = 1.0 + randn(cuda, 2, c, scale=0.1), randn(cuda, 3, c, scale=0.1)
@@ -92,8 +111,7 @@ def test_ln_matmuls_f32(cuda, m, c, f, n_w):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,c,gated", [(4 * 1024, 2560, 640, False), (4 * 256, 1280, 1280, True),
-                                         (333, 200, 104, True)])
+@pytest.mark.parametrize("m,k,c,gated", RESIDUAL_CASES)
 def test_matmul_residual_f32(cuda, m, k, c, gated):
     h, x = randn(cuda, 1, m, k), randn(cuda, 2, m, c)
     w, wb = randn(cuda, 3, c, k, scale=k**-0.5), randn(cuda, 4, c, scale=0.1)
@@ -103,8 +121,11 @@ def test_matmul_residual_f32(cuda, m, k, c, gated):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,c", [(4 * 1024, 640), (333, 104)])
-def test_ln_geglu_f32(cuda, m, c):
+@pytest.mark.parametrize("m,c,split", GEGLU_CASES)
+def test_ln_geglu_f32(cuda, monkeypatch, m, c, split):
+    if split is not None:
+        plan = fp.proj_plan_f32
+        monkeypatch.setattr(fp, "proj_plan_f32", lambda *a: (*plan(*a)[:3], split))
     x = randn(cuda, 1, m, c) * 2.0 + 0.3
     s, b = 1.0 + randn(cuda, 2, c, scale=0.1), randn(cuda, 3, c, scale=0.1)
     w, wb = randn(cuda, 4, 8 * c, c, scale=c**-0.5), randn(cuda, 5, 8 * c, scale=0.1)
@@ -132,10 +153,7 @@ def test_gn_affine_f32(cuda, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,w,cin,cout,residual", [(4, 64, 64, 320, 320, True),
-                                                     (4, 16, 16, 1280, 640, False),
-                                                     (2, 12, 12, 64, 32, True),
-                                                     (1, 5, 7, 32, 16, False)])
+@pytest.mark.parametrize("b,h,w,cin,cout,residual", CONV_CASES)
 def test_gn_silu_conv3x3_f32(cuda, b, h, w, cin, cout, residual):
     x = randn(cuda, 1, b, h, w, cin) * (0.5 * randn(cuda, 2, b, 1, 1, cin)).exp() \
         + randn(cuda, 3, b, 1, 1, cin)
