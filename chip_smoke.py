@@ -7,13 +7,15 @@ Phases, each of which fails the run with a non-zero exit:
 
   1. card: require CUDA; print the card's name and power limit.
   2. build: compile csrc/flash_fwd.cu, flash_fwd_sweep.cu (the same
-     kernel at the tile sweep's configurations), flash_bwd.cu,
+     kernel at the tile sweep's configurations), flash_fwd_f32_sweep.cu
+     (its fp32 route's d <= 40 and d <= 80 classes likewise), flash_bwd.cu,
      flash_bwd_sweep.cu (likewise), fused_proj.cu, fused_proj_sweep.cu
      (likewise), fused_norm.cu, fused_conv.cu and fused_conv_sweep.cu
      (likewise) with nvcc, in parallel, into build/kernels/; print the
      seconds it took and ptxas's registers, spills and wgmma notes (for
-     fused_proj and fused_conv, one line per tile configuration; the fp32
-     routes' 3xTF32 kernels must not spill).
+     fused_proj, fused_conv and the flash forward's fp32 route, one line
+     per tile configuration; the fp32 routes' 3xTF32 kernels must not
+     spill).
   3. kernel: compare each kernel with its plain PyTorch version on bf16
      inputs at every shape the 512^2 path launches, with the times of both
      and, where one PyTorch call computes the same function, that call's:
@@ -31,17 +33,20 @@ Phases, each of which fails the run with a non-zero exit:
      largest magnitude and repeated bit for bit, beside SDPA in fp32, with
      a TF32 witness (the plain version's error with one-pass TF32, which
      must exceed the limit at one row at least) and its 3xTF32 and fp32
-     FMA bounds); and the fp32 routes of a model served in fp32 (fault
-     F5, ``check_fp32``): the flash forward at attn1, the fuser's N+30 and
-     the cross-attention of every level, the fused projections (q/k/v, q,
+     FMA bounds), each row on the keys-as-rows kernel; and the fp32 routes
+     of a model served in fp32 (fault F5, ``check_fp32``): the flash
+     forward at every UNet site above (attn1, every gatedSA fuser form,
+     the padded-bias fuser, cross-attention, gatedCA, gatedSA2, at every
+     level; each on the queries-as-rows kernel, its LSE within
+     FP32_LSE_TOL), the fused projections (q/k/v, q,
      the fuser's k/v, to_out, net_2, GEGLU), the LayerNorm at the blocks'
      and the fuser's rows, gn_affine and the fused conv at every ResBlock
      conv, each on fp32 inputs within FP32_REL_TOL of its plain output's
      largest magnitude (TF32 off) and repeated bit for bit, beside SDPA,
      torch.matmul on the products, F.layer_norm or cuDNN's fp32 conv; the
      3xTF32 routes (flash, K2, K6) with their tensor-core bound beside the
-     fp32 FMA bound, K2's and K6's rows with a TF32 witness (one-pass TF32
-     must exceed the limit at one row of each kernel), K6's with its
+     fp32 FMA bound, the flash, K2 and K6 rows with a TF32 witness
+     (one-pass TF32 must exceed the limit at one row of each kernel), K6's with its
      whole wrapper call; per level the fused projections (ln_matmuls for q/k/v, for q alone
      and for the fuser's k/v over N+30, N+60 and N+136 rows (and at ds1 over
      N+196 and N+64), matmul_residual for to_out
@@ -113,7 +118,10 @@ Phases, each of which fails the run with a non-zero exit:
      every query row; and the flash backward's tile sweep
      (``bench_sweep_attn.py --bwd``) at the ds1 training shapes, B = 4,
      every configuration of ``BWD_CONFIGS`` beside the fixed table, each
-     gradient held to BWD_REL_TOL against the plain backward.
+     gradient held to BWD_REL_TOL against the plain backward; and the fp32
+     route's tile sweep (``bench_sweep_attn.py --fp32``) at ds1 and ds2,
+     B = 4, every configuration of ``F32_CONFIGS`` beside the table, each
+     held to FP32_REL_TOL and FP32_LSE_TOL against the plain version.
  10. inpaint from a checkpoint: SD-1.4 GLIGEN's inpainting UNet at full
      width (random de-zeroed weights) written as a reference-format
      checkpoint in memory (``tools/reference_ckpt.py``: model, an ema
@@ -170,7 +178,8 @@ Phases, each of which fails the run with a non-zero exit:
      served in fp32 at full width (random de-zeroed weights), one request
      of batch 2 at 512^2, 10 PLMS steps, alpha stages, in each of
      ``CONFIGS``: the image sound, every kernel launch on its fp32 route,
-     as many as ``expected_launches`` predicts; then the small-width
+     as many as ``expected_launches`` predicts, the flash forward's on the
+     queries-as-rows kernel but the VAE decoder's d = 512 head; then the small-width
      pipeline in fp32, card vs CPU, held to FP32_REF_MEAN_TOL.
  15. cli (M10; right after 14): ``inference/cli.py`` in this process,
      ``--ckpt random --dezero``, batch 2, 10 steps, configuration (a): the
@@ -251,8 +260,8 @@ from gligen_tpu_torch.tools.timing import (FP32_FLOP_PER_S, TF32_TENSOR_FLOP_PER
                                            card_line, dezero_, time_ms)
 
 REPO = Path(__file__).resolve().parent
-SOURCES = ("flash_fwd", "flash_fwd_sweep", "flash_bwd", "flash_bwd_sweep", "fused_proj",
-           "fused_proj_sweep", "fused_norm", "fused_conv", "fused_conv_sweep")
+SOURCES = ("flash_fwd", "flash_fwd_sweep", "flash_fwd_f32_sweep", "flash_bwd", "flash_bwd_sweep",
+           "fused_proj", "fused_proj_sweep", "fused_norm", "fused_conv", "fused_conv_sweep")
 
 # flash forward vs plain, bf16 output: the kernel rounds P to bf16 before
 # the PV product and O to bf16, a few bf16 ulps (2^-8 relative) of the
@@ -352,8 +361,9 @@ def ptxas_configs(report: str) -> list:
     configuration in a ``-Xptxas -v`` report: ``fused_proj_kernel<MODE, BM,
     BN, STAGES>``, ``conv3x3_kernel<BM, BN, STAGES>`` and the fp32 routes'
     ``proj_tf32_kernel<MODE, BM, BN, STAGES, PANEL>`` and
-    ``conv3x3_tf32_kernel<BM, BN, STAGES>``, each name read back from the
-    mangled one (a bool argument as 0 or 1)."""
+    ``conv3x3_tf32_kernel<BM, BN, STAGES>``, and the flash forward's fp32
+    ``flash_fwd_f32_qm_kernel<D, NW, BK, NBUF>`` (its ``f32qm::Cfg``), each
+    name read back from the mangled one (a bool argument as 0 or 1)."""
     import re
 
     out, name, spills = [], None, (0, 0)
@@ -361,7 +371,8 @@ def ptxas_configs(report: str) -> list:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             tpl = re.search(r"(fused_proj_kernel|conv3x3_kernel|proj_tf32_kernel|"
-                            r"conv3x3_tf32_kernel)I((?:L[ib]\d+E)+)E", entry.group(1))
+                            r"conv3x3_tf32_kernel)I((?:L[ib]\d+E)+)E", entry.group(1)) or \
+                re.search(r"(flash_fwd_f32_qm_kernel)I\w*?CfgI((?:L[ib]\d+E)+)E", entry.group(1))
             name = (f"{tpl.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', tpl.group(2)))}>"
                     if tpl else None)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -551,8 +562,10 @@ def check_kernel_f32(torch, device, batch):
     for name, b, n, m in (("vae_mid_fp32", batch, 4096, 4096), ("ragged_fp32", 1, 1000, 1030)):
         h, d = 1, 512
         q, k, v = (torch.randn((b, L, h * d), generator=gen, device=device) for L in (n, m, m))
+        km = flash_fwd.fp32_kernels["km"]
         route, (out, lse) = routed(flash_fwd, lambda: flash_fwd(q, k, v, h))
         torch.cuda.synchronize()
+        km = flash_fwd.fp32_kernels["km"] - km  # the keys-as-rows kernel, d = 512's
         want, want_lse = flash_attention_plain(q, k, v, h)
         err = (out - want).abs().max().item()
         lse_err = (lse - want_lse).abs().max().item()
@@ -573,10 +586,11 @@ def check_kernel_f32(torch, device, batch):
         bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_TENSOR_FLOP_PER_S)
         fma_ms, fma_by = bound(nbytes, flops, FP32_FLOP_PER_S)
         ok = (finite and err <= limit and lse_err <= FP32_LSE_TOL and repeats and route == "fp32"
-              and out.dtype == torch.float32)
+              and km == 1 and out.dtype == torch.float32)
         print(f"kernel {name:18s} q ({b},{n},{h}x{d}) kv {m} fp32: max_abs_err {err:.3e} (tol "
               f"{limit:.3e}) lse_err {lse_err:.3e} (tol {FP32_LSE_TOL}) repeats {repeats} route "
-              f"{route} TF32 witness {witness:.3e} ({witness / limit:.2f}x the tol) kernel "
+              f"{route} (keys-as-rows kernel: {km} launch) TF32 witness {witness:.3e} "
+              f"({witness / limit:.2f}x the tol) kernel "
               f"{ms:.4f} ms {flops / ms / 1e9:.1f} TF/s {100 * bound_ms / ms:.1f}% of bound; plain "
               f"{plain_ms:.4f} ms sdpa fp32 {library_ms:.4f} ms bound {bound_ms:.4f} ms (3xTF32 "
               f"{bound_by}, the kernel's) fp32 FMA bound {fma_ms:.4f} ms ({fma_by}) "
@@ -596,10 +610,11 @@ def check_kernel_f32(torch, device, batch):
 
 
 # The fp32 routes of a model served in fp32 (phase 14's path): the flash
-# forward at the UNet's attention sites, the fused projections (K2), the
+# forward at every UNet attention site of kernel_cases (attn1, cross, the
+# gatedSA fuser over every tokenizer's keys and padded with a bias row,
+# gatedCA, gatedSA2, at every level), the fused projections (K2), the
 # LayerNorm, gn_affine and the fused conv (K6), each held to FP32_REL_TOL of
 # its plain output's largest magnitude (TF32 off) and repeated bit for bit.
-FP32_SITES = ("attn1", "fuser", "cross")
 FP32_PROJ = ("qkv", "q", "fuser_kv", "to_out", "net_2", "geglu")
 
 
@@ -614,11 +629,13 @@ def check_fp32(torch, unet, device, batch):
     K2, K6) at their tensor-core arithmetic, 3 x the operations at
     TF32_TENSOR_FLOP_PER_S, with the fp32 FMA bound beside it.
 
-    K2's and K6's rows print a TF32 witness, held to nothing: the plain
-    function with one-pass TF32 products (``allow_tf32``) on the same
-    inputs, against the plain version.  For each of the four kernels at
-    least one row's witness must exceed its limit, or the rows could not
-    tell the kernel's fp32 from TF32.  K6's rows add the whole wrapper
+    The flash forward's, K2's and K6's rows print a TF32 witness, held to
+    nothing: the plain function with one-pass TF32 products
+    (``allow_tf32``) on the same inputs, against the plain version.  For
+    each of the five kernels at least one row's witness must exceed its
+    limit, or the rows could not tell the kernel's fp32 from TF32.  Every
+    flash row must launch the queries-as-rows kernel
+    (``flash_fwd.fp32_kernels["qm"]``).  K6's rows add the whole wrapper
     call (``call_ms``: gn_affine and the weight's permute included)."""
     import contextlib
 
@@ -646,26 +663,31 @@ def check_fp32(torch, unet, device, batch):
     results = []
 
     def record(kind, name, desc, wrapper, call, plain, library, nbytes, ops, rate=FP32_FLOP_PER_S,
-               tc=False, witness=None, whole=None):
-        before = wrapper.routes["fp32"]
+               tc=False, witness=None, whole=None, count=None):
+        count = count or (lambda: wrapper.routes["fp32"])  # the launches that must be one
+        before = count()
         got = call()
         torch.cuda.synchronize()
-        launched = wrapper.routes["fp32"] - before
+        launched = count() - before
         want = plain()
         again = call()
         got, want, again = ((t if isinstance(t, tuple) else (t,)) for t in (got, want, again))
+        repeats = all(torch.equal(g, a) for g, a in zip(got, again))
+        finite = all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in got)
+        extra, lse_err = "", 0.0
+        if kind.startswith("flash"):  # (out, lse): the LSE held to FP32_LSE_TOL on its own
+            lse_err = (got[1] - want[1]).abs().max().item()
+            extra = f" lse_err {lse_err:.3e} (tol {FP32_LSE_TOL})"
+            got, want = got[:1], want[:1]
         limit = FP32_REL_TOL * max(w.abs().max().item() for w in want)
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        repeats = all(torch.equal(g, a) for g, a in zip(got, again))
-        ok = (launched == 1 and repeats and err <= limit
-              and all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in got))
-        extra = ""
+        ok = launched == 1 and repeats and err <= limit and lse_err <= FP32_LSE_TOL and finite
         if witness is not None:
             with tf32_on():
                 seen = witness()
             seen = seen if isinstance(seen, tuple) else (seen,)
             seen = max((a - w).abs().max().item() for a, w in zip(seen, want))
-            extra = f" TF32 witness {seen:.3e} ({seen / limit:.2f}x the tol)"
+            extra += f" TF32 witness {seen:.3e} ({seen / limit:.2f}x the tol)"
         ms, plain_ms = time_ms(call), time_ms(plain)
         library_ms = None if library is None else time_ms(library)
         call_ms = None if whole is None else time_ms(whole)
@@ -693,17 +715,27 @@ def check_fp32(torch, unet, device, batch):
         if whole is not None:
             results[-1]["call_ms"] = call_ms
 
-    # the flash forward's fp32 route (3xTF32) at the UNet's sites
-    for name, b, n, m, h, d, _ in kernel_cases(batch):
-        if name.rsplit("_", 1)[0] not in FP32_SITES:
+    # the flash forward's fp32 route (3xTF32, the queries-as-rows kernel) at
+    # every UNet site
+    for name, b, n, m, h, d, padbias in kernel_cases(batch):
+        if d > 160:
             continue
         q, k, v = (randn(b, L, h * d) for L in (n, m, m))
+        bias = None
+        if padbias:
+            bias = torch.zeros((b, m), device=device)
+            bias[:, n + 30:] = fa.NEG_INF
         flops = 4 * b * h * n * m * d
-        record("flash_fwd_fp32", f"{name}_fp32", f"q ({b},{n},{h}x{d}) kv {m}", fa.flash_fwd,
-               lambda: fa.flash_fwd(q, k, v, h), lambda: fa.flash_attention_plain(q, k, v, h),
-               lambda: sdpa(torch, q, k, v, h, None),
-               4 * (2 * b * n * h * d + 2 * b * m * h * d) + 4 * b * h * n, flops, tc=True)
-        del q, k, v
+        nbytes = 4 * (2 * b * n * h * d + 2 * b * m * h * d) + 4 * b * h * n
+        nbytes += 0 if bias is None else 4 * b * m
+        record("flash_fwd_fp32_qm", f"{name}_fp32", f"q ({b},{n},{h}x{d}) kv {m}"
+               + (" bias" if padbias else ""), fa.flash_fwd,
+               lambda: fa.flash_fwd(q, k, v, h, bias=bias),
+               lambda: fa.flash_attention_plain(q, k, v, h, bias=bias),
+               lambda: sdpa(torch, q, k, v, h, bias), nbytes, flops, tc=True,
+               witness=lambda: fa.flash_attention_plain(q, k, v, h, bias=bias),
+               count=lambda: fa.flash_fwd.fp32_kernels["qm"])
+        del q, k, v, bias
     # K2's fp32 route (3xTF32) at every level
     for name, kind, b, n, c, k in proj_cases(batch):
         if name.rsplit("_", 1)[0] not in FP32_PROJ:
@@ -778,7 +810,7 @@ def check_fp32(torch, unet, device, batch):
                2 * m * cout * 9 * cin, tc=True, witness=witness,
                whole=lambda: fc.gn_silu_conv3x3(x, s, sb, w, wb, res))
         del x, w, res, xn, wcl, wt, witness
-    for kind in ("ln_matmuls_fp32", "matmul_residual_fp32", "ln_geglu_fp32",
+    for kind in ("flash_fwd_fp32_qm", "ln_matmuls_fp32", "matmul_residual_fp32", "ln_geglu_fp32",
                  "gn_silu_conv3x3_fp32"):
         rows = [r for r in results if r["kind"] == kind]
         if not any(r["tf32_witness"] > r["limit"] for r in rows):
@@ -1787,6 +1819,17 @@ def run_tools(torch, device):
                  f"flash_attention_bwd_plain: {ok}")
     if not ok:
         failures.append("tools bench_sweep_attn --bwd")
+    # the fp32 route's tile sweep (the queries-as-rows kernel) at ds1 and ds2 (B = 4)
+    assert (bench_sweep_attn.FP32_REL_TOL, bench_sweep_attn.FP32_LSE_TOL) == (
+        FP32_REL_TOL, FP32_LSE_TOL)  # its rows' "ok"
+    rows = bench_sweep_attn.run_fp32(batch=4, iters=3, device=device)
+    lines += [f"tools: bench_sweep_attn --fp32: {line}"
+              for line in bench_sweep_attn.fp32_lines(rows)]
+    ok = all(r["ok"] for r in rows)
+    lines.append(f"tools: bench_sweep_attn --fp32: every configuration agreed with "
+                 f"flash_attention_plain: {ok}")
+    if not ok:
+        failures.append("tools bench_sweep_attn --fp32")
     return failures, counts, checks, lines
 
 
@@ -1867,6 +1910,11 @@ KERNEL_META = {
     "flash_fwd_fp32": ("gligen_tpu_torch/csrc/flash_fwd.cu",
                        "gligen_tpu/ops/pallas_attention.py:466 (_fwd_impl streamed, q/k/v in "
                        "fp32: the inpaint encode's VAE mid-attention)", "vae_mid_fp32", "inpaint"),
+    "flash_fwd_fp32_qm": ("gligen_tpu_torch/csrc/flash_fwd.cu",
+                          "gligen_tpu/ops/pallas_attention.py:428 (_fwd_impl single-KV) and "
+                          "gligen_tpu/ops/pallas_attention.py:836 (_packed_fwd_impl single-KV), "
+                          "q/k/v in fp32: the UNet's attention served in fp32", "attn1_ds1_fp32",
+                          "fp32_a"),
     "group_norm_fp32": ("gligen_tpu_torch/csrc/fused_norm.cu",
                         "gligen_tpu/ops/pallas_norm.py:107 (_group_norm_pallas_flat, fp32 x: "
                         "the inpaint encode's VAE encoder norms)", "enc_512x128_gn", "inpaint"),
@@ -2076,12 +2124,14 @@ def run_inpaint(torch, np, seed, device, steps, batch=2, size=512):
                                                   sampler=sampler, inpaint=True)
         want32 = {k: len(requests) * n for k, n in expected_fp32(comps, "a").items()}
         before = dict(flash_fwd.routes), dict(group_norm_fused.routes)
+        kernels32 = dict(flash_fwd.fp32_kernels)
         times, images, counts = run_requests(torch, pipe, requests, "a", gen, steps=steps,
                                              guidance_scale=7.5, sampler=sampler,
                                              alpha_stages=None, latent_size=latent)
         routes = {r: n - before[0][r] for r, n in flash_fwd.routes.items()}
+        kernels32 = {k: n - kernels32[k] for k, n in flash_fwd.fp32_kernels.items()}
         gn32 = group_norm_fused.routes["fp32"] - before[1]["fp32"]
-        fp32["flash_fwd_fp32"] += routes["fp32"]
+        fp32["flash_fwd_fp32"] += kernels32["km"]
         fp32["group_norm_fp32"] += gn32
         for i, (img, t) in enumerate(zip(images, times)):
             ok, desc = check_image(torch, img, batch, size)
@@ -2094,9 +2144,11 @@ def run_inpaint(torch, np, seed, device, steps, batch=2, size=512):
         print(f"inpaint: {sampler} per request {gated} gated and {free} fuser-free UNet calls; "
               f"launches {counts}, expected {want} {'ok' if ok else 'FAIL'}", flush=True)
         route_ok = (routes["copy"] == 0 and routes["fp32"] == want32["flash_fwd"]
+                    and kernels32 == {"qm": 0, "km": want32["flash_fwd"]}
                     and gn32 == want32["group_norm"])
         print(f"inpaint: {sampler} flash_fwd launches by route {routes} (bf16 all tma, fp32 "
-              f"{want32['flash_fwd']} expected: the encode's attention); fp32 GroupNorm launches "
+              f"{want32['flash_fwd']} expected: the encode's attention, by kernel {kernels32}: "
+              f"all on km, the d = 512 kernel); fp32 GroupNorm launches "
               f"{gn32} (expected {want32['group_norm']}: the encode's norms) "
               f"{'ok' if route_ok else 'FAIL'}", flush=True)
         if not ok:
@@ -2560,9 +2612,14 @@ def run_fp32(torch, np, seed, device, steps, batch=2, size=512):
     at full width (random de-zeroed weights), one request of ``batch`` at
     ``size``^2 with PLMS and alpha stages [0.3, 0, 0.7] in each of
     ``CONFIGS``: the image sound, and every kernel launch on its fp32 route,
-    as many as ``expected_launches`` predicts.  Returns (failures, s/img by
-    configuration, {"fp32_<config>": {"<kernel>_fp32": launches}})."""
+    as many as ``expected_launches`` predicts; the flash forward's on the
+    queries-as-rows kernel but for the VAE decoder's d = 512 head (one
+    launch a request, the keys-as-rows kernel).  Returns (failures, s/img
+    by configuration, {"fp32_<config>": {"<kernel>_fp32": launches}}, the
+    flash forward's as "flash_fwd_fp32_qm" and "flash_fwd_fp32")."""
     from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
+    from gligen_tpu_torch.models.vae import AttnBlock
+    from gligen_tpu_torch.ops.flash_attention import flash_fwd
 
     failures, s_per_img, launches = [], {}, {}
     comps = GligenComponents.create(dtype=torch.float32, seed=seed + 21, device=device)
@@ -2572,12 +2629,15 @@ def run_fp32(torch, np, seed, device, steps, batch=2, size=512):
     rng = np.random.default_rng(seed + 23)
     gen = torch.Generator(device=device).manual_seed(seed + 24)
     wrappers = kernel_wrappers()
+    vae_heads = sum(isinstance(m, AttnBlock) for m in comps.vae.decoder.modules())
     for config in CONFIGS:
         expected, gated, free = expected_launches(comps, steps, alpha, latent, config)
         before = {name: dict(w.routes) for name, w in wrappers.items()}
+        kernels32 = dict(flash_fwd.fp32_kernels)
         times, images, counts = run_requests(torch, pipe, [make_request(rng, batch, 49408, 768)],
                                              config, gen, steps=steps, guidance_scale=7.5,
                                              alpha_stages=alpha, latent_size=latent)
+        kernels32 = {k: n - kernels32[k] for k, n in flash_fwd.fp32_kernels.items()}
         routes = {name: {r: n - before[name][r] for r, n in w.routes.items()}
                   for name, w in wrappers.items()}
         fp32 = {name: r.get("fp32", 0) for name, r in routes.items()}
@@ -2593,8 +2653,16 @@ def run_fp32(torch, np, seed, device, steps, batch=2, size=512):
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append(f"fp32 launch count ({config})")
+        ok = kernels32 == {"qm": expected["flash_fwd"] - vae_heads, "km": vae_heads}
+        print(f"fp32: ({config}) flash_fwd fp32 launches by kernel {kernels32} (the UNet's on "
+              f"qm, the queries-as-rows kernel; the VAE decoder's {vae_heads} d = 512 head on km) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"fp32 flash kernels ({config})")
         s_per_img[config] = times[0] / batch
         launches[f"fp32_{config}"] = {f"{name}_fp32": n for name, n in fp32.items()}
+        launches[f"fp32_{config}"].update(flash_fwd_fp32_qm=kernels32["qm"],
+                                          flash_fwd_fp32=kernels32["km"])
         del images
     del comps, pipe
     torch.cuda.empty_cache()
@@ -3819,19 +3887,24 @@ def main() -> int:
           f"-> {library_path(SOURCES[0]).parent.parent.relative_to(REPO)}", flush=True)
     for src in SOURCES:
         report = (library_path(src).parent / "ptxas.txt").read_text()
-        if src.startswith(("fused_proj", "fused_conv")):  # one line per tile configuration
+        if src.startswith(("fused_proj", "fused_conv")) or src in ("flash_fwd",
+                                                                   "flash_fwd_f32_sweep"):
+            # one line per tile configuration
             configs = ptxas_configs(report)
-            if src in ("fused_proj", "fused_conv") and not any("tf32" in c[0] for c in configs):
+            tc = lambda name: "tf32" in name or "f32_qm" in name
+            if src in ("fused_proj", "fused_conv", "flash_fwd", "flash_fwd_f32_sweep") and not any(
+                    tc(c[0]) for c in configs):
                 print(f"build: {src}: no 3xTF32 kernel read from the ptxas report FAIL")
                 failures.append(f"build {src} no 3xTF32 kernel")
             for name, regs, stores, loads in configs:
                 # the fp32 routes' 3xTF32 kernels must not spill
-                ok = "tf32" not in name or stores + loads == 0
+                ok = not tc(name) or stores + loads == 0
                 print(f"build: {src}: {name}: {regs} registers, {stores} bytes spill stores, "
                       f"{loads} bytes spill loads{'' if ok else ' FAIL'}")
                 if not ok:
                     failures.append(f"build {src} {name} spills")
-            report = "\n".join(l for l in report.splitlines() if "wgmma" in l)
+            if not src.startswith("flash"):
+                report = "\n".join(l for l in report.splitlines() if "wgmma" in l)
         for line in report.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "wgmma")):
                 print(f"build: {src}: {line.strip()}")

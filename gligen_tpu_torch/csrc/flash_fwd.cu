@@ -966,6 +966,431 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(const __grid
 }
 
 }  // namespace f32
+
+// ------------------------------------------------------------ the fp32 route, d <= 160
+//
+// The UNet's heads in fp32 (d = 40, 80, 160 at ds1, ds2, ds4 and the middle
+// block: attn1, cross-attention and every fuser of a model served in fp32),
+// the same function as the TPU's single-KV forwards (_fwd_kernel_single
+// :252 and _fwd_kernel_single_chunked :163, behind the pallas_calls at
+// pallas_attention.py:428 and :836) on fp32 q/k/v.  Its bound is the tensor
+// cores': 3 x 4 B N M d at 495 TFLOP/s of TF32, 0.52 ms at ds1 attn1 (4 x 8
+// heads, 4096 x 4096, d = 40).  The kernel above lays its products out for
+// d = 512 (O^T over 512 head-dim rows whatever d is, keys as the M rows, P
+// through shared memory); at d = 40 most of its tensor-core work lands on
+// rows that are never stored.  This one is laid out for the small heads:
+//   * queries are the products' M rows: each consumer warpgroup owns 64 of
+//     the block's BQ = 64 NW queries.  S = Q K^T is wgmma m64nBKk8 with both
+//     operands from shared memory (TF32 takes only K-major operands: Q and
+//     K as stored, d contiguous), D / 8 k-steps; O = P V is m64nDk8 with P
+//     from registers and N = the class's head dim D (two halves of 80 at
+//     D = 160, where a whole tile part beside O spilled), so no product runs
+//     on a row or column past D.  A query row's running max and sum stay in
+//     the 4 threads of a quad (softmax_tile, the bf16 kernel's), and O stays
+//     in registers in fp32;
+//   * 3xTF32: x = hi + lo, hi = rna(x) (hopper.cuh:tf32), lo = x - hi, which
+//     the tensor cores truncate to TF32 (as gemm_tf32.cuh splits); a b ~
+//     hi hi + hi lo + lo hi.  A tile's S is one chain of 3 D / 8 products
+//     (15, 30, 60) and its part of O one chain of 3 BK / 8 (12 or 24), from
+//     zero and added to O by fp32 adds: the tensor cores do not round a
+//     chain of accumulations to nearest, so no chain runs over all M keys;
+//   * P feeds the RS wgmma from S's accumulator registers: a thread holds
+//     keys 2t and 2t + 1 of each 8-key step, where the TF32 A fragment reads
+//     k = t and t + 4.  So V^T's 8 keys of a step are stored in the order
+//     0, 2, 4, 6, 1, 3, 5, 7 (key 2i at k = i, 2i + 1 at k = 4 + i), and P
+//     never touches shared memory;
+//   * V is not K-major for O = P V, and K and V need their lo halves, so the
+//     consumers convert each K/V tile themselves: K as hi and lo (32-column
+//     128-byte swizzled atoms, as TMA would write them) and V^T as hi and lo
+//     (rows = head-dim columns, 32-key atoms), from plain 32-byte loads of K
+//     and V rows (a sector a lane; a warp's 32 lanes are 32 keys, so the
+//     transposed stores of one V column fill one 128-byte row, no bank
+//     conflict).  The next tile's loads are issued a tile ahead into
+//     registers and stored, split, into the other of two buffers under this
+//     tile's O product (NBUF = 2); an mbarrier pair per buffer (full: every
+//     consumer thread stored it; empty: every warp's products that read it
+//     completed) stands in for a block barrier, so the warpgroups run out of
+//     step.  With no TMA there is no producer warp and no raw stage: Q's hi
+//     and lo (split once a block) and the converted tiles are the whole of
+//     shared memory.  At d = 160, Q's hi and lo take 80 KB for 64 queries, so
+//     one warpgroup and one buffer (NBUF = 1) fit;
+//   * ragged edges: rows past N and M load as zeros; keys at or past M get
+//     -inf after the product (softmax_tile's mask), queries past N are not
+//     stored.  The optional fp32 (B, M) bias row is read per key tile from
+//     global memory (natural-log units).  No atomics: a run repeats bit for
+//     bit.
+// Tiles by head-dim class come from the wrapper's table
+// (ops/flash_attention.py:FWD_TILES_F32), which this library holds
+// (dispatch below); flash_fwd_f32_sweep.cu builds the d <= 40 and d <= 80
+// classes at every configuration of tools/bench_sweep_attn.py --fp32.
+
+namespace f32qm {
+
+// D: the class's head dim (O's wgmma N, V^T's rows); NW: consumer
+// warpgroups (BQ = 64 NW queries); BK: keys a tile (S's wgmma N); NBUF:
+// converted K/V buffers.
+template <int D_, int NW_, int BK_, int NBUF_>
+struct Cfg {
+  static constexpr int D = D_, NW = NW_, BK = BK_, NBUF = NBUF_;
+  static constexpr int BQ = 64 * NW, kThreads = 128 * NW;
+  static constexpr int kSteps = D / 8;                  // k8 steps of S
+  // O's wgmma N: the whole head dim, or halves of 80 at d = 160, where a
+  // whole tile part beside O would spill
+  static constexpr int kON = D > 80 ? D / 2 : D;
+  static constexpr int kAtoms = (D + 31) / 32;          // 32-column atoms of Q and K
+  static constexpr int kQBytes = kAtoms * BQ * 128;     // Q's hi (or lo)
+  static constexpr int kKBytes = kAtoms * BK * 128;     // a tile's K hi (or lo)
+  static constexpr int kVBytes = (BK / 32) * D * 128;   // a tile's V^T hi (or lo)
+  static constexpr int kBufBytes = 2 * kKBytes + 2 * kVBytes;
+  static constexpr int kOffBuf = 2 * kQBytes;
+  static constexpr int kOffBar = kOffBuf + NBUF * kBufBytes;
+  static constexpr int kSmem = kOffBar + 8 * 4 + 1024;  // + alignment slack
+  // a tile's load units: (32-key group, 8-column group), one key a lane
+  static constexpr int kUnits = (BK / 32) * (D / 8);
+  static constexpr int kRounds = (kUnits + 4 * NW - 1) / (4 * NW);
+  static constexpr int kQUnits = (BQ / 32) * (D / 8);
+  static_assert(D % 8 == 0 && kON % 8 == 0 && kON <= 256, "O's wgmma N");
+  static_assert(BK == 32 || BK == 64, "S's wgmma N and V^T's 32-key atoms");
+  static_assert(NBUF == 1 || NBUF == 2, "buffers");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* bias;  // (B, M) rows at stride bias_sb, or null
+  float* o;
+  float* lse;  // (B, H, N) contiguous
+  int heads, n, m, d;
+  long long q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn, bias_sb;
+  float scale_log2;  // softmax scale * log2(e)
+};
+
+// x = hi + lo: hi = rna(x) as TF32, lo = x - hi (exact), left for the
+// tensor cores to truncate to TF32.
+__device__ __forceinline__ void split_tc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// Columns col..col + 7 of row `row` (zeros at rows >= rows, columns >= d).
+__device__ __forceinline__ void load8(float4 (&x)[2], const float* base, long long sn, int row,
+                                      int rows, int col, int d) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    x[i] = row < rows && col + 4 * i < d
+               ? *reinterpret_cast<const float4*>(base + row * sn + col + 4 * i)
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// Row r, columns 8 cg..8 cg + 7, of a K-major operand of `rows` rows in
+// 32-column atoms of 128-byte rows, 128-byte swizzled: hi at `hi`, lo at the
+// same offset of `lo`.
+__device__ __forceinline__ void store_row8(uint8_t* hi, uint8_t* lo, int rows, int r, int cg,
+                                           const float4 (&x)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int off = (cg / 4) * rows * 128 + r * 128 + ((((cg % 4) * 2 + i) ^ (r & 7)) << 4);
+    uint4 h, l;
+    split_tc(x[i].x, h.x, l.x);
+    split_tc(x[i].y, h.y, l.y);
+    split_tc(x[i].z, h.z, l.z);
+    split_tc(x[i].w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// Key `key` of a tile, columns 8 cg..8 cg + 7 of V, into V^T: row n = the
+// column, 32-key atoms of D rows, 128-byte swizzled; within an 8-key step
+// key 2i at k = i and key 2i + 1 at k = 4 + i (P's fragment order).
+template <int D>
+__device__ __forceinline__ void store_vt8(uint8_t* hi, uint8_t* lo, int key, int cg,
+                                          const float4 (&x)[2]) {
+  const int kk = key % 8, word = (key % 32) / 8 * 8 + (kk & 1) * 4 + kk / 2;
+  const int base = (key / 32) * D * 128 + 8 * cg * 128 + (word % 4) * 4;
+  const float v[8] = {x[0].x, x[0].y, x[0].z, x[0].w, x[1].x, x[1].y, x[1].z, x[1].w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {  // row 8 cg + e, whose swizzle is e
+    const int off = base + e * 128 + (((word / 4) ^ e) << 4);
+    uint32_t h, l;
+    split_tc(v[e], h, l);
+    *reinterpret_cast<uint32_t*>(hi + off) = h;
+    *reinterpret_cast<uint32_t*>(lo + off) = l;
+  }
+}
+
+// A thread's share of one K/V tile, as loaded: its warp's units, one key
+// (its lane) of 8 columns each, in rounds of one unit a warp.
+template <class C>
+struct Share {
+  float4 k[C::kRounds][2], v[C::kRounds][2];
+
+  __device__ __forceinline__ void load_round(int r, const Params& p, const float* kb,
+                                             const float* vb, int k0, int warp, int lane) {
+    const int u = warp + 4 * C::NW * r;
+    if (u < C::kUnits) {
+      const int key = k0 + 32 * (u / (C::D / 8)) + lane, col = 8 * (u % (C::D / 8));
+      load8(k[r], kb, p.k_sn, key, p.m, col, p.d);
+      load8(v[r], vb, p.v_sn, key, p.m, col, p.d);
+    }
+  }
+
+  // split into a buffer: K hi, K lo, V^T hi, V^T lo
+  __device__ __forceinline__ void store_round(int r, uint8_t* buf, int warp, int lane) const {
+    const int u = warp + 4 * C::NW * r;
+    if (u < C::kUnits) {
+      const int key = 32 * (u / (C::D / 8)) + lane, cg = u % (C::D / 8);
+      store_row8(buf, buf + C::kKBytes, C::BK, key, cg, k[r]);
+      store_vt8<C::D>(buf + 2 * C::kKBytes, buf + 2 * C::kKBytes + C::kVBytes, key, cg, v[r]);
+    }
+  }
+
+  __device__ __forceinline__ void load(const Params& p, const float* kb, const float* vb, int k0,
+                                       int warp, int lane) {
+#pragma unroll
+    for (int r = 0; r < C::kRounds; ++r) load_round(r, p, kb, vb, k0, warp, lane);
+  }
+
+  __device__ __forceinline__ void store(uint8_t* buf, int warp, int lane) const {
+#pragma unroll
+    for (int r = 0; r < C::kRounds; ++r) store_round(r, buf, warp, lane);
+  }
+
+  // load and store one round at a time, each round's loads kept below the
+  // last round's stores (a memory clobber): with one buffer (d = 160) O's 80
+  // registers leave no room for a whole share (80 more), which spilled
+  __device__ __forceinline__ void copy(const Params& p, const float* kb, const float* vb, int k0,
+                                       uint8_t* buf, int warp, int lane) {
+#pragma unroll
+    for (int r = 0; r < C::kRounds; ++r) {
+      load_round(r, p, kb, vb, k0, warp, lane);
+      store_round(r, buf, warp, lane);
+      asm volatile("" ::: "memory");
+    }
+  }
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+    flash_fwd_f32_qm_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, w = warp % 4, lane = tid % 32;
+  const int quad = lane % 4;
+  const int q0 = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (p.m + C::BK - 1) / C::BK;
+  const uint32_t bars = smem_u32(smem + C::kOffBar);
+  auto full = [&](int i) { return bars + 8 * i; };         // every thread stored buffer i
+  auto empty = [&](int i) { return bars + 8 * (2 + i); };  // every warp's products read it
+  auto buf = [&](int i) { return smem + C::kOffBuf + i * C::kBufBytes; };
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full(i), C::kThreads);
+      mbar_init(empty(i), 4 * C::NW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Q's rows split once into hi and lo, then K/V tile 0 into buffer 0; the
+  // first tile's full barrier covers both
+  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+  {
+    const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+    for (int u = warp; u < C::kQUnits; u += 4 * C::NW) {
+      const int r = 32 * (u / (C::D / 8)) + lane, cg = u % (C::D / 8);
+      float4 x[2];
+      load8(x, qb, p.q_sn, q0 + r, p.n, 8 * cg, p.d);
+      store_row8(smem, smem + C::kQBytes, C::BQ, r, cg, x);
+    }
+  }
+  Share<C> next;
+  next.copy(p, kb, vb, 0, buf(0), warp, lane);
+  fence_proxy_async();
+  mbar_arrive(full(0));
+  if (C::NBUF == 2 && ntiles > 1) next.load(p, kb, vb, C::BK, warp, lane);
+
+  float o[C::D / 2], s[C::BK / 2];
+#pragma unroll
+  for (int i = 0; i < C::D / 2; ++i) o[i] = 0.0f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.0f, 0.0f};
+  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+  const uint32_t q_hi = smem_u32(smem) + wg * 64 * 128, q_lo = q_hi + C::kQBytes;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int cur = it % C::NBUF, k0 = it * C::BK;
+    mbar_wait(full(cur), (it / C::NBUF) & 1);
+    const uint32_t k_hi = smem_u32(buf(cur)), k_lo = k_hi + C::kKBytes;
+    const uint32_t v_hi = k_lo + C::kKBytes, v_lo = v_hi + C::kVBytes;
+    uint32_t qh0 = q_hi, ql0 = q_lo;
+    // opaque to the compiler: Q's descriptors are rebuilt each tile (an add
+    // each) instead of being hoisted out of the loop into 4 D / 8 registers
+    asm volatile("" : "+r"(qh0), "+r"(ql0));
+
+    // S = Q K^T, one chain of 3 passes a k8 step
+    pin(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::kSteps; ++kk) {
+      const uint32_t qo = (kk / 4) * C::BQ * 128 + (kk % 4) * 32;
+      const uint32_t ko = (kk / 4) * C::BK * 128 + (kk % 4) * 32;
+      const uint64_t qh = sw128_desc(qh0 + qo, 16, 1024), ql = sw128_desc(ql0 + qo, 16, 1024);
+      const uint64_t kh = sw128_desc(k_hi + ko, 16, 1024), kl = sw128_desc(k_lo + ko, 16, 1024);
+      WgmmaSsTf32<C::BK>::ss(s, qh, kh, kk > 0);
+      WgmmaSsTf32<C::BK>::ss(s, qh, kl, 1);
+      WgmmaSsTf32<C::BK>::ss(s, ql, kh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+
+    const bool last = k0 + C::BK > p.m;
+    if (bias) {
+      if (last)
+        softmax_tile<C::BK, C::D, true, true>(s, o, mrow, lrow, bias, k0, p.m, p.scale_log2, quad);
+      else
+        softmax_tile<C::BK, C::D, false, true>(s, o, mrow, lrow, bias, k0, p.m, p.scale_log2, quad);
+    } else {
+      if (last)
+        softmax_tile<C::BK, C::D, true, false>(s, o, mrow, lrow, bias, k0, p.m, p.scale_log2, quad);
+      else
+        softmax_tile<C::BK, C::D, false, false>(s, o, mrow, lrow, bias, k0, p.m, p.scale_log2,
+                                                quad);
+    }
+
+    // P as the A fragments of each 8-key step: (row g, k t) = key 2t,
+    // (row g, k t + 4) = key 2t + 1, as V^T was stored
+    uint32_t ph[C::BK / 8][4], pl[C::BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < C::BK / 8; ++j) {
+      split_tc(s[4 * j], ph[j][0], pl[j][0]);
+      split_tc(s[4 * j + 2], ph[j][1], pl[j][1]);
+      split_tc(s[4 * j + 1], ph[j][2], pl[j][2]);
+      split_tc(s[4 * j + 3], ph[j][3], pl[j][3]);
+    }
+    // this tile's part of O, from zero: a chain of 3 passes a step, over
+    // each kON columns of the head dim in turn
+#pragma unroll
+    for (int part = 0; part < C::D / C::kON; ++part) {
+      float ot[C::kON / 2];
+      pin(ot);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < C::BK / 8; ++j) {
+        const uint32_t vo = (j / 4) * C::D * 128 + part * C::kON * 128 + (j % 4) * 32;
+        const uint64_t vh = sw128_desc(v_hi + vo, 16, 1024), vl = sw128_desc(v_lo + vo, 16, 1024);
+        WgmmaRsTf32<C::kON>::rs(ot, ph[j], vh, j > 0);
+        WgmmaRsTf32<C::kON>::rs(ot, ph[j], vl, 1);
+        WgmmaRsTf32<C::kON>::rs(ot, pl[j], vh, 1);
+      }
+      wgmma_commit();
+      if (C::NBUF == 2 && part == C::D / C::kON - 1 && it + 1 < ntiles) {
+        // under the product: the next tile, loaded a tile ago, into the
+        // other buffer once every warp's products of the tile before this
+        // one are done
+        const int nb = (it + 1) % 2;
+        if (it >= 1) mbar_wait(empty(nb), ((it - 1) / 2) & 1);
+        next.store(buf(nb), warp, lane);
+        fence_proxy_async();
+        mbar_arrive(full(nb));
+      }
+      wgmma_wait<0>();
+      pin(ot), f32::pin_u(ph), f32::pin_u(pl);
+#pragma unroll
+      for (int i = 0; i < C::kON / 2; ++i) o[part * C::kON / 2 + i] += ot[i];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(cur));
+    if (C::NBUF == 2 && it + 2 < ntiles) next.load(p, kb, vb, (it + 2) * C::BK, warp, lane);
+    if (C::NBUF == 1 && it + 1 < ntiles) {
+      mbar_wait(empty(0), it & 1);
+      next.copy(p, kb, vb, (it + 1) * C::BK, buf(0), warp, lane);
+      fence_proxy_async();
+      mbar_arrive(full(0));
+    }
+  }
+
+  // normalise once, store the rows < N and columns < d, and the LSE
+  const float l0 = quad_sum(lrow[0]), l1 = quad_sum(lrow[1]);
+  const int r0 = q0 + wg * 64 + w * 16 + lane / 4, r1 = r0 + 8;
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  float* ob = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int j = 0; j < C::D / 8; ++j) {
+    const int col = 8 * j + 2 * quad;
+    if (col >= p.d) continue;
+    if (r0 < p.n)
+      *reinterpret_cast<float2*>(ob + r0 * p.o_sn + col) =
+          make_float2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    if (r1 < p.n)
+      *reinterpret_cast<float2*>(ob + r1 * p.o_sn + col) =
+          make_float2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  if (quad == 0) {
+    float* lb = p.lse + ((long long)b * p.heads + h) * p.n;
+    if (r0 < p.n) lb[r0] = mrow[0] + log2f(l0);
+    if (r1 < p.n) lb[r1] = mrow[1] + log2f(l1);
+  }
+}
+
+template <class C>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_qm_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + C::BQ - 1) / C::BQ, p.heads, batch);
+  flash_fwd_f32_qm_kernel<C><<<grid, C::kThreads, C::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The head-dim classes at (BQ, BK, buffers).
+template <int BQ, int BK, int NBUF>
+using Q40 = Cfg<40, BQ / 64, BK, NBUF>;
+template <int BQ, int BK, int NBUF>
+using Q80 = Cfg<80, BQ / 64, BK, NBUF>;
+template <int BQ, int BK, int NBUF>
+using Q160 = Cfg<160, BQ / 64, BK, NBUF>;
+
+// Launch the class of p.d (<= 160) at (bq, bk, nbuf), if this library holds
+// that configuration: the serving library the wrapper's table
+// (ops/flash_attention.py:FWD_TILES_F32), the sweep library
+// (flash_fwd_f32_sweep.cu) the d <= 40 and d <= 80 classes at every
+// configuration of tools/bench_sweep_attn.py:F32_CONFIGS.  Any other
+// configuration returns cudaErrorInvalidValue.
+cudaError_t dispatch(const Params& p, int batch, int bq, int bk, int nbuf, cudaStream_t s) {
+  const int key = tiles_key(bq, bk, nbuf);
+#ifndef FLASH_FWD_F32_SWEEP
+  if (p.d <= 40) {
+    if (key == tiles_key(192, 64, 2)) return launch<Q40<192, 64, 2>>(p, batch, s);
+  } else if (p.d <= 80) {
+    if (key == tiles_key(128, 32, 2)) return launch<Q80<128, 32, 2>>(p, batch, s);
+  } else if (key == tiles_key(64, 32, 1)) {
+    return launch<Q160<64, 32, 1>>(p, batch, s);
+  }
+#else
+  if (p.d <= 40) switch (key) {
+      case tiles_key(64, 32, 2): return launch<Q40<64, 32, 2>>(p, batch, s);
+      case tiles_key(64, 64, 2): return launch<Q40<64, 64, 2>>(p, batch, s);
+      case tiles_key(128, 32, 2): return launch<Q40<128, 32, 2>>(p, batch, s);
+      case tiles_key(128, 64, 2): return launch<Q40<128, 64, 2>>(p, batch, s);
+      case tiles_key(192, 32, 2): return launch<Q40<192, 32, 2>>(p, batch, s);
+      case tiles_key(192, 64, 2): return launch<Q40<192, 64, 2>>(p, batch, s);
+    }
+  else if (p.d <= 80) switch (key) {
+      case tiles_key(64, 32, 2): return launch<Q80<64, 32, 2>>(p, batch, s);
+      case tiles_key(128, 32, 2): return launch<Q80<128, 32, 2>>(p, batch, s);
+      case tiles_key(128, 64, 1): return launch<Q80<128, 64, 1>>(p, batch, s);
+      case tiles_key(192, 32, 1): return launch<Q80<192, 32, 1>>(p, batch, s);
+    }
+#endif
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace f32qm
 #endif  // FLASH_FWD_SWEEP
 
 // Plain C entry point for ctypes.  Returns a cudaError_t (0 = launched).
@@ -991,14 +1416,39 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const
 // The fp32 route: q, k, v, bias, o and lse fp32, the rest as flash_fwd_bf16.
 // d <= 512 and a multiple of 4; every base 16-byte aligned and every batch,
 // head and row stride a multiple of 4 elements (the wrapper checks), which
-// is what TMA takes of an fp32 operand.
+// is what TMA takes of an fp32 operand.  (bq, bk, stages): the tile
+// configuration, which names the kernel: d <= 160 runs
+// flash_fwd_f32_qm_kernel at a configuration this library holds
+// (f32qm::dispatch), d > 160 flash_fwd_f32_kernel at its one configuration
+// (32 queries, 128 keys, 4 stages); anything else returns
+// cudaErrorInvalidValue.
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, const float* bias,
                              void* o, float* lse, int batch, int heads, int n, int m, int d,
                              long long q_sb, long long q_sh, long long q_sn, long long k_sb,
                              long long k_sh, long long k_sn, long long v_sb, long long v_sh,
                              long long v_sn, long long o_sb, long long o_sh, long long o_sn,
-                             long long bias_sb, float scale, void* stream) {
+                             long long bias_sb, float scale, int bq, int bk, int stages,
+                             void* stream) {
   if (d < 4 || d > 32 * f32::kMaxSlices || d % 4 || n < 1 || m < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  if (d <= 160) {
+    f32qm::Params p;
+    p.q = static_cast<const float*>(q);
+    p.k = static_cast<const float*>(k);
+    p.v = static_cast<const float*>(v);
+    p.bias = bias;
+    p.o = static_cast<float*>(o);
+    p.lse = lse;
+    p.heads = heads, p.n = n, p.m = m, p.d = d;
+    p.q_sb = q_sb, p.q_sh = q_sh, p.q_sn = q_sn;
+    p.k_sb = k_sb, p.k_sh = k_sh, p.k_sn = k_sn;
+    p.v_sb = v_sb, p.v_sh = v_sh, p.v_sn = v_sn;
+    p.o_sb = o_sb, p.o_sh = o_sh, p.o_sn = o_sn;
+    p.bias_sb = bias_sb;
+    p.scale_log2 = scale * kLog2e;
+    return (int)f32qm::dispatch(p, batch, bq, bk, stages, static_cast<cudaStream_t>(stream));
+  }
+  if (tiles_key(bq, bk, stages) != tiles_key(f32::kBQ, f32::kKeys, f32::kStages))
     return (int)cudaErrorInvalidValue;
   f32::Params p;
   p.q = static_cast<const float*>(q);

@@ -20,9 +20,13 @@ bf16 operands:
     TF32 values per thread: rows g and g + 8 of the thread's warp, columns
     t and t + 4, g = lane / 4, t = lane % 4), B from shared memory, K-major
     (TF32 has no transposed form).  The 3xTF32 products of the fp32 flash
-    route (S^T = K Q^T, O^T = V^T P^T, flash_fwd.cu), of the fp32 fused
-    projections (the normalised rows as A, fused_proj.cu) and of the fp32
-    fused conv (the activated halo rows as A, fused_conv.cu).
+    routes (S^T = K Q^T and O^T = V^T P^T at d = 512; O = P V at the
+    UNet's head dims, N = d or d / 2: flash_fwd.cu), of the fp32 fused projections
+    (the normalised rows as A, fused_proj.cu) and of the fp32 fused conv
+    (the activated halo rows as A, fused_conv.cu);
+  * ``WgmmaSsTf32<N>``: m64nNk8 with TF32 operands, A and B from shared
+    memory by descriptor, both K-major: S = Q K^T of the fp32 flash route
+    at the UNet's head dims (N = the key tile, flash_fwd.cu).
 
 ``TRANS_B`` is the instruction's imm-trans-b: 0 for a K-major B, 1 for an
 MN-major one.  ``tests/test_torch_flash.py`` checks that the committed
@@ -36,7 +40,8 @@ from pathlib import Path
 HEADER = Path(__file__).resolve().parent / "wgmma.cuh"
 SS_WIDTHS = (32, 64, 96, 128, 160, 192, 256)
 RS_WIDTHS = (40, 80, 128, 160, 256)
-RS_TF32_WIDTHS = (32, 64, 80)
+RS_TF32_WIDTHS = (32, 40, 64, 80)
+SS_TF32_WIDTHS = (32, 64)
 
 
 def _regs(n: int) -> str:
@@ -105,19 +110,38 @@ struct WgmmaRsTf32<{n}> {{
 """
 
 
+def _ss_tf32(n: int) -> str:
+    r = n // 2
+    return f"""template <>
+struct WgmmaSsTf32<{n}> {{
+  static __device__ __forceinline__ void ss(float (&d)[{r}], uint64_t a, uint64_t b, int acc) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 "
+        "{{{_regs(n)}}}, %{r}, %{r + 1}, p, 1, 1;\\n}}\\n"
+        :
+{_outs(n)}
+        : "l"(a), "l"(b), "r"(acc));
+  }}
+}};
+"""
+
+
 def render() -> str:
     parts = [
         "// Generated by gen_wgmma.py: do not edit.  Warpgroup MMA wrappers, m64nNk16,\n"
         "// bf16 x bf16 -> fp32.  Wgmma<N>::ss: A and B by shared-memory descriptor;\n"
         "// WgmmaRs<N>::rs: A from registers.  WgmmaRsTf32<N>::rs: m64nNk8, TF32 x TF32\n"
-        "// -> fp32, A from registers.  acc = 0 overwrites d, 1 accumulates.\n",
+        "// -> fp32, A from registers; WgmmaSsTf32<N>::ss: the same, A and B by\n"
+        "// descriptor.  acc = 0 overwrites d, 1 accumulates.\n",
         "#pragma once\n\n#include <stdint.h>\n\n",
         "template <int N>\nstruct Wgmma;\n\ntemplate <int N>\nstruct WgmmaRs;\n\n"
-        "template <int N>\nstruct WgmmaRsTf32;\n\n",
+        "template <int N>\nstruct WgmmaRsTf32;\n\ntemplate <int N>\nstruct WgmmaSsTf32;\n\n",
     ]
     parts += [_ss(n) + "\n" for n in SS_WIDTHS]
     parts += [_rs(n) + "\n" for n in RS_WIDTHS]
     parts += [_rs_tf32(n) + "\n" for n in RS_TF32_WIDTHS]
+    parts += [_ss_tf32(n) + "\n" for n in SS_TF32_WIDTHS]
     return "".join(parts).rstrip("\n") + "\n"
 
 

@@ -24,11 +24,15 @@ loads its bf16 operands by TMA where TMA can read them (``tma_ok``) and by
 plain copies otherwise: a choice made from the layout, before the launch,
 and counted per route.  Each kernel's tiles come from a fixed table by
 head dim (``FWD_TILES``, ``BWD_TILES``) that its library is built at.
-The forward also takes fp32 q/k/v (the inpaint image's fp32 VAE encode):
-a route of its own, ``flash_fwd_f32`` of the same source
-(``launch_fwd_f32``), counted as route "fp32": fp32 in and out, an fp32
-softmax, and both products as 3xTF32 on the tensor cores (x = hi + lo in
-TF32; hi.hi + hi.lo + lo.hi), fp32-accurate to a few ulps.
+The forward also takes fp32 q/k/v (a model served in fp32, and the
+inpaint image's fp32 VAE encode): a route of its own, ``flash_fwd_f32`` of
+the same source (``launch_fwd_f32``), counted as route "fp32": fp32 in and
+out, an fp32 softmax, and both products as 3xTF32 on the tensor cores (x =
+hi + lo in TF32; hi.hi + hi.lo + lo.hi), fp32-accurate to a few ulps.  Two
+kernels serve it, named by their tiles in ``FWD_TILES_F32``: the UNet's
+head dims (d <= 160) take ``flash_fwd_f32_qm_kernel`` (queries as the
+products' rows), the VAE's 512 ``flash_fwd_f32_kernel`` (keys as the rows);
+``FlashForward.fp32_kernels`` counts each one's launches.
 """
 
 from __future__ import annotations
@@ -147,13 +151,41 @@ def launch_fwd(library, q, k, v, heads, bias, tiles):
     return out, lse, route
 
 
-# the fp32 route's entry: q, k, v, bias, o, lse, the shapes and strides, the scale
-_FWD32_ARGTYPES = (PTR,) * 6 + (I32,) * 5 + (ctypes.c_longlong,) * 13 + (F32,)
+# The fp32 route's tile table, by head-dim class: (largest head dim, kernel,
+# (BQ query rows, BK keys, stages)).  "qm" is flash_fwd_f32_qm_kernel
+# (queries as the products' M rows; its third number is the converted K/V
+# buffers), "km" flash_fwd_f32_kernel (keys as the M rows, at its one
+# configuration).  The tiles name the kernel: the C entry
+# (csrc/flash_fwd.cu:flash_fwd_f32) runs d <= 160 only at the qm tiles its
+# library holds (f32qm::dispatch, exactly these in the serving library) and
+# d > 160 only at (32, 128, 4), and refuses anything else.  The qm tiles are
+# the ones tools/bench_sweep_attn.py --fp32 picked.
+FWD_TILES_F32 = (
+    (40, "qm", (192, 64, 2)),
+    (80, "qm", (128, 32, 2)),
+    (160, "qm", (64, 32, 1)),
+    (512, "km", (32, 128, 4)),
+)
 
 
-def launch_fwd_f32(q, k, v, heads, bias):
-    """One launch of the fp32 route on checked CUDA inputs (``_check_f32``);
-    returns (out fp32, lse)."""
+def fwd_tiles_f32(d: int) -> Tuple[str, Tuple[int, int, int]]:
+    """(kernel, (BQ, BK, stages)) of the fp32 route for head dim ``d``."""
+    for top, kernel, tiles in FWD_TILES_F32:
+        if d <= top:
+            return kernel, tiles
+    raise ValueError(f"head dim {d} above {MAX_HEAD_DIM}")
+
+
+# the fp32 route's entry: q, k, v, bias, o, lse, the shapes and strides, the
+# scale, the tiles
+_FWD32_ARGTYPES = (PTR,) * 6 + (I32,) * 5 + (ctypes.c_longlong,) * 13 + (F32,) + (I32,) * 3
+
+
+def launch_fwd_f32(library, q, k, v, heads, bias, tiles):
+    """One launch of ``library``'s fp32 entry at ``tiles`` (BQ, BK, stages)
+    on checked CUDA inputs (``_check_f32``); returns (out fp32, lse).
+    Raises if the library does not hold that configuration for this head
+    dim."""
     b, n, hc = q.shape
     m = k.shape[1]
     c = hc // heads
@@ -162,14 +194,15 @@ def launch_fwd_f32(q, k, v, heads, bias):
     strides = []
     for t in (q, k, v, out):
         strides += [t.stride(0), c, t.stride(1)]
-    err = c_entry("flash_fwd", "flash_fwd_f32", _FWD32_ARGTYPES)(
+    err = c_entry(library, "flash_fwd_f32", _FWD32_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(), lse.data_ptr(),
         b, heads, n, m, c, *strides, bias.stride(0) if bias is not None else 0, c**-0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *tiles, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_fwd_f32 launch failed (d {c}): cudaError {err}")
+        raise RuntimeError(f"{library} flash_fwd_f32 launch failed (d {c}, tiles {tiles}): "
+                           f"cudaError {err}")
     return out, lse
 
 
@@ -230,10 +263,12 @@ class Counted:
 
 class FlashForward(Counted):
     """Wrapper of ``csrc/flash_fwd.cu``: bf16 routes by ``fwd_route``, fp32
-    inputs by the "fp32" route."""
+    inputs by the "fp32" route; ``fp32_kernels`` counts the fp32 route's
+    launches by kernel ("qm" or "km", ``FWD_TILES_F32``)."""
 
     def __init__(self):
         super().__init__(("tma", "copy", "fp32"))
+        self.fp32_kernels = {"qm": 0, "km": 0}
 
     def __call__(
         self,
@@ -248,7 +283,10 @@ class FlashForward(Counted):
             return flash_attention_plain(q, k, v, heads, bias=bias)
         if q.dtype == torch.float32:
             _check_f32(q, k, v, heads, bias)
-            out, lse = launch_fwd_f32(q, k, v, heads, bias)
+            kernel, tiles = fwd_tiles_f32(q.shape[2] // heads)
+            out, lse = launch_fwd_f32("flash_fwd", q, k, v, heads, bias, tiles)
+            with self._count_lock:
+                self.fp32_kernels[kernel] += 1
             self._count("fp32")
             return out, lse
         _check_inputs(q, k, v, heads, bias)

@@ -6,6 +6,7 @@ serving shapes, the backward (``--bwd``) at a training level's shapes.
         [--configs 128x128x2,64x128x2,...]
     python3 gligen_tpu_torch/tools/bench_sweep_attn.py --bwd [--level ds1] [--batch 4]
         [--iters 10] [--m 0]
+    python3 gligen_tpu_torch/tools/bench_sweep_attn.py --fp32 [--batch 4] [--iters 10] [--m 0]
 
 Counterpart of ``tools/bench_sweep_attn.py``.  At the shapes of a ds1
 transformer block at SD-1.4 width (CFG batch 16, 8 heads of 40, N = 4096
@@ -43,6 +44,19 @@ share of the bound, SDPA's backward (dq, dk and dv at once) as the
 yardstick, and each gradient against ``flash_attention_bwd_plain`` to
 chip_smoke.py's ``BWD_REL_TOL`` of its largest magnitude.
 
+``--fp32`` (``run_fp32``): the fp32 route's kernel for the UNet's heads
+(``flash_fwd_f32_qm_kernel``) at ds1 (8 heads of 40 over N = 4096) and ds2
+(80 over 1024), M = N and N + 30, B = 4 (a batch-2 request's CFG rows), on
+seeded unit-scale fp32 q/k/v: once at the wrapper's table
+(``fwd_tiles_f32``) and once at each (BQ, BK, converted buffers) of
+``F32_CONFIGS`` through the fp32 sweep library
+(``csrc/flash_fwd_f32_sweep.cu``); each row: device ms, TF/s on the
+products (4·B·H·N·M·d), the share of the 3xTF32 bound (3 x the products at
+the TF32 tensor rate), SDPA in fp32 (TF32 off) as the yardstick, and the
+output and LSE against ``flash_attention_plain`` on every query row, to
+chip_smoke.py's FP32_REL_TOL of the plain output's largest magnitude and
+FP32_LSE_TOL.  The table is what this sweep picks.
+
 The card is the default.  With ``device="cpu"`` (the tests) every row runs
 the plain version and ms is the host's wall time per call: no device
 number comes from there.
@@ -77,6 +91,17 @@ BWD_CONFIGS = {
          ((64, 64, 2), (128, 64, 2), (128, 64, 3), (128, 32, 2))),
     160: (((64, 64, 2), (128, 64, 2), (128, 32, 2)), ((64, 64, 2), (64, 32, 2), (64, 32, 3))),
 }
+# The fp32 sweep library's configurations (csrc/flash_fwd.cu:f32qm::dispatch
+# under FLASH_FWD_F32_SWEEP) by head-dim class: (BQ, BK, converted K/V
+# buffers).
+F32_CONFIGS = {
+    40: ((64, 32, 2), (64, 64, 2), (128, 32, 2), (128, 64, 2), (192, 32, 2), (192, 64, 2)),
+    80: ((64, 32, 2), (128, 32, 2), (128, 64, 1), (192, 32, 1)),
+}
+# (N, head dim) of the levels the fp32 sweep times (8 heads)
+F32_LEVELS = {"ds1": (4096, 40), "ds2": (1024, 80)}
+# chip_smoke.py's FP32_REL_TOL and FP32_LSE_TOL
+FP32_REL_TOL, FP32_LSE_TOL = 1e-4, 1e-4
 # (N, head dim) of each training level's self-attention (8 heads)
 BWD_LEVELS = {"ds1": (4096, 40), "ds2": (1024, 80), "ds4": (256, 160)}
 # chip_smoke.py's BWD_REL_TOL: each gradient within 2e-2 of its plain
@@ -170,6 +195,78 @@ def run(batch: int = 16, n: int = 4096, ms_keys=(4096, 4126), configs=CONFIGS,
                     max_abs_err=err, lse_err=lse_err, ok=ok))
             del q, k, v, want, want_lse
     return rows
+
+
+def run_fp32(batch: int = 4, levels=tuple(F32_LEVELS), ms_keys=None, iters: int = 10,
+             device="cuda", heads: int = 8, n: int = 0, dim: int = 0,
+             check_rows: int = CHECK_ROWS):
+    """One dict per row, for each level and key count M (``ms_keys``,
+    default N and N + 30): the table's row (``tiles`` None) then one per
+    configuration of ``F32_CONFIGS`` for the level's head dim: level, m,
+    tiles, table, ms, tflops, bound_ms, bound_by, bound_share (None on the
+    CPU), sdpa_ms, max_abs_err, lse_err, limit, ok.  ``n``/``dim`` override
+    the levels' (the tests).  On the CPU every row is the plain version."""
+    import torch
+
+    from gligen_tpu_torch.ops.flash_attention import (flash_attention_plain, fwd_tiles_f32,
+                                                      launch_fwd_f32)
+    from gligen_tpu_torch.tools import timing
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    with torch.no_grad():
+        for level in levels:
+            lvl_n, d = n or F32_LEVELS[level][0], dim or F32_LEVELS[level][1]
+            table = fwd_tiles_f32(d)[1]
+            configs = next(c for top, c in F32_CONFIGS.items() if d <= top)
+            for m in ms_keys or (lvl_n, lvl_n + 30):
+                q, k, v = (torch.randn((batch, L, heads * d), generator=gen, device=device)
+                           for L in (lvl_n, m, m))
+                want, want_lse = plain_by_rows(q, k, v, heads, rows=check_rows)
+                limit = FP32_REL_TOL * want.abs().max().item()
+                flops = 4 * batch * heads * lvl_n * m * d
+                nbytes = 4 * (2 * batch * lvl_n + 2 * batch * m) * heads * d
+                nbytes += 4 * batch * heads * lvl_n
+                bound_ms, bound_by = timing.bound(nbytes, 3 * flops,
+                                                  timing.TF32_TENSOR_FLOP_PER_S)
+                sdpa_ms = timing.ms_per_call(lambda: sdpa(q, k, v, heads), iters, device)
+                for tiles in (None, *configs):
+                    if on_card:
+                        library = "flash_fwd" if tiles is None else "flash_fwd_f32_sweep"
+                        call = lambda: launch_fwd_f32(library, q, k, v, heads, None,
+                                                      tiles or table)
+                    else:
+                        call = lambda: flash_attention_plain(q, k, v, heads)
+                    out, lse = call()
+                    err = (out - want).abs().max().item()
+                    lse_err = (lse - want_lse).abs().max().item()
+                    finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+                    del out, lse
+                    ms = timing.ms_per_call(call, iters, device)
+                    rows.append(dict(
+                        level=level, m=m, tiles=tiles, table=table if tiles is None else None,
+                        ms=ms, tflops=flops / ms / 1e9, bound_ms=bound_ms, bound_by=bound_by,
+                        bound_share=bound_ms / ms if on_card else None, sdpa_ms=sdpa_ms,
+                        max_abs_err=err, lse_err=lse_err, limit=limit,
+                        ok=finite and err <= limit and lse_err <= FP32_LSE_TOL))
+                del q, k, v, want, want_lse
+    return rows
+
+
+def fp32_lines(rows) -> list:
+    """The fp32 rows as the tool prints them."""
+    out = [f"{'level':>5s} {'M':>5s} {'BQxBKxbufs':>14s} {'ms':>9s} {'TF/s':>7s} {'%bound':>7s} "
+           f"{'bound ms':>9s} {'SDPA fp32':>9s}  vs plain"]
+    for r in rows:
+        tiles = "x".join(map(str, r["tiles"] or r["table"])) + ("" if r["tiles"] else " table")
+        share = "-" if r["bound_share"] is None else f"{100 * r['bound_share']:6.1f}%"
+        out.append(f"{r['level']:>5s} {r['m']:5d} {tiles:>14s} {r['ms']:9.4f} {r['tflops']:7.1f} "
+                   f"{share:>7s} {r['bound_ms']:9.4f} {r['sdpa_ms']:9.4f}  max_abs_err "
+                   f"{r['max_abs_err']:.3e} (tol {r['limit']:.3e}) lse_err {r['lse_err']:.3e} "
+                   f"{'ok' if r['ok'] else 'FAIL'}")
+    return out
 
 
 def sdpa_bwd(q, k, v, heads, do):
@@ -285,6 +382,8 @@ def main() -> None:
     ap.add_argument("--configs", default=",".join("x".join(map(str, c)) for c in CONFIGS),
                     help="BQxBKxSTAGES, comma separated (the forward)")
     ap.add_argument("--bwd", action="store_true", help="sweep the backward kernels")
+    ap.add_argument("--fp32", action="store_true",
+                    help="sweep the fp32 route's kernel at ds1 and ds2")
     ap.add_argument("--level", choices=sorted(BWD_LEVELS), default="ds1",
                     help="the training level whose shapes --bwd times")
     args = ap.parse_args()
@@ -303,6 +402,16 @@ def main() -> None:
         if not all(r["ok"] for r in rows):
             raise SystemExit("bench_sweep_attn: a backward configuration disagrees with "
                              "flash_attention_bwd_plain")
+        return
+    if args.fp32:
+        batch = args.batch or 4
+        rows = run_fp32(batch=batch, ms_keys=(args.m,) if args.m else None, iters=args.iters)
+        print(f"bench_sweep_attn --fp32: B={batch} ds1 (N=4096, 8x40) and ds2 (N=1024, 8x80), "
+              f"device ms per call over {args.iters} calls, on {card}")
+        print("\n".join(fp32_lines(rows)))
+        if not all(r["ok"] for r in rows):
+            raise SystemExit("bench_sweep_attn: an fp32 configuration disagrees with "
+                             "flash_attention_plain")
         return
     args.batch = args.batch or 16
     ms_keys = (4096, 4126) if args.m == 0 else (args.m,)

@@ -27,7 +27,7 @@ downsampler's two small convs) or sem for the 256^2 one: its
 config, a seeded uint8 map each request (``chip_smoke.spatial_request``)
 and its scenario's alpha stages.  ``--dtype float32`` serves the model in
 fp32 (every fused kernel on its fp32 route) and adds a line with the
-fp32 K2 and K6 kernels' device ms and share.  ``GLIGEN_TPU_FUSED_PROJ``
+fp32 K2, K6 and flash kernels' device ms and share.  ``GLIGEN_TPU_FUSED_PROJ``
 is set to ``--fused``, ``GLIGEN_TPU_FUSED_NORM`` to ``--norm`` and
 ``GLIGEN_TPU_FUSED_CONV`` to ``--conv``.  ``--root`` imports
 ``gligen_tpu_torch`` from
@@ -115,6 +115,7 @@ def fused_proj_template(name: str):
 
 FP32_PROJ = ("ln_matmuls fp32 (K2)", "matmul_residual fp32 (K2)", "ln_geglu fp32 (K2)")
 FP32_CONV = "gn_silu_conv3x3 fp32 (K6)"
+FP32_FLASH = ("flash_fwd fp32 (K3)", "flash_fwd fp32 qm (K1/K3)")
 
 
 def category(name: str) -> str:
@@ -122,6 +123,8 @@ def category(name: str) -> str:
         return "flash_fwd"
     if "flash_fwd_f32_kernel" in name:
         return "flash_fwd fp32 (K3)"
+    if "flash_fwd_f32_qm_kernel" in name:
+        return "flash_fwd fp32 qm (K1/K3)"
     # the fp32 routes of K2 and K6: the 3xTF32 kernels and their split
     # reductions, and the CUDA-core kernels they replaced (a parent tree's)
     for kernel in ("proj_tf32_kernel<", "proj_split_reduce_f32<", "fused_proj_f32_kernel<"):
@@ -315,8 +318,10 @@ def request(args) -> None:
     if args.dtype == "float32":
         k2 = sum(by_cat.get(c, (0.0, 0))[0] for c in FP32_PROJ)
         k6 = by_cat.get(FP32_CONV, (0.0, 0))[0]
+        fa = sum(by_cat.get(c, (0.0, 0))[0] for c in FP32_FLASH)
         print(f"profile: {tag}: K2 fp32 {k2:.1f} ms ({k2 / total:.1%} of device time), K6 fp32 "
-              f"{k6:.1f} ms ({k6 / total:.1%})", flush=True)
+              f"{k6:.1f} ms ({k6 / total:.1%}), flash fp32 {fa:.1f} ms ({fa / total:.1%})",
+              flush=True)
 
 
 TRAIN_PHASES = ("loss", "backward", "optimizer")

@@ -17,10 +17,13 @@ every key of a row is masked by a NEG_INF bias the LSE is about -1.4e30,
 so there it is held to 1e-6 relative.  Every shape a transformer block or
 the VAE gives the kernel takes the TMA route; strided or unaligned inputs
 and head dims that are not multiples of 8 take the copy route.  fp32
-q/k/v (the inpaint encode's) take the fp32 route, 3xTF32 products on the
-tensor cores (each drops ~2^-22 of a product) and an fp32 softmax: its
-outputs within 1e-4 of the plain version's largest magnitude, its LSE
-within 1e-4; one-pass TF32 products miss that limit at the VAE head.
+q/k/v (a model served in fp32, the inpaint encode) take the fp32 route,
+3xTF32 products on the tensor cores (each drops ~2^-22 of a product) and
+an fp32 softmax: its outputs within 1e-4 of the plain version's largest
+magnitude, its LSE within 1e-4; one-pass TF32 products miss that limit at
+the VAE head and at attn1 ds1 with sharp scores.  Head dims up to 160 (the
+UNet's) run the queries-as-rows kernel, 512 (the VAE's) the keys-as-rows
+one (``flash_fwd.fp32_kernels`` counts each).
 """
 
 import pytest
@@ -32,7 +35,7 @@ from gligen_tpu_torch.ops.flash_attention import (
     flash_fwd,
     launch_fwd,
 )
-from gligen_tpu_torch.tools.bench_sweep_attn import CONFIGS
+from gligen_tpu_torch.tools.bench_sweep_attn import CONFIGS, F32_CONFIGS
 
 OUT_TOL = OUT_REL_TOL = 2e-2
 
@@ -282,3 +285,151 @@ def test_fp32_route_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="multiples of 4"):
         flash_fwd(q, q, q, 1)
     assert flash_fwd.launches == before
+
+
+# ---- the fp32 route at the UNet's head dims: flash_fwd_f32_qm_kernel
+
+def qm_launch(q, k, v, h, bias=None):
+    """One fp32 call that must launch the queries-as-rows kernel."""
+    before = dict(flash_fwd.fp32_kernels)
+    out, lse = launch(q, k, v, h, bias, "fp32")
+    assert flash_fwd.fp32_kernels == {"qm": before["qm"] + 1, "km": before["km"]}
+    return out, lse
+
+
+def assert_fp32_close(out, lse, want, want_lse):
+    """The fp32 route's limits: 1e-4 of the plain output's largest
+    magnitude, the LSE to 1e-4 (log2 units)."""
+    assert out.dtype == torch.float32 and out.shape == want.shape
+    torch.testing.assert_close(out, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+# (N, d) of ds1 and ds2, and each site's (name, queries, keys) there
+UNET_LEVELS = {"ds1": (4096, 40), "ds2": (1024, 80)}
+SITES = {
+    "attn1": lambda n: (n, n), "fuser": lambda n: (n, n + 30), "cross": lambda n: (n, 77),
+    "fuser_text_image": lambda n: (n, n + 60), "fuser_keypoint": lambda n: (n, n + 136),
+    "gated_ca_30": lambda n: (n, 30), "gated_ca_60": lambda n: (n, 60),
+    "gated_ca_136": lambda n: (n, 136), "gated_sa2": lambda n: (36, n + 36),
+    "fuser_spatial": lambda n: (n, n + 196), "fuser_sem": lambda n: (n, n + 64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", sorted(UNET_LEVELS))
+@pytest.mark.parametrize("site", sorted(SITES))
+def test_fp32_unet_sites_match_plain_and_repeat(cuda, monkeypatch, level, site):
+    """Every UNet attention site of a batch-2 request at ds1 and ds2 (B =
+    4 CFG rows, 8 heads) on the queries-as-rows kernel, within the fp32
+    limits and bit for bit on a second call."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    n0, d = UNET_LEVELS[level]
+    n, m = SITES[site](n0)
+    gen = torch.Generator(device=cuda).manual_seed(n + m + d)
+    q, k, v = (torch.randn((4, L, 8 * d), generator=gen, device=cuda) for L in (n, m, m))
+    out, lse = qm_launch(q, k, v, 8)
+    assert_fp32_close(out, lse, *flash_attention_plain(q, k, v, 8))
+    again = flash_fwd(q, k, v, 8)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,n,m,h,d,bias_from",
+    [
+        (2, 36, 4132, 8, 40, None),    # gatedSA2 at ds1, batch 2
+        (4, 4096, 77, 8, 40, None),    # the 77-key cross-attention
+        (4, 4096, 4224, 8, 40, 4126),  # fuser_ds1_padbias: N + 30 keys padded, a bias row
+        (1, 257, 286, 2, 40, None),    # ragged query and key tiles, each class
+        (1, 257, 286, 2, 80, None),
+        (1, 257, 286, 2, 160, 250),
+        (4, 256, 452, 8, 160, None),   # ds4: the spatial fuser's N + 196
+        (4, 64, 260, 8, 160, None),    # the middle block's N + 196
+    ],
+)
+def test_fp32_qm_shapes_match_plain_and_repeat(cuda, monkeypatch, b, n, m, h, d, bias_from):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(n * 7 + m + d)
+    q, k, v = (torch.randn((b, L, h * d), generator=gen, device=cuda) for L in (n, m, m))
+    bias = None
+    if bias_from is not None:
+        bias = torch.zeros((b, m), device=cuda)
+        bias[:, bias_from:] = NEG_INF
+    out, lse = qm_launch(q, k, v, h, bias)
+    assert_fp32_close(out, lse, *flash_attention_plain(q, k, v, h, bias=bias))
+    again = flash_fwd(q, k, v, h, bias=bias)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_fp32_qm_with_one_unmasked_key(cuda, monkeypatch, d):
+    """Every key masked by NEG_INF but one, in another key tile in each
+    batch row: all the weight on that key, as in the plain version."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    b, n, m, h = 2, 150, 300, 2
+    gen = torch.Generator(device=cuda).manual_seed(19 + d)
+    q, k, v = (torch.randn((b, L, h * d), generator=gen, device=cuda) for L in (n, m, m))
+    bias = torch.full((b, m), NEG_INF, device=cuda)
+    bias[0, 7] = bias[1, 290] = 0.0
+    out, lse = qm_launch(q, k, v, h, bias)
+    assert_fp32_close(out, lse, *flash_attention_plain(q, k, v, h, bias=bias))
+
+
+@pytest.mark.gpu
+def test_fp32_qm_tells_fp32_from_tf32(cuda, monkeypatch):
+    """At attn1 ds1 (B = 4, 8 x 40) with q and k scaled x4 (sharp scores),
+    one-pass TF32 products (the plain version with allow_tf32) miss the
+    fp32 limit and the kernel's 3xTF32 meets it."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v = (torch.randn((4, 4096, 320), generator=gen, device=cuda) for _ in range(3))
+    q, k = 4 * q, 4 * k
+    out, _ = qm_launch(q, k, v, 8)
+    want, _ = flash_attention_plain(q, k, v, 8)
+    limit = 1e-4 * want.abs().max().item()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    tf32, _ = flash_attention_plain(q, k, v, 8)
+    assert (out - want).abs().max().item() <= limit
+    assert (tf32 - want).abs().max().item() > limit
+
+
+@pytest.mark.gpu
+def test_fp32_tiles_name_the_kernel(cuda):
+    """d <= 160 runs the queries-as-rows kernel and d = 512 the keys-as-rows
+    one, as the wrapper counts them; the C entry refuses each kernel's
+    tiles at the other's head dims, and any tiles its library lacks."""
+    from gligen_tpu_torch.ops.flash_attention import fwd_tiles_f32, launch_fwd_f32
+
+    q = torch.randn((1, 64, 512), device=cuda)
+    before = dict(flash_fwd.fp32_kernels)
+    flash_fwd(q, q, q, 1)
+    flash_fwd(q, q, q, 8)
+    torch.cuda.synchronize()
+    assert flash_fwd.fp32_kernels == {"qm": before["qm"] + 1, "km": before["km"] + 1}
+    km, qm = fwd_tiles_f32(512)[1], fwd_tiles_f32(40)[1]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launch_fwd_f32("flash_fwd", q, q, q, 1, None, qm)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launch_fwd_f32("flash_fwd", q, q, q, 8, None, km)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launch_fwd_f32("flash_fwd", q, q, q, 8, None, (64, 32, 2))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launch_fwd_f32("flash_fwd_f32_sweep", q, q, q, 2, None, (64, 32, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,tiles", [(d, t) for d, ts in F32_CONFIGS.items() for t in ts])
+def test_fp32_sweep_configurations_match_plain(cuda, monkeypatch, d, tiles):
+    """The fp32 sweep library's classes at each (BQ, BK, buffers), at ragged
+    N and M: what bench_sweep_attn.py --fp32 times is the same function."""
+    from gligen_tpu_torch.ops.flash_attention import launch_fwd_f32
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((2, L, 4 * d), generator=gen, device=cuda) for L in (333, 1054, 1054))
+    before = flash_fwd.launches
+    out, lse = launch_fwd_f32("flash_fwd_f32_sweep", q, k, v, 4, None, tiles)
+    assert flash_fwd.launches == before  # no serving count
+    assert_fp32_close(out, lse, *flash_attention_plain(q, k, v, 4))
