@@ -239,6 +239,22 @@ Phases, each of which fails the run with a non-zero exit:
      scenario, each within the budget (LPIPS <= 0.025, PSNR >= 20 dB);
      the JSON under build/chip_smoke_fidelity/.
 
+ 20. eval (M14 part 2): ``tools/eval_data.py``'s seeded COCO-format set
+     (the repository's images), ``Evaluator`` on phase 4's model in (a),
+     4 items at batch 2: launches against ``expected_launches``, each fake
+     against a direct ``generate`` with the same generator, the
+     evaluator's command line (PSNR, FID, LPIPS on random features,
+     finite), one ``create_meta`` meta through the CLI.
+ 21. data parallelism (M12 part 1) on the one card: the pipeline with a
+     mesh of two replicas on cuda:0 (batch 3 padded to 4, rows against
+     the one-device call; s/img beside one device; its inpainting row,
+     every draw from the generator, runs in phase 10 on the inpaint
+     model: ``mesh_inpaint_check``), and the training
+     command line at full width, batch 4 in one process against two
+     ``--multihost`` processes sharing the card over gloo (loss, averaged
+     gradients, the ranks' parameters).  ``python chip_smoke.py
+     --dp_worker ...`` is one such process.
+
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
 is not imported.
@@ -247,6 +263,7 @@ is not imported.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import sys
@@ -2157,9 +2174,67 @@ def run_inpaint(torch, np, seed, device, steps, batch=2, size=512):
             failures.append(f"inpaint routes ({sampler})")
         s_per_img[sampler] = times[1] / batch
         del images
+    ok, line = mesh_inpaint_check(torch, np, seed, device, comps, size=size)
+    print(line, flush=True)
+    if not ok:
+        failures.append("dp mesh inpainting")
     del comps, pipe
     torch.cuda.empty_cache()
     return failures, fp32, s_per_img
+
+
+def mesh_inpaint_check(torch, np, seed, device, comps, steps=7, size=512):
+    """Phase 21's inpainting row, run here where the inpaint model lives:
+    ``GenerationPipeline`` with a mesh of two replicas on the card against
+    the one-device call on an inpaint request of batch 3 (padded to 4),
+    every draw from one seeded generator on the card (the encode's noise,
+    the starting noise, and ``steps`` = 7 DDIM steps, which run 8 with c =
+    T // S, each with a blend draw of its own).  The draws each row
+    reaches equal the one-device call's bit for bit (on the card one draw
+    of S steps is not S draws of one, and a blend-noise mismatch moves the
+    images by less than ``BURST_TOL``), the rows within ``BURST_TOL`` (mean
+    |dpixel|) of the one-device call's, the mesh call's launches twice
+    ``expected_launches(inpaint=True)``.  Returns (ok, line)."""
+    import gligen_tpu_torch.inference.pipeline as pipeline_mod
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline
+    from gligen_tpu_torch.parallel.mesh import make_mesh
+
+    latent = size // comps.vae.downsample_factor
+    rng = np.random.default_rng(seed + 210)
+    ids, uc, grounding, inpaint = inpaint_request(rng, 3, 49408, 768, size, latent)
+    kw = dict(steps=steps, guidance_scale=7.5, sampler="ddim", latent_size=latent, **inpaint)
+    gen = lambda: torch.Generator(device=device).manual_seed(seed + 211)  # noqa: E731
+    draws, real = [], pipeline_mod._generate_rows
+    names = ("noise", "encode_noise", "blend_noise")
+
+    def spy(c, dev, **rows):  # the draws each call (or mesh block) reaches
+        draws.append({k: rows[k].clone() for k in names})
+        return real(c, dev, **rows)
+
+    pipeline_mod._generate_rows = spy
+    try:
+        _, (want,), _ = run_requests(torch, GenerationPipeline(comps), [(ids, uc, grounding)],
+                                     "a", gen(), **kw)
+        mesh = GenerationPipeline(comps, mesh=make_mesh([device, device]))
+        (t,), (got,), counts = run_requests(torch, mesh, [(ids, uc, grounding)], "a", gen(),
+                                            **kw)
+    finally:
+        pipeline_mod._generate_rows = real
+    one, blocks = draws[0], draws[1:]
+    same_draws = len(blocks) == 2 and all(
+        torch.equal(torch.cat([b[k] for b in blocks], dim=1 if k == "blend_noise" else 0)
+                    .narrow(1 if k == "blend_noise" else 0, 0, 3), one[k]) for k in names)
+    expected = {k: 2 * n for k, n in expected_launches(comps, steps, None, latent, "a",
+                                                        sampler="ddim", inpaint=True)[0].items()}
+    rows = [float((got[i].float() - want[i].float()).abs().mean()) for i in range(3)]
+    ok = (same_draws and tuple(got.shape) == (3, size, size, 3)
+          and bool(torch.isfinite(got).all()) and max(rows) <= BURST_TOL and counts == expected)
+    return ok, (f"dp: inpainting over a mesh of 2 replicas on {device} (batch 3 padded to 4, "
+                f"{steps} DDIM steps, every draw from the generator) in {t:.3f} s: the rows' "
+                f"draws (start, encode, {one['blend_noise'].shape[0]} blend) equal the "
+                f"one-device call's bit for bit {same_draws}; rows against the one-device call, "
+                f"mean |dpixel| {', '.join(f'{r:.5f}' for r in rows)} (<= {BURST_TOL}); "
+                f"launches {counts}, expected {expected} {'ok' if ok else 'FAIL'}")
 
 
 def small_inpaint_reference(torch, np, seed, device, sampler):
@@ -3849,6 +3924,410 @@ def run_fidelity(torch, steps):
     return [f"fidelity {sc}" for sc in bad], results
 
 
+# Phase 20 (M14 part 2): the evaluator over a seeded COCO-format set
+EVAL_DIR = REPO / "build" / "chip_smoke_eval"
+EVAL_ITEMS = 4
+EVAL_BATCH = 2
+
+
+def eval_text_features(np, seed):
+    """A seeded 768-d feature per category name: the eval dataset's text
+    features (the port has no CLIP tokenizer's vocab in the repository)."""
+
+    def fn(names):
+        return np.stack([np.random.default_rng([seed, *map(ord, n)]).standard_normal(768)
+                         for n in names]).astype(np.float32) / np.sqrt(768)
+
+    return fn
+
+
+def run_eval(torch, np, seed, device, steps):
+    """Phase 20 (M14 part 2): ``tools/eval_data.py``'s seeded COCO set (the
+    repository's PNGs and JPEGs), ``eval/datasets.py:COCOEvalDataset`` at
+    512^2, and ``eval/evaluator.py:Evaluator`` on phase 4's model (SD-1.4
+    GLIGEN at full width, random weights de-zeroed from the same seeds) in
+    configuration (a): ``EVAL_ITEMS`` items in batches of ``EVAL_BATCH``,
+    ``steps`` PLMS steps, launches against ``expected_launches``; each
+    written fake against a direct ``generate`` of the same inputs and
+    generator (mean |dpixel| <= ``BURST_TOL``); the evaluator's command line
+    with ``--psnr --fid --lpips --allow_random_features`` over the folders
+    (finite numbers); one ``create_meta`` meta through the CLI.  Returns
+    (failures, the components, s/img, the metrics line)."""
+    import shutil
+
+    from gligen_tpu_torch.data import png
+    from gligen_tpu_torch.data.tokenizer import load_tokenizer
+    from gligen_tpu_torch.eval import create_meta, evaluator
+    from gligen_tpu_torch.eval.datasets import COCOEvalDataset
+    from gligen_tpu_torch.inference import cli
+    from gligen_tpu_torch.inference.adapters import get_adapter
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
+    from gligen_tpu_torch.tools.eval_data import write_eval_data
+
+    set_config("a")
+    failures = []
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    files = write_eval_data(str(EVAL_DIR / "data"), seed)
+    comps = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device)
+    dezero_(comps.unet, torch.Generator(device=device).manual_seed(seed + 1))
+    pipe = GenerationPipeline(comps)
+    pipe.tokenizer = load_tokenizer(None, allow_fallback=True)
+    ds = COCOEvalDataset(files["image_root"], files["instances"], files["captions"],
+                         image_size=512, text_feature_fn=eval_text_features(np, seed), seed=seed)
+    ev = evaluator.Evaluator(pipe, ds, str(EVAL_DIR / "out"), batch_size=EVAL_BATCH, steps=steps)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    folders = ev.start_evaluating(max_items=EVAL_ITEMS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in wrappers.items()}
+    expected = expected_launches(comps, steps, None, 64, "a")[0]
+    want = {name: EVAL_ITEMS // EVAL_BATCH * n for name, n in expected.items()}
+    launches_ok = counts == want
+    # the fakes against direct generate calls with the evaluator's inputs and generator
+    adapter = get_adapter("text")
+    worst = 0.0
+    for start in range(0, EVAL_ITEMS, EVAL_BATCH):
+        items = [ds[i] for i in range(start, start + EVAL_BATCH)]
+        raw = {k: np.stack([np.asarray(it[k]) for it in items])
+               for k in items[0] if k not in ("image", "caption", "id")}
+        direct = pipe.generate(pipe.tokenizer([it["caption"] for it in items]),
+                               pipe.tokenizer([""] * EVAL_BATCH), adapter.prepare(raw),
+                               steps=steps, generator=torch.Generator(device=device)
+                               .manual_seed(start)).float().cpu().numpy()
+        for i in range(EVAL_BATCH):
+            pixels, mode = png.read_png(os.path.join(folders["fake"], f"{start + i}.png"))
+            worst = max(worst, float(np.abs(pixels / 255.0 - direct[i]).mean()))
+            real, _ = png.read_png(os.path.join(folders["real"], f"{start + i}.png"))
+            if mode != "RGB" or pixels.shape != (512, 512, 3) or real.shape != (512, 512, 3):
+                failures.append(f"eval image {start + i}")
+    fakes_ok = worst <= BURST_TOL
+    s_per_img = wall / EVAL_ITEMS
+    print(f"eval: Evaluator over {EVAL_ITEMS} COCO-format items (512^2, batch {EVAL_BATCH}, "
+          f"{steps} PLMS steps, configuration (a)): {wall:.3f} s = {s_per_img:.4f} s/img "
+          f"(PNG writes included); launches {counts}, expected {want} "
+          f"{'ok' if launches_ok else 'FAIL'}; fakes against direct generate calls with the "
+          f"same generator: worst mean |dpixel| {worst:.5f} (<= {BURST_TOL}) "
+          f"{'ok' if fakes_ok else 'FAIL'}", flush=True)
+    if not launches_ok:
+        failures.append("eval launches")
+    if not fakes_ok:
+        failures.append("eval fakes")
+    metrics = evaluator.main(["--a", folders["real"], "--b", folders["fake"], "--psnr", "--fid",
+                              "--lpips", "--allow_random_features", "--device", str(device)])
+    finite = all(np.isfinite(metrics[k]) for k in ("psnr", "fid", "lpips"))
+    metrics_line = (f"PSNR {metrics['psnr']:.4f} dB, FID {metrics['fid']:.4f}, LPIPS "
+                    f"{metrics['lpips']:.6f} (random features)")
+    print(f"eval: evaluator.main --psnr --fid --lpips --allow_random_features over the "
+          f"folders: {metrics_line}; finite {finite}", flush=True)
+    if not finite:
+        failures.append("eval metrics")
+    meta_path = str(EVAL_DIR / "meta.json")
+    metas = create_meta.main(["--image_root", files["image_root"], "--instances_json",
+                              files["instances"], "--captions_json", files["captions"],
+                              "--ckpt", "random", "--out", meta_path, "--max_items", "1"])
+    for m in metas:
+        m["save_folder_name"] = "eval_meta"
+    with open(meta_path, "w") as f:
+        json.dump(metas, f)
+    cli.main(["--ckpt", "random", "--dezero", "--batch_size", "1", "--steps", str(steps),
+              "--seed", str(seed), "--folder", str(EVAL_DIR / "cli"), "--meta", meta_path,
+              "--device", str(device)])
+    written = png.read_png(EVAL_DIR / "cli" / "eval_meta" / "0.png")[0]
+    meta_ok = written.shape == (512, 512, 3) and len(metas[0]["locations"]) > 0
+    print(f"eval: create_meta.main wrote {len(metas)} meta ({len(metas[0]['locations'])} boxes, "
+          f"phrases {metas[0]['phrases']}), the CLI generated it: {written.shape} "
+          f"{'ok' if meta_ok else 'FAIL'}", flush=True)
+    if not meta_ok:
+        failures.append("eval meta")
+    return failures, comps, s_per_img, metrics_line
+
+
+# Phase 21 (M12 part 1): data parallelism on the one card
+DP_DIR = REPO / "build" / "chip_smoke_dp"
+DP_BATCH = 4
+DP_LOSS_RTOL = 1e-3
+DP_GRAD_RTOL = 2e-2
+DP_TIMEOUT = 300
+
+
+def dp_patches(torch, seed, device, out_dir):
+    """Patch the Trainer as phase 16 does (components de-zeroed from the
+    seeded generator, checkpoint writes skipped: ~3 GB each), time each
+    step (host clock between device synchronisations) and keep its loss,
+    and make ``start_training`` write, on return, ``out_dir/rank<r>.pt``:
+    the steps' losses and seconds, every trainable tensor after the last
+    step and its gradient (the one process, and rank 0: the averaged
+    gradient), and each frozen UNet tensor's float64 sum.  Returns a
+    function that undoes the patches."""
+    from gligen_tpu_torch.parallel import mesh as dp
+    from gligen_tpu_torch.training import trainer as trainer_mod
+
+    real = (trainer_mod.GligenComponents, trainer_mod.Trainer._save,
+            trainer_mod.Trainer.start_training, trainer_mod.make_train_step)
+    components = real[0]
+    steps = {"loss": [], "s": []}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def make_train_step(*args, **kwargs):
+        step = real[3](*args, **kwargs)
+
+        def timed(state, batch, generator=None, draws=None):
+            if not steps["s"]:  # the trainable tensors before the first step
+                steps["start"] = {n: p.detach().cpu().clone() for n, p in state.params.items()}
+            sync()
+            t0 = time.perf_counter()
+            metrics = step(state, batch, generator, draws)
+            steps["loss"].append(float(metrics["loss"]))
+            steps["s"].append(time.perf_counter() - t0)
+            return metrics
+
+        return timed
+
+    class Dezeroed(components):
+        @classmethod
+        def create(cls, *args, **kwargs):
+            comps = components.create(*args, **kwargs)
+            dezero_(comps.unet, torch.Generator(device=device).manual_seed(seed + 161))
+            return comps
+
+    def start_training(self, *args, **kwargs):
+        state = real[2](self, *args, **kwargs)
+        rank = dp.process_index()
+        dump = {"loss": steps["loss"], "step_s": steps["s"],
+                "params": {n: p.detach().cpu() for n, p in state.params.items()},
+                "frozen": {n: float(p.double().sum()) for n, p in self.unet.named_parameters()
+                           if n not in state.params}}
+        if rank == 0:
+            dump["grads"] = {n: p.grad.cpu() for n, p in state.params.items()}
+            dump["start"] = steps["start"]
+        torch.save(dump, os.path.join(out_dir, f"rank{rank}.pt"))
+        return state
+
+    trainer_mod.GligenComponents = Dezeroed
+    trainer_mod.Trainer._save = lambda self: None
+    trainer_mod.Trainer.start_training = start_training
+    trainer_mod.make_train_step = make_train_step
+
+    def undo():
+        (trainer_mod.GligenComponents, trainer_mod.Trainer._save,
+         trainer_mod.Trainer.start_training, trainer_mod.make_train_step) = real
+
+    return undo
+
+
+def dp_worker(argv) -> int:
+    """``chip_smoke.py --dp_worker SEED OUT_DIR MAIN_FLAGS...``: one rank of
+    phase 21, ``python -m gligen_tpu_torch.main MAIN_FLAGS`` (``runpy``)
+    under ``dp_patches``."""
+    import runpy
+
+    import torch
+
+    seed, out_dir, flags = int(argv[0]), argv[1], argv[2:]
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(flags[flags.index("--device") + 1] if "--device" in flags else "cuda")
+    dp_patches(torch, seed, device, out_dir)
+    sys.argv = ["gligen_tpu_torch.main", *flags]
+    runpy.run_module("gligen_tpu_torch.main", run_name="__main__", alter_sys=True)
+    return 0
+
+
+def dp_config(path):
+    """configs/flickr_text.yaml with every caption kept and no flip, so that
+    one process's batch of 4 and two processes' 2 + 2 are the same rows."""
+    text = (REPO / "configs" / "flickr_text.yaml").read_text()
+    for old, new in (("prob_use_caption: 0.5", "prob_use_caption: 1.0"),
+                     ("random_flip: true", "random_flip: false")):
+        if old not in text:
+            raise ValueError(f"configs/flickr_text.yaml has no {old!r}")
+        text = text.replace(old, new)
+    path.write_text(text)
+    return path
+
+
+def run_data_parallel(torch, np, seed, device, steps, comps):
+    """Phase 21 (M12 part 1) on the one card: (1) ``GenerationPipeline``
+    with a mesh of two replicas on cuda:0 (``make_mesh(["cuda:0"] * 2)``):
+    batch 3 pads to 4, its rows against the one-device call's (mean
+    |dpixel| <= ``BURST_TOL`` each), its launches twice ``expected_launches``,
+    then batch 4 timed one device, mesh, mesh, one device; (2) the training
+    command line at full width (``configs/flickr_text.yaml``, batch
+    ``DP_BATCH``, 1 step, configuration (a), remat full): one process, then
+    two ``--multihost`` processes sharing the card over gloo (NCCL refuses
+    two ranks on one GPU), 2 + 2 rows: the loss within ``DP_LOSS_RTOL``
+    relative, the averaged trainable gradients within ``DP_GRAD_RTOL``
+    relative L2 of the one process's, the ranks' trainable tensors bit for
+    bit and their frozen tensors' sums equal.  Returns (failures, summary
+    line)."""
+    import shutil
+
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline
+    from gligen_tpu_torch.parallel.mesh import make_mesh
+
+    set_config("a")
+    failures = []
+    # ---- (1) the pipeline over a mesh of two replicas on the card ----
+    one = GenerationPipeline(comps)
+    mesh = GenerationPipeline(comps, mesh=make_mesh([device, device]))
+    rng = np.random.default_rng(seed + 21)
+    ids, uc, grounding = make_request(rng, 3, 49408, 768)
+    kw = dict(steps=steps, guidance_scale=7.5, alpha_stages=[0.3, 0.0, 0.7], latent_size=64)
+    want = one.generate(ids, uc, grounding, generator=torch.Generator(device=device)
+                        .manual_seed(seed), **kw).float()
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    got = mesh.generate(ids, uc, grounding, generator=torch.Generator(device=device)
+                        .manual_seed(seed), **kw).float()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    expected = {k: 2 * n for k, n in expected_launches(comps, steps, kw["alpha_stages"], 64,
+                                                        "a")[0].items()}
+    rows = [float((got[i] - want[i]).abs().mean()) for i in range(3)]
+    ok = tuple(got.shape) == (3, 512, 512, 3) and max(rows) <= BURST_TOL and counts == expected
+    print(f"dp: mesh of 2 replicas on {device}: batch 3 padded to 4, rows against the one-device "
+          f"call, mean |dpixel| {', '.join(f'{r:.5f}' for r in rows)} (<= {BURST_TOL}); "
+          f"launches {counts}, expected {expected} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("dp mesh pipeline")
+    ids4, uc4, g4 = make_request(rng, 4, 49408, 768)
+    walls = {"one": [], "mesh": []}
+    for name in ("one", "mesh", "mesh", "one"):
+        pipe = one if name == "one" else mesh
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.generate(ids4, uc4, g4, generator=torch.Generator(device=device).manual_seed(seed),
+                      **kw)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    s_img = {k: min(v) / 4 for k, v in walls.items()}
+    print(f"dp: batch 4, {steps} PLMS steps, 512^2, one device then mesh then mesh then one "
+          f"device: {', '.join(f'{k} ' + ' / '.join(f'{t:.3f}' for t in v) + ' s' for k, v in walls.items())}"
+          f"; s/img (best) one device {s_img['one']:.4f}, two replicas {s_img['mesh']:.4f}",
+          flush=True)
+    del one, mesh, got, want
+    torch.cuda.empty_cache()
+
+    # ---- (2) the train step: one process, then two processes over gloo ----
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    _, proj, _, _ = write_train_data(np, seed)
+    os.environ["GLIGEN_TPU_PROJECTION_MATRIX"] = proj
+    config = dp_config(DP_DIR / "flickr_text_dp.yaml")
+    dp_failures, line = dp_train_check(torch, seed, device, config, TRAIN_DIR / "DATA")
+    failures += dp_failures
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    summary = (f"data parallelism: mesh of 2 replicas on one card {s_img['mesh']:.4f} s/img vs "
+               f"one device {s_img['one']:.4f} (batch 4, {steps} steps, 512^2); {line}")
+    return failures, summary
+
+
+def dp_train_check(torch, seed, device, config, data_root):
+    """Phase 21 (2): the training command line on ``config`` and
+    ``data_root``, batch ``DP_BATCH``, 2 steps (the first at the warmup's
+    learning rate 0, the second moving every trainable tensor): one process here, then two
+    ``--multihost`` processes (``dp_worker``) of 2 rows each, the ranks on
+    ``device`` over gloo; the checks of ``run_data_parallel``.  Returns
+    (failures, line)."""
+    import socket
+    import subprocess
+
+    from gligen_tpu_torch import main as train_main
+
+    failures = []
+    flags = ["--yaml_file", str(config), "--DATA_ROOT", str(data_root),
+             "--OUTPUT_ROOT", str(DP_DIR / "OUT"), "--total_iters", "2", "--warmup_steps", "1",
+             "--seed", str(seed), "--disable_inference_in_training", "true",
+             "--device", str(device)]
+    one_dir, two_dir = DP_DIR / "one", DP_DIR / "two"
+    one_dir.mkdir()
+    two_dir.mkdir()
+    undo = dp_patches(torch, seed, device, str(one_dir))
+    try:
+        t0 = time.perf_counter()
+        train_main.main(flags + ["--name", "one", "--batch_size", str(DP_BATCH)])
+        one_s = time.perf_counter() - t0
+    finally:
+        undo()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+               LOCAL_WORLD_SIZE="2", PYTHONPATH=str(REPO))
+    cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--dp_worker", str(seed), str(two_dir),
+           *flags, "--name", "two", "--batch_size", str(DP_BATCH // 2), "--multihost"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    two_s = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for r, text in enumerate(outputs):
+            print(f"dp: rank {r} exited {codes[r]}:\n{text[-4000:]}", flush=True)
+        failures.append("dp multihost processes")
+        return failures, "the two-process step failed"
+
+    def logged(name):
+        tags = sorted((DP_DIR / "OUT" / name).iterdir())
+        with open(tags[-1] / "metrics.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    one_log, two_log = logged("one"), logged("two")
+    ref = torch.load(one_dir / "rank0.pt", weights_only=False)
+    r0, r1 = (torch.load(two_dir / f"rank{r}.pt", weights_only=False) for r in range(2))
+    loss1, loss2 = ref["loss"], r0["loss"]
+    loss_rel = max(abs(b - a) / abs(a) for a, b in zip(loss1, loss2))
+    moved = all(not torch.equal(p, r0["params"][n]) for n, p in ref["start"].items())
+    same_start = all(torch.equal(p, r0["start"][n]) for n, p in ref["start"].items())
+    num = sum(float((r0["grads"][n].double() - g.double()).pow(2).sum())
+              for n, g in ref["grads"].items())
+    den = sum(float(g.double().pow(2).sum()) for g in ref["grads"].values())
+    grad_rel = (num / den) ** 0.5
+    same = (all(torch.equal(p, r1["params"][n]) for n, p in r0["params"].items())
+            and r0["frozen"] == r1["frozen"])
+    logged_ok = ([r["loss"] for r in two_log] == [r0["loss"][0]] and len(one_log) == 1
+                 and r1["loss"] == r0["loss"] and "grads" not in r1)
+    ok = (loss_rel <= DP_LOSS_RTOL and grad_rel <= DP_GRAD_RTOL and same and den > 0
+          and logged_ok and moved and same_start and len(loss2) == 2)
+    line = (f"two --multihost processes on one card over gloo (2 + 2 rows) against one process "
+            f"(batch {DP_BATCH}), full width, 2 steps: losses "
+            f"{', '.join(f'{x:.6f}' for x in loss2)} vs {', '.join(f'{x:.6f}' for x in loss1)} "
+            f"(rel {loss_rel:.2e} <= {DP_LOSS_RTOL}), the second step's averaged gradients rel "
+            f"L2 {grad_rel:.2e} (<= {DP_GRAD_RTOL}) over {len(ref['grads'])} trainable tensors, "
+            f"the same start {same_start}, the ranks' trainable tensors (each moved by the "
+            f"second step {moved}) bit for bit and "
+            f"frozen sums equal {same}, only rank 0 logged {logged_ok}; warm (second) step "
+            f"{r0['step_s'][1]:.3f} s/step on two processes (rank 1 {r1['step_s'][1]:.3f}) vs "
+            f"{ref['step_s'][1]:.3f} on one; command walls (start, build, 2 steps, dump) one "
+            f"process {one_s:.1f} s, two processes {two_s:.1f} s")
+    print(f"dp: {line} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("dp train step")
+    return failures, line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -4036,6 +4515,24 @@ def main() -> int:
     failures += fidelity_failures
     print(f"fidelity: phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 20. the evaluator over a seeded COCO-format set, phase 4's model ----
+    t0 = time.perf_counter()
+    eval_failures, eval_comps, eval_s, eval_metrics = run_eval(torch, np, args.seed, device,
+                                                               args.steps)
+    failures += eval_failures
+    print(f"eval: phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 21. data parallelism on the one card: a mesh of two replicas, two
+    # --multihost processes over gloo ----
+    t0 = time.perf_counter()
+    dp_failures, dp_line = run_data_parallel(torch, np, args.seed, device, args.steps,
+                                             eval_comps)
+    failures += dp_failures
+    del eval_comps
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"dp: phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 6. the flash backward kernels vs plain ----
     t0 = time.perf_counter()
     results += check_bwd(torch, bwd_cases(4), device)
@@ -4156,6 +4653,10 @@ def main() -> int:
     print(f"summary: fidelity (phase 19, {args.steps} steps, batch 1, bf16 vs fp32): " + ", ".join(
         f"{sc} {r['psnr']:.2f} dB / {r['lpips']:.5f}" for sc, r in fidelity.items()
         if "lpips" in r) + f" on {card}")
+    print(f"summary: eval (phase 20): Evaluator {eval_s:.4f} s/img ({EVAL_ITEMS} items, batch "
+          f"{EVAL_BATCH}, {args.steps} steps, 512^2, PNG writes included); {eval_metrics} on "
+          f"{card}")
+    print(f"summary: {dp_line} on {card}")
     for row in matrix_rows:
         print(f"summary: bench_matrix {row['row']} ({row['modality']}, {row['sampler']} "
               f"{row['steps']} steps, batch {row['batch']}): {row['img_per_sec']:.4f} img/s, "
@@ -4191,4 +4692,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp_worker"]:
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

@@ -64,7 +64,8 @@ class PerceptualConvStack(nn.Module):
             x = F.relu(getattr(self, f"conv_{i}a")(x))
             x = F.relu(getattr(self, f"conv_{i}b")(x))
             feats.append(x.permute(0, 2, 3, 1))
-            x = F.avg_pool2d(x, 2)
+            if i + 1 < self.stages:  # no pool after the last stage: a 1 x 1 map has none
+                x = F.avg_pool2d(x, 2)
         return feats
 
 

@@ -35,6 +35,7 @@ import argparse
 import json
 import math
 import os
+import sys
 import zlib
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
@@ -50,6 +51,7 @@ from gligen_tpu_torch.inference.adapters import get_adapter
 from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
 from gligen_tpu_torch.models.clip_vision import clip_preprocess
 from gligen_tpu_torch.ops.basic import tf32_off
+from gligen_tpu_torch.parallel.mesh import Mesh, make_mesh
 from gligen_tpu_torch.training.checkpoints import (
     checkpoint_config,
     gligen_state_dicts,
@@ -409,9 +411,6 @@ def build_pipeline(ckpt: str, args, create: Callable[..., GligenComponents] = Gl
     CLIP vocab (``--vocab_path`` / $GLIGEN_TPU_ASSETS) unless
     ``--allow_hash_tokenizer``: the hash fallback would condition on
     garbage."""
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel shards the batch over several cards: ROADMAP "
-                                  "M12 (multi-GPU) has not been ported")
     dtype, device = DTYPES[args.dtype], torch.device(args.device)
     is_random = ckpt == "random" or ckpt.startswith("random:")
     allow_hash = is_random or args.allow_hash_tokenizer
@@ -439,10 +438,24 @@ def build_pipeline(ckpt: str, args, create: Callable[..., GligenComponents] = Gl
     if args.train_ckpt:
         overlay_training_params(comps.unet, load_training_params(args.train_ckpt,
                                                                  use_ema=args.use_ema))
-    pipe = GenerationPipeline(comps)
+    pipe = GenerationPipeline(comps, mesh=data_parallel_mesh(args, device))
     pipe.tokenizer = tokenizer
     pipe.unet_config = unet_config
     return pipe
+
+
+def data_parallel_mesh(args, device: torch.device) -> Optional[Mesh]:
+    """``--data_parallel``'s mesh: every card, where the pipeline is on a
+    card and the machine has more than one (cli.py:350-353); else None,
+    said on stderr."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if cards > 1:
+        return make_mesh()
+    print(f"--data_parallel: {cards} card(s) for a pipeline on {device}: one device, no mesh",
+          file=sys.stderr, flush=True)
+    return None
 
 
 def overlay_training_params(unet: nn.Module, loaded: Mapping[str, torch.Tensor]) -> None:
@@ -708,7 +721,8 @@ def parser() -> argparse.ArgumentParser:
                     help="the card (default) or 'cpu' (the kernels' plain versions)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data_parallel", action="store_true",
-                    help="shard the batch over every card (ROADMAP M12: not ported; raises)")
+                    help="split the batch over every card (one replica each, rows padded to "
+                    "a multiple of the cards), where the machine has more than one")
     ap.add_argument("--train_ckpt", type=str, default=None,
                     help="a native training checkpoint (a checkpoint_<step> file or its tag "
                     "dir) whose trainable tensors overlay the model's (--use_ema: its EMA shadow)")

@@ -7,18 +7,28 @@ rows, the fuser-free tail of the alpha schedule, and VAE decode.
 
 PyTorch runs eagerly, so where the JAX package compiles one program, this
 pipeline is a Python loop of UNet calls.
+
+With a ``parallel.mesh.Mesh`` the batch is padded to a multiple of the
+mesh size by repeating its last row and split in row blocks, one per mesh
+device; each card runs its blocks in a thread of its own, and the images
+are gathered on the mesh's first device (pipeline.py:221-269).  Both paths
+make their random draws through ``draw_noise``, for the caller's rows on
+the first device before any split, so a mesh call's rows are a one-device
+call's rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from gligen_tpu_torch.diffusion.samplers import ddim_sample, plms_sample
-from gligen_tpu_torch.diffusion.schedule import DiffusionSchedule
+from gligen_tpu_torch.diffusion.schedule import DiffusionSchedule, make_ddim_timesteps
 from gligen_tpu_torch.inference.adapters import null_input
 from gligen_tpu_torch.models.clip_text import CLIPTextModel
 from gligen_tpu_torch.models.clip_vision import CLIPVisionModel, PatchEmbedding
@@ -27,6 +37,8 @@ from gligen_tpu_torch.models.grounding.spatial import SpatialPositionNet
 from gligen_tpu_torch.models.layers import Conv2d, Dense
 from gligen_tpu_torch.models.unet import UNetModel
 from gligen_tpu_torch.models.vae import AutoencoderKL
+from gligen_tpu_torch.parallel.mesh import (Mesh, pad_rows, padded_rows, replicate,
+                                            shard_batch, tree_map)
 
 # flax's lecun_normal: a normal truncated at 2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -111,12 +123,31 @@ class GligenComponents:
         return cls(unet, vae, text, DiffusionSchedule.create(**sched_kwargs))
 
 
-class GenerationPipeline:
-    """Grounded text-to-image generation."""
+def replicate_components(mesh: Mesh, components: GligenComponents
+                         ) -> List[GligenComponents]:
+    """``components`` on every mesh device, aligned with ``mesh.devices``
+    (``parallel.mesh.replicate`` of each module; the schedule's numpy
+    tables are shared)."""
+    unets, vaes, texts = (replicate(mesh, m) for m in
+                          (components.unet, components.vae, components.text_encoder))
+    return [dataclasses.replace(components, unet=u, vae=v, text_encoder=t)
+            for u, v, t in zip(unets, vaes, texts)]
 
-    def __init__(self, components: GligenComponents):
+
+class GenerationPipeline:
+    """Grounded text-to-image generation, on the components' device or
+    over a ``mesh``."""
+
+    def __init__(self, components: GligenComponents, mesh: Optional[Mesh] = None):
         self.c = components
-        self.device = next(components.unet.parameters()).device
+        self.mesh = mesh
+        if mesh is None:
+            self.device = next(components.unet.parameters()).device
+            return
+        self.device = mesh.devices[0]
+        self.replicas = replicate_components(mesh, components)
+        self.c = self.replicas[0]
+        self._pool = ThreadPoolExecutor(len(mesh.distinct()), thread_name_prefix="mesh")
 
     @torch.no_grad()
     def generate(
@@ -140,7 +171,7 @@ class GenerationPipeline:
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """PLMS or DDIM (``sampler``, eta 0) generation.  Returns images in
-        [0, 1], (B, 8*latent, 8*latent, 3) float32.
+        [0, 1], (B, 8*latent, 8*latent, 3) float32, on ``self.device``.
 
         input_ids/uc_input_ids: (B, 77) tokenized prompt / negative prompt.
         grounding: the UNet's tokenizer's inputs (``inference/adapters.py``:
@@ -168,63 +199,154 @@ class GenerationPipeline:
             raise ValueError("inpaint_image and inpaint_mask go together")
         if inpaint_image is not None and inpainting_extra is not None:
             raise ValueError("inpainting_extra replaces inpaint_image and inpaint_mask")
-        c, dev = self.c, self.device
-        ids = torch.as_tensor(input_ids, device=dev).long()
-        uc_ids = torch.as_tensor(uc_input_ids, device=dev).long()
-        b = ids.shape[0]
-        grounding = {k: torch.as_tensor(v, device=dev) for k, v in grounding.items()}
+        kw = dict(steps=steps, guidance_scale=guidance_scale, sampler=sampler,
+                  alpha_stages=alpha_stages, latent_size=latent_size)
+        b = int(torch.as_tensor(input_ids).shape[0])
+        noise, encode_noise, blend_noise = draw_noise(
+            generator, self.device, (b, latent_size, latent_size, 4),
+            len(make_ddim_timesteps(steps, self.c.schedule.num_timesteps)),
+            inpaint_image is not None, noise=noise, encode_noise=encode_noise,
+            blend_noise=blend_noise)
+        rows = dict(input_ids=input_ids, uc_input_ids=uc_input_ids, grounding=dict(grounding),
+                    grounding_extra=grounding_extra, inpaint_image=inpaint_image,
+                    inpaint_mask=inpaint_mask, inpainting_extra=inpainting_extra,
+                    noise=noise, encode_noise=encode_noise, blend_noise=blend_noise)
+        if self.mesh is None:
+            return _generate_rows(self.c, self.device, **rows, **kw)
+        return self._generate_mesh(b, rows, kw)
 
-        context = c.text_encoder.encode(ids)
-        uc = c.text_encoder.encode(uc_ids)
-        # grounding tokens are loop-invariant: once per request, null pair included
-        objs_c = c.unet.grounding_tokens(grounding)
-        objs_u = c.unet.grounding_tokens(null_input(grounding))
+    def _generate_mesh(self, b, rows, kw) -> torch.Tensor:
+        """The mesh path: every batch-leading input padded to a multiple of
+        the mesh size, one row block per mesh device, each card's blocks in
+        its own thread on the caller's current stream of that card, the
+        images gathered on the first device and cut back to ``b`` rows."""
+        mesh = self.mesh
+        run_b = padded_rows(b, mesh)
+        tree = {k: v for k, v in rows.items() if v is not None}
+        if "blend_noise" in tree:
+            # the step axis leads: the rows are axis 1
+            tree["blend_noise"] = torch.as_tensor(tree["blend_noise"]).movedim(1, 0)
+        tree = tree_map(lambda x: pad_rows(torch.as_tensor(x), run_b), tree)
+        blocks = shard_batch(mesh, tree)
+        streams = ([torch.cuda.current_stream(d) if d.type == "cuda" else None
+                    for d in mesh.devices])
 
-        scale = float(guidance_scale)
-        use_cfg = scale != 1.0
-        pair = (lambda t: torch.cat([t, t])) if use_cfg else (lambda t: t)
-        ctx = torch.cat([context, uc]) if use_cfg else context
-        objs = torch.cat([objs_c, objs_u]) if use_cfg else objs_c
-        ds = None
-        if grounding_extra is not None:
-            ds = pair(c.unet.downsampler_features(torch.as_tensor(grounding_extra, device=dev)))
+        def run_block(i):
+            block = dict(blocks[i])
+            if "blend_noise" in block:
+                block["blend_noise"] = block["blend_noise"].movedim(0, 1)
+            with torch.no_grad(), (torch.cuda.stream(streams[i]) if streams[i] is not None
+                                   else contextlib.nullcontext()):
+                return _generate_rows(self.replicas[i], mesh.devices[i], **block, **kw)
 
-        latent_shape = (b, latent_size, latent_size, 4)
-        mask = x0 = extra = None
-        if inpaint_image is not None:
-            # fp32 encode whatever the serving dtype (pipeline.py:295-310):
-            # the blend carries the encode's rounding into the image
-            image = torch.as_tensor(inpaint_image, device=dev).float()
-            if encode_noise is None:
-                encode_noise = torch.randn(latent_shape, generator=generator, device=dev)
-            x0 = c.vae.encode_fp32(image, torch.as_tensor(encode_noise, device=dev).float())
-            mask = torch.as_tensor(inpaint_mask, device=dev).float()
-            extra = pair(torch.cat([x0 * mask, mask], dim=-1))
-        elif inpainting_extra is not None:
-            extra = pair(torch.as_tensor(inpainting_extra, device=dev).float())
+        images = run_per_device(mesh, self._pool, run_block)
+        return torch.cat([img.to(self.device) for img in images])[:b]
 
-        def make_eps_fn(skip):
-            def eps_fn(x, t, gate, use_sd):
-                e = c.unet(pair(x), pair(t), ctx, gate_scale=gate, use_sd_conv=use_sd,
-                           inpainting_extra=extra, grounding_extra_features=ds,
-                           objs=None if skip else objs, skip_fusers=skip)
-                if not use_cfg:
-                    return e
-                e_c, e_u = e.chunk(2)
-                return e_u + scale * (e_c - e_u)
 
-            return eps_fn
+def draw_noise(generator: Optional[torch.Generator], dev: torch.device, shape, steps: int,
+               inpaint: bool, *, noise=None, encode_noise=None, blend_noise=None):
+    """The random draws of one call that the caller did not inject, from
+    ``generator`` on ``dev`` for the caller's ``shape`` = (B, latent,
+    latent, 4) rows, in one fixed order: the inpaint encode's posterior
+    noise, the starting noise, then one draw of ``shape`` per sampler step
+    (``steps``: the sampler's actual count) for the inpaint blend.  Every
+    path draws here, so a mesh call sees the one-device call's values on
+    any generator.  Returns (noise, encode_noise, blend_noise); the
+    inpaint draws are None without ``inpaint``."""
+    if inpaint and encode_noise is None:
+        encode_noise = torch.randn(shape, generator=generator, device=dev)
+    if noise is None:
+        noise = torch.randn(shape, generator=generator, device=dev)
+    if inpaint and blend_noise is None:
+        blend_noise = torch.stack([torch.randn(shape, generator=generator, device=dev)
+                                   for _ in range(steps)])
+    return noise, encode_noise, blend_noise
 
-        if noise is None:
-            noise = torch.randn(latent_shape, generator=generator, device=dev)
-        # the gate-0 tail of the alpha schedule runs a fuser-free UNet, exact
-        # for the fusers that gate (pipeline.py:395-399)
-        eps_fn0 = make_eps_fn(True) if c.unet.fuser_type in ("gatedSA", "gatedCA") else None
-        common = dict(steps=steps, alpha_stages=alpha_stages,
-                      first_conv_restorable=c.unet.first_conv_restorable, mask=mask, x0=x0,
-                      blend_noise=blend_noise, generator=generator, eps_fn_gate0=eps_fn0)
-        run = plms_sample if sampler == "plms" else ddim_sample
-        z = run(make_eps_fn(False), c.schedule, torch.as_tensor(noise, device=dev).float(),
-                **common)
-        img = c.vae.decode(z)
-        return img.float().clamp(-1.0, 1.0) * 0.5 + 0.5
+
+def run_per_device(mesh: Mesh, pool: ThreadPoolExecutor, fn) -> List[Any]:
+    """``fn(i)`` for every block ``i`` of ``mesh``: the blocks of each
+    distinct device in order, in one thread of ``pool`` per device (so no
+    card waits on another card's host work); the results in block order."""
+    def run_device(dev):
+        return [(i, fn(i)) for i, d in enumerate(mesh.devices) if d == dev]
+
+    futures = [pool.submit(run_device, dev) for dev in mesh.distinct()]
+    out = dict(kv for f in futures for kv in f.result())
+    return [out[i] for i in range(mesh.size)]
+
+
+def _generate_rows(
+    c: GligenComponents,
+    dev: torch.device,
+    *,
+    input_ids,
+    uc_input_ids,
+    grounding: Dict[str, Any],
+    steps: int,
+    guidance_scale: float,
+    sampler: str,
+    alpha_stages: Optional[Sequence[float]],
+    latent_size: int,
+    grounding_extra=None,
+    inpaint_image=None,
+    inpaint_mask=None,
+    inpainting_extra=None,
+    noise=None,
+    encode_noise=None,
+    blend_noise=None,
+) -> torch.Tensor:
+    """``GenerationPipeline.generate`` of components ``c`` on ``dev``, with
+    every random draw given (``draw_noise``)."""
+    ids = torch.as_tensor(input_ids, device=dev).long()
+    uc_ids = torch.as_tensor(uc_input_ids, device=dev).long()
+    grounding = {k: torch.as_tensor(v, device=dev) for k, v in grounding.items()}
+
+    context = c.text_encoder.encode(ids)
+    uc = c.text_encoder.encode(uc_ids)
+    # grounding tokens are loop-invariant: once per request, null pair included
+    objs_c = c.unet.grounding_tokens(grounding)
+    objs_u = c.unet.grounding_tokens(null_input(grounding))
+
+    scale = float(guidance_scale)
+    use_cfg = scale != 1.0
+    pair = (lambda t: torch.cat([t, t])) if use_cfg else (lambda t: t)
+    ctx = torch.cat([context, uc]) if use_cfg else context
+    objs = torch.cat([objs_c, objs_u]) if use_cfg else objs_c
+    ds = None
+    if grounding_extra is not None:
+        ds = pair(c.unet.downsampler_features(torch.as_tensor(grounding_extra, device=dev)))
+
+    mask = x0 = extra = None
+    if inpaint_image is not None:
+        # fp32 encode whatever the serving dtype (pipeline.py:295-310):
+        # the blend carries the encode's rounding into the image
+        image = torch.as_tensor(inpaint_image, device=dev).float()
+        x0 = c.vae.encode_fp32(image, torch.as_tensor(encode_noise, device=dev).float())
+        mask = torch.as_tensor(inpaint_mask, device=dev).float()
+        extra = pair(torch.cat([x0 * mask, mask], dim=-1))
+    elif inpainting_extra is not None:
+        extra = pair(torch.as_tensor(inpainting_extra, device=dev).float())
+
+    def make_eps_fn(skip):
+        def eps_fn(x, t, gate, use_sd):
+            e = c.unet(pair(x), pair(t), ctx, gate_scale=gate, use_sd_conv=use_sd,
+                       inpainting_extra=extra, grounding_extra_features=ds,
+                       objs=None if skip else objs, skip_fusers=skip)
+            if not use_cfg:
+                return e
+            e_c, e_u = e.chunk(2)
+            return e_u + scale * (e_c - e_u)
+
+        return eps_fn
+
+    # the gate-0 tail of the alpha schedule runs a fuser-free UNet, exact
+    # for the fusers that gate (pipeline.py:395-399)
+    eps_fn0 = make_eps_fn(True) if c.unet.fuser_type in ("gatedSA", "gatedCA") else None
+    common = dict(steps=steps, alpha_stages=alpha_stages,
+                  first_conv_restorable=c.unet.first_conv_restorable, mask=mask, x0=x0,
+                  blend_noise=blend_noise, eps_fn_gate0=eps_fn0)
+    run = plms_sample if sampler == "plms" else ddim_sample
+    z = run(make_eps_fn(False), c.schedule, torch.as_tensor(noise, device=dev).float(),
+            **common)
+    img = c.vae.decode(z)
+    return img.float().clamp(-1.0, 1.0) * 0.5 + 0.5

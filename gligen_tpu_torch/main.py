@@ -7,8 +7,17 @@ reference's main.py).
 Loads a reference-format YAML (``config.py``, no PyYAML), merges the flags
 over it and trains on the card (``training/trainer.py``); ``--device cpu``
 runs the kernels' plain versions, for small test configs only.  The flags
-are the root ``main.py``'s, names and defaults, and ``--device``.  One
-card: the batch is ``--batch_size``.
+are the root ``main.py``'s, names and defaults, and ``--device``.
+
+Data parallelism: one process per card, launched by torchrun,
+
+  torchrun --nproc_per_node N -m gligen_tpu_torch.main --multihost ...
+
+``--multihost`` forms the process group from the launcher's environment
+(``parallel/mesh.py:init_process_group``: NCCL when every rank has a card
+of its own, gloo when ranks share one or run on the CPU) and puts each
+process on ``cuda:LOCAL_RANK``; the global batch is ``--batch_size`` times
+the processes.  Without it, one process: the batch is ``--batch_size``.
 """
 
 from __future__ import annotations
@@ -50,7 +59,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
         help="skip the periodic PLMS preview grids at checkpoints (reference main.py:47)",
     )
     p.add_argument("--multihost", action="store_true",
-                   help="several hosts (ROADMAP M12: not ported; raises)")
+                   help="one process of a data-parallel group (torchrun's environment: RANK, "
+                   "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), on cuda:LOCAL_RANK")
     p.add_argument(
         "--cached_latents", type=str, default=None,
         help="directory of <tsv-stem>.latents.npy posterior-moment caches "
@@ -72,10 +82,21 @@ def modality_from_config(config) -> str:
 def main(argv: Optional[Sequence[str]] = None):
     """Train as the flags say; returns the ``Trainer``."""
     args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("--multihost trains over several hosts: ROADMAP M12 "
-                                  "(multi-GPU) has not been ported")
+    import torch
 
+    from gligen_tpu_torch.parallel import mesh as dp
+
+    device = args.device
+    if args.multihost:
+        device = dp.init_process_group(torch.device(args.device).type)
+    try:
+        return _train(args, device)
+    finally:
+        if args.multihost:
+            dp.destroy_process_group()
+
+
+def _train(args, device):
     from gligen_tpu_torch.config import load_yaml_config, normalize_model_config
     from gligen_tpu_torch.training.trainer import Trainer, TrainerConfig
 
@@ -105,7 +126,7 @@ def main(argv: Optional[Sequence[str]] = None):
         preview_samples=not args.disable_inference_in_training,
         cached_latents=args.cached_latents,
     )
-    trainer = Trainer(config, run, device=args.device)
+    trainer = Trainer(config, run, device=device)
     trainer.start_training()
     return trainer
 

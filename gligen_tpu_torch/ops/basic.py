@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 from contextlib import contextmanager
 from typing import Iterator, Optional
 
@@ -181,17 +182,32 @@ def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h * 2, w * 2, c)
 
 
+# the blocks of tf32_off open in any thread, and the switches they saved
+_TF32_LOCK = threading.Lock()
+_TF32_OPEN = {"depth": 0, "saved": None}
+
+
 @contextmanager
 def tf32_off() -> Iterator[None]:
     """Both TF32 switches off inside the block, cuBLAS's matmuls and cuDNN's
     convs, each restored afterwards.  Saved and set by hand:
     ``torch.backends.cudnn.flags`` would also reset cuDNN's other switches
     to its own defaults, and the matmul switch has no context manager in
-    every torch version."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    every torch version.  The switches are process-wide, so blocks open in
+    several threads at once (a mesh's cards) share one save: the first to
+    open saves and clears them, the last to close restores them."""
+    with _TF32_LOCK:
+        if _TF32_OPEN["depth"] == 0:
+            _TF32_OPEN["saved"] = (torch.backends.cuda.matmul.allow_tf32,
+                                   torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _TF32_OPEN["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        with _TF32_LOCK:
+            _TF32_OPEN["depth"] -= 1
+            if _TF32_OPEN["depth"] == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _TF32_OPEN["saved"]

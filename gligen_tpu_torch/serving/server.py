@@ -74,6 +74,7 @@ from gligen_tpu_torch.inference.cli import (
     prepare_batch_sem,
 )
 from gligen_tpu_torch.inference.pipeline import GligenComponents
+from gligen_tpu_torch.parallel.mesh import padded_rows
 
 
 def _b64_to_image(data: str, mode: str = "RGB") -> np.ndarray:
@@ -185,7 +186,11 @@ class MicroBatcher:
         self._lock = lock
         self.streams = streams or DeviceStreams(getattr(pipeline, "device", None))
         self.window = window_ms / 1000.0
-        buckets = sorted({int(b) for b in buckets})
+        # with a mesh every batch pads to a multiple of its size: round each
+        # bucket up to one and dedupe, so that every bucket is a real shape
+        # (server.py:110-118)
+        mesh = getattr(pipeline, "mesh", None)
+        buckets = sorted({padded_rows(b, mesh) for b in buckets})
         self.max_images = max(max_images, buckets[-1])
         self.buckets = tuple(buckets)
         self._cv = threading.Condition()
@@ -350,10 +355,10 @@ class MicroBatcher:
 
 
 def _mesh_size(pipeline) -> int:
-    """The cards a pipeline call spreads its batch over: always 1, as the
-    port has no data-parallel mesh yet (``--data_parallel`` raises, naming
-    ROADMAP M12)."""
-    return 1
+    """The devices a pipeline call spreads its batch over: its mesh's size,
+    1 without one (server.py:286-289)."""
+    mesh = getattr(pipeline, "mesh", None)
+    return mesh.size if mesh is not None else 1
 
 
 def _image_cap(pipeline, latent_size) -> int:
@@ -423,8 +428,9 @@ class ServingSession:
         resolution), so that the first request of each shape finds every
         kernel library built and loaded (``ops/cuda_build.py`` compiles at
         first launch) and the caching allocator grown.  Each bucket is
-        clamped to what the resolution's calls run: the largest batcher
-        bucket within its image cap.  ``background`` runs the pass in a
+        rounded up to a multiple of the pipeline's mesh size and clamped to
+        what the resolution's calls run: the largest batcher bucket within
+        its image cap.  ``background`` runs the pass in a
         daemon thread; ``self.ready`` (GET /ready) turns true only when it
         has finished without an error."""
 
@@ -434,7 +440,9 @@ class ServingSession:
                     cap = _image_cap(self.pipe, int(res) // 8)
                     if self.batcher is not None:
                         cap = max((b for b in self.batcher.buckets if b <= cap), default=cap)
-                    for b in sorted({min(int(b), cap) for b in buckets}):
+                    # the shapes requests run: mesh multiples (server.py:357-359)
+                    mesh = getattr(self.pipe, "mesh", None)
+                    for b in sorted({min(padded_rows(b, mesh), cap) for b in buckets}):
                         self.generate(self._warmup_request(int(b), int(res)))
                 self.ready = True
                 self.warmup_error = None
@@ -759,7 +767,9 @@ def parser() -> argparse.ArgumentParser:
                    help="the micro-batching window (0 turns batching off): concurrent requests "
                    "of one configuration fuse into one padded batch")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the batch over every card (ROADMAP M12: not ported; raises)")
+                   help="split each call's batch over every card (one replica each), where the "
+                   "machine has more than one; buckets and warmup shapes round up to "
+                   "multiples of the cards")
     p.add_argument("--aot_dir", type=str, default=None, help=NO_EFFECT["aot_dir"])
     p.add_argument("--split_programs", action="store_true", help=NO_EFFECT["split_programs"])
     return p

@@ -19,6 +19,15 @@ JAX package's draws through ``draws``.
 PyTorch runs eagerly, so where the JAX package jits a pure step function,
 ``make_train_step`` returns a function that updates a ``TrainState`` in
 place and returns the loss as a device tensor (no host synchronisation).
+
+Data parallelism (``parallel/mesh.py``): in a process group each process
+holds its rows of the global batch.  Every process draws the global
+batch's posterior noise, timesteps and diffusion noise from the same
+seeded generator (or takes the global ``draws``) and keeps its own rows;
+the grounding drop's one draw is the same everywhere.  After ``backward``
+the trainable gradients and the loss are averaged over the group, so that
+every rank takes the same AdamW step, the step of one process on the
+global batch, as JAX's jitted global step does by construction.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from torch.profiler import record_function
 
 from gligen_tpu_torch.diffusion.schedule import DiffusionSchedule
 from gligen_tpu_torch.models.vae import sample_posterior
+from gligen_tpu_torch.parallel import mesh as dp
 
 # the draws of one step, in the order a generator gives them
 DRAW_KEYS = ("posterior", "u_t", "noise", "u_drop")
@@ -142,7 +152,9 @@ def make_loss_fn(
     downsampler, "grounding_extra": its spatial map (never dropped with the
     grounding); for an inpaint UNet, "inpainting_mask": (B, h, w, 1) latent
     keep-mask}.  The two latent
-    branches give the same loss for the same draws."""
+    branches give the same loss for the same draws.  In a process group the
+    batch is this process's rows (``parallel.mesh.process_batch_slice``)
+    and the draws are the global batch's, of which it keeps those rows."""
     device = next(unet.parameters()).device
     steps = schedule.num_timesteps
 
@@ -150,12 +162,22 @@ def make_loss_fn(
                 draws: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
         if draws is not None and set(draws) != set(DRAW_KEYS):
             raise ValueError(f"draws has keys {sorted(draws)}, needs {sorted(DRAW_KEYS)}")
+        world = dp.world_size()
 
         def draw(name, shape, normal):
+            """The draw of the global batch (the local rows times the
+            world), this process's rows of it."""
+            if not shape:
+                glob, rows = (), slice(None)
+            else:
+                glob = (shape[0] * world,) + tuple(shape[1:])
+                rows = dp.process_batch_slice(glob[0])
             if draws is not None:
-                return torch.as_tensor(draws[name], dtype=torch.float32, device=device).reshape(shape)
-            fn = torch.randn if normal else torch.rand
-            return fn(shape, generator=generator, device=device)
+                t = torch.as_tensor(draws[name], dtype=torch.float32, device=device).reshape(glob)
+            else:
+                fn = torch.randn if normal else torch.rand
+                t = fn(glob, generator=generator, device=device)
+            return t[rows] if shape else t
 
         def to_device(x):
             return torch.as_tensor(x, device=device)
@@ -212,7 +234,10 @@ def make_train_step(
     schedule step and the EMA update e * rate + p * (1 - rate)
     (train_step.py:232-249).  It runs on the parameters' device and updates
     ``state`` in place; the gradients stay on the parameters until the
-    next step."""
+    next step.  In a process group the trainable gradients and the loss
+    are averaged over it before the optimizer step (one bucketed
+    ``all_reduce`` pass, ``parallel.mesh.all_reduce_mean_``): the loss
+    returned is the global batch's."""
     loss_fn = make_loss_fn(unet, vae, text_encoder, schedule,
                            grounding_drop_prob=grounding_drop_prob,
                            l_simple_weight=l_simple_weight)
@@ -225,6 +250,11 @@ def make_train_step(
         with record_function("train_step.loss"):
             loss = loss_fn(batch, generator, draws)
         loss.backward()
+        if dp.world_size() > 1:
+            loss = loss.detach().reshape(1).clone()
+            dp.all_reduce_mean_([p.grad for p in state.params.values() if p.grad is not None]
+                                + [loss])
+            loss = loss[0]
         state.optimizer.step()
         state.scheduler.step()
         if state.ema_params is not None:
@@ -237,3 +267,98 @@ def make_train_step(
         return {"loss": loss.detach()}
 
     return train_step
+
+
+# ---------------------------------------------------------------- dryrun
+
+# how long ``dryrun_train_step`` waits for each of its processes
+DRYRUN_TIMEOUT_S = 120.0
+
+def dryrun_train_step(n_devices: int, tp: int = 1, fsdp: bool = False) -> Dict[str, Any]:
+    """A tiny-config train step over ``n_devices`` CPU processes in a gloo
+    group (train_step.py:256-350's 1-D data case: the batch split, the
+    parameters replicated, the gradients averaged), each process one row
+    of a global batch of ``n_devices``.  Returns {"losses": per rank,
+    "digests": per rank, a hash of its trainable tensors after the step};
+    raises unless every loss is finite and equal and every rank holds the
+    same parameters.  ``tp > 1`` and ``fsdp`` (tensor parallelism, sharded
+    parameters) raise ``NotImplementedError``: ROADMAP M12 part 2."""
+    if tp > 1 or fsdp:
+        raise NotImplementedError("tensor parallelism and FSDP are ROADMAP M12 part 2 "
+                                  "(parallel/sharding.py); the port's data parallelism is 1-D")
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = tmp.get_context("spawn")
+    out = ctx.SimpleQueue()
+    procs = [ctx.Process(target=_dryrun_worker, args=(rank, n_devices, port, out))
+             for rank in range(n_devices)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(DRYRUN_TIMEOUT_S)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+    if alive or any(p.exitcode for p in procs):
+        raise RuntimeError(f"dryrun_train_step: exit codes {[p.exitcode for p in procs]}")
+    got = sorted(out.get() for _ in procs)
+    losses, digests = [g[1] for g in got], [g[2] for g in got]
+    if not all(math.isfinite(x) for x in losses) or len(set(losses)) != 1 \
+            or len(set(digests)) != 1:
+        raise RuntimeError(f"dryrun_train_step: ranks disagree: losses {losses}, "
+                           f"parameter digests {digests}")
+    return {"losses": losses, "digests": digests}
+
+
+def _dryrun_worker(rank: int, world: int, port: int, out) -> None:
+    """One rank of ``dryrun_train_step``: join the group, build the tiny
+    model from one seed, take one step on its row, report."""
+    import hashlib
+    import os
+
+    from gligen_tpu_torch.inference.pipeline import GligenComponents
+
+    torch.set_num_threads(1)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    device = dp.init_process_group("cpu")
+    try:
+        ctx = 32
+        comps = GligenComponents.create(
+            unet_config=dict(model_channels=32, num_res_blocks=1, attention_resolutions=(1,),
+                             channel_mult=(1, 2), num_heads=2, context_dim=ctx,
+                             use_checkpoint=True, grounding_tokenizer={
+                                 "target": "text", "params": {"in_dim": ctx, "out_dim": ctx}}),
+            dtype=torch.float32, seed=0, device=device,
+            vae_config=dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, resolution=32),
+            text_config=dict(vocab_size=64, hidden_size=ctx, layers=1, heads=2,
+                             max_positions=8))
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():  # a fresh model's zero output conv blocks every gradient
+            for p in comps.unet.parameters():
+                if not p.any():
+                    p.add_(0.02 * torch.randn(p.shape, generator=gen))
+        state = create_train_state(comps.unet, base_lr=1e-4, warmup_steps=2, total_steps=10)
+        step = make_train_step(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
+        g = torch.Generator().manual_seed(1)
+        b, lat = world, 8
+        batch = {"image": torch.rand((b, lat * 4, lat * 4, 3), generator=g) * 2 - 1,
+                 "input_ids": torch.randint(0, 64, (b, 8), generator=g),
+                 "grounding": {"boxes": torch.rand((b, 3, 4), generator=g),
+                               "masks": torch.ones((b, 3)),
+                               "positive_embeddings": torch.randn((b, 3, ctx), generator=g)}}
+        rows = dp.process_batch_slice(b)
+        local = {k: ({kk: vv[rows] for kk, vv in v.items()} if isinstance(v, dict) else v[rows])
+                 for k, v in batch.items()}
+        loss = float(step(state, local, generator=torch.Generator().manual_seed(2))["loss"])
+        digest = hashlib.sha256()
+        for p in state.params.values():
+            digest.update(p.detach().numpy().tobytes())
+        out.put((rank, loss, digest.hexdigest()))
+    finally:
+        dp.destroy_process_group()

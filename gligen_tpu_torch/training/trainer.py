@@ -10,10 +10,17 @@ the train step on the card: loss logging every 10 iters
 (save_ckpt_and_result, trainer.py:412-484), tagXX auto-resume
 (trainer.py:126-153), and a checkpoint at the step boundary on SIGTERM.
 
-One card: the batch is ``batch_size`` (the JAX package's per-device batch
-times one device).  The step's draws come from a ``torch.Generator`` on
-the card seeded from ``run.seed``; the data order and augmentation from
-numpy generators seeded from it, as in the JAX package.
+The global batch is ``batch_size`` times the processes of the group
+(``parallel/mesh.py``; one card, one process: ``batch_size``), as the JAX
+package's per-device batch times its devices.  Every process takes the
+same permutation of the data and decodes only its rows of each global
+batch; the step averages the gradients over the group.  Only process zero
+logs, saves, previews and writes the preemption checkpoint; every process
+resumes from the checkpoint process zero finds.  The step's draws come
+from a ``torch.Generator`` on the card seeded from ``run.seed`` (the same
+on every process: each keeps its rows of the global draws); the data
+order and augmentation from numpy generators seeded from it, as in the
+JAX package, and, past process zero, from the process's rank.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from gligen_tpu_torch.data.tokenizer import load_tokenizer
 from gligen_tpu_torch.inference.adapters import get_adapter
 from gligen_tpu_torch.inference.cli import DTYPES
 from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
+from gligen_tpu_torch.parallel import mesh as dp
 from gligen_tpu_torch.training import checkpoints as ckpt_io
 from gligen_tpu_torch.training.train_step import create_train_state, make_train_step
 
@@ -57,7 +65,7 @@ class TrainerConfig:
     warmup_steps: int = 10_000
     scheduler_type: str = "constant"
     total_iters: int = 500_000
-    batch_size: int = 2  # per device, matching the reference's per-GPU batch
+    batch_size: int = 2  # per process (one card each), the reference's per-GPU batch
     save_every_iters: int = 5_000
     log_every_iters: int = 10
     enable_ema: bool = False
@@ -112,7 +120,8 @@ class Trainer:
         self.text_encoder, self.schedule = self.components.text_encoder, self.components.schedule
         self.adapter = get_adapter(run.grounding_modality)
         self.tokenizer = load_tokenizer(run.vocab_path)
-        self.global_batch = run.batch_size
+        self.rank = dp.process_index()
+        self.global_batch = run.batch_size * dp.world_size()
 
         # ---- weights: official SD / GLIGEN ckpt / random ----
         if run.official_ckpt_name:
@@ -132,8 +141,10 @@ class Trainer:
             warmup_steps=run.warmup_steps, total_steps=run.total_iters,
             scheduler_type=run.scheduler_type)
 
-        # ---- auto resume (trainer.py:126-153,291-304) ----
-        self.tag_dir, resume_path = ckpt_io.find_resume_dir(run.output_root, run.name)
+        # ---- auto resume (trainer.py:126-153,291-304): process zero picks
+        # the tag and the checkpoint, every process loads it ----
+        found = ckpt_io.find_resume_dir(run.output_root, run.name) if self.rank == 0 else None
+        self.tag_dir, resume_path = dp.broadcast_object(found)
         self.starting_iter = 0
         if resume_path:
             load_state(self.state, ckpt_io.restore_training_checkpoint(resume_path))
@@ -143,15 +154,16 @@ class Trainer:
         self._train_step = make_train_step(self.unet, self.vae, self.text_encoder, self.schedule,
                                            ema_rate=run.ema_rate)
         self._metrics_path = os.path.join(self.tag_dir, "metrics.jsonl")
-        # TensorBoard scalars (trainer.py:151,394-396), only where it imports;
-        # metrics.jsonl is the record
+        # process zero's TensorBoard scalars (trainer.py:151,394-396), only
+        # where it imports; metrics.jsonl is the record
         self._tb = None
-        try:
-            from torch.utils.tensorboard import SummaryWriter
-        except ImportError:
-            pass
-        else:
-            self._tb = SummaryWriter(os.path.join(self.tag_dir, "tb"))
+        if self.rank == 0:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self._tb = SummaryWriter(os.path.join(self.tag_dir, "tb"))
 
     # -------------------------------------------------------------- data
     def build_dataset(self):
@@ -191,9 +203,17 @@ class Trainer:
         by a background thread so that decode and collate overlap the
         step; with ``workers > 1`` each batch's items decode in a fork pool
         (the reference's DataLoader workers), or with
-        ``GLIGEN_TPU_DECODE_POOL=thread`` a thread pool.  Closing the
-        generator releases the pool."""
+        ``GLIGEN_TPU_DECODE_POOL=thread`` a thread pool.  In a process group
+        each process decodes its rows (``process_batch_slice``) of each
+        global batch of the one permutation; past process zero its
+        augmentation seeds (in process, and each fork worker's) add
+        ``RANK_SEED_STRIDE`` times its rank.  Closing the generator
+        releases the pool."""
         pool = tpool = None
+        rank = dp.process_index()
+        seed = self.run.seed + RANK_SEED_STRIDE * rank
+        if rank:
+            _reseed(dataset, seed)
         if self.run.workers > 1:
             if os.environ.get("GLIGEN_TPU_DECODE_POOL", "fork") == "thread":
                 from concurrent.futures import ThreadPoolExecutor
@@ -204,7 +224,7 @@ class Trainer:
                 # TSVFile reopens per PID, the native reader preads
                 pool = mp.get_context("fork").Pool(
                     self.run.workers, initializer=_decode_worker_init,
-                    initargs=(dataset, self.run.seed))
+                    initargs=(dataset, seed))
 
         q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         closing = threading.Event()
@@ -227,10 +247,11 @@ class Trainer:
             try:
                 rng = np.random.default_rng(self.run.seed)
                 bs = self.global_batch
+                rows = dp.process_batch_slice(bs)
                 while not closing.is_set():
                     order = rng.permutation(len(dataset))
                     for i in range(0, len(order) - bs + 1, bs):
-                        items = decode([int(j) for j in order[i : i + bs]])
+                        items = decode([int(j) for j in order[i : i + bs][rows]])
                         if items is None:
                             return
                         batch = self.collate(items)
@@ -306,6 +327,7 @@ class Trainer:
         except ValueError:  # not the main thread
             prev_handler = None
 
+        # the same seed on every process: each keeps its rows of the global draws
         generator = torch.Generator(device=self.device).manual_seed(run.seed + 7)
         loader = self.batches(dataset)
         profiler = None
@@ -323,18 +345,22 @@ class Trainer:
                     _stop_profile(profiler, run.profile_dir, self.device)
                     profiler = None
 
-                if it % run.log_every_iters == 0:
-                    loss = float(metrics["loss"])
+                lead = dp.is_process_zero()
+                if lead and it % run.log_every_iters == 0:
+                    loss = float(metrics["loss"])  # the global batch's
                     dt = time.time() - t_last
                     t_last = time.time()
                     self._log({"iter": it, "loss": loss, "sec": round(dt, 3)})
-                if it == total - 1 or (it > self.starting_iter and it % run.save_every_iters == 0):
+                if lead and (it == total - 1
+                             or (it > self.starting_iter and it % run.save_every_iters == 0)):
                     self._save()
                     if run.preview_samples:
                         self.save_preview(host_batch, it)
-                if preempted.is_set():
-                    self._save()
-                    self._log({"iter": it, "event": "preempted, checkpointed"})
+                # a SIGTERM on any process stops every one at this boundary
+                if dp.host_any(preempted.is_set()):
+                    if lead:
+                        self._save()
+                        self._log({"iter": it, "event": "preempted, checkpointed"})
                     break
         finally:
             loader.close()
@@ -344,6 +370,8 @@ class Trainer:
                 profiler.__exit__(None, None, None)
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
+        # return once process zero's checkpoint is written, on every process
+        dp.barrier()
         return self.state
 
     def _log(self, rec: Dict[str, Any]):
@@ -505,6 +533,8 @@ def _stop_profile(prof, directory: str, device) -> None:
 
 
 _WORKER_DATASET = None
+# the augmentation seeds of process r add r times this (``Trainer.batches``)
+RANK_SEED_STRIDE = 1_000_003
 
 
 def _decode_worker_init(dataset, seed: int) -> None:
@@ -517,10 +547,15 @@ def _decode_worker_init(dataset, seed: int) -> None:
     import multiprocessing as mp
 
     rank = mp.current_process()._identity[0] if mp.current_process()._identity else 0
+    _reseed(dataset, seed + 1000 * rank)
+
+
+def _reseed(dataset, seed: int) -> None:
+    """Re-draw ``dataset``'s augmentation RNG from ``seed``."""
     if hasattr(dataset, "reseed"):
-        dataset.reseed(seed + 1000 * rank)
+        dataset.reseed(seed)
     elif hasattr(dataset, "rng"):
-        dataset.rng = np.random.default_rng(seed + 1000 * rank)
+        dataset.rng = np.random.default_rng(seed)
 
 
 def _decode_one(index: int):

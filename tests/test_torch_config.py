@@ -114,6 +114,11 @@ def test_modality_from_config_equals_the_root_mains(path):
     assert tmain.modality_from_config(cfg) == _root_main().modality_from_config(cfg)
 
 
-def test_multihost_raises_naming_m12():
-    with pytest.raises(NotImplementedError, match="M12"):
-        tmain.main(["--multihost"])
+def test_multihost_raises_naming_m12(monkeypatch):
+    """--multihost is ported (``tests/test_torch_parallel.py`` trains with
+    it); without the launcher's environment it raises naming the missing
+    variables rather than training alone."""
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, LOCAL_RANK"):
+        tmain.main(["--multihost", "--device", "cpu"])

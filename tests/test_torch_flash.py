@@ -184,7 +184,8 @@ def test_port_imports_without_jax_or_nvcc():
     the keypoint and spatial datasets from files the data writer made, the
     TSV split and merge, ``prepare_grounding``'s rows, the real-data
     bench's ``--make`` run, the server's image codecs and a warmup of a
-    session, PSNR, SSIM and the LPIPS proxy, in a Python where jax, flax,
+    session, PSNR, SSIM and the LPIPS proxy, the eval datasets over the eval
+    data tool's files, a mesh's row split, in a Python where jax, flax,
     gligen_tpu, regex, PIL and yaml cannot be imported (the GPU machine has
     none of the last three) and no nvcc is on the PATH; only a kernel build
     asks for nvcc."""
@@ -207,7 +208,8 @@ for name in ("training.train_step", "training.checkpoints", "convert.from_refere
              "data.spatial_datasets", "data.keypoint_dataset", "data.prepare_grounding",
              "data.tsv_split_merge", "tools.modality_data", "tools.bench_train_realdata",
              "serving.server", "serving.demo_page", "eval.metrics", "eval.lpips",
-             "tools.fidelity_gate", "tools.bench_serve_overlap"):
+             "tools.fidelity_gate", "tools.bench_serve_overlap", "eval.evaluator",
+             "eval.datasets", "eval.create_meta", "parallel.mesh", "tools.eval_data"):
     assert f"gligen_tpu_torch.{name}" in sys.modules, name
 import numpy as np
 from gligen_tpu_torch.data import png, tokenizer
@@ -290,6 +292,20 @@ a = np.random.default_rng(0).random((1, 16, 16, 3)).astype(np.float32)
 assert float(metrics.psnr(a, a * 0.5)[0]) > 0 and float(metrics.ssim(a, a)[0]) > 0.99
 stack = lpips.PerceptualConvStack(features=(8, 16))
 assert lpips.make_lpips_fn(module=stack, device="cpu")(a, a * 0.5)[0] > 0
+from gligen_tpu_torch.eval import create_meta, datasets, evaluator
+from gligen_tpu_torch.parallel import mesh
+from gligen_tpu_torch.tools import eval_data
+with tempfile.TemporaryDirectory() as d:
+    files = eval_data.write_eval_data(d)
+    coco = datasets.COCOEvalDataset(files["image_root"], files["instances"], files["captions"],
+                                    image_size=32)
+    assert coco[0]["image"].shape == (32, 32, 3) and len(create_meta.metas_from_dataset(coco, "c"))
+    layout = datasets.LayoutEvalDataset(files["image_root"], files["instances"], files["stuff"],
+                                        files["category_embeddings"], image_size=32,
+                                        min_boxes_per_image=1)
+    assert layout[0]["text_embeddings"].shape == (8, 768)
+assert evaluator.ckpt_to_folder_name("checkpoint_00000012.pth") == "tag000000012"
+assert mesh.shard_batch(mesh.make_mesh(["cpu", "cpu"]), {"x": torch.zeros(4, 2)})[1]["x"].shape == (2, 2)
 from gligen_tpu_torch.ops import cuda_build
 from gligen_tpu_torch.ops.attention import multi_head_attention
 from gligen_tpu_torch.training.train_step import lr_multiplier, make_optimizer

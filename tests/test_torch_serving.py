@@ -16,7 +16,8 @@ CPU, against the JAX server (``gligen_tpu/serving/server.py``).
   * The image codecs against PIL's on the same bytes, pixel for pixel.
   * The direct path's draws per (seed, chunk): repeatable, and chunk 1 of
     seed s is not chunk 0 of seed s + 1.
-  * The command line: ``--data_parallel`` raises naming M12; ``--aot_dir``
+  * The command line: ``--data_parallel`` on one device takes no mesh and
+    says so; ``--aot_dir``
     and ``--split_programs`` print their line and set no variable.
   * The launch counters under many threads.
 """
@@ -54,6 +55,7 @@ from gligen_tpu_torch.convert.from_jax import load_jax_params
 from gligen_tpu_torch.data import png
 from gligen_tpu_torch.data.tokenizer import HashTokenizer
 from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
+from gligen_tpu_torch.parallel.mesh import make_mesh
 from gligen_tpu_torch.serving.server import ServingSession, make_server
 
 from test_serving import _StubPipeline as _JaxStubPipeline
@@ -357,12 +359,13 @@ def test_port_direct_path_chunks_high_res():
 
 
 def test_port_image_cap_has_no_mesh():
-    """The JAX test scales the cap by a mesh; the port has none (M12), so
-    the cap is the per-card rule whatever the pipeline carries."""
+    """Without a mesh the cap is the per-card rule; a mesh scales it by its
+    size, as the JAX server's (server.py:286-302)."""
     pipe = _StubPipeline()
     assert [srv._image_cap(pipe, lat) for lat in (64, 128, None, 32, 512)] == [8, 2, 8, 32, 1]
-    pipe.mesh = object()
-    assert srv._mesh_size(pipe) == 1 and srv._image_cap(pipe, 64) == 8
+    pipe.mesh = make_mesh(["cpu", "cpu"])
+    assert srv._mesh_size(pipe) == 2 and srv._image_cap(pipe, 64) == 16
+    assert srv._image_cap(pipe, 512) == 2
 
 
 def test_port_resolution_field_sets_latent_size():
@@ -731,9 +734,13 @@ def _args(*extra):
     return srv.parser().parse_args(["--device", "cpu", "--dezero", *extra])
 
 
-def test_data_parallel_raises_naming_m12():
-    with pytest.raises(NotImplementedError, match="M12"):
-        srv.build_session(_args("--data_parallel"), create=small_create)
+def test_data_parallel_raises_naming_m12(capsys):
+    """--data_parallel is ported: on the CPU (no card) the session serves a
+    one-device pipeline and says so on stderr."""
+    session = srv.build_session(_args("--data_parallel", "--batch_window_ms", "0"),
+                                create=small_create)
+    assert session.pipe.mesh is None and srv._mesh_size(session.pipe) == 1
+    assert "no mesh" in capsys.readouterr().err
 
 
 def test_xla_only_flags_print_their_line_and_set_nothing(capsys, tmp_path):
