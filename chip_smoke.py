@@ -14,8 +14,8 @@ Phases, each of which fails the run with a non-zero exit:
      (likewise) with nvcc, in parallel, into build/kernels/; print the
      seconds it took and ptxas's registers, spills and wgmma notes (for
      fused_proj, fused_conv and the flash forward's fp32 route, one line
-     per tile configuration; the fp32 routes' 3xTF32 kernels must not
-     spill).
+     per tile configuration; the fp32 routes' 3xTF32 kernels and the
+     flash backward's six fp32 kernels must not spill).
   3. kernel: compare each kernel with its plain PyTorch version on bf16
      inputs at every shape the 512^2 path launches, with the times of both
      and, where one PyTorch call computes the same function, that call's:
@@ -66,7 +66,16 @@ Phases, each of which fails the run with a non-zero exit:
      at every ResBlock conv shape (each row with the conv kernel's own time
      beside the whole call's and cuDNN's bf16 conv alone, its tiles and
      split, TF/s and share of the bound; repeated bit for bit).  Phase 11
-     counts each of these calls' CUDA launches.
+     counts each of these calls' CUDA launches.  The fp32 rows add the
+     fp32 forward's LSE with q and k x 1, x 4 and x 8 at ds1's attn1 and
+     fuser and ds2's attn1 (fault F10, ``tools/lse_rows.py``: x 1 and x 4
+     within FP32_LSE_TOL, x 8 within its derived limit, each beside the
+     plain version's own error against fp64 and a TF32 witness), and the
+     flash backward's fp32 route (fault F9, ``check_bwd_f32``: dq and
+     dk/dv at every fp32 training site of ``bwd_cases_f32``, each gradient
+     within FP32_REL_TOL of its plain version's largest magnitude, on the
+     "fp32" route, repeated bit for bit, beside SDPA's fp32 backward, its
+     FMA and 3xTF32 bounds and a TF32 witness).
      Times are device times per call (see ``timing.timed``); each
      kernel's bound is the larger of its bytes over the card's memory
      rate and its operations over the peak rate for their type.
@@ -98,11 +107,18 @@ Phases, each of which fails the run with a non-zero exit:
      each kernel's launches per step equal the walk of
      ``expected_train_launches``; every flash backward launch takes the
      TMA route.
+  7'. train fp32 (fault F9): the same step with the model in fp32 (1 + 3
+     steps) in configuration (c), so that K6 runs too (phase 16' runs
+     (a)), the same checks, every kernel launch on its fp32 route (the
+     flash backward's fp32 kernels), none on a bf16 route and no call of
+     the plain backward.
   8. train reference: the loss and the trainable gradients of one step at
      a small width on the card (bf16, kernels) against the CPU (fp32,
      plain versions), same weights, batch and draws, with and without
      remat; each fuser gate's gradient on its own, beside two witnesses
-     held to nothing (the card's module path in bf16, the CPU in bf16).
+     held to nothing (the card's module path in bf16, the CPU in bf16);
+     and the same in fp32 on the card (remat), under the FP32_TRAIN_*
+     limits.
   9. tools: the port's measurement tools in this process at full ds1
      width, in configuration (a): the projection budget
      (``tools/bench_proj.py``: every K7 row launched K7 and no K2 kernel,
@@ -215,6 +231,11 @@ Phases, each of which fails the run with a non-zero exit:
      one request; s/step with data, the host's decode and collate per
      batch, peak memory, and the device's idle share over two traced
      steps.  Where libjpeg is missing, a JPEG row must raise naming it.
+ 16'. trainer fp32 (fault F9; right after 16): ``main --dtype float32``
+     on phase 16's TSV, 2 steps at full width (box grounding, the live VAE
+     encode): finite losses, frozen tensors bit for bit, every trainable
+     moved, launches as ``expected_train_launches``, all on the fp32
+     routes, no call of the plain backward.
  18. serving (M13; right after 15, in the same host state): phase 4's
      model served by ``serving/server.py``'s ``ServingSession`` (a 25 ms
      batching window) over ``make_server`` on 127.0.0.1 in a thread:
@@ -272,7 +293,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # the card's name, the bound, the timer and the de-zeroing, shared with the
-# package's tools
+# package's tools; the fp32 forward's scaled LSE rows (fault F10)
+from gligen_tpu_torch.tools.lse_rows import lse_rows, row_line
 from gligen_tpu_torch.tools.timing import (FP32_FLOP_PER_S, TF32_TENSOR_FLOP_PER_S, bound,
                                            card_line, dezero_, time_ms)
 
@@ -332,6 +354,15 @@ BWD_REL_TOL = 2e-2
 TRAIN_LOSS_RTOL = 2e-2
 TRAIN_GRAD_RTOL = 1e-1
 GATE_RTOL, GATE_ATOL = 1e-1, 1e-2
+# the same step in fp32 on both sides (fault F9; TF32 off): the card's fp32
+# routes (3xTF32 products, the flash backward's fp32 FMAs, cuBLAS and cuDNN
+# in fp32) against the CPU's plain fp32, the same arithmetic summed in other
+# orders, each kernel within FP32_REL_TOL (1e-4) of its largest output: a
+# hundred times under the bf16 limits for the loss and the gradients, ten
+# times for the gates
+FP32_TRAIN_LOSS_RTOL = 1e-4
+FP32_TRAIN_GRAD_RTOL = 1e-3
+FP32_GATE_RTOL, FP32_GATE_ATOL = 1e-2, 1e-3
 
 # The witness of phase 8: the module path in bf16, no K2/K5/K6 kernel.
 PLAIN_SWITCHES = {"GLIGEN_TPU_FUSED_PROJ": "0", "GLIGEN_TPU_FUSED_NORM": "0",
@@ -378,9 +409,11 @@ def ptxas_configs(report: str) -> list:
     configuration in a ``-Xptxas -v`` report: ``fused_proj_kernel<MODE, BM,
     BN, STAGES>``, ``conv3x3_kernel<BM, BN, STAGES>`` and the fp32 routes'
     ``proj_tf32_kernel<MODE, BM, BN, STAGES, PANEL>`` and
-    ``conv3x3_tf32_kernel<BM, BN, STAGES>``, and the flash forward's fp32
-    ``flash_fwd_f32_qm_kernel<D, NW, BK, NBUF>`` (its ``f32qm::Cfg``), each
-    name read back from the mangled one (a bool argument as 0 or 1)."""
+    ``conv3x3_tf32_kernel<BM, BN, STAGES>``, the flash forward's fp32
+    ``flash_fwd_f32_qm_kernel<D, NW, BK, NBUF>`` (its ``f32qm::Cfg``) and
+    the flash backward's fp32 ``flash_bwd_f32_kernel<D, BA, BB, DKV>`` (its
+    ``f32::Cfg``), each name read back from the mangled one (a bool argument
+    as 0 or 1)."""
     import re
 
     out, name, spills = [], None, (0, 0)
@@ -389,7 +422,8 @@ def ptxas_configs(report: str) -> list:
         if entry:
             tpl = re.search(r"(fused_proj_kernel|conv3x3_kernel|proj_tf32_kernel|"
                             r"conv3x3_tf32_kernel)I((?:L[ib]\d+E)+)E", entry.group(1)) or \
-                re.search(r"(flash_fwd_f32_qm_kernel)I\w*?CfgI((?:L[ib]\d+E)+)E", entry.group(1))
+                re.search(r"(flash_fwd_f32_qm_kernel|flash_bwd_f32_kernel)I\w*?CfgI((?:L[ib]\d+E)+)E",
+                          entry.group(1))
             name = (f"{tpl.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', tpl.group(2)))}>"
                     if tpl else None)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -753,6 +787,14 @@ def check_fp32(torch, unet, device, batch):
                witness=lambda: fa.flash_attention_plain(q, k, v, h, bias=bias),
                count=lambda: fa.flash_fwd.fp32_kernels["qm"])
         del q, k, v, bias
+    # F10: the fp32 forward's LSE with q and k x 1, x 4 and x 8 at ds1's attn1
+    # and fuser and ds2's attn1 (tools/lse_rows.py: x 1 and x 4 held to
+    # FP32_LSE_TOL, x 8 to its derived limit, which one TF32 pass must exceed)
+    for r in lse_rows(torch, device):
+        print(row_line(r), flush=True)
+        results.append(dict(name=r["name"], kind="flash_fwd_fp32_lse", err=r["err"], ms=None,
+                            plain_ms=None, library_ms=None, bound_ms=None, bound_by=None,
+                            ok=r["ok"], limit=r["limit"]))
     # K2's fp32 route (3xTF32) at every level
     for name, kind, b, n, c, k in proj_cases(batch):
         if name.rsplit("_", 1)[0] not in FP32_PROJ:
@@ -1432,6 +1474,126 @@ def check_bwd(torch, cases, device):
     return results
 
 
+def bwd_cases_f32(batch: int):
+    """``bwd_cases`` and, at ds1, the fuser forms of the other modalities'
+    training steps: the gatedSA fuser over N+60 (box+text+image), N+136
+    (keypoint), N+196 and N+64 (the spatial tokenizers) keys, the gatedCA
+    fuser's N queries over 30, 60 and 136 grounding keys and the gatedSA2
+    fuser's 36 queries over N+36 keys; each needs dq and dk/dv (its q and
+    its k/v derive from trainable layers)."""
+    n, d = 4096, 40
+    cases = bwd_cases(batch)
+    cases += [(f"fuser_{name}_ds1", batch, n, n + t, 8, d, True, False)
+              for name, t in (("text_image", GROUNDING_TOKENS["text_image"]),
+                              ("keypoint", GROUNDING_TOKENS["keypoint"]),
+                              ("spatial", SPATIAL_TOKENS["spatial"]),
+                              ("sem", SPATIAL_TOKENS["sem"]))]
+    cases += [(f"gated_ca_{t}_ds1", batch, n, t, 8, d, True, False)
+              for t in GROUNDING_TOKENS.values()]
+    cases.append(("gated_sa2_ds1", batch, GATED_SA2_TOKENS, n + GATED_SA2_TOKENS, 8, d, True,
+                  False))
+    return cases
+
+
+def check_bwd_f32(torch, cases, device):
+    """The flash backward's fp32 route (``flash_bwd_dq_f32``,
+    ``flash_bwd_dkv_f32``: fp32 FMAs on the CUDA cores) against
+    ``flash_attention_bwd_plain`` on the same fp32 card tensors (TF32 off;
+    a nonzero random dO; the LSE and delta from the fp32 forward), each
+    gradient within FP32_REL_TOL of its plain version's largest magnitude,
+    on the "fp32" route, a second call bit for bit the first; beside the
+    plain version's time (all gradients at once) and SDPA's fp32 backward
+    with TF32 off (the library's yardstick), and two bounds: the fp32 FMA
+    rate's (the kernels' arithmetic) and 3xTF32 on the tensor cores' (3 x
+    the operations at TF32_TENSOR_FLOP_PER_S, the least time the card could
+    take for fp32-accurate products; ``bound_ms``).  Each row prints a TF32
+    witness, held to nothing: the plain backward with one-pass TF32
+    products (``allow_tf32``) against the plain version; at least one row's
+    must exceed its limit, or the rows could not tell fp32 from TF32."""
+    from gligen_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    results = []
+    for name, b, n, m, h, d, need_kv, masked in cases:
+        q, k, v, do = (torch.randn((b, L, h * d), generator=gen, device=device)
+                       for L in (n, m, m, n))
+        bias = None
+        if masked:
+            bias = torch.randn((b, m), generator=gen, device=device) * 0.5
+            bias[:, n:] = fa.NEG_INF  # the grounding rows masked
+        out, lse = fa.flash_fwd(q, k, v, h, bias=bias)
+        delta = fa.attention_delta(out, do, h)
+        args = (q, k, v, h, do, lse, delta, bias)
+        calls = {"flash_bwd_dq_fp32": lambda: {"dq": fa.flash_bwd_dq(*args)}}
+        if need_kv:
+            calls["flash_bwd_dkv_fp32"] = lambda: dict(zip(
+                ("dk", "dv", "dbias"), fa.flash_bwd_dkv(*args, dbias=masked)))
+        routes, got, again = {}, {}, {}
+        for kind, call in calls.items():
+            wrapper = fa.flash_bwd_dq if kind == "flash_bwd_dq_fp32" else fa.flash_bwd_dkv
+            routes[kind], out_ = routed(wrapper, call)
+            got.update({key: g for key, g in out_.items() if g is not None})
+            again.update({key: g for key, g in call().items() if g is not None})
+        torch.cuda.synchronize()
+        want = dict(zip(("dq", "dk", "dv", "dbias"), fa.flash_attention_bwd_plain(*args)))
+        errs = {key: ((g - want[key]).abs().max().item(), want[key].abs().max().item())
+                for key, g in got.items()}
+        repeats = all(torch.equal(got[key], again[key]) for key in got)
+        ok = (repeats and all(r == "fp32" for r in routes.values())
+              and all(g.dtype == torch.float32 and g.shape == want[key].shape
+                      and bool(torch.isfinite(g).all())
+                      and errs[key][0] <= FP32_REL_TOL * errs[key][1] for key, g in got.items()))
+        before = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(*args)[:3]))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = before
+        # the gradient one TF32 pass misses by most, its error and its limit
+        witness, wit_limit = max(
+            (((tf32[key] - want[key]).abs().max().item(), FP32_REL_TOL * errs[key][1])
+             for key in got if key in tf32), key=lambda x: x[0] / x[1])
+        plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(*args), iters=3)
+        library_ms = time_ms(sdpa_bwd(torch, q, k, v, h, do, need_kv))
+        flops = 2 * b * h * n * m * d
+        extra = (0 if bias is None else 4 * b * m) + 8 * b * h * n  # bias; lse and delta
+        timings = {"flash_bwd_dq_fp32": (lambda: fa.flash_bwd_dq(*args),
+                                         4 * (3 * b * n + 2 * b * m) * h * d + extra, 3 * flops)}
+        if need_kv:
+            timings["flash_bwd_dkv_fp32"] = (
+                lambda: fa.flash_bwd_dkv(*args, dbias=masked),
+                4 * (2 * b * n + 4 * b * m) * h * d + extra + (4 * b * h * m if masked else 0),
+                4 * flops)
+        desc = " ".join(f"{key} {e:.3e}/{sc:.3e}" for key, (e, sc) in errs.items())
+        for kind, (fn, nbytes, ops) in timings.items():
+            ms = time_ms(fn)
+            bound_ms, bound_by = bound(nbytes, 3 * ops, TF32_TENSOR_FLOP_PER_S)
+            fma_ms, fma_by = bound(nbytes, ops, FP32_FLOP_PER_S)
+            print(f"kernel {kind:18s} {name:20s} q ({b},{n},{h}x{d}) kv {m}"
+                  f"{' bias' if masked else ''} fp32: max_abs_err/max|plain| {desc} (tol "
+                  f"{FP32_REL_TOL} rel; repeats bit for bit: {repeats}) TF32 witness "
+                  f"{witness:.3e} ({witness / wit_limit:.2f}x the tol) route {routes[kind]} "
+                  f"kernel {ms:.4f} ms "
+                  f"{ops / ms / 1e9:.1f} TF/s {100 * fma_ms / ms:.1f}% of the FMA bound; plain "
+                  f"(all grads) {plain_ms:.4f} ms sdpa fp32 bwd {library_ms:.4f} ms fp32 FMA bound "
+                  f"{fma_ms:.4f} ms ({fma_by}, the kernel's arithmetic) 3xTF32 bound "
+                  f"{bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+            keys = ("dq",) if kind == "flash_bwd_dq_fp32" else tuple(k_ for k_ in got if k_ != "dq")
+            results.append(dict(name=f"{name}_fp32", kind=kind, err=max(errs[k_][0] for k_ in keys),
+                                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=bound_ms, bound_by=bound_by, fma_bound_ms=fma_ms,
+                                route=routes[kind], ok=ok, tf32_witness=witness,
+                                limit=wit_limit))
+        del q, k, v, do, out, lse, delta, args, got, again, want, tf32
+        torch.cuda.empty_cache()
+    if not any(r["tf32_witness"] > r["limit"] for r in results):
+        print("kernel flash_bwd_fp32: one-pass TF32 is within every row's tol, so the rows cannot "
+              "tell fp32 from TF32 FAIL", flush=True)
+        for r in results:
+            r["ok"] = False
+    return results
+
+
 def expected_launches(comps, steps, alpha_stages, latent, config, sampler="plms",
                       inpaint=False):
     """Launches of each kernel in one generate call of ``config``, from the
@@ -1581,16 +1743,49 @@ def train_batch(torch, np, rng, batch, size, vocab, ctx_dim, device):
             "grounding": {k: torch.from_numpy(v).to(device) for k, v in grounding.items()}}
 
 
-def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3):
-    """The train step at full SD-1.4 GLIGEN width in configuration (a)
-    with remat 'full'.  Returns (failures, per-step launch counts, line)."""
+class PlainCalls:
+    """Counts the calls of ``flash_attention.flash_attention_bwd_plain`` (the
+    wrappers' CPU path) while open: a run on the card must make none."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        from gligen_tpu_torch.ops import flash_attention as fa
+
+        self._real = fa.flash_attention_bwd_plain
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self._real(*args, **kwargs)
+
+        fa.flash_attention_bwd_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        from gligen_tpu_torch.ops import flash_attention as fa
+
+        fa.flash_attention_bwd_plain = self._real
+
+
+def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3, dtype=None,
+              config="a"):
+    """The train step at full SD-1.4 GLIGEN width in ``config`` (default
+    (a)) with remat 'full', in bf16 (every flash backward launch on the TMA
+    route) or, with ``dtype`` fp32 (fault F9), in fp32 (every kernel launch
+    on its fp32 route: the flash backward's fp32 kernels, no bf16 launch,
+    no call of the plain backward).  Returns (failures, per-step launch
+    counts, line)."""
     from gligen_tpu_torch.inference.pipeline import GligenComponents
     from gligen_tpu_torch.training.train_step import create_train_state, make_train_step
 
-    set_config("a")
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
+    label = "train fp32" if fp32 else "train"
+    set_config(config)
     os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
     failures = []
-    comps = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device,
+    comps = GligenComponents.create(dtype=dtype, seed=seed, device=device,
                                     unet_config={"use_checkpoint": True})
     gen = torch.Generator(device=device).manual_seed(seed + 5)
     dezero_(comps.unet, gen)
@@ -1601,71 +1796,86 @@ def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3):
               for tag, module in (("unet", comps.unet), ("vae", comps.vae),
                                   ("text", comps.text_encoder))
               for n, p in module.named_parameters() if tag != "unet" or n not in state.params}
-    print(f"train: SD-1.4 GLIGEN, {n_train / 1e6:.1f} M trainable of "
+    print(f"{label}: SD-1.4 GLIGEN in {str(dtype)[6:]}, {n_train / 1e6:.1f} M trainable of "
           f"{sum(p.numel() for p in comps.unet.parameters()) / 1e6:.1f} M UNet parameters, "
-          f"{len(state.params)} tensors; {config_desc('a')} remat full; batch {batch} at "
+          f"{len(state.params)} tensors; {config_desc(config)} remat full; batch {batch} at "
           f"{size}^2, live VAE encode", flush=True)
-    expected = expected_train_launches(comps, size, "a", use_checkpoint=True)
+    expected = expected_train_launches(comps, size, config, use_checkpoint=True)
     wrappers = kernel_wrappers()
     data = train_batch(torch, np, np.random.default_rng(seed + 6), batch, size, 49408, 768, device)
     losses, counts, times = [], [], []
     bwd = {name: wrappers[name] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
-    routes = {name: dict(w.routes) for name, w in bwd.items()}
+    routes = {name: dict(w.routes) for name, w in wrappers.items()}
     torch.cuda.reset_peak_memory_stats()
     before = {n: p.detach().clone() for n, p in state.params.items()}
-    for i in range(1 + timed_steps):
-        for w in wrappers.values():
-            w.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses.append(step(state, data, generator=gen)["loss"])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        counts.append({name: w.launches for name, w in wrappers.items()})
-        if i == 0:  # the gradients of the first backward; lr 0 at step 0
-            grads_ok = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
-                           and bool(p.grad.abs().max() > 0) for p in state.params.values())
-            unchanged = all(torch.equal(p, before[n]) for n, p in state.params.items())
-            print(f"train: after step 0: every trainable gradient finite and nonzero {grads_ok}; "
-                  f"no parameter changed (lr 0) {unchanged}", flush=True)
-            if not (grads_ok and unchanged):
-                failures.append("train gradients after step 0")
-            alphas = [p.grad.abs().item() for n, p in state.params.items() if "alpha" in n]
-            print(f"train: |d loss / d alpha| over the {len(alphas)} fuser gates: min "
-                  f"{min(alphas):.3e} max {max(alphas):.3e}", flush=True)
-        if i == 1:
-            changed = all(not torch.equal(p, before[n]) for n, p in state.params.items())
-            print(f"train: after step 1: every trainable tensor changed {changed}", flush=True)
-            if not changed:
-                failures.append("train update at step 1")
+    with PlainCalls() as plain:
+        for i in range(1 + timed_steps):
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(state, data, generator=gen)["loss"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append({name: w.launches for name, w in wrappers.items()})
+            if i == 0:  # the gradients of the first backward; lr 0 at step 0
+                grads_ok = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                               and bool(p.grad.abs().max() > 0) for p in state.params.values())
+                unchanged = all(torch.equal(p, before[n]) for n, p in state.params.items())
+                print(f"{label}: after step 0: every trainable gradient finite and nonzero "
+                      f"{grads_ok}; no parameter changed (lr 0) {unchanged}", flush=True)
+                if not (grads_ok and unchanged):
+                    failures.append(f"{label} gradients after step 0")
+                alphas = [p.grad.abs().item() for n, p in state.params.items() if "alpha" in n]
+                print(f"{label}: |d loss / d alpha| over the {len(alphas)} fuser gates: min "
+                      f"{min(alphas):.3e} max {max(alphas):.3e}", flush=True)
+            if i == 1:
+                changed = all(not torch.equal(p, before[n]) for n, p in state.params.items())
+                print(f"{label}: after step 1: every trainable tensor changed {changed}",
+                      flush=True)
+                if not changed:
+                    failures.append(f"{label} update at step 1")
     peak = torch.cuda.max_memory_allocated() / 2**30
     routes = {name: {r: n - routes[name][r] for r, n in w.routes.items()}
-              for name, w in bwd.items()}
-    copy = sum(r["copy"] for r in routes.values())
-    print(f"train: flash backward launches by route over the {1 + timed_steps} steps {routes} "
-          f"(every one must be tma) {'ok' if copy == 0 else 'FAIL'}", flush=True)
-    if copy:
-        failures.append("flash backward copy route (train)")
+              for name, w in wrappers.items()}
+    if fp32:  # every launch of every kernel on its fp32 route
+        other = {name: {r: n for r, n in rt.items() if r != "fp32" and n}
+                 for name, rt in routes.items()}
+        other = {name: rt for name, rt in other.items() if rt}
+        ok = not other and plain.calls == 0 and all(routes[n]["fp32"] for n in bwd)
+        print(f"{label}: flash backward launches by route over the {1 + timed_steps} steps "
+              f"{ {n: routes[n] for n in bwd} }; launches off the fp32 routes {other}; calls "
+              f"of the plain backward {plain.calls} (every launch must be fp32, none plain) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append("fp32 routes (train fp32)")
+    else:
+        copy = sum(routes[n]["copy"] + routes[n]["fp32"] for n in bwd) + plain.calls
+        print(f"{label}: flash backward launches by route over the {1 + timed_steps} steps "
+              f"{ {n: routes[n] for n in bwd} } (every one must be tma) "
+              f"{'ok' if copy == 0 else 'FAIL'}", flush=True)
+        if copy:
+            failures.append("flash backward copy route (train)")
     losses = [x.item() for x in losses]
     if not all(np.isfinite(losses)):
-        failures.append("train loss not finite")
+        failures.append(f"{label} loss not finite")
     frozen_ok = all(torch.equal(p, frozen[f"{tag}.{n}"])
                     and p.grad is None
                     for tag, module in (("unet", comps.unet), ("vae", comps.vae),
                                         ("text", comps.text_encoder))
                     for n, p in module.named_parameters() if f"{tag}.{n}" in frozen)
-    print(f"train: losses {', '.join(f'{x:.5f}' for x in losses)}; frozen parameters "
+    print(f"{label}: losses {', '.join(f'{x:.5f}' for x in losses)}; frozen parameters "
           f"bit-identical with no gradient {frozen_ok}", flush=True)
     if not frozen_ok:
-        failures.append("train frozen parameters")
+        failures.append(f"{label} frozen parameters")
     for i, c in enumerate(counts):
         got = {name: c[name] for name in expected}
         if got != expected:
-            failures.append(f"train launch count step {i}")
-            print(f"train: step {i} launches {got}, expected {expected} FAIL", flush=True)
-    print(f"train: launches per step {counts[-1]}, expected {expected}", flush=True)
+            failures.append(f"{label} launch count step {i}")
+            print(f"{label}: step {i} launches {got}, expected {expected} FAIL", flush=True)
+    print(f"{label}: launches per step {counts[-1]}, expected {expected}", flush=True)
     s_step = sum(times[1:]) / timed_steps
-    line = (f"train: {s_step:.4f} s/step = {batch / s_step:.3f} img/s (mean of {timed_steps} "
+    line = (f"{label}: {s_step:.4f} s/step = {batch / s_step:.3f} img/s (mean of {timed_steps} "
             f"warm steps: {', '.join(f'{t:.4f}' for t in times[1:])}; warm-up {times[0]:.3f} s), "
             f"batch {batch} at {size}^2, peak memory {peak:.2f} GiB")
     print(line, flush=True)
@@ -1690,25 +1900,34 @@ def train_grads(torch, comps, device, data, draws):
     return loss.item(), grads
 
 
-def train_reference(torch, np, seed, device, use_checkpoint, size=64, batch=2):
+def train_reference(torch, np, seed, device, use_checkpoint, size=64, batch=2, dtype=None):
     """One train step's loss and trainable gradients at ``SMALL`` width:
     the card (bf16, kernels) against the CPU (fp32, plain versions), same
     weights, batch and draws, in configuration (a).  64^2 images give a
     32^2 latent, so the ds1 blocks (1024 tokens) take the fused kernels
     under remat too.  Each fuser gate is held on its own; two witnesses,
     held to nothing, show what bf16 alone does to the gates: the card on
-    the module path (``PLAIN_SWITCHES``) and the CPU in bf16.  Returns
-    (ok, lines)."""
+    the module path (``PLAIN_SWITCHES``) and the CPU in bf16.  With
+    ``dtype`` fp32 (fault F9) the card runs in fp32 (every kernel on its fp32
+    route, TF32 off) under the FP32_TRAIN_* limits, its module path the one
+    witness.  Returns (ok, lines)."""
     from gligen_tpu_torch.inference.pipeline import GligenComponents
+    from gligen_tpu_torch.ops.basic import tf32_off
 
+    fp32 = dtype == torch.float32
+    loss_rtol, grad_rtol = ((FP32_TRAIN_LOSS_RTOL, FP32_TRAIN_GRAD_RTOL) if fp32
+                            else (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL))
+    gate_rtol, gate_atol = (FP32_GATE_RTOL, FP32_GATE_ATOL) if fp32 else (GATE_RTOL, GATE_ATOL)
     set_config("a")
     os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
     config = dict(SMALL, unet_config=dict(SMALL["unet_config"], use_checkpoint=use_checkpoint))
     cpu = GligenComponents.create(dtype=torch.float32, seed=seed, device="cpu", **config)
     dezero_(cpu.unet, torch.Generator().manual_seed(seed + 2))
-    gpu = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device, **config)
-    cpu16 = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device="cpu", **config)
-    for other in (gpu, cpu16):
+    gpu = GligenComponents.create(dtype=torch.float32 if fp32 else torch.bfloat16, seed=seed,
+                                  device=device, **config)
+    cpu16 = None if fp32 else GligenComponents.create(dtype=torch.bfloat16, seed=seed,
+                                                      device="cpu", **config)
+    for other in (gpu, cpu16) if cpu16 else (gpu,):
         for a, b in ((cpu.unet, other.unet), (cpu.vae, other.vae),
                      (cpu.text_encoder, other.text_encoder)):
             b.load_state_dict(a.state_dict())
@@ -1720,15 +1939,17 @@ def train_reference(torch, np, seed, device, use_checkpoint, size=64, batch=2):
              "u_drop": 0.5}
     torch.set_num_threads(4)
     loss_c, grads_c = train_grads(torch, cpu, "cpu", data, draws)
-    runs = {"card": train_grads(torch, gpu, device, data, draws)}
-    os.environ.update(PLAIN_SWITCHES)
-    runs["card module path"] = train_grads(torch, gpu, device, data, draws)
+    with tf32_off():
+        runs = {"card": train_grads(torch, gpu, device, data, draws)}
+        os.environ.update(PLAIN_SWITCHES)
+        runs["card module path"] = train_grads(torch, gpu, device, data, draws)
     set_config("a")
-    runs["CPU bf16"] = train_grads(torch, cpu16, "cpu", data, draws)
+    if cpu16 is not None:
+        runs["CPU bf16"] = train_grads(torch, cpu16, "cpu", data, draws)
 
     gates = sorted(n for n in grads_c if "alpha" in n)
     g_max = max(grads_c[n].abs().item() for n in gates)
-    limit = {n: GATE_RTOL * grads_c[n].abs().item() + GATE_ATOL * g_max for n in gates}
+    limit = {n: gate_rtol * grads_c[n].abs().item() + gate_atol * g_max for n in gates}
     err = {run: {n: (g[n] - grads_c[n]).abs().item() for n in gates}
            for run, (_, g) in runs.items()}
     rel = {n: ((runs["card"][1][n] - g).norm() / g.norm()).item()
@@ -1738,13 +1959,12 @@ def train_reference(torch, np, seed, device, use_checkpoint, size=64, batch=2):
     gates_ok = all(err["card"][n] <= limit[n] for n in gates)
     # a limit at or above its gate's size would let a zero gradient pass
     tight = all(limit[n] < grads_c[n].abs().item() for n in gates)
-    ok = (loss_err <= TRAIN_LOSS_RTOL and rel[worst] <= TRAIN_GRAD_RTOL and gates_ok
-          and tight)
-    head = f"train reference: use_checkpoint={use_checkpoint}:"
+    ok = loss_err <= loss_rtol and rel[worst] <= grad_rtol and gates_ok and tight
+    head = f"train reference{' fp32' if fp32 else ''}: use_checkpoint={use_checkpoint}:"
     lines = [f"{head} loss card {runs['card'][0]:.6f} CPU {loss_c:.6f} (rel err {loss_err:.2e}, "
-             f"tol {TRAIN_LOSS_RTOL}); gradient rel L2 over {len(rel)} tensors: max "
-             f"{rel[worst]:.3e} ({worst}, tol {TRAIN_GRAD_RTOL}); each of the {len(gates)} "
-             f"fuser gates within {GATE_RTOL} of itself + {GATE_ATOL} x {g_max:.4e} "
+             f"tol {loss_rtol}); gradient rel L2 over {len(rel)} tensors: max "
+             f"{rel[worst]:.3e} ({worst}, tol {grad_rtol}); each of the {len(gates)} "
+             f"fuser gates within {gate_rtol} of itself + {gate_atol} x {g_max:.4e} "
              f"{gates_ok}, every limit below its gate's size {tight}; worst error / limit: "
              + ", ".join(f"{run} {max(e[n] / limit[n] for n in gates):.3f}"
                          for run, e in err.items())
@@ -1922,6 +2142,17 @@ KERNEL_META = {
                       "gligen_tpu/ops/pallas_attention.py:684 (_flash_bwd dk/dv/dbias) and "
                       "gligen_tpu/ops/pallas_attention.py:1063 (_flash_packed_bwd dk/dv/dbias)",
                       "attn1_ds1", "train"),
+    # the flash backward's fp32 route (fault F9), launches from phase 7'
+    "flash_bwd_dq_fp32": ("gligen_tpu_torch/csrc/flash_bwd.cu",
+                          "gligen_tpu/ops/pallas_attention.py:627 (_flash_bwd dq) and "
+                          "gligen_tpu/ops/pallas_attention.py:1004 (_flash_packed_bwd dq), "
+                          "q/k/v in fp32: a model trained in fp32", "attn1_ds1_fp32",
+                          "train_fp32"),
+    "flash_bwd_dkv_fp32": ("gligen_tpu_torch/csrc/flash_bwd.cu",
+                           "gligen_tpu/ops/pallas_attention.py:684 (_flash_bwd dk/dv/dbias) and "
+                           "gligen_tpu/ops/pallas_attention.py:1063 (_flash_packed_bwd "
+                           "dk/dv/dbias), q/k/v in fp32: a model trained in fp32",
+                           "attn1_ds1_fp32", "train_fp32"),
     "mm_only": ("gligen_tpu_torch/csrc/fused_proj.cu", "tools/bench_proj.py:90 (mm_only)",
                 "mm_320_320_ds1", "bench_proj"),
     "flash_fwd_fp32": ("gligen_tpu_torch/csrc/flash_fwd.cu",
@@ -3202,6 +3433,113 @@ def run_trainer(torch, np, seed, device, batch=4):
     return failures, tr3, line
 
 
+def run_trainer_fp32(torch, np, seed, device, batch=4, steps=2):
+    """Phase 16' (fault F9): ``gligen_tpu_torch.main.main --dtype float32``
+    in this process on ``configs/flickr_text.yaml`` at full SD-1.4 GLIGEN
+    width (random weights de-zeroed), phase 16's TSV, batch ``batch``,
+    ``steps`` steps, box grounding and the live VAE encode, configuration
+    (a), remat full: finite losses, frozen tensors bit for bit, every
+    trainable moved by the second step, each step's launches against
+    ``expected_train_launches``, every launch of every kernel on its fp32
+    route and no call of the plain backward; checkpoint writes recorded,
+    not made (an fp32 one is ~6 GB).  Returns (failures, line)."""
+    import shutil
+
+    from gligen_tpu_torch import main as train_main
+    from gligen_tpu_torch.training import trainer as trainer_mod
+
+    set_config("a")
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
+    failures = []
+    wrappers = kernel_wrappers()
+    rec = {"steps": [], "saves": [], "start": None, "unet": None}
+    real_components = trainer_mod.GligenComponents
+    real_make, real_save = trainer_mod.make_train_step, trainer_mod.Trainer._save
+
+    class Dezeroed(real_components):
+        @classmethod
+        def create(cls, *args, **kwargs):
+            comps = real_components.create(*args, **kwargs)
+            dezero_(comps.unet, torch.Generator(device=device).manual_seed(seed + 171))
+            rec["unet"] = comps.unet
+            return comps
+
+    def make_recording(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def recording(state, batch_, generator=None, draws=None):
+            if rec["start"] is None:
+                rec["start"] = {n: p.detach().clone() for n, p in rec["unet"].named_parameters()}
+            for w in wrappers.values():
+                w.launches = 0
+            routes = {name: dict(w.routes) for name, w in wrappers.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = step(state, batch_, generator, draws)
+            loss = metrics["loss"].item()
+            rec["steps"].append(dict(
+                t=t, end=time.perf_counter(), loss=loss,
+                launches={name: w.launches for name, w in wrappers.items()},
+                off=sum(n - routes[name][r] for name, w in wrappers.items()
+                        for r, n in w.routes.items() if r != "fp32")))
+            return metrics
+
+        return recording
+
+    def recorded_save(self):
+        rec["saves"].append(self.state.step)
+
+    flags = ["--yaml_file", str(REPO / "configs" / "flickr_text.yaml"), "--DATA_ROOT",
+             str(TRAIN_DIR / "DATA"), "--OUTPUT_ROOT", str(TRAIN_DIR / "OUT_fp32"), "--name",
+             "smoke_fp32", "--batch_size", str(batch), "--warmup_steps", "1", "--workers", "2",
+             "--total_iters", str(steps), "--save_every_iters", "1000", "--dtype", "float32",
+             "--disable_inference_in_training", "true", "--seed", str(seed), "--device",
+             str(device)]
+    trainer_mod.GligenComponents, trainer_mod.make_train_step = Dezeroed, make_recording
+    trainer_mod.Trainer._save = recorded_save
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with PlainCalls() as plain:
+            tr = train_main.main(flags)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        trainer_mod.GligenComponents, trainer_mod.make_train_step = real_components, real_make
+        trainer_mod.Trainer._save = real_save
+    done, start = rec["steps"], rec["start"]
+    losses = [x["loss"] for x in done]
+    finite = len(losses) == steps and bool(np.all(np.isfinite(losses)))
+    fp32 = all(p.dtype == torch.float32 for p in tr.unet.parameters())
+    frozen_ok = all(torch.equal(p, start[n]) for n, p in tr.unet.named_parameters()
+                    if n not in tr.state.params)
+    moved = all(not torch.equal(p, start[n]) for n, p in tr.state.params.items())
+    expected = expected_train_launches(tr.components, 512, "a", use_checkpoint=True)
+    counts_ok = all({k: x["launches"][k] for k in expected} == expected for x in done)
+    off = sum(x["off"] for x in done)
+    bwd = {k: done[-1]["launches"][k] for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+    ok = (finite and fp32 and frozen_ok and moved and counts_ok and off == 0 and plain.calls == 0
+          and all(bwd.values()))
+    s_step = done[-1]["end"] - done[-1]["t"]
+    line = (f"trainer fp32: main() --dtype float32 on configs/flickr_text.yaml, batch {batch}, "
+            f"{steps} steps, 2 fork workers: losses {', '.join(f'{x:.5f}' for x in losses)} "
+            f"finite {finite}; UNet fp32 {fp32}; frozen UNet tensors bit for bit {frozen_ok}; "
+            f"every one of {len(tr.state.params)} trainable tensors moved {moved}; launches per "
+            f"step as expected_train_launches {counts_ok} ({done[-1]['launches']}); launches "
+            f"off the fp32 routes {off}, calls of the plain backward {plain.calls}; last step "
+            f"{s_step:.4f} s; peak memory {peak:.2f} GiB; {wall:.1f} s wall; checkpoint "
+            f"writes recorded, not made, at steps {rec['saves']}")
+    print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("trainer fp32")
+    del tr, start
+    rec.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR / "OUT_fp32", ignore_errors=True)
+    return failures, line
+
+
 def train_idle_share(torch, trainer, batch=4, label="trainer"):
     """The device's idle share over two traced steps of phase 16's Trainer
     (a batch from its loader, profiled with CUDA activity only): 1 - device
@@ -4367,17 +4705,23 @@ def main() -> int:
     for src in SOURCES:
         report = (library_path(src).parent / "ptxas.txt").read_text()
         if src.startswith(("fused_proj", "fused_conv")) or src in ("flash_fwd",
-                                                                   "flash_fwd_f32_sweep"):
+                                                                   "flash_fwd_f32_sweep",
+                                                                   "flash_bwd"):
             # one line per tile configuration
             configs = ptxas_configs(report)
             tc = lambda name: "tf32" in name or "f32_qm" in name
+            fp32 = lambda name: tc(name) or "bwd_f32" in name
             if src in ("fused_proj", "fused_conv", "flash_fwd", "flash_fwd_f32_sweep") and not any(
                     tc(c[0]) for c in configs):
                 print(f"build: {src}: no 3xTF32 kernel read from the ptxas report FAIL")
                 failures.append(f"build {src} no 3xTF32 kernel")
+            if src == "flash_bwd" and sum("bwd_f32" in c[0] for c in configs) != 6:
+                print(f"build: {src}: not the 6 fp32 kernels in the ptxas report FAIL")
+                failures.append(f"build {src} fp32 kernels")
             for name, regs, stores, loads in configs:
-                # the fp32 routes' 3xTF32 kernels must not spill
-                ok = not tc(name) or stores + loads == 0
+                # the fp32 routes' kernels (3xTF32, and the flash backward's
+                # FMA kernels) must not spill
+                ok = not fp32(name) or stores + loads == 0
                 print(f"build: {src}: {name}: {regs} registers, {stores} bytes spill stores, "
                       f"{loads} bytes spill loads{'' if ok else ' FAIL'}")
                 if not ok:
@@ -4404,6 +4748,8 @@ def main() -> int:
     results += check_norms(torch, gn, ln, device, gn32)
     results += check_convs(torch, convs, device)
     results += check_fp32(torch, comps.unet, device, batch)
+    # the flash backward's fp32 route at every fp32 training site (fault F9)
+    results += check_bwd_f32(torch, bwd_cases_f32(4), device)
     failures += [f"kernel {r['kind']} {r['name']}" for r in results if not r["ok"]]
     print(f"kernel: phase 3 took {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -4545,6 +4891,13 @@ def main() -> int:
     train_failures, launches["train"], train_line = run_train(torch, np, args.seed, device)
     failures += train_failures
     print(f"train: phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- 7'. the same in fp32 (fault F9): the flash backward's fp32 route ----
+    t0 = time.perf_counter()
+    train_failures, counts32, train32_line = run_train(torch, np, args.seed, device,
+                                                       dtype=torch.float32, config="c")
+    failures += train_failures
+    launches["train_fp32"] = {f"{name}_fp32": n for name, n in counts32.items()}
+    print(f"train fp32: phase 7' took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 8. small-width train step: card (bf16, kernels) vs CPU (fp32, plain) ----
     t0 = time.perf_counter()
@@ -4553,6 +4906,10 @@ def main() -> int:
         print("\n".join(lines), flush=True)
         if not ok:
             failures.append(f"train reference (use_checkpoint={use_checkpoint})")
+    ok, lines = train_reference(torch, np, args.seed, device, True, dtype=torch.float32)
+    print("\n".join(lines), flush=True)
+    if not ok:
+        failures.append("train reference fp32")
     print(f"train: phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 16. the Trainer through the training command line ----
@@ -4560,6 +4917,11 @@ def main() -> int:
     trainer_failures, trainer, trainer_line = run_trainer(torch, np, args.seed, device)
     failures += trainer_failures
     print(f"trainer: phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- 16'. main --dtype float32 on phase 16's TSV (fault F9) ----
+    t0 = time.perf_counter()
+    trainer_failures, trainer32_line = run_trainer_fp32(torch, np, args.seed, device)
+    failures += trainer_failures
+    print(f"trainer fp32: phase 16' took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 17. the keypoint and spatial modalities trained from the reference's formats ----
     t0 = time.perf_counter()
@@ -4619,6 +4981,7 @@ def main() -> int:
     print("summary: s/img " + ", ".join(f"({c}) {s:.3f}" for c, s in s_per_img.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")
     print(f"summary: {train_line[len('train: '):]} on {card}")
+    print(f"summary: fp32 {train32_line[len('train fp32: '):]}; {trainer32_line} on {card}")
     print(f"summary: {trainer_line[len('trainer: '):]}; {idle_line[len('trainer: '):]} on {card}")
     print(f"summary: {modality_line}; " + "; ".join(l[len('modalities: '):] for l in modality_idle)
           + f" on {card}")

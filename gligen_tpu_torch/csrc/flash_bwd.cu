@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): dq, and dk/dv (+ dbias), bf16
-// in / bf16 out, fp32 probabilities and score gradients.
+// in / bf16 out, fp32 probabilities and score gradients; and its fp32 route
+// (fp32 in / out on the CUDA cores, "the fp32 route" below).
 //
 // Replaces the TPU Pallas backward of gligen_tpu/ops/pallas_attention.py:
 //   * _flash_bwd (:583-701): the dq pallas_call at :627 over _bwd_dq_kernel
@@ -654,6 +655,428 @@ cudaError_t dispatch(Params& p, int batch, int rows, int tile, int stages, cudaS
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------ the fp32 route
+//
+// fp32 q/k/v/dO (a model trained in fp32: python -m gligen_tpu_torch.main
+// --dtype float32), the same function as the TPU's _bwd_dq_kernel :491 and
+// _bwd_dkv_kernel :521, which cast every operand to fp32 (behind the
+// pallas_calls at pallas_attention.py:627/:684 and :1004/:1063).  fp32 in,
+// fp32 out, from the fp32 forward's LSE (log2 units) and delta.
+//
+// What bounds it on the H100: the same 3 (dq) and 4 (dk/dv) products, now
+// in fp32.  On the CUDA cores that is 67 TFLOP/s: ds1 attn1's dq (4 x 8
+// heads x 4096^2 x d 40) does 128.8 GFLOP, 1.92 ms at that rate, and dk/dv
+// 171.8 GFLOP, 2.56 ms; 3xTF32 on the tensor cores would bound them at
+// 0.78 and 1.04 ms.  This route runs on the CUDA cores, by design: a
+// 3xTF32 wgmma backward needs every operand K-major (TF32 wgmma has no
+// transposed operand), so dk/dv would hold Q, dO, Q^T and dO^T of a tile
+// and the block's K and V, each as TF32 hi and lo halves: 320 KB of shared
+// memory at d = 160 with 64 keys and 32 queries, over the 227 KB a block
+// may use.  So these kernels are fp32 FMAs, register-tiled from shared
+// memory, which any head dim fits:
+//   * one kernel, two instances: a block of 256 threads owns BA rows of a
+//     "fixed" side (dq: queries, with Q and dO; dk/dv: keys, with K and V)
+//     and streams tiles of BB rows of the other side (dq: K and V; dk/dv:
+//     Q and dO).  Thread (ty, tx) of the 16 x 16 holds RA = BA / 16 fixed
+//     rows by RB = BB / 16 tile rows of S and dP (dq: S = Q K^T; dk/dv:
+//     S^T = K Q^T), each a sum over the head dim of operands read from
+//     shared memory stored transposed (column c's BA or BB values
+//     contiguous: one 16-byte load gives a thread its four rows);
+//   * P = exp2(s scale log2e + bias log2e - lse) and dS = P (dP - delta)
+//     in registers (dq: lse and delta per thread row, the bias per key from
+//     the tile's side vector, -inf past M; dk/dv: the bias per thread row,
+//     lse and delta per query from the side vector, lse +inf past N), then
+//     through shared memory, tile-row-major, to the accumulation: thread
+//     (ty, tx) owns its RA fixed rows by the columns tx + 16 t of the head
+//     dim: dQ += dS K (dq), dV += P^T dO and dK += dS^T Q (dk/dv), reading
+//     the tile's rows as stored (a half-warp's 16 columns contiguous);
+//   * every sum runs in a fixed order in fp32 registers (no atomics: two
+//     runs give the same bits); dbias is each thread's running sum of its
+//     keys' dS, summed over the 16 threads of a key row by shuffles at the
+//     end;
+//   * ragged edges: rows past N or M load as zeros, P = 0 past M (dq) and
+//     past N (dk/dv), and rows past N or M are not stored.
+// The wrapper (ops/flash_attention.py) checks what the route takes: d, the
+// bases and the strides multiples of 4 elements (16-byte loads).  Tiles per
+// head-dim class: BWD_TILES_F32 there, held by dispatch_f32 below.
+
+#ifndef FLASH_BWD_SWEEP  // the sweep library holds the bf16 kernels only
+namespace f32 {
+
+constexpr int kThreads = 256;
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* bias;   // (B, M) rows at stride s[kBiasRow], natural-log units, or null
+  const float* lse;    // (B, H, N) contiguous, log2 units
+  const float* delta;  // (B, H, N) contiguous
+  float* dq;
+  float* dk;
+  float* dv;
+  float* dbias;  // (B, H, M) contiguous, or null
+  int heads, n, m, d;
+  long long s[kStrides];
+  float scale, scale_log2;
+};
+
+// D: the class's head dim (a multiple of 16 or of 8, the operands' padded
+// width); BA: fixed rows a block; BB: tile rows; DKV: the dk/dv instance.
+template <int D_, int BA_, int BB_, bool DKV_>
+struct Cfg {
+  static constexpr int D = D_, BA = BA_, BB = BB_;
+  static constexpr bool DKV = DKV_;
+  static constexpr int RA = BA / 16, RB = BB / 16;
+  // transposed rows of BA (BB) floats, padded by 4: 16-byte aligned, and a
+  // column's rows land in other banks than the next column's
+  static constexpr int LA = BA + 4, LB = BB + 4;
+  static constexpr int kCols = (D + 15) / 16;  // accumulated columns a thread
+  static constexpr int kRows = DKV ? 2 : 1;    // tiles kept as rows (dq: K; dk/dv: dO, Q)
+  static constexpr int kCoef = DKV ? 2 : 1;    // coefficient tiles (dq: dS; dk/dv: P, dS)
+  static constexpr int kFloats =
+      2 * D * LA + 2 * D * LB + kRows * BB * D + kCoef * BB * LA + 2 * BB;
+  static constexpr int kSmem = 4 * kFloats;
+  static_assert(D % 4 == 0 && BA % 16 == 0 && BB % 16 == 0, "tiles");
+  static_assert(RA == 1 || RA == 2 || RA == 4, "fixed rows a thread");
+  static_assert(RB == 1 || RB == 2 || RB == 4, "tile rows a thread");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+// N consecutive floats of shared memory (N = 1, 2 or 4, aligned to 4 N bytes).
+template <int N>
+__device__ __forceinline__ void lds(float (&x)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  } else {
+    x[0] = p[0];
+  }
+}
+
+// Rows row0 .. row0 + ROWS - 1 of a row-strided fp32 matrix (zeros at rows
+// >= len and columns >= d) into shared memory, by the block's threads:
+// transposed (t[c * LT + r]) when t is given, as rows (w[r * D + c]) when w
+// is.  A thread takes 16 bytes of one row; neighbouring threads neighbouring
+// rows, so the transposed stores hit 32 banks.
+template <int ROWS, int D, int LT>
+__device__ __forceinline__ void load_rows(const float* src, long long sn, int row0, int len, int d,
+                                          float* t, float* w) {
+  for (int u = threadIdx.x; u < ROWS * (D / 4); u += kThreads) {
+    const int r = u % ROWS, c = 4 * (u / ROWS);
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row0 + r < len && c < d)
+      x = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * sn + c);
+    if (t) {
+      t[(c + 0) * LT + r] = x.x;
+      t[(c + 1) * LT + r] = x.y;
+      t[(c + 2) * LT + r] = x.z;
+      t[(c + 3) * LT + r] = x.w;
+    }
+    if (w) *reinterpret_cast<float4*>(w + r * D + c) = x;
+  }
+}
+
+// acc[a][b] += sum over the head dim of at[c][ra + a] * bt[c][rb + b]: two
+// transposed operands, rows of LA and LB floats.
+template <class C>
+__device__ __forceinline__ void product(float (&acc)[C::RA][C::RB], const float* at,
+                                        const float* bt, int ra, int rb) {
+#pragma unroll 8
+  for (int c = 0; c < C::D; ++c) {
+    float x[C::RA], y[C::RB];
+    lds<C::RA>(x, at + c * C::LA + ra);
+    lds<C::RB>(y, bt + c * C::LB + rb);
+#pragma unroll
+    for (int a = 0; a < C::RA; ++a)
+#pragma unroll
+      for (int b = 0; b < C::RB; ++b) acc[a][b] = fmaf(x[a], y[b], acc[a][b]);
+  }
+}
+
+// acc[a][t] += sum over the tile's rows j of coef[j][ra + a] * w[j][tx +
+// 16 t]: the fixed rows' gradient over the head dim's columns tx + 16 t.
+template <class C>
+__device__ __forceinline__ void accumulate(float (&acc)[C::RA][C::kCols], const float* coef,
+                                           const float* w, int ra, int tx) {
+#pragma unroll 4
+  for (int j = 0; j < C::BB; ++j) {
+    float x[C::RA];
+    lds<C::RA>(x, coef + j * C::LA + ra);
+#pragma unroll
+    for (int t = 0; t < C::kCols; ++t) {
+      const int col = tx + 16 * t;
+      if (C::D % 16 == 0 || col < C::D) {
+        const float y = w[j * C::D + col];
+#pragma unroll
+        for (int a = 0; a < C::RA; ++a) acc[a][t] = fmaf(x[a], y, acc[a][t]);
+      }
+    }
+  }
+}
+
+// The fixed rows' gradient, times mul, into a row-strided matrix: rows <
+// valid, columns < d.
+template <class C>
+__device__ __forceinline__ void store_acc(const float (&acc)[C::RA][C::kCols], float* base,
+                                          long long sn, int row0, int valid, int d, int tx,
+                                          float mul) {
+#pragma unroll
+  for (int a = 0; a < C::RA; ++a) {
+    if (row0 + a >= valid) continue;
+#pragma unroll
+    for (int t = 0; t < C::kCols; ++t) {
+      const int col = tx + 16 * t;
+      if (col < d) base[(long long)(row0 + a) * sn + col] = acc[a][t] * mul;
+    }
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_f32_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) float smem[];
+  float* fixed0 = smem;                     // dq: Q^T; dk/dv: K^T   (D x LA)
+  float* fixed1 = fixed0 + C::D * C::LA;    // dq: dO^T; dk/dv: V^T
+  float* tile0 = fixed1 + C::D * C::LA;     // dq: K^T; dk/dv: Q^T   (D x LB)
+  float* tile1 = tile0 + C::D * C::LB;      // dq: V^T; dk/dv: dO^T
+  float* rows0 = tile1 + C::D * C::LB;      // dq: K; dk/dv: dO      (BB x D)
+  float* rows1 = rows0 + C::BB * C::D;      // dk/dv: Q
+  float* coef0 = rows0 + C::kRows * C::BB * C::D;  // dq: dS; dk/dv: P (BB x LA)
+  float* coef1 = coef0 + C::BB * C::LA;            // dk/dv: dS
+  float* side = coef0 + C::kCoef * C::BB * C::LA;  // dq: bias; dk/dv: lse, delta (2 x BB)
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int a0 = blockIdx.x * C::BA, h = blockIdx.y, b = blockIdx.z;
+  const int ra = C::RA * ty, rb = C::RB * tx;  // this thread's fixed rows, tile rows
+  const int len_a = C::DKV ? p.m : p.n, len_b = C::DKV ? p.n : p.m;
+  const long long rows_bh = ((long long)b * p.heads + h) * p.n;  // (b, h)'s lse/delta
+  const float* bias = p.bias ? p.bias + b * p.s[kBiasRow] : nullptr;
+  auto base = [&](const float* x, int i) { return x + b * p.s[i] + h * p.s[i + 1]; };
+
+  // the fixed pair, transposed
+  if constexpr (C::DKV) {
+    load_rows<C::BA, C::D, C::LA>(base(p.k, kK), p.s[kK + 2], a0, p.m, p.d, fixed0, nullptr);
+    load_rows<C::BA, C::D, C::LA>(base(p.v, kV), p.s[kV + 2], a0, p.m, p.d, fixed1, nullptr);
+  } else {
+    load_rows<C::BA, C::D, C::LA>(base(p.q, kQ), p.s[kQ + 2], a0, p.n, p.d, fixed0, nullptr);
+    load_rows<C::BA, C::D, C::LA>(base(p.dout, kDO), p.s[kDO + 2], a0, p.n, p.d, fixed1, nullptr);
+  }
+  // per fixed row: dq its lse and delta (any finite value past N: never
+  // stored); dk/dv its key's bias in log2 units
+  float row_x[C::RA], row_y[C::RA];
+#pragma unroll
+  for (int a = 0; a < C::RA; ++a) {
+    const int r = a0 + ra + a;
+    if constexpr (C::DKV) {
+      row_x[a] = bias && r < p.m ? bias[r] * kLog2e : 0.0f;
+      row_y[a] = 0.0f;
+    } else {
+      row_x[a] = r < p.n ? p.lse[rows_bh + r] : 0.0f;
+      row_y[a] = r < p.n ? p.delta[rows_bh + r] : 0.0f;
+    }
+  }
+
+  float acc0[C::RA][C::kCols], acc1[C::DKV ? C::RA : 1][C::kCols], db[C::RA];
+#pragma unroll
+  for (int a = 0; a < C::RA; ++a) {
+    db[a] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < C::kCols; ++t) {
+      acc0[a][t] = 0.0f;
+      if constexpr (C::DKV) acc1[a][t] = 0.0f;
+    }
+  }
+
+  const int ntiles = (len_b + C::BB - 1) / C::BB;
+  for (int it = 0; it < ntiles; ++it) {
+    const int b0 = it * C::BB;
+    __syncthreads();  // every thread is done with the last tile
+    if constexpr (C::DKV) {
+      load_rows<C::BB, C::D, C::LB>(base(p.q, kQ), p.s[kQ + 2], b0, p.n, p.d, tile0, rows1);
+      load_rows<C::BB, C::D, C::LB>(base(p.dout, kDO), p.s[kDO + 2], b0, p.n, p.d, tile1, rows0);
+      for (int i = tid; i < C::BB; i += kThreads) {
+        const bool valid = b0 + i < p.n;
+        side[i] = valid ? p.lse[rows_bh + b0 + i] : INFINITY;
+        side[C::BB + i] = valid ? p.delta[rows_bh + b0 + i] : 0.0f;
+      }
+    } else {
+      load_rows<C::BB, C::D, C::LB>(base(p.k, kK), p.s[kK + 2], b0, p.m, p.d, tile0, rows0);
+      load_rows<C::BB, C::D, C::LB>(base(p.v, kV), p.s[kV + 2], b0, p.m, p.d, tile1, nullptr);
+      for (int j = tid; j < C::BB; j += kThreads)
+        side[j] = b0 + j < p.m ? (bias ? bias[b0 + j] * kLog2e : 0.0f) : -INFINITY;
+    }
+    __syncthreads();
+
+    // S (S^T) and dP (dP^T), then P and dS in place
+    float s[C::RA][C::RB], dp[C::RA][C::RB];
+#pragma unroll
+    for (int a = 0; a < C::RA; ++a)
+#pragma unroll
+      for (int j = 0; j < C::RB; ++j) s[a][j] = dp[a][j] = 0.0f;
+    product<C>(s, fixed0, tile0, ra, rb);
+    product<C>(dp, fixed1, tile1, ra, rb);
+#pragma unroll
+    for (int a = 0; a < C::RA; ++a)
+#pragma unroll
+      for (int j = 0; j < C::RB; ++j) {
+        float pr, ds;
+        if constexpr (C::DKV) {
+          pr = ex2(fmaf(s[a][j], p.scale_log2, row_x[a] - side[rb + j]));
+          ds = pr * (dp[a][j] - side[C::BB + rb + j]);
+          db[a] += ds;
+        } else {
+          pr = ex2(fmaf(s[a][j], p.scale_log2, side[rb + j] - row_x[a]));
+          ds = pr * (dp[a][j] - row_y[a]);
+        }
+        s[a][j] = pr;
+        dp[a][j] = ds;
+      }
+    // tile-row-major through shared memory: row (rb + j) holds this
+    // thread's RA fixed rows at ra
+#pragma unroll
+    for (int j = 0; j < C::RB; ++j)
+#pragma unroll
+      for (int a = 0; a < C::RA; ++a) {
+        if constexpr (C::DKV) coef1[(rb + j) * C::LA + ra + a] = dp[a][j];
+        coef0[(rb + j) * C::LA + ra + a] = C::DKV ? s[a][j] : dp[a][j];
+      }
+    __syncthreads();
+
+    if constexpr (C::DKV) {
+      accumulate<C>(acc0, coef0, rows0, ra, tx);  // dV += P^T dO
+      accumulate<C>(acc1, coef1, rows1, ra, tx);  // dK += dS^T Q
+    } else {
+      accumulate<C>(acc0, coef0, rows0, ra, tx);  // dQ += dS K
+    }
+  }
+
+  if constexpr (C::DKV) {
+    float* dv = p.dv + b * p.s[kDV] + h * p.s[kDV + 1];
+    float* dk = p.dk + b * p.s[kDK] + h * p.s[kDK + 1];
+    store_acc<C>(acc0, dv, p.s[kDV + 2], a0 + ra, p.m, p.d, tx, 1.0f);
+    store_acc<C>(acc1, dk, p.s[kDK + 2], a0 + ra, p.m, p.d, tx, p.scale);
+    // each key's dS summed over the 16 threads of its row (a half-warp), in
+    // a fixed order
+#pragma unroll
+    for (int a = 0; a < C::RA; ++a)
+#pragma unroll
+      for (int off = 8; off >= 1; off /= 2) db[a] += __shfl_xor_sync(0xffffffffu, db[a], off);
+    if (p.dbias && tx == 0) {
+      float* out = p.dbias + ((long long)b * p.heads + h) * p.m;
+#pragma unroll
+      for (int a = 0; a < C::RA; ++a)
+        if (a0 + ra + a < p.m) out[a0 + ra + a] = db[a];
+    }
+  } else {
+    float* dq = p.dq + b * p.s[kDQ] + h * p.s[kDQ + 1];
+    store_acc<C>(acc0, dq, p.s[kDQ + 2], a0 + ra, p.n, p.d, tx, p.scale);
+  }
+}
+
+template <class C>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((C::DKV ? p.m : p.n) + C::BA - 1) / C::BA, p.heads, batch);
+  flash_bwd_f32_kernel<C><<<grid, kThreads, C::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The head-dim classes at (fixed rows, tile rows): dq (BQ queries, BK keys),
+// dk/dv (BK keys, BQ queries).
+template <int BA, int BB>
+using Dq40 = Cfg<40, BA, BB, false>;
+template <int BA, int BB>
+using Dq80 = Cfg<80, BA, BB, false>;
+template <int BA, int BB>
+using Dq160 = Cfg<160, BA, BB, false>;
+template <int BA, int BB>
+using Dkv40 = Cfg<40, BA, BB, true>;
+template <int BA, int BB>
+using Dkv80 = Cfg<80, BA, BB, true>;
+template <int BA, int BB>
+using Dkv160 = Cfg<160, BA, BB, true>;
+
+// The configurations the library holds, as X-macro lists of (fixed rows,
+// tile rows): the wrapper's table (ops/flash_attention.py:BWD_TILES_F32).
+#define DQ40_F32(X) X(64, 64)
+#define DKV40_F32(X) X(64, 64)
+#define DQ80_F32(X) X(64, 32)
+#define DKV80_F32(X) X(64, 32)
+#define DQ160_F32(X) X(64, 32)
+#define DKV160_F32(X) X(64, 32)
+
+// Launch the dq (DQ) or dk/dv kernel of p.d's head-dim class at (rows,
+// tile), if the lists above hold it; anything else returns
+// cudaErrorInvalidValue.
+template <bool DQ>
+cudaError_t dispatch(const Params& p, int batch, int rows, int tile, cudaStream_t s) {
+  const int key = tiles_key(rows, tile, 0);
+#define CASE_F32(CFG, R, T) \
+  case tiles_key(R, T, 0): return launch<CFG<R, T>>(p, batch, s);
+#define CASE_DQ40_F32(R, T) CASE_F32(Dq40, R, T)
+#define CASE_DQ80_F32(R, T) CASE_F32(Dq80, R, T)
+#define CASE_DQ160_F32(R, T) CASE_F32(Dq160, R, T)
+#define CASE_DKV40_F32(R, T) CASE_F32(Dkv40, R, T)
+#define CASE_DKV80_F32(R, T) CASE_F32(Dkv80, R, T)
+#define CASE_DKV160_F32(R, T) CASE_F32(Dkv160, R, T)
+  if constexpr (DQ) {
+    if (p.d <= 40) {
+      switch (key) { DQ40_F32(CASE_DQ40_F32) }
+    } else if (p.d <= 80) {
+      switch (key) { DQ80_F32(CASE_DQ80_F32) }
+    } else {
+      switch (key) { DQ160_F32(CASE_DQ160_F32) }
+    }
+  } else {
+    if (p.d <= 40) {
+      switch (key) { DKV40_F32(CASE_DKV40_F32) }
+    } else if (p.d <= 80) {
+      switch (key) { DKV80_F32(CASE_DKV80_F32) }
+    } else {
+      switch (key) { DKV160_F32(CASE_DKV160_F32) }
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// What the route takes: a head dim that is a multiple of 4 up to 160, and
+// every base and stride of q, k, v, dO a multiple of 4 elements (16-byte
+// loads); the wrapper checks the same (ops/flash_attention.py:_check_f32).
+bool make_params(Params& p, const void* q, const void* k, const void* v, const void* dout,
+                 const float* bias, const float* lse, const float* delta, int heads, int n,
+                 int m, int d, const long long* strides, float scale) {
+  if (d < 4 || d > kMaxD || d % 4 || n < 1 || m < 1 || heads < 1) return false;
+  const void* ptrs[4] = {q, k, v, dout};
+  const int at[4] = {kQ, kK, kV, kDO};
+  for (int i = 0; i < 4; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 || strides[at[i]] % 4 ||
+        strides[at[i] + 1] % 4 || strides[at[i] + 2] % 4)
+      return false;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.dout = static_cast<const float*>(dout);
+  p.bias = bias;
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = p.dk = p.dv = p.dbias = nullptr;
+  p.heads = heads, p.n = n, p.m = m, p.d = d;
+  for (int i = 0; i < kStrides; ++i) p.s[i] = strides[i];
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  return true;
+}
+
+}  // namespace f32
+#endif  // FLASH_BWD_SWEEP
+
 bool make_params(Params& p, const void* q, const void* k, const void* v, const void* dout,
                  const float* bias, const float* lse, const float* delta, int batch, int heads,
                  int n, int m, int d, const long long* strides, float scale, int tma) {
@@ -720,3 +1143,37 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
   p.pairs = pairs_ok(p, dk, kDK) && pairs_ok(p, dv, kDV);
   return (int)dispatch<false>(p, batch, bk, bq, stages, static_cast<cudaStream_t>(stream));
 }
+
+#ifndef FLASH_BWD_SWEEP
+// The fp32 route: q, k, v, dO, bias, lse, delta and the gradients fp32,
+// strides as above.  (bq, bk) / (bk, bq): the kernel's (fixed rows, tile
+// rows), one this library holds (f32::dispatch); d, every base and every
+// q/k/v/dO stride a multiple of 4 elements, else cudaErrorInvalidValue.
+extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                                const float* bias, const float* lse, const float* delta, void* dq,
+                                int batch, int heads, int n, int m, int d,
+                                const long long* strides, float scale, int bq, int bk,
+                                void* stream) {
+  f32::Params p;
+  if (batch < 1 ||
+      !f32::make_params(p, q, k, v, dout, bias, lse, delta, heads, n, m, d, strides, scale))
+    return (int)cudaErrorInvalidValue;
+  p.dq = static_cast<float*>(dq);
+  return (int)f32::dispatch<true>(p, batch, bq, bk, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* bias, const float* lse, const float* delta,
+                                 void* dk, void* dv, float* dbias, int batch, int heads, int n,
+                                 int m, int d, const long long* strides, float scale, int bk,
+                                 int bq, void* stream) {
+  f32::Params p;
+  if (batch < 1 ||
+      !f32::make_params(p, q, k, v, dout, bias, lse, delta, heads, n, m, d, strides, scale))
+    return (int)cudaErrorInvalidValue;
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.dbias = dbias;
+  return (int)f32::dispatch<false>(p, batch, bk, bq, static_cast<cudaStream_t>(stream));
+}
+#endif  // FLASH_BWD_SWEEP

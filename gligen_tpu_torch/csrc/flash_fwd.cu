@@ -993,7 +993,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(const __grid
 //     hi hi + hi lo + lo hi.  A tile's S is one chain of 3 D / 8 products
 //     (15, 30, 60) and its part of O one chain of 3 BK / 8 (12 or 24), from
 //     zero and added to O by fp32 adds: the tensor cores do not round a
-//     chain of accumulations to nearest, so no chain runs over all M keys;
+//     chain of accumulations to nearest, so no chain runs over all M keys.
+//     Each chain sums its small hi.lo and lo.hi products first and its
+//     hi.hi products last: every step of a chain truncates the running sum
+//     to fp32, so a step costs up to an ulp of that sum, and with the hi.hi
+//     products first the 2 D / 8 small steps each cost an ulp of the whole
+//     score.  On an H100 that order put the LSE of q and k x 4 (scores to
+//     ~150 log2 units) 1.5e-4 from the plain version; hi.hi last, 8e-5
+//     (fault F10; chip_smoke.py phase 3's scaled LSE rows).  Rounding lo
+//     as well (hopper.cuh:split) moved it little and cost 6% at ds1;
 //   * P feeds the RS wgmma from S's accumulator registers: a thread holds
 //     keys 2t and 2t + 1 of each 8-key step, where the TF32 A fragment reads
 //     k = t and t + 4.  So V^T's 8 keys of a step are stored in the order
@@ -1231,7 +1239,8 @@ __global__ void __launch_bounds__(C::kThreads, 1)
     // each) instead of being hoisted out of the loop into 4 D / 8 registers
     asm volatile("" : "+r"(qh0), "+r"(ql0));
 
-    // S = Q K^T, one chain of 3 passes a k8 step
+    // S = Q K^T, one chain: every k8 step's hi.lo and lo.hi, then its hi.hi
+    // (the small terms first, see the note above)
     pin(s);
     wgmma_fence();
 #pragma unroll
@@ -1240,9 +1249,15 @@ __global__ void __launch_bounds__(C::kThreads, 1)
       const uint32_t ko = (kk / 4) * C::BK * 128 + (kk % 4) * 32;
       const uint64_t qh = sw128_desc(qh0 + qo, 16, 1024), ql = sw128_desc(ql0 + qo, 16, 1024);
       const uint64_t kh = sw128_desc(k_hi + ko, 16, 1024), kl = sw128_desc(k_lo + ko, 16, 1024);
-      WgmmaSsTf32<C::BK>::ss(s, qh, kh, kk > 0);
-      WgmmaSsTf32<C::BK>::ss(s, qh, kl, 1);
+      WgmmaSsTf32<C::BK>::ss(s, qh, kl, kk > 0);
       WgmmaSsTf32<C::BK>::ss(s, ql, kh, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::kSteps; ++kk) {
+      const uint32_t qo = (kk / 4) * C::BQ * 128 + (kk % 4) * 32;
+      const uint32_t ko = (kk / 4) * C::BK * 128 + (kk % 4) * 32;
+      WgmmaSsTf32<C::BK>::ss(s, sw128_desc(qh0 + qo, 16, 1024), sw128_desc(k_hi + ko, 16, 1024),
+                             1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1272,8 +1287,8 @@ __global__ void __launch_bounds__(C::kThreads, 1)
       split_tc(s[4 * j + 1], ph[j][2], pl[j][2]);
       split_tc(s[4 * j + 3], ph[j][3], pl[j][3]);
     }
-    // this tile's part of O, from zero: a chain of 3 passes a step, over
-    // each kON columns of the head dim in turn
+    // this tile's part of O, from zero: a chain of every step's hi.lo and
+    // lo.hi, then its hi.hi, over each kON columns of the head dim in turn
 #pragma unroll
     for (int part = 0; part < C::D / C::kON; ++part) {
       float ot[C::kON / 2];
@@ -1283,9 +1298,13 @@ __global__ void __launch_bounds__(C::kThreads, 1)
       for (int j = 0; j < C::BK / 8; ++j) {
         const uint32_t vo = (j / 4) * C::D * 128 + part * C::kON * 128 + (j % 4) * 32;
         const uint64_t vh = sw128_desc(v_hi + vo, 16, 1024), vl = sw128_desc(v_lo + vo, 16, 1024);
-        WgmmaRsTf32<C::kON>::rs(ot, ph[j], vh, j > 0);
-        WgmmaRsTf32<C::kON>::rs(ot, ph[j], vl, 1);
+        WgmmaRsTf32<C::kON>::rs(ot, ph[j], vl, j > 0);
         WgmmaRsTf32<C::kON>::rs(ot, pl[j], vh, 1);
+      }
+#pragma unroll
+      for (int j = 0; j < C::BK / 8; ++j) {
+        const uint32_t vo = (j / 4) * C::D * 128 + part * C::kON * 128 + (j % 4) * 32;
+        WgmmaRsTf32<C::kON>::rs(ot, ph[j], sw128_desc(v_hi + vo, 16, 1024), 1);
       }
       wgmma_commit();
       if (C::NBUF == 2 && part == C::D / C::kON - 1 && it + 1 < ntiles) {

@@ -23,7 +23,8 @@ CUDA tensor; it never falls back from one to the other.  Every kernel
 loads its bf16 operands by TMA where TMA can read them (``tma_ok``) and by
 plain copies otherwise: a choice made from the layout, before the launch,
 and counted per route.  Each kernel's tiles come from a fixed table by
-head dim (``FWD_TILES``, ``BWD_TILES``) that its library is built at.
+head dim (``FWD_TILES``, ``BWD_TILES``, and the fp32 routes'
+``FWD_TILES_F32``, ``BWD_TILES_F32``) that its library is built at.
 The forward also takes fp32 q/k/v (a model served in fp32, and the
 inpaint image's fp32 VAE encode): a route of its own, ``flash_fwd_f32`` of
 the same source (``launch_fwd_f32``), counted as route "fp32": fp32 in and
@@ -32,7 +33,10 @@ hi + lo in TF32; hi.hi + hi.lo + lo.hi), fp32-accurate to a few ulps.  Two
 kernels serve it, named by their tiles in ``FWD_TILES_F32``: the UNet's
 head dims (d <= 160) take ``flash_fwd_f32_qm_kernel`` (queries as the
 products' rows), the VAE's 512 ``flash_fwd_f32_kernel`` (keys as the rows);
-``FlashForward.fp32_kernels`` counts each one's launches.
+``FlashForward.fp32_kernels`` counts each one's launches.  The backward's
+fp32 route (a model trained in fp32), ``flash_bwd_dq_f32`` and
+``flash_bwd_dkv_f32`` of ``csrc/flash_bwd.cu``, computes in fp32 on the
+CUDA cores at the tiles of ``BWD_TILES_F32``, counted as route "fp32".
 """
 
 from __future__ import annotations
@@ -206,14 +210,16 @@ def launch_fwd_f32(library, q, k, v, heads, bias, tiles):
     return out, lse
 
 
-def _check_f32(q, k, v, heads, bias):
-    """What the fp32 route takes: ``_check_inputs`` in fp32, and what TMA
-    reads of an fp32 operand (a head dim, every base and every stride a
-    multiple of 4 elements: 16 bytes)."""
+def _check_f32(q, k, v, heads, bias, op="flash_fwd", more=()):
+    """What the fp32 routes take: ``_check_inputs`` in fp32, and what TMA
+    (the forward) and 16-byte loads (the backward) read of an fp32 operand:
+    a head dim, every base and every stride a multiple of 4 elements (16
+    bytes), of q, k, v and ``more`` (the backward's dO)."""
     _check_inputs(q, k, v, heads, bias, dtype=torch.float32)
     c = q.shape[2] // heads
-    if c % 4 or any(t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4 for t in (q, k, v)):
-        raise ValueError(f"flash_fwd fp32: head dim {c}, bases and strides must be multiples "
+    if c % 4 or any(t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4
+                    for t in (q, k, v, *more)):
+        raise ValueError(f"{op} fp32: head dim {c}, bases and strides must be multiples "
                          "of 4 elements (16 bytes)")
 
 
@@ -247,7 +253,7 @@ class Counted:
     """A flash kernel's wrapper: ``launches`` counts kernel launches (never
     plain-version calls), so a run can show that its attention went
     through the kernel; ``routes`` counts them by route ("tma" or
-    "copy", and the forward's "fp32").  The counts take a lock: a server
+    "copy", and the fp32 routes' "fp32").  The counts take a lock: a server
     launches from several threads at once."""
 
     def __init__(self, routes=("tma", "copy")):
@@ -340,11 +346,18 @@ def flash_attention_bwd_plain(
 
 
 def _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias):
-    _check_inputs(q, k, v, heads, bias)
+    """What the backward kernels take: bf16 q/k/v as the forward's bf16
+    routes take them, or fp32 q/k/v as its fp32 route does (``_check_f32``:
+    multiples of 4 elements, dO included); dO contiguous, of q's dtype and
+    shape; the LSE and delta contiguous fp32 (B, H, N)."""
     b, n, hc = q.shape
-    bwd_tiles(hc // heads)  # raises above MAX_BWD_HEAD_DIM
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or not do.is_contiguous():
         raise ValueError(f"dO must be a contiguous {q.dtype} tensor of q's shape {tuple(q.shape)}")
+    if q.dtype == torch.float32:
+        _check_f32(q, k, v, heads, bias, op="flash_bwd", more=(do,))
+    else:
+        _check_inputs(q, k, v, heads, bias)
+    bwd_tiles(hc // heads)  # raises above MAX_BWD_HEAD_DIM
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (b, heads, n) or t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != q.device:
@@ -371,10 +384,31 @@ def bwd_tiles(d: int) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
     raise ValueError(f"flash backward: head dim {d} above {MAX_BWD_HEAD_DIM}")
 
 
+# The fp32 route's tile table, by head-dim class: (largest head dim, dq's (BQ
+# query rows, BK keys), dk/dv's (BK keys, BQ query rows)).  The serving
+# library (csrc/flash_bwd.cu:f32::dispatch, its *_F32 lists) holds exactly
+# these and refuses any other.
+BWD_TILES_F32 = (
+    (40, (64, 64), (64, 64)),
+    (80, (64, 32), (64, 32)),
+    (160, (64, 32), (64, 32)),
+)
+
+
+def bwd_tiles_f32(d: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """(dq tiles, dk/dv tiles) of the fp32 route for head dim ``d``."""
+    for top, dq, dkv in BWD_TILES_F32:
+        if d <= top:
+            return dq, dkv
+    raise ValueError(f"flash backward: head dim {d} above {MAX_BWD_HEAD_DIM}")
+
+
 def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
               heads: int) -> str:
-    """"tma" or "copy": how the backward kernels load these operands
-    (``tma_ok`` over q, k, v and dO)."""
+    """"tma" or "copy": how the backward kernels load these bf16 operands
+    (``tma_ok`` over q, k, v and dO); "fp32" for fp32 ones."""
+    if q.dtype == torch.float32:
+        return "fp32"
     layouts = [(t.data_ptr(), t.stride(0), t.stride(1)) for t in (q, k, v, do)]
     return "tma" if tma_ok(q.shape[2] // heads, layouts) else "copy"
 
@@ -387,14 +421,19 @@ _BWD_ENTRIES = {
     # q, k, v, do, bias, lse, delta, dk, dv, dbias, batch, heads, n, m, d,
     # strides, scale, tma, BK, BQ, stages
     "dkv": ("flash_bwd_dkv_bf16", (PTR,) * 10 + (I32,) * 5 + (STRIDES, F32) + (I32,) * 4),
+    # the fp32 route: the same, without tma, and (fixed rows, tile rows)
+    "dq_f32": ("flash_bwd_dq_f32", (PTR,) * 8 + (I32,) * 5 + (STRIDES, F32) + (I32,) * 2),
+    "dkv_f32": ("flash_bwd_dkv_f32", (PTR,) * 10 + (I32,) * 5 + (STRIDES, F32) + (I32,) * 2),
 }
 
 
 def launch_bwd(library, kind, q, k, v, heads, do, lse, delta, bias, tiles, dbias=False):
     """One launch of ``library``'s backward entry ``kind`` ("dq" or "dkv")
-    at ``tiles`` on checked CUDA inputs.  Returns (dq, route) or ((dk, dv,
-    per-head dbias (B, H, M) or None), route).  Raises if the library does
-    not hold that configuration for this head dim."""
+    at ``tiles`` on checked CUDA inputs: the bf16 entries (``BWD_TILES``'
+    triples) or, for fp32 inputs, the fp32 ones (``BWD_TILES_F32``' pairs).
+    Returns (dq, route) or ((dk, dv, per-head dbias (B, H, M) or None),
+    route).  Raises if the library does not hold that configuration for this
+    head dim."""
     b, n, hc = q.shape
     m = k.shape[1]
     c = hc // heads
@@ -413,12 +452,13 @@ def launch_bwd(library, kind, q, k, v, heads, do, lse, delta, bias, tiles, dbias
         strides += [t.stride(0), c, t.stride(1)] if t is not None else [0, 0, 0]
     strides.append(bias.stride(0) if bias is not None else 0)
     route = bwd_route(q, k, v, do, heads)
-    entry, argtypes = _BWD_ENTRIES[kind]
+    entry, argtypes = _BWD_ENTRIES[kind + "_f32" if route == "fp32" else kind]
+    tma = () if route == "fp32" else (int(route == "tma"),)
     err = c_entry(library, entry, argtypes)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr(),
         *outs, b, heads, n, m, c, (ctypes.c_longlong * len(strides))(*strides), c**-0.5,
-        int(route == "tma"), *tiles, torch.cuda.current_stream(q.device).cuda_stream,
+        *tma, *tiles, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{library} {entry} launch failed (d {c}, {route} route, tiles "
@@ -428,15 +468,26 @@ def launch_bwd(library, kind, q, k, v, heads, do, lse, delta, bias, tiles, dbias
     return (grads["dk"], grads["dv"], db), route
 
 
+def _bwd_tiles_of(q: torch.Tensor, heads: int, kind: int):
+    """The backward kernel's tiles for q's dtype (``BWD_TILES_F32`` for
+    fp32, else ``BWD_TILES``); kind 0 dq, 1 dk/dv."""
+    table = bwd_tiles_f32 if q.dtype == torch.float32 else bwd_tiles
+    return table(q.shape[2] // heads)[kind]
+
+
 class FlashBackwardDq(Counted):
-    """dq kernel of ``csrc/flash_bwd.cu`` (routes by ``bwd_route``)."""
+    """dq kernel of ``csrc/flash_bwd.cu`` (routes by ``bwd_route``: "tma"
+    or "copy" for bf16, "fp32")."""
+
+    def __init__(self):
+        super().__init__(("tma", "copy", "fp32"))
 
     def __call__(self, q, k, v, heads, do, lse, delta, bias=None) -> torch.Tensor:
         """dq of ``flash_attention_bwd_plain``, in q's dtype."""
         if not on_cuda(q, "flash_bwd_dq"):
             return flash_attention_bwd_plain(q, k, v, heads, do, lse, delta, bias)[0]
         _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias)
-        tiles = bwd_tiles(q.shape[2] // heads)[0]
+        tiles = _bwd_tiles_of(q, heads, 0)
         dq, route = launch_bwd("flash_bwd", "dq", q, k, v, heads, do, lse, delta, bias, tiles)
         self._count(route)
         return dq
@@ -444,7 +495,10 @@ class FlashBackwardDq(Counted):
 
 class FlashBackwardDkv(Counted):
     """dk/dv (and dbias) kernel of ``csrc/flash_bwd.cu`` (routes by
-    ``bwd_route``)."""
+    ``bwd_route``: "tma" or "copy" for bf16, "fp32")."""
+
+    def __init__(self):
+        super().__init__(("tma", "copy", "fp32"))
 
     def __call__(self, q, k, v, heads, do, lse, delta, bias=None, dbias: bool = False):
         """(dk, dv, dbias) of ``flash_attention_bwd_plain``; dbias (B, M)
@@ -455,7 +509,7 @@ class FlashBackwardDkv(Counted):
             _, dk, dv, db = flash_attention_bwd_plain(q, k, v, heads, do, lse, delta, bias)
             return dk, dv, db if dbias else None
         _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias)
-        tiles = bwd_tiles(q.shape[2] // heads)[1]
+        tiles = _bwd_tiles_of(q, heads, 1)
         (dk, dv, db), route = launch_bwd("flash_bwd", "dkv", q, k, v, heads, do, lse, delta,
                                          bias, tiles, dbias=dbias)
         self._count(route)

@@ -12,7 +12,8 @@ products (fp32 accumulation) and write bf16 gradients; the plain version
 computes in fp32 from the same bf16 inputs, LSE and delta.  Each gradient
 agrees to 2e-2 of its largest magnitude: a few bf16 ulps (2^-8 relative)
 of the largest entries, summed over up to 4126 products.  dbias is fp32:
-the same bound.
+the same bound.  The fp32 route's cases (below) are held to 1e-4 of the
+largest magnitude: fp32 sums in another order.
 """
 
 import pytest
@@ -199,3 +200,156 @@ def test_head_dim_above_the_kernels_raises(cuda):
     lse = torch.zeros((1, 2, 16), device=cuda)
     with pytest.raises(ValueError, match="head dim 192"):
         fa.flash_bwd_dq(q, q, q, 2, q, lse, lse)
+
+
+# ---------------------------------------------------------------- the fp32 route
+#
+# fp32 q/k/v/dO (a model trained in fp32, fault F9): flash_bwd_dq_f32 and
+# flash_bwd_dkv_f32, fp32 FMAs on the CUDA cores.  Tolerance: each gradient
+# within FP32_REL_TOL = 1e-4 of the plain version's largest magnitude (the
+# plain version computes the same fp32 sums in another order, with TF32
+# off), chip_smoke.py's fp32 limit; one-pass TF32 misses it.
+
+FP32_REL_TOL = 1e-4
+
+
+def inputs_f32(device, b, n, m, h, d, masked, seed):
+    """Seeded fp32 q, k, v, dO (and a key mask's bias), with the LSE and
+    delta of the fp32 forward."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn((b, L, h * d), generator=gen, device=device) for L in (n, m, m, n))
+    bias = None
+    if masked:
+        bias = torch.randn((b, m), generator=gen, device=device) * 0.5
+        bias[:, m // 2 + 3:] = fa.NEG_INF
+    out, lse = fa.flash_fwd(q, k, v, h, bias=bias)
+    return q, k, v, do, bias, lse, fa.attention_delta(out, do, h)
+
+
+def assert_close_f32(got, want, name):
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all(), name
+    assert scale > 0 and err <= FP32_REL_TOL * scale, \
+        f"{name}: max abs err {err:.3e}, max |plain| {scale:.3e}"
+
+
+@pytest.fixture
+def tf32_off(cuda):
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,n,m,h,d,masked",
+    [
+        (2, 256, 256, 8, 40, False),   # attn1 at a small map, head dim 40
+        (2, 1024, 1054, 4, 80, False),  # the fuser's N + 30 keys: a ragged key tile
+        (2, 256, 286, 8, 160, False),  # head dim 160, ragged keys
+        (2, 64, 77, 8, 160, False),    # cross-attention over 77 text tokens
+        (2, 200, 170, 2, 64, True),    # a key mask with dbias, ragged query tile
+        (1, 100, 90, 2, 36, True),     # head dim 36 (a multiple of 4, not of 8)
+        (2, 333, 77, 4, 40, False),    # 77 keys at d 40; N a multiple of no tile
+        (2, 50, 4126, 2, 40, False),   # the fuser's ragged 4126 keys; N under one tile
+        (1, 300, 4126, 2, 40, True),   # 4126 keys with a key mask and dbias
+        (2, 36, 292, 8, 40, False),    # gatedSA2: 36 queries over N + 36 keys
+        (2, 90, 150, 2, 160, True),    # a key mask with dbias at d 160
+    ],
+)
+def test_fp32_dq_dkv_dbias_match_plain(tf32_off, b, n, m, h, d, masked):
+    """Both fp32 kernels in every head-dim class, on the "fp32" route."""
+    cuda = tf32_off
+    q, k, v, do, bias, lse, delta = inputs_f32(cuda, b, n, m, h, d, masked, seed=n + m + d)
+    routes = (dict(fa.flash_bwd_dq.routes), dict(fa.flash_bwd_dkv.routes))
+    dq = fa.flash_bwd_dq(q, k, v, h, do, lse, delta, bias)
+    dk, dv, db = fa.flash_bwd_dkv(q, k, v, h, do, lse, delta, bias, dbias=masked)
+    torch.cuda.synchronize()
+    for wrapper, before in zip((fa.flash_bwd_dq, fa.flash_bwd_dkv), routes):
+        assert wrapper.routes == dict(before, fp32=before["fp32"] + 1), (before, wrapper.routes)
+    want = fa.flash_attention_bwd_plain(q, k, v, h, do, lse, delta, bias)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.shape == w.shape
+        assert_close_f32(got, w, name)
+    if masked:
+        assert db.shape == (b, m)
+        assert_close_f32(db, want[3], "dbias")
+        assert dk[:, m // 2 + 3:].abs().max().item() == 0.0
+        assert dv[:, m // 2 + 3:].abs().max().item() == 0.0
+    else:
+        assert db is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_fp32_repeat_runs_are_bit_identical(tf32_off, d):
+    """No atomics in the fp32 kernels either: two runs, the same bits."""
+    q, k, v, do, bias, lse, delta = inputs_f32(tf32_off, 2, 300, 330, 4, d, True, seed=8)
+    first = (fa.flash_bwd_dq(q, k, v, 4, do, lse, delta, bias),
+             *fa.flash_bwd_dkv(q, k, v, 4, do, lse, delta, bias, dbias=True))
+    second = (fa.flash_bwd_dq(q, k, v, 4, do, lse, delta, bias),
+              *fa.flash_bwd_dkv(q, k, v, 4, do, lse, delta, bias, dbias=True))
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+def test_fp32_tf32_witness_misses_the_limit(tf32_off):
+    """The plain backward with one-pass TF32 products (``allow_tf32``)
+    misses FP32_REL_TOL where the kernels meet it: the tests tell fp32 from
+    TF32."""
+    q, k, v, do, bias, lse, delta = inputs_f32(tf32_off, 2, 512, 512, 8, 40, False, seed=9)
+    dq = fa.flash_bwd_dq(q, k, v, 8, do, lse, delta)
+    want = fa.flash_attention_bwd_plain(q, k, v, 8, do, lse, delta)
+    assert_close_f32(dq, want[0], "dq")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32 = fa.flash_attention_bwd_plain(q, k, v, 8, do, lse, delta)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert max((a - w).abs().max().item() / w.abs().max().item()
+               for a, w in zip(tf32[:3], want[:3])) > FP32_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["base", "row_stride"])
+def test_fp32_unaligned_input_is_refused(cuda, what):
+    """The fp32 route takes what 16-byte loads read and raises on anything
+    else, before any launch: no copy, no bf16 cast, no plain fallback."""
+    q, k, v, do, bias, lse, delta = inputs_f32(cuda, 1, 64, 64, 2, 40, False, seed=10)
+    if what == "base":
+        q = torch.zeros(64 * 80 + 1, device=cuda)[1:].reshape(1, 64, 80)
+    else:
+        k = torch.zeros((1, 64, 82), device=cuda)[..., :80]  # rows 82 elements apart
+    counts = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="multiples of 4 elements"):
+        fa.flash_bwd_dq(q, k, v, 2, do, lse, delta)
+    with pytest.raises(ValueError, match="multiples of 4 elements"):
+        fa.flash_bwd_dkv(q, k, v, 2, do, lse, delta)
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == counts
+
+
+@pytest.mark.gpu
+def test_fp32_untabled_tiles_are_refused(cuda):
+    """The library holds the fp32 kernels at BWD_TILES_F32 only."""
+    q, k, v, do, bias, lse, delta = inputs_f32(cuda, 1, 64, 64, 2, 80, False, seed=5)
+    assert fa.bwd_tiles_f32(80)[0] != (64, 64)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.launch_bwd("flash_bwd", "dq", q, k, v, 2, do, lse, delta, None, (64, 64))
+
+
+@pytest.mark.gpu
+def test_fp32_function_matches_plain_autograd(tf32_off):
+    """The autograd Function in fp32 (the fp32 forward and backward
+    kernels) against autograd through the plain forward on the same
+    values."""
+    b, n, m, h, d = 2, 70, 100, 2, 40
+    q, k, v, do, bias, _, _ = inputs_f32(tf32_off, b, n, m, h, d, True, seed=3)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, bias)]
+    routes = dict(fa.flash_bwd_dq.routes)
+    got = torch.autograd.grad(fa.FlashAttention.apply(*leaves, h), leaves, do)
+    assert fa.flash_bwd_dq.routes["fp32"] == routes["fp32"] + 1
+    ref = [t.detach().clone().requires_grad_(True) for t in (q, k, v, bias)]
+    want = torch.autograd.grad(fa.flash_attention_plain(*ref[:3], h, bias=ref[3])[0], ref, do)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert_close_f32(g, w, name)

@@ -23,7 +23,9 @@ an fp32 softmax: its outputs within 1e-4 of the plain version's largest
 magnitude, its LSE within 1e-4; one-pass TF32 products miss that limit at
 the VAE head and at attn1 ds1 with sharp scores.  Head dims up to 160 (the
 UNet's) run the queries-as-rows kernel, 512 (the VAE's) the keys-as-rows
-one (``flash_fwd.fp32_kernels`` counts each).
+one (``flash_fwd.fp32_kernels`` counts each).  With q and k scaled x 4 its
+LSE stays within 1e-4 too; at x 8, where the plain fp32 LSE is itself
+~2e-4 from fp64, within ``tools/lse_rows.py:derived_limit`` (fault F10).
 """
 
 import pytest
@@ -433,3 +435,24 @@ def test_fp32_sweep_configurations_match_plain(cuda, monkeypatch, d, tiles):
     out, lse = launch_fwd_f32("flash_fwd_f32_sweep", q, k, v, 4, None, tiles)
     assert flash_fwd.launches == before  # no serving count
     assert_fp32_close(out, lse, *flash_attention_plain(q, k, v, 4))
+
+
+# ---- fault F10: the fp32 route's LSE at scaled logits (tools/lse_rows.py)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [4, 8])
+@pytest.mark.parametrize("case", ["attn1_ds1", "attn1_ds2", "fuser_ds1"])
+def test_fp32_lse_at_scaled_logits(cuda, monkeypatch, case, scale):
+    """q and k x 4 (scores to ~150 log2 units) and x 8 (~600) at ds1's attn1
+    and fuser and ds2's attn1, batch 4: the LSE within FP32_LSE_TOL = 1e-4
+    of the plain version at x 4, which the queries-as-rows kernel meets
+    with each chain's hi.hi products last; at x 8, where the plain fp32 LSE
+    is itself ~2e-4 from fp64, within ``lse_rows.derived_limit`` (the two
+    fp32 computations' worst-case error), which one TF32 pass exceeds."""
+    from gligen_tpu_torch.tools import lse_rows
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    (row,) = lse_rows.lse_rows(torch, cuda, cases=[c for c in lse_rows.CASES if c[0] == case],
+                               scales=(scale,))
+    assert row["derived"] == (scale == 8) and (scale == 8 or row["limit"] == 1e-4)
+    assert row["ok"], lse_rows.row_line(row)

@@ -9,7 +9,8 @@ not installed (the GPU machine):
     python -m pytest tests/test_torch_trainer_cuda.py -m gpu --noconftest -q
 
 Tolerances: exact (bytes, pixels, restored tensors); the small train
-step's loss finite.
+step's loss finite; the small fp32 step against the CPU's as
+``chip_smoke.FP32_TRAIN_*`` state.
 """
 
 import json
@@ -102,3 +103,24 @@ def test_small_trainer_trains_saves_and_resumes_on_the_card(cuda, tmp_path):
     for name, p in again.state.params.items():
         assert torch.equal(p.detach().cpu(), saved["train_params"][name])
         assert torch.equal(again.state.ema_params[name].cpu(), saved["ema_params"][name])
+
+
+def test_small_fp32_train_step_matches_the_cpu(cuda, monkeypatch):
+    """Fault F9: one train step of a model in fp32 on the card (every
+    kernel on its fp32 route, the flash backward's fp32 kernels among them;
+    TF32 off) against the CPU's fp32 plain step, same weights, batch and
+    draws (chip_smoke.py phase 8's fp32 row): the loss within 1e-4
+    relative, each trainable gradient within 1e-3 relative L2, each fuser
+    gate's within 1e-2 of itself plus 1e-3 of the largest
+    (chip_smoke.FP32_TRAIN_*: the same fp32 arithmetic summed in other
+    orders, each kernel within 1e-4 of its largest output)."""
+    import chip_smoke
+    from gligen_tpu_torch.ops import flash_attention as fa
+
+    for name, value in dict(chip_smoke.CONFIGS["a"], GLIGEN_TPU_REMAT_POLICY="full").items():
+        monkeypatch.setenv(name, value)
+    before = (fa.flash_bwd_dq.routes["fp32"], fa.flash_bwd_dkv.routes["fp32"])
+    ok, lines = chip_smoke.train_reference(torch, np, 0, cuda, True, dtype=torch.float32)
+    assert ok, "\n".join(lines)
+    assert fa.flash_bwd_dq.routes["fp32"] > before[0]
+    assert fa.flash_bwd_dkv.routes["fp32"] > before[1]
