@@ -300,7 +300,8 @@ from gligen_tpu_torch.tools.timing import (FP32_FLOP_PER_S, TF32_TENSOR_FLOP_PER
 
 REPO = Path(__file__).resolve().parent
 SOURCES = ("flash_fwd", "flash_fwd_sweep", "flash_fwd_f32_sweep", "flash_bwd", "flash_bwd_sweep",
-           "fused_proj", "fused_proj_sweep", "fused_norm", "fused_conv", "fused_conv_sweep")
+           "flash_bwd_f32_sweep", "fused_proj", "fused_proj_sweep", "fused_norm", "fused_conv",
+           "fused_conv_sweep")
 
 # flash forward vs plain, bf16 output: the kernel rounds P to bf16 before
 # the PV product and O to bf16, a few bf16 ulps (2^-8 relative) of the
@@ -411,9 +412,12 @@ def ptxas_configs(report: str) -> list:
     ``proj_tf32_kernel<MODE, BM, BN, STAGES, PANEL>`` and
     ``conv3x3_tf32_kernel<BM, BN, STAGES>``, the flash forward's fp32
     ``flash_fwd_f32_qm_kernel<D, NW, BK, NBUF>`` (its ``f32qm::Cfg``) and
-    the flash backward's fp32 ``flash_bwd_f32_kernel<D, BA, BB, DKV>`` (its
-    ``f32::Cfg``), each name read back from the mangled one (a bool argument
-    as 0 or 1)."""
+    the flash backward's fp32 kernels: the 3xTF32
+    ``flash_bwd_dq_tf32_kernel<D, NW, BK, NBUF>`` (``f32::DqCfg``) and
+    ``flash_bwd_dkv_tf32_kernel<D, NW, SPLIT, BQ, NBUF>`` (``f32::DkvCfg``),
+    and the d <= 160 class's FMA ``flash_bwd_f32_kernel<D, BA, BB, DKV>``
+    (``f32::Cfg``), each name read back from the mangled one (a bool
+    argument as 0 or 1)."""
     import re
 
     out, name, spills = [], None, (0, 0)
@@ -422,8 +426,8 @@ def ptxas_configs(report: str) -> list:
         if entry:
             tpl = re.search(r"(fused_proj_kernel|conv3x3_kernel|proj_tf32_kernel|"
                             r"conv3x3_tf32_kernel)I((?:L[ib]\d+E)+)E", entry.group(1)) or \
-                re.search(r"(flash_fwd_f32_qm_kernel|flash_bwd_f32_kernel)I\w*?CfgI((?:L[ib]\d+E)+)E",
-                          entry.group(1))
+                re.search(r"(flash_fwd_f32_qm_kernel|flash_bwd_f32_kernel|flash_bwd_dq_tf32_kernel|"
+                          r"flash_bwd_dkv_tf32_kernel)I\w*?CfgI((?:L[ib]\d+E)+)E", entry.group(1))
             name = (f"{tpl.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', tpl.group(2)))}>"
                     if tpl else None)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -1495,28 +1499,63 @@ def bwd_cases_f32(batch: int):
     return cases
 
 
-def check_bwd_f32(torch, cases, device):
+# q and k x 4 at attn1 ds1 and ds2 (fault F10's scale: scores to ~150 log2
+# units): a truncating 3xTF32 score can miss where FMAs did not, so these
+# rows print each gradient against fp64 beside the plain fp32 version's
+BWD_F32_SCALED = (("attn1_ds1_x4", 4, 4096, 4096, 8, 40, True, False),
+                  ("attn1_ds2_x4", 4, 1024, 1024, 8, 80, True, False))
+BWD_F32_SCALE = 4
+
+
+def bwd_fp64(torch, q, k, v, h, do, bias):
+    """The attention backward in fp64 from q, k, v and dO (its own softmax
+    and delta): (dq, dk, dv, dbias or None), the fp64 column's reference."""
+    b, n, hc = q.shape
+    d = hc // h
+    qh, kh, vh, doh = (t.double().reshape(b, -1, h, d) for t in (q, k, v, do))
+    s = torch.einsum("bnhc,bmhc->bhnm", qh, kh) * d**-0.5
+    if bias is not None:
+        s = s + bias.double()[:, None, None, :]
+    p = torch.softmax(s, -1)
+    del s
+    delta = (torch.einsum("bhnm,bmhc->bnhc", p, vh) * doh).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("bnhc,bmhc->bhnm", doh, vh) - delta)
+    grads = (torch.einsum("bhnm,bmhc->bnhc", ds, kh) * d**-0.5,
+             torch.einsum("bhnm,bnhc->bmhc", ds, qh) * d**-0.5,
+             torch.einsum("bhnm,bnhc->bmhc", p, doh))
+    return (*(g.reshape(b, -1, hc) for g in grads), None if bias is None else ds.sum((1, 2)))
+
+
+def check_bwd_f32(torch, cases, device, scaled=()):
     """The flash backward's fp32 route (``flash_bwd_dq_f32``,
-    ``flash_bwd_dkv_f32``: fp32 FMAs on the CUDA cores) against
+    ``flash_bwd_dkv_f32``: the 3xTF32 kernels at d <= 80, fp32 FMAs in the
+    d <= 160 class, as ``BWD_TILES_F32`` names them) against
     ``flash_attention_bwd_plain`` on the same fp32 card tensors (TF32 off;
     a nonzero random dO; the LSE and delta from the fp32 forward), each
     gradient within FP32_REL_TOL of its plain version's largest magnitude,
-    on the "fp32" route, a second call bit for bit the first; beside the
+    on the "fp32" route and on the kernel the table names (the wrappers'
+    ``fp32_kernels``), a second call bit for bit the first; beside the
     plain version's time (all gradients at once) and SDPA's fp32 backward
-    with TF32 off (the library's yardstick), and two bounds: the fp32 FMA
-    rate's (the kernels' arithmetic) and 3xTF32 on the tensor cores' (3 x
-    the operations at TF32_TENSOR_FLOP_PER_S, the least time the card could
-    take for fp32-accurate products; ``bound_ms``).  Each row prints a TF32
-    witness, held to nothing: the plain backward with one-pass TF32
-    products (``allow_tf32``) against the plain version; at least one row's
-    must exceed its limit, or the rows could not tell fp32 from TF32."""
+    with TF32 off (the library's yardstick), and two bounds: the function's
+    (its 3 or 4 products as 3xTF32 on the tensor cores, ``bound_ms``) and
+    the kernel's arithmetic (the 3xTF32 kernels' own products: dk/dv above
+    d = 40 recomputes S^T in a second warpgroup, 5; the FMA kernel's at the
+    fp32 FMA rate).  Each row prints a TF32 witness, held to nothing: the
+    plain backward with one-pass TF32 products (``allow_tf32``) against the
+    plain version; at least one row's must exceed its limit, or the rows
+    could not tell fp32 from TF32.  ``scaled`` rows run with q and k x
+    BWD_F32_SCALE and print each gradient against ``bwd_fp64`` for the
+    kernel and for the plain version.  Rows of the FMA kernel take kinds
+    ``flash_bwd_dq_fp32_fma`` / ``flash_bwd_dkv_fp32_fma``."""
     from gligen_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(16)
     results = []
-    for name, b, n, m, h, d, need_kv, masked in cases:
+    for (name, b, n, m, h, d, need_kv, masked), mul in [(c, 1) for c in cases] + \
+            [(c, BWD_F32_SCALE) for c in scaled]:
         q, k, v, do = (torch.randn((b, L, h * d), generator=gen, device=device)
                        for L in (n, m, m, n))
+        q, k = q * mul, k * mul
         bias = None
         if masked:
             bias = torch.randn((b, m), generator=gen, device=device) * 0.5
@@ -1524,14 +1563,18 @@ def check_bwd_f32(torch, cases, device):
         out, lse = fa.flash_fwd(q, k, v, h, bias=bias)
         delta = fa.attention_delta(out, do, h)
         args = (q, k, v, h, do, lse, delta, bias)
+        kernel = fa.bwd_kernel_f32(d)
+        suffix = "_fma" if kernel == "fma" else ""
         calls = {"flash_bwd_dq_fp32": lambda: {"dq": fa.flash_bwd_dq(*args)}}
         if need_kv:
             calls["flash_bwd_dkv_fp32"] = lambda: dict(zip(
                 ("dk", "dv", "dbias"), fa.flash_bwd_dkv(*args, dbias=masked)))
-        routes, got, again = {}, {}, {}
+        routes, ran, got, again = {}, {}, {}, {}
         for kind, call in calls.items():
             wrapper = fa.flash_bwd_dq if kind == "flash_bwd_dq_fp32" else fa.flash_bwd_dkv
+            before = dict(wrapper.fp32_kernels)
             routes[kind], out_ = routed(wrapper, call)
+            ran[kind] = {key: n_ - before[key] for key, n_ in wrapper.fp32_kernels.items()}
             got.update({key: g for key, g in out_.items() if g is not None})
             again.update({key: g for key, g in call().items() if g is not None})
         torch.cuda.synchronize()
@@ -1539,10 +1582,20 @@ def check_bwd_f32(torch, cases, device):
         errs = {key: ((g - want[key]).abs().max().item(), want[key].abs().max().item())
                 for key, g in got.items()}
         repeats = all(torch.equal(got[key], again[key]) for key in got)
-        ok = (repeats and all(r == "fp32" for r in routes.values())
+        kernels_ok = all(r == {"tc": int(kernel == "tc"), "fma": int(kernel == "fma")}
+                         for r in ran.values())
+        ok = (repeats and kernels_ok and all(r == "fp32" for r in routes.values())
               and all(g.dtype == torch.float32 and g.shape == want[key].shape
                       and bool(torch.isfinite(g).all())
                       and errs[key][0] <= FP32_REL_TOL * errs[key][1] for key, g in got.items()))
+        fp64 = ""
+        if mul != 1:
+            exact = dict(zip(("dq", "dk", "dv", "dbias"), bwd_fp64(torch, q, k, v, h, do, bias)))
+            rel = lambda x, key: (x.double() - exact[key]).abs().max().item() / \
+                exact[key].abs().max().item()
+            fp64 = "; vs fp64 (kernel / plain fp32): " + " ".join(
+                f"{key} {rel(g, key):.3e} / {rel(want[key], key):.3e}" for key, g in got.items())
+            del exact
         before = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
@@ -1558,32 +1611,37 @@ def check_bwd_f32(torch, cases, device):
         flops = 2 * b * h * n * m * d
         extra = (0 if bias is None else 4 * b * m) + 8 * b * h * n  # bias; lse and delta
         timings = {"flash_bwd_dq_fp32": (lambda: fa.flash_bwd_dq(*args),
-                                         4 * (3 * b * n + 2 * b * m) * h * d + extra, 3 * flops)}
+                                         4 * (3 * b * n + 2 * b * m) * h * d + extra, 3, 3)}
         if need_kv:
             timings["flash_bwd_dkv_fp32"] = (
                 lambda: fa.flash_bwd_dkv(*args, dbias=masked),
                 4 * (2 * b * n + 4 * b * m) * h * d + extra + (4 * b * h * m if masked else 0),
-                4 * flops)
+                4, 5 if d > 40 else 4)
         desc = " ".join(f"{key} {e:.3e}/{sc:.3e}" for key, (e, sc) in errs.items())
-        for kind, (fn, nbytes, ops) in timings.items():
+        for kind, (fn, nbytes, products, kernel_products) in timings.items():
             ms = time_ms(fn)
+            ops = products * flops
             bound_ms, bound_by = bound(nbytes, 3 * ops, TF32_TENSOR_FLOP_PER_S)
-            fma_ms, fma_by = bound(nbytes, ops, FP32_FLOP_PER_S)
-            print(f"kernel {kind:18s} {name:20s} q ({b},{n},{h}x{d}) kv {m}"
-                  f"{' bias' if masked else ''} fp32: max_abs_err/max|plain| {desc} (tol "
-                  f"{FP32_REL_TOL} rel; repeats bit for bit: {repeats}) TF32 witness "
-                  f"{witness:.3e} ({witness / wit_limit:.2f}x the tol) route {routes[kind]} "
-                  f"kernel {ms:.4f} ms "
-                  f"{ops / ms / 1e9:.1f} TF/s {100 * fma_ms / ms:.1f}% of the FMA bound; plain "
-                  f"(all grads) {plain_ms:.4f} ms sdpa fp32 bwd {library_ms:.4f} ms fp32 FMA bound "
-                  f"{fma_ms:.4f} ms ({fma_by}, the kernel's arithmetic) 3xTF32 bound "
-                  f"{bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+            fma_ms, _ = bound(nbytes, ops, FP32_FLOP_PER_S)
+            own_ms, own_by = (bound(nbytes, 3 * kernel_products * flops, TF32_TENSOR_FLOP_PER_S)
+                              if kernel == "tc" else (fma_ms, "ops"))
+            print(f"kernel {kind + suffix:22s} {name:20s} q ({b},{n},{h}x{d}) kv {m}"
+                  f"{' bias' if masked else ''}{f' q, k x{mul}' if mul != 1 else ''} fp32: "
+                  f"max_abs_err/max|plain| {desc} (tol {FP32_REL_TOL} rel; repeats bit for bit: "
+                  f"{repeats}){fp64} TF32 witness {witness:.3e} ({witness / wit_limit:.2f}x the "
+                  f"tol) route {routes[kind]} kernel {kernel} (launches {ran[kind]}) "
+                  f"{ms:.4f} ms {ops / ms / 1e9:.1f} TF/s, {100 * bound_ms / ms:.1f}% of the "
+                  f"function's 3xTF32 bound {bound_ms:.4f} ms ({bound_by}, {products} products), "
+                  f"{100 * own_ms / ms:.1f}% of the kernel's arithmetic {own_ms:.4f} ms ("
+                  + (f"3xTF32, {kernel_products} products" if kernel == "tc" else "fp32 FMAs")
+                  + f"); plain (all grads) {plain_ms:.4f} ms sdpa fp32 bwd {library_ms:.4f} ms; "
+                  f"fp32 FMA bound {fma_ms:.4f} ms {'ok' if ok else 'FAIL'}", flush=True)
             keys = ("dq",) if kind == "flash_bwd_dq_fp32" else tuple(k_ for k_ in got if k_ != "dq")
-            results.append(dict(name=f"{name}_fp32", kind=kind, err=max(errs[k_][0] for k_ in keys),
-                                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                bound_ms=bound_ms, bound_by=bound_by, fma_bound_ms=fma_ms,
-                                route=routes[kind], ok=ok, tf32_witness=witness,
-                                limit=wit_limit))
+            results.append(dict(name=f"{name}_fp32", kind=kind + suffix,
+                                err=max(errs[k_][0] for k_ in keys), ms=ms, plain_ms=plain_ms,
+                                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                kernel_bound_ms=own_ms, fma_bound_ms=fma_ms, route=routes[kind],
+                                ok=ok, tf32_witness=witness, limit=wit_limit))
         del q, k, v, do, out, lse, delta, args, got, again, want, tf32
         torch.cuda.empty_cache()
     if not any(r["tf32_witness"] > r["limit"] for r in results):
@@ -1812,12 +1870,16 @@ def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3, dtype=N
         for i in range(1 + timed_steps):
             for w in wrappers.values():
                 w.launches = 0
+            kernels32 = {name: dict(w.fp32_kernels) for name, w in bwd.items()}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             losses.append(step(state, data, generator=gen)["loss"])
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             counts.append({name: w.launches for name, w in wrappers.items()})
+            # the flash backward's fp32 launches by kernel ("tc", "fma")
+            counts[-1].update({f"{name}_{kern}": w.fp32_kernels[kern] - kernels32[name][kern]
+                               for name, w in bwd.items() for kern in ("tc", "fma")})
             if i == 0:  # the gradients of the first backward; lr 0 at step 0
                 grads_ok = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                                and bool(p.grad.abs().max() > 0) for p in state.params.values())
@@ -1842,10 +1904,17 @@ def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3, dtype=N
         other = {name: {r: n for r, n in rt.items() if r != "fp32" and n}
                  for name, rt in routes.items()}
         other = {name: rt for name, rt in other.items() if rt}
-        ok = not other and plain.calls == 0 and all(routes[n]["fp32"] for n in bwd)
+        # each fp32 launch on the kernel BWD_TILES_F32 names: the 3xTF32
+        # kernels at d <= 80, the FMA kernel at d = 160 (ds4, the middle block)
+        by_kernel = {n: {kern: sum(c[f"{n}_{kern}"] for c in counts) for kern in ("tc", "fma")}
+                     for n in bwd}
+        ok = (not other and plain.calls == 0 and all(routes[n]["fp32"] for n in bwd)
+              and all(k_["tc"] > 0 and k_["fma"] > 0 and sum(k_.values()) == routes[n]["fp32"]
+                      for n, k_ in by_kernel.items()))
         print(f"{label}: flash backward launches by route over the {1 + timed_steps} steps "
-              f"{ {n: routes[n] for n in bwd} }; launches off the fp32 routes {other}; calls "
-              f"of the plain backward {plain.calls} (every launch must be fp32, none plain) "
+              f"{ {n: routes[n] for n in bwd} }, the fp32 ones by kernel {by_kernel}; launches "
+              f"off the fp32 routes {other}; calls of the plain backward {plain.calls} (every "
+              f"launch must be fp32, none plain; 3xTF32 at d <= 80, FMAs at d = 160) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append("fp32 routes (train fp32)")
@@ -2143,6 +2212,7 @@ KERNEL_META = {
                       "gligen_tpu/ops/pallas_attention.py:1063 (_flash_packed_bwd dk/dv/dbias)",
                       "attn1_ds1", "train"),
     # the flash backward's fp32 route (fault F9), launches from phase 7'
+    # d <= 80: the 3xTF32 kernels; d = 160: the FMA kernel (its own entries)
     "flash_bwd_dq_fp32": ("gligen_tpu_torch/csrc/flash_bwd.cu",
                           "gligen_tpu/ops/pallas_attention.py:627 (_flash_bwd dq) and "
                           "gligen_tpu/ops/pallas_attention.py:1004 (_flash_packed_bwd dq), "
@@ -2153,6 +2223,15 @@ KERNEL_META = {
                            "gligen_tpu/ops/pallas_attention.py:1063 (_flash_packed_bwd "
                            "dk/dv/dbias), q/k/v in fp32: a model trained in fp32",
                            "attn1_ds1_fp32", "train_fp32"),
+    "flash_bwd_dq_fp32_fma": ("gligen_tpu_torch/csrc/flash_bwd.cu",
+                              "gligen_tpu/ops/pallas_attention.py:627 (_flash_bwd dq) and "
+                              "gligen_tpu/ops/pallas_attention.py:1004 (_flash_packed_bwd dq), "
+                              "q/k/v in fp32 at head dim 160", "attn1_ds4_fp32", "train_fp32"),
+    "flash_bwd_dkv_fp32_fma": ("gligen_tpu_torch/csrc/flash_bwd.cu",
+                               "gligen_tpu/ops/pallas_attention.py:684 (_flash_bwd dk/dv/dbias) "
+                               "and gligen_tpu/ops/pallas_attention.py:1063 (_flash_packed_bwd "
+                               "dk/dv/dbias), q/k/v in fp32 at head dim 160", "attn1_ds4_fp32",
+                               "train_fp32"),
     "mm_only": ("gligen_tpu_torch/csrc/fused_proj.cu", "tools/bench_proj.py:90 (mm_only)",
                 "mm_320_320_ds1", "bench_proj"),
     "flash_fwd_fp32": ("gligen_tpu_torch/csrc/flash_fwd.cu",
@@ -4691,6 +4770,7 @@ def main() -> int:
           f"TF32 off for matmul and cuDNN)", flush=True)
 
     from gligen_tpu_torch.inference.pipeline import GenerationPipeline, GligenComponents
+    from gligen_tpu_torch.ops import flash_attention as fa
     from gligen_tpu_torch.ops.cuda_build import library_path, load_library
     from gligen_tpu_torch.ops.flash_attention import flash_fwd
 
@@ -4704,19 +4784,24 @@ def main() -> int:
           f"-> {library_path(SOURCES[0]).parent.parent.relative_to(REPO)}", flush=True)
     for src in SOURCES:
         report = (library_path(src).parent / "ptxas.txt").read_text()
-        if src.startswith(("fused_proj", "fused_conv")) or src in ("flash_fwd",
-                                                                   "flash_fwd_f32_sweep",
-                                                                   "flash_bwd"):
+        if src.startswith(("fused_proj", "fused_conv")) or src in (
+                "flash_fwd", "flash_fwd_f32_sweep", "flash_bwd", "flash_bwd_f32_sweep"):
             # one line per tile configuration
             configs = ptxas_configs(report)
             tc = lambda name: "tf32" in name or "f32_qm" in name
             fp32 = lambda name: tc(name) or "bwd_f32" in name
-            if src in ("fused_proj", "fused_conv", "flash_fwd", "flash_fwd_f32_sweep") and not any(
-                    tc(c[0]) for c in configs):
+            if src in ("fused_proj", "fused_conv", "flash_fwd", "flash_fwd_f32_sweep", "flash_bwd",
+                       "flash_bwd_f32_sweep") and not any(tc(c[0]) for c in configs):
                 print(f"build: {src}: no 3xTF32 kernel read from the ptxas report FAIL")
                 failures.append(f"build {src} no 3xTF32 kernel")
-            if src == "flash_bwd" and sum("bwd_f32" in c[0] for c in configs) != 6:
-                print(f"build: {src}: not the 6 fp32 kernels in the ptxas report FAIL")
+            # the flash backward's fp32 kernels: a dq and a dk/dv kernel per
+            # class of BWD_TILES_F32, 3xTF32 where it names "tc"
+            want = {kind: 2 * sum(k == kind for _, k, _, _ in fa.BWD_TILES_F32)
+                    for kind in ("tc", "fma")}
+            got = {"tc": sum("bwd_d" in c[0] and "tf32" in c[0] for c in configs),
+                   "fma": sum("bwd_f32" in c[0] for c in configs)}
+            if src == "flash_bwd" and got != want:
+                print(f"build: {src}: fp32 kernels {got} in the ptxas report, not {want} FAIL")
                 failures.append(f"build {src} fp32 kernels")
             for name, regs, stores, loads in configs:
                 # the fp32 routes' kernels (3xTF32, and the flash backward's
@@ -4749,7 +4834,7 @@ def main() -> int:
     results += check_convs(torch, convs, device)
     results += check_fp32(torch, comps.unet, device, batch)
     # the flash backward's fp32 route at every fp32 training site (fault F9)
-    results += check_bwd_f32(torch, bwd_cases_f32(4), device)
+    results += check_bwd_f32(torch, bwd_cases_f32(4), device, scaled=BWD_F32_SCALED)
     failures += [f"kernel {r['kind']} {r['name']}" for r in results if not r["ok"]]
     print(f"kernel: phase 3 took {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -4897,6 +4982,9 @@ def main() -> int:
                                                        dtype=torch.float32, config="c")
     failures += train_failures
     launches["train_fp32"] = {f"{name}_fp32": n for name, n in counts32.items()}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):  # the two kernels behind each entry
+        launches["train_fp32"][f"{name}_fp32"] = counts32[f"{name}_tc"]
+        launches["train_fp32"][f"{name}_fp32_fma"] = counts32[f"{name}_fma"]
     print(f"train fp32: phase 7' took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 8. small-width train step: card (bf16, kernels) vs CPU (fp32, plain) ----
@@ -5039,7 +5127,7 @@ def main() -> int:
         # K6: the whole wrapper call (gn_affine and the weight cast included);
         # the 3xTF32 routes: the fp32 FMA bound beside bound_ms (theirs, at
         # the tensor cores' TF32 rate); K2/K6 fp32: the one-pass TF32 witness
-        for key in ("call_ms", "fma_bound_ms", "tf32_witness"):
+        for key in ("call_ms", "fma_bound_ms", "kernel_bound_ms", "tf32_witness"):
             if key in at:
                 kernels[-1][key] = at[key]
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): dq, and dk/dv (+ dbias), bf16
 // in / bf16 out, fp32 probabilities and score gradients; and its fp32 route
-// (fp32 in / out on the CUDA cores, "the fp32 route" below).
+// (fp32 in / out: 3xTF32 wgmma at d <= 80, fp32 FMAs at d <= 160; "the fp32
+// route" below).
 //
 // Replaces the TPU Pallas backward of gligen_tpu/ops/pallas_attention.py:
 //   * _flash_bwd (:583-701): the dq pallas_call at :627 over _bwd_dq_kernel
@@ -663,47 +664,80 @@ cudaError_t dispatch(Params& p, int batch, int rows, int tile, int stages, cudaS
 // pallas_calls at pallas_attention.py:627/:684 and :1004/:1063).  fp32 in,
 // fp32 out, from the fp32 forward's LSE (log2 units) and delta.
 //
-// What bounds it on the H100: the same 3 (dq) and 4 (dk/dv) products, now
-// in fp32.  On the CUDA cores that is 67 TFLOP/s: ds1 attn1's dq (4 x 8
-// heads x 4096^2 x d 40) does 128.8 GFLOP, 1.92 ms at that rate, and dk/dv
-// 171.8 GFLOP, 2.56 ms; 3xTF32 on the tensor cores would bound them at
-// 0.78 and 1.04 ms.  This route runs on the CUDA cores, by design: a
-// 3xTF32 wgmma backward needs every operand K-major (TF32 wgmma has no
-// transposed operand), so dk/dv would hold Q, dO, Q^T and dO^T of a tile
-// and the block's K and V, each as TF32 hi and lo halves: 320 KB of shared
-// memory at d = 160 with 64 keys and 32 queries, over the 227 KB a block
-// may use.  So these kernels are fp32 FMAs, register-tiled from shared
-// memory, which any head dim fits:
-//   * one kernel, two instances: a block of 256 threads owns BA rows of a
-//     "fixed" side (dq: queries, with Q and dO; dk/dv: keys, with K and V)
-//     and streams tiles of BB rows of the other side (dq: K and V; dk/dv:
-//     Q and dO).  Thread (ty, tx) of the 16 x 16 holds RA = BA / 16 fixed
-//     rows by RB = BB / 16 tile rows of S and dP (dq: S = Q K^T; dk/dv:
-//     S^T = K Q^T), each a sum over the head dim of operands read from
-//     shared memory stored transposed (column c's BA or BB values
-//     contiguous: one 16-byte load gives a thread its four rows);
-//   * P = exp2(s scale log2e + bias log2e - lse) and dS = P (dP - delta)
-//     in registers (dq: lse and delta per thread row, the bias per key from
-//     the tile's side vector, -inf past M; dk/dv: the bias per thread row,
-//     lse and delta per query from the side vector, lse +inf past N), then
-//     through shared memory, tile-row-major, to the accumulation: thread
-//     (ty, tx) owns its RA fixed rows by the columns tx + 16 t of the head
-//     dim: dQ += dS K (dq), dV += P^T dO and dK += dS^T Q (dk/dv), reading
-//     the tile's rows as stored (a half-warp's 16 columns contiguous);
-//   * every sum runs in a fixed order in fp32 registers (no atomics: two
-//     runs give the same bits); dbias is each thread's running sum of its
-//     keys' dS, summed over the 16 threads of a key row by shuffles at the
-//     end;
-//   * ragged edges: rows past N or M load as zeros, P = 0 past M (dq) and
-//     past N (dk/dv), and rows past N or M are not stored.
+// What bounds it on the H100: the same 3 (dq) and 4 (dk/dv) products of
+// 2 B H N M d operations, fp32-accurate.  As 3xTF32 on the tensor cores
+// that is 3 x those operations at 495 TFLOP/s: at ds1 attn1 (4 x 8 heads x
+// 4096^2 x d 40) 0.78 ms for dq and 1.04 ms for dk/dv (fp32 FMAs on the
+// CUDA cores, at 67 TFLOP/s, could not go below 1.92 and 2.56 ms).
+//
+// The head-dim classes d <= 40 and d <= 80 (ds1 and ds2, where nearly all
+// of the route's time is) run two 3xTF32 wgmma kernels, laid out as the
+// fp32 forward's queries-as-rows kernel (flash_fwd.cu:
+// flash_fwd_f32_qm_kernel): no producer warp and no TMA; the consumers
+// load the next tile a tile ahead into registers and store it, split, into
+// one of NBUF buffers under an mbarrier pair per buffer (full: every
+// thread stored it; empty: every warp's products that read it completed),
+// so the warpgroups run out of step.
+//   * The split: x = hi + lo, hi = rna(x) (hopper.cuh:tf32), lo = x - hi,
+//     which the tensor cores truncate to TF32; a b ~ hi hi + hi lo + lo hi
+//     (gemm_tf32.cuh).  Every chain of products runs its hi.lo and lo.hi
+//     steps first and its hi.hi steps last (fault F10: the tensor cores
+//     truncate the running sum at every step, so small steps after a large
+//     one each cost an ulp of it), and starts from zero: a score is one
+//     chain of 3 D / 8 products (15, 30), a tile's part of a gradient one
+//     chain of 3 x (tile / 8) (12, 24), added to the gradient in fp32, so
+//     no chain runs over a whole key (or query) loop.
+//   * TF32 wgmma reads both operands K-major, so every operand is stored in
+//     the form its product reads: the products' K-major operands as
+//     "quartets" (hi and lo of two matrices in 32-column atoms, 128-byte
+//     swizzled; the columns past D / 32 whole atoms of the four halves
+//     share tail atoms, so no atom holds columns past D: at d = 40 the four
+//     halves take 5 atoms, not 8), and the operands of the products summed
+//     over keys (or queries) transposed: rows = the head dim's D columns,
+//     32-key atoms, the keys of each 8-key step in the order 0, 2, 4, 6, 1,
+//     3, 5, 7, so that dS (and P) feed the RS wgmma straight from the
+//     accumulator registers they were computed in (a thread holds keys 2t
+//     and 2t + 1 of each step, where the TF32 A fragment reads k = t and
+//     t + 4; flash_fwd.cu's V^T trick).  Nothing of S, P, dP or dS passes
+//     through shared memory.
+//   * dq (flash_bwd_dq_tf32_kernel): queries are the wgmma rows, 64 a
+//     consumer warpgroup; Q and dO split once into a resident quartet.  Per
+//     tile of BK keys: K and V as a quartet, K^T hi/lo, and the keys' bias
+//     in log2 units (-inf at or past M: P = 0 there) as a side vector.  S =
+//     Q K^T and dP = dO V^T from shared memory (SS); P = exp2(S scale log2e
+//     + bias - lse) and dS = P (dP - delta) in fp32 registers (each row's
+//     lse and delta in registers); dQ's part = dS K (RS, B = K^T, N = D).
+//     dQ is scaled once and stored for rows < N.
+//   * dk/dv (flash_bwd_dkv_tf32_kernel): keys are the wgmma rows, 64 a
+//     slab; K and V split once into a resident quartet, each key's bias in
+//     log2 units a constant per thread row.  Per tile of BQ queries: Q and
+//     dO as a quartet, Q^T and dO^T hi/lo, and the queries' lse and delta
+//     (+inf and 0 past N: P = 0 there) as side vectors.  S^T = K Q^T, dP^T
+//     = V dO^T (SS); P^T, dS^T in registers; dV's part = P^T dO and dK's
+//     part = dS^T Q (RS, B = dO^T, Q^T); dbias is the row sums of the fp32
+//     dS^T, each thread's in a fixed order, across the quad at the end.  At
+//     d = 80 one warpgroup holding dK, dV, their parts and S^T, dP^T would
+//     spill, so two warpgroups share each slab (SPLIT = 2): one computes S^T
+//     and accumulates dV, the other S^T and dP^T and accumulates dK and
+//     dbias: 5 products for the function's 4.
+//   * Ragged edges: rows past N or M load as zeros; P = 0 past M (dq) and
+//     past N (dk/dv) by the side vectors; rows past N or M are not stored.
+//     No atomics: a second run gives the same bits.
+//
+// The d <= 160 class (ds4 and the middle block, short sequences) keeps the
+// first fp32 kernel, fp32 FMAs on the CUDA cores (flash_bwd_f32_kernel
+// below), for that class only: its Q and dO (K and V) hi/lo take 160 KB for
+// 64 rows at d = 160, which leaves no room for a tile's K, V and K^T hi/lo
+// (80 KB at 32 keys) in the 227 KB a block has.
+//
 // The wrapper (ops/flash_attention.py) checks what the route takes: d, the
-// bases and the strides multiples of 4 elements (16-byte loads).  Tiles per
-// head-dim class: BWD_TILES_F32 there, held by dispatch_f32 below.
+// bases and the strides multiples of 4 elements (16-byte loads).  Tiles and
+// kernel per head-dim class: BWD_TILES_F32 there, held by f32::dispatch
+// below (its *_F32 lists); flash_bwd_f32_sweep.cu builds the d <= 40 and
+// d <= 80 classes at tools/bench_sweep_attn.py:BWD_F32_CONFIGS.
 
-#ifndef FLASH_BWD_SWEEP  // the sweep library holds the bf16 kernels only
+#ifndef FLASH_BWD_SWEEP  // the bf16 sweep library holds the bf16 kernels only
 namespace f32 {
-
-constexpr int kThreads = 256;
 
 struct Params {
   const float* q;
@@ -721,6 +755,597 @@ struct Params {
   long long s[kStrides];
   float scale, scale_log2;
 };
+
+constexpr int kSmemLimit = 232448;  // bytes of shared memory a block can have
+
+// ---------------------------------------------------------------- 3xTF32
+
+// A K-major quartet of R rows: hi and lo of two matrices X and Y (halves 0:
+// X hi, 1: X lo, 2: Y hi, 3: Y lo) of the class's D columns, in 32-column
+// atoms of R rows of 128 bytes, the 16-byte chunk c of row r at c ^ (r &
+// 7), as wgmma's 128-byte swizzled K-major descriptors read them.  Each
+// half holds D / 32 whole atoms; the D % 32 columns past them take a slot
+// of kTail columns in a tail atom shared by kSlots halves (D = 40: one atom
+// of four 8-column slots; D = 80: two atoms of two 16-column slots).
+template <int D>
+struct Quartet {
+  static constexpr int kWhole = D / 32, kTail = D % 32;
+  static constexpr int kSlots = kTail ? 32 / kTail : 1;
+  static constexpr int kAtoms = 4 * kWhole + (kTail ? (4 + kSlots - 1) / kSlots : 0);
+  static_assert(D % 8 == 0 && kTail % 8 == 0, "8-column k-steps");
+
+  // the atom, and the column within it, of column c of half hf
+  static __device__ __forceinline__ int atom(int hf, int c) {
+    return c < 32 * kWhole ? hf * kWhole + c / 32 : 4 * kWhole + hf / kSlots;
+  }
+  static __device__ __forceinline__ int col(int hf, int c) {
+    return c < 32 * kWhole ? c % 32 : (hf % kSlots) * kTail + c - 32 * kWhole;
+  }
+  // k-step kk (columns 8 kk .. 8 kk + 7) of half hf, rows row0 .. row0 + 63
+  template <int R>
+  static __device__ __forceinline__ uint64_t desc(uint32_t base, int hf, int kk, int row0) {
+    return sw128_desc(base + atom(hf, 8 * kk) * R * 128 + row0 * 128 + col(hf, 8 * kk) * 4, 16,
+                      1024);
+  }
+  // columns 8 cg .. 8 cg + 7 of row r of matrix mx (0: X, 1: Y), split into
+  // its halves 2 mx (hi) and 2 mx + 1 (lo)
+  template <int R>
+  static __device__ __forceinline__ void store8(uint8_t* base, int mx, int r, int cg,
+                                                const float4 (&x)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = 8 * cg + 4 * i;
+      const int oh = atom(2 * mx, c) * R * 128 + r * 128 + (((col(2 * mx, c) / 4) ^ (r & 7)) << 4);
+      const int ol =
+          atom(2 * mx + 1, c) * R * 128 + r * 128 + (((col(2 * mx + 1, c) / 4) ^ (r & 7)) << 4);
+      uint4 hv, lv;
+      split_tc(x[i].x, hv.x, lv.x);
+      split_tc(x[i].y, hv.y, lv.y);
+      split_tc(x[i].z, hv.z, lv.z);
+      split_tc(x[i].w, hv.w, lv.w);
+      *reinterpret_cast<uint4*>(base + oh) = hv;
+      *reinterpret_cast<uint4*>(base + ol) = lv;
+    }
+  }
+};
+
+// Transposed operands of T keys (or queries): hi and lo of matrices (half
+// 2 mx: matrix mx's hi, 2 mx + 1 its lo), rows = the head dim's D columns,
+// 32-key atoms of D rows of 128 bytes, 128-byte swizzled; within an 8-key
+// step key 2i at k = i and key 2i + 1 at k = 4 + i (the A fragment's
+// order of the accumulator registers it comes from).
+template <int D, int T>
+struct Trans {
+  static constexpr int kHalf = (T / 32) * D * 128;  // bytes of a half
+  static_assert(T % 32 == 0, "32-key atoms");
+
+  // key `key`'s columns 8 cg .. 8 cg + 7 of matrix mx (hopper.cuh:store_vt8)
+  static __device__ __forceinline__ void store8(uint8_t* base, int mx, int key, int cg,
+                                                const float4 (&x)[2]) {
+    store_vt8<D>(base + 2 * mx * kHalf, base + (2 * mx + 1) * kHalf, key, cg, x);
+  }
+  // 8-key step j of half hf (N = the D rows)
+  static __device__ __forceinline__ uint64_t desc(uint32_t base, int hf, int j) {
+    return sw128_desc(base + hf * kHalf + (j / 4) * D * 128 + (j % 4) * 32, 16, 1024);
+  }
+};
+
+// A thread's share of the next streamed tile of T rows (dq: K and V; dk/dv:
+// Q and dO), as loaded: its warp's units, one row (its lane) of 8 columns
+// of both matrices each, in rounds of one unit a warp; and its entry of the
+// tile's side vector(s).
+template <int D, int T, int WARPS>
+struct Share {
+  static constexpr int kUnits = (T / 32) * (D / 8);
+  static constexpr int kRounds = (kUnits + WARPS - 1) / WARPS;
+  float4 x[kRounds][2], y[kRounds][2];
+  float side;
+
+  __device__ __forceinline__ void load(const float* xb, long long xs, const float* yb,
+                                       long long ys, int row0, int len, int d, int warp,
+                                       int lane) {
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int u = warp + WARPS * r;
+      if (u < kUnits) {
+        const int row = row0 + 32 * (u / (D / 8)) + lane, col = 8 * (u % (D / 8));
+        load8(x[r], xb, xs, row, len, col, d);
+        load8(y[r], yb, ys, row, len, col, d);
+      }
+    }
+  }
+  // split into a buffer: the quartet (X, Y) at `quartet`, and X^T (TX), Y^T
+  // (TY) at `trans` as matrices 0 and 1
+  template <bool TX, bool TY>
+  __device__ __forceinline__ void store(uint8_t* quartet, uint8_t* trans, int warp,
+                                        int lane) const {
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int u = warp + WARPS * r;
+      if (u < kUnits) {
+        const int row = 32 * (u / (D / 8)) + lane, cg = u % (D / 8);
+        Quartet<D>::template store8<T>(quartet, 0, row, cg, x[r]);
+        Quartet<D>::template store8<T>(quartet, 1, row, cg, y[r]);
+        if constexpr (TX) Trans<D, T>::store8(trans, 0, row, cg, x[r]);
+        if constexpr (TY) Trans<D, T>::store8(trans, 1, row, cg, y[r]);
+      }
+    }
+  }
+};
+
+// Rows row0 + 32 (u / (D / 8)) + lane of X and Y (R rows from row0) split
+// into a resident quartet, by every warp of the block.
+template <int D, int R, int WARPS>
+__device__ __forceinline__ void load_resident(uint8_t* quartet, const float* xb, long long xs,
+                                              const float* yb, long long ys, int row0, int len,
+                                              int d, int warp, int lane) {
+  for (int u = warp; u < (R / 32) * (D / 8); u += WARPS) {
+    const int r = 32 * (u / (D / 8)) + lane, cg = u % (D / 8);
+    float4 x[2];
+    load8(x, xb, xs, row0 + r, len, 8 * cg, d);
+    Quartet<D>::template store8<R>(quartet, 0, r, cg, x);
+    load8(x, yb, ys, row0 + r, len, 8 * cg, d);
+    Quartet<D>::template store8<R>(quartet, 1, r, cg, x);
+  }
+}
+
+// One warpgroup's chain of 3xTF32 SS products into acc, from zero: over the
+// D / 8 k-steps of A (halves ah, ah + 1 of a quartet of RA rows, rows row0
+// ..) and B (halves bh, bh + 1 of a quartet of RB rows), every step's hi.lo
+// and lo.hi, then its hi.hi.  Issued, not committed.
+template <int D, int N, int RA, int RB>
+__device__ __forceinline__ void ss_chain(float (&acc)[N / 2], uint32_t a, int ah, int row0,
+                                         uint32_t bq, int bh) {
+  using Q = Quartet<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    WgmmaSsTf32<N>::ss(acc, Q::template desc<RA>(a, ah, kk, row0),
+                       Q::template desc<RB>(bq, bh + 1, kk, 0), kk > 0);
+    WgmmaSsTf32<N>::ss(acc, Q::template desc<RA>(a, ah + 1, kk, row0),
+                       Q::template desc<RB>(bq, bh, kk, 0), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    WgmmaSsTf32<N>::ss(acc, Q::template desc<RA>(a, ah, kk, row0),
+                       Q::template desc<RB>(bq, bh, kk, 0), 1);
+}
+
+// One warpgroup's chain of 3xTF32 RS products into part, from zero: A the
+// hi/lo fragments of T / 8 steps (from accumulator registers), B the halves
+// 2 mx (hi) and 2 mx + 1 (lo) of a transposed operand.  Issued, not
+// committed.
+template <int D, int T>
+__device__ __forceinline__ void rs_chain(float (&part)[D / 2], const uint32_t (&fh)[T / 8][4],
+                                         const uint32_t (&fl)[T / 8][4], uint32_t trans, int mx) {
+  using TT = Trans<D, T>;
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j) {
+    WgmmaRsTf32<D>::rs(part, fh[j], TT::desc(trans, 2 * mx + 1, j), j > 0);
+    WgmmaRsTf32<D>::rs(part, fl[j], TT::desc(trans, 2 * mx, j), 1);
+  }
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j) WgmmaRsTf32<D>::rs(part, fh[j], TT::desc(trans, 2 * mx, j), 1);
+}
+
+// An accumulator fragment (m64nT) as the hi/lo A fragments of T / 8 steps:
+// (row g, k t) = column 2t of the step, (row g, k t + 4) = column 2t + 1.
+template <int T>
+__device__ __forceinline__ void frags(const float (&x)[T / 2], uint32_t (&fh)[T / 8][4],
+                                      uint32_t (&fl)[T / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j) {
+    split_tc(x[4 * j], fh[j][0], fl[j][0]);
+    split_tc(x[4 * j + 2], fh[j][1], fl[j][1]);
+    split_tc(x[4 * j + 1], fh[j][2], fl[j][2]);
+    split_tc(x[4 * j + 3], fh[j][3], fl[j][3]);
+  }
+}
+
+// The two rows (r0, r0 + 8) of a 64-row accumulator fragment (m64nD) that
+// this thread holds, times `mul`, into a row-strided fp32 matrix: rows <
+// valid and columns < d (an even column's pair at once).
+template <int D>
+__device__ __forceinline__ void store_frag(const float (&acc)[D / 2], float* base, long long sn,
+                                           int r0, int valid, int d, float mul, int quad) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * quad;
+    if (col >= d) continue;
+    if (r0 < valid)
+      *reinterpret_cast<float2*>(base + r0 * sn + col) =
+          make_float2(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    if (r0 + 8 < valid)
+      *reinterpret_cast<float2*>(base + (r0 + 8) * sn + col) =
+          make_float2(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
+}
+
+// The shared memory of a block: a resident quartet of RES rows, NBUF
+// buffers (a quartet of T rows and TRANS transposed matrices of T rows
+// each), NBUF side vectors of SIDE floats, two full and two empty barriers,
+// 1 KB of alignment slack.
+constexpr int tc_smem(int d, int res, int t, int trans, int side, int nbuf) {
+  const int atoms = 4 * (d / 32) + (d % 32 ? (4 + 32 / (d % 32) - 1) / (32 / (d % 32)) : 0);
+  return atoms * res * 128 + nbuf * (atoms * t * 128 + trans * 2 * (t / 32) * d * 128) +
+         nbuf * side * 4 + 8 * 4 + 1024;
+}
+
+// dq: D the class's head dim (dQ's wgmma N, K^T's rows); NW consumer
+// warpgroups (BQ = 64 NW queries); BK keys a tile (S's wgmma N); NBUF.
+template <int D_, int NW_, int BK_, int NBUF_>
+struct DqCfg {
+  static constexpr int D = D_, NW = NW_, BK = BK_, NBUF = NBUF_;
+  static constexpr int BQ = 64 * NW, kThreads = 128 * NW, kWarps = 4 * NW;
+  static constexpr int kResBytes = Quartet<D>::kAtoms * BQ * 128;   // Q, dO
+  static constexpr int kTileBytes = Quartet<D>::kAtoms * BK * 128;  // K, V
+  static constexpr int kBufBytes = kTileBytes + 2 * Trans<D, BK>::kHalf;
+  static constexpr int kOffSide = kResBytes + NBUF * kBufBytes;      // BK floats a buffer
+  static constexpr int kOffBar = kOffSide + NBUF * BK * 4;
+  static constexpr int kSmem = kOffBar + 8 * 4 + 1024;
+  static_assert(kSmem == tc_smem(D, BQ, BK, 1, BK, NBUF), "tc_smem");
+  static_assert(BK == 32 || BK == 64, "S's wgmma N, 32-key atoms");
+  static_assert(NBUF == 1 || NBUF == 2, "buffers");
+  static_assert(kSmem <= kSmemLimit, "shared memory");
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+    flash_bwd_dq_tf32_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, w = warp % 4, lane = tid % 32;
+  const int quad = lane % 4;
+  const int q0 = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (p.m + C::BK - 1) / C::BK;
+  const uint32_t bars = smem_u32(smem + C::kOffBar);
+  auto full = [&](int i) { return bars + 8 * i; };         // every thread stored buffer i
+  auto empty = [&](int i) { return bars + 8 * (2 + i); };  // every warp's products read it
+  auto buf = [&](int i) { return smem + C::kResBytes + i * C::kBufBytes; };
+  auto side = [&](int i) { return reinterpret_cast<float*>(smem + C::kOffSide) + i * C::BK; };
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full(i), C::kThreads);
+      mbar_init(empty(i), C::kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const float* kb = p.k + b * p.s[kK] + h * p.s[kK + 1];
+  const float* vb = p.v + b * p.s[kV] + h * p.s[kV + 1];
+  const float* bias = p.bias ? p.bias + b * p.s[kBiasRow] : nullptr;
+  // a key's bias in log2 units, -inf at or past M (P = 0 there)
+  auto side_of = [&](int key) {
+    return key < p.m ? (bias ? bias[key] * kLog2e : 0.0f) : -INFINITY;
+  };
+  Share<C::D, C::BK, C::kWarps> next;
+  auto load_tile = [&](int it) {
+    next.load(kb, p.s[kK + 2], vb, p.s[kV + 2], it * C::BK, p.m, p.d, warp, lane);
+    next.side = tid < C::BK ? side_of(it * C::BK + tid) : 0.0f;
+  };
+  auto store_tile = [&](int i) {
+    next.template store<true, false>(buf(i), buf(i) + C::kTileBytes, warp, lane);
+    if (tid < C::BK) side(i)[tid] = next.side;
+    fence_proxy_async();
+    mbar_arrive(full(i));
+  };
+
+  // Q and dO split once, then key tile 0 into buffer 0; its full barrier
+  // covers both
+  load_resident<C::D, C::BQ, C::kWarps>(smem, p.q + b * p.s[kQ] + h * p.s[kQ + 1], p.s[kQ + 2],
+                                        p.dout + b * p.s[kDO] + h * p.s[kDO + 1], p.s[kDO + 2],
+                                        q0, p.n, p.d, warp, lane);
+  load_tile(0);
+  store_tile(0);
+  if (ntiles > 1) load_tile(1);
+
+  // rows past N are never stored: any finite lse and delta will do there
+  const int r0 = q0 + wg * 64 + w * 16 + lane / 4, r1 = r0 + 8;
+  const float* lse = p.lse + ((long long)b * p.heads + h) * p.n;
+  const float* delta = p.delta + ((long long)b * p.heads + h) * p.n;
+  const float lse0 = r0 < p.n ? lse[r0] : 0.0f, lse1 = r1 < p.n ? lse[r1] : 0.0f;
+  const float dl0 = r0 < p.n ? delta[r0] : 0.0f, dl1 = r1 < p.n ? delta[r1] : 0.0f;
+
+  float acc[C::D / 2];
+#pragma unroll
+  for (int i = 0; i < C::D / 2; ++i) acc[i] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int cur = it % C::NBUF;
+    mbar_wait(full(cur), (it / C::NBUF) & 1);
+    const uint32_t kv = smem_u32(buf(cur)), kt = kv + C::kTileBytes;
+    uint32_t res = smem_u32(smem);
+    // opaque to the compiler: the descriptors are rebuilt each tile (an add
+    // each) instead of being hoisted out of the loop into registers
+    asm volatile("" : "+r"(res));
+
+    // S = Q K^T and dP = dO V^T, one chain each
+    float s[C::BK / 2], dp[C::BK / 2];
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+    ss_chain<C::D, C::BK, C::BQ, C::BK>(s, res, 0, wg * 64, kv, 0);
+    ss_chain<C::D, C::BK, C::BQ, C::BK>(dp, res, 2, wg * 64, kv, 2);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    pin(dp);
+
+    // P and dS = P (dP - delta) in place of S
+    const float* sd = side(cur);
+#pragma unroll
+    for (int j = 0; j < C::BK / 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(sd + 8 * j + 2 * quad);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bcol = e ? bb.y : bb.x;
+        const float p0 = ex2(fmaf(s[4 * j + e], p.scale_log2, bcol - lse0));
+        const float p1 = ex2(fmaf(s[4 * j + 2 + e], p.scale_log2, bcol - lse1));
+        s[4 * j + e] = p0 * (dp[4 * j + e] - dl0);
+        s[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl1);
+      }
+    }
+    uint32_t fh[C::BK / 8][4], fl[C::BK / 8][4];
+    frags<C::BK>(s, fh, fl);
+
+    // this tile's part of dQ = dS K, from zero
+    float part[C::D / 2];
+    pin(part);
+    wgmma_fence();
+    rs_chain<C::D, C::BK>(part, fh, fl, kt, 0);
+    wgmma_commit();
+    if (C::NBUF == 2 && it + 1 < ntiles) {
+      // under the product: the next tile, loaded a tile ago, into the other
+      // buffer once every warp's products of the tile before this one are
+      // done
+      const int nb = (it + 1) % 2;
+      if (it >= 1) mbar_wait(empty(nb), ((it - 1) / 2) & 1);
+      store_tile(nb);
+    }
+    wgmma_wait<0>();
+    pin(part);
+    pin_u(fh);
+    pin_u(fl);
+#pragma unroll
+    for (int i = 0; i < C::D / 2; ++i) acc[i] += part[i];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(cur));
+    if (C::NBUF == 1 && it + 1 < ntiles) {
+      mbar_wait(empty(0), it & 1);
+      store_tile(0);
+    }
+    if (it + 2 < ntiles) load_tile(it + 2);
+  }
+
+  float* dq = p.dq + b * p.s[kDQ] + h * p.s[kDQ + 1];
+  store_frag<C::D>(acc, dq, p.s[kDQ + 2], r0, p.n, p.d, p.scale, quad);
+}
+
+// dk/dv: D the class's head dim; NW slabs of 64 keys (BK = 64 NW keys a
+// block); SPLIT warpgroups a slab (2: one accumulates dV, the other dK and
+// dbias); BQ queries a tile (S^T's wgmma N); NBUF.
+template <int D_, int NW_, int SPLIT_, int BQ_, int NBUF_>
+struct DkvCfg {
+  static constexpr int D = D_, NW = NW_, SPLIT = SPLIT_, BQ = BQ_, NBUF = NBUF_;
+  static constexpr int BK = 64 * NW, kThreads = 128 * NW * SPLIT, kWarps = 4 * NW * SPLIT;
+  static constexpr int kResBytes = Quartet<D>::kAtoms * BK * 128;   // K, V
+  static constexpr int kTileBytes = Quartet<D>::kAtoms * BQ * 128;  // Q, dO
+  static constexpr int kBufBytes = kTileBytes + 4 * Trans<D, BQ>::kHalf;
+  static constexpr int kOffSide = kResBytes + NBUF * kBufBytes;      // lse, delta: 2 BQ floats
+  static constexpr int kOffBar = kOffSide + NBUF * 2 * BQ * 4;
+  static constexpr int kSmem = kOffBar + 8 * 4 + 1024;
+  static_assert(kSmem == tc_smem(D, BK, BQ, 2, 2 * BQ, NBUF), "tc_smem");
+  static_assert(BQ == 32 || BQ == 64, "S^T's wgmma N, 32-query atoms");
+  static_assert(SPLIT == 1 || SPLIT == 2, "warpgroups a slab");
+  static_assert(NBUF == 1 || NBUF == 2, "buffers");
+  static_assert(kSmem <= kSmemLimit, "shared memory");
+};
+
+// One warpgroup's pass over every query tile for its slab of 64 keys: dV
+// when DV, dK and dbias when DK; with the block's loads and stores of the
+// resident K and V and the streamed tiles, which every thread shares.
+template <class C, bool DV, bool DK>
+__device__ __forceinline__ void dkv_pass(const Params& p, uint8_t* smem, int slab) {
+  const int tid = threadIdx.x, warp = tid / 32, w = warp % 4, lane = tid % 32, quad = lane % 4;
+  const int k0 = blockIdx.x * C::BK, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (p.n + C::BQ - 1) / C::BQ;
+  const uint32_t bars = smem_u32(smem + C::kOffBar);
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (2 + i); };
+  auto buf = [&](int i) { return smem + C::kResBytes + i * C::kBufBytes; };
+  auto side = [&](int i) { return reinterpret_cast<float*>(smem + C::kOffSide) + i * 2 * C::BQ; };
+
+  const float* qb = p.q + b * p.s[kQ] + h * p.s[kQ + 1];
+  const float* dob = p.dout + b * p.s[kDO] + h * p.s[kDO + 1];
+  const long long rows = ((long long)b * p.heads + h) * p.n;  // (b, h)'s lse and delta
+  Share<C::D, C::BQ, C::kWarps> next;
+  auto load_tile = [&](int it) {
+    const int q0 = it * C::BQ;
+    next.load(qb, p.s[kQ + 2], dob, p.s[kDO + 2], q0, p.n, p.d, warp, lane);
+    // the tile's lse (+inf past N: P = 0 there) and delta (0 past N)
+    const int i = tid % C::BQ;
+    const bool valid = q0 + i < p.n;
+    next.side = tid < C::BQ ? (valid ? p.lse[rows + q0 + i] : INFINITY)
+                            : (valid ? p.delta[rows + q0 + i] : 0.0f);
+  };
+  auto store_tile = [&](int i) {
+    next.template store<true, true>(buf(i), buf(i) + C::kTileBytes, warp, lane);
+    if (tid < 2 * C::BQ) side(i)[tid] = next.side;
+    fence_proxy_async();
+    mbar_arrive(full(i));
+  };
+
+  // K and V split once, then query tile 0 into buffer 0
+  load_resident<C::D, C::BK, C::kWarps>(smem, p.k + b * p.s[kK] + h * p.s[kK + 1], p.s[kK + 2],
+                                        p.v + b * p.s[kV] + h * p.s[kV + 1], p.s[kV + 2], k0,
+                                        p.m, p.d, warp, lane);
+  load_tile(0);
+  store_tile(0);
+  if (ntiles > 1) load_tile(1);
+
+  // the bias is per key row: one constant per thread row (log2 units)
+  const int r0 = k0 + slab * 64 + w * 16 + lane / 4, r1 = r0 + 8;
+  const float* bias = p.bias ? p.bias + b * p.s[kBiasRow] : nullptr;
+  const float b0 = bias && r0 < p.m ? bias[r0] * kLog2e : 0.0f;
+  const float b1 = bias && r1 < p.m ? bias[r1] * kLog2e : 0.0f;
+
+  float dv[DV ? C::D / 2 : 1], dk[DK ? C::D / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < C::D / 2; ++i) {
+    if constexpr (DV) dv[i] = 0.0f;
+    if constexpr (DK) dk[i] = 0.0f;
+  }
+  float db0 = 0.0f, db1 = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int cur = it % C::NBUF;
+    mbar_wait(full(cur), (it / C::NBUF) & 1);
+    const uint32_t qd = smem_u32(buf(cur)), tr = qd + C::kTileBytes;
+    uint32_t res = smem_u32(smem);
+    asm volatile("" : "+r"(res));
+
+    // S^T = K Q^T and dP^T = V dO^T, one chain each
+    float s[C::BQ / 2], dp[DK ? C::BQ / 2 : 1];
+    pin(s);
+    if constexpr (DK) pin(dp);
+    wgmma_fence();
+    ss_chain<C::D, C::BQ, C::BK, C::BQ>(s, res, 0, slab * 64, qd, 0);
+    if constexpr (DK) ss_chain<C::D, C::BQ, C::BK, C::BQ>(dp, res, 2, slab * 64, qd, 2);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    if constexpr (DK) pin(dp);
+
+    // P^T in s, dS^T in dp; the side vectors (lse +inf past N) mask queries >= N
+    const float* ls = side(cur);
+    const float* dls = ls + C::BQ;
+#pragma unroll
+    for (int j = 0; j < C::BQ / 8; ++j) {
+      const float2 ll = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * quad);
+      const float2 dd = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * quad);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float l = e ? ll.y : ll.x;
+        const float p0 = ex2(fmaf(s[4 * j + e], p.scale_log2, b0 - l));
+        const float p1 = ex2(fmaf(s[4 * j + 2 + e], p.scale_log2, b1 - l));
+        s[4 * j + e] = p0;
+        s[4 * j + 2 + e] = p1;
+        if constexpr (DK) {
+          const float dl = e ? dd.y : dd.x;
+          const float ds0 = p0 * (dp[4 * j + e] - dl), ds1 = p1 * (dp[4 * j + 2 + e] - dl);
+          dp[4 * j + e] = ds0;
+          dp[4 * j + 2 + e] = ds1;
+          db0 += ds0;
+          db1 += ds1;
+        }
+      }
+    }
+
+    // this tile's parts of dV = P^T dO and dK = dS^T Q, from zero
+    uint32_t ph[DV ? C::BQ / 8 : 1][4], pl[DV ? C::BQ / 8 : 1][4];
+    uint32_t dh[DK ? C::BQ / 8 : 1][4], dl[DK ? C::BQ / 8 : 1][4];
+    float pv[DV ? C::D / 2 : 1], pk[DK ? C::D / 2 : 1];
+    if constexpr (DV) frags<C::BQ>(s, ph, pl);
+    if constexpr (DK) frags<C::BQ>(dp, dh, dl);
+    if constexpr (DV) pin(pv);
+    if constexpr (DK) pin(pk);
+    wgmma_fence();
+    if constexpr (DV) rs_chain<C::D, C::BQ>(pv, ph, pl, tr, 1);
+    if constexpr (DK) rs_chain<C::D, C::BQ>(pk, dh, dl, tr, 0);
+    wgmma_commit();
+    if (C::NBUF == 2 && it + 1 < ntiles) {
+      const int nb = (it + 1) % 2;
+      if (it >= 1) mbar_wait(empty(nb), ((it - 1) / 2) & 1);
+      store_tile(nb);
+    }
+    wgmma_wait<0>();
+    if constexpr (DV) {
+      pin(pv);
+      pin_u(ph);
+      pin_u(pl);
+#pragma unroll
+      for (int i = 0; i < C::D / 2; ++i) dv[i] += pv[i];
+    }
+    if constexpr (DK) {
+      pin(pk);
+      pin_u(dh);
+      pin_u(dl);
+#pragma unroll
+      for (int i = 0; i < C::D / 2; ++i) dk[i] += pk[i];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(cur));
+    if (C::NBUF == 1 && it + 1 < ntiles) {
+      mbar_wait(empty(0), it & 1);
+      store_tile(0);
+    }
+    if (it + 2 < ntiles) load_tile(it + 2);
+  }
+
+  if constexpr (DV)
+    store_frag<C::D>(dv, p.dv + b * p.s[kDV] + h * p.s[kDV + 1], p.s[kDV + 2], r0, p.m, p.d, 1.0f,
+                     quad);
+  if constexpr (DK) {
+    store_frag<C::D>(dk, p.dk + b * p.s[kDK] + h * p.s[kDK + 1], p.s[kDK + 2], r0, p.m, p.d,
+                     p.scale, quad);
+    // each row's sum over its quad's columns, in a fixed order
+    db0 = quad_sum(db0);
+    db1 = quad_sum(db1);
+    if (p.dbias && quad == 0) {
+      float* out = p.dbias + ((long long)b * p.heads + h) * p.m;
+      if (r0 < p.m) out[r0] = db0;
+      if (r1 < p.m) out[r1] = db1;
+    }
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+    flash_bwd_dkv_tf32_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / 128;
+  if (tid == 0) {
+    const uint32_t bars = smem_u32(smem + C::kOffBar);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(bars + 8 * i, C::kThreads);
+      mbar_init(bars + 8 * (2 + i), C::kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int slab = wg / C::SPLIT;
+  if constexpr (C::SPLIT == 1)
+    dkv_pass<C, true, true>(p, smem, slab);
+  else if (wg % 2 == 0)
+    dkv_pass<C, true, false>(p, smem, slab);
+  else
+    dkv_pass<C, false, true>(p, smem, slab);
+}
+
+// ---------------------------------------------------------------- fp32 FMAs
+
+// The d <= 160 class's kernel: fp32 FMAs on the CUDA cores, which any head
+// dim fits (see above for why this class keeps it):
+//   * one kernel, two instances: a block of 256 threads owns BA rows of a
+//     "fixed" side (dq: queries, with Q and dO; dk/dv: keys, with K and V)
+//     and streams tiles of BB rows of the other side (dq: K and V; dk/dv:
+//     Q and dO).  Thread (ty, tx) of the 16 x 16 holds RA = BA / 16 fixed
+//     rows by RB = BB / 16 tile rows of S and dP (dq: S = Q K^T; dk/dv:
+//     S^T = K Q^T), each a sum over the head dim of operands read from
+//     shared memory stored transposed (column c's BA or BB values
+//     contiguous: one 16-byte load gives a thread its four rows);
+//   * P and dS in registers as above, then through shared memory,
+//     tile-row-major, to the accumulation: thread (ty, tx) owns its RA
+//     fixed rows by the columns tx + 16 t of the head dim: dQ += dS K (dq),
+//     dV += P^T dO and dK += dS^T Q (dk/dv), reading the tile's rows as
+//     stored (a half-warp's 16 columns contiguous);
+//   * every sum runs in a fixed order in fp32 registers; dbias is each
+//     thread's running sum of its keys' dS, summed over the 16 threads of a
+//     key row by shuffles at the end.
+
+constexpr int kThreads = 256;
 
 // D: the class's head dim (a multiple of 16 or of 8, the operands' padded
 // width); BA: fixed rows a block; BB: tile rows; DKV: the dk/dv instance.
@@ -741,7 +1366,7 @@ struct Cfg {
   static_assert(D % 4 == 0 && BA % 16 == 0 && BB % 16 == 0, "tiles");
   static_assert(RA == 1 || RA == 2 || RA == 4, "fixed rows a thread");
   static_assert(RB == 1 || RB == 2 || RB == 4, "tile rows a thread");
-  static_assert(kSmem <= 232448, "shared memory");
+  static_assert(kSmem <= kSmemLimit, "shared memory");
 };
 
 // N consecutive floats of shared memory (N = 1, 2 or 4, aligned to 4 N bytes).
@@ -978,39 +1603,67 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <class C>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+}  // namespace f32
+
+namespace f32 {  // host side
+
+// Launch `kernel` over (blocks, heads, batch) blocks of `threads` threads
+// with `smem` bytes of dynamic shared memory.
+template <class Kernel>
+cudaError_t run(Kernel kernel, int smem, int threads, int blocks, int batch, const Params& p,
+                cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(((C::DKV ? p.m : p.n) + C::BA - 1) / C::BA, p.heads, batch);
-  flash_bwd_f32_kernel<C><<<grid, kThreads, C::kSmem, stream>>>(p);
+  kernel<<<dim3(blocks, p.heads, batch), threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The head-dim classes at (fixed rows, tile rows): dq (BQ queries, BK keys),
-// dk/dv (BK keys, BQ queries).
-template <int BA, int BB>
-using Dq40 = Cfg<40, BA, BB, false>;
-template <int BA, int BB>
-using Dq80 = Cfg<80, BA, BB, false>;
-template <int BA, int BB>
-using Dq160 = Cfg<160, BA, BB, false>;
-template <int BA, int BB>
-using Dkv40 = Cfg<40, BA, BB, true>;
-template <int BA, int BB>
-using Dkv80 = Cfg<80, BA, BB, true>;
-template <int BA, int BB>
-using Dkv160 = Cfg<160, BA, BB, true>;
+// The 3xTF32 kernels of class D at (fixed rows R, tile rows T): dq (BQ
+// queries, BK keys), dk/dv (BK keys, BQ queries), with two buffers where
+// they fit in shared memory, else one; above d = 40 dk/dv splits each slab
+// of 64 keys over two warpgroups.
+template <int D, bool DQ, int R, int T>
+cudaError_t launch_tc(const Params& p, int batch, cudaStream_t s) {
+  if constexpr (DQ) {
+    constexpr int nbuf = tc_smem(D, R, T, 1, T, 2) <= kSmemLimit ? 2 : 1;
+    using C = DqCfg<D, R / 64, T, nbuf>;
+    return run(flash_bwd_dq_tf32_kernel<C>, C::kSmem, C::kThreads, (p.n + R - 1) / R, batch, p,
+               s);
+  } else {
+    constexpr int nbuf = tc_smem(D, R, T, 2, 2 * T, 2) <= kSmemLimit ? 2 : 1;
+    using C = DkvCfg<D, R / 64, (D > 40 ? 2 : 1), T, nbuf>;
+    return run(flash_bwd_dkv_tf32_kernel<C>, C::kSmem, C::kThreads, (p.m + R - 1) / R, batch, p,
+               s);
+  }
+}
 
-// The configurations the library holds, as X-macro lists of (fixed rows,
-// tile rows): the wrapper's table (ops/flash_attention.py:BWD_TILES_F32).
-#define DQ40_F32(X) X(64, 64)
-#define DKV40_F32(X) X(64, 64)
-#define DQ80_F32(X) X(64, 32)
-#define DKV80_F32(X) X(64, 32)
-#define DQ160_F32(X) X(64, 32)
-#define DKV160_F32(X) X(64, 32)
+// The fp32 FMA kernel of class D at (fixed rows R, tile rows T).
+template <int D, bool DQ, int R, int T>
+cudaError_t launch_fma(const Params& p, int batch, cudaStream_t s) {
+  using C = Cfg<D, R, T, !DQ>;
+  return run(flash_bwd_f32_kernel<C>, C::kSmem, kThreads, ((DQ ? p.n : p.m) + R - 1) / R, batch,
+             p, s);
+}
+
+// The configurations the library holds, as X-macro lists of (kernel, fixed
+// rows, tile rows) per kernel and head-dim class: the serving library the
+// wrapper's table (ops/flash_attention.py:BWD_TILES_F32: "tc" the 3xTF32
+// kernels, "fma" the fp32 FMA kernel), the fp32 sweep library
+// (flash_bwd_f32_sweep.cu) tools/bench_sweep_attn.py:BWD_F32_CONFIGS.
+#ifndef FLASH_BWD_F32_SWEEP
+#define DQ40_F32(X) X(tc, 128, 64)
+#define DKV40_F32(X) X(tc, 128, 32)
+#define DQ80_F32(X) X(tc, 128, 32)
+#define DKV80_F32(X) X(tc, 64, 32)
+#else
+#define DQ40_F32(X) X(tc, 64, 64) X(tc, 128, 32) X(tc, 128, 64) X(tc, 192, 32)
+#define DKV40_F32(X) X(tc, 128, 32)
+#define DQ80_F32(X) X(tc, 64, 32) X(tc, 128, 32)
+#define DKV80_F32(X) X(tc, 64, 32)
+#endif
+#define DQ160_F32(X) X(fma, 64, 32)
+#define DKV160_F32(X) X(fma, 64, 32)
 
 // Launch the dq (DQ) or dk/dv kernel of p.d's head-dim class at (rows,
 // tile), if the lists above hold it; anything else returns
@@ -1018,29 +1671,26 @@ using Dkv160 = Cfg<160, BA, BB, true>;
 template <bool DQ>
 cudaError_t dispatch(const Params& p, int batch, int rows, int tile, cudaStream_t s) {
   const int key = tiles_key(rows, tile, 0);
-#define CASE_F32(CFG, R, T) \
-  case tiles_key(R, T, 0): return launch<CFG<R, T>>(p, batch, s);
-#define CASE_DQ40_F32(R, T) CASE_F32(Dq40, R, T)
-#define CASE_DQ80_F32(R, T) CASE_F32(Dq80, R, T)
-#define CASE_DQ160_F32(R, T) CASE_F32(Dq160, R, T)
-#define CASE_DKV40_F32(R, T) CASE_F32(Dkv40, R, T)
-#define CASE_DKV80_F32(R, T) CASE_F32(Dkv80, R, T)
-#define CASE_DKV160_F32(R, T) CASE_F32(Dkv160, R, T)
+#define CASE_F32(D, K, R, T) \
+  case tiles_key(R, T, 0): return launch_##K<D, DQ, R, T>(p, batch, s);
+#define CASE40_F32(K, R, T) CASE_F32(40, K, R, T)
+#define CASE80_F32(K, R, T) CASE_F32(80, K, R, T)
+#define CASE160_F32(K, R, T) CASE_F32(160, K, R, T)
   if constexpr (DQ) {
     if (p.d <= 40) {
-      switch (key) { DQ40_F32(CASE_DQ40_F32) }
+      switch (key) { DQ40_F32(CASE40_F32) }
     } else if (p.d <= 80) {
-      switch (key) { DQ80_F32(CASE_DQ80_F32) }
+      switch (key) { DQ80_F32(CASE80_F32) }
     } else {
-      switch (key) { DQ160_F32(CASE_DQ160_F32) }
+      switch (key) { DQ160_F32(CASE160_F32) }
     }
   } else {
     if (p.d <= 40) {
-      switch (key) { DKV40_F32(CASE_DKV40_F32) }
+      switch (key) { DKV40_F32(CASE40_F32) }
     } else if (p.d <= 80) {
-      switch (key) { DKV80_F32(CASE_DKV80_F32) }
+      switch (key) { DKV80_F32(CASE80_F32) }
     } else {
-      switch (key) { DKV160_F32(CASE_DKV160_F32) }
+      switch (key) { DKV160_F32(CASE160_F32) }
     }
   }
   return cudaErrorInvalidValue;
@@ -1049,6 +1699,7 @@ cudaError_t dispatch(const Params& p, int batch, int rows, int tile, cudaStream_
 // What the route takes: a head dim that is a multiple of 4 up to 160, and
 // every base and stride of q, k, v, dO a multiple of 4 elements (16-byte
 // loads); the wrapper checks the same (ops/flash_attention.py:_check_f32).
+// The gradients' strides must be even (the 3xTF32 kernels store pairs).
 bool make_params(Params& p, const void* q, const void* k, const void* v, const void* dout,
                  const float* bias, const float* lse, const float* delta, int heads, int n,
                  int m, int d, const long long* strides, float scale) {
@@ -1059,6 +1710,8 @@ bool make_params(Params& p, const void* q, const void* k, const void* v, const v
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 || strides[at[i]] % 4 ||
         strides[at[i] + 1] % 4 || strides[at[i] + 2] % 4)
       return false;
+  for (int i = kDQ; i < kBiasRow; ++i)
+    if (strides[i] % 2) return false;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
@@ -1147,15 +1800,17 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
 #ifndef FLASH_BWD_SWEEP
 // The fp32 route: q, k, v, dO, bias, lse, delta and the gradients fp32,
 // strides as above.  (bq, bk) / (bk, bq): the kernel's (fixed rows, tile
-// rows), one this library holds (f32::dispatch); d, every base and every
-// q/k/v/dO stride a multiple of 4 elements, else cudaErrorInvalidValue.
+// rows), one this library holds for d's class (f32::dispatch: the 3xTF32
+// kernels at d <= 80, the fp32 FMA kernel above); d, every base and every
+// q/k/v/dO stride a multiple of 4 elements, and the gradients' strides
+// even, else cudaErrorInvalidValue.
 extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v, const void* dout,
                                 const float* bias, const float* lse, const float* delta, void* dq,
                                 int batch, int heads, int n, int m, int d,
                                 const long long* strides, float scale, int bq, int bk,
                                 void* stream) {
   f32::Params p;
-  if (batch < 1 ||
+  if (batch < 1 || reinterpret_cast<uintptr_t>(dq) % 8 ||
       !f32::make_params(p, q, k, v, dout, bias, lse, delta, heads, n, m, d, strides, scale))
     return (int)cudaErrorInvalidValue;
   p.dq = static_cast<float*>(dq);
@@ -1168,7 +1823,7 @@ extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v, co
                                  int m, int d, const long long* strides, float scale, int bk,
                                  int bq, void* stream) {
   f32::Params p;
-  if (batch < 1 ||
+  if (batch < 1 || reinterpret_cast<uintptr_t>(dk) % 8 || reinterpret_cast<uintptr_t>(dv) % 8 ||
       !f32::make_params(p, q, k, v, dout, bias, lse, delta, heads, n, m, d, strides, scale))
     return (int)cudaErrorInvalidValue;
   p.dk = static_cast<float*>(dk);

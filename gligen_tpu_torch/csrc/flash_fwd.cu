@@ -543,14 +543,6 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-template <int N>
-__device__ __forceinline__ void pin_u(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
-
 template <int ID>
 __device__ __forceinline__ void bar_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(kThreads) : "memory");
@@ -1075,23 +1067,6 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-// x = hi + lo: hi = rna(x) as TF32, lo = x - hi (exact), left for the
-// tensor cores to truncate to TF32.
-__device__ __forceinline__ void split_tc(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// Columns col..col + 7 of row `row` (zeros at rows >= rows, columns >= d).
-__device__ __forceinline__ void load8(float4 (&x)[2], const float* base, long long sn, int row,
-                                      int rows, int col, int d) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    x[i] = row < rows && col + 4 * i < d
-               ? *reinterpret_cast<const float4*>(base + row * sn + col + 4 * i)
-               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
 // Row r, columns 8 cg..8 cg + 7, of a K-major operand of `rows` rows in
 // 32-column atoms of 128-byte rows, 128-byte swizzled: hi at `hi`, lo at the
 // same offset of `lo`.
@@ -1107,25 +1082,6 @@ __device__ __forceinline__ void store_row8(uint8_t* hi, uint8_t* lo, int rows, i
     split_tc(x[i].w, h.w, l.w);
     *reinterpret_cast<uint4*>(hi + off) = h;
     *reinterpret_cast<uint4*>(lo + off) = l;
-  }
-}
-
-// Key `key` of a tile, columns 8 cg..8 cg + 7 of V, into V^T: row n = the
-// column, 32-key atoms of D rows, 128-byte swizzled; within an 8-key step
-// key 2i at k = i and key 2i + 1 at k = 4 + i (P's fragment order).
-template <int D>
-__device__ __forceinline__ void store_vt8(uint8_t* hi, uint8_t* lo, int key, int cg,
-                                          const float4 (&x)[2]) {
-  const int kk = key % 8, word = (key % 32) / 8 * 8 + (kk & 1) * 4 + kk / 2;
-  const int base = (key / 32) * D * 128 + 8 * cg * 128 + (word % 4) * 4;
-  const float v[8] = {x[0].x, x[0].y, x[0].z, x[0].w, x[1].x, x[1].y, x[1].z, x[1].w};
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {  // row 8 cg + e, whose swizzle is e
-    const int off = base + e * 128 + (((word / 4) ^ e) << 4);
-    uint32_t h, l;
-    split_tc(v[e], h, l);
-    *reinterpret_cast<uint32_t*>(hi + off) = h;
-    *reinterpret_cast<uint32_t*>(lo + off) = l;
   }
 }
 
@@ -1318,7 +1274,7 @@ __global__ void __launch_bounds__(C::kThreads, 1)
         mbar_arrive(full(nb));
       }
       wgmma_wait<0>();
-      pin(ot), f32::pin_u(ph), f32::pin_u(pl);
+      pin(ot), pin_u(ph), pin_u(pl);
 #pragma unroll
       for (int i = 0; i < C::kON / 2; ++i) o[part * C::kON / 2 + i] += ot[i];
     }

@@ -2,7 +2,8 @@
 // (flash_fwd.cu, flash_bwd.cu), the projection GEMM core (gemm_sm90.cuh)
 // and the fp32 routes' 3xTF32 core (gemm_tf32.cuh): mbarriers, 2-D and 4-D
 // TMA loads, 2-D TMA stores, the wgmma fence/commit/wait and shared-memory
-// descriptors, the TF32 split of an fp32 operand, the fp32 helpers of a
+// descriptors, the TF32 split of an fp32 operand, the fp32 flash kernels'
+// row loads and transposed operand stores, the fp32 helpers of a
 // register-resident softmax, the copy route's plain loads into TMA's
 // swizzled layout, and on the host the tensor maps and the rule for which
 // operands TMA can read.
@@ -130,6 +131,15 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// The same for TF32 A fragments held as 32-bit words.
+template <int N>
+__device__ __forceinline__ void pin_u(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
 // Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands
 // (Q, K): LBO unused (1), SBO = 1024 B between 8-row groups.  MN-major (V):
 // LBO = bytes between 64-column atoms, SBO = 1024 B between 8-key groups.
@@ -156,6 +166,45 @@ __device__ __forceinline__ uint32_t tf32(float x) {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
   lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// x = hi + lo: hi = rna(x) as TF32, lo = x - hi (exact), left for the
+// tensor cores to truncate to TF32.
+__device__ __forceinline__ void split_tc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// Columns col..col + 7 of row `row` (zeros at rows >= rows, columns >= d).
+__device__ __forceinline__ void load8(float4 (&x)[2], const float* base, long long sn, int row,
+                                      int rows, int col, int d) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    x[i] = row < rows && col + 4 * i < d
+               ? *reinterpret_cast<const float4*>(base + row * sn + col + 4 * i)
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// Row `key` of a tile, its columns 8 cg..8 cg + 7, split into a transposed
+// operand (V^T of the fp32 flash forward; K^T, Q^T, dO^T of its backward):
+// row n = the column, 32-key atoms of D rows, 128-byte swizzled; within an
+// 8-key step key 2i at k = i and key 2i + 1 at k = 4 + i, the order of the
+// TF32 A fragment a thread takes from an accumulator (keys 2t and 2t + 1
+// of each step), so P and dS feed the products from registers.
+template <int D>
+__device__ __forceinline__ void store_vt8(uint8_t* hi, uint8_t* lo, int key, int cg,
+                                          const float4 (&x)[2]) {
+  const int kk = key % 8, word = (key % 32) / 8 * 8 + (kk & 1) * 4 + kk / 2;
+  const int base = (key / 32) * D * 128 + 8 * cg * 128 + (word % 4) * 4;
+  const float v[8] = {x[0].x, x[0].y, x[0].z, x[0].w, x[1].x, x[1].y, x[1].z, x[1].w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {  // row 8 cg + e, whose swizzle is e
+    const int off = base + e * 128 + (((word / 4) ^ e) << 4);
+    uint32_t h, l;
+    split_tc(v[e], h, l);
+    *reinterpret_cast<uint32_t*>(hi + off) = h;
+    *reinterpret_cast<uint32_t*>(lo + off) = l;
+  }
 }
 
 // 2^x on the special-function unit, one instruction (2^-inf = 0).

@@ -35,8 +35,10 @@ head dims (d <= 160) take ``flash_fwd_f32_qm_kernel`` (queries as the
 products' rows), the VAE's 512 ``flash_fwd_f32_kernel`` (keys as the rows);
 ``FlashForward.fp32_kernels`` counts each one's launches.  The backward's
 fp32 route (a model trained in fp32), ``flash_bwd_dq_f32`` and
-``flash_bwd_dkv_f32`` of ``csrc/flash_bwd.cu``, computes in fp32 on the
-CUDA cores at the tiles of ``BWD_TILES_F32``, counted as route "fp32".
+``flash_bwd_dkv_f32`` of ``csrc/flash_bwd.cu``, counted as route "fp32",
+runs the kernel ``BWD_TILES_F32`` names for the head dim: 3xTF32 on the
+tensor cores ("tc", d <= 80) or fp32 FMAs on the CUDA cores ("fma", the d
+<= 160 class); each wrapper's ``fp32_kernels`` counts each one's launches.
 """
 
 from __future__ import annotations
@@ -384,22 +386,33 @@ def bwd_tiles(d: int) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
     raise ValueError(f"flash backward: head dim {d} above {MAX_BWD_HEAD_DIM}")
 
 
-# The fp32 route's tile table, by head-dim class: (largest head dim, dq's (BQ
-# query rows, BK keys), dk/dv's (BK keys, BQ query rows)).  The serving
-# library (csrc/flash_bwd.cu:f32::dispatch, its *_F32 lists) holds exactly
-# these and refuses any other.
+# The fp32 route's tile table, by head-dim class: (largest head dim, kernel,
+# dq's (BQ query rows, BK keys), dk/dv's (BK keys, BQ query rows)).  "tc" is
+# the 3xTF32 wgmma pair (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel),
+# "fma" the fp32 FMA kernel the d <= 160 class keeps (flash_bwd_f32_kernel).
+# The serving library (csrc/flash_bwd.cu:f32::dispatch, its *_F32 lists)
+# holds exactly these and refuses any other; the "tc" tiles are the ones
+# tools/bench_sweep_attn.py --bwd --fp32 picked.
 BWD_TILES_F32 = (
-    (40, (64, 64), (64, 64)),
-    (80, (64, 32), (64, 32)),
-    (160, (64, 32), (64, 32)),
+    (40, "tc", (128, 64), (128, 32)),
+    (80, "tc", (128, 32), (64, 32)),
+    (160, "fma", (64, 32), (64, 32)),
 )
 
 
 def bwd_tiles_f32(d: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     """(dq tiles, dk/dv tiles) of the fp32 route for head dim ``d``."""
-    for top, dq, dkv in BWD_TILES_F32:
+    for top, _, dq, dkv in BWD_TILES_F32:
         if d <= top:
             return dq, dkv
+    raise ValueError(f"flash backward: head dim {d} above {MAX_BWD_HEAD_DIM}")
+
+
+def bwd_kernel_f32(d: int) -> str:
+    """The fp32 route's kernel for head dim ``d``: "tc" or "fma"."""
+    for top, kernel, _, _ in BWD_TILES_F32:
+        if d <= top:
+            return kernel
     raise ValueError(f"flash backward: head dim {d} above {MAX_BWD_HEAD_DIM}")
 
 
@@ -475,12 +488,24 @@ def _bwd_tiles_of(q: torch.Tensor, heads: int, kind: int):
     return table(q.shape[2] // heads)[kind]
 
 
-class FlashBackwardDq(Counted):
-    """dq kernel of ``csrc/flash_bwd.cu`` (routes by ``bwd_route``: "tma"
-    or "copy" for bf16, "fp32")."""
+class BackwardCounted(Counted):
+    """A backward kernel's wrapper: routes by ``bwd_route`` ("tma" or
+    "copy" for bf16, "fp32"), and ``fp32_kernels`` counts the fp32 route's
+    launches by kernel ("tc" or "fma", ``BWD_TILES_F32``)."""
 
     def __init__(self):
         super().__init__(("tma", "copy", "fp32"))
+        self.fp32_kernels = {"tc": 0, "fma": 0}
+
+    def _count_launch(self, route: str, q: torch.Tensor, heads: int) -> None:
+        if route == "fp32":
+            with self._count_lock:
+                self.fp32_kernels[bwd_kernel_f32(q.shape[2] // heads)] += 1
+        self._count(route)
+
+
+class FlashBackwardDq(BackwardCounted):
+    """dq kernel of ``csrc/flash_bwd.cu``."""
 
     def __call__(self, q, k, v, heads, do, lse, delta, bias=None) -> torch.Tensor:
         """dq of ``flash_attention_bwd_plain``, in q's dtype."""
@@ -489,16 +514,12 @@ class FlashBackwardDq(Counted):
         _check_bwd_inputs(q, k, v, heads, do, lse, delta, bias)
         tiles = _bwd_tiles_of(q, heads, 0)
         dq, route = launch_bwd("flash_bwd", "dq", q, k, v, heads, do, lse, delta, bias, tiles)
-        self._count(route)
+        self._count_launch(route, q, heads)
         return dq
 
 
-class FlashBackwardDkv(Counted):
-    """dk/dv (and dbias) kernel of ``csrc/flash_bwd.cu`` (routes by
-    ``bwd_route``: "tma" or "copy" for bf16, "fp32")."""
-
-    def __init__(self):
-        super().__init__(("tma", "copy", "fp32"))
+class FlashBackwardDkv(BackwardCounted):
+    """dk/dv (and dbias) kernel of ``csrc/flash_bwd.cu``."""
 
     def __call__(self, q, k, v, heads, do, lse, delta, bias=None, dbias: bool = False):
         """(dk, dv, dbias) of ``flash_attention_bwd_plain``; dbias (B, M)
@@ -512,7 +533,7 @@ class FlashBackwardDkv(Counted):
         tiles = _bwd_tiles_of(q, heads, 1)
         (dk, dv, db), route = launch_bwd("flash_bwd", "dkv", q, k, v, heads, do, lse, delta,
                                          bias, tiles, dbias=dbias)
-        self._count(route)
+        self._count_launch(route, q, heads)
         # the heads share the bias: sum their partial sums (pallas_attention.py:1078)
         return dk, dv, db.sum(dim=1) if dbias else None
 

@@ -35,7 +35,9 @@ def run(batch: int = 16, hw: int = 64, heads: int = 8, dim_head: int = 40, iters
         device="cuda", profile: bool = False) -> dict:
     """ms per block forward; ``switches``: what the block's projections
     and norms took; ``out_finite``; ``breakdown``: the traced forward's
-    ``device_breakdown`` categories when ``profile``, else None."""
+    ``device_breakdown`` categories when ``profile``, else None; ``takes``:
+    (traces taken, launch calls of the kept one with no device record)
+    when ``profile``, else None."""
     import torch
 
     from gligen_tpu_torch.inference.pipeline import random_init_
@@ -65,10 +67,14 @@ def run(batch: int = 16, hw: int = 64, heads: int = 8, dim_head: int = 40, iters
         out = forward()
         finite = bool(torch.isfinite(out).all()) and tuple(out.shape) == tuple(x.shape)
         ms = timing.ms_per_call(forward, iters, device)
-        breakdown = perf_probe.device_breakdown(perf_probe.traced(forward)[1])[0] if profile else None
+        breakdown = takes = None
+        if profile:
+            trace = perf_probe.traced(forward, tries=perf_probe.TRACE_TRIES)[1]
+            breakdown = perf_probe.device_breakdown(trace)[0]
+            takes = (trace["takes"], perf_probe.unanswered_launches(trace))
     switches = {"FUSED_PROJ": "1" if _fused_proj_ok(hw * hw) else "0",
                 "FUSED_NORM": _fused_norm_mode()}
-    return dict(ms=ms, switches=switches, out_finite=finite, breakdown=breakdown,
+    return dict(ms=ms, switches=switches, out_finite=finite, breakdown=breakdown, takes=takes,
                 shape=(batch, hw, hw, c))
 
 
@@ -80,6 +86,9 @@ def lines(result: dict) -> list:
     switches = " ".join(f"{k}={v}" for k, v in result["switches"].items())
     out = [f"block forward: {result['ms']:.4f} ms (B={b}, {h}x{w}x{c}, {switches}, output finite "
            f"{result['out_finite']})"]
+    if result["takes"] is not None:
+        out.append("profile: traces of the forward taken {}, launch calls of the last with no "
+                   "device record {}".format(*result["takes"]))
     return out + [f"profile:   {line}"
                   for line in perf_probe.breakdown_lines(result["breakdown"] or {})]
 

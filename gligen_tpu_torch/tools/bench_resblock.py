@@ -32,7 +32,7 @@ EMB_DIM = 1280  # SD-1.4's time embedding, 4 x 320
 def run(batch: int = 16, hw: int = 64, channels: int = 320, blocks: int = 1, iters: int = 10,
         device="cuda", profile: bool = False) -> dict:
     """ms per chain forward, ``tflops`` (its conv-only estimate),
-    ``switches``, ``out_finite`` and ``breakdown`` (as in
+    ``switches``, ``out_finite``, ``breakdown`` and ``takes`` (as in
     ``bench_block.run``)."""
     import torch
 
@@ -62,11 +62,15 @@ def run(batch: int = 16, hw: int = 64, channels: int = 320, blocks: int = 1, ite
         out = forward()
         finite = bool(torch.isfinite(out).all()) and tuple(out.shape) == tuple(x.shape)
         ms = timing.ms_per_call(forward, iters, device)
-        breakdown = perf_probe.device_breakdown(perf_probe.traced(forward)[1])[0] if profile else None
+        breakdown = takes = None
+        if profile:
+            trace = perf_probe.traced(forward, tries=perf_probe.TRACE_TRIES)[1]
+            breakdown = perf_probe.device_breakdown(trace)[0]
+            takes = (trace["takes"], perf_probe.unanswered_launches(trace))
     flops = blocks * 2 * 2 * batch * hw * hw * 9 * c * c
     return dict(ms=ms, tflops=flops / ms / 1e9, blocks=blocks, out_finite=finite,
                 switches={"FUSED_NORM": _fused_norm_mode(), "FUSED_CONV": _fused_conv_mode()},
-                breakdown=breakdown, shape=(batch, hw, hw, c))
+                breakdown=breakdown, takes=takes, shape=(batch, hw, hw, c))
 
 
 def lines(result: dict) -> list:
@@ -77,6 +81,9 @@ def lines(result: dict) -> list:
     switches = " ".join(f"{k}={v}" for k, v in result["switches"].items())
     out = [f"resblock x{result['blocks']}: {result['ms']:.4f} ms ({result['tflops']:.1f} TF/s "
            f"conv-only est; B={b}, {h}x{w}x{c}, {switches}, output finite {result['out_finite']})"]
+    if result["takes"] is not None:
+        out.append("profile: traces of the forward taken {}, launch calls of the last with no "
+                   "device record {}".format(*result["takes"]))
     return out + [f"profile:   {line}"
                   for line in perf_probe.breakdown_lines(result["breakdown"] or {})]
 

@@ -7,6 +7,8 @@ serving shapes, the backward (``--bwd``) at a training level's shapes.
     python3 gligen_tpu_torch/tools/bench_sweep_attn.py --bwd [--level ds1] [--batch 4]
         [--iters 10] [--m 0]
     python3 gligen_tpu_torch/tools/bench_sweep_attn.py --fp32 [--batch 4] [--iters 10] [--m 0]
+    python3 gligen_tpu_torch/tools/bench_sweep_attn.py --bwd --fp32 [--batch 4] [--iters 10]
+        [--m 0]
 
 Counterpart of ``tools/bench_sweep_attn.py``.  At the shapes of a ds1
 transformer block at SD-1.4 width (CFG batch 16, 8 heads of 40, N = 4096
@@ -57,6 +59,18 @@ output and LSE against ``flash_attention_plain`` on every query row, to
 chip_smoke.py's FP32_REL_TOL of the plain output's largest magnitude and
 FP32_LSE_TOL.  The table is what this sweep picks.
 
+``--bwd --fp32`` (``run_bwd_fp32``): the backward's fp32 route at ds1 and
+ds2 (the 3xTF32 kernels ``flash_bwd_dq_tf32_kernel`` and
+``flash_bwd_dkv_tf32_kernel``), M = N and N + 30, B = 4, on seeded
+unit-scale fp32 q/k/v and dO with the LSE and delta of the plain forward:
+dq and dk/dv once at the wrapper's table (``bwd_tiles_f32``) and once at
+each (fixed rows, tile rows) of ``BWD_F32_CONFIGS`` through the fp32 sweep
+library (``csrc/flash_bwd_f32_sweep.cu``); each row: device ms, TF/s on the
+function's products, the share of the 3xTF32 bound (3 x the products at
+the TF32 tensor rate), SDPA's fp32 backward (TF32 off) as the yardstick,
+and each gradient against ``flash_attention_bwd_plain`` to FP32_REL_TOL of
+its largest magnitude.  The table's "tc" tiles are what this sweep picks.
+
 The card is the default.  With ``device="cpu"`` (the tests) every row runs
 the plain version and ms is the host's wall time per call: no device
 number comes from there.
@@ -100,6 +114,16 @@ F32_CONFIGS = {
 }
 # (N, head dim) of the levels the fp32 sweep times (8 heads)
 F32_LEVELS = {"ds1": (4096, 40), "ds2": (1024, 80)}
+# The fp32 backward sweep library's configurations (csrc/flash_bwd.cu:
+# f32::dispatch under FLASH_BWD_F32_SWEEP) by head-dim class: dq's (BQ
+# queries, BK keys) and dk/dv's (BK keys, BQ queries) of the 3xTF32 kernels,
+# those that ptxas builds without a spill on an H100 (dk/dv at d <= 40 also
+# built at (64, 32), (64, 64), (128, 64) and (192, 32), and dq at d <= 80 at
+# (64, 64), spilled; chip_smoke.py's phase 2 fails on a spill).
+BWD_F32_CONFIGS = {
+    40: (((64, 64), (128, 32), (128, 64), (192, 32)), ((128, 32),)),
+    80: (((64, 32), (128, 32)), ((64, 32),)),
+}
 # chip_smoke.py's FP32_REL_TOL and FP32_LSE_TOL
 FP32_REL_TOL, FP32_LSE_TOL = 1e-4, 1e-4
 # (N, head dim) of each training level's self-attention (8 heads)
@@ -346,6 +370,88 @@ def run_bwd(batch: int = 4, level: str = "ds1", ms_keys=None, configs=None, iter
     return rows
 
 
+def run_bwd_fp32(batch: int = 4, levels=tuple(F32_LEVELS), ms_keys=None, iters: int = 10,
+                 device="cuda", heads: int = 8, n: int = 0, dim: int = 0):
+    """One dict per row, for each level, key count M (``ms_keys``, default
+    N and N + 30) and kernel ("dq", "dkv"): the table's row (``tiles``
+    None) then one per configuration of ``BWD_F32_CONFIGS`` for the level's
+    head dim: level, kind, m, tiles, table, ms, tflops, bound_ms, bound_by,
+    bound_share (None on the CPU), sdpa_ms, rel_err (the largest of each
+    gradient's max abs error over its plain version's largest magnitude),
+    ok.  ``n``/``dim`` override the levels' (the tests).  On the CPU every
+    row is the plain version."""
+    import torch
+
+    from gligen_tpu_torch.ops import flash_attention as fa
+    from gligen_tpu_torch.tools import timing
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    for level in levels:
+        lvl_n, d = n or F32_LEVELS[level][0], dim or F32_LEVELS[level][1]
+        tables = fa.bwd_tiles_f32(d)
+        configs = next(c for top, c in BWD_F32_CONFIGS.items() if d <= top)
+        for m in ms_keys or (lvl_n, lvl_n + 30):
+            q, k, v = (torch.randn((batch, L, heads * d), generator=gen, device=device)
+                       for L in (lvl_n, m, m))
+            do = torch.randn((batch, lvl_n, heads * d), generator=gen, device=device)
+            with torch.no_grad():
+                out, lse = fa.flash_attention_plain(q, k, v, heads)
+                delta = fa.attention_delta(out, do, heads)
+                args = (q, k, v, heads, do, lse, delta, None)
+                want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(*args)))
+                del out
+            sdpa_ms = timing.ms_per_call(sdpa_bwd(q, k, v, heads, do), iters, device)
+            flops = 2 * batch * heads * lvl_n * m * d
+            extra = 8 * batch * heads * lvl_n  # lse and delta
+            for i, kind in enumerate(("dq", "dkv")):
+                names = ("dq",) if kind == "dq" else ("dk", "dv")
+                ops = (3 if kind == "dq" else 4) * flops
+                nbytes = 4 * ((3 * batch * lvl_n + 2 * batch * m) if kind == "dq"
+                              else (2 * batch * lvl_n + 4 * batch * m)) * heads * d + extra
+                bound_ms, bound_by = timing.bound(nbytes, 3 * ops, timing.TF32_TENSOR_FLOP_PER_S)
+                for tiles in (None, *configs[i]):
+                    if on_card:
+                        library = "flash_bwd" if tiles is None else "flash_bwd_f32_sweep"
+                        call = lambda: fa.launch_bwd(library, kind, *args, tiles or tables[i])[0]
+                    else:
+                        def call():
+                            grads = fa.flash_attention_bwd_plain(*args)
+                            return grads[0] if kind == "dq" else grads[1:3]
+                    with torch.no_grad():
+                        got = call()
+                    got = (got,) if kind == "dq" else got[:2]
+                    errs = [(g - want[name]).abs().max().item() / want[name].abs().max().item()
+                            for name, g in zip(names, got)]
+                    finite = all(bool(torch.isfinite(g).all()) for g in got)
+                    del got
+                    ms = timing.ms_per_call(call, iters, device)
+                    rows.append(dict(
+                        level=level, kind=kind, m=m, tiles=tiles,
+                        table=tables[i] if tiles is None else None, ms=ms,
+                        tflops=ops / ms / 1e9, bound_ms=bound_ms, bound_by=bound_by,
+                        bound_share=bound_ms / ms if on_card else None, sdpa_ms=sdpa_ms,
+                        rel_err=max(errs), ok=finite and max(errs) <= FP32_REL_TOL))
+            del q, k, v, do, lse, delta, args, want
+    return rows
+
+
+def bwd_fp32_lines(rows) -> list:
+    """The fp32 backward rows as the tool prints them."""
+    out = [f"{'level':>5s} {'kernel':>6s} {'M':>5s} {'tiles':>12s} {'ms':>9s} {'TF/s':>7s} "
+           f"{'%bound':>7s} {'bound ms':>9s} {'SDPA fp32':>9s}  vs plain"]
+    for r in rows:
+        tiles = "x".join(map(str, r["tiles"] or r["table"])) + ("" if r["tiles"] else " table")
+        share = "-" if r["bound_share"] is None else f"{100 * r['bound_share']:6.1f}%"
+        out.append(f"{r['level']:>5s} {r['kind']:>6s} {r['m']:5d} {tiles:>12s} {r['ms']:9.4f} "
+                   f"{r['tflops']:7.1f} {share:>7s} {r['bound_ms']:9.4f} {r['sdpa_ms']:9.4f}  "
+                   f"max_abs_err/max|plain| {r['rel_err']:.3e} (tol {FP32_REL_TOL}) "
+                   f"{'ok' if r['ok'] else 'FAIL'}")
+    return out
+
+
 def bwd_lines(rows) -> list:
     """The backward rows as the tool prints them."""
     out = [f"{'kernel':>6s} {'M':>5s} {'tiles':>14s} {'ms':>9s} {'TF/s':>7s} {'%bound':>7s} "
@@ -391,6 +497,16 @@ def main() -> None:
     from gligen_tpu_torch.tools.timing import card_setup
 
     card = card_setup("bench_sweep_attn")
+    if args.bwd and args.fp32:
+        batch = args.batch or 4
+        rows = run_bwd_fp32(batch=batch, ms_keys=(args.m,) if args.m else None, iters=args.iters)
+        print(f"bench_sweep_attn --bwd --fp32: B={batch} ds1 (N=4096, 8x40) and ds2 (N=1024, "
+              f"8x80), device ms per call over {args.iters} calls, on {card}")
+        print("\n".join(bwd_fp32_lines(rows)))
+        if not all(r["ok"] for r in rows):
+            raise SystemExit("bench_sweep_attn: an fp32 backward configuration disagrees with "
+                             "flash_attention_bwd_plain")
+        return
     if args.bwd:
         batch = args.batch or 4
         rows = run_bwd(batch=batch, level=args.level, ms_keys=(args.m,) if args.m else None,

@@ -7,6 +7,7 @@ and what each fused kernel costs against the module path's chain.
         [--dtype bfloat16|float32]
     python3 gligen_tpu_torch/tools/perf_probe.py train [--root DIR] [--fused 1|0]
         [--norm gn|0|ln|both] [--conv 0|1|auto] [--remat full|none] [--batch 4] [--steps 5]
+        [--dtype bfloat16|float32]
     python3 gligen_tpu_torch/tools/perf_probe.py chains
     python3 gligen_tpu_torch/tools/perf_probe.py norms
     python3 gligen_tpu_torch/tools/perf_probe.py convs [--sweep]
@@ -44,7 +45,11 @@ CUDA activity, so the step's "train_step.loss" range reaches the device
 timeline): device time by kernel category and by phase -- loss, backward,
 optimizer (``train_phases``); the backward's flash forwards are the remat
 recompute -- and the device's idle share of the wall; then one more
-unprofiled step.
+unprofiled step.  ``--dtype float32`` trains the model in fp32 (every
+kernel on its fp32 route, TF32 off for matmul and cuDNN) and adds a line
+with the flash backward's fp32 kernels' device ms and share (K4′: the
+3xTF32 dq and dk/dv kernels, and the FMA kernel, a parent tree's at every
+head dim).
 
 chains: at every fused-projection shape of ``chip_smoke.proj_cases``, the
 kernel's wrapper against the module path's chain for the same function
@@ -132,6 +137,15 @@ def category(name: str) -> str:
             return FP32_PROJ[int(name.split(kernel, 1)[1].split(",", 1)[0].split(">", 1)[0])]
     if any(k in name for k in ("conv3x3_tf32_kernel", "conv_split_reduce_f32", "conv3x3_f32_kernel")):
         return FP32_CONV
+    # the flash backward's fp32 route (K4'): the 3xTF32 kernels (d <= 80)
+    # and the fp32 FMA kernel (d = 160; a parent tree's at every head dim),
+    # whose Cfg ends in false (dq) or true (dk/dv)
+    if "flash_bwd_dq_tf32_kernel" in name:
+        return "flash_bwd dq fp32 3xTF32 (K4')"
+    if "flash_bwd_dkv_tf32_kernel" in name:
+        return "flash_bwd dk/dv fp32 3xTF32 (K4')"
+    if "flash_bwd_f32_kernel" in name:
+        return f"flash_bwd {'dk/dv' if 'true>' in name else 'dq'} fp32 FMA (K4')"
     if "flash_bwd_dq_kernel" in name:
         return "flash_bwd dq (K4)"
     if "flash_bwd_dkv_kernel" in name:
@@ -175,8 +189,12 @@ LAUNCH_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset", "cuMemc
 # kernels after the profiler starts (a call's first GroupNorm launches,
 # the whole of a short call), while their launch calls stay in the trace.
 # ``traced`` first launches this many one-element kernels, then cuts
-# them from the trace.
+# them from the trace; now and then CUPTI drops more than these, so a
+# repeatable call may be traced again (``first_whole``).
 WARM_LAUNCHES = 64
+# how often ``bench_block`` and ``bench_resblock`` trace their repeatable
+# forwards before they take a trace with dropped records
+TRACE_TRIES = 4
 
 
 def device_breakdown(trace: dict, phase_of=None):
@@ -233,27 +251,51 @@ def without_first_launches(trace: dict, n: int) -> dict:
     return {**trace, "traceEvents": keep}
 
 
-def traced(fn, cpu: bool = False):
+def unanswered_launches(trace: dict) -> int:
+    """The launch calls of a chrome trace that no device record answers."""
+    calls, records = launch_calls(trace)
+    return len(set(calls) - {corr for corr, _ in records})
+
+
+def first_whole(take, tries: int):
+    """``take()`` -> (out, trace), taken until every launch call of the
+    trace has its device record, at most ``tries`` times: the first whole
+    (out, trace), else the last; the trace's "takes" says how many were
+    taken."""
+    for takes in range(1, tries + 1):
+        out, trace = take()
+        if not unanswered_launches(trace):
+            break
+    return out, {**trace, "takes": takes}
+
+
+def traced(fn, cpu: bool = False, tries: int = 1):
     """(``fn()``, the chrome trace of that call under ``torch.profiler``):
     CUDA activity only, to keep the profiler's host cost low, or CPU too
     where a host range must reach the device timeline.  WARM_LAUNCHES
-    kernels run first inside the window and are cut from the trace."""
+    kernels run first inside the window and are cut from the trace.  A
+    repeatable ``fn`` may be traced up to ``tries`` times, until CUPTI
+    drops none of its device records (``first_whole``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     warm = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
-        for _ in range(WARM_LAUNCHES):
-            warm.add_(1)
-        torch.cuda.synchronize()
-        out = fn()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return out, without_first_launches(json.load(f), WARM_LAUNCHES)
+
+    def take():
+        with profile(activities=activities) as prof:
+            for _ in range(WARM_LAUNCHES):
+                warm.add_(1)
+            torch.cuda.synchronize()
+            out = fn()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                return out, without_first_launches(json.load(f), WARM_LAUNCHES)
+
+    return first_whole(take, tries)
 
 
 def breakdown_lines(by_cat) -> list:
@@ -329,17 +371,18 @@ TRAIN_PHASES = ("loss", "backward", "optimizer")
 
 def train_phases(trace: dict):
     """``phase_of`` for one train step on one stream, whose phases run in
-    order: the loss (the device span of its "train_step.loss" range), the
-    backward (the autograd engine's own thread launches it, so no range of
-    the step's thread reaches it on the device: everything after the loss
-    and before the optimizer), the optimizer (from its first foreach
-    kernel on)."""
+    order: the loss (the device span of its "train_step.loss" range, from
+    its first piece's start to its last one's end: the profiler may cut it
+    into several pieces), the backward (the autograd engine's own thread
+    launches it, so no range of the step's thread reaches it on the device:
+    everything after the loss and before the optimizer), the optimizer
+    (from its first foreach kernel on)."""
     events = [ev for ev in trace.get("traceEvents", []) if ev.get("ph") == "X"]
     loss = [(float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0.0))) for ev in events
             if ev.get("cat") == "gpu_user_annotation" and ev.get("name") == "train_step.loss"]
-    if len(loss) != 1:
-        raise RuntimeError(f"expected one device span of train_step.loss, found {len(loss)}")
-    (lo, hi), = loss
+    if not loss:
+        raise RuntimeError("no device span of train_step.loss in the trace")
+    lo, hi = min(a for a, _ in loss), max(b for _, b in loss)
     opt = min(float(ev["ts"]) for ev in events if ev.get("cat") == "kernel"
               and category(ev.get("name", "")) == "optimizer (foreach)")
 
@@ -363,7 +406,7 @@ def train(args) -> None:
     os.environ.update(GLIGEN_TPU_FUSED_PROJ=args.fused, GLIGEN_TPU_FUSED_NORM=args.norm,
                       GLIGEN_TPU_FUSED_CONV=args.conv, GLIGEN_TPU_REMAT_POLICY=args.remat)
     device = torch.device("cuda", 0)
-    comps = GligenComponents.create(dtype=torch.bfloat16, seed=0, device=device,
+    comps = GligenComponents.create(dtype=getattr(torch, args.dtype), seed=0, device=device,
                                     unet_config={"use_checkpoint": True})
     gen = torch.Generator(device=device).manual_seed(1)
     dezero_(comps.unet, gen)
@@ -379,7 +422,7 @@ def train(args) -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    tag = (f"root {root.name} PROJ={args.fused} NORM={args.norm} CONV={args.conv} "
+    tag = (f"root {root.name} {args.dtype} PROJ={args.fused} NORM={args.norm} CONV={args.conv} "
            f"remat {args.remat} batch {args.batch}")
     first = run()
     torch.cuda.reset_peak_memory_stats()
@@ -406,6 +449,11 @@ def train(args) -> None:
     phase_ms = {p: sum(v for (c, q), v in by_phase.items() if q == p) for p in phases}
     print("profile:   by phase: " + ", ".join(f"{p} {ms:.1f} ms" for p, ms in phase_ms.items()),
           flush=True)
+    if args.dtype == "float32":
+        k4 = {c: ms for c, (ms, _) in by_cat.items() if "fp32" in c and "(K4')" in c}
+        print(f"profile: {tag}: flash backward fp32 (K4') {sum(k4.values()):.1f} ms "
+              f"({sum(k4.values()) / total:.1%} of device time): "
+              + ", ".join(f"{c} {ms:.1f} ms" for c, ms in sorted(k4.items())), flush=True)
 
 
 def module_chain(torch, kind, c, k, device):
@@ -590,6 +638,7 @@ def main() -> None:
     train_args.add_argument("--remat", choices=("full", "none"), default="full")
     train_args.add_argument("--batch", type=int, default=4)
     train_args.add_argument("--steps", type=int, default=5)
+    train_args.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     for mode in ("chains", "norms", "convs"):
         sub.add_parser(mode)
     sub.choices["convs"].add_argument("--sweep", action="store_true")

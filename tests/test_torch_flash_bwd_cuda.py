@@ -205,10 +205,12 @@ def test_head_dim_above_the_kernels_raises(cuda):
 # ---------------------------------------------------------------- the fp32 route
 #
 # fp32 q/k/v/dO (a model trained in fp32, fault F9): flash_bwd_dq_f32 and
-# flash_bwd_dkv_f32, fp32 FMAs on the CUDA cores.  Tolerance: each gradient
-# within FP32_REL_TOL = 1e-4 of the plain version's largest magnitude (the
-# plain version computes the same fp32 sums in another order, with TF32
-# off), chip_smoke.py's fp32 limit; one-pass TF32 misses it.
+# flash_bwd_dkv_f32, 3xTF32 wgmma at d <= 80 ("tc") and fp32 FMAs on the
+# CUDA cores in the d <= 160 class ("fma"), as BWD_TILES_F32 names them.
+# Tolerance: each gradient within FP32_REL_TOL = 1e-4 of the plain version's
+# largest magnitude (the plain version computes the same fp32 sums in
+# another order, with TF32 off), chip_smoke.py's fp32 limit; one-pass TF32
+# misses it.
 
 FP32_REL_TOL = 1e-4
 
@@ -257,18 +259,26 @@ def tf32_off(cuda):
         (1, 300, 4126, 2, 40, True),   # 4126 keys with a key mask and dbias
         (2, 36, 292, 8, 40, False),    # gatedSA2: 36 queries over N + 36 keys
         (2, 90, 150, 2, 160, True),    # a key mask with dbias at d 160
+        (2, 1024, 1054, 8, 80, True),  # ds2's fuser with a key mask and dbias
+        (1, 70, 45, 2, 44, False),     # head dim 44 (the d <= 80 class's tail atoms)
+        (3, 33, 31, 2, 8, True),       # head dim 8, one ragged tile each way
     ],
 )
 def test_fp32_dq_dkv_dbias_match_plain(tf32_off, b, n, m, h, d, masked):
-    """Both fp32 kernels in every head-dim class, on the "fp32" route."""
+    """Both fp32 kernels in every head-dim class, on the "fp32" route, each
+    launch on the kernel BWD_TILES_F32 names for d (3xTF32 at d <= 80)."""
     cuda = tf32_off
     q, k, v, do, bias, lse, delta = inputs_f32(cuda, b, n, m, h, d, masked, seed=n + m + d)
     routes = (dict(fa.flash_bwd_dq.routes), dict(fa.flash_bwd_dkv.routes))
+    kernels = (dict(fa.flash_bwd_dq.fp32_kernels), dict(fa.flash_bwd_dkv.fp32_kernels))
     dq = fa.flash_bwd_dq(q, k, v, h, do, lse, delta, bias)
     dk, dv, db = fa.flash_bwd_dkv(q, k, v, h, do, lse, delta, bias, dbias=masked)
     torch.cuda.synchronize()
-    for wrapper, before in zip((fa.flash_bwd_dq, fa.flash_bwd_dkv), routes):
+    kernel = "tc" if d <= 80 else "fma"
+    assert fa.bwd_kernel_f32(d) == kernel
+    for wrapper, before, ran in zip((fa.flash_bwd_dq, fa.flash_bwd_dkv), routes, kernels):
         assert wrapper.routes == dict(before, fp32=before["fp32"] + 1), (before, wrapper.routes)
+        assert wrapper.fp32_kernels == dict(ran, **{kernel: ran[kernel] + 1})
     want = fa.flash_attention_bwd_plain(q, k, v, h, do, lse, delta, bias)
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.shape == w.shape
@@ -280,6 +290,27 @@ def test_fp32_dq_dkv_dbias_match_plain(tf32_off, b, n, m, h, d, masked):
         assert dv[:, m // 2 + 3:].abs().max().item() == 0.0
     else:
         assert db is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_fp32_strided_operands_match_plain(tf32_off, d):
+    """k and v sliced from one fused projection (rows 2 H d apart), q from a
+    wider one: the kernels read every operand through its strides."""
+    cuda = tf32_off
+    b, n, m, h = 2, 150, 130, 4
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    qx = torch.randn((b, n, 3 * h * d), generator=gen, device=cuda)
+    kv = torch.randn((b, m, 2 * h * d), generator=gen, device=cuda)
+    q, k, v = qx[..., h * d:2 * h * d], kv[..., :h * d], kv[..., h * d:]
+    do = torch.randn((b, n, h * d), generator=gen, device=cuda)
+    out, lse = fa.flash_fwd(q, k, v, h)
+    delta = fa.attention_delta(out, do, h)
+    dq = fa.flash_bwd_dq(q, k, v, h, do, lse, delta)
+    dk, dv, _ = fa.flash_bwd_dkv(q, k, v, h, do, lse, delta)
+    want = fa.flash_attention_bwd_plain(q, k, v, h, do, lse, delta)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert_close_f32(got, w, name)
 
 
 @pytest.mark.gpu
@@ -353,3 +384,25 @@ def test_fp32_function_matches_plain_autograd(tf32_off):
     want = torch.autograd.grad(fa.flash_attention_plain(*ref[:3], h, bias=ref[3])[0], ref, do)
     for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
         assert_close_f32(g, w, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 80])
+def test_fp32_sweep_library_matches_plain(tf32_off, d):
+    """The fp32 sweep library (csrc/flash_bwd_f32_sweep.cu) at every
+    configuration of bench_sweep_attn.BWD_F32_CONFIGS for the class."""
+    from gligen_tpu_torch.tools.bench_sweep_attn import BWD_F32_CONFIGS
+
+    q, k, v, do, bias, lse, delta = inputs_f32(tf32_off, 2, 200, 230, 2, d, True, seed=d + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, 2, do, lse, delta, bias)
+    for kind, configs in zip(("dq", "dkv"), BWD_F32_CONFIGS[d]):
+        for tiles in configs:
+            got, route = fa.launch_bwd("flash_bwd_f32_sweep", kind, q, k, v, 2, do, lse, delta,
+                                       bias, tiles, dbias=True)
+            assert route == "fp32"
+            if kind == "dq":
+                assert_close_f32(got, want[0], f"dq {tiles}")
+            else:
+                assert_close_f32(got[0], want[1], f"dk {tiles}")
+                assert_close_f32(got[1], want[2], f"dv {tiles}")
+                assert_close_f32(got[2].sum(1), want[3], f"dbias {tiles}")

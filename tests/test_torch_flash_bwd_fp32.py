@@ -2,15 +2,16 @@
 the wrapper takes, its tile table as the C dispatch holds it, and its
 arithmetic against the JAX Pallas backward in fp32.
 
-``csrc/flash_bwd.cu``'s fp32 kernels (``flash_bwd_dq_f32``,
-``flash_bwd_dkv_f32``) run on the CUDA cores in fp32: FMAs in a fixed
-order, P = exp2 of the recomputed scores less the LSE, no TF32 operand
-anywhere.  So their model on the CPU is the plain backward itself
-(``flash_attention_bwd_plain``, fp32 from the saved LSE), which the CPU
-runs behind the autograd Function: it is held to ``jax.grad`` of the
-Pallas kernels run in interpret mode (``flash_attention_packed``, and the
-(B*H, N, D) form with a bias for dbias), in fp32, at the training path's
-head dims 40, 80 and 160, with and without a key mask.
+``csrc/flash_bwd.cu``'s fp32 entries (``flash_bwd_dq_f32``,
+``flash_bwd_dkv_f32``) run 3xTF32 ``wgmma`` kernels at d <= 80, whose
+arithmetic ``tests/test_torch_flash_bwd_fp32_tc.py`` models, and fp32 FMAs
+on the CUDA cores in the d <= 160 class, whose model is the plain backward
+itself.  The CPU runs the plain backward (``flash_attention_bwd_plain``,
+fp32 from the saved LSE) behind the autograd Function: here it is held to
+``jax.grad`` of the Pallas kernels run in interpret mode
+(``flash_attention_packed``, and the (B*H, N, D) form with a bias for
+dbias), in fp32, at the training path's head dims 40, 80 and 160, with and
+without a key mask.
 
 Tolerance: FP32_REL_TOL = 1e-4 of each gradient's largest magnitude
 (chip_smoke.py's fp32 limit, which its phase 3 holds the kernels to on the
@@ -93,14 +94,16 @@ def test_mixed_dtypes_are_refused():
 
 @pytest.mark.parametrize(
     "d,want",
-    [(4, ((64, 64), (64, 64))), (40, ((64, 64), (64, 64))), (44, ((64, 32), (64, 32))),
-     (80, ((64, 32), (64, 32))), (84, ((64, 32), (64, 32))), (160, ((64, 32), (64, 32)))],
+    [(4, ((128, 64), (128, 32))), (40, ((128, 64), (128, 32))), (44, ((128, 32), (64, 32))),
+     (80, ((128, 32), (64, 32))), (84, ((64, 32), (64, 32))), (160, ((64, 32), (64, 32)))],
 )
 def test_fp32_tile_table(d, want):
     """(dq tiles, dk/dv tiles) of the fp32 route by head-dim class: dq's
     (BQ queries, BK keys), dk/dv's (BK keys, BQ queries); the wrappers pick
-    them by q's dtype."""
+    them by q's dtype.  The table also names each class's kernel
+    (``bwd_kernel_f32``: 3xTF32 at d <= 80, FMAs above)."""
     assert fa.bwd_tiles_f32(d) == want
+    assert fa.bwd_kernel_f32(d) == ("tc" if d <= 80 else "fma")
     assert [top for top, *_ in fa.BWD_TILES_F32] == [top for top, *_ in fa.BWD_TILES]
     q = zeros(1, 1, 2 * d)
     assert (fa._bwd_tiles_of(q, 2, 0), fa._bwd_tiles_of(q, 2, 1)) == want
@@ -114,13 +117,17 @@ def test_fp32_tile_table_stops_at_160(d):
 
 
 def test_c_dispatch_holds_the_fp32_table():
-    """csrc/flash_bwd.cu's fp32 dispatch lists (DQ40_F32 ... DKV160_F32)
-    hold exactly BWD_TILES_F32, per class and kernel."""
+    """csrc/flash_bwd.cu's serving fp32 dispatch lists (DQ40_F32 ...
+    DKV160_F32, before the sweep library's #else) hold exactly
+    BWD_TILES_F32, per class and kernel: (kernel, fixed rows, tile rows)."""
     src = (CSRC / "flash_bwd.cu").read_text()
+    src = src[:src.index("#else", src.index("#ifndef FLASH_BWD_F32_SWEEP"))] + \
+        src[src.index("#endif", src.index("#ifndef FLASH_BWD_F32_SWEEP")):]
     held = {}
     for kind, top, lists in re.findall(r"#define (DQ|DKV)(\d+)_F32\(X\) (.*)", src):
-        held[(int(top), kind)] = [tuple(map(int, x)) for x in re.findall(r"X\((\d+), (\d+)\)", lists)]
-    assert held == {(top, kind): [tiles] for top, dq, dkv in fa.BWD_TILES_F32
+        held[(int(top), kind)] = [(k, int(r), int(t_)) for k, r, t_ in
+                                  re.findall(r"X\((\w+), (\d+), (\d+)\)", lists)]
+    assert held == {(top, kind): [(kernel, *tiles)] for top, kernel, dq, dkv in fa.BWD_TILES_F32
                     for kind, tiles in (("DQ", dq), ("DKV", dkv))}
 
 
@@ -255,20 +262,32 @@ def test_one_tf32_pass_misses_the_limit():
 
 
 def test_phase_2_reads_the_fp32_kernels_from_ptxas():
-    """chip_smoke.ptxas_configs names the fp32 kernels of flash_bwd.cu
-    (``flash_bwd_f32_kernel<D, BA, BB, DKV>``), whose spills phase 2
+    """chip_smoke.ptxas_configs names the fp32 kernels of flash_bwd.cu (the
+    3xTF32 ``flash_bwd_dq_tf32_kernel<D, NW, BK, NBUF>`` and
+    ``flash_bwd_dkv_tf32_kernel<D, NW, SPLIT, BQ, NBUF>``, the d <= 160
+    class's ``flash_bwd_f32_kernel<D, BA, BB, DKV>``), whose spills phase 2
     fails on; the bf16 kernels are not read."""
     import chip_smoke
 
-    mangled = ("_ZN45_GLOBAL__N__af819228_12_flash_bwd_cu_b47bff4c3f3220flash_bwd_f32_kernelI"
-               "NS0_3CfgILi160ELi64ELi32ELb1EEEEEvNS0_6ParamsE")
-    report = "\n".join([
-        f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
-        f"ptxas info    : Function properties for {mangled}",
-        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
-        "ptxas info    : Used 161 registers, used 1 barriers",
+    prefix = "_ZN45_GLOBAL__N__af819228_12_flash_bwd_cu_b47bff4c3f32"
+    kernels = [
+        ("20flash_bwd_f32_kernelINS0_3CfgILi160ELi64ELi32ELb1EEEEEvNS0_6ParamsE", 161, (8, 4)),
+        ("24flash_bwd_dq_tf32_kernelINS0_5DqCfgILi40ELi2ELi64ELi2EEEEEvNS0_6ParamsE", 198, (0, 0)),
+        ("25flash_bwd_dkv_tf32_kernelINS0_6DkvCfgILi80ELi1ELi2ELi32ELi1EEEEEvNS0_6ParamsE", 176,
+         (0, 0)),
+    ]
+    lines = []
+    for mangled, regs, (stores, loads) in kernels:
+        lines += [f"ptxas info    : Compiling entry function '{prefix}{mangled}' for 'sm_90a'",
+                  f"ptxas info    : Function properties for {prefix}{mangled}",
+                  f"    0 bytes stack frame, {stores} bytes spill stores, {loads} bytes spill loads",
+                  f"ptxas info    : Used {regs} registers, used 1 barriers"]
+    lines += [
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_bwd_dq_kernelI3CfgILi48E"
         "ELi40ELi1ELi2ELi1ELi64ELi3EEEEvNS_6ParamsE' for 'sm_90a'",
         "ptxas info    : Used 168 registers, used 1 barriers",
-    ])
-    assert chip_smoke.ptxas_configs(report) == [("flash_bwd_f32_kernel<160, 64, 32, 1>", 161, 8, 4)]
+    ]
+    assert chip_smoke.ptxas_configs("\n".join(lines)) == [
+        ("flash_bwd_f32_kernel<160, 64, 32, 1>", 161, 8, 4),
+        ("flash_bwd_dq_tf32_kernel<40, 2, 64, 2>", 198, 0, 0),
+        ("flash_bwd_dkv_tf32_kernel<80, 1, 2, 32, 1>", 176, 0, 0)]

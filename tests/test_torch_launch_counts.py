@@ -341,3 +341,58 @@ def test_without_first_launches_cuts_the_warm_up():
     assert flows == [4, 9, 10]
     assert any(ev.get("name") == "cudaDeviceSynchronize" for ev in cut["traceEvents"])
     assert perf_probe.device_breakdown(cut)[2] == 2
+
+
+@pytest.mark.parametrize("dropped, tries, taken", [
+    ([0], 4, 1), ([2, 0], 4, 2), ([1, 1, 0], 4, 3), ([1, 1, 1, 1], 4, 4), ([3, 0], 1, 1)])
+def test_first_whole_traces_again_until_no_record_is_dropped(dropped, tries, taken):
+    """``first_whole``: a trace whose launch calls all have their device
+    records is taken at once; one that lost records (as CUPTI now and then
+    drops a call's first GroupNorm records on the H100) is taken again, at
+    most ``tries`` times, and the last is returned if none is whole."""
+    launches = [("cudaLaunchKernel", c) for c in range(1, 6)]
+    traces = [_trace(launches, [("kernel", c) for c in range(1 + d, 6)]) for d in dropped]
+    took = []
+
+    def take():
+        took.append(len(took))
+        return len(took), traces[len(took) - 1]
+
+    out, trace = perf_probe.first_whole(take, tries)
+    assert len(took) == taken and out == taken and trace["takes"] == taken
+    assert trace["traceEvents"] is traces[taken - 1]["traceEvents"]
+    assert perf_probe.unanswered_launches(trace) == dropped[taken - 1]
+
+
+@pytest.mark.parametrize("tool", ["bench_block", "bench_resblock"])
+def test_bench_tools_print_the_traces_taken(tool):
+    """A profiled sandbox forward says how many traces it took and how many
+    launch calls of the kept one lost their device record."""
+    mod = importlib.import_module(f"gligen_tpu_torch.tools.{tool}")
+    result = dict(ms=1.0, tflops=1.0, blocks=1, switches={}, out_finite=True,
+                  breakdown={"flash_fwd": (1.0, 3)}, takes=(2, 0), shape=(1, 8, 8, 32))
+    printed = mod.lines(result)
+    assert printed[1] == ("profile: traces of the forward taken 2, launch calls of the last "
+                          "with no device record 0")
+    assert printed[2].startswith("profile:   flash_fwd")
+    assert not any("traces" in line for line in mod.lines({**result, "takes": None}))
+
+
+@pytest.mark.parametrize("pieces", [1, 5])
+def test_train_phases_spans_the_loss_pieces(pieces):
+    """``train_phases``: the loss phase runs from the first piece of the
+    "train_step.loss" device span to the end of its last (the profiler
+    cut it into 5 pieces on an H100 in an fp32 step), the backward after
+    it, the optimizer from its first foreach kernel on."""
+    def x(cat, name, ts, dur):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+
+    step = 10.0 * pieces
+    events = [x("gpu_user_annotation", "train_step.loss", 10.0 * i, 5.0) for i in range(pieces)]
+    events += [x("kernel", "multi_tensor_apply_kernel<...>", step + 50.0, 1.0)]
+    phase_of = perf_probe.train_phases({"traceEvents": events})
+    assert phase_of(0.0, None) == "loss" and phase_of(step - 6.0, None) == "loss"
+    assert phase_of(step - 5.0, None) == "backward" and phase_of(step + 49.0, None) == "backward"
+    assert phase_of(step + 50.0, None) == "optimizer"
+    with pytest.raises(RuntimeError, match="no device span"):
+        perf_probe.train_phases({"traceEvents": events[pieces:]})
