@@ -9,9 +9,10 @@ Phases, each of which fails the run with a non-zero exit:
   2. build: compile csrc/flash_fwd.cu, flash_fwd_sweep.cu (the same
      kernel at the tile sweep's configurations), flash_fwd_f32_sweep.cu
      (its fp32 route's d <= 40 and d <= 80 classes likewise), flash_bwd.cu,
-     flash_bwd_sweep.cu (likewise), fused_proj.cu, fused_proj_sweep.cu
-     (likewise), fused_norm.cu, fused_conv.cu and fused_conv_sweep.cu
-     (likewise) with nvcc, in parallel, into build/kernels/; print the
+     flash_bwd_sweep.cu and flash_bwd_f32_sweep.cu (likewise), fused_proj.cu,
+     fused_proj_sweep.cu (likewise), fused_norm.cu, fused_conv.cu and
+     fused_conv_sweep.cu (likewise) with nvcc, in parallel, into
+     build/kernels/; print the
      seconds it took and ptxas's registers, spills and wgmma notes (for
      fused_proj, fused_conv and the flash forward's fp32 route, one line
      per tile configuration; the fp32 routes' 3xTF32 kernels and the
@@ -413,11 +414,10 @@ def ptxas_configs(report: str) -> list:
     ``conv3x3_tf32_kernel<BM, BN, STAGES>``, the flash forward's fp32
     ``flash_fwd_f32_qm_kernel<D, NW, BK, NBUF>`` (its ``f32qm::Cfg``) and
     the flash backward's fp32 kernels: the 3xTF32
-    ``flash_bwd_dq_tf32_kernel<D, NW, BK, NBUF>`` (``f32::DqCfg``) and
+    ``flash_bwd_dq_tf32_kernel<D, NW, BK, NBUF, KS>`` (``f32::DqCfg``) and
     ``flash_bwd_dkv_tf32_kernel<D, NW, SPLIT, BQ, NBUF>`` (``f32::DkvCfg``),
-    and the d <= 160 class's FMA ``flash_bwd_f32_kernel<D, BA, BB, DKV>``
-    (``f32::Cfg``), each name read back from the mangled one (a bool
-    argument as 0 or 1)."""
+    each name read back from the mangled one (a bool argument as 0 or
+    1)."""
     import re
 
     out, name, spills = [], None, (0, 0)
@@ -426,7 +426,7 @@ def ptxas_configs(report: str) -> list:
         if entry:
             tpl = re.search(r"(fused_proj_kernel|conv3x3_kernel|proj_tf32_kernel|"
                             r"conv3x3_tf32_kernel)I((?:L[ib]\d+E)+)E", entry.group(1)) or \
-                re.search(r"(flash_fwd_f32_qm_kernel|flash_bwd_f32_kernel|flash_bwd_dq_tf32_kernel|"
+                re.search(r"(flash_fwd_f32_qm_kernel|flash_bwd_dq_tf32_kernel|"
                           r"flash_bwd_dkv_tf32_kernel)I\w*?CfgI((?:L[ib]\d+E)+)E", entry.group(1))
             name = (f"{tpl.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', tpl.group(2)))}>"
                     if tpl else None)
@@ -1499,11 +1499,13 @@ def bwd_cases_f32(batch: int):
     return cases
 
 
-# q and k x 4 at attn1 ds1 and ds2 (fault F10's scale: scores to ~150 log2
-# units): a truncating 3xTF32 score can miss where FMAs did not, so these
-# rows print each gradient against fp64 beside the plain fp32 version's
+# q and k x 4 at attn1 ds1, ds2 and ds4 (fault F10's scale: scores to ~150
+# log2 units): a truncating 3xTF32 score can miss where FMAs did not, so
+# these rows print each gradient against fp64 beside the plain fp32
+# version's
 BWD_F32_SCALED = (("attn1_ds1_x4", 4, 4096, 4096, 8, 40, True, False),
-                  ("attn1_ds2_x4", 4, 1024, 1024, 8, 80, True, False))
+                  ("attn1_ds2_x4", 4, 1024, 1024, 8, 80, True, False),
+                  ("attn1_ds4_x4", 4, 256, 256, 8, 160, True, False))
 BWD_F32_SCALE = 4
 
 
@@ -1528,8 +1530,8 @@ def bwd_fp64(torch, q, k, v, h, do, bias):
 
 def check_bwd_f32(torch, cases, device, scaled=()):
     """The flash backward's fp32 route (``flash_bwd_dq_f32``,
-    ``flash_bwd_dkv_f32``: the 3xTF32 kernels at d <= 80, fp32 FMAs in the
-    d <= 160 class, as ``BWD_TILES_F32`` names them) against
+    ``flash_bwd_dkv_f32``: the 3xTF32 kernels, as ``BWD_TILES_F32`` names
+    them; the d <= 160 class in their raw-resident form) against
     ``flash_attention_bwd_plain`` on the same fp32 card tensors (TF32 off;
     a nonzero random dO; the LSE and delta from the fp32 forward), each
     gradient within FP32_REL_TOL of its plain version's largest magnitude,
@@ -1538,15 +1540,14 @@ def check_bwd_f32(torch, cases, device, scaled=()):
     plain version's time (all gradients at once) and SDPA's fp32 backward
     with TF32 off (the library's yardstick), and two bounds: the function's
     (its 3 or 4 products as 3xTF32 on the tensor cores, ``bound_ms``) and
-    the kernel's arithmetic (the 3xTF32 kernels' own products: dk/dv above
-    d = 40 recomputes S^T in a second warpgroup, 5; the FMA kernel's at the
-    fp32 FMA rate).  Each row prints a TF32 witness, held to nothing: the
+    the kernel's arithmetic (the 3xTF32 kernels' own products: dk/dv at
+    d = 80 recomputes S^T in a second warpgroup, 5).  Each row prints a
+    TF32 witness, held to nothing: the
     plain backward with one-pass TF32 products (``allow_tf32``) against the
     plain version; at least one row's must exceed its limit, or the rows
     could not tell fp32 from TF32.  ``scaled`` rows run with q and k x
     BWD_F32_SCALE and print each gradient against ``bwd_fp64`` for the
-    kernel and for the plain version.  Rows of the FMA kernel take kinds
-    ``flash_bwd_dq_fp32_fma`` / ``flash_bwd_dkv_fp32_fma``."""
+    kernel and for the plain version."""
     from gligen_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(16)
@@ -1564,7 +1565,6 @@ def check_bwd_f32(torch, cases, device, scaled=()):
         delta = fa.attention_delta(out, do, h)
         args = (q, k, v, h, do, lse, delta, bias)
         kernel = fa.bwd_kernel_f32(d)
-        suffix = "_fma" if kernel == "fma" else ""
         calls = {"flash_bwd_dq_fp32": lambda: {"dq": fa.flash_bwd_dq(*args)}}
         if need_kv:
             calls["flash_bwd_dkv_fp32"] = lambda: dict(zip(
@@ -1582,8 +1582,7 @@ def check_bwd_f32(torch, cases, device, scaled=()):
         errs = {key: ((g - want[key]).abs().max().item(), want[key].abs().max().item())
                 for key, g in got.items()}
         repeats = all(torch.equal(got[key], again[key]) for key in got)
-        kernels_ok = all(r == {"tc": int(kernel == "tc"), "fma": int(kernel == "fma")}
-                         for r in ran.values())
+        kernels_ok = all(r == {kernel: 1} for r in ran.values())
         ok = (repeats and kernels_ok and all(r == "fp32" for r in routes.values())
               and all(g.dtype == torch.float32 and g.shape == want[key].shape
                       and bool(torch.isfinite(g).all())
@@ -1616,16 +1615,15 @@ def check_bwd_f32(torch, cases, device, scaled=()):
             timings["flash_bwd_dkv_fp32"] = (
                 lambda: fa.flash_bwd_dkv(*args, dbias=masked),
                 4 * (2 * b * n + 4 * b * m) * h * d + extra + (4 * b * h * m if masked else 0),
-                4, 5 if d > 40 else 4)
+                4, 5 if 40 < d <= 80 else 4)
         desc = " ".join(f"{key} {e:.3e}/{sc:.3e}" for key, (e, sc) in errs.items())
         for kind, (fn, nbytes, products, kernel_products) in timings.items():
             ms = time_ms(fn)
             ops = products * flops
             bound_ms, bound_by = bound(nbytes, 3 * ops, TF32_TENSOR_FLOP_PER_S)
             fma_ms, _ = bound(nbytes, ops, FP32_FLOP_PER_S)
-            own_ms, own_by = (bound(nbytes, 3 * kernel_products * flops, TF32_TENSOR_FLOP_PER_S)
-                              if kernel == "tc" else (fma_ms, "ops"))
-            print(f"kernel {kind + suffix:22s} {name:20s} q ({b},{n},{h}x{d}) kv {m}"
+            own_ms, _ = bound(nbytes, 3 * kernel_products * flops, TF32_TENSOR_FLOP_PER_S)
+            print(f"kernel {kind:22s} {name:20s} q ({b},{n},{h}x{d}) kv {m}"
                   f"{' bias' if masked else ''}{f' q, k x{mul}' if mul != 1 else ''} fp32: "
                   f"max_abs_err/max|plain| {desc} (tol {FP32_REL_TOL} rel; repeats bit for bit: "
                   f"{repeats}){fp64} TF32 witness {witness:.3e} ({witness / wit_limit:.2f}x the "
@@ -1633,11 +1631,11 @@ def check_bwd_f32(torch, cases, device, scaled=()):
                   f"{ms:.4f} ms {ops / ms / 1e9:.1f} TF/s, {100 * bound_ms / ms:.1f}% of the "
                   f"function's 3xTF32 bound {bound_ms:.4f} ms ({bound_by}, {products} products), "
                   f"{100 * own_ms / ms:.1f}% of the kernel's arithmetic {own_ms:.4f} ms ("
-                  + (f"3xTF32, {kernel_products} products" if kernel == "tc" else "fp32 FMAs")
-                  + f"); plain (all grads) {plain_ms:.4f} ms sdpa fp32 bwd {library_ms:.4f} ms; "
+                  f"3xTF32, {kernel_products} products); plain (all grads) {plain_ms:.4f} ms "
+                  f"sdpa fp32 bwd {library_ms:.4f} ms; "
                   f"fp32 FMA bound {fma_ms:.4f} ms {'ok' if ok else 'FAIL'}", flush=True)
             keys = ("dq",) if kind == "flash_bwd_dq_fp32" else tuple(k_ for k_ in got if k_ != "dq")
-            results.append(dict(name=f"{name}_fp32", kind=kind + suffix,
+            results.append(dict(name=f"{name}_fp32", kind=kind,
                                 err=max(errs[k_][0] for k_ in keys), ms=ms, plain_ms=plain_ms,
                                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                                 kernel_bound_ms=own_ms, fma_bound_ms=fma_ms, route=routes[kind],
@@ -1877,9 +1875,9 @@ def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3, dtype=N
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             counts.append({name: w.launches for name, w in wrappers.items()})
-            # the flash backward's fp32 launches by kernel ("tc", "fma")
+            # the flash backward's fp32 launches by kernel ("tc")
             counts[-1].update({f"{name}_{kern}": w.fp32_kernels[kern] - kernels32[name][kern]
-                               for name, w in bwd.items() for kern in ("tc", "fma")})
+                               for name, w in bwd.items() for kern in w.fp32_kernels})
             if i == 0:  # the gradients of the first backward; lr 0 at step 0
                 grads_ok = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                                and bool(p.grad.abs().max() > 0) for p in state.params.values())
@@ -1904,18 +1902,18 @@ def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3, dtype=N
         other = {name: {r: n for r, n in rt.items() if r != "fp32" and n}
                  for name, rt in routes.items()}
         other = {name: rt for name, rt in other.items() if rt}
-        # each fp32 launch on the kernel BWD_TILES_F32 names: the 3xTF32
-        # kernels at d <= 80, the FMA kernel at d = 160 (ds4, the middle block)
-        by_kernel = {n: {kern: sum(c[f"{n}_{kern}"] for c in counts) for kern in ("tc", "fma")}
-                     for n in bwd}
+        # each fp32 launch on the kernels BWD_TILES_F32 names, the 3xTF32
+        # ones at every head dim (d = 160: ds4, the middle block), in every
+        # step: every launch of each backward wrapper a "tc" launch
+        by_kernel = {n: {"tc": sum(c[f"{n}_tc"] for c in counts)} for n in bwd}
         ok = (not other and plain.calls == 0 and all(routes[n]["fp32"] for n in bwd)
-              and all(k_["tc"] > 0 and k_["fma"] > 0 and sum(k_.values()) == routes[n]["fp32"]
-                      for n, k_ in by_kernel.items()))
+              and all(by_kernel[n]["tc"] == routes[n]["fp32"] for n in bwd)
+              and all(c[f"{n}_tc"] == c[n] > 0 for c in counts for n in bwd))
         print(f"{label}: flash backward launches by route over the {1 + timed_steps} steps "
-              f"{ {n: routes[n] for n in bwd} }, the fp32 ones by kernel {by_kernel}; launches "
-              f"off the fp32 routes {other}; calls of the plain backward {plain.calls} (every "
-              f"launch must be fp32, none plain; 3xTF32 at d <= 80, FMAs at d = 160) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"{ {n: routes[n] for n in bwd} }, the fp32 ones by kernel {by_kernel}, a step "
+              f"{ {n: counts[-1][n] for n in bwd} }; launches off the fp32 routes {other}; calls "
+              f"of the plain backward {plain.calls} (every launch must be fp32 and 3xTF32, none "
+              f"plain) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append("fp32 routes (train fp32)")
     else:
@@ -2211,8 +2209,8 @@ KERNEL_META = {
                       "gligen_tpu/ops/pallas_attention.py:684 (_flash_bwd dk/dv/dbias) and "
                       "gligen_tpu/ops/pallas_attention.py:1063 (_flash_packed_bwd dk/dv/dbias)",
                       "attn1_ds1", "train"),
-    # the flash backward's fp32 route (fault F9), launches from phase 7'
-    # d <= 80: the 3xTF32 kernels; d = 160: the FMA kernel (its own entries)
+    # the flash backward's fp32 route (fault F9), launches from phase 7':
+    # the 3xTF32 kernels at every head dim
     "flash_bwd_dq_fp32": ("gligen_tpu_torch/csrc/flash_bwd.cu",
                           "gligen_tpu/ops/pallas_attention.py:627 (_flash_bwd dq) and "
                           "gligen_tpu/ops/pallas_attention.py:1004 (_flash_packed_bwd dq), "
@@ -2223,15 +2221,6 @@ KERNEL_META = {
                            "gligen_tpu/ops/pallas_attention.py:1063 (_flash_packed_bwd "
                            "dk/dv/dbias), q/k/v in fp32: a model trained in fp32",
                            "attn1_ds1_fp32", "train_fp32"),
-    "flash_bwd_dq_fp32_fma": ("gligen_tpu_torch/csrc/flash_bwd.cu",
-                              "gligen_tpu/ops/pallas_attention.py:627 (_flash_bwd dq) and "
-                              "gligen_tpu/ops/pallas_attention.py:1004 (_flash_packed_bwd dq), "
-                              "q/k/v in fp32 at head dim 160", "attn1_ds4_fp32", "train_fp32"),
-    "flash_bwd_dkv_fp32_fma": ("gligen_tpu_torch/csrc/flash_bwd.cu",
-                               "gligen_tpu/ops/pallas_attention.py:684 (_flash_bwd dk/dv/dbias) "
-                               "and gligen_tpu/ops/pallas_attention.py:1063 (_flash_packed_bwd "
-                               "dk/dv/dbias), q/k/v in fp32 at head dim 160", "attn1_ds4_fp32",
-                               "train_fp32"),
     "mm_only": ("gligen_tpu_torch/csrc/fused_proj.cu", "tools/bench_proj.py:90 (mm_only)",
                 "mm_320_320_ds1", "bench_proj"),
     "flash_fwd_fp32": ("gligen_tpu_torch/csrc/flash_fwd.cu",
@@ -4789,24 +4778,20 @@ def main() -> int:
             # one line per tile configuration
             configs = ptxas_configs(report)
             tc = lambda name: "tf32" in name or "f32_qm" in name
-            fp32 = lambda name: tc(name) or "bwd_f32" in name
             if src in ("fused_proj", "fused_conv", "flash_fwd", "flash_fwd_f32_sweep", "flash_bwd",
                        "flash_bwd_f32_sweep") and not any(tc(c[0]) for c in configs):
                 print(f"build: {src}: no 3xTF32 kernel read from the ptxas report FAIL")
                 failures.append(f"build {src} no 3xTF32 kernel")
-            # the flash backward's fp32 kernels: a dq and a dk/dv kernel per
-            # class of BWD_TILES_F32, 3xTF32 where it names "tc"
-            want = {kind: 2 * sum(k == kind for _, k, _, _ in fa.BWD_TILES_F32)
-                    for kind in ("tc", "fma")}
-            got = {"tc": sum("bwd_d" in c[0] and "tf32" in c[0] for c in configs),
-                   "fma": sum("bwd_f32" in c[0] for c in configs)}
+            # the flash backward's fp32 kernels: a 3xTF32 dq and dk/dv kernel
+            # per class of BWD_TILES_F32
+            want = 2 * len(fa.BWD_TILES_F32)
+            got = sum("bwd_d" in c[0] and "tf32" in c[0] for c in configs)
             if src == "flash_bwd" and got != want:
-                print(f"build: {src}: fp32 kernels {got} in the ptxas report, not {want} FAIL")
+                print(f"build: {src}: {got} fp32 kernels in the ptxas report, not {want} FAIL")
                 failures.append(f"build {src} fp32 kernels")
             for name, regs, stores, loads in configs:
-                # the fp32 routes' kernels (3xTF32, and the flash backward's
-                # FMA kernels) must not spill
-                ok = not fp32(name) or stores + loads == 0
+                # the fp32 routes' kernels (3xTF32) must not spill
+                ok = not tc(name) or stores + loads == 0
                 print(f"build: {src}: {name}: {regs} registers, {stores} bytes spill stores, "
                       f"{loads} bytes spill loads{'' if ok else ' FAIL'}")
                 if not ok:
@@ -4982,9 +4967,8 @@ def main() -> int:
                                                        dtype=torch.float32, config="c")
     failures += train_failures
     launches["train_fp32"] = {f"{name}_fp32": n for name, n in counts32.items()}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):  # the two kernels behind each entry
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):  # the 3xTF32 kernels behind each entry
         launches["train_fp32"][f"{name}_fp32"] = counts32[f"{name}_tc"]
-        launches["train_fp32"][f"{name}_fp32_fma"] = counts32[f"{name}_fma"]
     print(f"train fp32: phase 7' took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 8. small-width train step: card (bf16, kernels) vs CPU (fp32, plain) ----

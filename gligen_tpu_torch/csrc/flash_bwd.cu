@@ -1,7 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): dq, and dk/dv (+ dbias), bf16
 // in / bf16 out, fp32 probabilities and score gradients; and its fp32 route
-// (fp32 in / out: 3xTF32 wgmma at d <= 80, fp32 FMAs at d <= 160; "the fp32
-// route" below).
+// (fp32 in / out: 3xTF32 wgmma; "the fp32 route" below).
 //
 // Replaces the TPU Pallas backward of gligen_tpu/ops/pallas_attention.py:
 //   * _flash_bwd (:583-701): the dq pallas_call at :627 over _bwd_dq_kernel
@@ -94,6 +93,7 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "wgmma.cuh"
@@ -670,8 +670,7 @@ cudaError_t dispatch(Params& p, int batch, int rows, int tile, int stages, cudaS
 // 4096^2 x d 40) 0.78 ms for dq and 1.04 ms for dk/dv (fp32 FMAs on the
 // CUDA cores, at 67 TFLOP/s, could not go below 1.92 and 2.56 ms).
 //
-// The head-dim classes d <= 40 and d <= 80 (ds1 and ds2, where nearly all
-// of the route's time is) run two 3xTF32 wgmma kernels, laid out as the
+// Every head-dim class runs two 3xTF32 wgmma kernels, laid out as the
 // fp32 forward's queries-as-rows kernel (flash_fwd.cu:
 // flash_fwd_f32_qm_kernel): no producer warp and no TMA; the consumers
 // load the next tile a tile ahead into registers and store it, split, into
@@ -724,17 +723,43 @@ cudaError_t dispatch(Params& p, int batch, int rows, int tile, int stages, cudaS
 //     past N (dk/dv) by the side vectors; rows past N or M are not stored.
 //     No atomics: a second run gives the same bits.
 //
-// The d <= 160 class (ds4 and the middle block, short sequences) keeps the
-// first fp32 kernel, fp32 FMAs on the CUDA cores (flash_bwd_f32_kernel
-// below), for that class only: its Q and dO (K and V) hi/lo take 160 KB for
-// 64 rows at d = 160, which leaves no room for a tile's K, V and K^T hi/lo
-// (80 KB at 32 keys) in the 227 KB a block has.
+// The d <= 160 class (ds4 and the middle block, short sequences) runs the
+// same two kernels in a raw-resident form (kRaw in DqCfg and DkvCfg): a
+// resident quartet of 64 rows takes 160 KB at d = 160, which leaves no room
+// for a tile's quartet and transposed halves in the 227 KB a block has.
+//   * The resident pair (dq: Q and dO; dk/dv: K and V) stays raw, fp32 and
+//     unsplit (Raw: 40 KB a matrix for 64 rows).  Its products over the head
+//     dim (S, dP; S^T, dP^T) take it as the A operand from registers (RS):
+//     each k-step's fragments are read by ldmatrix and split into hi and lo
+//     in registers (flash_fwd.cu's K slices do the same), one (dq) or two
+//     (dk/dv) k-steps a commit group, two groups in flight over a ring of
+//     fragment sets (raw_chains).  Each score is two chains from zero,
+//     hi.hi and hi.lo + lo.hi, summed in fp32: the same error as one chain
+//     with the hi.hi steps last (F10), without reading a fragment twice.
+//   * Tiles of 16 keys (queries): dq's buffer (a K/V quartet of 16 rows, K^T
+//     hi/lo) takes 60 KB, dk/dv's (a Q/dO quartet, Q^T and dO^T hi/lo) 80
+//     KB, one a part beside the 80 KB of the raw pair.  The transposed
+//     operands of 16 keys are 64-byte rows, 64-byte swizzled
+//     (hopper.cuh:store_vt8, sw64_desc), and S (S^T) is wgmma m64n16k8.
+//   * The products over the tile (dQ, dK, dV += ...) run in two halves of
+//     N = 80 (a whole part of 80 registers beside the gradient's 80 would
+//     spill), each a chain from zero added to its half of the gradient.
+//   * One warpgroup a block leaves every latency (the small products'
+//     chains, the loads, the conversions) exposed: on an H100 two
+//     warpgroups a block ran ~1.6x the work per SM of one
+//     (tools/bench_bwd_variants.py: ks1 against base).  So dq's 64-query blocks
+//     split their key tiles over two warpgroups (KS = 2), each with its own
+//     buffer and barriers, their dQ summed in part order at the end; and
+//     dk/dv keeps d = 80's two warpgroups a slab (SPLIT = 2) but hands P^T
+//     from the dV warpgroup to the dK warpgroup through shared memory, so
+//     that each computes one product over the head dim (S^T; dP^T): 4
+//     products for the function's 4, against 5 at d = 80 (kShareP).
 //
 // The wrapper (ops/flash_attention.py) checks what the route takes: d, the
-// bases and the strides multiples of 4 elements (16-byte loads).  Tiles and
-// kernel per head-dim class: BWD_TILES_F32 there, held by f32::dispatch
-// below (its *_F32 lists); flash_bwd_f32_sweep.cu builds the d <= 40 and
-// d <= 80 classes at tools/bench_sweep_attn.py:BWD_F32_CONFIGS.
+// bases and the strides multiples of 4 elements (16-byte loads).  Tiles per
+// head-dim class: BWD_TILES_F32 there, held by f32::dispatch below (its
+// *_F32 lists); flash_bwd_f32_sweep.cu builds every class at
+// tools/bench_sweep_attn.py:BWD_F32_CONFIGS.
 
 #ifndef FLASH_BWD_SWEEP  // the bf16 sweep library holds the bf16 kernels only
 namespace f32 {
@@ -809,35 +834,78 @@ struct Quartet {
   }
 };
 
+// The raw resident pair of the d <= 160 class: two fp32 matrices (0: X,
+// 1: Y) of R rows, unsplit, each D / 32 atoms of 32 columns (R rows of 128
+// bytes, the 16-byte chunk c of row r at c ^ (r & 7), so that ldmatrix's
+// eight rows of a chunk hit 32 banks).
+template <int D>
+struct Raw {
+  static_assert(D % 32 == 0, "whole 32-column atoms");
+  static __host__ __device__ constexpr int bytes(int rows) { return (D / 32) * rows * 128; }
+
+  // columns 8 cg .. 8 cg + 7 of row r of matrix mx
+  template <int R>
+  static __device__ __forceinline__ void store8(uint8_t* base, int mx, int r, int cg,
+                                                const float4 (&x)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float4*>(base + mx * bytes(R) + (cg / 4) * R * 128 + r * 128 +
+                                 (((2 * (cg % 4) + i) ^ (r & 7)) << 4)) = x[i];
+  }
+  // The TF32 A fragments of k-step kk (columns 8 kk .. 8 kk + 7) of matrix
+  // mx for a warp's 16 rows from row0, split: (g, t), (g + 8, t), (g, t + 4),
+  // (g + 8, t + 4) as hi and lo.  ldmatrix's four 8-row x 16-byte matrices:
+  // lanes 8i .. 8i + 7 give matrix i's rows (row0 + 8 (i & 1) + lane % 8,
+  // chunk 2 (kk % 4) + i / 2).
+  template <int R>
+  static __device__ __forceinline__ void frag(uint32_t (&hi)[4], uint32_t (&lo)[4], uint32_t base,
+                                              int mx, int kk, int row0, int lane) {
+    const int row = row0 + 8 * ((lane / 8) & 1) + lane % 8;
+    ldmatrix_x4(hi, base + mx * bytes(R) + (kk / 4) * R * 128 + row * 128 +
+                        (((2 * (kk % 4) + lane / 16) ^ (row & 7)) << 4));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tc(__uint_as_float(hi[e]), hi[e], lo[e]);
+  }
+};
+
 // Transposed operands of T keys (or queries): hi and lo of matrices (half
 // 2 mx: matrix mx's hi, 2 mx + 1 its lo), rows = the head dim's D columns,
-// 32-key atoms of D rows of 128 bytes, 128-byte swizzled; within an 8-key
-// step key 2i at k = i and key 2i + 1 at k = 4 + i (the A fragment's
-// order of the accumulator registers it comes from).
+// atoms of 32 keys (D rows of 128 bytes, 128-byte swizzled) or, at T = 16,
+// one atom of 16 (rows of 64 bytes, 64-byte swizzled); within an 8-key step
+// key 2i at k = i and key 2i + 1 at k = 4 + i (the A fragment's order of
+// the accumulator registers it comes from).
 template <int D, int T>
 struct Trans {
-  static constexpr int kHalf = (T / 32) * D * 128;  // bytes of a half
-  static_assert(T % 32 == 0, "32-key atoms");
+  static constexpr int kKeys = T < 32 ? T : 32;           // keys an atom
+  static constexpr int kRow = 4 * kKeys;                  // bytes a row
+  static constexpr int kHalf = (T / kKeys) * D * kRow;  // bytes of a half
+  static_assert(T % 32 == 0 || T == 16, "32- or 16-key atoms");
 
   // key `key`'s columns 8 cg .. 8 cg + 7 of matrix mx (hopper.cuh:store_vt8)
   static __device__ __forceinline__ void store8(uint8_t* base, int mx, int key, int cg,
                                                 const float4 (&x)[2]) {
-    store_vt8<D>(base + 2 * mx * kHalf, base + (2 * mx + 1) * kHalf, key, cg, x);
+    store_vt8<D, kKeys>(base + 2 * mx * kHalf, base + (2 * mx + 1) * kHalf, key, cg, x);
   }
-  // 8-key step j of half hf (N = the D rows)
-  static __device__ __forceinline__ uint64_t desc(uint32_t base, int hf, int j) {
-    return sw128_desc(base + hf * kHalf + (j / 4) * D * 128 + (j % 4) * 32, 16, 1024);
+  // 8-key step j of half hf, its rows n0 .. (N = the product's width)
+  static __device__ __forceinline__ uint64_t desc(uint32_t base, int hf, int j, int n0) {
+    constexpr int steps = kKeys / 8;
+    const uint32_t addr = base + hf * kHalf + (j / steps) * D * kRow + n0 * kRow + (j % steps) * 32;
+    return kKeys == 32 ? sw128_desc(addr, 16, 1024) : sw64_desc(addr, 16, 512);
   }
 };
 
 // A thread's share of the next streamed tile of T rows (dq: K and V; dk/dv:
-// Q and dO), as loaded: its warp's units, one row (its lane) of 8 columns
-// of both matrices each, in rounds of one unit a warp; and its entry of the
-// tile's side vector(s).
+// Q and dO), as loaded: its warp's units, each a lane's row (lane % kRows)
+// and 8 columns (8 (kLanes (u % kCols) + lane / kRows)) of both matrices,
+// in rounds of one unit a warp; and its entry of the tile's side vector(s).
+// A unit is 32 rows of 8 columns, or at T = 16 16 rows of 16 columns.
 template <int D, int T, int WARPS>
 struct Share {
-  static constexpr int kUnits = (T / 32) * (D / 8);
+  static constexpr int kRows = T < 32 ? T : 32, kLanes = 32 / kRows;
+  static constexpr int kCols = D / (8 * kLanes);  // units across the head dim
+  static constexpr int kUnits = (T / kRows) * kCols;
   static constexpr int kRounds = (kUnits + WARPS - 1) / WARPS;
+  static_assert(D % (8 * kLanes) == 0, "whole units");
   float4 x[kRounds][2], y[kRounds][2];
   float side;
 
@@ -848,7 +916,8 @@ struct Share {
     for (int r = 0; r < kRounds; ++r) {
       const int u = warp + WARPS * r;
       if (u < kUnits) {
-        const int row = row0 + 32 * (u / (D / 8)) + lane, col = 8 * (u % (D / 8));
+        const int row = row0 + kRows * (u / kCols) + lane % kRows;
+        const int col = 8 * (kLanes * (u % kCols) + lane / kRows);
         load8(x[r], xb, xs, row, len, col, d);
         load8(y[r], yb, ys, row, len, col, d);
       }
@@ -863,7 +932,8 @@ struct Share {
     for (int r = 0; r < kRounds; ++r) {
       const int u = warp + WARPS * r;
       if (u < kUnits) {
-        const int row = 32 * (u / (D / 8)) + lane, cg = u % (D / 8);
+        const int row = kRows * (u / kCols) + lane % kRows;
+        const int cg = kLanes * (u % kCols) + lane / kRows;
         Quartet<D>::template store8<T>(quartet, 0, row, cg, x[r]);
         Quartet<D>::template store8<T>(quartet, 1, row, cg, y[r]);
         if constexpr (TX) Trans<D, T>::store8(trans, 0, row, cg, x[r]);
@@ -873,19 +943,20 @@ struct Share {
   }
 };
 
-// Rows row0 + 32 (u / (D / 8)) + lane of X and Y (R rows from row0) split
-// into a resident quartet, by every warp of the block.
-template <int D, int R, int WARPS>
-__device__ __forceinline__ void load_resident(uint8_t* quartet, const float* xb, long long xs,
+// Rows row0 + 32 (u / (D / 8)) + lane of X and Y (R rows from row0) into
+// the resident pair, by every warp of the block: split into a quartet
+// (Quartet<D>), or raw (Raw<D>) in the d <= 160 class.
+template <class L, int D, int R, int WARPS>
+__device__ __forceinline__ void load_resident(uint8_t* res, const float* xb, long long xs,
                                               const float* yb, long long ys, int row0, int len,
                                               int d, int warp, int lane) {
   for (int u = warp; u < (R / 32) * (D / 8); u += WARPS) {
     const int r = 32 * (u / (D / 8)) + lane, cg = u % (D / 8);
     float4 x[2];
     load8(x, xb, xs, row0 + r, len, 8 * cg, d);
-    Quartet<D>::template store8<R>(quartet, 0, r, cg, x);
+    L::template store8<R>(res, 0, r, cg, x);
     load8(x, yb, ys, row0 + r, len, 8 * cg, d);
-    Quartet<D>::template store8<R>(quartet, 1, r, cg, x);
+    L::template store8<R>(res, 1, r, cg, x);
   }
 }
 
@@ -910,21 +981,98 @@ __device__ __forceinline__ void ss_chain(float (&acc)[N / 2], uint32_t a, int ah
                        Q::template desc<RB>(bq, bh, kk, 0), 1);
 }
 
+// One warpgroup's two products over the head dim in the d <= 160 class, X
+// B^T into x and (TWO) Y C^T into y: A the raw resident X and Y (matrices
+// 0, 1 of a Raw<D> pair of RA rows; from matrix MX0 on), the warpgroup's
+// 64 rows from row0, split in registers a k-step at a time; B and C the
+// halves (0, 1) and (2, 3) of a quartet of RB rows (from 2 MX0 on).  Each product is two chains from zero, its
+// hi.hi steps and its hi.lo and lo.hi steps, summed in fp32 at the end (the
+// small terms never follow a large running sum: F10).  STEPS k-steps'
+// fragments are one commit group; RING groups are in flight, their
+// fragments in a ring of RING sets (3 measured no faster on an H100:
+// tools/bench_bwd_variants.py).  Waits for every product.
+template <int D, int N, int RA, int RB, bool TWO, int STEPS, int MX0 = 0>
+__device__ __forceinline__ void raw_chains(float (&x)[N / 2], float (&y)[TWO ? N / 2 : 1],
+                                           uint32_t raw, int row0, uint32_t bq, int lane) {
+  using Q = Quartet<D>;
+  constexpr int M = TWO ? 2 : 1, RING = 2, G = D / 8 / STEPS;
+  static_assert(D / 8 % STEPS == 0, "whole groups");
+  float big[M][N / 2], small[M][N / 2];
+  uint32_t fh[RING][STEPS][M][4], fl[RING][STEPS][M][4];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    pin(big[i]);
+    pin(small[i]);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int r = g % RING;
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st)
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        Raw<D>::template frag<RA>(fh[r][st][i], fl[r][st][i], raw, MX0 + i, g * STEPS + st, row0,
+                                  lane);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st) {
+      const int kk = g * STEPS + st;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const uint64_t bh = Q::template desc<RB>(bq, 2 * (MX0 + i), kk, 0);
+        const uint64_t bl = Q::template desc<RB>(bq, 2 * (MX0 + i) + 1, kk, 0);
+        WgmmaRsTf32<N>::rs(small[i], fh[r][st][i], bl, kk > 0);
+        WgmmaRsTf32<N>::rs(small[i], fl[r][st][i], bh, 1);
+        WgmmaRsTf32<N>::rs(big[i], fh[r][st][i], bh, kk > 0);
+      }
+    }
+    wgmma_commit();
+    if (g >= RING - 1) {  // the group RING - 1 back is done: its set is free for the next
+      wgmma_wait<RING - 1>();
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) {
+        pin_u(fh[(g + 1) % RING][st]);
+        pin_u(fl[(g + 1) % RING][st]);
+      }
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int r = 0; r < RING; ++r)
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st) {
+      pin_u(fh[r][st]);
+      pin_u(fl[r][st]);
+    }
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    pin(big[i]);
+    pin(small[i]);
+  }
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) {
+    x[e] = big[0][e] + small[0][e];
+    if constexpr (TWO) y[e] = big[M - 1][e] + small[M - 1][e];
+  }
+}
+
 // One warpgroup's chain of 3xTF32 RS products into part, from zero: A the
 // hi/lo fragments of T / 8 steps (from accumulator registers), B the halves
-// 2 mx (hi) and 2 mx + 1 (lo) of a transposed operand.  Issued, not
-// committed.
-template <int D, int T>
-__device__ __forceinline__ void rs_chain(float (&part)[D / 2], const uint32_t (&fh)[T / 8][4],
-                                         const uint32_t (&fl)[T / 8][4], uint32_t trans, int mx) {
+// 2 mx (hi) and 2 mx + 1 (lo) of a transposed operand, its rows n0 .. n0 +
+// N - 1 (N = D, or a half of D).  Issued, not committed.
+template <int D, int T, int N>
+__device__ __forceinline__ void rs_chain(float (&part)[N / 2], const uint32_t (&fh)[T / 8][4],
+                                         const uint32_t (&fl)[T / 8][4], uint32_t trans, int mx,
+                                         int n0) {
   using TT = Trans<D, T>;
 #pragma unroll
   for (int j = 0; j < T / 8; ++j) {
-    WgmmaRsTf32<D>::rs(part, fh[j], TT::desc(trans, 2 * mx + 1, j), j > 0);
-    WgmmaRsTf32<D>::rs(part, fl[j], TT::desc(trans, 2 * mx, j), 1);
+    WgmmaRsTf32<N>::rs(part, fh[j], TT::desc(trans, 2 * mx + 1, j, n0), j > 0);
+    WgmmaRsTf32<N>::rs(part, fl[j], TT::desc(trans, 2 * mx, j, n0), 1);
   }
 #pragma unroll
-  for (int j = 0; j < T / 8; ++j) WgmmaRsTf32<D>::rs(part, fh[j], TT::desc(trans, 2 * mx, j), 1);
+  for (int j = 0; j < T / 8; ++j)
+    WgmmaRsTf32<N>::rs(part, fh[j], TT::desc(trans, 2 * mx, j, n0), 1);
 }
 
 // An accumulator fragment (m64nT) as the hi/lo A fragments of T / 8 steps:
@@ -960,31 +1108,44 @@ __device__ __forceinline__ void store_frag(const float (&acc)[D / 2], float* bas
   }
 }
 
-// The shared memory of a block: a resident quartet of RES rows, NBUF
-// buffers (a quartet of T rows and TRANS transposed matrices of T rows
-// each), NBUF side vectors of SIDE floats, two full and two empty barriers,
-// 1 KB of alignment slack.
-constexpr int tc_smem(int d, int res, int t, int trans, int side, int nbuf) {
+// The shared memory of a block: a resident pair of RES rows (a quartet, or
+// RAW: two raw fp32 matrices); for each of PARTS key parts NBUF buffers (a
+// quartet of T rows and TRANS transposed matrices of T rows each, hi and
+// lo), NBUF side vectors of SIDE floats, two full and two empty barriers;
+// XCHG bytes of an exchange area; 1 KB of alignment slack.
+constexpr int tc_smem(int d, int res, int t, int trans, int side, int nbuf, bool raw,
+                      int parts = 1, int xchg = 0) {
   const int atoms = 4 * (d / 32) + (d % 32 ? (4 + 32 / (d % 32) - 1) / (32 / (d % 32)) : 0);
-  return atoms * res * 128 + nbuf * (atoms * t * 128 + trans * 2 * (t / 32) * d * 128) +
-         nbuf * side * 4 + 8 * 4 + 1024;
+  return (raw ? 2 * d * res * 4 : atoms * res * 128) +
+         parts * (nbuf * (atoms * t * 128 + trans * 2 * t * d * 4) + nbuf * side * 4 + 8 * 4) +
+         xchg + 1024;
 }
 
 // dq: D the class's head dim (dQ's wgmma N, K^T's rows); NW consumer
-// warpgroups (BQ = 64 NW queries); BK keys a tile (S's wgmma N); NBUF.
-template <int D_, int NW_, int BK_, int NBUF_>
+// warpgroups (BQ = 64 NW queries); BK keys a tile (S's wgmma N); NBUF
+// buffers a key part; KS key parts: KS groups of NW warpgroups share the
+// block's queries, each takes every KS-th key tile into buffers and
+// barriers of its own, and their dQ are summed in part order at the end
+// (the d <= 160 class: one warpgroup's every latency is exposed, two keep
+// the SM's tensor cores and load units busier).  Above d = 80 Q and dO
+// stay raw (kRaw) and dQ's part runs in halves.
+template <int D_, int NW_, int BK_, int NBUF_, int KS_>
 struct DqCfg {
-  static constexpr int D = D_, NW = NW_, BK = BK_, NBUF = NBUF_;
-  static constexpr int BQ = 64 * NW, kThreads = 128 * NW, kWarps = 4 * NW;
-  static constexpr int kResBytes = Quartet<D>::kAtoms * BQ * 128;   // Q, dO
+  static constexpr int D = D_, NW = NW_, BK = BK_, NBUF = NBUF_, KS = KS_;
+  static constexpr bool kRaw = D > 80;
+  static constexpr int BQ = 64 * NW, kPartThreads = 128 * NW, kWarps = 4 * NW;  // a part's
+  static constexpr int kThreads = KS * kPartThreads;
+  static constexpr int kPN = kRaw ? D / 2 : D;  // the N of dQ's part
+  static constexpr int kResBytes = kRaw ? 2 * D * BQ * 4 : Quartet<D>::kAtoms * BQ * 128;  // Q, dO
   static constexpr int kTileBytes = Quartet<D>::kAtoms * BK * 128;  // K, V
   static constexpr int kBufBytes = kTileBytes + 2 * Trans<D, BK>::kHalf;
-  static constexpr int kOffSide = kResBytes + NBUF * kBufBytes;      // BK floats a buffer
-  static constexpr int kOffBar = kOffSide + NBUF * BK * 4;
-  static constexpr int kSmem = kOffBar + 8 * 4 + 1024;
-  static_assert(kSmem == tc_smem(D, BQ, BK, 1, BK, NBUF), "tc_smem");
-  static_assert(BK == 32 || BK == 64, "S's wgmma N, 32-key atoms");
+  static constexpr int kOffSide = kResBytes + KS * NBUF * kBufBytes;  // BK floats a buffer
+  static constexpr int kOffBar = kOffSide + KS * NBUF * BK * 4;     // 4 barriers a part
+  static constexpr int kSmem = kOffBar + KS * 8 * 4 + 1024;
+  static_assert(kSmem == tc_smem(D, BQ, BK, 1, BK, NBUF, kRaw, KS), "tc_smem");
+  static_assert(BK == 32 || BK == 64 || (kRaw && BK == 16), "S's wgmma N, the key atoms");
   static_assert(NBUF == 1 || NBUF == 2, "buffers");
+  static_assert(KS == 1 || (KS == 2 && kPartThreads * D / 2 * 4 <= kBufBytes), "parts");
   static_assert(kSmem <= kSmemLimit, "shared memory");
 };
 
@@ -993,19 +1154,26 @@ __global__ void __launch_bounds__(C::kThreads, 1)
     flash_bwd_dq_tf32_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, w = warp % 4, lane = tid % 32;
+  // tid, warp: within the key part (a constant 0 with one part, so that the
+  // one-part kernels compute no part offsets)
+  const int part = C::KS > 1 ? threadIdx.x / C::kPartThreads : 0;
+  const int tid = C::KS > 1 ? threadIdx.x % C::kPartThreads : threadIdx.x;
+  const int wg = tid / 128, warp = tid / 32, w = warp % 4, lane = tid % 32;
   const int quad = lane % 4;
   const int q0 = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
-  const int ntiles = (p.m + C::BK - 1) / C::BK;
-  const uint32_t bars = smem_u32(smem + C::kOffBar);
+  // the part's key tiles: part, part + KS, ...
+  const int ntiles = ((p.m + C::BK - 1) / C::BK - part + C::KS - 1) / C::KS;
+  const uint32_t bars = smem_u32(smem + C::kOffBar) + 32 * part;
   auto full = [&](int i) { return bars + 8 * i; };         // every thread stored buffer i
   auto empty = [&](int i) { return bars + 8 * (2 + i); };  // every warp's products read it
-  auto buf = [&](int i) { return smem + C::kResBytes + i * C::kBufBytes; };
-  auto side = [&](int i) { return reinterpret_cast<float*>(smem + C::kOffSide) + i * C::BK; };
+  auto buf = [&](int i) { return smem + C::kResBytes + (part * C::NBUF + i) * C::kBufBytes; };
+  auto side = [&](int i) {
+    return reinterpret_cast<float*>(smem + C::kOffSide) + (part * C::NBUF + i) * C::BK;
+  };
 
   if (tid == 0) {
     for (int i = 0; i < 2; ++i) {
-      mbar_init(full(i), C::kThreads);
+      mbar_init(full(i), C::kPartThreads);
       mbar_init(empty(i), C::kWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1020,9 +1188,10 @@ __global__ void __launch_bounds__(C::kThreads, 1)
     return key < p.m ? (bias ? bias[key] * kLog2e : 0.0f) : -INFINITY;
   };
   Share<C::D, C::BK, C::kWarps> next;
-  auto load_tile = [&](int it) {
-    next.load(kb, p.s[kK + 2], vb, p.s[kV + 2], it * C::BK, p.m, p.d, warp, lane);
-    next.side = tid < C::BK ? side_of(it * C::BK + tid) : 0.0f;
+  auto load_tile = [&](int it) {  // the part's tile it
+    const int k0 = (part + C::KS * it) * C::BK;
+    next.load(kb, p.s[kK + 2], vb, p.s[kV + 2], k0, p.m, p.d, warp, lane);
+    next.side = tid < C::BK ? side_of(k0 + tid) : 0.0f;
   };
   auto store_tile = [&](int i) {
     next.template store<true, false>(buf(i), buf(i) + C::kTileBytes, warp, lane);
@@ -1031,13 +1200,22 @@ __global__ void __launch_bounds__(C::kThreads, 1)
     mbar_arrive(full(i));
   };
 
-  // Q and dO split once, then key tile 0 into buffer 0; its full barrier
+  // Q and dO split once (or raw) by the whole block, then each part's first
+  // key tile into its buffer 0; with one part that tile's full barrier
   // covers both
-  load_resident<C::D, C::BQ, C::kWarps>(smem, p.q + b * p.s[kQ] + h * p.s[kQ + 1], p.s[kQ + 2],
-                                        p.dout + b * p.s[kDO] + h * p.s[kDO + 1], p.s[kDO + 2],
-                                        q0, p.n, p.d, warp, lane);
-  load_tile(0);
-  store_tile(0);
+  using Res = std::conditional_t<C::kRaw, Raw<C::D>, Quartet<C::D>>;
+  load_resident<Res, C::D, C::BQ, C::KS * C::kWarps>(
+      smem, p.q + b * p.s[kQ] + h * p.s[kQ + 1], p.s[kQ + 2],
+      p.dout + b * p.s[kDO] + h * p.s[kDO + 1], p.s[kDO + 2], q0, p.n, p.d, threadIdx.x / 32,
+      lane);
+  if constexpr (C::KS > 1) {
+    fence_proxy_async();
+    __syncthreads();
+  }
+  if (ntiles > 0) {
+    load_tile(0);
+    store_tile(0);
+  }
   if (ntiles > 1) load_tile(1);
 
   // rows past N are never stored: any finite lse and delta will do there
@@ -1054,23 +1232,28 @@ __global__ void __launch_bounds__(C::kThreads, 1)
   for (int it = 0; it < ntiles; ++it) {
     const int cur = it % C::NBUF;
     mbar_wait(full(cur), (it / C::NBUF) & 1);
-    const uint32_t kv = smem_u32(buf(cur)), kt = kv + C::kTileBytes;
-    uint32_t res = smem_u32(smem);
+    uint32_t kv = smem_u32(buf(cur)), kt = kv + C::kTileBytes, res = smem_u32(smem);
     // opaque to the compiler: the descriptors are rebuilt each tile (an add
-    // each) instead of being hoisted out of the loop into registers
+    // each) instead of being hoisted out of the loop into registers (the
+    // raw form's buffers too: with one buffer a part they stay put)
     asm volatile("" : "+r"(res));
+    if constexpr (C::kRaw) asm volatile("" : "+r"(kv), "+r"(kt));
 
-    // S = Q K^T and dP = dO V^T, one chain each
+    // S = Q K^T and dP = dO V^T, one chain each (two from raw Q and dO)
     float s[C::BK / 2], dp[C::BK / 2];
-    pin(s);
-    pin(dp);
-    wgmma_fence();
-    ss_chain<C::D, C::BK, C::BQ, C::BK>(s, res, 0, wg * 64, kv, 0);
-    ss_chain<C::D, C::BK, C::BQ, C::BK>(dp, res, 2, wg * 64, kv, 2);
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(s);
-    pin(dp);
+    if constexpr (C::kRaw) {
+      raw_chains<C::D, C::BK, C::BQ, C::BK, true, 1>(s, dp, res, wg * 64 + w * 16, kv, lane);
+    } else {
+      pin(s);
+      pin(dp);
+      wgmma_fence();
+      ss_chain<C::D, C::BK, C::BQ, C::BK>(s, res, 0, wg * 64, kv, 0);
+      ss_chain<C::D, C::BK, C::BQ, C::BK>(dp, res, 2, wg * 64, kv, 2);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+      pin(dp);
+    }
 
     // P and dS = P (dP - delta) in place of S
     const float* sd = side(cur);
@@ -1089,26 +1272,29 @@ __global__ void __launch_bounds__(C::kThreads, 1)
     uint32_t fh[C::BK / 8][4], fl[C::BK / 8][4];
     frags<C::BK>(s, fh, fl);
 
-    // this tile's part of dQ = dS K, from zero
-    float part[C::D / 2];
-    pin(part);
-    wgmma_fence();
-    rs_chain<C::D, C::BK>(part, fh, fl, kt, 0);
-    wgmma_commit();
-    if (C::NBUF == 2 && it + 1 < ntiles) {
-      // under the product: the next tile, loaded a tile ago, into the other
-      // buffer once every warp's products of the tile before this one are
-      // done
-      const int nb = (it + 1) % 2;
-      if (it >= 1) mbar_wait(empty(nb), ((it - 1) / 2) & 1);
-      store_tile(nb);
-    }
-    wgmma_wait<0>();
-    pin(part);
-    pin_u(fh);
-    pin_u(fl);
+    // this tile's part of dQ = dS K, from zero (kPN columns at a time)
 #pragma unroll
-    for (int i = 0; i < C::D / 2; ++i) acc[i] += part[i];
+    for (int n0 = 0; n0 < C::D; n0 += C::kPN) {
+      float part[C::kPN / 2];
+      pin(part);
+      wgmma_fence();
+      rs_chain<C::D, C::BK, C::kPN>(part, fh, fl, kt, 0, n0);
+      wgmma_commit();
+      if (n0 == 0 && C::NBUF == 2 && it + 1 < ntiles) {
+        // under the product: the next tile, loaded a tile ago, into the
+        // other buffer once every warp's products of the tile before this
+        // one are done
+        const int nb = (it + 1) % 2;
+        if (it >= 1) mbar_wait(empty(nb), ((it - 1) / 2) & 1);
+        store_tile(nb);
+      }
+      wgmma_wait<0>();
+      pin(part);
+      pin_u(fh);
+      pin_u(fl);
+#pragma unroll
+      for (int i = 0; i < C::kPN / 2; ++i) acc[n0 / 2 + i] += part[i];
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(cur));
     if (C::NBUF == 1 && it + 1 < ntiles) {
@@ -1118,25 +1304,55 @@ __global__ void __launch_bounds__(C::kThreads, 1)
     if (it + 2 < ntiles) load_tile(it + 2);
   }
 
+  if constexpr (C::KS > 1) {
+    // the parts' dQ summed in part order, part 1's handed over through its
+    // buffer 0 once every part's products are done
+    float* red = reinterpret_cast<float*>(smem + C::kResBytes + C::NBUF * C::kBufBytes);
+    __syncthreads();
+    if (part == 1) {
+#pragma unroll
+      for (int i = 0; i < C::D / 2; ++i) red[i * C::kPartThreads + tid] = acc[i];
+    }
+    __syncthreads();
+    if (part == 1) return;
+#pragma unroll
+    for (int i = 0; i < C::D / 2; ++i) acc[i] += red[i * C::kPartThreads + tid];
+  }
   float* dq = p.dq + b * p.s[kDQ] + h * p.s[kDQ + 1];
   store_frag<C::D>(acc, dq, p.s[kDQ + 2], r0, p.n, p.d, p.scale, quad);
 }
 
 // dk/dv: D the class's head dim; NW slabs of 64 keys (BK = 64 NW keys a
 // block); SPLIT warpgroups a slab (2: one accumulates dV, the other dK and
-// dbias); BQ queries a tile (S^T's wgmma N); NBUF.
+// dbias); BQ queries a tile (S^T's wgmma N); NBUF.  Above d = 80 K and V
+// stay raw (kRaw) and the parts run in halves.
 template <int D_, int NW_, int SPLIT_, int BQ_, int NBUF_>
 struct DkvCfg {
   static constexpr int D = D_, NW = NW_, SPLIT = SPLIT_, BQ = BQ_, NBUF = NBUF_;
+  static constexpr bool kRaw = D > 80;
   static constexpr int BK = 64 * NW, kThreads = 128 * NW * SPLIT, kWarps = 4 * NW * SPLIT;
-  static constexpr int kResBytes = Quartet<D>::kAtoms * BK * 128;   // K, V
+  static constexpr int kPN = kRaw ? D / 2 : D;  // the N of dK's and dV's parts
+  static constexpr int kResBytes = kRaw ? 2 * D * BK * 4 : Quartet<D>::kAtoms * BK * 128;  // K, V
   static constexpr int kTileBytes = Quartet<D>::kAtoms * BQ * 128;  // Q, dO
   static constexpr int kBufBytes = kTileBytes + 4 * Trans<D, BQ>::kHalf;
+  // the raw form's split slabs: the dV warpgroup computes P^T and hands it
+  // to the dK warpgroup (two tiles' worth, 128 threads x BQ / 2 floats a
+  // slab), which computes dP^T alone: 4 products for the function's 4
+  // (kXPBytes a slab), then a barrier a slab (its phase: the tile's P^T is
+  // there)
+  static constexpr bool kShareP = kRaw && SPLIT == 2;
+  // k-steps a commit group of raw_chains (1 and 4 measured slower on an
+  // H100, 4 at 254 registers: tools/bench_bwd_variants.py)
+  static constexpr int kSteps = 2;
+  static constexpr int kXPBytes = 2 * 128 * (BQ / 2) * 4;
+  static constexpr int kXBytes = kShareP ? NW * (kXPBytes + 8) : 0;
   static constexpr int kOffSide = kResBytes + NBUF * kBufBytes;      // lse, delta: 2 BQ floats
-  static constexpr int kOffBar = kOffSide + NBUF * 2 * BQ * 4;
+  static constexpr int kOffX = kOffSide + NBUF * 2 * BQ * 4;
+  static constexpr int kOffBar = kOffX + kXBytes;
   static constexpr int kSmem = kOffBar + 8 * 4 + 1024;
-  static_assert(kSmem == tc_smem(D, BK, BQ, 2, 2 * BQ, NBUF), "tc_smem");
-  static_assert(BQ == 32 || BQ == 64, "S^T's wgmma N, 32-query atoms");
+  static_assert(kSmem == tc_smem(D, BK, BQ, 2, 2 * BQ, NBUF, kRaw, 1, kXBytes), "tc_smem");
+  static_assert(!kShareP || NBUF == 1, "two exchange slots: the warpgroups at most a tile apart");
+  static_assert(BQ == 32 || BQ == 64 || (kRaw && BQ == 16), "S^T's wgmma N, the query atoms");
   static_assert(SPLIT == 1 || SPLIT == 2, "warpgroups a slab");
   static_assert(NBUF == 1 || NBUF == 2, "buffers");
   static_assert(kSmem <= kSmemLimit, "shared memory");
@@ -1176,10 +1392,11 @@ __device__ __forceinline__ void dkv_pass(const Params& p, uint8_t* smem, int sla
     mbar_arrive(full(i));
   };
 
-  // K and V split once, then query tile 0 into buffer 0
-  load_resident<C::D, C::BK, C::kWarps>(smem, p.k + b * p.s[kK] + h * p.s[kK + 1], p.s[kK + 2],
-                                        p.v + b * p.s[kV] + h * p.s[kV + 1], p.s[kV + 2], k0,
-                                        p.m, p.d, warp, lane);
+  // K and V split once (or raw), then query tile 0 into buffer 0
+  using Res = std::conditional_t<C::kRaw, Raw<C::D>, Quartet<C::D>>;
+  load_resident<Res, C::D, C::BK, C::kWarps>(
+      smem, p.k + b * p.s[kK] + h * p.s[kK + 1], p.s[kK + 2], p.v + b * p.s[kV] + h * p.s[kV + 1],
+      p.s[kV + 2], k0, p.m, p.d, warp, lane);
   load_tile(0);
   store_tile(0);
   if (ntiles > 1) load_tile(1);
@@ -1201,23 +1418,42 @@ __device__ __forceinline__ void dkv_pass(const Params& p, uint8_t* smem, int sla
   for (int it = 0; it < ntiles; ++it) {
     const int cur = it % C::NBUF;
     mbar_wait(full(cur), (it / C::NBUF) & 1);
-    const uint32_t qd = smem_u32(buf(cur)), tr = qd + C::kTileBytes;
-    uint32_t res = smem_u32(smem);
+    uint32_t qd = smem_u32(buf(cur)), tr = qd + C::kTileBytes, res = smem_u32(smem);
     asm volatile("" : "+r"(res));
+    if constexpr (C::kRaw) asm volatile("" : "+r"(qd), "+r"(tr));
 
-    // S^T = K Q^T and dP^T = V dO^T, one chain each
+    // S^T = K Q^T and dP^T = V dO^T, one chain each (two from raw K and V;
+    // the dK warpgroup of a split raw slab dP^T alone)
     float s[C::BQ / 2], dp[DK ? C::BQ / 2 : 1];
-    pin(s);
-    if constexpr (DK) pin(dp);
-    wgmma_fence();
-    ss_chain<C::D, C::BQ, C::BK, C::BQ>(s, res, 0, slab * 64, qd, 0);
-    if constexpr (DK) ss_chain<C::D, C::BQ, C::BK, C::BQ>(dp, res, 2, slab * 64, qd, 2);
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(s);
-    if constexpr (DK) pin(dp);
+    if constexpr (C::kShareP && DK) {
+      float none[1];
+      raw_chains<C::D, C::BQ, C::BK, C::BQ, false, C::kSteps, 1>(dp, none, res,
+                                                                  slab * 64 + w * 16, qd, lane);
+    } else if constexpr (C::kRaw) {
+      raw_chains<C::D, C::BQ, C::BK, C::BQ, DK, C::kSteps>(s, dp, res, slab * 64 + w * 16, qd,
+                                                           lane);
+    } else {
+      pin(s);
+      if constexpr (DK) pin(dp);
+      wgmma_fence();
+      ss_chain<C::D, C::BQ, C::BK, C::BQ>(s, res, 0, slab * 64, qd, 0);
+      if constexpr (DK) ss_chain<C::D, C::BQ, C::BK, C::BQ>(dp, res, 2, slab * 64, qd, 2);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+      if constexpr (DK) pin(dp);
+    }
 
-    // P^T in s, dS^T in dp; the side vectors (lse +inf past N) mask queries >= N
+    // P^T in s, dS^T in dp; the side vectors (lse +inf past N) mask queries
+    // >= N.  A split raw slab's P^T goes from the dV warpgroup to the dK
+    // warpgroup through the exchange (the same thread of the other
+    // warpgroup holds the same entries), slot it % 2: the dV warpgroup
+    // reaches tile it + 2 only after every thread stored tile it + 1, so
+    // after the dK warpgroup read this slot
+    float* xp = reinterpret_cast<float*>(smem + C::kOffX + slab * C::kXPBytes) +
+                (it % 2) * (C::BQ / 2) * 128 + tid % 128;
+    const uint32_t ready = smem_u32(smem + C::kOffX + C::NW * C::kXPBytes) + 8 * slab;
+    if constexpr (C::kShareP && DK) mbar_wait(ready, it & 1);
     const float* ls = side(cur);
     const float* dls = ls + C::BQ;
 #pragma unroll
@@ -1227,8 +1463,18 @@ __device__ __forceinline__ void dkv_pass(const Params& p, uint8_t* smem, int sla
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float l = e ? ll.y : ll.x;
-        const float p0 = ex2(fmaf(s[4 * j + e], p.scale_log2, b0 - l));
-        const float p1 = ex2(fmaf(s[4 * j + 2 + e], p.scale_log2, b1 - l));
+        float p0, p1;
+        if constexpr (C::kShareP && DK) {
+          p0 = xp[(4 * j + e) * 128];
+          p1 = xp[(4 * j + 2 + e) * 128];
+        } else {
+          p0 = ex2(fmaf(s[4 * j + e], p.scale_log2, b0 - l));
+          p1 = ex2(fmaf(s[4 * j + 2 + e], p.scale_log2, b1 - l));
+        }
+        if constexpr (C::kShareP && DV) {
+          xp[(4 * j + e) * 128] = p0;
+          xp[(4 * j + 2 + e) * 128] = p1;
+        }
         s[4 * j + e] = p0;
         s[4 * j + 2 + e] = p1;
         if constexpr (DK) {
@@ -1241,38 +1487,43 @@ __device__ __forceinline__ void dkv_pass(const Params& p, uint8_t* smem, int sla
         }
       }
     }
+    if constexpr (C::kShareP && DV) mbar_arrive(ready);
 
-    // this tile's parts of dV = P^T dO and dK = dS^T Q, from zero
+    // this tile's parts of dV = P^T dO and dK = dS^T Q, from zero (kPN
+    // columns at a time)
     uint32_t ph[DV ? C::BQ / 8 : 1][4], pl[DV ? C::BQ / 8 : 1][4];
     uint32_t dh[DK ? C::BQ / 8 : 1][4], dl[DK ? C::BQ / 8 : 1][4];
-    float pv[DV ? C::D / 2 : 1], pk[DK ? C::D / 2 : 1];
     if constexpr (DV) frags<C::BQ>(s, ph, pl);
     if constexpr (DK) frags<C::BQ>(dp, dh, dl);
-    if constexpr (DV) pin(pv);
-    if constexpr (DK) pin(pk);
-    wgmma_fence();
-    if constexpr (DV) rs_chain<C::D, C::BQ>(pv, ph, pl, tr, 1);
-    if constexpr (DK) rs_chain<C::D, C::BQ>(pk, dh, dl, tr, 0);
-    wgmma_commit();
-    if (C::NBUF == 2 && it + 1 < ntiles) {
-      const int nb = (it + 1) % 2;
-      if (it >= 1) mbar_wait(empty(nb), ((it - 1) / 2) & 1);
-      store_tile(nb);
-    }
-    wgmma_wait<0>();
-    if constexpr (DV) {
-      pin(pv);
-      pin_u(ph);
-      pin_u(pl);
 #pragma unroll
-      for (int i = 0; i < C::D / 2; ++i) dv[i] += pv[i];
-    }
-    if constexpr (DK) {
-      pin(pk);
-      pin_u(dh);
-      pin_u(dl);
+    for (int n0 = 0; n0 < C::D; n0 += C::kPN) {
+      float pv[DV ? C::kPN / 2 : 1], pk[DK ? C::kPN / 2 : 1];
+      if constexpr (DV) pin(pv);
+      if constexpr (DK) pin(pk);
+      wgmma_fence();
+      if constexpr (DV) rs_chain<C::D, C::BQ, C::kPN>(pv, ph, pl, tr, 1, n0);
+      if constexpr (DK) rs_chain<C::D, C::BQ, C::kPN>(pk, dh, dl, tr, 0, n0);
+      wgmma_commit();
+      if (n0 == 0 && C::NBUF == 2 && it + 1 < ntiles) {
+        const int nb = (it + 1) % 2;
+        if (it >= 1) mbar_wait(empty(nb), ((it - 1) / 2) & 1);
+        store_tile(nb);
+      }
+      wgmma_wait<0>();
+      if constexpr (DV) {
+        pin(pv);
+        pin_u(ph);
+        pin_u(pl);
 #pragma unroll
-      for (int i = 0; i < C::D / 2; ++i) dk[i] += pk[i];
+        for (int i = 0; i < C::kPN / 2; ++i) dv[n0 / 2 + i] += pv[i];
+      }
+      if constexpr (DK) {
+        pin(pk);
+        pin_u(dh);
+        pin_u(dl);
+#pragma unroll
+        for (int i = 0; i < C::kPN / 2; ++i) dk[n0 / 2 + i] += pk[i];
+      }
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(cur));
@@ -1312,6 +1563,9 @@ __global__ void __launch_bounds__(C::kThreads, 1)
       mbar_init(bars + 8 * i, C::kThreads);
       mbar_init(bars + 8 * (2 + i), C::kWarps);
     }
+    if constexpr (C::kShareP)
+      for (int i = 0; i < C::NW; ++i)
+        mbar_init(smem_u32(smem + C::kOffX + C::NW * C::kXPBytes) + 8 * i, 128);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -1322,285 +1576,6 @@ __global__ void __launch_bounds__(C::kThreads, 1)
     dkv_pass<C, true, false>(p, smem, slab);
   else
     dkv_pass<C, false, true>(p, smem, slab);
-}
-
-// ---------------------------------------------------------------- fp32 FMAs
-
-// The d <= 160 class's kernel: fp32 FMAs on the CUDA cores, which any head
-// dim fits (see above for why this class keeps it):
-//   * one kernel, two instances: a block of 256 threads owns BA rows of a
-//     "fixed" side (dq: queries, with Q and dO; dk/dv: keys, with K and V)
-//     and streams tiles of BB rows of the other side (dq: K and V; dk/dv:
-//     Q and dO).  Thread (ty, tx) of the 16 x 16 holds RA = BA / 16 fixed
-//     rows by RB = BB / 16 tile rows of S and dP (dq: S = Q K^T; dk/dv:
-//     S^T = K Q^T), each a sum over the head dim of operands read from
-//     shared memory stored transposed (column c's BA or BB values
-//     contiguous: one 16-byte load gives a thread its four rows);
-//   * P and dS in registers as above, then through shared memory,
-//     tile-row-major, to the accumulation: thread (ty, tx) owns its RA
-//     fixed rows by the columns tx + 16 t of the head dim: dQ += dS K (dq),
-//     dV += P^T dO and dK += dS^T Q (dk/dv), reading the tile's rows as
-//     stored (a half-warp's 16 columns contiguous);
-//   * every sum runs in a fixed order in fp32 registers; dbias is each
-//     thread's running sum of its keys' dS, summed over the 16 threads of a
-//     key row by shuffles at the end.
-
-constexpr int kThreads = 256;
-
-// D: the class's head dim (a multiple of 16 or of 8, the operands' padded
-// width); BA: fixed rows a block; BB: tile rows; DKV: the dk/dv instance.
-template <int D_, int BA_, int BB_, bool DKV_>
-struct Cfg {
-  static constexpr int D = D_, BA = BA_, BB = BB_;
-  static constexpr bool DKV = DKV_;
-  static constexpr int RA = BA / 16, RB = BB / 16;
-  // transposed rows of BA (BB) floats, padded by 4: 16-byte aligned, and a
-  // column's rows land in other banks than the next column's
-  static constexpr int LA = BA + 4, LB = BB + 4;
-  static constexpr int kCols = (D + 15) / 16;  // accumulated columns a thread
-  static constexpr int kRows = DKV ? 2 : 1;    // tiles kept as rows (dq: K; dk/dv: dO, Q)
-  static constexpr int kCoef = DKV ? 2 : 1;    // coefficient tiles (dq: dS; dk/dv: P, dS)
-  static constexpr int kFloats =
-      2 * D * LA + 2 * D * LB + kRows * BB * D + kCoef * BB * LA + 2 * BB;
-  static constexpr int kSmem = 4 * kFloats;
-  static_assert(D % 4 == 0 && BA % 16 == 0 && BB % 16 == 0, "tiles");
-  static_assert(RA == 1 || RA == 2 || RA == 4, "fixed rows a thread");
-  static_assert(RB == 1 || RB == 2 || RB == 4, "tile rows a thread");
-  static_assert(kSmem <= kSmemLimit, "shared memory");
-};
-
-// N consecutive floats of shared memory (N = 1, 2 or 4, aligned to 4 N bytes).
-template <int N>
-__device__ __forceinline__ void lds(float (&x)[N], const float* p) {
-  if constexpr (N == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  } else if constexpr (N == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    x[0] = v.x, x[1] = v.y;
-  } else {
-    x[0] = p[0];
-  }
-}
-
-// Rows row0 .. row0 + ROWS - 1 of a row-strided fp32 matrix (zeros at rows
-// >= len and columns >= d) into shared memory, by the block's threads:
-// transposed (t[c * LT + r]) when t is given, as rows (w[r * D + c]) when w
-// is.  A thread takes 16 bytes of one row; neighbouring threads neighbouring
-// rows, so the transposed stores hit 32 banks.
-template <int ROWS, int D, int LT>
-__device__ __forceinline__ void load_rows(const float* src, long long sn, int row0, int len, int d,
-                                          float* t, float* w) {
-  for (int u = threadIdx.x; u < ROWS * (D / 4); u += kThreads) {
-    const int r = u % ROWS, c = 4 * (u / ROWS);
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row0 + r < len && c < d)
-      x = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * sn + c);
-    if (t) {
-      t[(c + 0) * LT + r] = x.x;
-      t[(c + 1) * LT + r] = x.y;
-      t[(c + 2) * LT + r] = x.z;
-      t[(c + 3) * LT + r] = x.w;
-    }
-    if (w) *reinterpret_cast<float4*>(w + r * D + c) = x;
-  }
-}
-
-// acc[a][b] += sum over the head dim of at[c][ra + a] * bt[c][rb + b]: two
-// transposed operands, rows of LA and LB floats.
-template <class C>
-__device__ __forceinline__ void product(float (&acc)[C::RA][C::RB], const float* at,
-                                        const float* bt, int ra, int rb) {
-#pragma unroll 8
-  for (int c = 0; c < C::D; ++c) {
-    float x[C::RA], y[C::RB];
-    lds<C::RA>(x, at + c * C::LA + ra);
-    lds<C::RB>(y, bt + c * C::LB + rb);
-#pragma unroll
-    for (int a = 0; a < C::RA; ++a)
-#pragma unroll
-      for (int b = 0; b < C::RB; ++b) acc[a][b] = fmaf(x[a], y[b], acc[a][b]);
-  }
-}
-
-// acc[a][t] += sum over the tile's rows j of coef[j][ra + a] * w[j][tx +
-// 16 t]: the fixed rows' gradient over the head dim's columns tx + 16 t.
-template <class C>
-__device__ __forceinline__ void accumulate(float (&acc)[C::RA][C::kCols], const float* coef,
-                                           const float* w, int ra, int tx) {
-#pragma unroll 4
-  for (int j = 0; j < C::BB; ++j) {
-    float x[C::RA];
-    lds<C::RA>(x, coef + j * C::LA + ra);
-#pragma unroll
-    for (int t = 0; t < C::kCols; ++t) {
-      const int col = tx + 16 * t;
-      if (C::D % 16 == 0 || col < C::D) {
-        const float y = w[j * C::D + col];
-#pragma unroll
-        for (int a = 0; a < C::RA; ++a) acc[a][t] = fmaf(x[a], y, acc[a][t]);
-      }
-    }
-  }
-}
-
-// The fixed rows' gradient, times mul, into a row-strided matrix: rows <
-// valid, columns < d.
-template <class C>
-__device__ __forceinline__ void store_acc(const float (&acc)[C::RA][C::kCols], float* base,
-                                          long long sn, int row0, int valid, int d, int tx,
-                                          float mul) {
-#pragma unroll
-  for (int a = 0; a < C::RA; ++a) {
-    if (row0 + a >= valid) continue;
-#pragma unroll
-    for (int t = 0; t < C::kCols; ++t) {
-      const int col = tx + 16 * t;
-      if (col < d) base[(long long)(row0 + a) * sn + col] = acc[a][t] * mul;
-    }
-  }
-}
-
-template <class C>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_f32_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* fixed0 = smem;                     // dq: Q^T; dk/dv: K^T   (D x LA)
-  float* fixed1 = fixed0 + C::D * C::LA;    // dq: dO^T; dk/dv: V^T
-  float* tile0 = fixed1 + C::D * C::LA;     // dq: K^T; dk/dv: Q^T   (D x LB)
-  float* tile1 = tile0 + C::D * C::LB;      // dq: V^T; dk/dv: dO^T
-  float* rows0 = tile1 + C::D * C::LB;      // dq: K; dk/dv: dO      (BB x D)
-  float* rows1 = rows0 + C::BB * C::D;      // dk/dv: Q
-  float* coef0 = rows0 + C::kRows * C::BB * C::D;  // dq: dS; dk/dv: P (BB x LA)
-  float* coef1 = coef0 + C::BB * C::LA;            // dk/dv: dS
-  float* side = coef0 + C::kCoef * C::BB * C::LA;  // dq: bias; dk/dv: lse, delta (2 x BB)
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int a0 = blockIdx.x * C::BA, h = blockIdx.y, b = blockIdx.z;
-  const int ra = C::RA * ty, rb = C::RB * tx;  // this thread's fixed rows, tile rows
-  const int len_a = C::DKV ? p.m : p.n, len_b = C::DKV ? p.n : p.m;
-  const long long rows_bh = ((long long)b * p.heads + h) * p.n;  // (b, h)'s lse/delta
-  const float* bias = p.bias ? p.bias + b * p.s[kBiasRow] : nullptr;
-  auto base = [&](const float* x, int i) { return x + b * p.s[i] + h * p.s[i + 1]; };
-
-  // the fixed pair, transposed
-  if constexpr (C::DKV) {
-    load_rows<C::BA, C::D, C::LA>(base(p.k, kK), p.s[kK + 2], a0, p.m, p.d, fixed0, nullptr);
-    load_rows<C::BA, C::D, C::LA>(base(p.v, kV), p.s[kV + 2], a0, p.m, p.d, fixed1, nullptr);
-  } else {
-    load_rows<C::BA, C::D, C::LA>(base(p.q, kQ), p.s[kQ + 2], a0, p.n, p.d, fixed0, nullptr);
-    load_rows<C::BA, C::D, C::LA>(base(p.dout, kDO), p.s[kDO + 2], a0, p.n, p.d, fixed1, nullptr);
-  }
-  // per fixed row: dq its lse and delta (any finite value past N: never
-  // stored); dk/dv its key's bias in log2 units
-  float row_x[C::RA], row_y[C::RA];
-#pragma unroll
-  for (int a = 0; a < C::RA; ++a) {
-    const int r = a0 + ra + a;
-    if constexpr (C::DKV) {
-      row_x[a] = bias && r < p.m ? bias[r] * kLog2e : 0.0f;
-      row_y[a] = 0.0f;
-    } else {
-      row_x[a] = r < p.n ? p.lse[rows_bh + r] : 0.0f;
-      row_y[a] = r < p.n ? p.delta[rows_bh + r] : 0.0f;
-    }
-  }
-
-  float acc0[C::RA][C::kCols], acc1[C::DKV ? C::RA : 1][C::kCols], db[C::RA];
-#pragma unroll
-  for (int a = 0; a < C::RA; ++a) {
-    db[a] = 0.0f;
-#pragma unroll
-    for (int t = 0; t < C::kCols; ++t) {
-      acc0[a][t] = 0.0f;
-      if constexpr (C::DKV) acc1[a][t] = 0.0f;
-    }
-  }
-
-  const int ntiles = (len_b + C::BB - 1) / C::BB;
-  for (int it = 0; it < ntiles; ++it) {
-    const int b0 = it * C::BB;
-    __syncthreads();  // every thread is done with the last tile
-    if constexpr (C::DKV) {
-      load_rows<C::BB, C::D, C::LB>(base(p.q, kQ), p.s[kQ + 2], b0, p.n, p.d, tile0, rows1);
-      load_rows<C::BB, C::D, C::LB>(base(p.dout, kDO), p.s[kDO + 2], b0, p.n, p.d, tile1, rows0);
-      for (int i = tid; i < C::BB; i += kThreads) {
-        const bool valid = b0 + i < p.n;
-        side[i] = valid ? p.lse[rows_bh + b0 + i] : INFINITY;
-        side[C::BB + i] = valid ? p.delta[rows_bh + b0 + i] : 0.0f;
-      }
-    } else {
-      load_rows<C::BB, C::D, C::LB>(base(p.k, kK), p.s[kK + 2], b0, p.m, p.d, tile0, rows0);
-      load_rows<C::BB, C::D, C::LB>(base(p.v, kV), p.s[kV + 2], b0, p.m, p.d, tile1, nullptr);
-      for (int j = tid; j < C::BB; j += kThreads)
-        side[j] = b0 + j < p.m ? (bias ? bias[b0 + j] * kLog2e : 0.0f) : -INFINITY;
-    }
-    __syncthreads();
-
-    // S (S^T) and dP (dP^T), then P and dS in place
-    float s[C::RA][C::RB], dp[C::RA][C::RB];
-#pragma unroll
-    for (int a = 0; a < C::RA; ++a)
-#pragma unroll
-      for (int j = 0; j < C::RB; ++j) s[a][j] = dp[a][j] = 0.0f;
-    product<C>(s, fixed0, tile0, ra, rb);
-    product<C>(dp, fixed1, tile1, ra, rb);
-#pragma unroll
-    for (int a = 0; a < C::RA; ++a)
-#pragma unroll
-      for (int j = 0; j < C::RB; ++j) {
-        float pr, ds;
-        if constexpr (C::DKV) {
-          pr = ex2(fmaf(s[a][j], p.scale_log2, row_x[a] - side[rb + j]));
-          ds = pr * (dp[a][j] - side[C::BB + rb + j]);
-          db[a] += ds;
-        } else {
-          pr = ex2(fmaf(s[a][j], p.scale_log2, side[rb + j] - row_x[a]));
-          ds = pr * (dp[a][j] - row_y[a]);
-        }
-        s[a][j] = pr;
-        dp[a][j] = ds;
-      }
-    // tile-row-major through shared memory: row (rb + j) holds this
-    // thread's RA fixed rows at ra
-#pragma unroll
-    for (int j = 0; j < C::RB; ++j)
-#pragma unroll
-      for (int a = 0; a < C::RA; ++a) {
-        if constexpr (C::DKV) coef1[(rb + j) * C::LA + ra + a] = dp[a][j];
-        coef0[(rb + j) * C::LA + ra + a] = C::DKV ? s[a][j] : dp[a][j];
-      }
-    __syncthreads();
-
-    if constexpr (C::DKV) {
-      accumulate<C>(acc0, coef0, rows0, ra, tx);  // dV += P^T dO
-      accumulate<C>(acc1, coef1, rows1, ra, tx);  // dK += dS^T Q
-    } else {
-      accumulate<C>(acc0, coef0, rows0, ra, tx);  // dQ += dS K
-    }
-  }
-
-  if constexpr (C::DKV) {
-    float* dv = p.dv + b * p.s[kDV] + h * p.s[kDV + 1];
-    float* dk = p.dk + b * p.s[kDK] + h * p.s[kDK + 1];
-    store_acc<C>(acc0, dv, p.s[kDV + 2], a0 + ra, p.m, p.d, tx, 1.0f);
-    store_acc<C>(acc1, dk, p.s[kDK + 2], a0 + ra, p.m, p.d, tx, p.scale);
-    // each key's dS summed over the 16 threads of its row (a half-warp), in
-    // a fixed order
-#pragma unroll
-    for (int a = 0; a < C::RA; ++a)
-#pragma unroll
-      for (int off = 8; off >= 1; off /= 2) db[a] += __shfl_xor_sync(0xffffffffu, db[a], off);
-    if (p.dbias && tx == 0) {
-      float* out = p.dbias + ((long long)b * p.heads + h) * p.m;
-#pragma unroll
-      for (int a = 0; a < C::RA; ++a)
-        if (a0 + ra + a < p.m) out[a0 + ra + a] = db[a];
-    }
-  } else {
-    float* dq = p.dq + b * p.s[kDQ] + h * p.s[kDQ + 1];
-    store_acc<C>(acc0, dq, p.s[kDQ + 2], a0 + ra, p.n, p.d, tx, p.scale);
-  }
 }
 
 }  // namespace f32
@@ -1622,48 +1597,46 @@ cudaError_t run(Kernel kernel, int smem, int threads, int blocks, int batch, con
 // The 3xTF32 kernels of class D at (fixed rows R, tile rows T): dq (BQ
 // queries, BK keys), dk/dv (BK keys, BQ queries), with two buffers where
 // they fit in shared memory, else one; above d = 40 dk/dv splits each slab
-// of 64 keys over two warpgroups.
+// of 64 keys over two warpgroups; above d = 80 the resident pair is raw,
+// and dq's 64-query blocks split their key tiles over two warpgroups.
 template <int D, bool DQ, int R, int T>
 cudaError_t launch_tc(const Params& p, int batch, cudaStream_t s) {
+  constexpr bool raw = D > 80;
   if constexpr (DQ) {
-    constexpr int nbuf = tc_smem(D, R, T, 1, T, 2) <= kSmemLimit ? 2 : 1;
-    using C = DqCfg<D, R / 64, T, nbuf>;
+    // a 64-query block of the d <= 160 class splits its keys over two parts
+    constexpr int ks = raw && R == 64 ? 2 : 1;
+    constexpr int nbuf = tc_smem(D, R, T, 1, T, 2, raw, ks) <= kSmemLimit ? 2 : 1;
+    using C = DqCfg<D, R / 64, T, nbuf, ks>;
     return run(flash_bwd_dq_tf32_kernel<C>, C::kSmem, C::kThreads, (p.n + R - 1) / R, batch, p,
                s);
   } else {
-    constexpr int nbuf = tc_smem(D, R, T, 2, 2 * T, 2) <= kSmemLimit ? 2 : 1;
+    constexpr int nbuf = tc_smem(D, R, T, 2, 2 * T, 2, raw) <= kSmemLimit ? 2 : 1;
     using C = DkvCfg<D, R / 64, (D > 40 ? 2 : 1), T, nbuf>;
     return run(flash_bwd_dkv_tf32_kernel<C>, C::kSmem, C::kThreads, (p.m + R - 1) / R, batch, p,
                s);
   }
 }
 
-// The fp32 FMA kernel of class D at (fixed rows R, tile rows T).
-template <int D, bool DQ, int R, int T>
-cudaError_t launch_fma(const Params& p, int batch, cudaStream_t s) {
-  using C = Cfg<D, R, T, !DQ>;
-  return run(flash_bwd_f32_kernel<C>, C::kSmem, kThreads, ((DQ ? p.n : p.m) + R - 1) / R, batch,
-             p, s);
-}
-
 // The configurations the library holds, as X-macro lists of (kernel, fixed
 // rows, tile rows) per kernel and head-dim class: the serving library the
-// wrapper's table (ops/flash_attention.py:BWD_TILES_F32: "tc" the 3xTF32
-// kernels, "fma" the fp32 FMA kernel), the fp32 sweep library
-// (flash_bwd_f32_sweep.cu) tools/bench_sweep_attn.py:BWD_F32_CONFIGS.
+// wrapper's table (ops/flash_attention.py:BWD_TILES_F32, "tc": the 3xTF32
+// kernels), the fp32 sweep library (flash_bwd_f32_sweep.cu)
+// tools/bench_sweep_attn.py:BWD_F32_CONFIGS.
 #ifndef FLASH_BWD_F32_SWEEP
 #define DQ40_F32(X) X(tc, 128, 64)
 #define DKV40_F32(X) X(tc, 128, 32)
 #define DQ80_F32(X) X(tc, 128, 32)
 #define DKV80_F32(X) X(tc, 64, 32)
+#define DQ160_F32(X) X(tc, 64, 16)
+#define DKV160_F32(X) X(tc, 64, 16)
 #else
 #define DQ40_F32(X) X(tc, 64, 64) X(tc, 128, 32) X(tc, 128, 64) X(tc, 192, 32)
 #define DKV40_F32(X) X(tc, 128, 32)
 #define DQ80_F32(X) X(tc, 64, 32) X(tc, 128, 32)
 #define DKV80_F32(X) X(tc, 64, 32)
+#define DQ160_F32(X) X(tc, 64, 16) X(tc, 128, 16)
+#define DKV160_F32(X) X(tc, 64, 16)
 #endif
-#define DQ160_F32(X) X(fma, 64, 32)
-#define DKV160_F32(X) X(fma, 64, 32)
 
 // Launch the dq (DQ) or dk/dv kernel of p.d's head-dim class at (rows,
 // tile), if the lists above hold it; anything else returns
@@ -1801,7 +1774,7 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
 // The fp32 route: q, k, v, dO, bias, lse, delta and the gradients fp32,
 // strides as above.  (bq, bk) / (bk, bq): the kernel's (fixed rows, tile
 // rows), one this library holds for d's class (f32::dispatch: the 3xTF32
-// kernels at d <= 80, the fp32 FMA kernel above); d, every base and every
+// kernels); d, every base and every
 // q/k/v/dO stride a multiple of 4 elements, and the gradients' strides
 // even, else cudaErrorInvalidValue.
 extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v, const void* dout,

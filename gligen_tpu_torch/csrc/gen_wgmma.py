@@ -21,7 +21,9 @@ bf16 operands:
     t and t + 4, g = lane / 4, t = lane % 4), B from shared memory, K-major
     (TF32 has no transposed form).  The 3xTF32 products of the fp32 flash
     routes (S^T = K Q^T and O^T = V^T P^T at d = 512; O = P V at the
-    UNet's head dims, N = d or d / 2: flash_fwd.cu), of the fp32 fused projections
+    UNet's head dims, N = d or d / 2: flash_fwd.cu; the backward's dQ, dK,
+    dV parts, N = d or d / 2, and at d <= 160 its S and dP with raw Q and dO
+    (K and V) as A, N = the 16-key tile: flash_bwd.cu), of the fp32 fused projections
     (the normalised rows as A, fused_proj.cu) and of the fp32 fused conv
     (the activated halo rows as A, fused_conv.cu);
   * ``WgmmaSsTf32<N>``: m64nNk8 with TF32 operands, A and B from shared
@@ -40,7 +42,7 @@ from pathlib import Path
 HEADER = Path(__file__).resolve().parent / "wgmma.cuh"
 SS_WIDTHS = (32, 64, 96, 128, 160, 192, 256)
 RS_WIDTHS = (40, 80, 128, 160, 256)
-RS_TF32_WIDTHS = (32, 40, 64, 80)
+RS_TF32_WIDTHS = (16, 32, 40, 64, 80)
 SS_TF32_WIDTHS = (32, 64)
 
 

@@ -148,6 +148,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// The same with a 64-byte swizzle (rows of 64 bytes, the 16-byte chunk c
+// of row r at c ^ ((r >> 1) & 3), a pattern of 8 rows = 512 bytes): K-major,
+// SBO = 512 B between 8-row groups.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -187,19 +195,22 @@ __device__ __forceinline__ void load8(float4 (&x)[2], const float* base, long lo
 
 // Row `key` of a tile, its columns 8 cg..8 cg + 7, split into a transposed
 // operand (V^T of the fp32 flash forward; K^T, Q^T, dO^T of its backward):
-// row n = the column, 32-key atoms of D rows, 128-byte swizzled; within an
+// row n = the column, atoms of KEYS keys (32: rows of 128 bytes, 128-byte
+// swizzled; 16: rows of 64 bytes, 64-byte swizzled) and D rows; within an
 // 8-key step key 2i at k = i and key 2i + 1 at k = 4 + i, the order of the
 // TF32 A fragment a thread takes from an accumulator (keys 2t and 2t + 1
 // of each step), so P and dS feed the products from registers.
-template <int D>
+template <int D, int KEYS = 32>
 __device__ __forceinline__ void store_vt8(uint8_t* hi, uint8_t* lo, int key, int cg,
                                           const float4 (&x)[2]) {
-  const int kk = key % 8, word = (key % 32) / 8 * 8 + (kk & 1) * 4 + kk / 2;
-  const int base = (key / 32) * D * 128 + 8 * cg * 128 + (word % 4) * 4;
+  static_assert(KEYS == 32 || KEYS == 16, "32- or 16-key atoms");
+  constexpr int kRow = 4 * KEYS;
+  const int kk = key % 8, word = (key % KEYS) / 8 * 8 + (kk & 1) * 4 + kk / 2;
+  const int base = (key / KEYS) * D * kRow + 8 * cg * kRow + (word % 4) * 4;
   const float v[8] = {x[0].x, x[0].y, x[0].z, x[0].w, x[1].x, x[1].y, x[1].z, x[1].w};
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {  // row 8 cg + e, whose swizzle is e
-    const int off = base + e * 128 + (((word / 4) ^ e) << 4);
+  for (int e = 0; e < 8; ++e) {  // row 8 cg + e, whose swizzle is e (128 B) or e / 2 (64 B)
+    const int off = base + e * kRow + (((word / 4) ^ (KEYS == 32 ? e : e / 2)) << 4);
     uint32_t h, l;
     split_tc(v[e], h, l);
     *reinterpret_cast<uint32_t*>(hi + off) = h;

@@ -36,9 +36,10 @@ products' rows), the VAE's 512 ``flash_fwd_f32_kernel`` (keys as the rows);
 ``FlashForward.fp32_kernels`` counts each one's launches.  The backward's
 fp32 route (a model trained in fp32), ``flash_bwd_dq_f32`` and
 ``flash_bwd_dkv_f32`` of ``csrc/flash_bwd.cu``, counted as route "fp32",
-runs the kernel ``BWD_TILES_F32`` names for the head dim: 3xTF32 on the
-tensor cores ("tc", d <= 80) or fp32 FMAs on the CUDA cores ("fma", the d
-<= 160 class); each wrapper's ``fp32_kernels`` counts each one's launches.
+runs the kernels ``BWD_TILES_F32`` names for the head dim: 3xTF32 on the
+tensor cores ("tc") in every class (the d <= 160 class with Q and dO, or K
+and V, resident unsplit); each wrapper's ``fp32_kernels`` counts their
+launches.
 """
 
 from __future__ import annotations
@@ -388,15 +389,15 @@ def bwd_tiles(d: int) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
 
 # The fp32 route's tile table, by head-dim class: (largest head dim, kernel,
 # dq's (BQ query rows, BK keys), dk/dv's (BK keys, BQ query rows)).  "tc" is
-# the 3xTF32 wgmma pair (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel),
-# "fma" the fp32 FMA kernel the d <= 160 class keeps (flash_bwd_f32_kernel).
+# the 3xTF32 wgmma pair (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel;
+# in the d <= 160 class with the resident pair raw and tiles of 16 rows).
 # The serving library (csrc/flash_bwd.cu:f32::dispatch, its *_F32 lists)
-# holds exactly these and refuses any other; the "tc" tiles are the ones
+# holds exactly these and refuses any other; the tiles are the ones
 # tools/bench_sweep_attn.py --bwd --fp32 picked.
 BWD_TILES_F32 = (
     (40, "tc", (128, 64), (128, 32)),
     (80, "tc", (128, 32), (64, 32)),
-    (160, "fma", (64, 32), (64, 32)),
+    (160, "tc", (64, 16), (64, 16)),
 )
 
 
@@ -409,7 +410,7 @@ def bwd_tiles_f32(d: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
 
 
 def bwd_kernel_f32(d: int) -> str:
-    """The fp32 route's kernel for head dim ``d``: "tc" or "fma"."""
+    """The fp32 route's kernels for head dim ``d`` ("tc")."""
     for top, kernel, _, _ in BWD_TILES_F32:
         if d <= top:
             return kernel
@@ -491,11 +492,11 @@ def _bwd_tiles_of(q: torch.Tensor, heads: int, kind: int):
 class BackwardCounted(Counted):
     """A backward kernel's wrapper: routes by ``bwd_route`` ("tma" or
     "copy" for bf16, "fp32"), and ``fp32_kernels`` counts the fp32 route's
-    launches by kernel ("tc" or "fma", ``BWD_TILES_F32``)."""
+    launches by kernel ("tc", ``BWD_TILES_F32``)."""
 
     def __init__(self):
         super().__init__(("tma", "copy", "fp32"))
-        self.fp32_kernels = {"tc": 0, "fma": 0}
+        self.fp32_kernels = {"tc": 0}
 
     def _count_launch(self, route: str, q: torch.Tensor, heads: int) -> None:
         if route == "fp32":

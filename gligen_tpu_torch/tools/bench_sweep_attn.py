@@ -59,9 +59,9 @@ output and LSE against ``flash_attention_plain`` on every query row, to
 chip_smoke.py's FP32_REL_TOL of the plain output's largest magnitude and
 FP32_LSE_TOL.  The table is what this sweep picks.
 
-``--bwd --fp32`` (``run_bwd_fp32``): the backward's fp32 route at ds1 and
-ds2 (the 3xTF32 kernels ``flash_bwd_dq_tf32_kernel`` and
-``flash_bwd_dkv_tf32_kernel``), M = N and N + 30, B = 4, on seeded
+``--bwd --fp32`` (``run_bwd_fp32``): the backward's fp32 route at ds1, ds2,
+ds4 and the middle block (the 3xTF32 kernels ``flash_bwd_dq_tf32_kernel``
+and ``flash_bwd_dkv_tf32_kernel``), M = N and N + 30, B = 4, on seeded
 unit-scale fp32 q/k/v and dO with the LSE and delta of the plain forward:
 dq and dk/dv once at the wrapper's table (``bwd_tiles_f32``) and once at
 each (fixed rows, tile rows) of ``BWD_F32_CONFIGS`` through the fp32 sweep
@@ -114,6 +114,8 @@ F32_CONFIGS = {
 }
 # (N, head dim) of the levels the fp32 sweep times (8 heads)
 F32_LEVELS = {"ds1": (4096, 40), "ds2": (1024, 80)}
+# the fp32 backward sweep's: every training level's self-attention
+BWD_F32_LEVELS = {"ds1": (4096, 40), "ds2": (1024, 80), "ds4": (256, 160), "mid": (64, 160)}
 # The fp32 backward sweep library's configurations (csrc/flash_bwd.cu:
 # f32::dispatch under FLASH_BWD_F32_SWEEP) by head-dim class: dq's (BQ
 # queries, BK keys) and dk/dv's (BK keys, BQ queries) of the 3xTF32 kernels,
@@ -123,6 +125,7 @@ F32_LEVELS = {"ds1": (4096, 40), "ds2": (1024, 80)}
 BWD_F32_CONFIGS = {
     40: (((64, 64), (128, 32), (128, 64), (192, 32)), ((128, 32),)),
     80: (((64, 32), (128, 32)), ((64, 32),)),
+    160: (((64, 16), (128, 16)), ((64, 16),)),
 }
 # chip_smoke.py's FP32_REL_TOL and FP32_LSE_TOL
 FP32_REL_TOL, FP32_LSE_TOL = 1e-4, 1e-4
@@ -370,7 +373,7 @@ def run_bwd(batch: int = 4, level: str = "ds1", ms_keys=None, configs=None, iter
     return rows
 
 
-def run_bwd_fp32(batch: int = 4, levels=tuple(F32_LEVELS), ms_keys=None, iters: int = 10,
+def run_bwd_fp32(batch: int = 4, levels=tuple(BWD_F32_LEVELS), ms_keys=None, iters: int = 10,
                  device="cuda", heads: int = 8, n: int = 0, dim: int = 0):
     """One dict per row, for each level, key count M (``ms_keys``, default
     N and N + 30) and kernel ("dq", "dkv"): the table's row (``tiles``
@@ -390,7 +393,7 @@ def run_bwd_fp32(batch: int = 4, levels=tuple(F32_LEVELS), ms_keys=None, iters: 
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
     for level in levels:
-        lvl_n, d = n or F32_LEVELS[level][0], dim or F32_LEVELS[level][1]
+        lvl_n, d = n or BWD_F32_LEVELS[level][0], dim or BWD_F32_LEVELS[level][1]
         tables = fa.bwd_tiles_f32(d)
         configs = next(c for top, c in BWD_F32_CONFIGS.items() if d <= top)
         for m in ms_keys or (lvl_n, lvl_n + 30):
@@ -489,9 +492,11 @@ def main() -> None:
                     help="BQxBKxSTAGES, comma separated (the forward)")
     ap.add_argument("--bwd", action="store_true", help="sweep the backward kernels")
     ap.add_argument("--fp32", action="store_true",
-                    help="sweep the fp32 route's kernel at ds1 and ds2")
+                    help="sweep the fp32 route's kernels (the forward at ds1 and ds2)")
     ap.add_argument("--level", choices=sorted(BWD_LEVELS), default="ds1",
                     help="the training level whose shapes --bwd times")
+    ap.add_argument("--levels", default=",".join(BWD_F32_LEVELS),
+                    help="the levels --bwd --fp32 times, comma separated")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
     from gligen_tpu_torch.tools.timing import card_setup
@@ -499,9 +504,13 @@ def main() -> None:
     card = card_setup("bench_sweep_attn")
     if args.bwd and args.fp32:
         batch = args.batch or 4
-        rows = run_bwd_fp32(batch=batch, ms_keys=(args.m,) if args.m else None, iters=args.iters)
-        print(f"bench_sweep_attn --bwd --fp32: B={batch} ds1 (N=4096, 8x40) and ds2 (N=1024, "
-              f"8x80), device ms per call over {args.iters} calls, on {card}")
+        levels = tuple(args.levels.split(","))
+        rows = run_bwd_fp32(batch=batch, levels=levels, ms_keys=(args.m,) if args.m else None,
+                            iters=args.iters)
+        shapes = ", ".join(f"{lvl} (N={BWD_F32_LEVELS[lvl][0]}, 8x{BWD_F32_LEVELS[lvl][1]})"
+                           for lvl in levels)
+        print(f"bench_sweep_attn --bwd --fp32: B={batch} {shapes}, device ms per call over "
+              f"{args.iters} calls, on {card}")
         print("\n".join(bwd_fp32_lines(rows)))
         if not all(r["ok"] for r in rows):
             raise SystemExit("bench_sweep_attn: an fp32 backward configuration disagrees with "

@@ -48,8 +48,8 @@ recompute -- and the device's idle share of the wall; then one more
 unprofiled step.  ``--dtype float32`` trains the model in fp32 (every
 kernel on its fp32 route, TF32 off for matmul and cuDNN) and adds a line
 with the flash backward's fp32 kernels' device ms and share (K4′: the
-3xTF32 dq and dk/dv kernels, and the FMA kernel, a parent tree's at every
-head dim).
+3xTF32 dq and dk/dv kernels, the d <= 160 class's on their own, and a
+parent tree's FMA kernel).
 
 chains: at every fused-projection shape of ``chip_smoke.proj_cases``, the
 kernel's wrapper against the module path's chain for the same function
@@ -137,13 +137,14 @@ def category(name: str) -> str:
             return FP32_PROJ[int(name.split(kernel, 1)[1].split(",", 1)[0].split(">", 1)[0])]
     if any(k in name for k in ("conv3x3_tf32_kernel", "conv_split_reduce_f32", "conv3x3_f32_kernel")):
         return FP32_CONV
-    # the flash backward's fp32 route (K4'): the 3xTF32 kernels (d <= 80)
-    # and the fp32 FMA kernel (d = 160; a parent tree's at every head dim),
-    # whose Cfg ends in false (dq) or true (dk/dv)
-    if "flash_bwd_dq_tf32_kernel" in name:
-        return "flash_bwd dq fp32 3xTF32 (K4')"
-    if "flash_bwd_dkv_tf32_kernel" in name:
-        return "flash_bwd dk/dv fp32 3xTF32 (K4')"
+    # the flash backward's fp32 route (K4'): the 3xTF32 kernels, those of
+    # the d <= 160 class (ds4 and the middle block; Cfg<160, ...) apart, and
+    # a parent tree's fp32 FMA kernel (d = 160), whose Cfg ends in false
+    # (dq) or true (dk/dv)
+    for kernel, kind in (("flash_bwd_dq_tf32", "dq"), ("flash_bwd_dkv_tf32", "dk/dv")):
+        if kernel + "_kernel" in name:
+            d160 = " d160" if "Cfg<160," in name else ""
+            return f"flash_bwd {kind} fp32 3xTF32{d160} (K4')"
     if "flash_bwd_f32_kernel" in name:
         return f"flash_bwd {'dk/dv' if 'true>' in name else 'dq'} fp32 FMA (K4')"
     if "flash_bwd_dq_kernel" in name:

@@ -205,8 +205,8 @@ def test_head_dim_above_the_kernels_raises(cuda):
 # ---------------------------------------------------------------- the fp32 route
 #
 # fp32 q/k/v/dO (a model trained in fp32, fault F9): flash_bwd_dq_f32 and
-# flash_bwd_dkv_f32, 3xTF32 wgmma at d <= 80 ("tc") and fp32 FMAs on the
-# CUDA cores in the d <= 160 class ("fma"), as BWD_TILES_F32 names them.
+# flash_bwd_dkv_f32, 3xTF32 wgmma ("tc") in every head-dim class (the d <=
+# 160 class with its resident pair raw), as BWD_TILES_F32 names them.
 # Tolerance: each gradient within FP32_REL_TOL = 1e-4 of the plain version's
 # largest magnitude (the plain version computes the same fp32 sums in
 # another order, with TF32 off), chip_smoke.py's fp32 limit; one-pass TF32
@@ -259,6 +259,8 @@ def tf32_off(cuda):
         (1, 300, 4126, 2, 40, True),   # 4126 keys with a key mask and dbias
         (2, 36, 292, 8, 40, False),    # gatedSA2: 36 queries over N + 36 keys
         (2, 90, 150, 2, 160, True),    # a key mask with dbias at d 160
+        (1, 70, 45, 2, 100, True),     # head dim 100 in the d <= 160 class, ragged tiles
+        (2, 64, 94, 8, 160, True),     # the middle block's fuser, a key mask and dbias
         (2, 1024, 1054, 8, 80, True),  # ds2's fuser with a key mask and dbias
         (1, 70, 45, 2, 44, False),     # head dim 44 (the d <= 80 class's tail atoms)
         (3, 33, 31, 2, 8, True),       # head dim 8, one ragged tile each way
@@ -266,7 +268,7 @@ def tf32_off(cuda):
 )
 def test_fp32_dq_dkv_dbias_match_plain(tf32_off, b, n, m, h, d, masked):
     """Both fp32 kernels in every head-dim class, on the "fp32" route, each
-    launch on the kernel BWD_TILES_F32 names for d (3xTF32 at d <= 80)."""
+    launch on the kernels BWD_TILES_F32 names for d (3xTF32 in every class)."""
     cuda = tf32_off
     q, k, v, do, bias, lse, delta = inputs_f32(cuda, b, n, m, h, d, masked, seed=n + m + d)
     routes = (dict(fa.flash_bwd_dq.routes), dict(fa.flash_bwd_dkv.routes))
@@ -274,7 +276,7 @@ def test_fp32_dq_dkv_dbias_match_plain(tf32_off, b, n, m, h, d, masked):
     dq = fa.flash_bwd_dq(q, k, v, h, do, lse, delta, bias)
     dk, dv, db = fa.flash_bwd_dkv(q, k, v, h, do, lse, delta, bias, dbias=masked)
     torch.cuda.synchronize()
-    kernel = "tc" if d <= 80 else "fma"
+    kernel = "tc"
     assert fa.bwd_kernel_f32(d) == kernel
     for wrapper, before, ran in zip((fa.flash_bwd_dq, fa.flash_bwd_dkv), routes, kernels):
         assert wrapper.routes == dict(before, fp32=before["fp32"] + 1), (before, wrapper.routes)
@@ -387,7 +389,7 @@ def test_fp32_function_matches_plain_autograd(tf32_off):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 160])
 def test_fp32_sweep_library_matches_plain(tf32_off, d):
     """The fp32 sweep library (csrc/flash_bwd_f32_sweep.cu) at every
     configuration of bench_sweep_attn.BWD_F32_CONFIGS for the class."""

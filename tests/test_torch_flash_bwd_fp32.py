@@ -3,10 +3,9 @@ the wrapper takes, its tile table as the C dispatch holds it, and its
 arithmetic against the JAX Pallas backward in fp32.
 
 ``csrc/flash_bwd.cu``'s fp32 entries (``flash_bwd_dq_f32``,
-``flash_bwd_dkv_f32``) run 3xTF32 ``wgmma`` kernels at d <= 80, whose
-arithmetic ``tests/test_torch_flash_bwd_fp32_tc.py`` models, and fp32 FMAs
-on the CUDA cores in the d <= 160 class, whose model is the plain backward
-itself.  The CPU runs the plain backward (``flash_attention_bwd_plain``,
+``flash_bwd_dkv_f32``) run 3xTF32 ``wgmma`` kernels at every head dim,
+whose arithmetic ``tests/test_torch_flash_bwd_fp32_tc.py`` models.  The CPU
+runs the plain backward (``flash_attention_bwd_plain``,
 fp32 from the saved LSE) behind the autograd Function: here it is held to
 ``jax.grad`` of the Pallas kernels run in interpret mode
 (``flash_attention_packed``, and the (B*H, N, D) form with a bias for
@@ -95,15 +94,16 @@ def test_mixed_dtypes_are_refused():
 @pytest.mark.parametrize(
     "d,want",
     [(4, ((128, 64), (128, 32))), (40, ((128, 64), (128, 32))), (44, ((128, 32), (64, 32))),
-     (80, ((128, 32), (64, 32))), (84, ((64, 32), (64, 32))), (160, ((64, 32), (64, 32)))],
+     (80, ((128, 32), (64, 32))), (84, ((64, 16), (64, 16))), (160, ((64, 16), (64, 16)))],
 )
 def test_fp32_tile_table(d, want):
     """(dq tiles, dk/dv tiles) of the fp32 route by head-dim class: dq's
     (BQ queries, BK keys), dk/dv's (BK keys, BQ queries); the wrappers pick
     them by q's dtype.  The table also names each class's kernel
-    (``bwd_kernel_f32``: 3xTF32 at d <= 80, FMAs above)."""
+    (``bwd_kernel_f32``: 3xTF32 at every head dim; tiles of 16 rows in the
+    d <= 160 class)."""
     assert fa.bwd_tiles_f32(d) == want
-    assert fa.bwd_kernel_f32(d) == ("tc" if d <= 80 else "fma")
+    assert fa.bwd_kernel_f32(d) == "tc"
     assert [top for top, *_ in fa.BWD_TILES_F32] == [top for top, *_ in fa.BWD_TILES]
     q = zeros(1, 1, 2 * d)
     assert (fa._bwd_tiles_of(q, 2, 0), fa._bwd_tiles_of(q, 2, 1)) == want
@@ -263,16 +263,18 @@ def test_one_tf32_pass_misses_the_limit():
 
 def test_phase_2_reads_the_fp32_kernels_from_ptxas():
     """chip_smoke.ptxas_configs names the fp32 kernels of flash_bwd.cu (the
-    3xTF32 ``flash_bwd_dq_tf32_kernel<D, NW, BK, NBUF>`` and
+    3xTF32 ``flash_bwd_dq_tf32_kernel<D, NW, BK, NBUF, KS>`` and
     ``flash_bwd_dkv_tf32_kernel<D, NW, SPLIT, BQ, NBUF>``, the d <= 160
-    class's ``flash_bwd_f32_kernel<D, BA, BB, DKV>``), whose spills phase 2
-    fails on; the bf16 kernels are not read."""
+    class's among them), whose spills phase 2 fails on; the bf16 kernels
+    are not read."""
     import chip_smoke
 
     prefix = "_ZN45_GLOBAL__N__af819228_12_flash_bwd_cu_b47bff4c3f32"
     kernels = [
-        ("20flash_bwd_f32_kernelINS0_3CfgILi160ELi64ELi32ELb1EEEEEvNS0_6ParamsE", 161, (8, 4)),
-        ("24flash_bwd_dq_tf32_kernelINS0_5DqCfgILi40ELi2ELi64ELi2EEEEEvNS0_6ParamsE", 198, (0, 0)),
+        ("24flash_bwd_dq_tf32_kernelINS0_5DqCfgILi160ELi1ELi16ELi1ELi2EEEEEvNS0_6ParamsE", 255,
+         (8, 4)),
+        ("24flash_bwd_dq_tf32_kernelINS0_5DqCfgILi40ELi2ELi64ELi2ELi1EEEEEvNS0_6ParamsE", 198,
+         (0, 0)),
         ("25flash_bwd_dkv_tf32_kernelINS0_6DkvCfgILi80ELi1ELi2ELi32ELi1EEEEEvNS0_6ParamsE", 176,
          (0, 0)),
     ]
@@ -288,6 +290,6 @@ def test_phase_2_reads_the_fp32_kernels_from_ptxas():
         "ptxas info    : Used 168 registers, used 1 barriers",
     ]
     assert chip_smoke.ptxas_configs("\n".join(lines)) == [
-        ("flash_bwd_f32_kernel<160, 64, 32, 1>", 161, 8, 4),
-        ("flash_bwd_dq_tf32_kernel<40, 2, 64, 2>", 198, 0, 0),
+        ("flash_bwd_dq_tf32_kernel<160, 1, 16, 1, 2>", 255, 8, 4),
+        ("flash_bwd_dq_tf32_kernel<40, 2, 64, 2, 1>", 198, 0, 0),
         ("flash_bwd_dkv_tf32_kernel<80, 1, 2, 32, 1>", 176, 0, 0)]

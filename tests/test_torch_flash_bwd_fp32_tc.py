@@ -1,4 +1,4 @@
-"""The flash backward's fp32 route at d <= 80 on the tensor cores: what
+"""The flash backward's fp32 route on the tensor cores: what
 csrc/flash_bwd.cu's 3xTF32 kernels (``flash_bwd_dq_tf32_kernel``,
 ``flash_bwd_dkv_tf32_kernel``) compute, modelled in torch, against the plain
 version and ``jax.grad`` of the JAX Pallas kernels (interpret mode, fp32);
@@ -17,7 +17,12 @@ and their sum rounded to fp32 once (the tensor cores' own order is not
 modelled); the split is the kernels': hi = rna(x) (``tests/
 test_torch_flash.py:tf32_rna``) and lo = x - hi, which the tensor cores
 truncate to TF32 (``tests/test_torch_fp32_tc.py:tc_split``).  The d <= 160
-class keeps the fp32 FMA kernel, whose model is the plain backward.
+class (its resident pair raw, split in registers) runs over tiles of 16
+keys (queries); each of its scores is two chains, hi.hi and hi.lo + lo.hi,
+each rounded once and summed in fp32 (``raw_chain``); dq's 64-query blocks
+take the even and the odd key tiles in two parts, dQ = the even tiles' sum
++ the odd tiles' (``KEY_PARTS``); the products over a tile run in two
+halves of the head dim, which only split the columns.
 
 Tolerance: FP32_REL_TOL = 1e-4 of each gradient's largest magnitude
 (chip_smoke.py's), against the plain version and the JAX gradients alike.
@@ -42,6 +47,7 @@ from gligen_tpu.ops import pallas_attention as jpa
 from gligen_tpu_torch.ops import flash_attention as fa
 
 from test_torch_flash_fp32_tc import chain
+from test_torch_fp32_tc import tc_split
 from test_torch_modules import rand, t
 
 torch.set_num_threads(1)
@@ -64,16 +70,36 @@ def probs(s, scale_log2, bias_log2, lse):
     return torch.exp2((s.double() * scale_log2.double() + (bias_log2 - lse).double()).float())
 
 
+# dq's key parts in the d <= 160 class (flash_bwd.cu:launch_tc, DqCfg's KS)
+# at its 64-query blocks: part p takes key tiles p, p + 2, ...
+KEY_PARTS = 2
+
+
+def raw_chain(a, b, passes=3):
+    """a @ b.T as the d <= 160 class's two chains from zero (raw_chains):
+    the hi.hi products and the hi.lo + lo.hi products, each summed exactly
+    and rounded to fp32 once, then added in fp32."""
+    if passes != 3:
+        return chain(a, b, passes)
+    (ah, al), (bh, bl) = tc_split(a), tc_split(b)
+    big = (ah.double() @ bh.double().transpose(-1, -2)).float()
+    small = (ah.double() @ bl.double().transpose(-1, -2)
+             + al.double() @ bh.double().transpose(-1, -2)).float()
+    return big + small
+
+
 def bwd_model(q, k, v, heads, do, lse, delta, bias=None, tiles=None, passes=3):
     """The fp32 route's arithmetic on (B, L, H*C) fp32 tensors: (dq, dk,
     dv, dbias or None) as ``flash_attention_bwd_plain`` returns them.
     ``tiles``: (BK keys of dq, BQ queries of dk/dv), default the table's."""
     b, n, hc = q.shape
     m, c = k.shape[1], hc // heads
-    if fa.bwd_kernel_f32(c) == "fma":
-        return fa.flash_attention_bwd_plain(q, k, v, heads, do, lse, delta, bias)
+    assert fa.bwd_kernel_f32(c) == "tc"
     dq_tiles, dkv_tiles = fa.bwd_tiles_f32(c)
     bk, bq = tiles or (dq_tiles[1], dkv_tiles[1])
+    raw = c > 80  # the d <= 160 class: its resident pair raw, KEY_PARTS parts of dq
+    score = raw_chain if raw else chain
+    parts = KEY_PARTS if raw and dq_tiles[0] == 64 else 1
     scale = torch.tensor(c**-0.5, dtype=torch.float32)
     scale_log2 = scale * fa.LOG2E  # p.scale_log2, in fp32
     qh, kh, vh, doh = (heads_first(x, heads) for x in (q, k, v, do))
@@ -81,20 +107,22 @@ def bwd_model(q, k, v, heads, do, lse, delta, bias=None, tiles=None, passes=3):
     bl = bl[:, None, :]  # (B, 1, M)
     lse_r, delta_r = lse[..., None], delta[..., None]  # (B, H, N, 1)
 
-    dq = torch.zeros((b, heads, n, c))
-    for k0 in range(0, m, bk):
-        s = chain(qh, kh[:, :, k0:k0 + bk], passes)
-        dp = chain(doh, vh[:, :, k0:k0 + bk], passes)
+    dqs = [torch.zeros((b, heads, n, c)) for _ in range(parts)]
+    for it, k0 in enumerate(range(0, m, bk)):
+        s = score(qh, kh[:, :, k0:k0 + bk], passes)
+        dp = score(doh, vh[:, :, k0:k0 + bk], passes)
         p = probs(s, scale_log2, bl[..., None, k0:k0 + bk], lse_r)
         ds = p * (dp - delta_r)
-        dq = dq + chain(ds, kh[:, :, k0:k0 + bk].transpose(-1, -2), passes)
+        dqs[it % parts] = dqs[it % parts] + chain(ds, kh[:, :, k0:k0 + bk].transpose(-1, -2),
+                                                  passes)
+    dq = dqs[0] + dqs[1] if parts == 2 else dqs[0]
 
     dk = torch.zeros((b, heads, m, c))
     dv = torch.zeros((b, heads, m, c))
     db = torch.zeros((b, heads, m))
     for q0 in range(0, n, bq):
-        st = chain(kh, qh[:, :, q0:q0 + bq], passes)
-        dpt = chain(vh, doh[:, :, q0:q0 + bq], passes)
+        st = score(kh, qh[:, :, q0:q0 + bq], passes)
+        dpt = score(vh, doh[:, :, q0:q0 + bq], passes)
         lq = lse[:, :, None, q0:q0 + bq]  # (B, H, 1, BQ)
         pt = probs(st, scale_log2, bl[..., None], lq)  # the bias a constant per key row
         dst = pt * (dpt - delta[:, :, None, q0:q0 + bq])
@@ -155,7 +183,9 @@ def jax_grads(q, k, v, g, h, mask):
      (80, 70, 100, 1.0),    # ds2's head dim, N + 30
      (80, 33, 45, 3.0),
      (36, 40, 70, 1.0),     # a head dim below its class's
-     (160, 40, 77, 1.0)],   # the d <= 160 class (the FMA kernel: the plain backward)
+     (160, 40, 77, 1.0),    # the d <= 160 class: 16-key tiles, raw Q/dO (K/V), two key parts
+     (160, 70, 100, 3.0),   # the same over several ragged tiles each way, sharp scores
+     (100, 33, 45, 1.0)],   # a head dim below the d <= 160 class's
 )
 def test_model_matches_plain_and_jax(d, n, m, scale, masked):
     """dq, dk and dv of the model within FP32_REL_TOL of the plain version
@@ -173,7 +203,7 @@ def test_model_matches_plain_and_jax(d, n, m, scale, masked):
         assert float(dv[1, :5].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 160])
 def test_model_bias_gradient_matches_jax(d):
     """dbias (the dk/dv kernel's per-head row sums of dS^T, summed over
     heads) of the model against the JAX bias gradient of the (B*H, N, D)
@@ -275,61 +305,213 @@ def test_fragment_and_transposed_key_orders_agree():
         assert sorted(at_word) == list(range(8))
         for t_ in range(4):
             assert at_word[t_] == frag_column(0, t_) and at_word[t_ + 4] == frag_column(2, t_)
-    assert "word = (key % 32) / 8 * 8 + (kk & 1) * 4 + kk / 2;" in \
+    assert "word = (key % KEYS) / 8 * 8 + (kk & 1) * 4 + kk / 2;" in \
         (CSRC / "hopper.cuh").read_text()  # store_vt8, which Trans::store8 calls
     src = (CSRC / "flash_bwd.cu").read_text()
-    assert "store_vt8<D>(base + 2 * mx * kHalf, base + (2 * mx + 1) * kHalf, key, cg, x);" in src
+    assert "store_vt8<D, kKeys>(base + 2 * mx * kHalf, base + (2 * mx + 1) * kHalf, key, cg, x);" \
+        in src
     body = src[src.index("__device__ __forceinline__ void frags("):]
     order = re.findall(r"split_tc\(x\[4 \* j(?: \+ (\d))?\], fh\[j\]\[(\d)\]", body[:800])
     # registers a[0..3] = accumulator entries 4j, 4j + 2, 4j + 1, 4j + 3
     assert [(int(e or 0), int(r)) for e, r in order] == [(0, 0), (2, 1), (1, 2), (3, 3)]
 
 
+# ------------------------------------------------------- the d <= 160 class's layouts
+
+def raw_offset(r, c, rows):
+    """flash_bwd.cu:f32::Raw<D>::store8: the byte of row r, column c of a
+    raw matrix of ``rows`` rows (32-column atoms, 128-byte swizzled)."""
+    cg = c // 8
+    chunk = 2 * (cg % 4) + (c % 8) // 4
+    return (cg // 4) * rows * 128 + r * 128 + ((chunk ^ (r & 7)) << 4) + (c % 4) * 4
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_raw_fragments_are_the_tf32_a_layout(rows):
+    """Raw<D>::frag's ldmatrix addresses (lanes 8i .. 8i + 7 give matrix
+    i's rows; a lane receives word lane % 4 of row lane / 4 of each matrix)
+    read back, at every k-step of every warp's 16 rows, the TF32 A fragment
+    of those rows: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of the
+    step's 8 columns.  Raw<D>::store8 gives each (row, column) a place of
+    its own, and the eight rows an ldmatrix matrix reads lie in eight
+    distinct 16-byte bank groups (no bank conflict)."""
+    d = 160
+    where = {raw_offset(r, c, rows): (r, c) for r in range(rows) for c in range(d)}
+    assert len(where) == rows * d and max(where) < rows * d * 4
+    for row0 in range(0, rows, 16):
+        for kk in range(d // 8):
+            addr = []
+            for lane in range(32):
+                row = row0 + 8 * ((lane // 8) & 1) + lane % 8
+                addr.append((kk // 4) * rows * 128 + row * 128
+                            + (((2 * (kk % 4) + lane // 16) ^ (row & 7)) << 4))
+            for lane in range(32):
+                g, t_ = lane // 4, lane % 4
+                got = [where[addr[8 * i + g] + 4 * t_] for i in range(4)]
+                assert got == [(row0 + g, 8 * kk + t_), (row0 + g + 8, 8 * kk + t_),
+                               (row0 + g, 8 * kk + t_ + 4), (row0 + g + 8, 8 * kk + t_ + 4)]
+            for i in range(4):
+                assert len({addr[8 * i + j] % 128 // 16 for j in range(8)}) == 8
+    src = (CSRC / "flash_bwd.cu").read_text()
+    assert "(((2 * (cg % 4) + i) ^ (r & 7)) << 4)) = x[i];" in src  # store8
+    assert "const int row = row0 + 8 * ((lane / 8) & 1) + lane % 8;" in src  # frag
+    assert "(((2 * (kk % 4) + lane / 16) ^ (row & 7)) << 4));" in src
+
+
+def vt_offset(key, col, keys, d=160):
+    """hopper.cuh:store_vt8<D, KEYS>: the byte of (key, head-dim column col)
+    in a transposed half: atoms of ``keys`` keys (rows of 4 keys bytes), the
+    keys of each 8-key step in the A fragment's order, swizzled by the
+    row's bytes (128: chunk ^ (row & 7); 64: chunk ^ ((row >> 1) & 3))."""
+    row_bytes, kk, e = 4 * keys, key % 8, col % 8
+    word = (key % keys) // 8 * 8 + (kk & 1) * 4 + kk // 2
+    base = (key // keys) * d * row_bytes + (col - e) * row_bytes + (word % 4) * 4
+    return base + e * row_bytes + (((word // 4) ^ (e if keys == 32 else e // 2)) << 4)
+
+
+def wgmma_reads(start, n, k, keys):
+    """The byte a K-major TF32 descriptor at ``start`` (sw128_desc or
+    sw64_desc: rows of 128 or 64 bytes, SBO 8 rows) reads for row n and
+    element k of its 8-element k-step: the linear address, its 16-byte chunk
+    index XOR-ed with address bits 7.. (3 bits at 128 B, 2 at 64 B)."""
+    lin = start + n * 4 * keys + 4 * k
+    bits = 3 if keys == 32 else 2
+    return lin ^ (((lin >> 7) & ((1 << bits) - 1)) << 4)
+
+
+@pytest.mark.parametrize("keys", [32, 16])
+def test_transposed_atoms_read_back_each_key(keys):
+    """The transposed operands (K^T; Q^T and dO^T) as Trans<D, T>::store8
+    writes them and as an RS product's B descriptor (Trans::desc: the
+    k-step's 32-byte offset in the row, rows n0 .. of a half) reads them:
+    at every 8-key step, every row n of both halves of the head dim (n0 =
+    0, 80) and every k, the byte read holds the key the A fragment puts at
+    k (keys 2t at k = t, 2t + 1 at k = t + 4) and the column n.  Every (key,
+    column) has its own place inside the half.  16-key atoms are the d <=
+    160 class's tiles (64-byte rows, 64-byte swizzle)."""
+    d = 160
+    place = {vt_offset(key, c, keys): (key, c) for key in range(keys) for c in range(d)}
+    assert len(place) == keys * d and max(place) < keys * d * 4
+    steps = keys // 8
+    for j in range(steps):
+        for n0 in (0, 80):
+            start = n0 * 4 * keys + (j % steps) * 32  # Trans::desc, one atom
+            for n in range(80):
+                for k in range(8):
+                    key = 8 * j + (2 * k if k < 4 else 2 * (k - 4) + 1)
+                    assert place[wgmma_reads(start, n, k, keys)] == (key, n0 + n)
+    src = (CSRC / "flash_bwd.cu").read_text()
+    assert ("const uint32_t addr = base + hf * kHalf + (j / steps) * D * kRow + n0 * kRow + "
+            "(j % steps) * 32;") in src
+    assert "return kKeys == 32 ? sw128_desc(addr, 16, 1024) : sw64_desc(addr, 16, 512);" in src
+    hopper = (CSRC / "hopper.cuh").read_text()
+    assert "(((word / 4) ^ (KEYS == 32 ? e : e / 2)) << 4);" in hopper
+    assert "((uint64_t)(sbo >> 4) << 32) | (2ull << 62);" in hopper  # sw64_desc's mode
+
+
+@pytest.mark.parametrize("t,warps", [(16, 4), (16, 8), (32, 4), (32, 12)])
+def test_share_units_cover_a_tile_once(t, warps):
+    """Share<D, T, WARPS>'s units (a lane's row lane % kRows and 8 columns
+    from 8 (kLanes (u % kCols) + lane / kRows); rounds of one unit a warp)
+    load and store every (row, 8-column group) of a tile of T rows exactly
+    once: 32 rows of 8 columns a unit, 16 rows of 16 at T = 16."""
+    d = 160
+    rows = min(t, 32)
+    lanes = 32 // rows
+    cols = d // (8 * lanes)
+    units = (t // rows) * cols
+    rounds = (units + warps - 1) // warps
+    seen = []
+    for warp in range(warps):
+        for r in range(rounds):
+            u = warp + warps * r
+            if u < units:
+                seen += [(rows * (u // cols) + lane % rows, lanes * (u % cols) + lane // rows)
+                         for lane in range(32)]
+    assert sorted(seen) == [(r, c) for r in range(t) for c in range(d // 8)]
+    src = (CSRC / "flash_bwd.cu").read_text()
+    assert "const int row = row0 + kRows * (u / kCols) + lane % kRows;" in src
+    assert "const int col = 8 * (kLanes * (u % kCols) + lane / kRows);" in src
+
+
+def test_bench_bwd_variants_edits_apply():
+    """Every variant of tools/bench_bwd_variants.py edits text the source
+    holds (the tool stops on a missing one), changes it (but ``base``), and
+    leaves the d <= 160 class alone in the fp32 sweep lists."""
+    from gligen_tpu_torch.tools import bench_bwd_variants as bv
+
+    src = (CSRC / "flash_bwd.cu").read_text()
+    base = bv.variant_source([], src)
+    for name, edits in bv.VARIANTS.items():
+        out = bv.variant_source(edits, src)
+        assert (out == base) == (name == "base"), name
+        sweep = out[out.index("#else", out.index("#ifndef FLASH_BWD_F32_SWEEP")):]
+        assert "#define DQ160_F32(X) X(tc, 64, 16) X(tc, 128, 16)" in sweep
+        assert all(f"#define {k}{c}_F32(X)\n" in sweep for k in ("DQ", "DKV") for c in (40, 80))
+    with pytest.raises(ValueError, match="edit not in flash_bwd.cu"):
+        bv.variant_source([("no such text", "")], src)
+    assert set(bv.EXACT) < set(bv.VARIANTS)
+
+
 # ---------------------------------------------------------------- the table
 
 def f32_lists(sweep: bool):
     """{(class, "DQ"|"DKV"): [(kernel, rows, tile), ...]} of flash_bwd.cu's
-    *_F32 X-macro lists, the serving library's or the sweep library's (the
-    d <= 160 lists are outside the #ifndef and shared)."""
+    *_F32 X-macro lists, the serving library's or the sweep library's."""
     src = (CSRC / "flash_bwd.cu").read_text()
     part = src[src.index("#ifndef FLASH_BWD_F32_SWEEP"):]
     part = part[:part.index("template <bool DQ>")]
     serving, rest = part.split("#else")
     sweep_part, shared = rest.split("#endif")
+    assert "_F32(X)" not in shared
     held = {}
-    for text in ((sweep_part if sweep else serving), shared):
-        for kind, top, lists in re.findall(r"#define (DQ|DKV)(\d+)_F32\(X\) (.*)", text):
-            held[(int(top), kind)] = [(k, int(r), int(t_)) for k, r, t_ in
-                                      re.findall(r"X\((\w+), (\d+), (\d+)\)", lists)]
+    for kind, top, lists in re.findall(r"#define (DQ|DKV)(\d+)_F32\(X\) (.*)",
+                                       sweep_part if sweep else serving):
+        held[(int(top), kind)] = [(k, int(r), int(t_)) for k, r, t_ in
+                                  re.findall(r"X\((\w+), (\d+), (\d+)\)", lists)]
     return held
 
 
 def test_c_dispatch_holds_the_table():
     """The serving library's fp32 lists hold exactly BWD_TILES_F32, kernel
-    and tiles, per class; the sweep library's the d <= 40 and d <= 80
-    classes at bench_sweep_attn.BWD_F32_CONFIGS (the d <= 160 lists are
-    the same in both)."""
+    and tiles, per class; the sweep library's every class at
+    bench_sweep_attn.BWD_F32_CONFIGS, the table's tiles among them."""
     from gligen_tpu_torch.tools.bench_sweep_attn import BWD_F32_CONFIGS
 
     assert f32_lists(sweep=False) == {
         (top, kind): [(kernel, *tiles)] for top, kernel, dq, dkv in fa.BWD_TILES_F32
         for kind, tiles in (("DQ", dq), ("DKV", dkv))}
     sweep = f32_lists(sweep=True)
+    assert set(sweep) == {(top, kind) for top in BWD_F32_CONFIGS for kind in ("DQ", "DKV")}
     for top, (dq, dkv) in BWD_F32_CONFIGS.items():
         assert sweep[(top, "DQ")] == [("tc", *x) for x in dq]
         assert sweep[(top, "DKV")] == [("tc", *x) for x in dkv]
-    assert sweep[(160, "DQ")] == [("fma", *fa.bwd_tiles_f32(160)[0])]
-    assert [kernel for _, kernel, _, _ in fa.BWD_TILES_F32] == ["tc", "tc", "fma"]
+        assert fa.bwd_tiles_f32(top)[0] in dq and fa.bwd_tiles_f32(top)[1] in dkv
+    assert [kernel for _, kernel, _, _ in fa.BWD_TILES_F32] == ["tc", "tc", "tc"]
 
 
-def tc_smem(d, res, tile, trans, side, nbuf):
-    """flash_bwd.cu:f32::tc_smem: a resident quartet of `res` rows, nbuf
-    buffers (a quartet of `tile` rows and `trans` transposed matrices' hi
-    and lo), nbuf side vectors of `side` floats, 4 barriers, 1 KB of
-    alignment slack."""
+def tc_smem(d, res, tile, trans, side, nbuf, raw=False, parts=1, xchg=0):
+    """flash_bwd.cu:f32::tc_smem: a resident pair of `res` rows (a quartet,
+    or raw: two fp32 matrices); per key part nbuf buffers (a quartet of
+    `tile` rows and `trans` transposed matrices' hi and lo), nbuf side
+    vectors of `side` floats and 4 barriers; `xchg` bytes of an exchange
+    area; 1 KB of alignment slack."""
     atoms = quartet(d)[0]
-    return (atoms * res * 128 + nbuf * (atoms * tile * 128 + trans * 2 * (tile // 32) * d * 128)
-            + nbuf * side * 4 + 32 + 1024)
+    resident = 2 * d * res * 4 if raw else atoms * res * 128
+    return (resident + parts * (nbuf * (atoms * tile * 128 + trans * 2 * tile * d * 4)
+                                + nbuf * side * 4 + 32) + xchg + 1024)
+
+
+def smem_of(top, kind, rows, tile, nbuf):
+    """A configuration's shared memory as launch_tc builds it: the d <= 160
+    class raw, its 64-query dq blocks in two key parts (a buffer each), its
+    split dk/dv slabs with the P^T exchange (two tiles of 128 x tile / 2
+    floats a slab, and a barrier)."""
+    raw = top > 80
+    if kind == "dq":
+        return tc_smem(top, rows, tile, 1, tile, nbuf, raw, 2 if raw and rows == 64 else 1)
+    xchg = (rows // 64) * (2 * 128 * (tile // 2) * 4 + 8) if raw else 0
+    return tc_smem(top, rows, tile, 2, 2 * tile, nbuf, raw, 1, xchg)
 
 
 def configs():
@@ -346,54 +528,66 @@ def configs():
 
 def test_every_configuration_fits_the_card():
     """Each 3xTF32 configuration, the table's and the sweep's, fits 227 KB
-    of shared memory with one buffer at least (launch_tc takes two where
-    they fit), at most 3 warpgroups, and wgmma widths csrc/wgmma.cuh holds:
-    the SS products' N = the tile (WgmmaSsTf32), the RS products' N = the
-    class's head dim (WgmmaRsTf32)."""
+    of shared memory with one buffer (a part) at least (launch_tc takes two
+    where they fit), at most 3 warpgroups (key parts and split slabs
+    counted), and wgmma widths csrc/wgmma.cuh holds: the SS products' N = the tile
+    (WgmmaSsTf32), the RS products' N = the class's head dim (WgmmaRsTf32);
+    in the d <= 160 class every product is RS, over the head dim at N = the
+    tile and over the tile in halves of N = 80."""
     sys.path.insert(0, str(CSRC))
     try:
         import gen_wgmma
     finally:
         sys.path.pop(0)
     src = (CSRC / "flash_bwd.cu").read_text()
-    assert "static_assert(kSmem == tc_smem(D, BQ, BK, 1, BK, NBUF)" in src
-    assert "static_assert(kSmem == tc_smem(D, BK, BQ, 2, 2 * BQ, NBUF)" in src
+    assert "static_assert(kSmem == tc_smem(D, BQ, BK, 1, BK, NBUF, kRaw, KS)" in src
+    assert "static_assert(kSmem == tc_smem(D, BK, BQ, 2, 2 * BQ, NBUF, kRaw, 1, kXBytes)" in src
     for top, kind, rows, tile in configs():
-        trans, side = (1, tile) if kind == "dq" else (2, 2 * tile)
-        smem = tc_smem(top, rows, tile, trans, side, 1)
+        smem = smem_of(top, kind, rows, tile, 1)
         assert smem <= SMEM_LIMIT, (top, kind, rows, tile, smem)
         split = 2 if kind == "dkv" and top > 40 else 1
-        assert rows % 64 == 0 and (rows // 64) * split <= 3 and tile in (32, 64)
-        assert tile in gen_wgmma.SS_TF32_WIDTHS and top in gen_wgmma.RS_TF32_WIDTHS
+        parts = 2 if kind == "dq" and top > 80 and rows == 64 else 1
+        assert rows % 64 == 0 and (rows // 64) * split * parts <= 3
+        if top > 80:
+            assert tile == 16 and tile in gen_wgmma.RS_TF32_WIDTHS
+            assert top // 2 in gen_wgmma.RS_TF32_WIDTHS
+        else:
+            assert tile in (32, 64) and tile in gen_wgmma.SS_TF32_WIDTHS
+            assert top in gen_wgmma.RS_TF32_WIDTHS
 
 
 def test_table_takes_two_buffers_where_they_fit():
     """The serving table's configurations, with their buffer counts as
     launch_tc picks them: d <= 40's double-buffered; at d <= 80 dq's 128
     resident queries (160 KB) and dk/dv's four transposed halves of 32
-    queries (40 KB) leave room for one."""
+    queries (40 KB) leave room for one; at d <= 160 the raw pair (80 KB)
+    leaves room for one buffer in each of dq's two key parts (60 KB each)
+    and one of dk/dv's (80 KB)."""
     nbufs = {}
     for top, kernel, dq, dkv in fa.BWD_TILES_F32:
-        if kernel != "tc":
-            continue
+        assert kernel == "tc"
         for kind, (rows, tile) in (("dq", dq), ("dkv", dkv)):
-            trans, side = (1, tile) if kind == "dq" else (2, 2 * tile)
-            nbufs[(top, kind)] = 2 if tc_smem(top, rows, tile, trans, side, 2) <= SMEM_LIMIT else 1
-    assert nbufs == {(40, "dq"): 2, (40, "dkv"): 2, (80, "dq"): 1, (80, "dkv"): 1}
+            nbufs[(top, kind)] = 2 if smem_of(top, kind, rows, tile, 2) <= SMEM_LIMIT else 1
+    assert nbufs == {(40, "dq"): 2, (40, "dkv"): 2, (80, "dq"): 1, (80, "dkv"): 1,
+                     (160, "dq"): 1, (160, "dkv"): 1}
+    assert smem_of(160, "dq", 64, 16, 1) == 206016 and smem_of(160, "dkv", 64, 16, 1) == 173224
+    src = (CSRC / "flash_bwd.cu").read_text()
+    assert "constexpr int ks = raw && R == 64 ? 2 : 1;" in src
+    assert "static constexpr int kXBytes = kShareP ? NW * (kXPBytes + 8) : 0;" in src
+    assert "static constexpr int kXPBytes = 2 * 128 * (BQ / 2) * 4;" in src
 
 
 def test_the_training_sites_take_the_new_kernels():
     """Every fp32 backward shape of the train step (chip_smoke.bwd_cases_f32)
-    at d <= 80 runs the 3xTF32 kernels, at d = 160 the FMA kernel."""
+    runs the 3xTF32 kernels, d = 160 (ds4 and the middle block) too."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
     finally:
         sys.path.pop(0)
     kinds = {d: fa.bwd_kernel_f32(d) for *_, d, _, _ in chip_smoke.bwd_cases_f32(4)}
-    assert kinds == {40: "tc", 80: "tc", 160: "fma"}
-    assert [fa.bwd_kernel_f32(d) for d in (4, 40, 44, 80, 84, 160)] == [
-        "tc", "tc", "tc", "tc", "fma", "fma"]
+    assert kinds == {40: "tc", 80: "tc", 160: "tc"}
+    assert [fa.bwd_kernel_f32(d) for d in (4, 40, 44, 80, 84, 160)] == ["tc"] * 6
     with pytest.raises(ValueError, match="above 160"):
         fa.bwd_kernel_f32(164)
 
@@ -418,7 +612,7 @@ def test_wrappers_count_launches_by_kernel(monkeypatch):
             q = torch.zeros((1, 4, 2 * d))
             wrapper(q, q, q, 2, q, None, None)
         wrapper(q.bfloat16(), q.bfloat16(), q.bfloat16(), 2, q.bfloat16(), None, None)
-        assert wrapper.fp32_kernels == {"tc": before["tc"] + 2, "fma": before["fma"] + 1}
+        assert wrapper.fp32_kernels == {"tc": before["tc"] + 3}
 
 
 def test_bench_sweep_bwd_fp32_on_the_cpu():
@@ -432,12 +626,12 @@ def test_bench_sweep_bwd_fp32_on_the_cpu():
     b, n, h = 1, 24, 2
     rows = bench_sweep_attn.run_bwd_fp32(batch=b, ms_keys=(24, 31), iters=1, device="cpu",
                                          heads=h, n=n)
-    want = [(lvl, m, kind, c) for lvl, (_, d) in bench_sweep_attn.F32_LEVELS.items()
+    want = [(lvl, m, kind, c) for lvl, (_, d) in bench_sweep_attn.BWD_F32_LEVELS.items()
             for m in (24, 31) for i, kind in enumerate(("dq", "dkv"))
             for c in (None, *bench_sweep_attn.BWD_F32_CONFIGS[d][i])]
     assert [(r["level"], r["m"], r["kind"], r["tiles"]) for r in rows] == want
     for r in rows:
-        d = bench_sweep_attn.F32_LEVELS[r["level"]][1]
+        d = bench_sweep_attn.BWD_F32_LEVELS[r["level"]][1]
         flops = 2 * b * h * n * r["m"] * d * (3 if r["kind"] == "dq" else 4)
         rows_ = 3 * b * n + 2 * b * r["m"] if r["kind"] == "dq" else 2 * b * n + 4 * b * r["m"]
         nbytes = 4 * rows_ * h * d + 8 * b * h * n
@@ -452,16 +646,21 @@ def test_bench_sweep_bwd_fp32_on_the_cpu():
 
 def test_perf_probe_names_the_fp32_backward_kernels():
     """perf_probe's categories of the fp32 backward kernels as the
-    profiler names them: the 3xTF32 dq and dk/dv kernels, and the FMA
+    profiler names them: the 3xTF32 dq and dk/dv kernels, the d <= 160
+    class's apart (ds4 and the middle block), and a parent tree's FMA
     kernel's dq (Cfg ending in false) and dk/dv (true) instances."""
     from gligen_tpu_torch.tools import perf_probe
 
     ns = "(anonymous namespace)::f32::"
     names = {
-        f"void {ns}flash_bwd_dq_tf32_kernel<{ns}DqCfg<40, 2, 64, 2> >({ns}Params)":
+        f"void {ns}flash_bwd_dq_tf32_kernel<{ns}DqCfg<40, 2, 64, 2, 1> >({ns}Params)":
             "flash_bwd dq fp32 3xTF32 (K4')",
         f"void {ns}flash_bwd_dkv_tf32_kernel<{ns}DkvCfg<80, 1, 2, 32, 1> >({ns}Params)":
             "flash_bwd dk/dv fp32 3xTF32 (K4')",
+        f"void {ns}flash_bwd_dq_tf32_kernel<{ns}DqCfg<160, 1, 16, 1, 2> >({ns}Params)":
+            "flash_bwd dq fp32 3xTF32 d160 (K4')",
+        f"void {ns}flash_bwd_dkv_tf32_kernel<{ns}DkvCfg<160, 1, 2, 16, 1> >({ns}Params)":
+            "flash_bwd dk/dv fp32 3xTF32 d160 (K4')",
         f"void {ns}flash_bwd_f32_kernel<{ns}Cfg<160, 64, 32, false> >({ns}Params)":
             "flash_bwd dq fp32 FMA (K4')",
         f"void {ns}flash_bwd_f32_kernel<{ns}Cfg<160, 64, 32, true> >({ns}Params)":
