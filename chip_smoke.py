@@ -276,6 +276,17 @@ Phases, each of which fails the run with a non-zero exit:
      ``--multihost`` processes sharing the card over gloo (loss, averaged
      gradients, the ranks' parameters).  ``python chip_smoke.py
      --dp_worker ...`` is one such process.
+ 22. tensor parallelism and FSDP (M12 part 2) on the one card, two ranks
+     sharing it over gloo (``python chip_smoke.py --tp_worker ...``): the
+     full-width train step (batch 4, 512^2, remat full, (a), two steps,
+     the first at lr 0) with TP = 2 against one process (loss, gathered
+     gradients, the replicated tensors across the ranks, each rank's
+     launches against ``expected_train_launches``, no plain version); one
+     (c) forward with TP = 2 (K6 at C/2) against the model in fp32; the
+     same steps ZeRO-3-sharded over the two ranks (resident bytes, peak
+     memory); a small fp32 TP step (each gradient tensor on its own too)
+     and (c) forward at phase 8's fp32 limits.  Phase 3 (and 6) also hold
+     every kernel at its TP = 2 shard shapes (the ``tp_*`` rows).
 
 The last three lines are a JSON object with the kernels' measurements,
 the card's name and power limit, and {"ok": true, "device": {...}}.  JAX
@@ -286,6 +297,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
 import os
 import sys
@@ -982,22 +994,32 @@ def check_proj(torch, cases, device):
 
     bf16 = torch.bfloat16
     results = []
-    for name, kind, b, n, c, k in cases:
+    for name, kind, b, n, c, k, *shard in cases:
+        # a TP shard (phase 22): 1/tp of the output columns (ln_matmuls,
+        # ln_geglu) or of the input columns (matmul_residual, whose partial
+        # on a rank other than 0 has a zero residual and bias)
+        tp = shard[0] if shard else 1
         x = randn(b, n, k if kind == "mm_only" else c, dtype=bf16)
         s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
         m = b * n
         if kind == "ln_matmuls":
-            ws = [randn(c, c, scale=c**-0.5, dtype=bf16) for _ in range(k)]
-            args, products, shape = (x, s, sb, ws), [(x, w) for w in ws], (m, c, c)
-            desc = f"x ({b},{n},{c}) -> {k} x {c}"
-            nbytes, flops = 2 * m * c * (1 + k) + 8 * c + 2 * k * c * c, 2 * m * c * c * k
+            f = c // tp
+            ws = [randn(f, c, scale=c**-0.5, dtype=bf16) for _ in range(k)]
+            args, products, shape = (x, s, sb, ws), [(x, w) for w in ws], (m, c, f)
+            desc = f"x ({b},{n},{c}) -> {k} x {f}"
+            nbytes, flops = 2 * m * (c + k * f) + 8 * c + 2 * k * f * c, 2 * m * c * f * k
         elif kind == "matmul_residual":
+            gated = k == c  # the fuser's device gate on to_out; net_2 of the block has none
+            k //= tp
             h = randn(b, n, k, dtype=bf16)
-            # the fuser's device gate on to_out; net_2 of the block has none
-            gate = torch.tensor(0.37, device=device) if k == c else None
+            gate = torch.tensor(0.37, device=device) if gated else None
             w = randn(c, k, scale=k**-0.5, dtype=bf16)
-            args, products, shape = (h, w, randn(c, scale=0.1), x, gate), [(h, w)], (m, k, c)
-            desc = f"h ({b},{n},{k}) -> {c}{' gated' if gate is not None else ''}"
+            wb, res = randn(c, scale=0.1), x
+            if tp > 1:
+                wb, res = torch.zeros_like(wb), torch.zeros_like(x)
+            args, products, shape = (h, w, wb, res, gate), [(h, w)], (m, k, c)
+            desc = (f"h ({b},{n},{k}) -> {c}{' gated' if gate is not None else ''}"
+                    f"{' zero residual' if tp > 1 else ''}")
             nbytes, flops = 2 * m * (k + 2 * c) + 2 * c * k + 4 * c + 4, 2 * m * k * c
         elif kind == "mm_only":
             w = randn(c, k, scale=k**-0.5, dtype=bf16)
@@ -1005,10 +1027,12 @@ def check_proj(torch, cases, device):
             desc = f"x ({b},{n},{k}) -> {c}"
             nbytes, flops = 2 * (m * k + c * k + m * c), 2 * m * k * c
         else:
-            w = randn(8 * c, c, scale=c**-0.5, dtype=bf16)
-            args, products, shape = (x, s, sb, w, randn(8 * c, scale=0.1)), [(x, w)], (m, c, 4 * c)
-            desc = f"x ({b},{n},{c}) -> {8 * c} -> {4 * c}"
-            nbytes, flops = 2 * m * 5 * c + 8 * c + 16 * c * c + 32 * c, 16 * m * c * c
+            f2 = 8 * c // tp
+            w = randn(f2, c, scale=c**-0.5, dtype=bf16)
+            args, products, shape = (x, s, sb, w, randn(f2, scale=0.1)), [(x, w)], (m, c, f2 // 2)
+            desc = f"x ({b},{n},{c}) -> {f2} -> {f2 // 2}"
+            nbytes = 2 * m * (c + f2 // 2) + 8 * c + 2 * f2 * c + 4 * f2
+            flops = 2 * m * c * f2
         kernel, plain = fp.KERNELS[kind], getattr(fp, f"{kind}_plain")
         tiles = fp.proj_tiles(kind, *shape)
         got = kernel(*args)
@@ -1152,6 +1176,68 @@ def conv_cases(unet, batch: int, latent: int = 64):
     return [(name, *case) for name, case in cases.items()]
 
 
+# Phase 22's tensor-parallel degree: the shard shapes phase 3 holds each
+# kernel at (half the heads, projection columns, ResBlock channels and groups)
+TP = 2
+FLASH_LEVELS = {"ds1": (4096, 40), "ds2": (1024, 80), "ds4": (256, 160), "mid": (64, 160)}
+
+
+def tp_kernel_cases(batch: int):
+    """K1 at the TP = 2 shard shapes of the 512^2 request (8 / TP heads):
+    attn1, the gatedSA fuser over N+30 keys, cross-attention over 77, at
+    every level; the ``kernel_cases`` format."""
+    rows = 2 * batch
+    return [(f"tp_{site}_{level}", rows, n, m, 8 // TP, d, False)
+            for level, (n, d) in FLASH_LEVELS.items()
+            for site, m in (("attn1", n), ("fuser", n + 30), ("cross", 77))]
+
+
+def tp_bwd_cases(batch: int):
+    """K4 at the TP = 2 shard shapes of the train step; ``bwd_cases``'s
+    format."""
+    return [(f"tp_{site}_{level}", batch, n, m, 8 // TP, d, kv, False)
+            for level, (n, d) in FLASH_LEVELS.items()
+            for site, m, kv in (("attn1", n, True), ("fuser", n + 30, True), ("cross", 77, False))]
+
+
+def tp_proj_cases(batch: int):
+    """K2 at the TP = 2 shard shapes (``check_proj``'s optional last field):
+    q/k/v, q and the fuser's k/v to C/2 columns, to_out and net_2 from
+    half their inputs with a zero residual, GEGLU to 2 x 2C."""
+    rows = 2 * batch
+    cases = []
+    for level, (n, c) in LEVELS.items():
+        cases += [(f"tp_qkv_{level}", "ln_matmuls", rows, n, c, 3, TP),
+                  (f"tp_q_{level}", "ln_matmuls", rows, n, c, 1, TP),
+                  (f"tp_fuser_kv_{level}", "ln_matmuls", rows, n + 30, c, 2, TP),
+                  (f"tp_to_out_{level}", "matmul_residual", rows, n, c, c, TP),
+                  (f"tp_net_2_{level}", "matmul_residual", rows, n, c, 4 * c, TP),
+                  (f"tp_geglu_{level}", "ln_geglu", rows, n, c, None, TP)]
+    return cases
+
+
+def tp_norm_cases(unet, batch: int, latent: int = 64):
+    """K5's GroupNorm (+ SiLU) at every ResBlock's second norm over C/2
+    channels in 32/2 groups (``check_norms``' optional last field)."""
+    res, _ = unet_maps(unet, latent)
+    cases = {f"tp_res_{h}x{cout // TP}": ((2 * batch, h, h, cout // TP), True, 1e-5, 32 // TP)
+             for h, _, cout in res}
+    return [(name, *case) for name, case in cases.items()]
+
+
+def tp_conv_cases(unet, batch: int, latent: int = 64):
+    """K6 at the TP = 2 shard shapes of every ResBlock: conv1 C_in -> C_out/2
+    (GroupNorm 1 over every input channel, 32 groups), conv2 C_out/2 ->
+    C_out with rank 0's residual, its GroupNorm in 16 groups."""
+    res, _ = unet_maps(unet, latent)
+    cases = {}
+    for h, cin, cout in res:
+        cases[f"tp_in_{h}_{cin}_{cout // TP}"] = (2 * batch, h, cin, cout // TP, False, 32)
+        cases[f"tp_out_{h}_{cout // TP}_{cout}"] = (2 * batch, h, cout // TP, cout, True,
+                                                    32 // TP)
+    return [(name, *case) for name, case in cases.items()]
+
+
 def check_norms(torch, gn, ln, device, gn32=()):
     """The GroupNorm kernel (+- SiLU) and gn_affine at every GroupNorm map,
     the fp32 GroupNorm at every map of ``gn32``, and the LayerNorm kernel at
@@ -1189,34 +1275,37 @@ def check_norms(torch, gn, ln, device, gn32=()):
         results.append(dict(name=name, kind=kind, err=err, ms=ms, plain_ms=plain_ms,
                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok))
 
-    for fp32, name, shape, silu, eps in [(False, *g) for g in gn] + [(True, *g) for g in gn32]:
+    for fp32, name, shape, silu, eps, *groups in ([(False, *g) for g in gn]
+                                                  + [(True, *g) for g in gn32]):
+        groups = groups[0] if groups else 32  # a TP shard's 32 / tp (phase 22)
         c = shape[-1]
         numel = 1
         for d in shape:
             numel *= d
         x = grouped_input(randn, shape, torch.float32 if fp32 else None)
         s, sb = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
-        args = (x, s, sb, 32, eps)
+        args = (x, s, sb, groups, eps)
         library = None
         if not silu:  # the library's GroupNorm on the (B, C, N) view of the same tensor
             xc, sc, bc = x.reshape(shape[0], -1, c).transpose(1, 2), s.to(x.dtype), sb.to(x.dtype)
-            library = lambda: F.group_norm(xc, 32, sc, bc, eps)
+            library = lambda: F.group_norm(xc, groups, sc, bc, eps)
         rows = numel // (shape[0] * c)
-        route = "fp32" if fp32 else fn.gn_plan(shape[0], rows, c)[0]
+        route = "fp32" if fp32 else fn.gn_plan(shape[0], rows, c, groups)[0]
         record("group_norm_fp32" if fp32 else "group_norm", name,
-               f"x {shape} {'fp32 ' if fp32 else ''}{'+ SiLU ' if silu else ''}eps {eps:g}",
+               f"x {shape} {'fp32 ' if fp32 else ''}{'+ SiLU ' if silu else ''}eps {eps:g}"
+               f"{'' if groups == 32 else f' {groups} groups'}",
                fn.group_norm_fused(*args, silu=silu), fn.group_norm_plain(*args, silu=silu),
                lambda: fn.group_norm_fused(*args, silu=silu),
                lambda: fn.group_norm_plain(*args, silu=silu), library,
                x.element_size() * 2 * numel + 8 * c, (9 if silu else 5) * numel,
                (GN_F32_TOL, 0.0) if fp32 else (PROJ_ATOL, PROJ_RTOL),
                route=route, again=fn.group_norm_fused(*args, silu=silu))
-        if name.startswith("res_"):  # the fused conv's inputs take gn_affine
+        if name.startswith(("res_", "tp_res_")):  # the fused conv's inputs take gn_affine
             record("gn_affine", name, f"x {shape} -> a, v ({shape[0]}, {c})",
                    fn.gn_affine(*args), fn.gn_affine_plain(*args),
                    lambda: fn.gn_affine(*args), lambda: fn.gn_affine_plain(*args), None,
                    2 * numel + 8 * c + 8 * shape[0] * c, 3 * numel, (AFFINE_TOL, AFFINE_TOL),
-                   route=fn.gn_plan(shape[0], rows, c, normalise=False)[0],
+                   route=fn.gn_plan(shape[0], rows, c, groups, normalise=False)[0],
                    again=fn.gn_affine(*args))
         del x, args, library
     for name, rows, c, eps in ln:
@@ -1253,18 +1342,19 @@ def check_convs(torch, cases, device):
         return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
     results = []
-    for name, b, h, cin, cout, residual in cases:
+    for name, b, h, cin, cout, residual, *groups in cases:
+        groups = groups[0] if groups else 32  # a TP shard's input: 32 / tp (phase 22)
         x = grouped_input(randn, (b, h, h, cin))
         s, sb = 1.0 + randn(cin, scale=0.1), randn(cin, scale=0.1)
         w, wb = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5), randn(cout, scale=0.1)
         res = randn(b, h, h, cout, dtype=torch.bfloat16) if residual else None
-        args = (x, s, sb, w, wb, res)
+        args = (x, s, sb, w, wb, res, groups)
         got = fc.gn_silu_conv3x3(*args)
         torch.cuda.synchronize()
         err, ok = compare(torch, got, fc.gn_silu_conv3x3_plain(*args))
         repeats = torch.equal(got, fc.gn_silu_conv3x3(*args))
         # the conv kernel alone, on the wrapper's own operands
-        a, v = fc.gn_affine(x, s, sb)
+        a, v = fc.gn_affine(x, s, sb, groups)
         wt, wbf = w.to(x.dtype).permute(0, 2, 3, 1).contiguous(), wb.float()
         conv_args = (x, a, v, wt, wbf, res)
         conv_err, conv_ok = compare(torch, fc.gn_silu_conv3x3.conv(*conv_args),
@@ -1287,7 +1377,8 @@ def check_convs(torch, cases, device):
         bound_ms, bound_by = bound(nbytes, flops)
         ok = ok and conv_ok and repeats
         print(f"kernel gn_silu_conv3x3 {name:16s} ({b},{h},{h},{cin}) -> {cout}"
-              f"{' + residual' if residual else ''}: max_abs_err {max(err, conv_err):.3e} (tol "
+              f"{' + residual' if residual else ''}{'' if groups == 32 else f' {groups} groups'}"
+              f": max_abs_err {max(err, conv_err):.3e} (tol "
               f"{PROJ_ATOL} + {PROJ_RTOL} rel; repeats bit for bit: {repeats}) tiles "
               f"{'x'.join(map(str, plan[:3]))} split {plan[3]} kernel {ms:.4f} ms "
               f"{flops / ms / 1e9:.1f} TF/s "
@@ -4734,6 +4825,446 @@ def dp_train_check(torch, seed, device, config, data_root):
     return failures, line
 
 
+TP_DIR = REPO / "build" / "chip_smoke_tp"
+TP_BATCH = 4
+TP_STEPS = 2
+TP_TIMEOUT = 600
+# Phase 22 (1): TP = 2 against one process, the same bf16 step on the same
+# batch and draws.  One process rounds each block's output to bf16 once;
+# under TP each rank rounds its partial (its heads', its GEGLU columns', its
+# ResBlock channels') to bf16 before the sum, and the sum of the two
+# rounded partials is rounded again: up to three roundings of values as
+# large as the output where one process has one, so about twice phase 21's
+# rounding noise (DP_LOSS_RTOL, DP_GRAD_RTOL: there every rank computes
+# whole outputs and only the fp32 gradient sum differs).  The limits are
+# twice phase 21's.  A wrong shard, a missing reduction or a gradient
+# summed over the wrong group is off by O(1) and far over them; the fp32
+# step (4) holds the same code to 1e-4 / 1e-3.
+TP_LOSS_RTOL = 2e-3
+TP_GRAD_RTOL = 4e-2
+# (2): the configuration (c) forward's output (eps), held against the same
+# model computing in fp32: the TP output's relative L2 distance from it at
+# most TP_FWD_FP32_RATIO times one process's own.  Both distances are bf16
+# rounding alone; TP adds, where a region's output would be rounded once,
+# the rounding of each rank's partial (two values of about half its size:
+# about half that rounding's variance again), so its distance can grow to
+# sqrt(1 + 1/2) ~ 1.22 times one process's if every rounding sat at a
+# region's output, and less since the weights' and inputs' casts are shared.
+# A wrong shard or a missing reduction moves the output by O(1).
+TP_FWD_FP32_RATIO = 1.25
+
+
+class PlainRoutes:
+    """Counts the kernel wrappers' decisions to run their plain versions
+    (``launch.on_cuda`` answering False) while open: a run on the card must
+    make none."""
+
+    MODULES = ("flash_attention", "fused_proj", "fused_norm", "fused_conv")
+
+    def __enter__(self):
+        import importlib
+
+        self.calls = 0
+        self._real = {}
+        for name in self.MODULES:
+            mod = importlib.import_module(f"gligen_tpu_torch.ops.{name}")
+            self._real[mod] = real = mod.on_cuda
+
+            def counted(x, op, real=real):
+                took = real(x, op)
+                self.calls += not took
+                return took
+
+            mod.on_cuda = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod, real in self._real.items():
+            mod.on_cuda = real
+
+
+def tp_components(torch, seed, device, dtype=None, small=False):
+    """Phase 22's model, built alike in every process: SD-1.4 GLIGEN box+text
+    (or ``SMALL``) with remat, de-zeroed from one seeded generator."""
+    from gligen_tpu_torch.inference.pipeline import GligenComponents
+
+    config = dict(SMALL) if small else {}
+    config["unet_config"] = dict(config.get("unet_config", {}), use_checkpoint=True)
+    comps = GligenComponents.create(dtype=dtype or torch.bfloat16, seed=seed, device=device,
+                                    **config)
+    dezero_(comps.unet, torch.Generator(device=device).manual_seed(seed + 221))
+    return comps
+
+
+def tp_data(torch, np, seed, device, batch, size, steps, factor=8, ctx_dim=768, vocab=49408):
+    """The batch of phase 22 and each step's draws of the global batch
+    (``factor``: the VAE's downsampling)."""
+    data = train_batch(torch, np, np.random.default_rng(seed + 222), batch, size, vocab, ctx_dim,
+                       device)
+    rng = np.random.default_rng(seed + 223)
+    lat = (batch, size // factor, size // factor, 4)
+    draws = [{"posterior": rng.standard_normal(lat), "u_t": rng.random(batch),
+              "noise": rng.standard_normal(lat), "u_drop": 0.5} for _ in range(steps)]
+    return data, draws
+
+
+def tp_forward_inputs(torch, np, seed, device, batch=TP_BATCH, latent=64, ctx_dim=768):
+    """The configuration (c) forward's inputs: a latent, timesteps, a text
+    context and box grounding."""
+    rng = np.random.default_rng(seed + 224)
+    _, _, grounding = make_request(rng, batch, 1000, ctx_dim)
+    as_t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
+    return (as_t(rng.standard_normal((batch, latent, latent, 4))),
+            as_t(rng.integers(1, 999, batch), torch.int64),
+            as_t(rng.standard_normal((batch, 77, ctx_dim))),
+            {k: as_t(v) for k, v in grounding.items()})
+
+
+def tp_steps(torch, comps, data, draws, device, keep=True):
+    """Train steps on ``data`` with each step's ``draws`` (AdamW at lr 1e-4
+    after one warmup step: the first changes nothing); in a process group the
+    batch is this rank's replica's rows.  Returns the losses, each step's
+    kernel launches and seconds, the last step's full (gathered) gradients
+    (with ``keep``), a digest of the full trainable tensors before the
+    first step and whether the last moved every one, the replicated ones'
+    local values and gradients (to compare across ranks), the plain routes
+    taken and the peak memory."""
+    from gligen_tpu_torch.parallel import mesh as dp
+    from gligen_tpu_torch.training.train_step import (create_train_state, full_tensors,
+                                                      make_train_step)
+
+    state = create_train_state(comps.unet, base_lr=1e-4, warmup_steps=1)
+    step = make_train_step(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
+    rows = dp.process_batch_slice(data["input_ids"].shape[0])
+    local = {k: ({g: t[rows] for g, t in v.items()} if isinstance(v, dict) else v[rows])
+             for k, v in data.items()}
+    plan = getattr(comps.unet, "tp_plan", None)
+    fsdp = getattr(comps.unet, "fsdp", None)
+    replicated = [n for n in state.params if dp.world_size() > 1
+                  and (plan is None or plan[n].dim is None)
+                  and (fsdp is None or fsdp.specs[n] is None)]
+    start = full_tensors(comps.unet, state.params)
+    digest = hashlib.sha256()
+    for n in sorted(start):
+        digest.update(start[n].numpy().tobytes())
+    wrappers = kernel_wrappers()
+    out = {"loss": [], "launches": [], "step_s": []}
+    torch.cuda.reset_peak_memory_stats()
+    with PlainRoutes() as plain:
+        for d in draws:
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["loss"].append(float(step(state, local, draws=d)["loss"]))
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["launches"].append({n: w.launches for n, w in wrappers.items()})
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["plain"] = plain.calls
+    grads = full_tensors(comps.unet, {n: p.grad for n, p in state.params.items()})
+    if keep:
+        out["grads"] = grads
+    after = full_tensors(comps.unet, state.params)
+    out["moved"] = all(not torch.equal(p, start[n]) for n, p in after.items())
+    out["start_digest"] = digest.hexdigest()
+    out["replicated"] = {n: (state.params[n].detach().cpu().clone(), state.params[n].grad.cpu())
+                         for n in replicated}
+    del state, step, start, after, grads
+    return out
+
+
+def rel_l2(torch, got, want) -> float:
+    """||got - want|| / ||want|| over dicts of tensors (or two tensors)."""
+    if not isinstance(want, dict):
+        got, want = {0: got}, {0: want}
+    num = sum(float((got[n].double() - w.double()).pow(2).sum()) for n, w in want.items())
+    den = sum(float(w.double().pow(2).sum()) for w in want.values())
+    return (num / den) ** 0.5 if den > 0 else float("inf")
+
+
+def per_tensor_err(got, want) -> float:
+    """max |got - want| / max |want| of one tensor (inf where want is all
+    zeros and got is not)."""
+    err, scale = float((got.double() - want.double()).abs().max()), float(want.abs().max())
+    return err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def tp_worker(argv) -> int:
+    """``chip_smoke.py --tp_worker SEED OUT_DIR MODE``: one of phase 22's two
+    ranks on the card (gloo; the launcher's variables from
+    ``run_tensor_parallel``).  MODE "tp": a grid of TP = 2, the full-width
+    steps in (a), the (c) forward, the small fp32 step; "fsdp": the
+    full-width steps with the UNet ZeRO-3-sharded over both ranks.  Writes
+    ``OUT_DIR/<mode>_rank<r>.pt``."""
+    import numpy as np
+    import torch
+
+    seed, out_dir, mode = int(argv[0]), Path(argv[1]), argv[2]
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from gligen_tpu_torch.ops.basic import tf32_off
+    from gligen_tpu_torch.parallel import fsdp as zero
+    from gligen_tpu_torch.parallel import mesh as dp
+    from gligen_tpu_torch.parallel.sharding import shard_unet_
+
+    device = dp.init_process_group("cuda")
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
+    try:
+        out = {}
+        set_config("a")
+        comps = tp_components(torch, seed, device)
+        full_bytes = sum(p.numel() * p.element_size() for p in comps.unet.parameters())
+        if mode == "tp":
+            shard_unet_(comps.unet, dp.init_grid(TP).tp)
+        else:
+            zero.shard_unet_(comps.unet)
+        out["resident_bytes"] = zero.resident_bytes(comps.unet)
+        out["full_bytes"] = full_bytes
+        data, draws = tp_data(torch, np, seed, device, TP_BATCH, 512, TP_STEPS)
+        rank0 = dp.process_index() == 0
+        out["steps"] = tp_steps(torch, comps, data, draws, device, keep=rank0)
+        if mode == "tp":
+            set_config("c")
+            wrappers = kernel_wrappers()
+            for w in wrappers.values():
+                w.launches = 0
+            with torch.no_grad(), PlainRoutes() as plain:
+                eps = comps.unet(*tp_forward_inputs(torch, np, seed, device))
+            out["forward"] = {"eps": eps.float().cpu(), "plain": plain.calls,
+                              "launches": {n: w.launches for n, w in wrappers.items()}}
+            set_config("a")
+            del comps, data, draws, eps
+            gc.collect()
+            torch.cuda.empty_cache()
+            small = tp_components(torch, seed, device, dtype=torch.float32, small=True)
+            shard_unet_(small.unet, dp.tensor_parallel())
+            data, draws = tp_data(torch, np, seed, device, 2, 64, 1, factor=2, ctx_dim=64,
+                                  vocab=1000)
+            with tf32_off():
+                run = tp_steps(torch, small, data, draws, device, keep=rank0)
+                set_config("c")
+                with torch.no_grad():
+                    eps = small.unet(*tp_forward_inputs(torch, np, seed, device, 2, 32, 64))
+                set_config("a")
+            out["fp32"] = {"loss": run["loss"], "grads": run.get("grads"), "plain": run["plain"],
+                           "eps_c": eps.cpu()}
+        torch.save(out, out_dir / f"{mode}_rank{dp.process_index()}.pt")
+    finally:
+        dp.destroy_process_group()
+    return 0
+
+
+def launch_ranks(torch, seed, mode, world=2):
+    """Phase 22's two ranks (``tp_worker``) on the card; returns
+    (codes, outputs, wall seconds)."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world), PYTHONPATH=str(REPO))
+    cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--tp_worker", str(seed), str(TP_DIR),
+           mode]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=TP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outputs, time.perf_counter() - t0
+
+
+def run_tensor_parallel(torch, np, seed, device):
+    """Phase 22 (M12 part 2) on the one card, two ranks sharing it over gloo
+    (NCCL refuses two ranks on one GPU): (1) SD-1.4 GLIGEN box+text at full
+    width, 512^2, batch 4, remat full, configuration (a), ``TP_STEPS`` train
+    steps (the first at the warmup's lr 0) with TP = 2 against one process
+    on the same batch and draws: the losses within ``TP_LOSS_RTOL``, the
+    last step's gathered trainable gradients within ``TP_GRAD_RTOL``
+    relative L2, the replicated trainable tensors and their gradients bit
+    for bit across the ranks, each rank's launches of every kernel the
+    predicted ``expected_train_launches`` in each step, no plain version;
+    (2) one UNet forward in (c) with TP = 2 (K6 at C/2): its distance from
+    the model computing in fp32 at most ``TP_FWD_FP32_RATIO`` times one
+    process's (the size of bf16 rounding alone); (3) FSDP over the two ranks, the same
+    steps against the same process at phase 21's limits, each rank's
+    resident UNet parameter bytes at most half of one process's plus its
+    replicated tensors under 2^16 elements, its peak memory; (4) the small
+    fp32 TP step against one process's at phase 8's fp32 limits
+    (``FP32_TRAIN_LOSS_RTOL``, ``FP32_TRAIN_GRAD_RTOL``: the gradients
+    pooled and each tensor's largest error against its own largest entry),
+    and a small fp32 (c) forward (K6's fp32 route at C/2) within
+    ``FP32_TRAIN_LOSS_RTOL``.  Returns (failures, summary line)."""
+    import shutil
+
+    from gligen_tpu_torch.models.layers import computing_in
+    from gligen_tpu_torch.ops.basic import tf32_off
+    from gligen_tpu_torch.parallel.sharding import fsdp_spec
+
+    failures = []
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    # ---- one process: the steps, the (c) forward, the small fp32 step ----
+    set_config("a")
+    comps = tp_components(torch, seed, device)
+    expected = expected_train_launches(comps, 512, "a", use_checkpoint=True)
+    one_bytes = sum(p.numel() * p.element_size() for p in comps.unet.parameters())
+    small_bytes = sum(p.numel() * p.element_size() for n, p in comps.unet.named_parameters()
+                      if fsdp_spec(n, p.shape, 2) is None)
+    data, draws = tp_data(torch, np, seed, device, TP_BATCH, 512, TP_STEPS)
+    one = tp_steps(torch, comps, data, draws, device)
+    set_config("c")
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    inputs = tp_forward_inputs(torch, np, seed, device)
+    with torch.no_grad():
+        eps_one = comps.unet(*inputs).float().cpu()
+    conv_one = wrappers["gn_silu_conv3x3"].launches
+    # the witness of bf16 rounding alone: the same model computing in fp32
+    with torch.no_grad(), computing_in(comps.unet, torch.float32), tf32_off():
+        eps_fp32 = comps.unet(*inputs).float().cpu()
+    set_config("a")
+    del comps, data, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = tp_components(torch, seed, device, dtype=torch.float32, small=True)
+    data, draws = tp_data(torch, np, seed, device, 2, 64, 1, factor=2, ctx_dim=64, vocab=1000)
+    with tf32_off():
+        one32 = tp_steps(torch, small, data, draws, device)
+        set_config("c")
+        with torch.no_grad():
+            eps32_one = small.unet(*tp_forward_inputs(torch, np, seed, device, 2, 32, 64)).cpu()
+        set_config("a")
+    del small, data, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tp: one process, {TP_STEPS} steps at batch {TP_BATCH}: losses "
+          f"{', '.join(f'{x:.6f}' for x in one['loss'])}, s/step "
+          f"{', '.join(f'{x:.3f}' for x in one['step_s'])}, peak {one['peak_gib']:.2f} GiB, "
+          f"launches per step as predicted {all(c == expected for c in one['launches'])}",
+          flush=True)
+
+    def ranks(mode):
+        codes, outputs, wall = launch_ranks(torch, seed, mode)
+        if any(codes):
+            for r, text in enumerate(outputs):
+                print(f"tp: {mode} rank {r} exited {codes[r]}:\n{text[-4000:]}", flush=True)
+            failures.append(f"tp {mode} processes")
+            return None, wall
+        return [torch.load(TP_DIR / f"{mode}_rank{r}.pt", weights_only=False)
+                for r in range(2)], wall
+
+    def step_checks(label, got, loss_rtol, grad_rtol):
+        """The steps of both ranks against one process; (ok, line)."""
+        r0, r1 = got[0]["steps"], got[1]["steps"]
+        loss_rel = max(abs(b - a) / abs(a) for a, b in zip(one["loss"], r0["loss"]))
+        grad_rel = rel_l2(torch, r0["grads"], one["grads"])
+        worst = max(one["grads"], key=lambda n: rel_l2(torch, r0["grads"][n], one["grads"][n]))
+        same_start = r0["start_digest"] == one["start_digest"] == r1["start_digest"]
+        moved = r0["moved"] and r1["moved"]
+        ranks_equal = (r0["loss"] == r1["loss"] and all(
+            torch.equal(a, b) for n, (p, g) in r0["replicated"].items()
+            for a, b in ((p, r1["replicated"][n][0]), (g, r1["replicated"][n][1]))))
+        launches = all(c == expected for r in (r0, r1) for c in r["launches"])
+        plain = r0["plain"] + r1["plain"]
+        ok = (loss_rel <= loss_rtol and grad_rel <= grad_rtol and same_start and moved
+              and ranks_equal and launches and plain == 0)
+        line = (f"{label}: losses {', '.join(f'{x:.6f}' for x in r0['loss'])} vs one process "
+                f"{', '.join(f'{x:.6f}' for x in one['loss'])} (rel {loss_rel:.2e} <= "
+                f"{loss_rtol}); the last step's gathered gradients rel L2 {grad_rel:.2e} (<= "
+                f"{grad_rtol}; worst tensor {worst} "
+                f"{rel_l2(torch, r0['grads'][worst], one['grads'][worst]):.2e}) over "
+                f"{len(one['grads'])} trainable tensors; the same start {same_start}, every "
+                f"tensor moved by the second step {moved}; the ranks' losses and their "
+                f"{len(r0['replicated'])} replicated trainable tensors and gradients bit for bit "
+                f"{ranks_equal}; each rank's launches per step as predicted {launches} "
+                f"({ {k: v for k, v in r0['launches'][-1].items() if v} }); plain versions run "
+                f"{plain}; warm step {r0['step_s'][-1]:.3f} s (rank 1 {r1['step_s'][-1]:.3f}) vs "
+                f"one process {one['step_s'][-1]:.3f}; peak memory per rank "
+                f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB vs {one['peak_gib']:.2f}")
+        return ok, line
+
+    # ---- (1), (2), (4): TP = 2 ----
+    got, tp_wall = ranks("tp")
+    lines = []
+    if got is not None:
+        ok, line = step_checks("tp: (1) TP = 2, (a)", got, TP_LOSS_RTOL, TP_GRAD_RTOL)
+        print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
+        lines.append(line)
+        if not ok:
+            failures.append("tp step")
+        f0, f1 = got[0]["forward"], got[1]["forward"]
+        tp_fp32 = rel_l2(torch, f0["eps"], eps_fp32)
+        one_fp32 = rel_l2(torch, eps_one, eps_fp32)
+        conv = [f["launches"]["gn_silu_conv3x3"] for f in (f0, f1)]
+        ok = (tp_fp32 <= TP_FWD_FP32_RATIO * one_fp32 and torch.equal(f0["eps"], f1["eps"])
+              and conv == [conv_one] * 2 and conv_one > 0 and f0["plain"] + f1["plain"] == 0
+              and bool(torch.isfinite(f0["eps"]).all()))
+        line = (f"tp: (2) one UNet forward in (c), TP = 2 (K6 at C/2): eps rel L2 from the model "
+                f"in fp32 {tp_fp32:.3e} (<= {TP_FWD_FP32_RATIO} x one process's {one_fp32:.3e}: "
+                f"{tp_fp32 / one_fp32:.3f}x), from one process "
+                f"{rel_l2(torch, f0['eps'], eps_one):.3e}; the ranks bit for bit "
+                f"{torch.equal(f0['eps'], f1['eps'])}, K6 launches per rank {conv} (one process "
+                f"{conv_one}), plain versions run {f0['plain'] + f1['plain']}")
+        print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append("tp forward (c)")
+        s0 = got[0]["fp32"]
+        loss_rel = abs(s0["loss"][0] - one32["loss"][0]) / abs(one32["loss"][0])
+        grad_rel = rel_l2(torch, s0["grads"], one32["grads"])
+        # each tensor against its own largest entry, so a small tensor's
+        # wrong rule (a TP sum missing or counted twice) shows as O(1)
+        per_tensor = {n: per_tensor_err(s0["grads"][n], g) for n, g in one32["grads"].items()}
+        worst = max(per_tensor, key=per_tensor.get)
+        eps_rel = rel_l2(torch, s0["eps_c"], eps32_one)
+        ok = (loss_rel <= FP32_TRAIN_LOSS_RTOL and grad_rel <= FP32_TRAIN_GRAD_RTOL
+              and per_tensor[worst] <= FP32_TRAIN_GRAD_RTOL
+              and eps_rel <= FP32_TRAIN_LOSS_RTOL and s0["plain"] + got[1]["fp32"]["plain"] == 0)
+        line = (f"tp: (4) small fp32 step, TP = 2 against one process: loss {s0['loss'][0]:.8f} "
+                f"vs {one32['loss'][0]:.8f} (rel {loss_rel:.2e} <= {FP32_TRAIN_LOSS_RTOL}), "
+                f"gradients rel L2 {grad_rel:.2e} (<= {FP32_TRAIN_GRAD_RTOL}) over "
+                f"{len(one32['grads'])} tensors, each tensor's max |error| / its max |g| <= "
+                f"{FP32_TRAIN_GRAD_RTOL} (worst {worst} {per_tensor[worst]:.2e}); a (c) "
+                f"forward's eps rel L2 {eps_rel:.2e} (<= {FP32_TRAIN_LOSS_RTOL}: K6's fp32 "
+                f"route at C/2)")
+        print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append("tp fp32 step")
+        del got
+    # ---- (3): FSDP ----
+    got, fsdp_wall = ranks("fsdp")
+    if got is not None:
+        ok, line = step_checks("tp: (3) FSDP over 2 ranks (2 + 2 rows)", got, DP_LOSS_RTOL,
+                               DP_GRAD_RTOL)
+        resident = [r["resident_bytes"] for r in got]
+        held = all(b <= one_bytes / 2 + small_bytes for b in resident)
+        line += (f"; resident UNet parameter bytes per rank {resident[0] / 2**30:.3f} / "
+                 f"{resident[1] / 2**30:.3f} GiB vs one process {one_bytes / 2**30:.3f} GiB "
+                 f"(at most half + the {small_bytes / 2**20:.1f} MiB under 2^16 elements: {held})")
+        print(f"{line} {'ok' if ok and held else 'FAIL'}", flush=True)
+        lines.append(line)
+        if not (ok and held):
+            failures.append("fsdp step")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    summary = (f"tensor parallelism: two ranks on one card over gloo: {'; '.join(lines)}; "
+               f"command walls (start, build, steps, dump) TP {tp_wall:.1f} s, FSDP "
+               f"{fsdp_wall:.1f} s")
+    return failures, summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -4806,17 +5337,18 @@ def main() -> int:
     t0 = time.perf_counter()
     batch = 2
     comps = GligenComponents.create(dtype=torch.bfloat16, seed=args.seed, device=device)
-    results = check_kernel(torch, kernel_cases(batch), device)
+    # each kernel also at phase 22's TP = 2 shard shapes (the tp_* rows)
+    results = check_kernel(torch, kernel_cases(batch) + tp_kernel_cases(batch), device)
     results.append(check_kernel_1024(torch, device))
     results += check_kernel_f32(torch, device, batch)
-    results += check_proj(torch, proj_cases(batch) + mm_cases(), device)
+    results += check_proj(torch, proj_cases(batch) + mm_cases() + tp_proj_cases(batch), device)
     gn, ln, convs = (norm_cases(comps.unet, comps.vae, batch), ln_cases(batch),
                      conv_cases(comps.unet, batch))
     # the fp32 GroupNorm at the inpaint encode's maps and, for a model served
     # in fp32 (phase 14), at the UNet's and the decoder's
     gn32 = f32_norm_cases(comps.vae, batch) + gn
-    results += check_norms(torch, gn, ln, device, gn32)
-    results += check_convs(torch, convs, device)
+    results += check_norms(torch, gn + tp_norm_cases(comps.unet, batch), ln, device, gn32)
+    results += check_convs(torch, convs + tp_conv_cases(comps.unet, batch), device)
     results += check_fp32(torch, comps.unet, device, batch)
     # the flash backward's fp32 route at every fp32 training site (fault F9)
     results += check_bwd_f32(torch, bwd_cases_f32(4), device, scaled=BWD_F32_SCALED)
@@ -4949,9 +5481,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"dp: phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 22. tensor parallelism and FSDP on the one card: two ranks over gloo ----
+    t0 = time.perf_counter()
+    tp_failures, tp_line = run_tensor_parallel(torch, np, args.seed, device)
+    failures += tp_failures
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tp: phase 22 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 6. the flash backward kernels vs plain ----
     t0 = time.perf_counter()
-    results += check_bwd(torch, bwd_cases(4), device)
+    results += check_bwd(torch, bwd_cases(4) + tp_bwd_cases(4), device)
     failures += [f"kernel {r['kind']} {r['name']}" for r in results
                  if r["kind"].startswith("flash_bwd") and not r["ok"]]
     print(f"backward: phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5092,6 +5632,7 @@ def main() -> int:
           f"{EVAL_BATCH}, {args.steps} steps, 512^2, PNG writes included); {eval_metrics} on "
           f"{card}")
     print(f"summary: {dp_line} on {card}")
+    print(f"summary: {tp_line} on {card}")
     for row in matrix_rows:
         print(f"summary: bench_matrix {row['row']} ({row['modality']}, {row['sampler']} "
               f"{row['steps']} steps, batch {row['batch']}): {row['img_per_sec']:.4f} img/s, "
@@ -5129,4 +5670,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp_worker"]:
         sys.exit(dp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp_worker"]:
+        sys.exit(tp_worker(sys.argv[2:]))
     sys.exit(main())

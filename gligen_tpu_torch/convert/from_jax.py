@@ -63,16 +63,32 @@ def state_dict_from_jax(params: Mapping[str, Any], skip: Tuple[str, ...] = ()) -
     return out
 
 
+def load_module_from_jax(module: nn.Module, params: Mapping[str, Any],
+                         skip: Tuple[str, ...] = ()) -> None:
+    """Load one component's JAX parameter tree into ``module``, strictly.
+    A UNet sharded for tensor parallelism (``parallel/sharding.py:
+    shard_unet_``, which leaves its plan and group as ``tp_plan`` and
+    ``tp``) takes its rank's shards of the full tensors."""
+    state = state_dict_from_jax(params, skip)
+    plan = getattr(module, "tp_plan", None)
+    if plan is not None:
+        from gligen_tpu_torch.parallel.sharding import shard_state_dict
+
+        state = shard_state_dict(state, plan, module.tp.rank, module.tp.size)
+    module.load_state_dict(state, strict=True)
+
+
 def load_jax_params(components, params: Mapping[str, Mapping[str, Any]]) -> None:
     """Load ``GligenComponents.params`` of the JAX package ({"model",
-    "autoencoder", "text_encoder"}) into the port's components, strictly."""
+    "autoencoder", "text_encoder"}) into the port's components, strictly
+    (a TP-sharded UNet its rank's shards: ``load_module_from_jax``)."""
     modules: Dict[str, nn.Module] = {
         "model": components.unet,
         "autoencoder": components.vae,
         "text_encoder": components.text_encoder,
     }
     for key, module in modules.items():
-        module.load_state_dict(state_dict_from_jax(params[key], SKIPPED[key]), strict=True)
+        load_module_from_jax(module, params[key], SKIPPED[key])
 
 
 def load_clip_vision_params(vision: nn.Module, params: Mapping[str, Any]) -> None:

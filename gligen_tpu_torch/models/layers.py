@@ -28,6 +28,17 @@ mechanical key map.  Convolutions take NHWC and hand cuDNN a
 
 Every module has a compute ``dtype``: fp32 parameters are cast to it at
 each call (the JAX modules' ``dtype`` semantics).
+
+Tensor parallelism (``parallel/sharding.py:shard_unet_``) gives a sharded
+``SelfAttention``, ``CrossAttention`` or ``FeedForward`` its TP group
+(``tp``; None unsharded): it then holds this rank's heads or GEGLU columns
+and returns its partial output, the bias after its in-sharded projection
+added on TP rank 0 only.  Its caller reads the region's input through
+``mesh.copy_in`` and sums the partials with ``mesh.reduce_out`` after its
+gate (the module path), or passes ``matmul_residual`` a zero residual and
+bias on the other ranks and reduces its output (the fused path), so a
+gate's and a norm's gradient are partial sums on both paths.  Unsharded,
+both collectives are the identity and the blocks compute what they did.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from gligen_tpu_torch.ops.attention import multi_head_attention
 from gligen_tpu_torch.ops.basic import group_norm, layer_norm
 from gligen_tpu_torch.ops.fused_proj import ln_geglu, ln_matmuls, matmul_residual
 from gligen_tpu_torch.ops.interpolate import resize_2d
+from gligen_tpu_torch.parallel.mesh import copy_in, reduce_out
 
 
 class Dense(nn.Linear):
@@ -56,9 +68,11 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
         self.zero_init = zero_init
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
+        """``with_bias=False`` leaves the bias out (a TP partial on a rank
+        other than 0)."""
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
+        bias = None if self.bias is None or not with_bias else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
@@ -76,12 +90,21 @@ class Conv2d(nn.Conv2d):
         self.compute_dtype = dtype
         self.zero_init = zero_init
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
+        """``with_bias=False`` leaves the bias out (a TP partial on a rank
+        other than 0)."""
         dt = self.compute_dtype
         w = self.weight.to(dt, memory_format=torch.channels_last)
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, self.bias.to(dt), self.stride, self.padding,
-                     groups=self.groups)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, self.bias.to(dt) if with_bias else None,
+                     self.stride, self.padding, groups=self.groups)
         return y.permute(0, 2, 3, 1)
+
+
+def first_rank(tp) -> bool:
+    """Whether this process adds a TP region's replicated terms (the bias
+    after an in-sharded weight, the residual): TP rank 0, or any process
+    of an unsharded module."""
+    return tp is None or tp.rank == 0
 
 
 @contextlib.contextmanager
@@ -105,7 +128,8 @@ class Normalize(nn.Module):
     """GroupNorm(32) over the channel axis, fp32 statistics; eps 1e-6 is
     the attention/VAE ``Normalize``, ``act='silu'`` folds the SiLU.  The
     GroupNorm kernel under GLIGEN_TPU_FUSED_NORM 'gn' (the default) or
-    'both'."""
+    'both'.  A TP shard of 1/tp of the channels keeps its 32/tp groups
+    (``num_groups``)."""
 
     def __init__(self, channels: int, eps: float = 1e-6, act: Optional[str] = None):
         super().__init__()
@@ -113,9 +137,11 @@ class Normalize(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.eps = eps
         self.act = act
+        self.num_groups = 32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, num_groups=32, eps=self.eps, act=self.act)
+        return group_norm(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps,
+                          act=self.act)
 
 
 class LayerNorm(nn.Module):
@@ -133,12 +159,14 @@ class LayerNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Queries from ``x``; keys and values from ``kv`` (default ``x``)."""
+    """Queries from ``x``; keys and values from ``kv`` (default ``x``).
+    Under TP (``tp``) this rank's heads and its partial output."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int, dtype=torch.float32):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
+        self.tp = None
         self.to_q = Dense(query_dim, inner, bias=False, dtype=dtype)
         self.to_k = Dense(query_dim, inner, bias=False, dtype=dtype)
         self.to_v = Dense(query_dim, inner, bias=False, dtype=dtype)
@@ -147,17 +175,19 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         kv = x if kv is None else kv
         out = multi_head_attention(self.to_q(x), self.to_k(kv), self.to_v(kv), self.heads)
-        return self.to_out(out)
+        return self.to_out(out, with_bias=first_rank(self.tp))
 
 
 class CrossAttention(nn.Module):
-    """Queries from ``x``; keys and values from the text context."""
+    """Queries from ``x``; keys and values from the text context.  Under
+    TP (``tp``) this rank's heads and its partial output."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int,
                  dtype=torch.float32):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
+        self.tp = None
         self.to_q = Dense(query_dim, inner, bias=False, dtype=dtype)
         self.to_k = Dense(context_dim, inner, bias=False, dtype=dtype)
         self.to_v = Dense(context_dim, inner, bias=False, dtype=dtype)
@@ -165,7 +195,7 @@ class CrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         out = multi_head_attention(self.to_q(x), self.to_k(context), self.to_v(context), self.heads)
-        return self.to_out(out)
+        return self.to_out(out, with_bias=first_rank(self.tp))
 
 
 class GEGLU(nn.Module):
@@ -181,15 +211,17 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward (the only variant GLIGEN uses)."""
+    """GEGLU feed-forward (the only variant GLIGEN uses).  Under TP
+    (``tp``) this rank's GEGLU columns and its partial output."""
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
         super().__init__()
+        self.tp = None
         self.net_0 = GEGLU(dim, dim * mult, dtype=dtype)
         self.net_2 = Dense(dim * mult, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net_2(self.net_0(x))
+        return self.net_2(self.net_0(x), with_bias=first_rank(self.tp))
 
 
 def _fused_proj_ok(n: int, small_n: bool = True) -> bool:
@@ -203,41 +235,62 @@ def _fused_proj_ok(n: int, small_n: bool = True) -> bool:
     return n >= (64 if small_n else 1024)
 
 
-def _fused_self_attn(x, kv, norm: LayerNorm, attn: SelfAttention, gate=None):
+def _row_residual(h, dense: Dense, xi, gate, tp):
+    """xi + gate * (h @ W + b) through ``matmul_residual``, summed over the
+    TP group: on a rank other than 0 its partial gate * h @ W (a zero
+    residual and bias; the gate is linear)."""
+    bias, residual = ((dense.bias, xi) if first_rank(tp) else
+                      (torch.zeros_like(dense.bias), torch.zeros_like(xi)))
+    return reduce_out(matmul_residual(h, dense.weight, bias, residual, gate=gate), tp)
+
+
+def _fused_self_attn(x, kv, norm: LayerNorm, attn: SelfAttention, gate=None, xi=None):
     """x + gate * to_out(attention(LN -> q/k/v)) through the fused kernels;
     keys and values over ``kv`` (the fuser's [x, grounding] rows) or over x
     when it is None.  Every row is normalised on its own, so the visual
-    rows of LN(kv) are LN(x): q needs LN(x) alone."""
+    rows of LN(kv) are LN(x): q needs LN(x) alone.  ``xi`` is x through
+    ``copy_in`` where the caller built kv from it."""
+    tp = attn.tp
+    xi = copy_in(x, tp) if xi is None else xi
     s, b = norm.weight, norm.bias
     if kv is None:
-        q, k, v = ln_matmuls(x, s, b, (attn.to_q.weight, attn.to_k.weight, attn.to_v.weight))
+        q, k, v = ln_matmuls(xi, s, b, (attn.to_q.weight, attn.to_k.weight, attn.to_v.weight))
     else:
-        (q,) = ln_matmuls(x, s, b, (attn.to_q.weight,))
+        (q,) = ln_matmuls(xi, s, b, (attn.to_q.weight,))
         # the N+T rows as they are: the flash kernel masks a ragged key tile
         k, v = ln_matmuls(kv, s, b, (attn.to_k.weight, attn.to_v.weight))
     out = multi_head_attention(q, k, v, attn.heads)
-    return matmul_residual(out, attn.to_out.weight, attn.to_out.bias, x, gate=gate)
+    return _row_residual(out, attn.to_out, xi, gate, tp)
 
 
 def _fused_cross_attn(x, context, norm: LayerNorm, attn: CrossAttention):
     """x + to_out(attention(LN(x) q, context k/v)).  The 77-token k/v
     products stay plain matmuls, as the JAX package leaves them to XLA."""
-    (q,) = ln_matmuls(x, norm.weight, norm.bias, (attn.to_q.weight,))
-    out = multi_head_attention(q, attn.to_k(context), attn.to_v(context), attn.heads)
-    return matmul_residual(out, attn.to_out.weight, attn.to_out.bias, x)
+    tp = attn.tp
+    xi, ci = copy_in(x, tp), copy_in(context, tp)
+    (q,) = ln_matmuls(xi, norm.weight, norm.bias, (attn.to_q.weight,))
+    out = multi_head_attention(q, attn.to_k(ci), attn.to_v(ci), attn.heads)
+    return _row_residual(out, attn.to_out, xi, None, tp)
 
 
 def _fused_ff(x, norm: LayerNorm, ff: FeedForward, gate=None):
     """x + gate * net_2(GEGLU(LN(x)))."""
+    tp = ff.tp
+    xi = copy_in(x, tp)
     proj = ff.net_0.proj
-    h = ln_geglu(x, norm.weight, norm.bias, proj.weight, proj.bias)
-    return matmul_residual(h, ff.net_2.weight, ff.net_2.bias, x, gate=gate)
+    h = ln_geglu(xi, norm.weight, norm.bias, proj.weight, proj.bias)
+    return _row_residual(h, ff.net_2, xi, gate, tp)
 
 
 class GatedFuser(nn.Module):
     """What the three gated fusers share: the zero-initialised gates
     ``alpha_attn`` and ``alpha_dense``, ``norm1``, ``norm2`` and the gated
     GEGLU feed-forward.  Each term is scaled by gate_scale * tanh(alpha)."""
+
+    # {sharded child: this module's parameters it reads inside its TP
+    # region (between ``copy_in`` and ``reduce_out``)}: their gradients are
+    # partial sums over the TP ranks (``parallel/sharding.py:tp_plan``)
+    TP_REGIONS = {"attn": ("norm1", "alpha_attn", "linear"), "ff": ("norm2", "alpha_dense")}
 
     def __init__(self, query_dim: int, dtype=torch.float32):
         super().__init__()
@@ -248,11 +301,14 @@ class GatedFuser(nn.Module):
         self.ff = FeedForward(query_dim, dtype=dtype)
 
     def _gated_attn(self, x: torch.Tensor, attn_out: torch.Tensor, gate_scale) -> torch.Tensor:
-        return x + (gate_scale * torch.tanh(self.alpha_attn)).to(x.dtype) * attn_out
+        """x + gate * attn_out, ``attn_out`` the attention's partial under TP."""
+        g1 = (gate_scale * torch.tanh(self.alpha_attn)).to(x.dtype)
+        return x + reduce_out(g1 * attn_out, self.attn.tp)
 
     def _gated_ff(self, x: torch.Tensor, gate_scale) -> torch.Tensor:
         g2 = (gate_scale * torch.tanh(self.alpha_dense)).to(x.dtype)
-        return x + g2 * self.ff(self.norm2(x))
+        tp = self.ff.tp
+        return x + reduce_out(g2 * self.ff(self.norm2(copy_in(x, tp))), tp)
 
 
 class GatedSelfAttentionDense(GatedFuser):
@@ -270,14 +326,16 @@ class GatedSelfAttentionDense(GatedFuser):
         self.attn = SelfAttention(query_dim, heads, dim_head, dtype=dtype)
 
     def forward(self, x: torch.Tensor, objs: torch.Tensor, gate_scale: float = 1.0) -> torch.Tensor:
+        tp = self.attn.tp
+        xi = copy_in(x, tp)
+        cat = torch.cat([xi, self.linear(copy_in(objs, tp))], dim=1)
         if _fused_proj_ok(x.shape[1], self.small_fused):
             # fp32 device gates, read by the kernel: no host synchronisation
-            cat = torch.cat([x, self.linear(objs)], dim=1)
             x = _fused_self_attn(x, cat, self.norm1, self.attn,
-                                 gate=gate_scale * torch.tanh(self.alpha_attn))
+                                 gate=gate_scale * torch.tanh(self.alpha_attn), xi=xi)
             return _fused_ff(x, self.norm2, self.ff, gate=gate_scale * torch.tanh(self.alpha_dense))
         n_visual = x.shape[1]
-        normed = self.norm1(torch.cat([x, self.linear(objs)], dim=1))
+        normed = self.norm1(cat)
         x = self._gated_attn(x, self.attn(normed[:, :n_visual], kv=normed), gate_scale)
         return self._gated_ff(x, gate_scale)
 
@@ -304,7 +362,8 @@ class GatedSelfAttentionDense2(GatedFuser):
         if size_v * size_v != n_visual or size_g * size_g != n_ground:
             raise ValueError(f"gatedSA2 needs square token counts, got {n_visual} visual and "
                              f"{n_ground} grounding tokens")
-        normed = self.norm1(torch.cat([x, self.linear(objs)], dim=1))
+        tp = self.attn.tp
+        normed = self.norm1(torch.cat([copy_in(x, tp), self.linear(copy_in(objs, tp))], dim=1))
         out = self.attn(normed[:, n_visual:], kv=normed).reshape(b, size_g, size_g, -1)
         residual = resize_2d(out, (size_v, size_v), mode="bicubic").reshape(b, n_visual, -1)
         return self._gated_ff(self._gated_attn(x, residual, gate_scale), gate_scale)
@@ -316,13 +375,17 @@ class GatedCrossAttentionDense(GatedFuser):
     gated residual; then the gated feed-forward.  The module path alone,
     as in the JAX package."""
 
+    TP_REGIONS = {"attn": ("norm1", "alpha_attn"), "ff": ("norm2", "alpha_dense")}
+
     def __init__(self, query_dim: int, objs_dim: int, heads: int, dim_head: int,
                  dtype=torch.float32):
         super().__init__(query_dim, dtype=dtype)
         self.attn = CrossAttention(query_dim, objs_dim, heads, dim_head, dtype=dtype)
 
     def forward(self, x: torch.Tensor, objs: torch.Tensor, gate_scale: float = 1.0) -> torch.Tensor:
-        x = self._gated_attn(x, self.attn(self.norm1(x), objs), gate_scale)
+        tp = self.attn.tp
+        x = self._gated_attn(x, self.attn(self.norm1(copy_in(x, tp)), copy_in(objs, tp)),
+                             gate_scale)
         return self._gated_ff(x, gate_scale)
 
 
@@ -342,6 +405,10 @@ class BasicTransformerBlock(nn.Module):
     multiplied by zero.  gatedSA2 never gets the alpha schedule (its gate
     stays 1), so it refuses ``skip_fuser``.  ``small_fused`` is
     ``_fused_proj_ok``'s ``small_n``."""
+
+    # the LayerNorm each sharded child reads inside its TP region
+    # (``GatedFuser.TP_REGIONS``)
+    TP_REGIONS = {"attn1": ("norm1",), "attn2": ("norm2",), "ff": ("norm3",)}
 
     def __init__(self, dim: int, context_dim: int, objs_dim: int, heads: int, dim_head: int,
                  fuser_type: str = "gatedSA", dtype=torch.float32, small_fused: bool = True):
@@ -368,7 +435,8 @@ class BasicTransformerBlock(nn.Module):
         if fused:
             x = _fused_self_attn(x, None, self.norm1, self.attn1)
         else:
-            x = self.attn1(self.norm1(x)) + x
+            tp = self.attn1.tp
+            x = x + reduce_out(self.attn1(self.norm1(copy_in(x, tp))), tp)
         # the alpha schedule reaches gatedSA/gatedCA only; gatedSA2 keeps gate 1
         fuser_gate = 1.0 if self.fuser_type == "gatedSA2" else gate_scale
         if not skip_fuser:
@@ -376,8 +444,10 @@ class BasicTransformerBlock(nn.Module):
         if fused:
             x = _fused_cross_attn(x, context, self.norm2, self.attn2)
             return _fused_ff(x, self.norm3, self.ff)
-        x = self.attn2(self.norm2(x), context) + x
-        return self.ff(self.norm3(x)) + x
+        tp = self.attn2.tp
+        x = x + reduce_out(self.attn2(self.norm2(copy_in(x, tp)), copy_in(context, tp)), tp)
+        tp = self.ff.tp
+        return x + reduce_out(self.ff(self.norm3(copy_in(x, tp))), tp)
 
 
 def _remat_policy() -> str:

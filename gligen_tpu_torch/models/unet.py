@@ -25,9 +25,11 @@ from torch import nn
 
 # the tokenizers and downsamplers register themselves
 import gligen_tpu_torch.models.grounding  # noqa: F401
-from gligen_tpu_torch.models.layers import Conv2d, Dense, Normalize, SpatialTransformer
+from gligen_tpu_torch.models.layers import (Conv2d, Dense, Normalize, SpatialTransformer,
+                                            first_rank)
 from gligen_tpu_torch.ops.basic import nearest_upsample_2x, timestep_embedding
 from gligen_tpu_torch.ops.fused_conv import gn_silu_conv3x3
+from gligen_tpu_torch.parallel.mesh import copy_in, reduce_out
 from gligen_tpu_torch.utils.registry import DOWNSAMPLERS, GROUNDING_NETS
 
 # The JAX package's routing table for GLIGEN_TPU_FUSED_CONV=auto, carried as
@@ -63,11 +65,22 @@ class GroupNorm32(Normalize):
 class ResBlock(nn.Module):
     """GN -> SiLU -> conv3x3, + time embedding, GN -> SiLU -> conv3x3
     (zero-init), + (1x1-projected) input.  Both paths read the same
-    parameters, so the state dict does not depend on the route."""
+    parameters, so the state dict does not depend on the route.
+
+    Under TP (``tp``, ``parallel/sharding.py:shard_unet_``) the block is a
+    Megatron pair on both routes: conv1, the embedding's projection and GN
+    2 (its 32/tp groups) over this rank's 1/tp of the channels, conv2 from
+    them to every channel; TP rank 0 adds conv2's bias and the (projected)
+    input to its partial, and the partials are summed (``mesh.reduce_out``)."""
+
+    # the block's own replicated parameters read inside its TP region, after
+    # ``copy_in`` (``GatedFuser.TP_REGIONS``)
+    TP_REGION = ("in_layers_0",)
 
     def __init__(self, in_channels: int, out_channels: int, emb_dim: int, dtype=torch.float32):
         super().__init__()
         self.out_channels = out_channels
+        self.tp = None
         self.in_layers_0 = GroupNorm32(in_channels, act="silu")
         self.in_layers_2 = Conv2d(in_channels, out_channels, 3, dtype=dtype)
         self.emb_layers_1 = Dense(emb_dim, out_channels, dtype=dtype)
@@ -79,25 +92,33 @@ class ResBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        tp = self.tp
+        x, emb = copy_in(x, tp), copy_in(emb, tp)
         if fuses_conv(_fused_conv_mode(), x.shape[1], x.shape[2], self.out_channels):
             return self._fused(x, emb)
+        first = first_rank(tp)
         h = self.in_layers_2(self.in_layers_0(x))
         h = h + self.emb_layers_1(F.silu(emb))[:, None, None, :].to(h.dtype)
-        h = self.out_layers_3(self.out_layers_0(h))
-        if self.skip_connection is not None:
-            x = self.skip_connection(x)
-        return x + h
+        h = self.out_layers_3(self.out_layers_0(h), with_bias=first)
+        return reduce_out(self._residual(x) + h if first else h, tp)
+
+    def _residual(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.skip_connection is None else self.skip_connection(x)
 
     def _fused(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         """Both GN -> SiLU -> conv3x3 chains as fused kernels (unet.py:
         165-187); the residual rides the second one's epilogue.  conv2's
         statistics are those of its own input, h + emb."""
         n1, c1, n2, c2 = self.in_layers_0, self.in_layers_2, self.out_layers_0, self.out_layers_3
-        h = gn_silu_conv3x3(x, n1.weight, n1.bias, c1.weight, c1.bias, eps=n1.eps)
+        first = first_rank(self.tp)
+        h = gn_silu_conv3x3(x, n1.weight, n1.bias, c1.weight, c1.bias, num_groups=n1.num_groups,
+                            eps=n1.eps)
         h = h + self.emb_layers_1(F.silu(emb))[:, None, None, :].to(h.dtype)
-        if self.skip_connection is not None:
-            x = self.skip_connection(x)
-        return gn_silu_conv3x3(h, n2.weight, n2.bias, c2.weight, c2.bias, residual=x, eps=n2.eps)
+        bias, residual = (c2.bias, self._residual(x)) if first else (torch.zeros_like(c2.bias),
+                                                                      None)
+        return reduce_out(gn_silu_conv3x3(h, n2.weight, n2.bias, c2.weight, bias,
+                                          residual=residual, num_groups=n2.num_groups,
+                                          eps=n2.eps), self.tp)
 
 
 class Downsample(nn.Module):

@@ -19,6 +19,20 @@ distributed.py); the JAX package with one process per host driving a
 The backend is a rule, not a knob: NCCL when every rank of a host has a
 card of its own, gloo on the CPU or when ranks share a card (NCCL refuses
 two ranks on one GPU).  A group that fails to form raises.
+
+Tensor parallelism and FSDP (ROADMAP M12 part 2) split the group into a
+grid (``init_grid``): TP groups of ``tp`` consecutive ranks and DP groups of
+the ranks ``tp`` apart, JAX's ``(('data', n / tp), ('model', tp))`` order.
+TP ranks share their batch rows (``data_index``, ``data_size``).  The
+Megatron pair's two collectives are autograd Functions over the TP group:
+``copy_in`` (identity forward, all-reduce backward) where a region reads
+its replicated input, ``reduce_out`` (all-reduce forward, identity
+backward) where it writes its output; ``all_gather`` and
+``reduce_scatter_mean`` serve FSDP (``parallel/fsdp.py``).  Every
+collective has one route per backend: NCCL on the card; gloo through the
+host, its sums in fp32 (two ranks' bf16 partials sum exactly in fp32 and
+round once, as a bf16 sum would).  gloo takes each of them in torch 2.11
+and 2.13 (``chip_smoke.py`` phase 22 runs them on the card).
 """
 
 from __future__ import annotations
@@ -41,6 +55,8 @@ GROUP_TIMEOUT = datetime.timedelta(minutes=30)
 # a gloo group over the same ranks for host-side values (flags, objects):
 # the process group itself where it is gloo
 _HOST_GROUP = None
+# the TP x DP grid of ``init_grid``, None for 1-D data parallelism
+_GRID = None
 
 
 # ---------------------------------------------------------------- the mesh
@@ -155,14 +171,27 @@ def is_process_zero() -> bool:
     return process_index() == 0
 
 
+def data_size() -> int:
+    """The data-parallel replicas: the DP group's size under a grid, else
+    the world's."""
+    return _GRID.dp_size if _GRID is not None else world_size()
+
+
+def data_index() -> int:
+    """This process's replica index: its rank in its DP group under a grid
+    (the TP ranks of one group share it), else its rank."""
+    return _GRID.dp_rank if _GRID is not None else process_index()
+
+
 def process_batch_slice(global_batch: int) -> slice:
     """This process's contiguous rows of a global batch (the
-    DistributedSampler contract, reference trainer.py:275); rank-major."""
-    n = world_size()
+    DistributedSampler contract, reference trainer.py:275); replica-major,
+    the ranks of a TP group sharing theirs."""
+    n = data_size()
     if global_batch % n:
-        raise ValueError(f"global batch {global_batch} not divisible by {n} processes")
+        raise ValueError(f"global batch {global_batch} not divisible by {n} replicas")
     local = global_batch // n
-    r = process_index()
+    r = data_index()
     return slice(r * local, (r + 1) * local)
 
 
@@ -216,35 +245,166 @@ def init_process_group(device_type: str = "cuda") -> torch.device:
 
 def destroy_process_group() -> None:
     """Leave the active group, if any."""
-    global _HOST_GROUP
+    global _HOST_GROUP, _GRID
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _HOST_GROUP = None
+    _GRID = None
 
 
-def _reduce_device(t: torch.Tensor) -> torch.device:
-    """Where a tensor is reduced: on its card under NCCL, else on the CPU
-    (gloo)."""
-    return t.device if dist.get_backend() == "nccl" else torch.device("cpu")
+# ---------------------------------------------------------------- the grid
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """One TP group as a module sees it: the process group, this rank's
+    index in it and its size."""
+
+    group: Any
+    rank: int
+    size: int
 
 
-def all_reduce_mean_(tensors: Iterable[torch.Tensor]) -> None:
-    """Average ``tensors`` over the group in place: flattened into buckets
-    of at most ``BUCKET_ELEMENTS`` (one dtype and device each), one
-    ``all_reduce`` per bucket, divided by the world size.  Every rank
-    gets the same bits.  No-op without a group."""
-    n = world_size()
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This process's place in the TP x DP grid: its TP group (None at
+    tp = 1) and its DP group, index and size."""
+
+    tp: Optional[TensorParallel]
+    dp_group: Any
+    dp_rank: int
+    dp_size: int
+
+
+def init_grid(tp: int) -> Grid:
+    """Split the active group into TP groups of ``tp`` consecutive ranks
+    and DP groups of the ranks ``tp`` apart (every rank forms every group,
+    in one order).  Raises without a group or where ``tp`` does not divide
+    the world."""
+    global _GRID
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("init_grid: no process group; call init_process_group first")
+    if _GRID is not None:
+        raise RuntimeError("init_grid: this process already has a grid")
+    world, rank = world_size(), process_index()
+    if tp < 1 or world % tp:
+        raise ValueError(f"init_grid: tp {tp} does not divide {world} processes")
+    mine_tp = mine_dp = None
+    for d in range(world // tp):
+        ranks = list(range(d * tp, (d + 1) * tp))
+        group = dist.new_group(ranks=ranks) if tp > 1 else None
+        if rank in ranks:
+            mine_tp = None if tp == 1 else TensorParallel(group, ranks.index(rank), tp)
+    for k in range(tp):
+        ranks = list(range(k, world, tp))
+        group = dist.new_group(ranks=ranks) if tp > 1 else dist.group.WORLD
+        if rank in ranks:
+            mine_dp = (group, ranks.index(rank), len(ranks))
+    _GRID = Grid(mine_tp, *mine_dp)
+    return _GRID
+
+
+def tensor_parallel() -> Optional[TensorParallel]:
+    """This process's TP group, None without a grid or at tp = 1."""
+    return _GRID.tp if _GRID is not None else None
+
+
+def dp_group() -> Any:
+    """The DP group's process group (the whole group without a grid)."""
+    return _GRID.dp_group if _GRID is not None else dist.group.WORLD
+
+
+def _summed(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, a new tensor (``all_reduce_sum_``
+    on a copy)."""
+    out = t.detach().clone()
+    all_reduce_sum_([out], group)
+    return out
+
+
+class _CopyIn(torch.autograd.Function):
+    """A TP region's replicated input: identity forward; the backward sums
+    the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """A TP region's output: the ranks' partials summed forward; the
+    gradient, the same on every rank, passes through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_in(x: Optional[torch.Tensor], tp: Optional[TensorParallel]) -> Optional[torch.Tensor]:
+    """``x`` entering a TP region (``_CopyIn``); x itself without one."""
+    return x if tp is None or x is None else _CopyIn.apply(x, tp.group)
+
+
+def reduce_out(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """A TP region's partial output summed over its ranks (``_ReduceOut``);
+    x itself without one."""
+    return x if tp is None else _ReduceOut.apply(x, tp.group)
+
+
+def all_gather(shard: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' shards of ``group`` concatenated along ``dim`` in rank
+    order, contiguous, on the shard's device: ``all_gather_into_tensor``
+    of the shards with ``dim`` moved first (on the host under gloo)."""
+    n = dist.get_world_size(group)
+    moved = shard.detach().movedim(dim, 0)
+    src = (moved.contiguous() if dist.get_backend(group) == "nccl"
+           else moved.to("cpu", copy=True).contiguous())
+    out = src.new_empty((n * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.to(shard.device).movedim(0, dim).contiguous()
+
+
+def reduce_scatter_mean(full: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the mean of ``full`` over
+    ``group``, contiguous: ``reduce_scatter_tensor`` with ``dim`` moved
+    first (on the host in fp32 under gloo)."""
+    n = dist.get_world_size(group)
+    moved = full.detach().movedim(dim, 0)
+    src = (moved.contiguous() if dist.get_backend(group) == "nccl"
+           else moved.to("cpu", torch.float32, copy=True).contiguous())
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.div_(n).to(full.device, full.dtype).movedim(0, dim).contiguous()
+
+
+def all_reduce_sum_(tensors: Iterable[torch.Tensor], group=None) -> None:
+    """Sum ``tensors`` over ``group`` (the whole group by default) in place:
+    flattened into buckets of at most ``BUCKET_ELEMENTS`` (one dtype and
+    device each), one ``all_reduce`` per bucket, on the card under NCCL and
+    on the host in fp32 under gloo.  Every rank gets the same bits.  No-op
+    without a group."""
+    n = world_size() if group is None else dist.get_world_size(group)
     tensors = list(tensors)
     if n == 1 or not tensors:
         return
+    on_host = dist.get_backend(group) != "nccl"
     bucket: List[torch.Tensor] = []
 
     def flush():
         if not bucket:
             return
-        flat = torch.cat([t.reshape(-1) for t in bucket]).to(_reduce_device(bucket[0]))
-        dist.all_reduce(flat)
-        flat.div_(n)
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        if on_host:
+            flat = flat.to("cpu", torch.float32)
+        dist.all_reduce(flat, group=group)
         off = 0
         for t in bucket:
             t.copy_(flat[off:off + t.numel()].view_as(t))
@@ -260,6 +420,18 @@ def all_reduce_mean_(tensors: Iterable[torch.Tensor]) -> None:
         bucket.append(t)
         size += t.numel()
     flush()
+
+
+def all_reduce_mean_(tensors: Iterable[torch.Tensor], group=None) -> None:
+    """Average ``tensors`` over ``group`` (the whole group by default) in
+    place: ``all_reduce_sum_``, then divided by the group's size.  No-op
+    without a group."""
+    n = world_size() if group is None else dist.get_world_size(group)
+    tensors = list(tensors)
+    if n == 1 or not tensors:
+        return
+    all_reduce_sum_(tensors, group)
+    torch._foreach_div_(tensors, n)
 
 
 def host_any(flag: bool) -> bool:

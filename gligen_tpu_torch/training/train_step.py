@@ -28,6 +28,16 @@ the grounding drop's one draw is the same everywhere.  After ``backward``
 the trainable gradients and the loss are averaged over the group, so that
 every rank takes the same AdamW step, the step of one process on the
 global batch, as JAX's jitted global step does by construction.
+
+Tensor parallelism and FSDP (``parallel/sharding.py``, ``parallel/fsdp.py``,
+over the grid of ``mesh.init_grid``): the draws cover the DP batch (the
+local rows times the DP size; the TP ranks of a group share rows), and each
+trainable gradient is reduced by ``sharding.gradient_rule``: an FSDP shard's
+was reduce-scattered in the backward; a replicated tensor read inside a TP
+region is summed over the TP group; then every other one is averaged over
+the DP group, with the loss.  AdamW and the EMA are elementwise and the
+optimizer clips no global norm, so they run on each rank's shards as they
+are.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ from torch.profiler import record_function
 from gligen_tpu_torch.diffusion.schedule import DiffusionSchedule
 from gligen_tpu_torch.models.vae import sample_posterior
 from gligen_tpu_torch.parallel import mesh as dp
+from gligen_tpu_torch.parallel.sharding import (REPLICATED, gather_tensor, gradient_rule,
+                                                 shard_unet_)
 
 # the draws of one step, in the order a generator gives them
 DRAW_KEYS = ("posterior", "u_t", "noise", "u_drop")
@@ -162,11 +174,11 @@ def make_loss_fn(
                 draws: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
         if draws is not None and set(draws) != set(DRAW_KEYS):
             raise ValueError(f"draws has keys {sorted(draws)}, needs {sorted(DRAW_KEYS)}")
-        world = dp.world_size()
+        world = dp.data_size()
 
         def draw(name, shape, normal):
             """The draw of the global batch (the local rows times the
-            world), this process's rows of it."""
+            replicas), this process's rows of it."""
             if not shape:
                 glob, rows = (), slice(None)
             else:
@@ -241,6 +253,7 @@ def make_train_step(
     loss_fn = make_loss_fn(unet, vae, text_encoder, schedule,
                            grounding_drop_prob=grounding_drop_prob,
                            l_simple_weight=l_simple_weight)
+    rules = gradient_rules(unet)
 
     def train_step(state: TrainState, batch: Mapping[str, Any],
                    generator: Optional[torch.Generator] = None,
@@ -252,8 +265,7 @@ def make_train_step(
         loss.backward()
         if dp.world_size() > 1:
             loss = loss.detach().reshape(1).clone()
-            dp.all_reduce_mean_([p.grad for p in state.params.values() if p.grad is not None]
-                                + [loss])
+            reduce_gradients_(state.params, rules, loss)
             loss = loss[0]
         state.optimizer.step()
         state.scheduler.step()
@@ -269,23 +281,57 @@ def make_train_step(
     return train_step
 
 
+def gradient_rules(unet: nn.Module) -> Dict[str, str]:
+    """{parameter name: ``sharding.gradient_rule``} of the UNet, from its
+    TP plan (``unet.tp_plan``) and its FSDP specs (``unet.fsdp``), if any."""
+    plan = getattr(unet, "tp_plan", None) or {}
+    fsdp = getattr(unet, "fsdp", None)
+    specs = fsdp.specs if fsdp is not None else {}
+    return {name: gradient_rule(plan.get(name, REPLICATED), specs.get(name))
+            for name, _ in unet.named_parameters()}
+
+
+def reduce_gradients_(params: Mapping[str, nn.Parameter], rules: Mapping[str, str],
+                      loss: torch.Tensor) -> None:
+    """The trainable gradients reduced in place by ``rules`` over the grid
+    (module docstring), with ``loss`` averaged over the DP group.  A
+    "tp_sum" tensor that no op of this rank read (a rank-0 bias on another
+    rank) contributes zeros."""
+    tp = dp.tensor_parallel()
+    summed = []
+    for name, p in params.items():
+        if rules[name] == "tp_sum":
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            summed.append(p.grad)
+    if tp is not None:
+        dp.all_reduce_sum_(summed, tp.group)
+    dp.all_reduce_mean_([p.grad for n, p in params.items()
+                         if rules[n] != "done" and p.grad is not None] + [loss],
+                        group=dp.dp_group())
+
+
 # ---------------------------------------------------------------- dryrun
 
 # how long ``dryrun_train_step`` waits for each of its processes
 DRYRUN_TIMEOUT_S = 120.0
 
+
 def dryrun_train_step(n_devices: int, tp: int = 1, fsdp: bool = False) -> Dict[str, Any]:
     """A tiny-config train step over ``n_devices`` CPU processes in a gloo
-    group (train_step.py:256-350's 1-D data case: the batch split, the
-    parameters replicated, the gradients averaged), each process one row
-    of a global batch of ``n_devices``.  Returns {"losses": per rank,
-    "digests": per rank, a hash of its trainable tensors after the step};
-    raises unless every loss is finite and equal and every rank holds the
-    same parameters.  ``tp > 1`` and ``fsdp`` (tensor parallelism, sharded
-    parameters) raise ``NotImplementedError``: ROADMAP M12 part 2."""
-    if tp > 1 or fsdp:
-        raise NotImplementedError("tensor parallelism and FSDP are ROADMAP M12 part 2 "
-                                  "(parallel/sharding.py); the port's data parallelism is 1-D")
+    group (train_step.py:256-350), each data-parallel replica one row of
+    the global batch: ``tp = 1`` the 1-D data case (the batch split, the
+    parameters replicated, the gradients averaged); ``tp > 1`` a grid of
+    ``n_devices / tp`` replicas of ``tp`` Megatron-paired ranks
+    (``parallel/sharding.py``); ``fsdp`` the parameters ZeRO-3-sharded over
+    every rank (``parallel/fsdp.py``).  Returns {"losses": per rank,
+    "digests": per rank, a hash of the full trainable tensors after the
+    step (gathered over the shards)}; raises unless every loss is finite
+    and equal and every rank holds the same parameters."""
+    if tp < 1 or n_devices % tp:
+        raise ValueError(f"dryrun_train_step: tp {tp} does not divide {n_devices} processes")
+    if tp > 1 and fsdp:
+        raise ValueError("dryrun_train_step: tp > 1 or fsdp, not both (as the JAX dryrun)")
     import socket
 
     import torch.multiprocessing as tmp
@@ -295,7 +341,7 @@ def dryrun_train_step(n_devices: int, tp: int = 1, fsdp: bool = False) -> Dict[s
         port = s.getsockname()[1]
     ctx = tmp.get_context("spawn")
     out = ctx.SimpleQueue()
-    procs = [ctx.Process(target=_dryrun_worker, args=(rank, n_devices, port, out))
+    procs = [ctx.Process(target=_dryrun_worker, args=(rank, n_devices, port, out, tp, fsdp))
              for rank in range(n_devices)]
     for p in procs:
         p.start()
@@ -315,19 +361,23 @@ def dryrun_train_step(n_devices: int, tp: int = 1, fsdp: bool = False) -> Dict[s
     return {"losses": losses, "digests": digests}
 
 
-def _dryrun_worker(rank: int, world: int, port: int, out) -> None:
-    """One rank of ``dryrun_train_step``: join the group, build the tiny
-    model from one seed, take one step on its row, report."""
+def _dryrun_worker(rank: int, world: int, port: int, out, tp: int = 1,
+                   fsdp: bool = False) -> None:
+    """One rank of ``dryrun_train_step``: join the group and its grid,
+    build the tiny model from one seed, shard it, take one step on its
+    replica's row, report."""
     import hashlib
     import os
 
     from gligen_tpu_torch.inference.pipeline import GligenComponents
+    from gligen_tpu_torch.parallel import fsdp as zero
 
     torch.set_num_threads(1)
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
     device = dp.init_process_group("cpu")
     try:
+        grid = dp.init_grid(tp)
         ctx = 32
         comps = GligenComponents.create(
             unet_config=dict(model_channels=32, num_res_blocks=1, attention_resolutions=(1,),
@@ -343,10 +393,14 @@ def _dryrun_worker(rank: int, world: int, port: int, out) -> None:
             for p in comps.unet.parameters():
                 if not p.any():
                     p.add_(0.02 * torch.randn(p.shape, generator=gen))
+        if tp > 1:
+            shard_unet_(comps.unet, grid.tp)
+        elif fsdp:
+            zero.shard_unet_(comps.unet)
         state = create_train_state(comps.unet, base_lr=1e-4, warmup_steps=2, total_steps=10)
         step = make_train_step(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
         g = torch.Generator().manual_seed(1)
-        b, lat = world, 8
+        b, lat = dp.data_size(), 8
         batch = {"image": torch.rand((b, lat * 4, lat * 4, 3), generator=g) * 2 - 1,
                  "input_ids": torch.randint(0, 64, (b, 8), generator=g),
                  "grounding": {"boxes": torch.rand((b, 3, 4), generator=g),
@@ -356,9 +410,28 @@ def _dryrun_worker(rank: int, world: int, port: int, out) -> None:
         local = {k: ({kk: vv[rows] for kk, vv in v.items()} if isinstance(v, dict) else v[rows])
                  for k, v in batch.items()}
         loss = float(step(state, local, generator=torch.Generator().manual_seed(2))["loss"])
+        full = full_tensors(comps.unet, state.params)
         digest = hashlib.sha256()
-        for p in state.params.values():
-            digest.update(p.detach().numpy().tobytes())
+        for name in sorted(full):
+            digest.update(full[name].numpy().tobytes())
         out.put((rank, loss, digest.hexdigest()))
     finally:
         dp.destroy_process_group()
+
+
+def full_tensors(unet: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Full CPU copies of per-parameter tensors of a sharded UNet (its
+    parameters, their gradients, their EMA), by parameter name: gathered
+    over the TP group (``unet.tp_plan``) or the FSDP group (``unet.fsdp``),
+    copied as they are otherwise.  Every rank of the group takes part."""
+    plan, fsdp = getattr(unet, "tp_plan", None), getattr(unet, "fsdp", None)
+    out = {}
+    for name, t in tensors.items():
+        t = t.detach()
+        if fsdp is not None and fsdp.specs[name] is not None:
+            t = dp.all_gather(t, fsdp.specs[name], fsdp.group)
+        elif plan is not None and plan[name].dim is not None:
+            tp, dim = dp.tensor_parallel(), plan[name].dim
+            t = gather_tensor(dp.all_gather(t, dim, tp.group).chunk(tp.size, dim), plan[name])
+        out[name] = t.cpu().clone()
+    return out

@@ -16,7 +16,9 @@ the CPU:
     JAX step's on the global batch;
   * ``main --multihost`` over two gloo processes: only rank 0 writes the
     metrics and the checkpoints, and a second launch resumes on both ranks;
-  * ``dryrun_train_step`` over two processes, and its TP/FSDP refusal.
+  * ``dryrun_train_step`` over two processes: data parallel, tp = 2 and
+    FSDP (``tests/test_torch_sharding.py`` holds TP and FSDP to the
+    one-process step).
 
 The worker processes (``tests/torch_dp_worker.py``) import no JAX; each
 launch has a timeout of its own.
@@ -428,5 +430,6 @@ def test_dryrun_train_step_over_two_processes():
     got = tts.dryrun_train_step(2)
     assert len(got["losses"]) == 2 and len(set(got["digests"])) == 1
     for kw in (dict(tp=2), dict(fsdp=True)):
-        with pytest.raises(NotImplementedError, match="M12 part 2"):
-            tts.dryrun_train_step(2, **kw)
+        sharded = tts.dryrun_train_step(2, **kw)
+        assert len(sharded["losses"]) == 2 and len(set(sharded["losses"])) == 1, kw
+        assert len(set(sharded["digests"])) == 1, kw
