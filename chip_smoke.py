@@ -86,7 +86,13 @@ Phases, each of which fails the run with a non-zero exit:
      configurations of ``CONFIGS``; the images must be finite, in [0, 1]
      and not constant, and each kernel's launch count must equal what the
      module structure and the sampler tables predict for the configuration;
-     every flash forward launch must take the TMA route.
+     every flash forward launch must take the TMA route.  Last, on the same
+     components in (a), one request with seeded noise over the fp32
+     parameters and the same request after ``cast_params_bf16``: the
+     images within BF16_PARAMS_TOL mean abs pixel, both with the launches
+     of ``expected_launches``, each with its time and its copy ops
+     (``_to_copy``, ``copy_``, ``clone``) counted at dispatch in a second
+     run of it.
   5. reference: the same pipeline at a small width on the card (bf16,
      kernels) against its fp32 CPU run (plain versions), same weights and
      noise, in each configuration.
@@ -107,12 +113,21 @@ Phases, each of which fails the run with a non-zero exit:
      tensor; the frozen parameters stay bit-identical with no gradient;
      each kernel's launches per step equal the walk of
      ``expected_train_launches``; every flash backward launch takes the
-     TMA route.
+     TMA route.  Then the other remat policies (``REMAT_POLICIES``) on the
+     same components, state and batch: the loss and trainable gradients
+     under 'dots' against 'full''s on the same draws (TRAIN_LOSS_RTOL,
+     TRAIN_GRAD_RTOL), and 1 + POLICY_STEPS steps under 'dots' and 'none'
+     (s/step, peak memory, each step's launches against
+     ``expected_train_launches(..., policy)``: 'dots' recomputes every
+     kernel as 'full' does, 'none' none).  Their idle shares come after
+     phase 11 (``remat_idle``: the model rebuilt from its seed, one traced
+     step a policy).
   7'. train fp32 (fault F9): the same step with the model in fp32 (1 + 3
      steps) in configuration (c), so that K6 runs too (phase 16' runs
      (a)), the same checks, every kernel launch on its fp32 route (the
      flash backward's fp32 kernels), none on a bf16 route and no call of
-     the plain backward.
+     the plain backward; 'dots' against 'full' under the FP32_TRAIN_*
+     limits and one 'dots' step with its launches.
   8. train reference: the loss and the trainable gradients of one step at
      a small width on the card (bf16, kernels) against the CPU (fp32,
      plain versions), same weights, batch and draws, with and without
@@ -377,6 +392,19 @@ GATE_RTOL, GATE_ATOL = 1e-1, 1e-2
 FP32_TRAIN_LOSS_RTOL = 1e-4
 FP32_TRAIN_GRAD_RTOL = 1e-3
 FP32_GATE_RTOL, FP32_GATE_ATOL = 1e-2, 1e-3
+
+# Phase 4's request over fp32 weights against the same request after
+# ``cast_params_bf16``: the products see the same bf16 weights either way
+# (the modules round each fp32 weight to bf16 per call) and the 1-D
+# tensors stay fp32; CLIP's input sums rounded embeddings: held to the
+# small pipeline's bf16 limit
+BF16_PARAMS_TOL = REF_MEAN_TOL
+# the copy ops counted at dispatch a request (each launches a copy kernel)
+COPY_OPS = ("_to_copy", "copy_", "clone")
+# phase 7's remat policies (GLIGEN_TPU_REMAT_POLICY), and the timed steps
+# of each after 'full'
+REMAT_POLICIES = ("full", "dots", "none")
+POLICY_STEPS = 2
 
 # The witness of phase 8: the module path in bf16, no K2/K5/K6 kernel.
 PLAIN_SWITCHES = {"GLIGEN_TPU_FUSED_PROJ": "0", "GLIGEN_TPU_FUSED_NORM": "0",
@@ -1828,16 +1856,18 @@ def expected_fp32(comps, config):
             else 0}
 
 
-def expected_train_launches(comps, image_size, config, use_checkpoint):
+def expected_train_launches(comps, image_size, config, use_checkpoint, policy="full"):
     """Launches of each kernel in one train step of ``config`` (live VAE
     encode of ``image_size``^2 images), walked from the module structure.
     Per transformer block: 3 flash forwards (attn1, the fuser, attn2), and
     the fused projections (4 ln_matmuls, 5 matmul_residual, 2 ln_geglu) or,
     on the module path, 5 LayerNorms; a block takes the fused path under
     FUSED_PROJ=1 from 64 tokens, or from 1024 under ``use_checkpoint``, which
-    also recomputes each block in the backward (every block launch twice,
-    remat 'full').  The backward launches dq for attn1, the fuser and attn2
-    (whose q derive from the trainable fusers), and dk/dv for attn1 and the
+    also recomputes each block in the backward under the remat ``policy``
+    'full' or 'dots' (every block launch twice: 'dots' saves only the 2-D
+    products, never a kernel's output), not under 'none'.  The backward
+    launches dq for attn1, the fuser and attn2 (whose q derive from the
+    trainable fusers), and dk/dv for attn1 and the
     fuser, but neither for the first block's attn1, whose input derives
     from frozen layers alone, unless the first conv trains (a model with a
     grounding downsampler, or inpainting: train_step.py's
@@ -1853,7 +1883,7 @@ def expected_train_launches(comps, image_size, config, use_checkpoint):
     norm = {"1": "both"}.get(env["GLIGEN_TPU_FUSED_NORM"], env["GLIGEN_TPU_FUSED_NORM"])
     gn_on, ln_on = norm in ("gn", "both"), norm in ("ln", "both")
     res, sts = unet_maps(comps.unet, image_size // comps.vae.downsample_factor)
-    runs = 2 if use_checkpoint else 1
+    runs = 2 if use_checkpoint and policy != "none" else 1
     floor = 1024 if use_checkpoint else 64
     counts = dict.fromkeys(kernel_wrappers(), 0)
     first = 0 if comps.unet.downsample_net is not None or comps.unet.inpaint_mode else 1
@@ -1916,13 +1946,14 @@ class PlainCalls:
 
 
 def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3, dtype=None,
-              config="a"):
+              config="a", policies=("full",)):
     """The train step at full SD-1.4 GLIGEN width in ``config`` (default
     (a)) with remat 'full', in bf16 (every flash backward launch on the TMA
     route) or, with ``dtype`` fp32 (fault F9), in fp32 (every kernel launch
     on its fp32 route: the flash backward's fp32 kernels, no bf16 launch,
-    no call of the plain backward).  Returns (failures, per-step launch
-    counts, line)."""
+    no call of the plain backward); then the other remat ``policies`` on
+    the same components (``remat_policies``).  Returns (failures, per-step
+    launch counts, line, the policies' lines)."""
     from gligen_tpu_torch.inference.pipeline import GligenComponents
     from gligen_tpu_torch.training.train_step import create_train_state, make_train_step
 
@@ -2037,9 +2068,144 @@ def run_train(torch, np, seed, device, batch=4, size=512, timed_steps=3, dtype=N
             f"warm steps: {', '.join(f'{t:.4f}' for t in times[1:])}; warm-up {times[0]:.3f} s), "
             f"batch {batch} at {size}^2, peak memory {peak:.2f} GiB")
     print(line, flush=True)
+    policy_lines = []
+    if len(policies) > 1:
+        policy_failures, policy_lines = remat_policies(
+            torch, np, seed, comps, state, step, data, gen, config, policies,
+            POLICY_STEPS if not fp32 else 1, fp32, batch, size)
+        failures += policy_failures
     del comps, state, step, frozen, before, data
     torch.cuda.empty_cache()
-    return failures, counts[-1], line
+    return failures, counts[-1], line, policy_lines
+
+
+def remat_policies(torch, np, seed, comps, state, step, data, gen, config, policies, steps,
+                   fp32, batch, size):
+    """Phase 7's (and 7''s) other remat ``policies`` on its components,
+    state and batch, in its dtype: the loss and trainable gradients under
+    'dots' against 'full''s on the same draws (the train-step limits of
+    the dtype; in bf16 both agreed to the bit on an H100, in fp32 to
+    ~3e-6, where the recomputed cuBLAS products differ from the saved ones
+    in their last bits), then 1 + ``steps``
+    steps under each other policy, each step's launches against
+    ``expected_train_launches`` of the policy, every flash backward launch
+    on the dtype's route, no call of the plain backward.  Leaves the
+    policy at 'full'.  Returns (failures, lines)."""
+    from gligen_tpu_torch.training.train_step import make_loss_fn
+
+    label = "train fp32" if fp32 else "train"
+    loss_rtol, grad_rtol = ((FP32_TRAIN_LOSS_RTOL, FP32_TRAIN_GRAD_RTOL) if fp32
+                            else (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL))
+    failures, lines = [], []
+    rng = np.random.default_rng(seed + 8)
+    shape = (batch, size // comps.vae.downsample_factor, size // comps.vae.downsample_factor, 4)
+    draws = {"posterior": rng.standard_normal(shape), "u_t": rng.random(batch),
+             "noise": rng.standard_normal(shape), "u_drop": 0.5}
+    loss_fn = make_loss_fn(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
+    got = {}
+    for policy in ("full", "dots"):
+        os.environ["GLIGEN_TPU_REMAT_POLICY"] = policy
+        for p in state.params.values():
+            p.grad = None
+        loss = loss_fn(data, draws=draws)
+        loss.backward()
+        got[policy] = loss.item(), {n: p.grad.float().clone() for n, p in state.params.items()}
+    for p in state.params.values():
+        p.grad = None
+    (loss_f, g_f), (loss_d, g_d) = got["full"], got["dots"]
+    loss_err = abs(loss_d - loss_f) / abs(loss_f)
+    rel = {n: ((g_d[n] - g).norm() / g.norm()).item() for n, g in g_f.items()}
+    worst = max(rel, key=rel.get)
+    equal = sum(torch.equal(g_d[n], g) for n, g in g_f.items())
+    ok = loss_err <= loss_rtol and rel[worst] <= grad_rtol
+    lines.append(f"{label}: remat dots against full, the same draws: loss {loss_d:.6f} / "
+                 f"{loss_f:.6f} (rel err {loss_err:.2e}, tol {loss_rtol}); gradient rel L2 max "
+                 f"{rel[worst]:.3e} ({worst}, tol {grad_rtol}); {equal} of {len(g_f)} "
+                 f"gradients bit for bit {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label} remat dots gradients")
+    del got, g_f, g_d
+    wrappers = kernel_wrappers()
+    bwd = ("flash_bwd_dq", "flash_bwd_dkv")
+    for policy in policies:
+        if policy == "full":
+            continue
+        os.environ["GLIGEN_TPU_REMAT_POLICY"] = policy
+        expected = expected_train_launches(comps, size, config, True, policy)
+        routes = {n: dict(wrappers[n].routes) for n in bwd}
+        torch.cuda.reset_peak_memory_stats()
+        times, wrong = [], []
+        with PlainCalls() as plain:
+            for i in range(1 + steps):
+                for w in wrappers.values():
+                    w.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = step(state, data, generator=gen)["loss"]
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                counts = {name: wrappers[name].launches for name in expected}
+                if counts != expected or not bool(torch.isfinite(loss)):
+                    wrong.append(i)
+                    print(f"{label}: remat {policy} step {i}: loss {loss.item()}, launches "
+                          f"{counts}, expected {expected} FAIL", flush=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        off = {n: {r: k - routes[n][r] for r, k in wrappers[n].routes.items()
+                   if r != ("fp32" if fp32 else "tma") and k != routes[n][r]} for n in bwd}
+        off = {n: r for n, r in off.items() if r}
+        ok = not wrong and not off and plain.calls == 0
+        if not ok:
+            failures.append(f"{label} remat {policy}")
+        timed = times[1:]
+        lines.append(f"{label}: remat {policy}: {sum(timed) / len(timed):.4f} s/step (mean of "
+                     f"{len(timed)} warm steps: {', '.join(f'{t:.4f}' for t in timed)}; first "
+                     f"{times[0]:.3f} s), batch {batch} at {size}^2, peak memory {peak:.2f} GiB; "
+                     f"launches per step {expected} in every step {not wrong}; flash backward "
+                     f"launches off the {'fp32' if fp32 else 'tma'} route {off}, plain backward "
+                     f"calls {plain.calls} {'ok' if ok else 'FAIL'}")
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
+    return failures, lines
+
+
+def remat_idle(torch, np, seed, device, batch=4, size=512, config="a"):
+    """The device's idle share of one traced train step under each of
+    ``REMAT_POLICIES`` (CUDA activity only; a warm step before each):
+    phase 7's model, state and batch rebuilt from its seed.  Run after
+    phase 11, as no profiler run may precede a timed phase.  Returns
+    lines."""
+    from gligen_tpu_torch.inference.pipeline import GligenComponents
+    from gligen_tpu_torch.tools.perf_probe import device_breakdown, traced
+    from gligen_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    set_config(config)
+    comps = GligenComponents.create(dtype=torch.bfloat16, seed=seed, device=device,
+                                    unet_config={"use_checkpoint": True})
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    dezero_(comps.unet, gen)
+    state = create_train_state(comps.unet, base_lr=1e-4, warmup_steps=1)
+    step = make_train_step(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
+    data = train_batch(torch, np, np.random.default_rng(seed + 6), batch, size, 49408, 768, device)
+
+    def one():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, data, generator=gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    lines = []
+    for policy in REMAT_POLICIES:
+        os.environ["GLIGEN_TPU_REMAT_POLICY"] = policy
+        one()
+        wall, trace = traced(one)
+        _, busy, n, _ = device_breakdown(trace)
+        lines.append(f"train: remat {policy}: one traced step (batch {batch} at {size}^2): wall "
+                     f"{wall:.1f} ms, device busy {busy:.1f} ms over {n} kernels and copies: "
+                     f"idle {1 - busy / wall:.1%}")
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = "full"
+    del comps, state, step, data
+    torch.cuda.empty_cache()
+    return lines
 
 
 def train_grads(torch, comps, device, data, draws):
@@ -2372,6 +2538,65 @@ def run_requests(torch, pipe, requests, config, gen, **kw):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return times, images, {name: w.launches for name, w in wrappers.items()}
+
+
+def bf16_params_request(torch, np, seed, comps, steps, alpha, latent, batch):
+    """Phase 4's last check: one request in (a) with seeded noise over the
+    fp32 parameters of ``comps``, then the same request after
+    ``cast_params_bf16(comps)`` (in place: the components serve nothing
+    after it).  Each is timed, its launches counted against
+    ``expected_launches``, then run again with its copy ops counted at
+    dispatch.  Returns (failures, lines)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from gligen_tpu_torch.inference.pipeline import GenerationPipeline, cast_params_bf16
+
+    class CopyOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func.overloadpacket.__name__ in COPY_OPS
+            return func(*args, **(kwargs or {}))
+
+    set_config("a")
+    rng = np.random.default_rng(seed + 11)
+    ids, uc, grounding = make_request(rng, batch, 49408, 768)
+    noise = rng.standard_normal((batch, latent, latent, 4)).astype(np.float32)
+    kw = dict(steps=steps, guidance_scale=7.5, alpha_stages=alpha, latent_size=latent,
+              noise=noise)
+    expected = expected_launches(comps, steps, alpha, latent, "a")[0]
+    pipe, wrappers = GenerationPipeline(comps), kernel_wrappers()
+    failures, lines, runs = [], [], {}
+    for label in ("fp32 parameters", "cast_params_bf16"):
+        if label == "cast_params_bf16":
+            cast_params_bf16(comps)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = pipe.generate(ids, uc, grounding, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        counts = {name: wrappers[name].launches for name in expected}
+        with CopyOps() as copies:
+            pipe.generate(ids, uc, grounding, **kw)
+        ok, desc = check_image(torch, img, batch, 512)
+        if not ok or counts != expected:
+            failures.append(f"bf16 parameters request ({label})")
+        runs[label] = img
+        lines.append(f"generate: (a) {label}: {desc} in {t:.3f} s = {t / batch:.3f} s/img; "
+                     f"launches as expected_launches {counts == expected}; copy ops at "
+                     f"dispatch {copies.n} {'ok' if ok and counts == expected else 'FAIL'}")
+    diff = (runs["cast_params_bf16"] - runs["fp32 parameters"]).abs()
+    ok = float(diff.mean()) <= BF16_PARAMS_TOL
+    lines.append(f"generate: (a) cast_params_bf16 against fp32 parameters, the same noise: mean "
+                 f"abs pixel {float(diff.mean()):.3e} (tol {BF16_PARAMS_TOL}), max "
+                 f"{float(diff.max()):.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("bf16 parameters images")
+    return failures, lines
 
 
 def small_reference(torch, np, seed, device, alpha, config, model=None, dtype=None,
@@ -5392,6 +5617,14 @@ def main() -> int:
         s_per_img[config] = times[1] / batch
         launches[config] = counts
         del images
+    # cast_params_bf16 on the same components, last (it casts them in place)
+    t1 = time.perf_counter()
+    bf16_failures, bf16_lines = bf16_params_request(torch, np, args.seed, comps, args.steps,
+                                                    alpha, latent, batch)
+    failures += bf16_failures
+    print("\n".join(bf16_lines), flush=True)
+    print(f"generate: cast_params_bf16 requests took {time.perf_counter() - t1:.1f} s",
+          flush=True)
     del comps, pipe
     torch.cuda.empty_cache()
     print(f"generate: phase 4 took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5498,14 +5731,17 @@ def main() -> int:
 
     # ---- 7. the train step at full width ----
     t0 = time.perf_counter()
-    train_failures, launches["train"], train_line = run_train(torch, np, args.seed, device)
+    train_failures, launches["train"], train_line, policy_lines = run_train(
+        torch, np, args.seed, device, policies=REMAT_POLICIES)
     failures += train_failures
+    print("\n".join(policy_lines), flush=True)
     print(f"train: phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
     # ---- 7'. the same in fp32 (fault F9): the flash backward's fp32 route ----
     t0 = time.perf_counter()
-    train_failures, counts32, train32_line = run_train(torch, np, args.seed, device,
-                                                       dtype=torch.float32, config="c")
+    train_failures, counts32, train32_line, policy32_lines = run_train(
+        torch, np, args.seed, device, dtype=torch.float32, config="c", policies=("full", "dots"))
     failures += train_failures
+    print("\n".join(policy32_lines), flush=True)
     launches["train_fp32"] = {f"{name}_fp32": n for name, n in counts32.items()}
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):  # the 3xTF32 kernels behind each entry
         launches["train_fp32"][f"{name}_fp32"] = counts32[f"{name}_tc"]
@@ -5579,6 +5815,12 @@ def main() -> int:
     # phase 18's traced pipelined pair, likewise
     serving_idle = serving_idle_share(torch, args.seed, device, args.steps)
     print(serving_idle, flush=True)
+    # phase 7's remat policies, one traced step each, likewise
+    t1 = time.perf_counter()
+    remat_lines = remat_idle(torch, np, args.seed, device)
+    print("\n".join(remat_lines), flush=True)
+    print(f"train: the remat policies' traced steps took {time.perf_counter() - t1:.1f} s",
+          flush=True)
     # phase 16's two traced steps, under the profiler: after every timed phase
     idle_line = train_idle_share(torch, trainer)
     print(idle_line, flush=True)
@@ -5593,6 +5835,8 @@ def main() -> int:
     print("summary: s/img " + ", ".join(f"({c}) {s:.3f}" for c, s in s_per_img.items())
           + f" (request 1 of 2, batch {batch}, {args.steps} PLMS steps, 512^2) on {card}")
     print(f"summary: {train_line[len('train: '):]} on {card}")
+    print("summary: remat policies (phase 7): " + "; ".join(
+        l[len("train: "):] for l in policy_lines[1:] + remat_lines) + f" on {card}")
     print(f"summary: fp32 {train32_line[len('train fp32: '):]}; {trainer32_line} on {card}")
     print(f"summary: {trainer_line[len('trainer: '):]}; {idle_line[len('trainer: '):]} on {card}")
     print(f"summary: {modality_line}; " + "; ".join(l[len('modalities: '):] for l in modality_idle)

@@ -134,6 +134,31 @@ def replicate_components(mesh: Mesh, components: GligenComponents
             for u, v, t in zip(unets, vaes, texts)]
 
 
+def cast_params_bf16(target):
+    """Serving-time weight cast (gligen_tpu pipeline.py:98-108), in place:
+    every fp32 parameter with two or more dimensions (the Dense and conv
+    weights, the embeddings) becomes bf16, and every other tensor (the 1-D
+    norm scales and biases, the fuser gates) stays as it is.  ``target`` is
+    a ``GligenComponents`` (its UNet, VAE and text encoder) or any module;
+    returns it.
+
+    The modules cast each weight to their compute dtype per call, so a
+    bf16 weight reads as the JAX modules' ``astype(self.dtype)`` of it,
+    and the fused kernels' wrappers take it as it is, with no copy: a 4-D
+    (conv) weight is stored ``channels_last``, so the conv kernel's
+    (F, 3, 3, C) view of it is contiguous.  For serving only: training
+    updates its fp32 parameters in place and never calls this."""
+    modules = ((target.unet, target.vae, target.text_encoder)
+               if isinstance(target, GligenComponents) else (target,))
+    with torch.no_grad():
+        for module in modules:
+            for p in module.parameters():
+                if p.dim() >= 2 and p.dtype == torch.float32:
+                    p.data = p.data.to(torch.bfloat16, memory_format=(
+                        torch.channels_last if p.dim() == 4 else torch.preserve_format))
+    return target
+
+
 class GenerationPipeline:
     """Grounded text-to-image generation, on the components' device or
     over a ``mesh``."""

@@ -83,7 +83,10 @@ class CLIPTextModel(nn.Module):
         box+text+image grounding)."""
         b, n = input_ids.shape
         pos = torch.arange(n, device=input_ids.device)
-        x = (self.token_embedding(input_ids) + self.position_embedding(pos)[None]).to(self.dtype)
+        # the sum in fp32, rounded once: what XLA computes for the JAX
+        # model's bf16 sum of cast (cast_params_bf16) embeddings
+        x = (self.token_embedding(input_ids).float()
+             + self.position_embedding(pos)[None].float()).to(self.dtype)
         neg = torch.finfo(torch.float32).min
         causal = torch.triu(
             torch.full((n, n), neg, dtype=torch.float32, device=input_ids.device), diagonal=1

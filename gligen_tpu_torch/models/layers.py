@@ -14,8 +14,9 @@ Two paths compute the same blocks, picked as in the JAX package by
 Both read the same parameters, so the state dict does not depend on it.
 Every kernel output is differentiable, so both paths train.  Under
 ``use_checkpoint`` (training) a ``SpatialTransformer`` recomputes each
-block in the backward (``GLIGEN_TPU_REMAT_POLICY``) and its blocks take
-the fused path only from 1024 tokens (``small_n=False``).
+block in the backward (``GLIGEN_TPU_REMAT_POLICY``: all of it, or, under
+``dots``, all but its 2-D products) and its blocks take the fused path
+only from 1024 tokens (``small_n=False``).
 ``Normalize`` and ``LayerNorm`` go through ``ops/basic.py``'s dispatchers:
 under ``GLIGEN_TPU_FUSED_NORM`` ('gn' by default) a CUDA tensor takes the
 GroupNorm or LayerNorm kernel of ``ops/fused_norm.py``.
@@ -44,6 +45,7 @@ both collectives are the identity and the blocks compute what they did.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from typing import Iterator, Optional
 
@@ -51,6 +53,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from gligen_tpu_torch.ops.attention import multi_head_attention
 from gligen_tpu_torch.ops.basic import group_norm, layer_norm
@@ -452,23 +455,44 @@ class BasicTransformerBlock(nn.Module):
 
 def _remat_policy() -> str:
     """GLIGEN_TPU_REMAT_POLICY, read at call time (gligen_tpu layers.py:
-    669-684): 'none' stores every activation of a block, 'dots' is not
-    ported, anything else ('full', the default) recomputes the block in
-    the backward."""
+    669-684): 'none' stores every activation of a block, 'dots' stores
+    only its 2-D products' outputs (``dots_policy``), anything else
+    ('full', the default) recomputes the whole block in the backward."""
     policy = os.environ.get("GLIGEN_TPU_REMAT_POLICY", "full")
-    if policy == "dots":
-        raise NotImplementedError(
-            "GLIGEN_TPU_REMAT_POLICY=dots is not ported (ROADMAP M11c): torch's selective "
-            "checkpointing cannot see the ctypes kernels until they are registered as custom ops")
-    return "none" if policy == "none" else "full"
+    return policy if policy in ("none", "dots") else "full"
+
+
+# What ``nn.remat(policy=dots_with_no_batch_dims_saveable)`` saves: the
+# ``dot_general``s without batch dimensions, the Dense projections and the
+# context k/v einsum, which reach dispatch as ``mm`` (F.linear without a
+# bias, matmul of a (B, N, C) by a weight) or ``addmm`` (with a bias).
+DOT_OPS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The 'dots' policy of selective checkpointing: save the outputs of
+    ``DOT_OPS``, recompute everything else: attention's ``bmm`` (the
+    products with batch dimensions), the norms, GEGLU, the residuals, the
+    collectives of tensor parallelism and FSDP's gathers (a saved gathered
+    weight would undo ZeRO-3).  A hand-written kernel is launched through
+    ctypes, below the dispatcher: its wrapper's Python runs again in the
+    recompute and launches it again, as JAX recomputes a ``pallas_call``.
+    Every kernel writes a fresh output, so none writes into a saved one."""
+    if op.overloadpacket in DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.MUST_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, dots_policy)
 
 
 class SpatialTransformer(nn.Module):
     """GroupNorm -> proj_in -> transformer blocks -> proj_out, + input (NHWC).
 
     ``use_checkpoint`` (training): each block is recomputed in the
-    backward under the 'full' remat policy (``torch.utils.checkpoint``,
-    non-reentrant), and its projections take the fused kernels only from
+    backward under the 'full' and 'dots' remat policies
+    (``torch.utils.checkpoint``, non-reentrant; 'dots' selectively, with
+    ``dots_policy``), and its projections take the fused kernels only from
     1024 tokens."""
 
     def __init__(self, channels: int, context_dim: int, objs_dim: int, heads: int,
@@ -492,13 +516,14 @@ class SpatialTransformer(nn.Module):
                 gate_scale: float = 1.0, skip_fuser: bool = False) -> torch.Tensor:
         b, h, w, _ = x.shape
         y = self.proj_in(self.norm(x)).reshape(b, h * w, -1)
-        remat = self.use_checkpoint and _remat_policy() == "full"
+        policy = _remat_policy() if self.use_checkpoint else "none"
+        extra = {"context_fn": _DOTS_CONTEXT} if policy == "dots" else {}
         for d in range(self.depth):
             block = getattr(self, f"transformer_blocks_{d}")
-            if remat:
+            if policy != "none":
                 y = torch.utils.checkpoint.checkpoint(
                     block, y, context, objs, gate_scale, skip_fuser,
-                    use_reentrant=False, preserve_rng_state=False)
+                    use_reentrant=False, preserve_rng_state=False, **extra)
             else:
                 y = block(y, context, objs, gate_scale, skip_fuser)
         return self.proj_out(y.reshape(b, h, w, -1)) + x

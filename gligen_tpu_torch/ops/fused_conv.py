@@ -10,8 +10,11 @@ statistics come first, folded into the per-(sample, channel) affine a, v
 
 as an implicit GEMM in the kernel's own body, as the TPU kernel computes
 it in its own.  Layout: x NHWC (B, H, W, C); the conv weight is the port's
-Conv2d OIHW (F, C, 3, 3), which the wrapper casts to x's dtype and permutes
-to (F, 3, 3, C) at each call (K-contiguous per output channel).
+Conv2d OIHW (F, C, 3, 3), which the wrapper takes as (F, 3, 3, C)
+(K-contiguous per output channel, ``weight_fhwc``): a view, with no copy,
+of a weight already in x's dtype and stored ``channels_last``
+(``inference/pipeline.py:cast_params_bf16``), else a cast and permuted
+copy at each call.
 
 The kernel runs at a tile configuration (BM rows, BN columns, weight-ring
 stages) and a split of its 64-channel slices from a fixed table by shape
@@ -164,6 +167,13 @@ def cuda_launches(plan) -> int:
     return 1 if plan[3] == 1 else 2
 
 
+def weight_fhwc(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The OIHW (F, C, 3, 3) conv weight as the kernel's contiguous
+    (F, 3, 3, C) in ``dtype``: a view of ``w`` itself when it is already
+    in ``dtype`` and ``channels_last``, else a copy."""
+    return w.to(dtype).permute(0, 2, 3, 1).contiguous()
+
+
 def _ref_chain(x, a, v, w, wb, residual=None) -> torch.Tensor:
     """pallas_conv.py:106-118: silu(x * a + v) in fp32, rounded to x's
     dtype, SAME-padded 3x3 conv in fp32 from the rounded operands (TF32 off
@@ -228,8 +238,7 @@ class GnSiluConv3x3(Kernel):
     def _forward(self, x, a, v, w, wb, residual):
         if not on_cuda(x, "gn_silu_conv3x3"):
             return _ref_chain(x, a, v, w, wb, residual)
-        return self.conv(x, a, v, w.to(x.dtype).permute(0, 2, 3, 1).contiguous(), wb.float(),
-                         residual)
+        return self.conv(x, a, v, weight_fhwc(w, x.dtype), wb.float(), residual)
 
     def conv(self, x, a, v, wt, wb, residual=None, plan=None, library=None) -> torch.Tensor:
         """The conv kernel alone on card tensors: x (B, H, W, C) bf16, the

@@ -37,9 +37,10 @@ table (``PROJ_TILES_F32``) and a split of the k-slices from
 Weights are ``nn.Linear``'s (F, K), not JAX's (K, F).  Each K2 wrapper
 casts them to x's dtype at every call (the JAX modules' ``dtype`` semantics),
 outside the autograd Function, so the gradient reaches the fp32
-parameter through the cast.  It runs the plain version for a CPU tensor
-and the kernel for a CUDA tensor; it never falls back from one to the
-other.
+parameter through the cast; a weight already in x's dtype
+(``inference/pipeline.py:cast_params_bf16``) goes to the kernel as it
+is.  It runs the plain version for a CPU tensor and the kernel for a CUDA
+tensor; it never falls back from one to the other.
 
 Gradients: each K2 wrapper's output is differentiable (``launch.
 differentiable``).  The backward differentiates the reference chain, as

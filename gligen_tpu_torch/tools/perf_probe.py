@@ -4,10 +4,10 @@ and what each fused kernel costs against the module path's chain.
 
     python3 gligen_tpu_torch/tools/perf_probe.py request [--root DIR] [--fused 1|0]
         [--norm gn|0|ln|both] [--conv 0|1|auto] [--model text|hed|sem] [--batch 2] [--steps 10]
-        [--dtype bfloat16|float32]
+        [--dtype bfloat16|float32] [--bf16_params]
     python3 gligen_tpu_torch/tools/perf_probe.py train [--root DIR] [--fused 1|0]
-        [--norm gn|0|ln|both] [--conv 0|1|auto] [--remat full|none] [--batch 4] [--steps 5]
-        [--dtype bfloat16|float32]
+        [--norm gn|0|ln|both] [--conv 0|1|auto] [--remat full|dots|none] [--batch 4]
+        [--steps 5] [--dtype bfloat16|float32]
     python3 gligen_tpu_torch/tools/perf_probe.py chains
     python3 gligen_tpu_torch/tools/perf_probe.py norms
     python3 gligen_tpu_torch/tools/perf_probe.py convs [--sweep]
@@ -28,7 +28,10 @@ downsampler's two small convs) or sem for the 256^2 one: its
 config, a seeded uint8 map each request (``chip_smoke.spatial_request``)
 and its scenario's alpha stages.  ``--dtype float32`` serves the model in
 fp32 (every fused kernel on its fp32 route) and adds a line with the
-fp32 K2, K6 and flash kernels' device ms and share.  ``GLIGEN_TPU_FUSED_PROJ``
+fp32 K2, K6 and flash kernels' device ms and share.  ``--bf16_params``
+serves the model after ``inference/pipeline.py:cast_params_bf16`` (the
+JAX ``bench.py --bf16_params``): every matrix and conv weight stored in
+bf16, so no cast copies them per call.  ``GLIGEN_TPU_FUSED_PROJ``
 is set to ``--fused``, ``GLIGEN_TPU_FUSED_NORM`` to ``--norm`` and
 ``GLIGEN_TPU_FUSED_CONV`` to ``--conv``.  ``--root`` imports
 ``gligen_tpu_torch`` from
@@ -45,9 +48,14 @@ CUDA activity, so the step's "train_step.loss" range reaches the device
 timeline): device time by kernel category and by phase -- loss, backward,
 optimizer (``train_phases``); the backward's flash forwards are the remat
 recompute -- and the device's idle share of the wall; then one more
-unprofiled step.  ``--dtype float32`` trains the model in fp32 (every
-kernel on its fp32 route, TF32 off for matmul and cuDNN) and adds a line
-with the flash backward's fp32 kernels' device ms and share (K4′: the
+unprofiled step.  ``--remat`` sets ``GLIGEN_TPU_REMAT_POLICY``; a line
+gives the device ms of the forward kernels in the backward phase (the
+recompute's flash forwards, K2 and LayerNorms; its GEMMs and elementwise
+work are not told from the backward's own: the backward phase's ms
+against a ``--remat none`` run's gives the whole recompute).  ``--dtype
+float32`` trains the model in fp32 (every kernel on its fp32 route, TF32
+off for matmul and cuDNN) and adds a line with the flash backward's fp32
+kernels' device ms and share (K4′: the
 3xTF32 dq and dk/dv kernels, the d <= 160 class's on their own, and a
 parent tree's FMA kernel).
 
@@ -324,6 +332,10 @@ def request(args) -> None:
                                     seed=0, device=device)
     gen = torch.Generator(device=device).manual_seed(1)
     dezero_(comps.unet, gen)
+    if args.bf16_params:  # imported only when asked: an older --root tree lacks it
+        from gligen_tpu_torch.inference.pipeline import cast_params_bf16
+
+        cast_params_bf16(comps)
     pipe = GenerationPipeline(comps)
     rng = np.random.default_rng(0)
     alpha = cs.SPATIAL_ALPHA[args.model] if spatial else [0.3, 0.0, 0.7]
@@ -341,7 +353,8 @@ def request(args) -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    tag = (f"root {root.name} {args.model} {args.dtype} PROJ={args.fused} NORM={args.norm} "
+    tag = (f"root {root.name} {args.model} {args.dtype}"
+           f"{' bf16_params' if args.bf16_params else ''} PROJ={args.fused} NORM={args.norm} "
            f"CONV={args.conv} batch {args.batch} {args.steps} steps")
     first = run()
     walls = [run() for _ in range(3)]
@@ -368,6 +381,10 @@ def request(args) -> None:
 
 
 TRAIN_PHASES = ("loss", "backward", "optimizer")
+# the categories of kernels that only a forward launches: in the backward
+# phase, the remat recompute's
+RECOMPUTED = ("flash_fwd", "flash_fwd fp32 qm (K1/K3)", "ln_matmuls", "matmul_residual",
+              "ln_geglu", "layer_norm (K5)", *FP32_PROJ)
 
 
 def train_phases(trace: dict):
@@ -450,6 +467,10 @@ def train(args) -> None:
     phase_ms = {p: sum(v for (c, q), v in by_phase.items() if q == p) for p in phases}
     print("profile:   by phase: " + ", ".join(f"{p} {ms:.1f} ms" for p, ms in phase_ms.items()),
           flush=True)
+    recompute = {c: by_phase[c, "backward"] for c in RECOMPUTED if (c, "backward") in by_phase}
+    print(f"profile: {tag}: forward kernels in the backward phase (the recompute's) "
+          f"{sum(recompute.values()):.1f} ms: "
+          + ", ".join(f"{c} {ms:.1f} ms" for c, ms in sorted(recompute.items())), flush=True)
     if args.dtype == "float32":
         k4 = {c: ms for c, (ms, _) in by_cat.items() if "fp32" in c and "(K4')" in c}
         print(f"profile: {tag}: flash backward fp32 (K4') {sum(k4.values()):.1f} ms "
@@ -635,8 +656,9 @@ def main() -> None:
     sub.choices["request"].add_argument("--dtype", choices=("bfloat16", "float32"),
                                         default="bfloat16")
     sub.choices["request"].add_argument("--steps", type=int, default=10)
+    sub.choices["request"].add_argument("--bf16_params", action="store_true")
     train_args = sub.choices["train"]
-    train_args.add_argument("--remat", choices=("full", "none"), default="full")
+    train_args.add_argument("--remat", choices=("full", "dots", "none"), default="full")
     train_args.add_argument("--batch", type=int, default=4)
     train_args.add_argument("--steps", type=int, default=5)
     train_args.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")

@@ -225,14 +225,16 @@ def test_expected_inpaint_launches_match_the_calls(monkeypatch, small_inpaint, c
     assert fp32 == {"flash_fwd": 1, "group_norm": 10}  # every config runs the GroupNorm kernel
 
 
-@pytest.mark.parametrize("use_checkpoint", [True, False])
+@pytest.mark.parametrize("use_checkpoint,policy", [(True, "full"), (False, "full"),
+                                                    (True, "dots")])
 @pytest.mark.parametrize("config", sorted(chip_smoke.CONFIGS))
-def test_expected_train_launches_match_the_calls(monkeypatch, config, use_checkpoint):
+def test_expected_train_launches_match_the_calls(monkeypatch, config, use_checkpoint, policy):
     """One train step at the smoke's small width on 64^2 images (latent
     32): the ds1 blocks (1024 tokens) take the fused kernels with and
-    without remat, the ds2 blocks (256) only without it."""
+    without remat, the ds2 blocks (256) only without it.  Remat 'dots'
+    recomputes every kernel of a block, as 'full' does: the same counts."""
     calls = count_calls(monkeypatch, config)
-    monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", "full")
+    monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", policy)
     unet_config = dict(chip_smoke.SMALL["unet_config"], use_checkpoint=use_checkpoint)
     comps = GligenComponents.create(dtype=torch.float32, seed=0, device="cpu",
                                     **dict(chip_smoke.SMALL, unet_config=unet_config))
@@ -241,10 +243,32 @@ def test_expected_train_launches_match_the_calls(monkeypatch, config, use_checkp
     step = make_train_step(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
     batch = chip_smoke.train_batch(torch, np, np.random.default_rng(3), 1, 64, 1000, 64, "cpu")
     step(state, batch, generator=torch.Generator().manual_seed(4))
-    expected = chip_smoke.expected_train_launches(comps, 64, config, use_checkpoint)
+    expected = chip_smoke.expected_train_launches(comps, 64, config, use_checkpoint, policy)
     assert {name: calls[name] for name in expected} == expected
     assert 0 < expected["flash_bwd_dkv"] < expected["flash_bwd_dq"]
     assert (expected["ln_matmuls"] > 0) == (config != "b")
+    if use_checkpoint:  # the blocks' launches twice: the forward and the recompute
+        once = chip_smoke.expected_train_launches(comps, 64, config, True, "none")
+        assert expected["flash_fwd"] > once["flash_fwd"]
+
+
+def test_expected_train_launches_without_recompute(monkeypatch):
+    """Remat 'none' under ``use_checkpoint``: the blocks take the fused
+    kernels from 1024 tokens, as under remat, and launch them once."""
+    calls = count_calls(monkeypatch, "a")
+    monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", "none")
+    unet_config = dict(chip_smoke.SMALL["unet_config"], use_checkpoint=True)
+    comps = GligenComponents.create(dtype=torch.float32, seed=0, device="cpu",
+                                    **dict(chip_smoke.SMALL, unet_config=unet_config))
+    chip_smoke.dezero_(comps.unet, torch.Generator().manual_seed(2))
+    state = create_train_state(comps.unet, warmup_steps=1)
+    step = make_train_step(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
+    batch = chip_smoke.train_batch(torch, np, np.random.default_rng(3), 1, 64, 1000, 64, "cpu")
+    step(state, batch, generator=torch.Generator().manual_seed(4))
+    expected = chip_smoke.expected_train_launches(comps, 64, "a", True, "none")
+    assert {name: calls[name] for name in expected} == expected
+    full = chip_smoke.expected_train_launches(comps, 64, "a", True)
+    assert 0 < expected["ln_matmuls"] < full["ln_matmuls"]
 
 
 @pytest.mark.parametrize("model", ["keypoint", "hed"])

@@ -18,7 +18,8 @@ the CPU:
     metrics and the checkpoints, and a second launch resumes on both ranks;
   * ``dryrun_train_step`` over two processes: data parallel, tp = 2 and
     FSDP (``tests/test_torch_sharding.py`` holds TP and FSDP to the
-    one-process step).
+    one-process step); TP and FSDP under remat 'dots' give the 'full'
+    step bit for bit.
 
 The worker processes (``tests/torch_dp_worker.py``) import no JAX; each
 launch has a timeout of its own.
@@ -426,10 +427,35 @@ def test_main_multihost_writes_on_rank_zero_and_resumes(tmp_path):
         assert len(f.readlines()) == 1  # iter 2 is no logging step: rank 1 wrote nothing
 
 
-def test_dryrun_train_step_over_two_processes():
+SHARDED_DRYRUNS = {"tp": dict(tp=2), "fsdp": dict(fsdp=True)}
+
+
+@pytest.fixture(scope="module")
+def sharded_dryruns():
+    """``dryrun_train_step(2, ...)`` under TP = 2 and FSDP, remat 'full'
+    (the default), each run once for the module."""
+    saved = os.environ.pop("GLIGEN_TPU_REMAT_POLICY", None)
+    try:
+        return {name: tts.dryrun_train_step(2, **kw) for name, kw in SHARDED_DRYRUNS.items()}
+    finally:
+        if saved is not None:
+            os.environ["GLIGEN_TPU_REMAT_POLICY"] = saved
+
+
+def test_dryrun_train_step_over_two_processes(sharded_dryruns):
     got = tts.dryrun_train_step(2)
     assert len(got["losses"]) == 2 and len(set(got["digests"])) == 1
-    for kw in (dict(tp=2), dict(fsdp=True)):
-        sharded = tts.dryrun_train_step(2, **kw)
+    for kw, sharded in sharded_dryruns.items():
         assert len(sharded["losses"]) == 2 and len(set(sharded["losses"])) == 1, kw
         assert len(set(sharded["digests"])) == 1, kw
+
+
+def test_dryrun_train_step_under_dots_equals_full(sharded_dryruns, monkeypatch):
+    """Remat 'dots' (the ranks inherit the environment) over TP = 2 and
+    FSDP: TP's collectives and FSDP's per-block gathers are recomputed,
+    the 2-D products saved, and the step is the 'full' step's: the same
+    loss and the same trainable tensors after it, bit for bit."""
+    monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", "dots")
+    for name, kw in SHARDED_DRYRUNS.items():
+        got = tts.dryrun_train_step(2, **kw)
+        assert got == sharded_dryruns[name], name

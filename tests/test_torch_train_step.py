@@ -11,7 +11,11 @@ dry-run configuration of train_step.py:276-285).
     gradients that agree to 1e-6 but sit near 0 would flip whole-lr
     updates);
   * ``trainable_mask`` against the JAX rule on the same tree;
-  * the EMA update, ``q_sample`` and the remat policies.
+  * the EMA update, ``q_sample`` and the remat policies: 'full', 'dots'
+    and 'none' give one set of gradients; under 'dots' the loss and
+    gradients against the JAX step's under 'dots'; what 'dots' saves (the
+    blocks' 2-D products, counted at dispatch) and what it recomputes
+    (attention's batched products, a kernel the dispatcher cannot see).
 
 Tolerances, fp32 on both sides (JAX with "highest" matmul precision): the
 loss is a mean over 2048 squared errors of a UNet whose stages agree to
@@ -19,10 +23,15 @@ loss is a mean over 2048 squared errors of a UNet whose stages agree to
 after its parameter: each agrees to 2e-4 of its tensor's largest entry.
 """
 
+import ctypes
+import os
+
 import numpy as np
 import pytest
 import torch
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +47,8 @@ from gligen_tpu.training import train_step as jts
 from gligen_tpu_torch.convert.from_jax import load_jax_params
 from gligen_tpu_torch.diffusion.schedule import DiffusionSchedule
 from gligen_tpu_torch.inference.pipeline import GligenComponents
+from gligen_tpu_torch.models import layers
+from gligen_tpu_torch.ops.launch import differentiable
 from gligen_tpu_torch.training import train_step as tts
 
 from test_torch_modules import UNET, grounding_inputs, rand, random_params, t
@@ -86,8 +97,9 @@ def jax_setup():
     return unet, vae, text, params, schedule, batch
 
 
-def _jax_loss_and_grads(setup, branch, drop_prob):
-    """The JAX loss, its trainable gradients by port name, and its draws."""
+def _jax_loss_and_grads(setup, branch, drop_prob, policy="full"):
+    """The JAX loss, its trainable gradients by port name, and its draws,
+    traced under GLIGEN_TPU_REMAT_POLICY=``policy``."""
     unet, vae, text, params, schedule, batch = setup
     train, frozen = jts.partition(params["model"], jts.trainable_mask(params["model"]))
     aux = {"autoencoder": params["autoencoder"], "text_encoder": params["text_encoder"]}
@@ -95,7 +107,15 @@ def _jax_loss_and_grads(setup, branch, drop_prob):
     jbatch = jax.tree.map(jnp.asarray, {k: batch[k] for k in keys})
     loss_fn = jts.make_loss_fn(unet, vae, text, schedule, grounding_drop_prob=drop_prob)
     rng = jax.random.PRNGKey(7)
-    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(train, frozen, aux, jbatch, rng)
+    saved = os.environ.get("GLIGEN_TPU_REMAT_POLICY")
+    os.environ["GLIGEN_TPU_REMAT_POLICY"] = policy  # the JAX package reads it when tracing
+    try:
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(train, frozen, aux, jbatch, rng)
+    finally:
+        if saved is None:
+            del os.environ["GLIGEN_TPU_REMAT_POLICY"]
+        else:
+            os.environ["GLIGEN_TPU_REMAT_POLICY"] = saved
     k_vae, k_t, k_noise, k_drop = jax.random.split(rng, 4)
     shape = (B, LATENT, LATENT, 4)
     draws = {"posterior": jax.random.normal(k_vae, shape, jnp.float32),
@@ -108,14 +128,15 @@ def _jax_loss_and_grads(setup, branch, drop_prob):
 
 @pytest.fixture(scope="module")
 def jax_reference(jax_setup):
-    """(branch, drop_prob) -> the JAX loss, gradients and draws, each
-    computed once for the module."""
+    """(branch, drop_prob[, remat policy]) -> the JAX loss, gradients and
+    draws, each computed once for the module."""
     cache = {}
 
-    def get(branch, drop_prob):
-        if (branch, drop_prob) not in cache:
-            cache[branch, drop_prob] = _jax_loss_and_grads(jax_setup, branch, drop_prob)
-        return cache[branch, drop_prob]
+    def get(branch, drop_prob, policy="full"):
+        key = branch, drop_prob, policy
+        if key not in cache:
+            cache[key] = _jax_loss_and_grads(jax_setup, branch, drop_prob, policy)
+        return cache[key]
 
     return get
 
@@ -141,7 +162,21 @@ def port_batch(batch, branch):
 def test_loss_and_gradients_match_jax(jax_setup, jax_reference, branch, drop_prob,
                                      use_checkpoint):
     """drop_prob 1.0 drops the grounding of the whole batch."""
-    want_loss, want_grads, draws = jax_reference(branch, drop_prob)
+    check_loss_and_gradients(jax_setup, jax_reference(branch, drop_prob), branch, drop_prob,
+                             use_checkpoint)
+
+
+def test_dots_loss_and_gradients_match_jax(jax_setup, jax_reference, monkeypatch):
+    """GLIGEN_TPU_REMAT_POLICY=dots on both sides: the JAX step under
+    ``dots_with_no_batch_dims_saveable``, the port under ``dots_policy``."""
+    monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", "dots")
+    check_loss_and_gradients(jax_setup, jax_reference("image", 0.1, "dots"), "image", 0.1, True)
+
+
+def check_loss_and_gradients(jax_setup, reference, branch, drop_prob, use_checkpoint):
+    """The port's loss and trainable gradients against the JAX ones in
+    ``reference`` (loss, gradients, draws)."""
+    want_loss, want_grads, draws = reference
     _, _, _, params, _, batch = jax_setup
     comps = port_components(params, use_checkpoint)
     state = tts.create_train_state(comps.unet)
@@ -224,7 +259,8 @@ def test_trainable_mask_matches_jax(input_conv_train):
                             jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, CTX)), g)["params"]
     want = traverse_util.flatten_dict(jts.trainable_mask(shapes, input_conv_train))
     want = {port_name(p): v for p, v in want.items()}
-    comps = GligenComponents.create(unet_config=UNET, dtype=torch.float32, device="cpu")
+    comps = GligenComponents.create(unet_config=UNET, dtype=torch.float32, vae_config=TINY_VAE,
+                                    text_config=TINY_CLIP, device="cpu")
     got = tts.trainable_mask(comps.unet, input_conv_train)
     assert got == want
     assert any(got.values()) and not all(got.values())
@@ -278,9 +314,9 @@ def test_q_sample_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
 
 
-def test_remat_policies(monkeypatch):
-    """'none' stores what 'full' recomputes: the same gradients; 'dots' is
-    not ported and says so."""
+def remat_setup():
+    """A tiny UNet under remat, its train state, a cached-latent batch,
+    draws and its loss function."""
     comps = GligenComponents.create(unet_config=dict(TINY_UNET, use_checkpoint=True),
                                     dtype=torch.float32, vae_config=TINY_VAE,
                                     text_config=TINY_CLIP, device="cpu")
@@ -293,17 +329,139 @@ def test_remat_policies(monkeypatch):
     draws = {"posterior": rand(rng, *shape), "u_t": rng.random(B), "noise": rand(rng, *shape),
              "u_drop": 0.5}
     loss_fn = tts.make_loss_fn(comps.unet, comps.vae, comps.text_encoder, comps.schedule)
+    return comps, state, batch, draws, loss_fn
+
+
+def test_remat_policies(monkeypatch):
+    """'none' stores what 'full' recomputes, 'dots' stores the blocks' 2-D
+    products and recomputes the rest: the same gradients."""
+    _, state, batch, draws, loss_fn = remat_setup()
     grads = {}
-    for policy in ("full", "none"):
+    for policy in ("full", "none", "dots"):
         monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", policy)
         state.optimizer.zero_grad(set_to_none=True)
         loss_fn(batch, draws=draws).backward()
         grads[policy] = {n: p.grad.clone() for n, p in state.params.items()}
-    for n, g in grads["full"].items():
-        torch.testing.assert_close(g, grads["none"][n], atol=1e-6, rtol=1e-6)
-    monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", "dots")
-    with pytest.raises(NotImplementedError, match="dots"):
-        loss_fn(batch, draws=draws)
+    for policy in ("none", "dots"):
+        for n, g in grads["full"].items():
+            torch.testing.assert_close(g, grads[policy][n], atol=1e-6, rtol=1e-6)
+
+
+PRODUCTS = ("mm", "addmm", "bmm")
+
+
+class OpCount(TorchDispatchMode):
+    """Counts ``PRODUCTS`` at dispatch while open; only while ``on`` is
+    true, when given a list to read it from."""
+
+    def __init__(self, on=None):
+        super().__init__()
+        self.on = on
+        self.n = dict.fromkeys(PRODUCTS, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in self.n and (self.on is None or self.on[0]):
+            self.n[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_dots_saves_the_block_products_and_recomputes_the_rest(monkeypatch):
+    """Counted at dispatch during ``backward()``: under 'dots' the 2-D
+    products (``mm``, ``addmm``) fall from 'full''s by exactly the
+    transformer blocks' forward products, which 'full' recomputes and
+    'dots' saves, down to 'none''s (the gradients' own); attention's
+    batched products (``bmm``) are recomputed under both.  The recompute
+    runs each block to its end here (no early stop), so that 'full'
+    recomputes every forward product of a block: by default it stops after
+    the last one whose inputs the backward keeps."""
+    comps, state, batch, draws, loss_fn = remat_setup()
+    inside = [False]  # the forward's products inside the transformer blocks
+
+    def enter(*_):
+        inside[0] = True
+
+    def leave(*_):
+        inside[0] = False
+
+    for m in comps.unet.modules():
+        if isinstance(m, layers.BasicTransformerBlock):
+            m.register_forward_pre_hook(enter)
+            m.register_forward_hook(leave)
+    backward, block = {}, None
+    for policy in ("full", "dots", "none"):
+        monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", policy)
+        state.optimizer.zero_grad(set_to_none=True)
+        inside[0] = False
+        with OpCount(inside) as fwd, torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            loss = loss_fn(batch, draws=draws)
+        if policy == "none":
+            block = fwd.n
+        with OpCount() as bwd:
+            loss.backward()
+        backward[policy] = bwd.n
+    dots2d = {p: backward[p]["mm"] + backward[p]["addmm"] for p in backward}
+    assert block["mm"] + block["addmm"] > 0 and block["bmm"] > 0
+    assert dots2d["full"] - dots2d["dots"] == block["mm"] + block["addmm"]
+    assert dots2d["dots"] == dots2d["none"]
+    assert backward["dots"]["bmm"] == backward["full"]["bmm"] > backward["none"]["bmm"]
+
+
+def test_dots_policy_names_only_the_2d_products():
+    """MUST_SAVE for ``mm`` and ``addmm`` alone: attention's products,
+    the norms and the collectives of TP and FSDP (a saved gathered weight
+    would undo ZeRO-3) are recomputed."""
+    aten, c10d = torch.ops.aten, torch.ops.c10d
+    save = [aten.mm.default, aten.addmm.default]
+    recompute = [aten.bmm.default, aten.baddbmm.default, aten.native_layer_norm.default,
+                 aten.native_group_norm.default, aten.gelu.default, aten.add.Tensor,
+                 aten._softmax.default, aten.cat.default, aten.clone.default,
+                 aten.empty.memory_format, aten._to_copy.default, c10d.allreduce_.default,
+                 c10d._allgather_base_.default, c10d._reduce_scatter_base_.default]
+    assert [layers.dots_policy(None, op) for op in save] == [CheckpointPolicy.MUST_SAVE] * 2
+    assert all(layers.dots_policy(None, op) == CheckpointPolicy.MUST_RECOMPUTE
+               for op in recompute)
+
+
+def test_dots_reruns_a_kernel_the_dispatcher_cannot_see():
+    """A kernel writes its output through a raw pointer from ctypes
+    (``ops/launch.py:Kernel._launch``), below the dispatcher.  Here
+    ``ctypes.memmove`` writes exp(h), computed in numpy, into a fresh
+    tensor, inside ``differentiable`` as the K2/K5/K6 wrappers do: under
+    'dots' the recompute runs the wrapper's Python again and launches it
+    again, as 'full' does (twice a step; once under 'none'), and every
+    policy gives the same gradients."""
+    launches = []
+
+    def run(h):
+        out = torch.empty_like(h)
+        src = np.ascontiguousarray(np.exp(h.detach().numpy()))
+        ctypes.memmove(out.data_ptr(), src.ctypes.data, src.nbytes)
+        launches.append(1)
+        return out
+
+    gen = torch.Generator().manual_seed(0)
+    lin1, lin2 = nn.Linear(8, 16), nn.Linear(16, 4)
+    x = torch.randn(2, 5, 8, generator=gen, requires_grad=True)
+
+    def block(x):
+        h = lin1(x)
+        return lin2(differentiable(run, torch.exp, h) * h)
+
+    grads = {}
+    for policy, extra in (("none", None), ("full", {}),
+                          ("dots", {"context_fn": layers._DOTS_CONTEXT})):
+        launches.clear()
+        x.grad = None
+        for p in (*lin1.parameters(), *lin2.parameters()):
+            p.grad = None
+        y = block(x) if extra is None else checkpoint(block, x, use_reentrant=False, **extra)
+        y.square().sum().backward()
+        grads[policy] = [g.clone() for g in (x.grad, lin1.weight.grad, lin2.weight.grad)]
+        assert len(launches) == (1 if policy == "none" else 2), policy
+    for policy in ("full", "dots"):
+        for got, want in zip(grads[policy], grads["none"]):
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
 
 
 # A tiny hed UNet: the hed downsampler's 64^2 channels fix the latent at

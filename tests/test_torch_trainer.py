@@ -206,6 +206,24 @@ def test_resume_continues_in_the_same_tag_bit_for_bit(trained):
     assert state.optimizer.param_groups[0]["lr"] == second.state.optimizer.param_groups[0]["lr"]
 
 
+def test_main_under_remat_dots_trains_as_full(tmp_path, monkeypatch):
+    """``GLIGEN_TPU_REMAT_POLICY=dots`` reaches the Trainer through ``main``
+    as in the JAX package: two steps give 'full''s parameters bit for bit."""
+    root = str(tmp_path)
+    write_setup(root)
+    monkeypatch.setattr(trainer, "GligenComponents", DezeroedComponents)
+    params = {}
+    for policy in ("full", "dots"):
+        monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", policy)
+        run = tmain.main(main_argv(root, "--total_iters", "2", "--save_every_iters", "100",
+                                   "--name", policy))
+        assert run.state.step == 2
+        params[policy] = {n: p.detach() for n, p in run.state.params.items()}
+    assert params["dots"].keys() == params["full"].keys()
+    for name, p in params["full"].items():
+        assert torch.equal(params["dots"][name], p), name
+
+
 def test_frozen_parameters_stay_and_trainables_move(trained):
     root, first, _ = trained
     fresh = DezeroedComponents.create(unet_config=dict(UNET, use_checkpoint=True),

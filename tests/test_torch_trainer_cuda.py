@@ -124,3 +124,41 @@ def test_small_fp32_train_step_matches_the_cpu(cuda, monkeypatch):
     assert ok, "\n".join(lines)
     assert fa.flash_bwd_dq.routes["fp32"] > before[0]
     assert fa.flash_bwd_dkv.routes["fp32"] > before[1]
+
+
+def test_small_dots_train_step_equals_full_on_the_card(cuda, monkeypatch):
+    """Remat 'dots' on the card (configuration (a), the smoke's small width
+    at 64^2: the ds1 blocks take the fused kernels, launched through
+    ctypes below the dispatcher): the loss and every trainable gradient
+    equal 'full''s on the same weights, batch and draws (within
+    chip_smoke.TRAIN_*, expected to the bit), and each kernel of a block
+    launches twice a step under both, once under 'none'."""
+    import chip_smoke
+    from gligen_tpu_torch.inference.pipeline import GligenComponents
+
+    for name, value in chip_smoke.CONFIGS["a"].items():
+        monkeypatch.setenv(name, value)
+    config = dict(chip_smoke.SMALL, unet_config=dict(chip_smoke.SMALL["unet_config"],
+                                                     use_checkpoint=True))
+    comps = GligenComponents.create(dtype=torch.bfloat16, seed=0, device=cuda, **config)
+    chip_smoke.dezero_(comps.unet, torch.Generator(device=cuda).manual_seed(2))
+    rng = np.random.default_rng(7)
+    data = chip_smoke.train_batch(torch, np, rng, 2, 64, 1000, 64, "cpu")
+    shape = (2, 32, 32, 4)
+    draws = {"posterior": rng.standard_normal(shape), "u_t": rng.random(2),
+             "noise": rng.standard_normal(shape), "u_drop": 0.5}
+    wrappers = chip_smoke.kernel_wrappers()
+    got, launches = {}, {}
+    for policy in ("full", "dots", "none"):
+        monkeypatch.setenv("GLIGEN_TPU_REMAT_POLICY", policy)
+        for w in wrappers.values():
+            w.launches = 0
+        got[policy] = chip_smoke.train_grads(torch, comps, cuda, data, draws)
+        launches[policy] = {n: w.launches for n, w in wrappers.items()}
+    (loss_f, g_f), (loss_d, g_d) = got["full"], got["dots"]
+    assert abs(loss_d - loss_f) <= chip_smoke.TRAIN_LOSS_RTOL * abs(loss_f)
+    for name, g in g_f.items():
+        assert (g_d[name] - g).norm() <= chip_smoke.TRAIN_GRAD_RTOL * g.norm(), name
+    assert launches["dots"] == launches["full"]
+    for name in ("flash_fwd", "ln_matmuls", "matmul_residual", "ln_geglu"):
+        assert launches["none"][name] < launches["full"][name], name
